@@ -1,0 +1,469 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``sagecal_tpu_torch/csrc`` (into
+``build/torch_kernels/``), holds each kernel against its plain PyTorch
+version on the card at the shapes the full-batch path gives it, checks
+the port's pipeline on the card against the same pipeline on the CPU,
+and drives the full-batch CLI end to end on a synthetic observation at
+full width (62 LOFAR-like stations, 120 timeslots, 8 channels, 8
+clusters x 64 sources). Every phase prints one JSON line; any failure
+ends the run with a non-zero exit. The last lines are the card's name
+and power limit (``nvidia-smi``), a ``{"kernels": [...]}`` summary and
+``{"ok": true, "device": {...}}``.
+
+Importing this module does nothing; it imports neither ``jax`` nor
+``sagecal_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+
+#: published H100 SXM peaks: HBM bandwidth and float32 (non-tensor) rate
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+#: tolerances: kernel vs plain on the card (float32, another summation
+#: order), and the card (float32) pipeline vs the CPU (float64) one
+KERNEL_RTOL = 1e-4
+PARITY_RTOL = 1e-3
+
+N_STATIONS = 62
+TILESZ = 120
+FREQS = 150e6 + 0.18e6 * (np.arange(8) - 3.5)
+N_CLUSTERS = 8
+N_SOURCES = 64
+NCHUNK = (1, 1, 2, 1, 4, 1, 2, 1)
+RA0 = 2.0 * math.pi / 12
+DEC0 = 52.0 * math.pi / 180
+
+
+def emit(phase: str, **rec) -> None:
+    print(json.dumps({"phase": phase, **rec}), flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` calls, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    tb = n_bytes / PEAK_BYTES_S * 1e3
+    to = n_ops / PEAK_F32_OPS_S * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def rel_err(got, ref) -> tuple:
+    d = float((got - ref).abs().max())
+    return d, d / max(float(ref.abs().max()), 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# synthetic observation
+# ---------------------------------------------------------------------------
+
+def _hms(rad: float):
+    h = (rad * 12 / math.pi) % 24
+    hh = int(h)
+    mm = int((h - hh) * 60)
+    ss = ((h - hh) * 60 - mm) * 60
+    return f"{hh} {mm} {ss:.6f}"
+
+
+def _dms(rad: float):
+    d = rad * 180 / math.pi
+    sign = "-" if d < 0 else ""
+    d = abs(d)
+    dd = int(d)
+    mm = int((d - dd) * 60)
+    ss = ((d - dd) * 60 - mm) * 60
+    return f"{sign}{dd} {mm} {ss:.6f}"
+
+
+def write_sky(path: str, n_clusters: int, n_sources: int, nchunk, seed: int):
+    """An LSM sky file + cluster file: ``n_clusters`` patches of
+    ``n_sources`` sources within ~3 degrees of the phase centre, a
+    quarter of them gaussians."""
+    rng = np.random.default_rng(seed)
+    lines, clus = [], []
+    for m in range(n_clusters):
+        c_ra = RA0 + rng.normal(0, 0.03) / math.cos(DEC0)
+        c_dec = DEC0 + rng.normal(0, 0.03)
+        names = []
+        for s in range(n_sources):
+            gauss = s % 4 == 0
+            name = f"{'G' if gauss else 'P'}{m}_{s}"
+            ra = c_ra + rng.normal(0, 0.004) / math.cos(DEC0)
+            dec = c_dec + rng.normal(0, 0.004)
+            sI = float(rng.uniform(0.2, 2.0))
+            eX, eY, eP = ((float(rng.uniform(1e-4, 4e-4)),
+                           float(rng.uniform(5e-5, 2e-4)),
+                           float(rng.uniform(0, math.pi)))
+                          if gauss else (0.0, 0.0, 0.0))
+            lines.append(f"{name} {_hms(ra)} {_dms(dec)} {sI:.6f} 0 0 0 "
+                         f"-0.7 0 {eX:.6e} {eY:.6e} {eP:.6f} 150e6")
+            names.append(name)
+        clus.append(f"{m} {nchunk[m]} " + " ".join(names))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(path + ".cluster", "w") as f:
+        f.write("\n".join(clus) + "\n")
+    return path, path + ".cluster"
+
+
+def make_observation(work: str, n_stations: int, tilesz: int, freqs,
+                     n_clusters: int, n_sources: int, nchunk, n_tiles: int,
+                     device, seed: int = 5, noise: float = 0.01):
+    """Sky files + a SimMS of ``n_tiles`` tiles corrupted by random
+    Jones, simulated on ``device``. Returns (ms, sky, cluster) paths."""
+    import torch
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.rime import predict as rp
+    os.makedirs(work, exist_ok=True)
+    sky_path, clus_path = write_sky(os.path.join(work, "sky.txt"),
+                                    n_clusters, n_sources, nchunk, seed)
+    sky = skymodel.read_sky_cluster(sky_path, clus_path, RA0, DEC0,
+                                    float(np.mean(freqs)))
+    rdt = torch.float32 if torch.device(device).type == "cuda" \
+        else torch.float64
+    dsky = rp.sky_to_device(sky, rdt, device)
+    J = ds.random_jones(sky.n_clusters, sky.nchunk, n_stations, seed=seed,
+                        scale=0.2)
+    tiles = [ds.simulate_dataset(dsky, n_stations, tilesz, freqs, RA0, DEC0,
+                                 jones=J, nchunk=sky.nchunk,
+                                 noise_sigma=noise, seed=seed + 10 * i)
+             for i in range(n_tiles)]
+    ms = os.path.join(work, "obs.ms")
+    ds.SimMS.create(ms, tiles)
+    return ms, sky_path, clus_path
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_env():
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=smi)
+    return smi[0] if smi else ""
+
+
+def phase_build():
+    from sagecal_tpu_torch.ops import cuda_lib
+    t0 = time.perf_counter()
+    built = cuda_lib.build_all()
+    for name in cuda_lib.SOURCES:
+        cuda_lib.load(name)
+    ptxas = {n: [ln.strip() for ln in cuda_lib.build_log(n).splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n in cuda_lib.SOURCES}
+    emit("build", seconds=time.perf_counter() - t0, built=built,
+         ptxas=ptxas)
+
+
+def _coh_inputs(F: int, per_channel: bool, seed: int = 1):
+    """The coherency kernel's inputs at the full-width path's shapes."""
+    import torch
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.ops import coh as coh_ops
+    from sagecal_tpu_torch.rime import predict as rp
+    from sagecal_tpu_torch import skymodel
+    dev = "cuda"
+    path = os.path.join(WORK, "coh_sky.txt")
+    os.makedirs(WORK, exist_ok=True)
+    sky_path, clus_path = write_sky(path, N_CLUSTERS, N_SOURCES, NCHUNK, seed)
+    sky = skymodel.read_sky_cluster(sky_path, clus_path, RA0, DEC0, 150e6)
+    # exercise the tangent-frame projection on every gaussian
+    sky.use_projection[sky.stype == skymodel.STYPE_GAUSSIAN] = True
+    dsky = rp.sky_to_device(sky, torch.float32, dev)
+    xyz = ds.random_array(N_STATIONS, seed=seed)
+    ha = np.linspace(0.0, ds.OMEGA_E * 10.0 * TILESZ, TILESZ, endpoint=False)
+    u, v, w, _, _ = ds.uvw_tracks(xyz, DEC0, ha)
+    t = lambda a: torch.as_tensor((a / ds.C_M_S).reshape(-1),
+                                  dtype=torch.float32, device=dev)
+    freqs = torch.as_tensor(FREQS[:F] if F > 1 else [150e6],
+                            dtype=torch.float32, device=dev)
+    uvw3 = torch.stack([t(u), t(v), t(w)])
+    geom = torch.stack([dsky.ll, dsky.mm, dsky.nn], dim=1)
+    flux = coh_ops.stokes_weights(dsky, freqs, per_channel)
+    gauss = coh_ops.gauss_coeffs(dsky)
+    fdelta = 0.18e6 * (8 if F == 1 else 1)
+    n_gauss = int((sky.stype == skymodel.STYPE_GAUSSIAN).sum())
+    return (uvw3, geom, flux, gauss, freqs, fdelta), n_gauss
+
+
+def phase_coh():
+    from sagecal_tpu_torch.ops import coh as coh_ops
+    out = {}
+    for F, per_channel, call in ((1, False, "solve"), (8, True, "residual")):
+        args, n_gauss = _coh_inputs(F, per_channel)
+        uvw3, geom, flux, gauss, freqs, _ = args
+        M, _, S = geom.shape
+        B = uvw3.shape[1]
+        got = coh_ops.coherencies_points(*args)
+        ref = coh_ops.coherencies_points_plain(*args)
+        abs_err, rel = rel_err(got, ref)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"coh kernel F={F}: max|diff|/max|ref| = "
+                                 f"{rel:.3e} > {KERNEL_RTOL}")
+        ms = cuda_ms(lambda: coh_ops.coherencies_points(*args), 20)
+        plain_ms = cuda_ms(lambda: coh_ops.coherencies_points_plain(*args), 3)
+        n_ops = (M * F * B * (coh_ops.COH_OPS_PER_TERM * S)
+                 + F * B * coh_ops.COH_OPS_PER_GAUSS * n_gauss)
+        n_bytes = 4 * (uvw3.numel() + geom.numel() + flux.numel()
+                       + gauss.numel() + F + M * B * F * 8)
+        bms, by = bound_ms(n_bytes, n_ops)
+        rec = dict(call=call, M=M, F=F, B=B, S=S, n_gauss=n_gauss,
+                   max_abs_err=abs_err, rel_err=rel, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=None)
+        emit("coh", **rec)
+        out[call] = rec
+    return out
+
+
+def _sweep_inputs(K: int, seed: int = 2):
+    import torch
+    dev = "cuda"
+    rng = np.random.default_rng(seed)
+    T, N = TILESZ, N_STATIONS
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    sta1 = torch.as_tensor(np.tile(p, T), device=dev)
+    sta2 = torch.as_tensor(np.tile(q, T), device=dev)
+    tilechunk = -(-T // K)
+    cid = torch.as_tensor(np.minimum((np.arange(B) // nb) // tilechunk,
+                                     K - 1), dtype=torch.int32, device=dev)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=dev)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    coh = c64(rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2)))
+    J = c64((rng.normal(size=(K, N, 2, 2))
+             + 1j * rng.normal(size=(K, N, 2, 2))) * 0.2 + np.eye(2))
+    x8 = f32(rng.normal(size=(B, 8)))
+    wt = f32(rng.random((B, 8)) * (rng.random((B, 1)) > 0.05))
+    cw = f32(rng.random((B, 8)))
+    return (x8, J, coh, sta1, sta2, cid, wt, cw, nb, K), (B, nb)
+
+
+def phase_sweep():
+    from sagecal_tpu_torch.ops import sweep as swp
+    out = {}
+    for K in (1, 4):
+        args, (B, nb) = _sweep_inputs(K)
+        x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
+        got = swp.sweep_blocks(*args)
+        s1b, s2b = sta1[:nb], sta2[:nb]
+        ref = swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh, cid, wt,
+                                     cw, nb)
+        pairs = [rel_err(g, r) for g, r in zip(got, ref)]
+        errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
+                        (rel for _, rel in pairs)))
+        abs_err = max(a for a, _ in pairs)
+        bad = {k: v for k, v in errs.items() if not v <= KERNEL_RTOL}
+        if bad:
+            raise AssertionError(f"sweep kernel K={K}: {bad} > {KERNEL_RTOL}")
+        ms = cuda_ms(lambda: swp.sweep_blocks(*args), 20)
+        plain_ms = cuda_ms(
+            lambda: swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh,
+                                           cid, wt, cw, nb), 3)
+        n_bytes = 4 * (3 * B * 8 + B + B * 8 + 2 * K * nb * 8
+                       + K * nb * swp.N_OUT)
+        # each row enters the sums of its own chunk only
+        n_rows = int(((cid >= 0) & (cid < K)).sum())
+        bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
+        rec = dict(K=K, T=TILESZ, nb=nb, rel_err=errs, max_abs_err=abs_err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=None, slices=swp._time_slices(TILESZ, nb, K))
+        emit("sweep", **rec)
+        out[K] = rec
+    return out
+
+
+def _counts():
+    from sagecal_tpu_torch.ops import coh, sweep
+    return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES}
+
+
+def _reset():
+    from sagecal_tpu_torch.ops import coh, sweep
+    coh.reset_launches()
+    sweep.reset_launches()
+
+
+def phase_slice_parity():
+    """The port's pipeline on the card (kernels, float32) against the
+    same pipeline on the CPU (plain versions, float64)."""
+    from sagecal_tpu_torch import pipeline
+    from sagecal_tpu_torch.cli import build_parser, config_from_args
+    work = os.path.join(WORK, "parity")
+    shutil.rmtree(work, ignore_errors=True)
+    ms, sky, clus = make_observation(work, 16, 10, FREQS[:2], 3, 6,
+                                     (1, 2, 1), 2, "cpu", seed=9, noise=0.02)
+    shutil.copytree(ms, ms + ".cpu")
+    hist = {}
+    for dev, path in (("cuda", ms), ("cpu", ms + ".cpu")):
+        args = build_parser().parse_args(
+            ["-d", path, "-s", sky, "-c", clus, "-j", "1", "-e", "2", "-g",
+             "10", "-l", "5", "-R", "0", "-t", "10"])
+        _reset()
+        hist[dev] = pipeline.run(config_from_args(args),
+                                 device=None if dev == "cuda" else "cpu",
+                                 log=lambda *a: None)
+        if dev == "cuda":
+            launches = _counts()
+            if not all(launches.values()):
+                raise AssertionError(f"slice_parity: a kernel never "
+                                     f"launched on the card: {launches}")
+    rels = []
+    for hg, hc in zip(hist["cuda"], hist["cpu"]):
+        for key in ("res_0", "res_1"):
+            rels.append(abs(hg[key] - hc[key]) / abs(hc[key]))
+    emit("slice_parity",
+         cuda=[[h["res_0"], h["res_1"]] for h in hist["cuda"]],
+         cpu=[[h["res_0"], h["res_1"]] for h in hist["cpu"]],
+         max_rel=max(rels), launches=launches)
+    if not max(rels) <= PARITY_RTOL:
+        raise AssertionError(f"slice_parity: {max(rels):.3e} > "
+                             f"{PARITY_RTOL}")
+
+
+def phase_e2e():
+    """The full-batch CLI at full width on the card."""
+    import contextlib
+    import io
+    import torch
+    from sagecal_tpu_torch import cli, skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    work = os.path.join(WORK, "e2e")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    ms, sky, clus = make_observation(work, N_STATIONS, TILESZ, FREQS,
+                                     N_CLUSTERS, N_SOURCES, NCHUNK, 2,
+                                     "cuda", seed=5, noise=0.01)
+    setup_s = time.perf_counter() - t0
+    solpath = os.path.join(work, "solutions.txt")
+    buf = io.StringIO()
+    _reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-d", ms, "-s", sky, "-c", clus, "-p", solpath,
+                       "-j", "1", "-e", "3", "-g", "10", "-l", "10",
+                       "-m", "7", "-t", str(TILESZ), "-V"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    if not all(launches.values()):
+        raise AssertionError(f"e2e: a kernel never launched: {launches}")
+    tiles = []
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith("Timeslot:") and "initial=" in ln:
+            tiles.append({
+                "res_0": float(ln.split("initial=")[1].split(",")[0]),
+                "res_1": float(ln.split("final=")[1].split(",")[0]),
+                "wall_s": 60 * float(ln.split("spent=")[1].split()[0])})
+        elif ln.startswith("Timeslot:") and "stats:" in ln:
+            tiles[-1].update(json.loads(ln.split("stats:", 1)[1]))
+    ds_out = ds.SimMS(ms, data_column="CORRECTED_DATA")
+    ds_in = ds.SimMS(ms)
+    meta = ds_out.meta
+    sk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
+                                   meta["freq0"])
+    _, blocks = sol.read_solutions(solpath, sk.nchunk)
+    ratio = []
+    for i in range(meta["n_tiles"]):
+        xo, xi = ds_out.read_tile(i).x, ds_in.read_tile(i).x
+        if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
+            raise AssertionError(f"tile {i}: output column not written")
+        ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
+    rec = dict(tiles=tiles, wall_s=wall, setup_s=setup_s,
+               launches=launches, intervals=len(blocks),
+               written_over_data=ratio, kmax=max(NCHUNK),
+               B=TILESZ * N_STATIONS * (N_STATIONS - 1) // 2,
+               F=len(FREQS), M=N_CLUSTERS, S=N_SOURCES)
+    emit("e2e", **rec)
+    if len(blocks) != 2:
+        raise AssertionError(f"solutions file holds {len(blocks)} intervals")
+    if len(tiles) != 2 or not all(
+            math.isfinite(h["res_1"]) and math.isfinite(h["res_0"])
+            and h["res_1"] < h["res_0"] for h in tiles):
+        raise AssertionError(f"e2e: residuals did not fall: {tiles}")
+    return rec
+
+
+def main() -> int:
+    smi = phase_env()
+    phase_build()
+    coh = phase_coh()
+    sweep = phase_sweep()
+    phase_slice_parity()
+    e2e = phase_e2e()
+
+    import torch
+    kernels = [
+        dict(name="coh_points", route="cuda",
+             source="sagecal_tpu_torch/csrc/coh.cu",
+             replaces="sagecal_tpu/ops/coh_pallas.py:49",
+             launches=e2e["launches"]["coh"],
+             max_abs_err=max(r["max_abs_err"] for r in coh.values()),
+             ms=coh["residual"]["ms"], plain_ms=coh["residual"]["plain_ms"],
+             bound_ms=coh["residual"]["bound_ms"],
+             bound_by=coh["residual"]["bound_by"], library_ms=None),
+        dict(name="sweep_blocks", route="cuda",
+             source="sagecal_tpu_torch/csrc/sweep.cu",
+             replaces="sagecal_tpu/ops/sweep_pallas.py:395",
+             launches=e2e["launches"]["sweep"],
+             max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
+             ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
+             bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
+             library_ms=None),
+    ]
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

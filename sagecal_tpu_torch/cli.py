@@ -1,0 +1,199 @@
+"""``sagecal-tpu-torch`` command line (port of the full-batch path of
+``sagecal_tpu/cli.py``).
+
+The parser accepts every flag of the JAX CLI so command lines translate
+directly. The slice runs full-batch calibration with
+``-d -s -c -p -F -t -e -g -l -m -j -R -x -y -I -O -o -k --kernel --inner
+--jones --dtype-policy --platform``; ``--solve-fuse`` and
+``--solve-promote`` are accepted as no-ops (PyTorch runs eagerly).
+Any other flag given a non-default value raises ``NotImplementedError``
+naming the ROADMAP item that will port it — nothing is silently ignored.
+
+``--platform cpu`` runs on the CPU in float64; without it the run needs
+a CUDA device (float32). ``--kernel`` defaults to ``pallas``, the fused
+sweep (the only assembly ported); ``xla`` raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from sagecal_tpu_torch.config import (BeamMode, RunConfig, SimulationMode,
+                                      SolverMode)
+
+# flags parsed for parity but not ported: dest -> (default, ROADMAP item)
+UNPORTED = {
+    "ms_list": (None, "queue A item 1 (-f dataset lists)"),
+    "init_solutions": (None, "queue A item 9 (-q warm start)"),
+    "whiten": (0, "queue A item 4 (-W whitening, robust.py)"),
+    "per_channel": (0, "queue A item 9 (-b 1 per-channel solve)"),
+    "simulation": (0, "queue A item 9 (-a simulation modes)"),
+    "ignore_clusters": (None, "queue A item 9 (-z ignore list)"),
+    "phase_only": (0, "queue A item 12 (-J phase-only correction)"),
+    "beam": (0, "queue A item 9 (-B beam)"),
+    "epochs": (0, "queue A item 11 (-N stochastic calibration)"),
+    "minibatches": (1, "queue A item 11 (-M minibatches)"),
+    "loss": ("robust", "queue A item 11 (--loss)"),
+    "admm": (1, "queue A item 12 (-A consensus)"),
+    "nsolbw": (1, "queue A item 12 (-w mini-bands)"),
+    "npoly": (2, "queue A item 12 (-P)"),
+    "polytype": (2, "queue A item 12 (-Q)"),
+    "rho": (5.0, "queue A item 12 (-r)"),
+    "rho_file": (None, "queue A item 12 (-G)"),
+    "nulow": (2.0, "the next slice (-L, robust modes)"),
+    "nuhigh": (30.0, "the next slice (-H, robust modes)"),
+    "linsolv": (1, "queue A item 4 (--linsolv)"),
+    "tile_batch": (1, "queue A item 9 (--tile-batch)"),
+    "inflight": (1, "queue A item 9 and queue B item 4 (--inflight)"),
+    "tile_bucket": (0, "queue A item 14 (--tile-bucket)"),
+    "resume": (False, "queue A item 1 (--resume checkpoints)"),
+    "faults": (None, "queue A item 13 (--faults)"),
+    "prefetch": (1, "queue A item 13 (--prefetch overlap)"),
+    "prior_cache": ("off", "queue A item 14 (--prior-cache)"),
+    "shard_baselines": (False, "queue A item 12 (--shard-baselines)"),
+    "cpu_devices": (0, "queue A item 12 (--cpu-devices)"),
+    "profile": (None, "queue A item 10 (--profile)"),
+    "diag": (None, "queue A item 13 (--diag)"),
+    "metrics": (None, "queue A item 13 (--metrics)"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sagecal-tpu-torch",
+        description="direction-dependent calibration on PyTorch/CUDA "
+                    "(port of sagecal-tpu; full-batch -j 1 slice)")
+    a = p.add_argument
+    a("-d", "--ms", help="dataset (SimMS directory)")
+    a("-f", "--ms-list")
+    a("-s", "--sky-model")
+    a("-c", "--cluster-file")
+    a("-p", "--solutions-file", help="solutions out")
+    a("-q", "--init-solutions")
+    a("-F", "--format", type=int, default=0,
+      help="1: sky model has 3rd-order spectral indices")
+    a("-t", "--tile-size", type=int, default=120,
+      help="timeslots per solve interval (a SimMS stores its own)")
+    a("-e", "--max-em-iter", type=int, default=3)
+    a("-g", "--max-iter", type=int, default=10)
+    a("-l", "--max-lbfgs", type=int, default=10)
+    a("-m", "--lbfgs-m", type=int, default=7)
+    a("-n", "--n-threads", type=int, default=4,
+      help="accepted for parity; host threads are PyTorch's own")
+    a("-j", "--solver-mode", type=int, default=5,
+      help="solver mode; this slice runs 1 (LM + LBFGS)")
+    a("-L", "--nulow", type=float, default=2.0)
+    a("-H", "--nuhigh", type=float, default=30.0)
+    a("--linsolv", type=int, default=1)
+    a("-R", "--randomize", type=int, default=1)
+    a("-x", "--uvmin", type=float, default=0.0)
+    a("-y", "--uvmax", type=float, default=1e9)
+    a("-I", "--input-column", default="DATA")
+    a("-O", "--output-column", default="CORRECTED_DATA")
+    a("-o", "--mmse-rho", type=float, default=1e-9)
+    a("-W", "--whiten", type=int, default=0)
+    a("-D", "--diagnostics", type=int, default=0,
+      help="accepted for parity (disabled in the reference)")
+    a("--profile", default=None)
+    a("--diag", default=None)
+    a("--metrics", default=None)
+    a("--tile-batch", type=int, default=1)
+    a("--solve-fuse", choices=("auto", "on", "off"), default="auto",
+      help="accepted; a no-op (PyTorch runs eagerly)")
+    a("--solve-promote", choices=("auto", "on", "off"), default="auto",
+      help="accepted; a no-op (PyTorch runs eagerly)")
+    a("--inflight", type=int, default=1)
+    a("--tile-bucket", type=int, default=0)
+    a("--resume", action="store_true")
+    a("--faults", default=None)
+    a("--prefetch", type=int, default=1)
+    a("--prior-cache", choices=("off", "read", "readwrite"), default="off")
+    a("--dtype-policy", choices=("f32", "bf16", "f16"), default="f32")
+    a("--inner", choices=("chol", "cg"), default="chol")
+    a("--kernel", choices=("xla", "pallas"), default="pallas",
+      help="pallas (default): the fused-sweep CUDA kernel; xla is not "
+           "ported yet and raises")
+    a("--jones", choices=("full", "diag", "phase"), default="full")
+    a("--shard-baselines", action="store_true")
+    a("--platform", default=None,
+      help="'cpu' runs on the CPU (float64); default: the CUDA device")
+    a("--cpu-devices", type=int, default=0)
+    a("-w", "--nsolbw", type=int, default=1)
+    a("-b", "--per-channel", type=int, default=0)
+    a("-a", "--simulation", type=int, default=0)
+    a("-z", "--ignore-clusters")
+    a("-k", "--correct-cluster", type=int, default=None)
+    a("-J", "--phase-only", type=int, default=0)
+    a("-B", "--beam", type=int, default=0)
+    a("-N", "--epochs", type=int, default=0)
+    a("--loss", choices=("robust", "huber"), default="robust")
+    a("-M", "--minibatches", type=int, default=1)
+    a("-A", "--admm", type=int, default=1)
+    a("-P", "--npoly", type=int, default=2)
+    a("-Q", "--polytype", type=int, default=2)
+    a("-r", "--rho", type=float, default=5.0)
+    a("-G", "--rho-file", default=None)
+    a("-T", "--max-timeslots", type=int, default=0)
+    a("-V", "--verbose", action="store_true",
+      help="log per-tile solver iterations and kernel launches")
+    return p
+
+
+def check_flags(args) -> None:
+    """Raise NotImplementedError for a non-default unported flag."""
+    for dest, (default, item) in UNPORTED.items():
+        if getattr(args, dest) != default:
+            raise NotImplementedError(
+                f"--{dest.replace('_', '-')}={getattr(args, dest)!r} is not "
+                f"ported yet (ROADMAP {item})")
+
+
+def config_from_args(args) -> RunConfig:
+    return RunConfig(
+        ms=args.ms, ms_list=args.ms_list, sky_model=args.sky_model,
+        cluster_file=args.cluster_file, solutions_file=args.solutions_file,
+        init_solutions=args.init_solutions, format_3=bool(args.format),
+        tile_size=args.tile_size, max_em_iter=args.max_em_iter,
+        max_iter=args.max_iter, max_lbfgs=args.max_lbfgs,
+        lbfgs_m=args.lbfgs_m, input_column=args.input_column,
+        output_column=args.output_column, mmse_rho=args.mmse_rho,
+        solver_mode=SolverMode(args.solver_mode),
+        robust_nulow=args.nulow, robust_nuhigh=args.nuhigh,
+        randomize=bool(args.randomize), uvmin=args.uvmin,
+        uvmax=args.uvmax, whiten=bool(args.whiten),
+        per_channel_bfgs=bool(args.per_channel),
+        simulation=SimulationMode(args.simulation),
+        ignore_clusters_file=args.ignore_clusters,
+        correct_cluster=args.correct_cluster,
+        phase_only=bool(args.phase_only), beam_mode=BeamMode(args.beam),
+        n_epochs=args.epochs, max_timeslots=args.max_timeslots,
+        verbose=args.verbose,
+        solve_fuse=args.solve_fuse, solve_promote=args.solve_promote,
+        solver_inner=args.inner, solver_kernel=args.kernel,
+        jones_mode=args.jones, dtype_policy=args.dtype_policy)
+
+
+def _device(platform):
+    if platform is None or platform in ("cuda", "gpu"):
+        return None
+    if platform == "cpu":
+        return "cpu"
+    raise ValueError(f"--platform {platform!r}: expected cpu or cuda")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if not args.ms or not args.sky_model or not args.cluster_file:
+        print("need -d dataset, -s sky model, -c cluster file",
+              file=sys.stderr)
+        return 2
+    check_flags(args)
+    cfg = config_from_args(args)
+    from sagecal_tpu_torch import pipeline
+    pipeline.run(cfg, device=_device(args.platform))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""Typed run configuration (port of ``sagecal_tpu/config.py``).
+
+The same enums and the same field names as the JAX package's
+``RunConfig``, so a configuration translates field for field. Fields
+that pick a JAX execution plan (fuse/promote learners, prefetch depth)
+are kept for flag parity; the port documents which of them are no-ops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class SolverMode(enum.IntEnum):
+    """Solver selection, parity with ``-j`` (reference Dirac.h SM_*)."""
+
+    OSLM_LBFGS = 0
+    LM_LBFGS = 1
+    RLM_RLBFGS = 2
+    OSLM_OSRLM_RLBFGS = 3
+    RTR_OSLM_LBFGS = 4
+    RTR_OSRLM_RLBFGS = 5
+    NSD_RLBFGS = 6
+
+
+class BeamMode(enum.IntEnum):
+    """Parity with ``-B``."""
+
+    NONE = 0
+    ARRAY = 1
+    FULL = 2
+    ELEMENT = 3
+
+
+class SimulationMode(enum.IntEnum):
+    """Parity with ``-a``."""
+
+    OFF = 0
+    SIMULATE = 1
+    ADD = 2
+    SUBTRACT = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Full-batch calibration run configuration (CLI flag in comments)."""
+
+    ms: str | None = None              # -d
+    ms_list: str | None = None         # -f
+    sky_model: str | None = None       # -s
+    cluster_file: str | None = None    # -c
+    solutions_file: str | None = None  # -p
+    init_solutions: str | None = None  # -q
+    format_3: bool = False             # -F 1
+    input_column: str = "DATA"         # -I
+    output_column: str = "CORRECTED_DATA"   # -O
+
+    tile_size: int = 120               # -t
+    max_em_iter: int = 3               # -e
+    max_iter: int = 10                 # -g
+    max_lbfgs: int = 10                # -l
+    lbfgs_m: int = 7                   # -m
+    solver_mode: SolverMode = SolverMode.RTR_OSRLM_RLBFGS  # -j
+    robust_nulow: float = 2.0          # -L
+    robust_nuhigh: float = 30.0        # -H
+    randomize: bool = True             # -R
+
+    uvmin: float = 0.0                 # -x (lambda)
+    uvmax: float = 1e9                 # -y
+    mmse_rho: float = 1e-9             # -o
+    whiten: bool = False               # -W
+    per_channel_bfgs: bool = False     # -b 1
+
+    simulation: SimulationMode = SimulationMode.OFF  # -a
+    ignore_clusters_file: str | None = None          # -z
+    correct_cluster: int | None = None               # -k
+    phase_only: bool = False                         # -J
+    beam_mode: BeamMode = BeamMode.NONE              # -B
+    n_epochs: int = 0                                # -N
+    max_timeslots: int = 0                           # -T
+    verbose: bool = False                            # -V : per-tile stats
+
+    # execution plan: in the JAX package these pick jit fusion and
+    # whole-solve promotion; PyTorch runs eagerly, so both are no-ops
+    solve_fuse: str = "auto"           # --solve-fuse
+    solve_promote: str = "auto"        # --solve-promote
+    solver_inner: str = "chol"         # --inner
+    solver_kernel: str = "pallas"      # --kernel (only the fused sweep)
+    jones_mode: str = "full"           # --jones
+    dtype_policy: str = "f32"          # --dtype-policy
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

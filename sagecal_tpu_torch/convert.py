@@ -1,0 +1,53 @@
+"""Carry the JAX package's state across to the port, as numpy arrays.
+
+The functions take plain numpy arrays (or dicts of them) — never JAX
+objects — so this module imports no JAX. The tests use them to give
+both packages identical inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sagecal_tpu_torch.io.dataset import VisTile
+from sagecal_tpu_torch.rime.predict import SkyArrays, _INT_FIELDS
+
+
+def sky_from_numpy(fields: dict, device="cpu",
+                   real_dtype=torch.float64) -> SkyArrays:
+    """``{field: numpy array}`` of a JAX ``SkyArrays`` -> the port's
+    :class:`SkyArrays` on ``device``."""
+    missing = set(SkyArrays._fields) - set(fields)
+    if missing:
+        raise KeyError(f"sky_from_numpy: missing fields {sorted(missing)}")
+    return SkyArrays(**{
+        name: torch.as_tensor(np.array(fields[name]), device=device).to(
+            _INT_FIELDS.get(name, real_dtype))
+        for name in SkyArrays._fields})
+
+
+def sky_to_numpy(sky: SkyArrays) -> dict:
+    """The port's SkyArrays -> ``{field: numpy array}``."""
+    return {name: getattr(sky, name).cpu().numpy()
+            for name in SkyArrays._fields}
+
+
+def jones_from_numpy(J, device="cpu", dtype=torch.complex128):
+    """Complex [..., 2, 2] Jones, or its [..., 8] real packing
+    ((Re, Im) of 00, 01, 10, 11), -> complex tensor [..., 2, 2]."""
+    J = np.array(J)
+    if not np.iscomplexobj(J):
+        if J.shape[-1] != 8:
+            raise ValueError(f"jones_from_numpy: real input must end in 8 "
+                             f"(got shape {J.shape})")
+        pr = J.reshape(J.shape[:-1] + (4, 2))
+        J = (pr[..., 0] + 1j * pr[..., 1]).reshape(J.shape[:-1] + (2, 2))
+    return torch.as_tensor(J, device=device).to(dtype)
+
+
+def tile_from_numpy(**fields) -> VisTile:
+    """A JAX ``VisTile``'s fields (numpy arrays and scalars) -> the
+    port's :class:`VisTile`."""
+    return VisTile(**{k: fields[k] for k in VisTile.__dataclass_fields__
+                      if k in fields})

@@ -1,0 +1,135 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source ``csrc/<name>.cu`` has a plain C interface and becomes its
+own shared library, compiled by ``nvcc`` for Hopper (``sm_90a``) into
+``build/torch_kernels/`` at the repository root on first use, and loaded
+with ``ctypes``. The library name carries a hash of its source, so an
+edited kernel is rebuilt and a stale one is never loaded. All sources
+are compiled together (one ``nvcc`` process each, started at once).
+
+Nothing here runs at import time: this module is imported on machines
+without ``nvcc`` or a card, where only the kernels' plain PyTorch
+versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+SOURCES = ("coh", "sweep")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures: every launch returns cudaGetLastError() as an int
+SIGNATURES = {
+    "coh": {
+        # uvw3, geom, flux, gauss, freqs, fdelta, out, M, F, B, S, stream
+        "coh_points_launch": [_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
+                              _P],
+    },
+    "sweep": {
+        # x, w, cw, cid, coh, jp, jq, part, T, nb, K, nsl, tl, stream
+        "sweep_partials_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _P],
+        # part, out, nb, K, nsl, stream
+        "sweep_reduce_launch": [_P, _P, _I, _I, _I, _P],
+    },
+}
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found (neither on PATH nor in "
+                           "/usr/local/cuda/bin): the CUDA kernels cannot "
+                           "be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all at once.
+    Returns {name: seconds} for the sources built in this call; the
+    compiler's register/spill report lands in ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(".tmp.so")
+        log = open(out.with_suffix(".log"), "w")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), log, tmp, out)
+    failed, seconds = [], {}
+    for name, (proc, log, tmp, out) in procs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        logs = "\n".join(_lib_path(n).with_suffix(".log").read_text()
+                         for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (registers, spills) for ``name``."""
+    p = _lib_path(name).with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for source ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all()
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a launch whose cudaGetLastError() was not cudaSuccess."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

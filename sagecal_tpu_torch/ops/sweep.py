@@ -1,0 +1,284 @@
+"""Fused LM sweep: kernel 2 of the port (counterpart of
+``sagecal_tpu/ops/sweep_pallas.py``), plus the PyTorch ops around it.
+
+:func:`sweep_blocks` replaces the Pallas kernel ``_sweep_kernel``
+(``sweep_pallas.py:395``, maths in ``_sweep_body`` ``:171``, launched by
+``sweep_blocks`` ``:482``): one pass over a cluster visit's rows per
+hybrid chunk, giving per-baseline Gram blocks, gradients and the
+acceptance cost. On a CUDA tensor it launches the hand-written kernel
+in ``csrc/sweep.cu`` (full Jones, float32) or raises; on a CPU tensor it
+runs the plain PyTorch version :func:`sweep_blocks_plain` (``_sweep_body``
+over [T, nb] tensors plus the time sum) in the tensors' dtype.
+
+What bounds the kernel on the card is bytes: 33 words a row (x, w, cw,
+coherency, chunk id), each row read by its own chunk only, against
+:data:`SWEEP_FLOPS_PER_ROW` float32 operations; the design notes are in
+``csrc/sweep.cu``.
+
+Around the kernel, as torch ops: the per-baseline Jones gathers,
+:func:`_station_aggregates` (``index_add_``, repeated stations
+accumulate), :func:`gn_blocks`, :func:`_assemble_damped`,
+:func:`chol_solve_blocks_shift` and :func:`solve_damped_blocks` with its
+single boosted-jitter retry (batched ``torch.linalg`` Cholesky; XLA in
+the JAX package, not Pallas).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sagecal_tpu_torch.ops import cuda_lib
+
+#: float32 operations per row visit for one chunk, counted from the
+#: kernel body: A = C Jq^H, Bm = Jp C, V = Jp A (56 each), residual,
+#: squared weights and weighted residual (24), acceptance cost (24),
+#: the symmetric pp/qq blocks (2 x 20 sums x 4 terms x 3), the pq block
+#: (64 x 2 x 3), the gradients (16 x 4 x 2)
+SWEEP_FLOPS_PER_ROW = 168 + 48 + 240 + 240 + 384 + 128
+#: hybrid-chunk cap, as in the JAX package
+MAX_CHUNKS = 4
+#: distinct sums per (chunk, baseline) in the kernel, and the caller
+#: layout's element count (pp 32, qq 32, pq 64, jtep 8, jteq 8, cost 1)
+N_ACC = 121
+N_OUT = 145
+#: threads the wrapper aims to have in flight when it splits the time
+#: axis (132 SMs x 256 resident threads at the kernel's register use)
+TARGET_THREADS = 132 * 256
+
+#: kernel launches since the last reset (the plain version never counts)
+LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def supported(kmax: int, row_period: int, B: int) -> bool:
+    """True when the fused sweep applies: baseline-major [tilesz, nbase]
+    rows and a bounded hybrid-chunk count."""
+    return (1 <= kmax <= MAX_CHUNKS and row_period > 0
+            and B % row_period == 0)
+
+
+class GNBlocks(NamedTuple):
+    """Per-(chunk, baseline) Gram blocks of the Gauss-Newton operator.
+
+    pp, qq [K, nb, 2, 4, 4]; pq [K, nb, 2, 2, 4, 4]; D [K, N, 2, 4, 4]
+    the station-aggregated diagonal blocks."""
+
+    pp: torch.Tensor
+    qq: torch.Tensor
+    pq: torch.Tensor
+    D: torch.Tensor
+
+
+def _factors(A, Bm):
+    """Wirtinger factors fa [..., o, ri, 4], fb [..., a, ri, 4]
+    (normal_eq._ma_factor / _mb_factor) of A = C Jq^H and Bm = Jp C."""
+    Ar = A.real.transpose(-1, -2)                    # [..., o, d]
+    Ai = A.imag.transpose(-1, -2)
+    fa = torch.stack([torch.stack([Ar, -Ai], -1),
+                      torch.stack([Ai, Ar], -1)], -3)
+    Br, Bi = Bm.real, Bm.imag                        # [..., a, d]
+    fb = torch.stack([torch.stack([Br, Bi], -1),
+                      torch.stack([Bi, -Br], -1)], -3)
+    shp = A.shape[:-2] + (2, 2, 4)
+    return fa.reshape(shp), fb.reshape(shp)
+
+
+def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
+    """Plain PyTorch version of the fused sweep.
+
+    x8/wt/cost_wt [B, 8] real; Jp/Jq [K, nb, 2, 2] complex (per-baseline
+    Jones of each chunk); coh [B, 2, 2] complex; chunk_id [B]. Returns
+    (pp, qq, pq, jtep, jteq, cost) in the caller layouts [K, nb, ...]
+    and cost [K]."""
+    K = Jp.shape[0]
+    T = x8.shape[0] // nb
+    x = x8.reshape(T, nb, 8)
+    C = coh.reshape(T, nb, 2, 2)
+    cid = chunk_id.reshape(T, nb)
+    outs = []
+    for k in range(K):
+        mk = (cid == k).to(x.dtype)[..., None] if K > 1 else 1.0
+        w = wt.reshape(T, nb, 8) * mk
+        cw = cost_wt.reshape(T, nb, 8) * mk
+        A = C @ Jq[k].conj().transpose(-1, -2)       # [T, nb, 2, 2]
+        Bm = Jp[k] @ C
+        V = Jp[k] @ A
+        r = x - torch.view_as_real(V.reshape(T, nb, 4)).reshape(T, nb, 8)
+        fa, fb = _factors(A, Bm)                     # [T, nb, 2, 2, 4]
+        w2 = (w * w).reshape(T, nb, 2, 2, 2)         # [T, nb, a, o, ri]
+        rw2 = (r.reshape(T, nb, 2, 2, 2)) * w2
+        pp = torch.einsum("tbaor,tbori,tborj->baij", w2, fa, fa)
+        qq = torch.einsum("tbaor,tbari,tbarj->boij", w2, fb, fb)
+        pq = torch.einsum("tbaor,tbori,tbarj->baoij", w2, fa, fb)
+        jtep = torch.einsum("tbaor,tbori->bai", rw2, fa)
+        jteq = torch.einsum("tbaor,tbari->boi", rw2, fb)
+        cost = ((r * cw) ** 2).sum()
+        outs.append((pp, qq, pq, jtep, jteq, cost))
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
+
+
+def _time_slices(T: int, nb: int, K: int):
+    """(slice count, rows per slice) so that about TARGET_THREADS
+    (chunk, baseline, slice) threads are in flight."""
+    want = max(1, -(-TARGET_THREADS // max(K * nb, 1)))
+    tl = -(-T // min(T, want))
+    return -(-T // tl), tl
+
+
+def _sweep_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
+    global LAUNCHES
+    dev = x8.device
+    for name, a in (("x8", x8), ("wt", wt), ("cost_wt", cost_wt)):
+        if a.dtype != torch.float32 or a.device != dev:
+            raise TypeError(f"sweep kernel: {name} must be float32 on {dev} "
+                            f"(got {a.dtype} on {a.device}); reduced "
+                            "storage policies are ROADMAP queue A item 9")
+    if coh.dtype != torch.complex64 or Jp.dtype != torch.complex64:
+        raise TypeError("sweep kernel: coherencies and Jones must be "
+                        "complex64")
+    K = Jp.shape[0]
+    B = x8.shape[0]
+    T = B // nb
+    x8, wt, cost_wt = x8.contiguous(), wt.contiguous(), cost_wt.contiguous()
+    cohr = torch.view_as_real(coh.resolve_conj().contiguous())
+    jpr = torch.view_as_real(Jp.resolve_conj().contiguous())
+    jqr = torch.view_as_real(Jq.resolve_conj().contiguous())
+    cid = chunk_id.to(device=dev, dtype=torch.int32).contiguous()
+    nsl, tl = _time_slices(T, nb, K)
+    part = torch.empty((nsl, K, N_ACC, nb), dtype=torch.float32, device=dev)
+    out = torch.empty((K, nb, N_OUT), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("sweep")
+    stream = cuda_lib.stream_ptr(dev)
+    cuda_lib.check(lib.sweep_partials_launch(
+        x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
+        cohr.data_ptr(), jpr.data_ptr(), jqr.data_ptr(), part.data_ptr(),
+        T, nb, K, nsl, tl, stream), "sweep_partials_kernel")
+    cuda_lib.check(lib.sweep_reduce_launch(
+        part.data_ptr(), out.data_ptr(), nb, K, nsl, stream),
+        "sweep_reduce_kernel")
+    LAUNCHES += 1
+    pp = out[..., 0:32].view(K, nb, 2, 4, 4)
+    qq = out[..., 32:64].view(K, nb, 2, 4, 4)
+    pq = out[..., 64:128].view(K, nb, 2, 2, 4, 4)
+    jtep = out[..., 128:136].view(K, nb, 2, 4)
+    jteq = out[..., 136:144].view(K, nb, 2, 4)
+    return pp, qq, pq, jtep, jteq, out[..., 144].sum(dim=-1)
+
+
+def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
+                 row_period: int, kmax: int, jones: str = "full"):
+    """The fused cluster-visit pass (``sweep_pallas.sweep_blocks``).
+
+    x8/wt/cost_wt [B, 8] real; J [K, N, 2, 2] complex; coh [B, 2, 2];
+    sta1/sta2/chunk_id [B] (baseline-periodic: only the first
+    ``row_period`` stations are used). Returns (pp [K, nb, 2, 4, 4],
+    qq [K, nb, 2, 4, 4], pq [K, nb, 2, 2, 4, 4], jtep [K, nb, 2, 4],
+    jteq [K, nb, 2, 4], cost [K])."""
+    if jones != "full":
+        raise NotImplementedError(
+            f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
+            "item 9: constrained Jones modes)")
+    nb = int(row_period)
+    K = int(kmax)
+    if J.shape[0] != K or x8.shape[0] % nb:
+        raise ValueError(f"sweep_blocks: J has {J.shape[0]} chunks for "
+                         f"kmax={K}, or {x8.shape[0]} rows are not a "
+                         f"multiple of row_period={nb}")
+    s1b = sta1[:nb].long()
+    s2b = sta2[:nb].long()
+    Jp = J[:, s1b]                                   # [K, nb, 2, 2]
+    Jq = J[:, s2b]
+    if x8.device.type == "cuda":
+        return _sweep_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb)
+    return sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb)
+
+
+def _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, N: int):
+    """(D [K, N, 2, 4, 4], JTe [K, 8N]) from the per-baseline partials;
+    ``index_add_`` accumulates repeated station indices."""
+    K = pp.shape[0]
+    md = pp.shape[-1]
+    D = pp.new_zeros((K, N, 2, md, md))
+    D.index_add_(1, s1b, pp).index_add_(1, s2b, qq)
+    JTe = pp.new_zeros((K, N, 2, md))
+    JTe.index_add_(1, s1b, jtep).index_add_(1, s2b, jteq)
+    return D, JTe.reshape(K, 2 * md * N)
+
+
+def gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
+              kmax: int, row_period: int, cost_wt=None,
+              jones: str = "full"):
+    """Operator assembly from one fused sweep: (GNBlocks, JTe [K, 8N],
+    cost [K]) — ``sweep_pallas.gn_blocks``."""
+    cw = wt if cost_wt is None else cost_wt
+    pp, qq, pq, jtep, jteq, cost = sweep_blocks(
+        x8, J, coh, sta1, sta2, chunk_id, wt, cw, row_period, kmax,
+        jones=jones)
+    nb = int(row_period)
+    s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
+    D, JTe = _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, n_stations)
+    return GNBlocks(pp=pp, qq=qq, pq=pq, D=D), JTe, cost
+
+
+def _assemble_damped(fac: GNBlocks, shift, sta1, sta2, n_stations: int):
+    """Dense [K, 8N, 8N] (damped) normal matrix from the blocks; the
+    shift ([K] or None) folds into the station diagonals first."""
+    K, nb = fac.pp.shape[0], fac.pp.shape[1]
+    md = fac.pp.shape[-1]
+    npar = 2 * md
+    N = n_stations
+    s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
+    D = fac.D
+    if shift is not None:
+        eyem = torch.eye(md, dtype=D.dtype, device=D.device)
+        D = D + shift[:, None, None, None, None] * eyem
+    eye2 = torch.eye(2, dtype=D.dtype, device=D.device)
+    Dfull = torch.einsum("knaij,ab->knaibj", D, eye2).reshape(
+        K, N, npar, npar)
+    pq8 = fac.pq.permute(0, 1, 2, 4, 3, 5).reshape(K, nb, npar, npar)
+    pq8T = fac.pq.permute(0, 1, 3, 5, 2, 4).reshape(K, nb, npar, npar)
+    idx = torch.arange(N, device=D.device)
+    G = D.new_zeros((K, N * N, npar, npar))
+    G.index_add_(1, s1b * N + s2b, pq8)
+    G.index_add_(1, s2b * N + s1b, pq8T)
+    G.index_add_(1, idx * N + idx, Dfull)
+    return G.view(K, N, N, npar, npar).permute(0, 1, 3, 2, 4).reshape(
+        K, npar * N, npar * N)
+
+
+def chol_solve_blocks_shift(fac: GNBlocks, JTe, shift, sta1, sta2,
+                            n_stations: int):
+    """One batched assemble + factor + solve of (JTJ + shift I) dp =
+    JTe; returns (dp, ok) with ok = factorization succeeded and dp
+    finite, per chunk."""
+    A = _assemble_damped(fac, shift, sta1, sta2, n_stations)
+    L, info = torch.linalg.cholesky_ex(A)
+    dp = torch.cholesky_solve(JTe[..., None], L)[..., 0]
+    return dp, (info == 0) & torch.isfinite(dp).all(dim=-1)
+
+
+def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
+                        n_stations: int):
+    """Solve (JTJ + (mu + jitter) I) dp = JTe batched over chunks.
+
+    A chunk whose factorization fails gets ONE retry with the shift
+    boosted by 1e-3 * max|diag| (read from the D blocks); a chunk that
+    fails again returns dp = 0. The retry is computed for every chunk
+    and selected per chunk, so the call never waits on the device."""
+    shift = mu + jitter
+    dp, ok = chol_solve_blocks_shift(fac, JTe, shift, sta1, sta2,
+                                     n_stations)
+    dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
+    diag_max = dd.reshape(dd.shape[0], -1).abs().amax(dim=-1)
+    dp2, ok2 = chol_solve_blocks_shift(
+        fac, JTe, shift + 1e-3 * torch.clamp(diag_max, min=1e-30), sta1,
+        sta2, n_stations)
+    zero = torch.zeros_like(dp)
+    dpw = torch.where(ok[:, None], dp, torch.where(ok2[:, None], dp2, zero))
+    return dpw, ok | ok2

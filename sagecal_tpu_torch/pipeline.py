@@ -1,0 +1,281 @@
+"""Full-batch calibration pipeline (port of the sequential tile loop of
+``sagecal_tpu/pipeline.py``).
+
+Stream solve intervals (tiles) from the dataset, predict the solve
+coherencies (the coherency kernel), run SAGE-EM (LM on the fused-sweep
+kernel, then the joint LBFGS refine), subtract the model from every
+channel and write the residuals and the solutions, with the reference's
+heuristics:
+
+- first-tile iteration boost: 4x EM iterations for arrays <= LMCUT (40)
+  stations, 6x otherwise;
+- LMCUT solver downgrade of the RTR/NSD modes for small arrays;
+- divergence reset: a residual of 0, non-finite or above RES_RATIO x
+  the best so far resets the solutions and re-arms the boost.
+
+The JAX package's serve cache, fleet, priors, overlapped scheduler,
+fault injection, tracing and checkpoint/resume are not part of this
+slice; their options raise ``NotImplementedError`` (see
+:func:`check_supported`).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from sagecal_tpu_torch import device as devmod
+from sagecal_tpu_torch import dtypes
+from sagecal_tpu_torch import skymodel, utils
+from sagecal_tpu_torch.config import RunConfig, SimulationMode, SolverMode
+from sagecal_tpu_torch.io import dataset as ds
+from sagecal_tpu_torch.io import solutions as sol
+from sagecal_tpu_torch.ops import coh as coh_ops
+from sagecal_tpu_torch.ops import sweep as swp
+from sagecal_tpu_torch.rime import predict as rp
+from sagecal_tpu_torch.rime import residual as rr
+from sagecal_tpu_torch.solvers import lm as lm_mod
+from sagecal_tpu_torch.solvers import sage
+
+LMCUT = 40
+RES_RATIO = 5.0
+
+
+def effective_solver_mode(mode: int, n_stations: int) -> int:
+    """LMCUT downgrade (reference fullbatch_mode.cpp)."""
+    if n_stations <= LMCUT and mode == int(SolverMode.RTR_OSLM_LBFGS):
+        return int(SolverMode.OSLM_LBFGS)
+    if n_stations <= LMCUT and mode in (int(SolverMode.RTR_OSRLM_RLBFGS),
+                                        int(SolverMode.NSD_RLBFGS)):
+        return int(SolverMode.OSLM_OSRLM_RLBFGS)
+    return mode
+
+
+def first_tile_boost(n_stations: int) -> int:
+    return 4 if n_stations <= LMCUT else 6
+
+
+def check_supported(cfg: RunConfig) -> None:
+    """Raise ``NotImplementedError`` for every configuration this slice
+    does not run, naming the ROADMAP item that will port it."""
+    checks = [
+        (int(cfg.solver_mode) != int(SolverMode.LM_LBFGS),
+         f"-j {int(cfg.solver_mode)}: only -j 1 is ported; -j 0/2/3/4/5/6 "
+         "(OS-LM, robust LM, RTR, NSD) are the next slice"),
+        (cfg.n_epochs > 0, "-N stochastic calibration (ROADMAP queue A "
+         "item 11)"),
+        (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 9)"),
+        (cfg.simulation != SimulationMode.OFF, "-a simulation modes "
+         "(ROADMAP queue A item 9)"),
+        (cfg.per_channel_bfgs, "-b 1 per-channel solve (ROADMAP queue A "
+         "item 9)"),
+        (cfg.whiten, "-W 1 whitening (ROADMAP queue A item 4: robust.py)"),
+        (cfg.phase_only, "-J 1 phase-only correction (ROADMAP queue A "
+         "item 12: consensus/manifold.py)"),
+        (cfg.ignore_clusters_file is not None, "-z ignore list (ROADMAP "
+         "queue A item 9, with the simulation modes)"),
+        (cfg.init_solutions is not None, "-q warm start (ROADMAP queue A "
+         "item 9)"),
+        (cfg.ms_list is not None, "-f dataset lists (ROADMAP queue A "
+         "item 1)"),
+        (cfg.solver_inner != "chol", "--inner cg (ROADMAP queue A item 9, "
+         "queue B item 3)"),
+        (cfg.solver_kernel != "pallas", "--kernel xla: the XLA assembly "
+         "(ROADMAP queue A item 3)"),
+        (cfg.jones_mode != "full", f"--jones {cfg.jones_mode} (ROADMAP "
+         "queue A item 9)"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"not ported yet: {what}")
+    dtypes.validate(cfg.dtype_policy)
+
+
+class FullBatchPipeline:
+    """The sequential full-batch tile loop over a SimMS dataset.
+
+    ``device``: None runs on CUDA (raising without a card), "cpu" on the
+    CPU. The pipeline computes in float32 on the card and float64 on the
+    CPU."""
+
+    def __init__(self, cfg: RunConfig, ms: ds.SimMS, sky: skymodel.ClusterSky,
+                 device=None, log=print):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.ms = ms
+        self.sky = sky
+        self.log = log
+        self.device = devmod.resolve(device)
+        self.rdt = devmod.real_dtype(self.device)
+        self.sdt = dtypes.storage_dtype(cfg.dtype_policy, self.rdt)
+        if not coh_ops.supported(sky):
+            raise NotImplementedError(
+                "shapelet/disk/ring sources are not ported yet (ROADMAP "
+                "queue A item 2)")
+        self.dsky = rp.sky_to_device(sky, self.rdt, self.device)
+        meta = ms.meta
+        self.meta = meta
+        self.kmax = int(sky.nchunk.max())
+        self.cmask = torch.as_tensor(
+            np.arange(self.kmax)[None, :] < sky.nchunk[:, None],
+            device=self.device)
+        self.cidx = torch.as_tensor(
+            rp.chunk_indices(meta["tilesz"], meta["nbase"], sky.nchunk),
+            device=self.device, dtype=torch.long)
+        self.n = meta["n_stations"]
+        mode = effective_solver_mode(int(cfg.solver_mode), self.n)
+        self.base_cfg = sage.SageConfig(
+            max_emiter=cfg.max_em_iter, max_iter=cfg.max_iter,
+            max_lbfgs=cfg.max_lbfgs, lbfgs_m=cfg.lbfgs_m, solver_mode=mode,
+            nulow=cfg.robust_nulow, nuhigh=cfg.robust_nuhigh,
+            randomize=cfg.randomize, inner=cfg.solver_inner,
+            kernel=cfg.solver_kernel,
+            jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]))
+        self.boost = first_tile_boost(self.n)
+        self.sub_mask = sky.subtract_mask()
+        self.correct_idx = skymodel.correct_cluster_index(
+            sky, cfg.correct_cluster, warn=log)
+
+    def _t(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), device=self.device,
+                               dtype=self.rdt if dtype is None else dtype)
+
+    def stage(self, tile: ds.VisTile) -> dict:
+        """Host tile -> device tensors for the solve and the residual."""
+        x8_np, rowflags = tile.solve_input()
+        u, v, w = self._t(tile.u), self._t(tile.v), self._t(tile.w)
+        flags = rp.uvcut_flags(self._t(rowflags, torch.int32), u, v,
+                               self._t(tile.freqs), self.cfg.uvmin,
+                               self.cfg.uvmax)
+        return dict(u=u, v=v, w=w, x8=self._t(x8_np, self.sdt),
+                    wt=lm_mod.make_weights(flags, self.sdt),
+                    sta1=self._t(tile.sta1, torch.long),
+                    sta2=self._t(tile.sta2, torch.long))
+
+    def solve(self, stg: dict, J0: np.ndarray, tile_idx: int, boost: int):
+        """One solve interval: solve coherencies, then SAGE-EM with the
+        EM budget multiplied by ``boost``. Returns (J numpy, info)."""
+        meta = self.meta
+        coh = rp.coherencies(self.dsky, stg["u"], stg["v"], stg["w"],
+                             self._t([meta["freq0"]]), meta["fdelta"])[:, :, 0]
+        cdt = devmod.complex_dtype(self.rdt)
+        J0t = torch.as_tensor(J0, device=self.device).to(cdt)
+        scfg = self.base_cfg._replace(
+            max_emiter=self.base_cfg.max_emiter * boost)
+        J, info = sage.sagefit_host(
+            stg["x8"], coh, stg["sta1"], stg["sta2"], self.cidx, self.cmask,
+            J0t, self.n, stg["wt"], config=scfg, seed=199 * 1000 + tile_idx)
+        return J.cpu().numpy().astype(np.complex128), info
+
+    def residuals(self, J: np.ndarray, tile: ds.VisTile, stg: dict):
+        """[B, F, 2, 2] complex128 residual of every channel."""
+        meta = self.meta
+        freqs = self._t(meta["freqs"])
+        cdt = devmod.complex_dtype(self.rdt)
+        res = rr.calculate_residuals_multifreq(
+            self.dsky, torch.as_tensor(J, device=self.device).to(cdt),
+            torch.as_tensor(tile.x, device=self.device).to(cdt),
+            stg["u"], stg["v"], stg["w"], freqs,
+            meta["fdelta"] / len(meta["freqs"]), stg["sta1"], stg["sta2"],
+            self.cidx, self.sub_mask, correct_idx=self.correct_idx,
+            rho=self.cfg.mmse_rho)
+        return utils.r2c(rr.residual_writeback(res).cpu().numpy()).astype(
+            np.complex128)
+
+    def initial_jones(self) -> np.ndarray:
+        return np.tile(np.eye(2, dtype=np.complex128),
+                       (self.sky.n_clusters, self.kmax, self.n, 1, 1))
+
+    def run(self, write_residuals: bool = True, solution_path=None,
+            max_tiles=None, log=None):
+        """Solve every tile in order; returns the per-tile history."""
+        log = self.log if log is None else log
+        ms, sky, meta = self.ms, self.sky, self.meta
+        n_tiles = ms.n_tiles if not max_tiles else min(ms.n_tiles,
+                                                       int(max_tiles))
+        writer = None
+        if solution_path:
+            writer = sol.SolutionWriter(
+                solution_path, meta["freq0"], meta["fdelta"],
+                meta["tilesz"] * meta["tdelta"] / 60.0, self.n,
+                sky.n_clusters, sky.n_eff_clusters)
+        pinit = self.initial_jones()
+        J = pinit.copy()
+        first = True
+        res_prev = None
+        history = []
+        try:
+            for ti in range(n_tiles):
+                t0 = time.time()
+                launches0 = (coh_ops.LAUNCHES, swp.LAUNCHES)
+                tile = ms.read_tile(ti)
+                stg = self.stage(tile)
+                t_solve = time.time()
+                Jnew, info = self.solve(stg, J, ti,
+                                        self.boost if first else 1)
+                first = False
+                res_0 = float(info["res_0"])
+                res_1 = float(info["res_1"])
+                mean_nu = float(info["mean_nu"])
+                J = Jnew
+                if res_1 == 0.0 or not np.isfinite(res_1) or (
+                        res_prev is not None
+                        and res_1 > RES_RATIO * res_prev):
+                    log(f"tile {ti}: Resetting Solution")
+                    J = pinit.copy()
+                    first = True
+                    res_prev = res_1 if np.isfinite(res_1) else None
+                else:
+                    res_prev = (res_1 if res_prev is None
+                                else min(res_prev, res_1))
+                if writer:
+                    writer.write_interval(J, sky.nchunk)
+                t_res = time.time()
+                if write_residuals:
+                    tile.x = self.residuals(J, tile, stg)
+                    t_write = time.time()
+                    ms.write_tile(ti, tile)
+                t1 = time.time()
+                secs = {"read_s": t_solve - t0, "solve_s": t_res - t_solve,
+                        "em_s": info["em_s"], "refine_s": info["refine_s"],
+                        "residual_s": (t_write - t_res
+                                       if write_residuals else 0.0),
+                        "write_s": t1 - t_write if write_residuals else 0.0}
+                dt = (t1 - t0) / 60.0
+                log(f"Timeslot: {ti} Residual: initial={res_0:.6g}, "
+                    f"final={res_1:.6g}, Time spent={dt:.3g} minutes, "
+                    f"nu={mean_nu:.2f}")
+                rec = {"tile": ti, "res_0": res_0, "res_1": res_1,
+                       "mean_nu": mean_nu, "minutes": dt,
+                       **lm_mod.executed_trips(info),
+                       "launches": {"coh": coh_ops.LAUNCHES - launches0[0],
+                                    "sweep": swp.LAUNCHES - launches0[1]},
+                       **secs}
+                history.append(rec)
+                if self.cfg.verbose:
+                    log(f"Timeslot: {ti} stats: " + json.dumps(
+                        {k: rec[k] for k in ("solver_iters", "lbfgs_iters",
+                                             "launches", *secs)}))
+        finally:
+            if writer:
+                writer.close()
+        return history
+
+
+def run(cfg: RunConfig, device=None, log=print):
+    """Open the dataset and the sky model and run full-batch
+    calibration on ``device`` (None: CUDA, raising without a card)."""
+    check_supported(cfg)
+    dev = devmod.resolve(device)
+    ms = ds.open_dataset(cfg.ms, cfg.ms_list, data_column=cfg.input_column,
+                         out_column=cfg.output_column)
+    meta = ms.meta
+    sky = skymodel.read_sky_cluster(cfg.sky_model, cfg.cluster_file,
+                                    meta["ra0"], meta["dec0"], meta["freq0"],
+                                    cfg.format_3)
+    pipe = FullBatchPipeline(cfg, ms, sky, device=dev, log=log)
+    return pipe.run(solution_path=cfg.solutions_file,
+                    max_tiles=cfg.max_timeslots or None, log=log)

@@ -1,0 +1,75 @@
+"""The port imports neither ``jax`` nor ``sagecal_tpu``, and its entry
+points refuse to run on the CPU unless asked to."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+import sagecal_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    names = ["sagecal_tpu_torch"]
+    for m in pkgutil.walk_packages(sagecal_tpu_torch.__path__,
+                                   "sagecal_tpu_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def test_every_module_imports_without_jax():
+    """In a fresh interpreter where importing jax or sagecal_tpu fails,
+    every port module and chip_smoke.py import."""
+    mods = _modules()
+    assert "sagecal_tpu_torch.ops.sweep" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sagecal_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sagecal_tpu' or m.startswith('sagecal_tpu.')]\n"
+        "bad = [m for m in bad if sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_refuse_cpu_fallback():
+    """Without a CUDA device and without device='cpu', the pipeline and
+    the CLI raise instead of running on the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sagecal_tpu_torch import cli, device, pipeline
+    from sagecal_tpu_torch.config import RunConfig, SolverMode
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device.resolve()
+    cfg = RunConfig(ms="unused", sky_model="unused", cluster_file="unused",
+                    solver_mode=SolverMode.LM_LBFGS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.run(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-d", "unused", "-s", "unused", "-c", "unused", "-j", "1"])
+    assert device.resolve("cpu").type == "cpu"
+
+
+def test_kernel_build_is_lazy():
+    """Importing the kernel modules builds nothing and needs no nvcc."""
+    from sagecal_tpu_torch.ops import coh, cuda_lib, sweep
+    assert coh.LAUNCHES == 0 and sweep.LAUNCHES == 0
+    assert cuda_lib._LIBS == {}
+    assert set(cuda_lib.SOURCES) == {"coh", "sweep"}
+    for name in cuda_lib.SOURCES:
+        assert (cuda_lib.CSRC / f"{name}.cu").is_file()

@@ -1,0 +1,167 @@
+"""The port's full-batch slice end to end against the JAX reference.
+
+One SimMS (the tests/test_pipeline.py fixture: 10 stations, 2 clusters
+with 1 and 2 hybrid chunks, 2 tiles of 4 timeslots, 2 channels) is
+written once by the JAX package and copied; both CLIs calibrate a copy
+with ``-j 1 -e 2 -g 10 -l 5 -t 4 -R 0 --kernel pallas`` (the JAX one
+with fuse/promote pinned off, the port with ``--platform cpu``), both in
+float64. Gates: per-tile res_0/res_1 rtol 1e-8, solutions atol 1e-6,
+written residual column 1e-7 of the data's largest magnitude."""
+
+import math
+import shutil
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from sagecal_tpu import cli, pipeline, skymodel
+from sagecal_tpu.io import dataset as ds, solutions as sol
+from sagecal_tpu.rime import predict as rp
+from sagecal_tpu_torch import cli as tcli
+from sagecal_tpu_torch import convert
+from sagecal_tpu_torch import pipeline as tpipeline
+from sagecal_tpu_torch.io import dataset as tds
+from sagecal_tpu_torch.io import solutions as tsol
+
+SKY = """\
+P0A 0 40 0 40 0 0 3.0 0 0 0 0 0 0 0 0 150e6
+P0B 0 42 0 40 30 0 2.0 0 0 0 0 0 0 0 0 150e6
+P1A 1 20 0 38 0 0 2.5 0 0 0 0 0 0 0 0 150e6
+"""
+CLUSTER = """\
+0 1 P0A P0B
+1 2 P1A
+"""
+FLAGS = ["-j", "1", "-e", "2", "-g", "10", "-l", "5", "-t", "4", "-R", "0",
+         "--kernel", "pallas"]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    tmp = tmp_path_factory.mktemp("torch_pipeline")
+    (tmp / "sky.txt").write_text(SKY)
+    (tmp / "sky.txt.cluster").write_text(CLUSTER)
+    ra0 = (0 + 41 / 60) * math.pi / 12
+    dec0 = 40 * math.pi / 180
+    srcs = skymodel.parse_sky_model(str(tmp / "sky.txt"), ra0, dec0, 150e6)
+    sky = skymodel.build_cluster_sky(
+        srcs, skymodel.parse_cluster_file(str(tmp / "sky.txt.cluster")))
+    dsky = rp.sky_to_device(sky, jnp.float64)
+    Jtrue = ds.random_jones(sky.n_clusters, sky.nchunk, 10, seed=2,
+                            scale=0.2)
+    tiles = [ds.simulate_dataset(dsky, n_stations=10, tilesz=4,
+                                 freqs=[149e6, 151e6], ra0=ra0, dec0=dec0,
+                                 jones=Jtrue, nchunk=sky.nchunk,
+                                 noise_sigma=0.02, seed=3 + i)
+             for i in range(2)]
+    ds.SimMS.create(str(tmp / "jax.ms"), tiles)
+    shutil.copytree(tmp / "jax.ms", tmp / "torch.ms")
+    common = ["-s", str(tmp / "sky.txt"), "-c", str(tmp / "sky.txt.cluster")]
+
+    jargs = cli.build_parser().parse_args(
+        ["-d", str(tmp / "jax.ms"), "-p", str(tmp / "jax.sol")] + common
+        + FLAGS + ["--solve-fuse", "off", "--solve-promote", "off"])
+    jhist = pipeline.run(cli.config_from_args(jargs), log=lambda *a: None)
+    targs = tcli.build_parser().parse_args(
+        ["-d", str(tmp / "torch.ms"), "-p", str(tmp / "torch.sol")] + common
+        + FLAGS + ["--platform", "cpu"])
+    thist = tpipeline.run(tcli.config_from_args(targs), device="cpu",
+                          log=lambda *a: None)
+    yield dict(tmp=tmp, sky=sky, dsky=dsky, jhist=jhist, thist=thist)
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("key", ["res_0", "res_1"])
+def test_tile_residual_norms_match(runs, key):
+    j, t = runs["jhist"], runs["thist"]
+    assert len(j) == len(t) == 2
+    np.testing.assert_allclose([h[key] for h in t], [h[key] for h in j],
+                               rtol=1e-8)
+
+
+def test_residuals_fall_every_tile(runs):
+    for h in runs["thist"]:
+        assert np.isfinite(h["res_1"]) and h["res_1"] < h["res_0"]
+        # the CPU run takes the plain versions: no kernel launches
+        assert h["launches"] == {"coh": 0, "sweep": 0}
+        assert h["solver_iters"] > 0 and h["lbfgs_iters"] > 0
+
+
+def test_solutions_match(runs):
+    tmp, sky = runs["tmp"], runs["sky"]
+    jh, jb = sol.read_solutions(str(tmp / "jax.sol"), sky.nchunk)
+    th, tb = tsol.read_solutions(str(tmp / "torch.sol"), sky.nchunk)
+    assert th == jh and len(tb) == len(jb) == 2
+    for a, b in zip(tb, jb):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+
+
+def test_written_residual_column_matches(runs):
+    tmp = runs["tmp"]
+    jms = ds.SimMS(str(tmp / "jax.ms"), data_column="CORRECTED_DATA")
+    tms = tds.SimMS(str(tmp / "torch.ms"), data_column="CORRECTED_DATA")
+    raw = tds.SimMS(str(tmp / "torch.ms"))
+    for i in range(2):
+        scale = np.abs(raw.read_tile(i).x).max()
+        got, want = tms.read_tile(i).x, jms.read_tile(i).x
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-7 * scale)
+        assert np.abs(got).mean() < np.abs(raw.read_tile(i).x).mean()
+
+
+def test_convert_roundtrips_sky(runs):
+    dsky = runs["dsky"]
+    fields = {k: np.asarray(getattr(dsky, k)) for k in dsky._fields}
+    back = convert.sky_to_numpy(convert.sky_from_numpy(fields))
+    assert set(back) == set(fields)
+    for k in fields:
+        np.testing.assert_array_equal(back[k], fields[k], err_msg=k)
+
+
+def test_convert_jones_and_tile():
+    rng = np.random.default_rng(0)
+    J = rng.normal(size=(2, 3, 4, 2, 2)) + 1j * rng.normal(size=(2, 3, 4, 2, 2))
+    r8 = np.stack([J.reshape(2, 3, 4, 4).real, J.reshape(2, 3, 4, 4).imag],
+                  -1).reshape(2, 3, 4, 8)
+    np.testing.assert_array_equal(convert.jones_from_numpy(J).numpy(), J)
+    np.testing.assert_array_equal(convert.jones_from_numpy(r8).numpy(), J)
+    t = ds.VisTile(u=np.zeros(3), v=np.zeros(3), w=np.zeros(3),
+                   x=np.zeros((3, 1, 2, 2), complex),
+                   flags=np.zeros(3, np.int8), sta1=np.zeros(3, np.int32),
+                   sta2=np.ones(3, np.int32), freqs=np.array([1.5e8]),
+                   freq0=1.5e8, fdelta=1e5, tdelta=1.0, dec0=0.1, ra0=0.2,
+                   n_stations=2, nbase=1, tilesz=3)
+    tt = convert.tile_from_numpy(**vars(t))
+    assert tt.nbase == 1 and tt.x.shape == (3, 1, 2, 2)
+
+
+def test_port_reads_jax_written_simms(runs):
+    """A SimMS written by the JAX package reads back identically."""
+    tmp = runs["tmp"]
+    a = ds.SimMS(str(tmp / "jax.ms")).read_tile(1)
+    b = tds.SimMS(str(tmp / "jax.ms")).read_tile(1)
+    for k in ("u", "v", "w", "x", "flags", "sta1", "sta2", "freqs"):
+        np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
+
+
+@pytest.mark.parametrize("extra", [["-j", "5"], ["-N", "2"], ["-B", "1"],
+                                   ["--inner", "cg"], ["--kernel", "xla"],
+                                   ["--jones", "diag"], ["-q", "x.sol"],
+                                   ["--dtype-policy", "bf16"],
+                                   ["--prefetch", "0"]])
+def test_unported_flags_raise(runs, extra):
+    tmp = runs["tmp"]
+    argv = ["-d", str(tmp / "torch.ms"), "-s", str(tmp / "sky.txt"),
+            "-c", str(tmp / "sky.txt.cluster"), "--platform", "cpu"] + extra
+    if "-j" not in extra:
+        argv += ["-j", "1"]
+    with pytest.raises(NotImplementedError, match="ROADMAP|next slice"):
+        tcli.main(argv)
+
+
+def test_cli_missing_args():
+    assert tcli.main([]) == 2

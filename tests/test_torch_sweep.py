@@ -1,0 +1,208 @@
+"""Port fused-sweep module (sagecal_tpu_torch/ops/sweep.py) against the
+JAX reference in float64: the plain PyTorch sweep against the Pallas
+kernel in interpret mode, the station aggregation, and the damped
+block solve with its boosted-jitter retry. Tolerances are those of
+tests/test_sweep_pallas.py (atol 5e-9 of the largest Gram entry on the
+blocks, rtol 1e-9 on the cost): the same sums in another order."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from sagecal_tpu.ops import sweep_pallas as swp
+from sagecal_tpu.solvers import normal_eq as ne
+from sagecal_tpu_torch.ops import sweep as tswp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _toy(N=6, T=4, K=1, seed=0, noise=0.0):
+    """The tests/test_sweep_pallas.py _toy problem, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    p, q = np.triu_indices(N, k=1)
+    nbase = len(p)
+    sta1 = np.tile(p, T).astype(np.int32)
+    sta2 = np.tile(q, T).astype(np.int32)
+    B = nbase * T
+    chunk_id = ((np.arange(B) // nbase) * K // T).astype(np.int32)
+    coh = rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2))
+    Jtrue = (rng.normal(size=(K, N, 2, 2)) * 0.3
+             + 1j * rng.normal(size=(K, N, 2, 2)) * 0.3 + np.eye(2))
+    V = (Jtrue[chunk_id, sta1] @ coh
+         @ np.conj(Jtrue[chunk_id, sta2].transpose(0, 2, 1)))
+    if noise:
+        V = V + noise * (rng.normal(size=V.shape)
+                         + 1j * rng.normal(size=V.shape))
+    x8 = np.stack([V.reshape(B, 4).real, V.reshape(B, 4).imag],
+                  -1).reshape(B, 8)
+    return x8, coh, sta1, sta2, chunk_id, nbase
+
+
+def _weights(B, nbase, seed):
+    """Uniform, OS-style contiguous zeroing and IRLS-style weights."""
+    rng = np.random.default_rng(seed)
+    ones = np.ones((B, 8))
+    os_wt = ones.copy()
+    os_wt[: 2 * nbase] = 0.0
+    irls = rng.random((B, 8)) * (rng.random((B, 1)) > 0.1)
+    return {"uniform": ones, "os_subset": os_wt, "irls": irls}
+
+
+def _both(x8, coh, s1, s2, cid, J, wt, cw, nbase, K):
+    ref = swp.sweep_blocks(jnp.asarray(x8), jnp.asarray(J), jnp.asarray(coh),
+                           jnp.asarray(s1), jnp.asarray(s2),
+                           jnp.asarray(cid), jnp.asarray(wt),
+                           jnp.asarray(cw), nbase, K, interpret=True)
+    t = _t
+    got = tswp.sweep_blocks(t(x8), t(J), t(coh), t(s1), t(s2), t(cid),
+                            t(wt), t(cw), nbase, K)
+    return [np.asarray(r) for r in ref], [g.numpy() for g in got]
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+CASES = [(K, w) for K in (1, 2, 4) for w in ("uniform", "os_subset", "irls")]
+
+
+@pytest.mark.parametrize("K,wname", CASES)
+def test_sweep_blocks_match_pallas(K, wname):
+    x8, coh, s1, s2, cid, nbase = _toy(N=6, T=4, K=K, seed=3 + K,
+                                       noise=0.05)
+    rng = np.random.default_rng(10 + K)
+    J = (rng.normal(size=(K, 6, 2, 2))
+         + 1j * rng.normal(size=(K, 6, 2, 2))) * 0.4 + np.eye(2)
+    wt = _weights(x8.shape[0], nbase, 5)[wname]
+    cw = rng.random(wt.shape)                # cost_wt != wt
+    ref, got = _both(x8, coh, s1, s2, cid, J, wt, cw, nbase, K)
+    scale = np.abs(ref[0]).max() + 1e-30
+    for name, r, g in zip(("pp", "qq", "pq", "jtep", "jteq"), ref, got):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g, r, atol=5e-9 * scale, err_msg=name)
+    np.testing.assert_allclose(got[5], ref[5], rtol=1e-9)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_gn_blocks_match_pallas(K):
+    x8, coh, s1, s2, cid, nbase = _toy(N=6, T=4, K=K, seed=7)
+    rng = np.random.default_rng(8)
+    p = rng.normal(size=(K, 6, 8))
+    J = np.asarray(ne.jones_r2c(jnp.asarray(p)))
+    wt = np.ones((x8.shape[0], 8))
+    fac, JTe, cost = swp.gn_blocks(
+        jnp.asarray(x8), jnp.asarray(J), jnp.asarray(coh), jnp.asarray(s1),
+        jnp.asarray(s2), jnp.asarray(cid), jnp.asarray(wt), 6, K, nbase,
+        interpret=True)
+    t = _t
+    tfac, tJTe, tcost = tswp.gn_blocks(t(x8), t(J), t(coh), t(s1), t(s2),
+                                       t(cid), t(wt), 6, K, nbase)
+    scale = float(jnp.abs(fac.D).max())
+    np.testing.assert_allclose(tfac.D.numpy(), np.asarray(fac.D),
+                               atol=5e-9 * scale)
+    np.testing.assert_allclose(tJTe.numpy(), np.asarray(JTe),
+                               atol=5e-9 * scale)
+    np.testing.assert_allclose(tcost.numpy(), np.asarray(cost), rtol=1e-9)
+    A = swp._assemble_damped(fac, jnp.full((K,), 0.3), jnp.asarray(s1),
+                             jnp.asarray(s2), 6)
+    tA = tswp._assemble_damped(tfac, torch.full((K,), 0.3,
+                                                dtype=torch.float64),
+                               t(s1), t(s2), 6)
+    np.testing.assert_allclose(tA.numpy(), np.asarray(A), atol=5e-9 * scale)
+
+
+def test_station_aggregates_accumulate_repeats():
+    """Repeated station indices must accumulate (index_add_), not
+    overwrite: a baseline list whose stations repeat."""
+    rng = np.random.default_rng(0)
+    K, nb, N = 2, 5, 3
+    pp = torch.as_tensor(rng.normal(size=(K, nb, 2, 4, 4)))
+    qq = torch.as_tensor(rng.normal(size=(K, nb, 2, 4, 4)))
+    jp = torch.as_tensor(rng.normal(size=(K, nb, 2, 4)))
+    jq = torch.as_tensor(rng.normal(size=(K, nb, 2, 4)))
+    s1 = torch.tensor([0, 0, 1, 0, 1])
+    s2 = torch.tensor([1, 2, 2, 1, 2])
+    D, JTe = tswp._station_aggregates(pp, qq, jp, jq, s1, s2, N)
+    Dr, JTer = swp._station_aggregates(
+        jnp.asarray(pp.numpy()), jnp.asarray(qq.numpy()),
+        jnp.asarray(jp.numpy()), jnp.asarray(jq.numpy()),
+        jnp.asarray(s1.numpy()), jnp.asarray(s2.numpy()), N)
+    np.testing.assert_allclose(D.numpy(), np.asarray(Dr), rtol=1e-13)
+    np.testing.assert_allclose(JTe.numpy(), np.asarray(JTer), rtol=1e-13)
+
+
+def _fac_pair(K, seed):
+    x8, coh, s1, s2, cid, nbase = _toy(N=6, T=5, K=K, seed=seed,
+                                       noise=0.05)
+    J = np.tile(np.eye(2, dtype=complex), (K, 6, 1, 1))
+    wt = np.ones((x8.shape[0], 8))
+    fac, JTe, _ = swp.gn_blocks(
+        jnp.asarray(x8), jnp.asarray(J), jnp.asarray(coh), jnp.asarray(s1),
+        jnp.asarray(s2), jnp.asarray(cid), jnp.asarray(wt), 6, K, nbase,
+        interpret=True)
+    t = _t
+    tfac, tJTe, _ = tswp.gn_blocks(t(x8), t(J), t(coh), t(s1), t(s2),
+                                   t(cid), t(wt), 6, K, nbase)
+    return fac, JTe, tfac, tJTe, s1, s2
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_solve_damped_blocks_matches(K):
+    fac, JTe, tfac, tJTe, s1, s2 = _fac_pair(K, 12)
+    mu = np.linspace(0.1, 0.5, K)
+    dp, ok = swp.solve_damped_blocks(fac, JTe, jnp.asarray(mu), 1e-9,
+                                     jnp.asarray(s1), jnp.asarray(s2), 6)
+    tdp, tok = tswp.solve_damped_blocks(tfac, tJTe, torch.as_tensor(mu),
+                                        1e-9, torch.as_tensor(s1),
+                                        torch.as_tensor(s2), 6)
+    assert tok.numpy().tolist() == np.asarray(ok).tolist() == [True] * K
+    np.testing.assert_allclose(tdp.numpy(), np.asarray(dp),
+                               rtol=1e-7, atol=1e-9 * np.abs(dp).max())
+
+
+def test_solve_damped_blocks_retry_branch():
+    """An indefinite damped system (negative shift on chunk 0) fails the
+    first factorization; the boosted-jitter retry recovers it, chunk 1
+    solves first time — in both packages, chunk for chunk."""
+    K = 2
+    fac, JTe, tfac, tJTe, s1, s2 = _fac_pair(K, 13)
+    A = np.asarray(swp._assemble_damped(fac, None, jnp.asarray(s1),
+                                        jnp.asarray(s2), 6))
+    lam = np.linalg.eigvalsh(A)[:, 0]
+    dd = np.abs(np.diagonal(np.asarray(fac.D), axis1=-2, axis2=-1))
+    dmax = dd.reshape(K, -1).max(axis=-1)
+    mu = np.array([-lam[0] - 0.5e-3 * dmax[0], 0.2])
+    dp, ok = swp.solve_damped_blocks(fac, JTe, jnp.asarray(mu), 1e-9,
+                                     jnp.asarray(s1), jnp.asarray(s2), 6)
+    _, ok1 = swp.chol_solve_blocks_shift(fac, JTe, jnp.asarray(mu) + 1e-9,
+                                         jnp.asarray(s1), jnp.asarray(s2), 6)
+    assert np.asarray(ok1).tolist() == [False, True]   # retry is exercised
+    tdp, tok = tswp.solve_damped_blocks(tfac, tJTe, torch.as_tensor(mu),
+                                        1e-9, torch.as_tensor(s1),
+                                        torch.as_tensor(s2), 6)
+    assert tok.numpy().tolist() == np.asarray(ok).tolist() == [True, True]
+    np.testing.assert_allclose(tdp.numpy(), np.asarray(dp), rtol=1e-6,
+                               atol=1e-8 * np.abs(dp).max())
+
+
+def test_time_slices_cover_all_rows():
+    for T, nb, K in ((120, 1891, 1), (120, 1891, 4), (4, 15, 2), (1, 3, 1)):
+        nsl, tl = tswp._time_slices(T, nb, K)
+        assert nsl * tl >= T > (nsl - 1) * tl
+
+
+def test_unported_modes_raise():
+    x8, coh, s1, s2, cid, nbase = _toy()
+    t = _t
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tswp.sweep_blocks(t(x8), t(np.ones((1, 6, 2, 2), complex)), t(coh),
+                          t(s1), t(s2), t(cid), t(np.ones((60, 8))),
+                          t(np.ones((60, 8))), nbase, 1, jones="diag")
+
