@@ -4,14 +4,18 @@
 
 Builds the port's CUDA kernels from ``sagecal_tpu_torch/csrc`` (into
 ``build/torch_kernels/``), holds each kernel against its plain PyTorch
-version on the card at the shapes the full-batch path gives it, checks
-the port's pipeline on the card against the same pipeline on the CPU,
-and drives the full-batch CLI end to end on a synthetic observation at
-full width (62 LOFAR-like stations, 120 timeslots, 8 channels, 8
-clusters x 64 sources). Every phase prints one JSON line; any failure
-ends the run with a non-zero exit. The last lines are the card's name
-and power limit (``nvidia-smi``), a ``{"kernels": [...]}`` summary and
-``{"ok": true, "device": {...}}``.
+version on the card at the shapes the full-batch path gives it (phases
+``coh``, ``sweep``, ``matvec``), checks the port's pipeline on the card
+against the same pipeline on the CPU at ``-j 1``, at the default solver
+mode and at ``-j 5 --inner cg`` (``slice_parity``), and drives the
+full-batch CLI end to end on a synthetic observation at full width (62
+LOFAR-like stations, 120 timeslots, 8 channels, 8 clusters x 64
+sources): ``e2e`` at ``-j 1`` on one tile, ``e2e_rtr`` at ``-j 5 --inner
+cg`` (robust RTR with the matvec kernel in every tCG product) on two.
+Every phase prints one JSON line; any failure ends the run with a
+non-zero exit. The last lines are the card's name and power limit
+(``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
+"device": {...}}``.
 
 Importing this module does nothing; it imports neither ``jax`` nor
 ``sagecal_tpu``.
@@ -314,9 +318,84 @@ def phase_sweep():
     return out
 
 
+def _baseline_blocks(fac):
+    """The [K, nb, 16, 16] baseline blocks [pp pq; pq^T qq] acting on
+    (vp, vq), assembled once for the library-call yardstick."""
+    import torch
+    K, nb = fac.pp.shape[0], fac.pp.shape[1]
+    Bk = fac.pp.new_zeros((K, nb, 2, 2, 4, 2, 2, 4))   # [row s,a][col s,a]
+    for a in range(2):
+        Bk[:, :, 0, a, :, 0, a, :] = fac.pp[:, :, a]
+        Bk[:, :, 1, a, :, 1, a, :] = fac.qq[:, :, a]
+        for o in range(2):
+            Bk[:, :, 0, a, :, 1, o, :] = fac.pq[:, :, a, o]
+            Bk[:, :, 1, o, :, 0, a, :] = fac.pq[:, :, a, o].transpose(-1, -2)
+    return Bk.reshape(K, nb, 16, 16).contiguous()
+
+
+def phase_matvec():
+    """The blocks matvec kernel against its plain version on Gram blocks
+    from a full-width sweep (the layout the tCG and PCG loops hand it)."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    out = {}
+    for K in (1, 4):
+        args, (B, nb) = _sweep_inputs(K, seed=3)
+        x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
+        N = N_STATIONS
+        fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb)
+        gen = torch.Generator(device="cuda").manual_seed(K)
+        v = torch.randn((K, 8 * N), device="cuda", generator=gen,
+                        dtype=torch.float32)
+        shift = torch.rand((K,), device="cuda", generator=gen,
+                           dtype=torch.float32) + 0.1
+        s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
+        n0 = swp.MATVEC_LAUNCHES
+        got = swp.gn_matvec_blocks(fac, v, sta1, sta2, N, shift=shift)
+        torch.cuda.synchronize()
+        if swp.MATVEC_LAUNCHES != n0 + 1:
+            raise AssertionError("matvec: the wrapper did not launch")
+        ref = swp.gn_matvec_blocks_plain(fac, v, s1b, s2b, N, shift=shift)
+        abs_err, rel = rel_err(got, ref)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"matvec kernel K={K}: {rel:.3e} > "
+                                 f"{KERNEL_RTOL}")
+        Bk = _baseline_blocks(fac)
+
+        def library():
+            vr = v.reshape(K, N, 8)
+            vg = torch.cat([vr[:, s1b], vr[:, s2b]], dim=-1)[..., None]
+            yb = torch.matmul(Bk, vg)[..., 0]
+            y = v.new_zeros((K, N, 8))
+            y.index_add_(1, s1b, yb[..., :8]).index_add_(1, s2b, yb[..., 8:])
+            return y.reshape(K, 8 * N) + shift[:, None] * v
+
+        lib_err = rel_err(library(), ref)[1]
+        if not lib_err <= KERNEL_RTOL:
+            raise AssertionError(f"matvec yardstick disagrees: {lib_err}")
+        ms = cuda_ms(lambda: swp.gn_matvec_blocks(fac, v, sta1, sta2, N,
+                                                  shift=shift), 200)
+        plain_ms = cuda_ms(lambda: swp.gn_matvec_blocks_plain(
+            fac, v, s1b, s2b, N, shift=shift), 50)
+        library_ms = cuda_ms(library, 50)
+        # blocks read once, v gathered per baseline end and read for the
+        # shift, y written once
+        n_bytes = 4 * (K * nb * (32 + 32 + 64) + K * nb * 16
+                       + 2 * K * N * 8)
+        bms, by = bound_ms(n_bytes, swp.MATVEC_FLOPS_PER_BASELINE * K * nb
+                           + 2 * K * N * 8)
+        rec = dict(K=K, nb=nb, N=N, max_abs_err=abs_err, rel_err=rel, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=library_ms, library_rel_err=lib_err)
+        emit("matvec", **rec)
+        out[K] = rec
+    return out
+
+
 def _counts():
     from sagecal_tpu_torch.ops import coh, sweep
-    return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES}
+    return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES,
+            "matvec": sweep.MATVEC_LAUNCHES}
 
 
 def _reset():
@@ -325,74 +404,111 @@ def _reset():
     sweep.reset_launches()
 
 
+#: slice_parity runs: (tag, stations, chunks per cluster, CLI solver
+#: flags, kernels that must launch on the card). The default -j (5) runs
+#: as mode 3 (OS-LM under Cholesky) at 16 stations, on single-chunk
+#: clusters: with a 2-chunk cluster the first OS subset holds no row of
+#: chunk 1, the reference seeds its damping at 1e-33 and roundoff grows
+#: ~1e9-fold, so float32 runs land up to 2e-2 from float64 (measured with
+#: tools_dev/torch_parity_spread.py). 41 stations keep robust RTR from the
+#: LMCUT downgrade
+PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep")),
+               ("default", 16, (1, 1, 1), [], ("coh", "sweep")),
+               ("j5_cg", 41, (1, 2, 1), ["-j", "5", "--inner", "cg"],
+                ("coh", "sweep", "matvec")))
+
+
 def phase_slice_parity():
     """The port's pipeline on the card (kernels, float32) against the
-    same pipeline on the CPU (plain versions, float64)."""
+    same pipeline on the CPU (plain versions, float64), per solver
+    mode."""
     from sagecal_tpu_torch import pipeline
     from sagecal_tpu_torch.cli import build_parser, config_from_args
-    work = os.path.join(WORK, "parity")
-    shutil.rmtree(work, ignore_errors=True)
-    ms, sky, clus = make_observation(work, 16, 10, FREQS[:2], 3, 6,
-                                     (1, 2, 1), 2, "cpu", seed=9, noise=0.02)
-    shutil.copytree(ms, ms + ".cpu")
-    hist = {}
-    for dev, path in (("cuda", ms), ("cpu", ms + ".cpu")):
-        args = build_parser().parse_args(
-            ["-d", path, "-s", sky, "-c", clus, "-j", "1", "-e", "2", "-g",
-             "10", "-l", "5", "-R", "0", "-t", "10"])
-        _reset()
-        hist[dev] = pipeline.run(config_from_args(args),
-                                 device=None if dev == "cuda" else "cpu",
-                                 log=lambda *a: None)
-        if dev == "cuda":
-            launches = _counts()
-            if not all(launches.values()):
-                raise AssertionError(f"slice_parity: a kernel never "
-                                     f"launched on the card: {launches}")
-    rels = []
-    for hg, hc in zip(hist["cuda"], hist["cpu"]):
-        for key in ("res_0", "res_1"):
-            rels.append(abs(hg[key] - hc[key]) / abs(hc[key]))
-    emit("slice_parity",
-         cuda=[[h["res_0"], h["res_1"]] for h in hist["cuda"]],
-         cpu=[[h["res_0"], h["res_1"]] for h in hist["cpu"]],
-         max_rel=max(rels), launches=launches)
-    if not max(rels) <= PARITY_RTOL:
-        raise AssertionError(f"slice_parity: {max(rels):.3e} > "
-                             f"{PARITY_RTOL}")
+    out = {}
+    for tag, n_st, nchunk, flags, must in PARITY_RUNS:
+        work = os.path.join(WORK, "parity_" + tag)
+        shutil.rmtree(work, ignore_errors=True)
+        ms, sky, clus = make_observation(work, n_st, 10, FREQS[:2], 3, 6,
+                                         nchunk, 2, "cpu", seed=9,
+                                         noise=0.02)
+        shutil.copytree(ms, ms + ".cpu")
+        hist, secs = {}, {}
+        for dev, path in (("cuda", ms), ("cpu", ms + ".cpu")):
+            args = build_parser().parse_args(
+                ["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10",
+                 "-l", "5", "-R", "0", "-t", "10"] + flags)
+            _reset()
+            t0 = time.perf_counter()
+            hist[dev] = pipeline.run(config_from_args(args),
+                                     device=None if dev == "cuda" else "cpu",
+                                     log=lambda *a: None)
+            secs[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launches = _counts()
+                if not all(launches[k] for k in must):
+                    raise AssertionError(
+                        f"slice_parity {tag}: a kernel never launched on "
+                        f"the card: {launches}")
+        rels = [abs(hg[key] - hc[key]) / abs(hc[key])
+                for hg, hc in zip(hist["cuda"], hist["cpu"])
+                for key in ("res_0", "res_1")]
+        rec = dict(tag=tag, stations=n_st, nchunk=nchunk, flags=flags,
+                   cuda=[[h["res_0"], h["res_1"], h["mean_nu"]]
+                         for h in hist["cuda"]],
+                   cpu=[[h["res_0"], h["res_1"], h["mean_nu"]]
+                        for h in hist["cpu"]],
+                   max_rel=max(rels), launches=launches, seconds=secs,
+                   cg_iters=[h.get("cg_iters", 0) for h in hist["cuda"]])
+        emit("slice_parity", **rec)
+        if not max(rels) <= PARITY_RTOL:
+            raise AssertionError(f"slice_parity {tag}: {max(rels):.3e} > "
+                                 f"{PARITY_RTOL}")
+        out[tag] = rec
+    return out
 
 
-def phase_e2e():
-    """The full-batch CLI at full width on the card."""
-    import contextlib
-    import io
-    import torch
-    from sagecal_tpu_torch import cli, skymodel
-    from sagecal_tpu_torch.io import dataset as ds
-    from sagecal_tpu_torch.io import solutions as sol
+def observation_e2e():
+    """The full-width synthetic observation of the e2e phases (2 tiles,
+    simulated on the card). Returns (ms, sky, cluster, setup seconds)."""
     work = os.path.join(WORK, "e2e")
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
     ms, sky, clus = make_observation(work, N_STATIONS, TILESZ, FREQS,
                                      N_CLUSTERS, N_SOURCES, NCHUNK, 2,
                                      "cuda", seed=5, noise=0.01)
-    setup_s = time.perf_counter() - t0
-    solpath = os.path.join(work, "solutions.txt")
+    return ms, sky, clus, time.perf_counter() - t0
+
+
+def phase_e2e(obs, phase: str, flags, n_tiles: int, must):
+    """The full-batch CLI at full width on the card, over the first
+    ``n_tiles`` tiles of ``obs`` with solver ``flags``; ``must`` names
+    the kernels that have to launch."""
+    import contextlib
+    import io
+    import torch
+    from sagecal_tpu_torch import cli, skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    src, sky, clus, setup_s = obs
+    ms = os.path.join(os.path.dirname(src), phase + ".ms")
+    shutil.rmtree(ms, ignore_errors=True)
+    shutil.copytree(src, ms)
+    solpath = os.path.join(os.path.dirname(ms), phase + "_solutions.txt")
     buf = io.StringIO()
     _reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-d", ms, "-s", sky, "-c", clus, "-p", solpath,
-                       "-j", "1", "-e", "3", "-g", "10", "-l", "10",
-                       "-m", "7", "-t", str(TILESZ), "-V"])
+                       "-e", "3", "-g", "10", "-l", "10", "-m", "7", "-t",
+                       str(TILESZ), "-T", str(n_tiles), "-V"] + flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
-    if not all(launches.values()):
-        raise AssertionError(f"e2e: a kernel never launched: {launches}")
+    if not all(launches[k] for k in must):
+        raise AssertionError(f"{phase}: a kernel never launched: {launches}")
     tiles = []
     for ln in buf.getvalue().splitlines():
         if ln.startswith("Timeslot:") and "initial=" in ln:
@@ -409,23 +525,23 @@ def phase_e2e():
                                    meta["freq0"])
     _, blocks = sol.read_solutions(solpath, sk.nchunk)
     ratio = []
-    for i in range(meta["n_tiles"]):
+    for i in range(n_tiles):
         xo, xi = ds_out.read_tile(i).x, ds_in.read_tile(i).x
         if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
             raise AssertionError(f"tile {i}: output column not written")
         ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
-    rec = dict(tiles=tiles, wall_s=wall, setup_s=setup_s,
+    rec = dict(flags=flags, tiles=tiles, wall_s=wall, setup_s=setup_s,
                launches=launches, intervals=len(blocks),
                written_over_data=ratio, kmax=max(NCHUNK),
                B=TILESZ * N_STATIONS * (N_STATIONS - 1) // 2,
                F=len(FREQS), M=N_CLUSTERS, S=N_SOURCES)
-    emit("e2e", **rec)
-    if len(blocks) != 2:
+    emit(phase, **rec)
+    if len(blocks) != n_tiles:
         raise AssertionError(f"solutions file holds {len(blocks)} intervals")
-    if len(tiles) != 2 or not all(
+    if len(tiles) != n_tiles or not all(
             math.isfinite(h["res_1"]) and math.isfinite(h["res_0"])
             and h["res_1"] < h["res_0"] for h in tiles):
-        raise AssertionError(f"e2e: residuals did not fall: {tiles}")
+        raise AssertionError(f"{phase}: residuals did not fall: {tiles}")
     return rec
 
 
@@ -434,15 +550,19 @@ def main() -> int:
     phase_build()
     coh = phase_coh()
     sweep = phase_sweep()
+    matvec = phase_matvec()
     phase_slice_parity()
-    e2e = phase_e2e()
+    obs = observation_e2e()
+    phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"))
+    rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
+                    ("coh", "sweep", "matvec"))
 
     import torch
     kernels = [
         dict(name="coh_points", route="cuda",
              source="sagecal_tpu_torch/csrc/coh.cu",
              replaces="sagecal_tpu/ops/coh_pallas.py:49",
-             launches=e2e["launches"]["coh"],
+             launches=rtr["launches"]["coh"],
              max_abs_err=max(r["max_abs_err"] for r in coh.values()),
              ms=coh["residual"]["ms"], plain_ms=coh["residual"]["plain_ms"],
              bound_ms=coh["residual"]["bound_ms"],
@@ -450,11 +570,19 @@ def main() -> int:
         dict(name="sweep_blocks", route="cuda",
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:395",
-             launches=e2e["launches"]["sweep"],
+             launches=rtr["launches"]["sweep"],
              max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
              ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
              bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
              library_ms=None),
+        dict(name="gn_matvec_blocks", route="cuda",
+             source="sagecal_tpu_torch/csrc/matvec.cu",
+             replaces="sagecal_tpu/ops/sweep_pallas.py:946",
+             launches=rtr["launches"]["matvec"],
+             max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
+             ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
+             bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],
+             library_ms=matvec[4]["library_ms"]),
     ]
     shutil.rmtree(WORK, ignore_errors=True)
     print(smi, flush=True)

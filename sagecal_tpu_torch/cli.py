@@ -2,9 +2,10 @@
 ``sagecal_tpu/cli.py``).
 
 The parser accepts every flag of the JAX CLI so command lines translate
-directly. The slice runs full-batch calibration with
-``-d -s -c -p -F -t -e -g -l -m -j -R -x -y -I -O -o -k --kernel --inner
---jones --dtype-policy --platform``; ``--solve-fuse`` and
+directly. The port runs full-batch calibration with
+``-d -s -c -p -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k --kernel
+--inner --jones --dtype-policy --platform`` (every solver mode ``-j 0..6``,
+``--inner chol|cg``); ``--solve-fuse`` and
 ``--solve-promote`` are accepted as no-ops (PyTorch runs eagerly).
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
@@ -41,8 +42,6 @@ UNPORTED = {
     "polytype": (2, "queue A item 12 (-Q)"),
     "rho": (5.0, "queue A item 12 (-r)"),
     "rho_file": (None, "queue A item 12 (-G)"),
-    "nulow": (2.0, "the next slice (-L, robust modes)"),
-    "nuhigh": (30.0, "the next slice (-H, robust modes)"),
     "linsolv": (1, "queue A item 4 (--linsolv)"),
     "tile_batch": (1, "queue A item 9 (--tile-batch)"),
     "inflight": (1, "queue A item 9 and queue B item 4 (--inflight)"),
@@ -63,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sagecal-tpu-torch",
         description="direction-dependent calibration on PyTorch/CUDA "
-                    "(port of sagecal-tpu; full-batch -j 1 slice)")
+                    "(port of sagecal-tpu; full-batch calibration)")
     a = p.add_argument
     a("-d", "--ms", help="dataset (SimMS directory)")
     a("-f", "--ms-list")
@@ -82,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("-n", "--n-threads", type=int, default=4,
       help="accepted for parity; host threads are PyTorch's own")
     a("-j", "--solver-mode", type=int, default=5,
-      help="solver mode; this slice runs 1 (LM + LBFGS)")
+      help="solver mode 0-6: 0 OS-LM, 1 LM, 2 robust LM, 3 OS robust LM, "
+           "4 RTR, 5 robust RTR (default), 6 NSD; at <= 40 stations 4 "
+           "runs as 0 and 5/6 as 3")
     a("-L", "--nulow", type=float, default=2.0)
     a("-H", "--nuhigh", type=float, default=30.0)
     a("--linsolv", type=int, default=1)

@@ -25,7 +25,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("coh", "sweep")
+SOURCES = ("coh", "sweep", "matvec")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures: every launch returns cudaGetLastError() as an int
 SIGNATURES = {
@@ -47,6 +48,12 @@ SIGNATURES = {
                                   _I, _I, _I, _P],
         # part, out, nb, K, nsl, stream
         "sweep_reduce_launch": [_P, _P, _I, _I, _I, _P],
+    },
+    "matvec": {
+        # pp, qq, pq, sp, sq, spq, v, s1, s2, ptr, ent, shift, yb, y,
+        # K, nb, N, stream
+        "matvec_launch": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -17,14 +17,24 @@ coherency, chunk id), each row read by its own chunk only, against
 
 Around the kernel, as torch ops: the per-baseline Jones gathers,
 :func:`_station_aggregates` (``index_add_``, repeated stations
-accumulate), :func:`gn_blocks`, :func:`_assemble_damped`,
-:func:`chol_solve_blocks_shift` and :func:`solve_damped_blocks` with its
-single boosted-jitter retry (batched ``torch.linalg`` Cholesky; XLA in
-the JAX package, not Pallas).
+accumulate), :func:`gn_blocks`, :func:`normal_equations_fused`,
+:func:`_assemble_damped`, :func:`chol_solve_blocks_shift` and
+:func:`solve_damped_blocks` with its single boosted-jitter retry
+(batched ``torch.linalg`` Cholesky; XLA in the JAX package, not Pallas).
+
+:func:`gn_matvec_blocks` replaces the second Pallas kernel of the file,
+``_matvec_kernel`` (``sweep_pallas.py:946``, launched by
+``_matvec_blocks_jit`` ``:988``): y = (JTJ + shift I) v straight from
+the Gram blocks, the product behind every ``--inner cg`` PCG and tCG
+trip. On a CUDA tensor it launches ``csrc/matvec.cu`` or raises; on a
+CPU tensor it runs :func:`gn_matvec_blocks_plain` (gather, einsum,
+``index_add_``).
 """
 
 from __future__ import annotations
 
+import math
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -47,13 +57,20 @@ N_OUT = 145
 #: axis (132 SMs x 256 resident threads at the kernel's register use)
 TARGET_THREADS = 132 * 256
 
-#: kernel launches since the last reset (the plain version never counts)
+#: float32 operations per (chunk, baseline) of one blocks matvec: 192
+#: multiply-adds (pp and qq 16 each per side, pq 64 each way)
+MATVEC_FLOPS_PER_BASELINE = 2 * 192
+
+#: kernel launches since the last reset (the plain versions never count):
+#: the sweep kernel, and the matvec kernel
 LAUNCHES = 0
+MATVEC_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, MATVEC_LAUNCHES
     LAUNCHES = 0
+    MATVEC_LAUNCHES = 0
 
 
 def supported(kmax: int, row_period: int, B: int) -> bool:
@@ -282,3 +299,129 @@ def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
     zero = torch.zeros_like(dp)
     dpw = torch.where(ok[:, None], dp, torch.where(ok2[:, None], dp2, zero))
     return dpw, ok | ok2
+
+
+def normal_equations_fused(x8, J, coh, sta1, sta2, chunk_id, wt,
+                           n_stations: int, kmax: int, row_period: int,
+                           cost_wt=None, jones: str = "full"):
+    """Dense (JTJ [K, 8N, 8N], JTe, cost) from one fused sweep
+    (``sweep_pallas.normal_equations_fused``): the blocks expanded by
+    :func:`_assemble_damped` without a shift."""
+    fac, JTe, cost = gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt,
+                               n_stations, kmax, row_period,
+                               cost_wt=cost_wt, jones=jones)
+    return _assemble_damped(fac, None, sta1, sta2, n_stations), JTe, cost
+
+
+def gn_matvec_blocks_plain(fac: GNBlocks, v, s1b, s2b, n_stations: int,
+                           shift=None):
+    """Plain PyTorch version of the blocks matvec: v [K, 2 md N] gathered
+    per baseline, the block products of ``_matvec_kernel`` as einsums,
+    ``index_add_`` per station, then ``shift * v`` (shift [K] or a
+    scalar)."""
+    K, nb = fac.pp.shape[0], fac.pp.shape[1]
+    md = fac.pp.shape[-1]
+    vr = v.reshape(K, n_stations, 2, md)
+    vp = vr[:, s1b]                                  # [K, nb, 2, md]
+    vq = vr[:, s2b]
+    yp = (torch.einsum("kbaij,kbaj->kbai", fac.pp, vp)
+          + torch.einsum("kbaoij,kboj->kbai", fac.pq, vq))
+    yq = (torch.einsum("kboji,kboi->kboj", fac.qq, vq)
+          + torch.einsum("kbaoij,kbai->kboj", fac.pq, vp))
+    y = v.new_zeros((K, n_stations, 2, md))
+    y.index_add_(1, s1b, yp).index_add_(1, s2b, yq)
+    y = y.reshape(K, 2 * md * n_stations)
+    if shift is not None:
+        y = y + torch.as_tensor(shift, dtype=y.dtype,
+                                device=y.device)[..., None] * v
+    return y
+
+
+#: the last station layout's lists: (sta1 ref, sta2 ref, key, lists)
+_LISTS: list = []
+
+
+def station_lists(sta1, sta2, nb: int, n_stations: int):
+    """(s1 int32 [nb], s2 int32 [nb], ptr int32 [N + 1], ent int32
+    [2 nb]) for the matvec kernel: ``ent[ptr[n]:ptr[n + 1]]`` lists the
+    (baseline b, side) entries of station n as 2 b + side, side 0 where
+    n = sta1[b] and 1 where n = sta2[b], in a fixed order. Built on the
+    device at the first call for a pair of station tensors and kept for
+    as long as those tensors live unchanged (one build per tile)."""
+    key = (sta1._version, sta2._version, nb, n_stations, sta1.device)
+    if _LISTS:
+        r1, r2, k0, lists = _LISTS[0]
+        if r1() is sta1 and r2() is sta2 and k0 == key:
+            return lists
+    s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
+    side = torch.cat([s1b, s2b])
+    order = torch.sort(side, stable=True).indices   # e = side nb + b
+    ent = (order % nb) * 2 + order // nb
+    ptr = torch.zeros(n_stations + 1, dtype=torch.long, device=side.device)
+    ptr[1:] = torch.cumsum(torch.bincount(side, minlength=n_stations), 0)
+    lists = tuple(t.to(torch.int32).contiguous()
+                  for t in (s1b, s2b, ptr, ent))
+    _LISTS[:] = [(weakref.ref(sta1), weakref.ref(sta2), key, lists)]
+    return lists
+
+
+def _block_view(t, nb: int):
+    """(tensor, words between consecutive baselines) with each baseline's
+    block contiguous; a strided view of the sweep output is used as it
+    is."""
+    words = math.prod(t.shape[2:])
+    st = t.stride()
+    if t[0, 0].is_contiguous() and st[0] == nb * st[1] and st[1] >= words:
+        return t, st[1]
+    return t.contiguous(), words
+
+
+def _matvec_cuda(fac: GNBlocks, v, sta1, sta2, n_stations: int, shift):
+    global MATVEC_LAUNCHES
+    dev = v.device
+    K, nb = fac.pp.shape[0], fac.pp.shape[1]
+    md = fac.pp.shape[-1]
+    if md != 4:
+        raise NotImplementedError(
+            "the matvec kernel is full Jones (md = 4); --jones diag|phase "
+            "is ROADMAP queue A item 9")
+    for name, a in (("pp", fac.pp), ("qq", fac.qq), ("pq", fac.pq),
+                    ("v", v)):
+        if a.dtype != torch.float32 or a.device != dev:
+            raise TypeError(f"matvec kernel: {name} must be float32 on {dev} "
+                            f"(got {a.dtype} on {a.device})")
+    if v.shape != (K, 8 * n_stations):
+        raise ValueError(f"matvec kernel: v has shape {tuple(v.shape)}, "
+                         f"expected ({K}, {8 * n_stations})")
+    pp, sp = _block_view(fac.pp, nb)
+    qq, sq = _block_view(fac.qq, nb)
+    pq, spq = _block_view(fac.pq, nb)
+    v = v.contiguous()
+    s1, s2, ptr, ent = station_lists(sta1, sta2, nb, n_stations)
+    sh = None
+    if shift is not None:
+        sh = torch.as_tensor(shift, device=dev).to(torch.float32)
+        sh = sh.expand(K).contiguous()
+    yb = torch.empty((K, nb, 16), dtype=torch.float32, device=dev)
+    y = torch.empty((K, 8 * n_stations), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("matvec")
+    cuda_lib.check(lib.matvec_launch(
+        pp.data_ptr(), qq.data_ptr(), pq.data_ptr(), sp, sq, spq,
+        v.data_ptr(), s1.data_ptr(), s2.data_ptr(), ptr.data_ptr(),
+        ent.data_ptr(), None if sh is None else sh.data_ptr(),
+        yb.data_ptr(), y.data_ptr(), K, nb, n_stations,
+        cuda_lib.stream_ptr(dev)), "matvec kernels")
+    MATVEC_LAUNCHES += 1
+    return y
+
+
+def gn_matvec_blocks(fac: GNBlocks, v, sta1, sta2, n_stations: int,
+                     shift=None):
+    """(JTJ + shift I) @ v from the per-baseline Gram blocks
+    (``sweep_pallas.gn_matvec_blocks``): v [K, 8N], shift [K] or None;
+    sta1/sta2 the rows' station indices (baseline-periodic)."""
+    nb = fac.pp.shape[1]
+    if v.device.type == "cuda":
+        return _matvec_cuda(fac, v, sta1, sta2, n_stations, shift)
+    return gn_matvec_blocks_plain(fac, v, sta1[:nb].long(),
+                                  sta2[:nb].long(), n_stations, shift)

@@ -2,10 +2,11 @@
 ``sagecal_tpu/pipeline.py``).
 
 Stream solve intervals (tiles) from the dataset, predict the solve
-coherencies (the coherency kernel), run SAGE-EM (LM on the fused-sweep
-kernel, then the joint LBFGS refine), subtract the model from every
-channel and write the residuals and the solutions, with the reference's
-heuristics:
+coherencies (the coherency kernel), run SAGE-EM (every solver mode
+``-j 0..6``: LM, OS-LM, robust LM, RTR, robust RTR and NSD on the
+fused-sweep kernel, ``--inner cg`` on the matvec kernel; then the joint
+LBFGS refine), subtract the model from every channel and write the
+residuals and the solutions, with the reference's heuristics:
 
 - first-tile iteration boost: 4x EM iterations for arrays <= LMCUT (40)
   stations, 6x otherwise;
@@ -14,8 +15,8 @@ heuristics:
   the best so far resets the solutions and re-arms the boost.
 
 The JAX package's serve cache, fleet, priors, overlapped scheduler,
-fault injection, tracing and checkpoint/resume are not part of this
-slice; their options raise ``NotImplementedError`` (see
+fault injection, tracing and checkpoint/resume are not ported yet;
+their options raise ``NotImplementedError`` (see
 :func:`check_supported`).
 """
 
@@ -59,12 +60,9 @@ def first_tile_boost(n_stations: int) -> int:
 
 
 def check_supported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for every configuration this slice
-    does not run, naming the ROADMAP item that will port it."""
+    """Raise ``NotImplementedError`` for every configuration the port
+    does not run yet, naming the ROADMAP item that will port it."""
     checks = [
-        (int(cfg.solver_mode) != int(SolverMode.LM_LBFGS),
-         f"-j {int(cfg.solver_mode)}: only -j 1 is ported; -j 0/2/3/4/5/6 "
-         "(OS-LM, robust LM, RTR, NSD) are the next slice"),
         (cfg.n_epochs > 0, "-N stochastic calibration (ROADMAP queue A "
          "item 11)"),
         (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 9)"),
@@ -81,8 +79,6 @@ def check_supported(cfg: RunConfig) -> None:
          "item 9)"),
         (cfg.ms_list is not None, "-f dataset lists (ROADMAP queue A "
          "item 1)"),
-        (cfg.solver_inner != "chol", "--inner cg (ROADMAP queue A item 9, "
-         "queue B item 3)"),
         (cfg.solver_kernel != "pallas", "--kernel xla: the XLA assembly "
          "(ROADMAP queue A item 3)"),
         (cfg.jones_mode != "full", f"--jones {cfg.jones_mode} (ROADMAP "
@@ -134,6 +130,9 @@ class FullBatchPipeline:
             randomize=cfg.randomize, inner=cfg.solver_inner,
             kernel=cfg.solver_kernel,
             jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]))
+        # ordered-subsets partition of the [tilesz, nbase] rows for the
+        # OS modes 0/2/3 (the other modes ignore it)
+        self.os_info = lm_mod.os_subset_ids(meta["tilesz"], meta["nbase"])
         self.boost = first_tile_boost(self.n)
         self.sub_mask = sky.subtract_mask()
         self.correct_idx = skymodel.correct_cluster_index(
@@ -167,7 +166,8 @@ class FullBatchPipeline:
             max_emiter=self.base_cfg.max_emiter * boost)
         J, info = sage.sagefit_host(
             stg["x8"], coh, stg["sta1"], stg["sta2"], self.cidx, self.cmask,
-            J0t, self.n, stg["wt"], config=scfg, seed=199 * 1000 + tile_idx)
+            J0t, self.n, stg["wt"], config=scfg, seed=199 * 1000 + tile_idx,
+            os_id=self.os_info)
         return J.cpu().numpy().astype(np.complex128), info
 
     def residuals(self, J: np.ndarray, tile: ds.VisTile, stg: dict):
@@ -210,7 +210,8 @@ class FullBatchPipeline:
         try:
             for ti in range(n_tiles):
                 t0 = time.time()
-                launches0 = (coh_ops.LAUNCHES, swp.LAUNCHES)
+                launches0 = (coh_ops.LAUNCHES, swp.LAUNCHES,
+                             swp.MATVEC_LAUNCHES)
                 tile = ms.read_tile(ti)
                 stg = self.stage(tile)
                 t_solve = time.time()
@@ -251,14 +252,19 @@ class FullBatchPipeline:
                 rec = {"tile": ti, "res_0": res_0, "res_1": res_1,
                        "mean_nu": mean_nu, "minutes": dt,
                        **lm_mod.executed_trips(info),
-                       "launches": {"coh": coh_ops.LAUNCHES - launches0[0],
-                                    "sweep": swp.LAUNCHES - launches0[1]},
+                       "tcg_iters": info["tcg_iters"],
+                       "launches": {
+                           "coh": coh_ops.LAUNCHES - launches0[0],
+                           "sweep": swp.LAUNCHES - launches0[1],
+                           "matvec": swp.MATVEC_LAUNCHES - launches0[2]},
                        **secs}
                 history.append(rec)
                 if self.cfg.verbose:
                     log(f"Timeslot: {ti} stats: " + json.dumps(
-                        {k: rec[k] for k in ("solver_iters", "lbfgs_iters",
-                                             "launches", *secs)}))
+                        {k: rec[k] for k in ("solver_iters", "cg_iters",
+                                             "tcg_iters", "lbfgs_iters",
+                                             "mean_nu", "launches",
+                                             *secs)}))
         finally:
             if writer:
                 writer.close()

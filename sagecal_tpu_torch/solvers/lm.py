@@ -3,25 +3,39 @@
 
 Every hybrid time chunk of a cluster is an independent 8N-parameter
 problem; all chunks solve together as one batched damped Gauss-Newton
-iteration. This slice ports the ``blocks_chol`` route (``lm.py:439``):
-each damping iteration is ONE fused sweep over the rows
+iteration. Each damping iteration is ONE fused sweep over the rows
 (``ops/sweep.py``, the CUDA kernel on the card) giving the per-baseline
-Gram blocks, gradient and acceptance cost at the trial point, and the
-damped system assembles, factors and solves from those blocks.
+Gram blocks, gradient and acceptance cost at the trial point. The damped
+system is then solved by one of two inner solvers (``LMConfig.inner``):
+
+- ``"chol"``: the ``blocks_chol`` route (``lm.py:439``): assemble,
+  factor and solve from the blocks, with one boosted-jitter retry;
+- ``"cg"``: matrix-free preconditioned CG (``_solve_damped_cg``): each
+  trip is one blocks matvec (the matvec kernel on the card) under the
+  station-block preconditioner, stopped at the inexact-Newton forcing
+  tolerance ||r|| <= cg_tol ||JTe||; executed trips are counted.
+
+Ordered subsets (``OSConfig``, clmfit.c:1074): each iteration's
+equations come from one contiguous time subset while acceptance tests
+the full-data cost; a rejected chunk keeps the same subset's equations,
+and a subset with no usable rows of a chunk is never retried nor read as
+convergence (the ``live`` carry).
 
 Damping schedule (classic levmar): mu0 = tau * max(diag(JTJ)); accept
 when the gain ratio rho > 0 with mu *= max(1/3, 1 - (2 rho - 1)^3);
 reject -> mu *= nu, nu *= 2.
 
-The iteration loop is a Python loop that reads one [K]-bool back per
-iteration to decide whether any chunk is still live (the JAX
-``while_loop`` condition); everything else stays on the device.
+The loops are Python loops that read one [K]-bool back per iteration
+(per PCG trip under ``inner="cg"``) to decide whether any chunk is still
+live (the JAX ``while_loop`` conditions); everything else stays on the
+device.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sagecal_tpu_torch.ops import sweep as swp
@@ -48,24 +62,67 @@ class LMConfig(NamedTuple):
     eps2: float = 1e-15        # ||dp||/||p|| stop
     eps3: float = 1e-15        # ||e||^2 stop
     jitter: float = 1e-9       # Cholesky regularization floor
-    inner: str = "chol"        # only "chol" is ported
+    inner: str = "chol"        # "chol" (block Cholesky) or "cg" (PCG)
+    cg_tol: float = 0.1        # forcing eta: stop at ||r|| <= eta ||JTe||
+    cg_maxiter: int = 25       # PCG trip cap per damping iteration
     kernel: str = "pallas"     # only the fused sweep is ported
     jones_mode: str = "full"
 
 
-def _check(config: LMConfig, kmax: int, row_period: int, B: int) -> None:
-    if config.inner != "chol":
-        raise NotImplementedError(
-            "--inner cg is not ported yet (ROADMAP queue A item 9 with the "
-            "blocks matvec kernel, queue B item 3)")
-    if config.kernel != "pallas":
-        raise NotImplementedError(
-            "--kernel xla needs the XLA normal-equation assembly, not "
-            "ported yet (ROADMAP queue A item 3)")
+def fold_in(seed: int, data: int) -> int:
+    """A new seed from (seed, data): the place of ``jax.random.fold_in``
+    in the port's seeded draws."""
+    return (int(seed) * 1000003 + int(data) + 7) % (2 ** 61 - 1)
+
+
+class OSConfig(NamedTuple):
+    """Ordered-subsets acceleration (``lm.OSConfig``): ``os_id`` [B]
+    subset id per row (:func:`os_subset_ids`), ``n_subsets`` their
+    count. With ``randomize`` each iteration draws its subset from a CPU
+    ``torch.Generator`` seeded by (``seed``, iteration), the same draws
+    on the card and the CPU (they differ from the JAX key stream); without
+    it the subsets rotate k % n_subsets exactly as in the JAX package."""
+
+    os_id: torch.Tensor
+    n_subsets: int
+    seed: int = 0
+    randomize: bool = True
+
+    def subset(self, k: int) -> int:
+        if not self.randomize:
+            return int(k) % int(self.n_subsets)
+        g = torch.Generator().manual_seed(fold_in(self.seed, k))
+        return int(torch.randint(int(self.n_subsets), (1,), generator=g))
+
+
+def os_subset_ids(tilesz: int, nbase: int, n_subsets: int = 10):
+    """[tilesz * nbase] contiguous-time subset ids and the subset count:
+    min(10, tilesz) blocks of ceil(tilesz / Nsubsets) timeslots, the
+    tail block short (clmfit.c:1311-1358). Rows are [tilesz, nbase]."""
+    ns = min(n_subsets, tilesz)
+    ntper = -(-tilesz // ns)
+    tslot = np.arange(tilesz * nbase) // nbase
+    os_id = (tslot // ntper).astype(np.int32)
+    return os_id, int(os_id.max()) + 1
+
+
+def check_jones(config) -> None:
     if config.jones_mode != "full":
         raise NotImplementedError(
             f"--jones {config.jones_mode} is not ported yet (ROADMAP queue "
             "A item 9)")
+
+
+def check_route(config, kmax: int, row_period: int, B: int) -> None:
+    """Raise for a solver route the port does not run: ``config`` is an
+    LMConfig or an RTRConfig (inner, kernel, jones_mode)."""
+    if config.inner not in ("chol", "cg"):
+        raise ValueError(f"inner={config.inner!r}: expected chol or cg")
+    if config.kernel != "pallas":
+        raise NotImplementedError(
+            "--kernel xla needs the XLA normal-equation assembly, not "
+            "ported yet (ROADMAP queue A item 3)")
+    check_jones(config)
     if not swp.supported(kmax, row_period, B):
         raise NotImplementedError(
             f"the fused sweep needs baseline-major rows and at most "
@@ -74,21 +131,69 @@ def _check(config: LMConfig, kmax: int, row_period: int, B: int) -> None:
             "queue A item 3")
 
 
+def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
+                     n_stations: int, eta: float, maxiter: int,
+                     active=None):
+    """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe on the
+    Gram blocks, batched over chunks; returns (dp, ok, trips).
+
+    Each trip is one blocks matvec (``swp.gn_matvec_blocks``) and one
+    station-block preconditioner solve. A chunk stops at ||r||^2 <=
+    (eta ||JTe||)^2 and freezes (masked updates) while the batch runs to
+    the slowest live chunk; ``active`` [K] masks chunks out entirely
+    (their rhs is zeroed, so they start converged). ``trips`` counts the
+    executed loop iterations (one host read of the active mask each)."""
+    shift = mu + jitter + rho
+    L = ne.gn_precond_factor(fac.D, shift)
+    kmax = JTe.shape[0]
+    b = JTe if active is None else torch.where(active[:, None], JTe,
+                                               torch.zeros_like(JTe))
+    tol2 = (eta * eta) * (b * b).sum(dim=-1)
+    tiny = 1e-30
+    zero = torch.zeros_like(mu)
+    x = torch.zeros_like(b)
+    r = b
+    p = ne.gn_precond_apply(L, b, kmax, n_stations)
+    rz = (b * p).sum(dim=-1)
+    act = (r * r).sum(dim=-1) > tol2
+    k = 0
+    while k < maxiter and bool(act.any()):
+        Ap = swp.gn_matvec_blocks(fac, p, sta1, sta2, n_stations,
+                                  shift=shift)
+        pAp = (p * Ap).sum(dim=-1)
+        alpha = torch.where(act & (pAp > 0),
+                            rz / torch.clamp(pAp, min=tiny), zero)
+        x = x + alpha[:, None] * p
+        r = r - alpha[:, None] * Ap
+        z = ne.gn_precond_apply(L, r, kmax, n_stations)
+        rz_new = (r * z).sum(dim=-1)
+        beta = torch.where(act, rz_new / torch.clamp(rz, min=tiny), zero)
+        p = torch.where(act[:, None], z + beta[:, None] * p, p)
+        rz = torch.where(act, rz_new, rz)
+        k += 1
+        act = (r * r).sum(dim=-1) > tol2
+    ok = torch.isfinite(x).all(dim=-1)
+    return torch.where(ok[:, None], x, torch.zeros_like(x)), ok, k
+
+
 def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
              chunk_mask=None, config: LMConfig = LMConfig(),
-             itmax_dynamic=None, row_period: int = 0):
+             itmax_dynamic=None, os: OSConfig | None = None,
+             row_period: int = 0):
     """Levenberg-Marquardt solve of all chunks of one cluster.
 
     x8 [B, 8] data (residual + this cluster's model); coh [B, 2, 2];
     sta1/sta2/chunk_id [B]; wt [B, 8] sqrt-weights; J0 [K, N, 2, 2];
     chunk_mask [K] bool; ``itmax_dynamic`` an optional iteration cap
-    <= config.itmax. Returns (J [K, N, 2, 2], info) with init_cost /
-    final_cost [K] and iters (executed iterations)."""
+    <= config.itmax; ``os`` the optional ordered-subsets setting. Returns
+    (J [K, N, 2, 2], info) with init_cost / final_cost [K], iters
+    (executed iterations) and cg_iters (executed PCG trips)."""
     kmax = J0.shape[0]
-    _check(config, kmax, row_period, x8.shape[0])
+    check_route(config, kmax, row_period, x8.shape[0])
     dev = x8.device
     dtype = x8.dtype
     N = n_stations
+    inner_cg = config.inner == "cg"
     p = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
@@ -96,11 +201,29 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     def p_to_J(pv):
         return ne.jones_r2c(pv.reshape(kmax, N, 8))
 
-    def nrm_eq(pv):
-        return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id, wt,
-                             N, kmax, row_period)
+    def nrm_eq(pv, w=None, cw=None):
+        return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
+                             wt if w is None else w, N, kmax, row_period,
+                             cost_wt=cw)
 
-    fac, JTe, cost = nrm_eq(p)
+    if os is not None:
+        os_id = os.os_id.to(dev)
+
+        def os_wt(sub: int):
+            return wt * (os_id == sub).to(wt.dtype)[:, None]
+
+        def os_live(w):
+            """[K]: the subset holds >= 1 usable row of chunk k."""
+            row = (w > 0).any(dim=1).to(dtype)
+            return torch.zeros((kmax,), dtype=dtype, device=dev).scatter_reduce(
+                0, chunk_id, row, "amax") > 0
+
+        wt0 = os_wt(os.subset(0))
+        fac, JTe, cost = nrm_eq(p, wt0, wt)
+        live = os_live(wt0)
+    else:
+        fac, JTe, cost = nrm_eq(p)
+        live = torch.ones((kmax,), dtype=torch.bool, device=dev)
     cost0 = cost
     dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
     diag_max = dd.reshape(kmax, -1).abs().amax(dim=-1)
@@ -111,11 +234,23 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         min(int(itmax_dynamic), config.itmax)
 
     k = 0
+    cg_trips = 0
     while k < itmax and bool((~stop & chunk_mask).any()):
-        dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,
-                                         sta1, sta2, N)
+        if inner_cg:
+            dp, ok, trips = _solve_damped_cg(
+                fac, JTe, mu, config.jitter, 0.0, sta1, sta2, N,
+                config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask)
+            cg_trips += trips
+        else:
+            dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,
+                                             sta1, sta2, N)
         pnew = p + dp
-        facn, JTen, cost_new = nrm_eq(pnew)
+        if os is not None:
+            wt_next = os_wt(os.subset(k + 1))
+            facn, JTen, cost_new = nrm_eq(pnew, wt_next, wt)
+            sub_live = os_live(wt_next)
+        else:
+            facn, JTen, cost_new = nrm_eq(pnew)
         dL = (dp * (mu[:, None] * dp + JTe)).sum(dim=-1)
         dF = cost - cost_new
         accept = ok & (dF > 0) & (dL > 0) & ~stop & chunk_mask
@@ -129,19 +264,28 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                                       + 1e-30))
         p = torch.where(accept[:, None], pnew, p)
         cost = torch.where(accept, cost_new, cost)
-        # rejected chunks keep their entering blocks and gradient
+        # rejected chunks keep their entering blocks and gradient (under
+        # OS: retry the same subset), except that a dead carried subset
+        # is never retried: its dp is 0, so the new subset's equations
+        # at pnew are the old point's
+        adopt = accept | (~live & chunk_mask) if os is not None else accept
         fac = swp.GNBlocks(*(
-            torch.where(accept.reshape((kmax,) + (1,) * (new.ndim - 1)),
+            torch.where(adopt.reshape((kmax,) + (1,) * (new.ndim - 1)),
                         new, old) for new, old in zip(facn, fac)))
-        JTe = torch.where(accept[:, None], JTen, JTe)
+        JTe = torch.where(adopt[:, None], JTen, JTe)
+        if os is not None:
+            live = torch.where(adopt, sub_live, live)
         small_grad = JTe.abs().amax(dim=-1) <= config.eps1
+        if os is not None:
+            small_grad = small_grad & live
         small_cost = cost <= config.eps3
         stop = stop | small_grad | (accept & small_dp) | small_cost \
             | (k + 1 >= itmax)
         k += 1
     J = p_to_J(p)
     J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
-    return J, {"init_cost": cost0, "final_cost": cost, "iters": k}
+    return J, {"init_cost": cost0, "final_cost": cost, "iters": k,
+               "cg_iters": cg_trips}
 
 
 def make_weights(flags, dtype=torch.float32):

@@ -1,5 +1,6 @@
-"""Residuals and costs of the per-direction solve (port of the parts of
-``sagecal_tpu/solvers/normal_eq.py`` the fused-sweep route needs).
+"""Residuals, costs and the PCG preconditioner of the per-direction
+solve (port of the parts of ``sagecal_tpu/solvers/normal_eq.py`` the
+fused-sweep route needs).
 
 Real parametrization per station: 8 reals, (Re, Im) of J in row-major
 order (00, 01, 10, 11); residual 8-vector per row likewise (Re, Im) of
@@ -8,6 +9,8 @@ xla``) is ROADMAP queue A item 3.
 """
 
 from __future__ import annotations
+
+import torch
 
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.utils import jones_c2r, jones_r2c  # noqa: F401
@@ -26,3 +29,22 @@ def weighted_cost(x8, J, coh, sta1, sta2, chunk_id, wt, kmax: int):
     r = residual8(x8, J, coh, sta1, sta2, chunk_id) * wt
     return r.new_zeros((kmax,)).index_add_(0, chunk_id.long(),
                                            (r * r).sum(dim=1))
+
+
+def gn_precond_factor(D, shift):
+    """Lower Cholesky factors [K, N, 2, md, md] of the station-block
+    preconditioner D[k, n, a] + shift_k I: the exact station-diagonal
+    blocks of (JTJ + shift I). ``shift`` [K] is > 0 on the solve path, so
+    every block is positive definite (``cholesky_ex``: no host sync)."""
+    eye = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
+    L, _ = torch.linalg.cholesky_ex(D + shift[:, None, None, None, None]
+                                    * eye)
+    return L
+
+
+def gn_precond_apply(L, r, kmax: int, n_stations: int):
+    """z = M^-1 r with the factored station-block preconditioner; r and
+    z are [K, 2 md N]."""
+    md = L.shape[-1]
+    rr = r.reshape(kmax, n_stations, 2, md, 1)
+    return torch.cholesky_solve(rr, L).reshape(kmax, 2 * md * n_stations)

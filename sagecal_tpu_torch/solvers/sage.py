@@ -9,10 +9,18 @@ evenly, 20% by share) on weighted sweeps, and a joint LBFGS refine over
 all 8 N Mt parameters follows, with its gradient from
 ``torch.autograd.grad``.
 
-This slice ports the non-robust LM mode (``-j 1``). The visiting order
-comes from :class:`ClusterOrder`, a seeded ``torch.Generator`` shim in
-place of the JAX key stream: with ``randomize`` off (``-R 0``) it is the
-identity order, exactly as in the JAX package.
+Solver modes follow ``sage._cluster_solve`` (lmfit.c:906-962): modes
+0/2/3 run ordered-subsets LM on every EM iteration but the last, which
+switches to plain LM / robust LM / OS robust LM; mode 1 is LM, mode 4
+RTR, mode 5 robust RTR, mode 6 NSD. Robust modes track one nu per
+cluster; their mean (clipped to [nulow, nuhigh]) prices the joint
+refine's Student's-t cost sum log1p(r^2 / nu).
+
+The visiting order comes from :class:`ClusterOrder` and the OS subset
+draws from seeds folded per (EM iteration, cluster, IRLS round)
+(``lm.OSConfig``): seeded ``torch.Generator`` shims in place of the JAX
+key stream. With ``randomize`` off (``-R 0``) the order is the identity
+and the subsets rotate, exactly as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.solvers import lbfgs as lbfgs_mod
 from sagecal_tpu_torch.solvers import lm as lm_mod
 from sagecal_tpu_torch.solvers import normal_eq as ne
+from sagecal_tpu_torch.solvers import robust as rb
+from sagecal_tpu_torch.solvers import rtr as rtr_mod
 
 
 class SageConfig(NamedTuple):
@@ -36,7 +46,7 @@ class SageConfig(NamedTuple):
     max_iter: int = 10            # LM iterations per cluster solve (-g)
     max_lbfgs: int = 10           # joint refine iterations (-l)
     lbfgs_m: int = 7              # LBFGS memory (-m)
-    solver_mode: int = int(SolverMode.LM_LBFGS)
+    solver_mode: int = int(SolverMode.RTR_OSRLM_RLBFGS)
     nulow: float = 2.0
     nuhigh: float = 30.0
     randomize: bool = True
@@ -47,7 +57,16 @@ class SageConfig(NamedTuple):
     nbase: int = 0
 
 
-_PORTED_MODES = (int(SolverMode.LM_LBFGS),)
+_OS_MODES = (int(SolverMode.OSLM_LBFGS),
+             int(SolverMode.OSLM_OSRLM_RLBFGS),
+             int(SolverMode.RLM_RLBFGS))
+
+
+def _is_robust(mode: int) -> bool:
+    return mode in (int(SolverMode.OSLM_OSRLM_RLBFGS),
+                    int(SolverMode.RLM_RLBFGS),
+                    int(SolverMode.RTR_OSRLM_RLBFGS),
+                    int(SolverMode.NSD_RLBFGS))
 
 
 class ClusterOrder:
@@ -85,10 +104,83 @@ def _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base):
     return torch.linalg.vector_norm(r) / (x8.shape[0] * 8)
 
 
+def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
+                   wt_base, J_m, n_stations: int, nu_cj, config: SageConfig,
+                   itermax: int, itcap: int, os_cfg, last: bool):
+    """One cluster's per-chunk solve by solver mode (``sage._cluster_solve``,
+    lmfit.c:906-962). Returns (Jn, nu_new, init_cost [K], final_cost [K],
+    iters, cg_iters, tcg_iters)."""
+    nbase = int(config.nbase)
+    lm_cfg = lm_mod.LMConfig(itmax=itcap, inner=config.inner,
+                             kernel=config.kernel,
+                             jones_mode=config.jones_mode)
+
+    def plain_lm(os=None):
+        Jn, info = lm_mod.lm_solve(
+            xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
+            chunk_mask=cmask_m, config=lm_cfg, itmax_dynamic=itermax,
+            os=os, row_period=nbase)
+        return (Jn, nu_cj, info["init_cost"], info["final_cost"],
+                info["iters"], info["cg_iters"], 0)
+
+    def robust_lm(os=None):
+        Jn, nu_new, info = rb.robust_lm_solve(
+            xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
+            nu0=nu_cj, nulow=config.nulow, nuhigh=config.nuhigh,
+            chunk_mask=cmask_m, config=lm_cfg, wt_rounds=3,
+            itmax_dynamic=itermax, os=os, row_period=nbase)
+        return (Jn, nu_new, info["init_cost"], info["final_cost"],
+                info["iters"], info["cg_iters"], 0)
+
+    if mode in (int(SolverMode.RTR_OSLM_LBFGS),
+                int(SolverMode.RTR_OSRLM_RLBFGS)):
+        rtr_cfg = rtr_mod.RTRConfig(itmax=itcap, inner=config.inner,
+                                    kernel=config.kernel,
+                                    jones_mode=config.jones_mode)
+        if mode == int(SolverMode.RTR_OSLM_LBFGS):
+            Jn, info = rtr_mod.rtr_solve(
+                xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
+                n_stations, chunk_mask=cmask_m, config=rtr_cfg,
+                itmax_dynamic=itermax, row_period=nbase)
+            nu_new = nu_cj
+        else:
+            # 2 rounds: the reference robust RTR updates the weights
+            # once before and once after the TR loop
+            Jn, nu_new, info = rtr_mod.rtr_solve_robust(
+                xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
+                n_stations, nu0=nu_cj, nulow=config.nulow,
+                nuhigh=config.nuhigh, chunk_mask=cmask_m, config=rtr_cfg,
+                wt_rounds=2, itmax_dynamic=itermax, row_period=nbase)
+        return (Jn, nu_new, info["init_cost"], info["final_cost"],
+                info["iters"], 0, info["tcg_iters"])
+
+    if mode == int(SolverMode.NSD_RLBFGS):
+        nsd_cfg = rtr_mod.NSDConfig(itmax=2 * itcap,
+                                    jones_mode=config.jones_mode)
+        Jn, nu_new, info = rtr_mod.nsd_solve_robust(
+            xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
+            nu0=nu_cj, nulow=config.nulow, nuhigh=config.nuhigh,
+            chunk_mask=cmask_m, config=nsd_cfg, itmax_dynamic=2 * itermax)
+        return (Jn, nu_new, info["init_cost"], info["final_cost"],
+                info["iters"], 0, 0)
+
+    if mode == int(SolverMode.LM_LBFGS) or os_cfg is None:
+        return robust_lm() if _is_robust(mode) else plain_lm()
+    # OS modes: OS-LM on every EM iteration but the last
+    if not last:
+        return plain_lm(os_cfg)
+    if mode == int(SolverMode.OSLM_LBFGS):
+        return plain_lm()
+    if mode == int(SolverMode.RLM_RLBFGS):
+        return robust_lm()
+    return robust_lm(os_cfg)
+
+
 def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
-           config: SageConfig):
-    """Joint LBFGS refine of all clusters' Jones (``sage._jit_refine``,
-    non-robust cost sum((x - model) w)^2). Returns (J, res, iters)."""
+           config: SageConfig, mean_nu=None):
+    """Joint LBFGS refine of all clusters' Jones (``sage._jit_refine``):
+    cost sum((x - model) w)^2, or with ``mean_nu`` the Student's-t cost
+    sum log1p(((x - model) w)^2 / mean_nu). Returns (J, res, iters)."""
     M, kmax = J.shape[0], J.shape[1]
     shape = (M * kmax, n_stations, 8)
     p0 = ne.jones_c2r(J.reshape(M * kmax, n_stations, 2, 2)).reshape(-1)
@@ -98,18 +190,21 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
         return ne.jones_r2c(p.reshape(shape)).reshape(
             M, kmax, n_stations, 2, 2)
 
+    def objective(p):
+        r = (x8 - full_model8(p_to_J(p), coh, sta1, sta2,
+                              chunk_idx)) * wt_base
+        if mean_nu is None:
+            return (r * r).sum()
+        return torch.log1p(r * r / mean_nu).sum()
+
     def cost_fn(p):
         with torch.no_grad():
-            r = (x8 - full_model8(p_to_J(p), coh, sta1, sta2,
-                                  chunk_idx)) * wt_base
-            return (r * r).sum()
+            return objective(p)
 
     def grad_fn(p):
         with torch.enable_grad():
             pv = p.detach().requires_grad_(True)
-            r = (x8 - full_model8(p_to_J(pv), coh, sta1, sta2,
-                                  chunk_idx)) * wt_base
-            (g,) = torch.autograd.grad((r * r).sum(), pv)
+            (g,) = torch.autograd.grad(objective(pv), pv)
         return g
 
     p1, k = lbfgs_mod.lbfgs_fit(cost_fn, grad_fn, p0, itmax=config.max_lbfgs,
@@ -120,19 +215,20 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
 
 def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                  n_stations: int, wt_base, nu0=None,
-                 config: SageConfig = SageConfig(), seed: int = 42):
+                 config: SageConfig = SageConfig(), seed: int = 42,
+                 os_id=None):
     """One solve interval of SAGE-EM calibration with the EM and
     cluster loops on the host.
 
     x8 [B, 8] channel-averaged data; coh [M, B, 2, 2] solve
     coherencies; chunk_idx [M, B]; chunk_mask [M, Kmax] bool; J0
-    [M, Kmax, N, 2, 2]; wt_base [B, 8]. Returns (J, info) with
-    res_0/res_1 = ||residual w||_2 / (8 B), mean_nu and executed trips."""
-    if int(config.solver_mode) not in _PORTED_MODES:
-        raise NotImplementedError(
-            f"solver mode -j {int(config.solver_mode)} is not ported yet: "
-            "this slice runs -j 1 (ROADMAP: the next slice ports -j 5 "
-            "robust RTR/NSD, OS-LM and robust LM)")
+    [M, Kmax, N, 2, 2]; wt_base [B, 8]; ``os_id`` the (ids [B], count)
+    pair of ``lm.os_subset_ids`` for the OS modes 0/2/3. Returns (J,
+    info) with res_0/res_1 = ||residual w||_2 / (8 B), mean_nu and the
+    executed trips (solver_iters, cg_iters, tcg_iters, lbfgs_iters)."""
+    mode = int(config.solver_mode)
+    if mode not in tuple(int(m) for m in SolverMode):
+        raise ValueError(f"unknown solver mode -j {mode}")
     M = coh.shape[0]
     dtype = x8.dtype
     dev = x8.device
@@ -142,24 +238,27 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     iter_bar = int(-(-0.8 * total_iter // M))
     itcap = int(config.max_iter) + iter_bar
     shim = ClusterOrder(seed)
-    lm_cfg = lm_mod.LMConfig(itmax=itcap, inner=config.inner,
-                             kernel=config.kernel,
-                             jones_mode=config.jones_mode)
     chunk_idx = chunk_idx.long()
     sta1, sta2 = sta1.long(), sta2.long()
+    os_ids = None
+    if os_id is not None and mode in _OS_MODES:
+        os_ids = (torch.as_tensor(np.asarray(os_id[0]), device=dev).long(),
+                  int(os_id[1]))
 
     xres = x8 - full_model8(J0, coh, sta1, sta2, chunk_idx)
     res_0 = torch.linalg.vector_norm(xres * wt_base) / (x8.shape[0] * 8)
     J = J0.clone()
     nerr = torch.zeros((M,), dtype=dtype, device=dev)
     nuM = torch.full((M,), float(nu0), dtype=dtype, device=dev)
-    solver_iters = 0
+    trips = {"solver_iters": 0, "cg_iters": 0, "tcg_iters": 0}
     t_em = time.perf_counter()
     for ci in range(config.max_emiter):
         weighted = config.randomize and (ci % 2 == 1)
+        last = ci == config.max_emiter - 1
         order = shim.order(ci, M, nerr, weighted, config.randomize)
         nerr_host = nerr.cpu().numpy() if weighted else None
         nerr_acc = torch.zeros((M,), dtype=dtype, device=dev)
+        seed_ci = lm_mod.fold_in(seed, ci)
         for cj in (int(c) for c in order):
             if weighted:
                 itermax = int(np.asarray(
@@ -167,15 +266,25 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                     + iter_bar
             else:
                 itermax = config.max_iter
+            os_cfg = None
+            if os_ids is not None:
+                os_cfg = lm_mod.OSConfig(
+                    os_id=os_ids[0], n_subsets=os_ids[1],
+                    seed=lm_mod.fold_in(seed_ci, cj),
+                    randomize=config.randomize)
             xdummy = xres + rp.model8(coh[cj], J[cj], sta1, sta2,
                                       chunk_idx[cj])
-            Jn, info = lm_mod.lm_solve(
-                xdummy, coh[cj], sta1, sta2, chunk_idx[cj], wt_base, J[cj],
-                n_stations, chunk_mask=chunk_mask[cj], config=lm_cfg,
-                itmax_dynamic=itermax, row_period=int(config.nbase))
-            solver_iters += int(info["iters"])
-            init_res = info["init_cost"].sum()
-            final_res = info["final_cost"].sum()
+            Jn, nu_new, init_c, final_c, its, cgs, tcgs = _cluster_solve(
+                mode, xdummy, coh[cj], sta1, sta2, chunk_idx[cj],
+                chunk_mask[cj], wt_base, J[cj], n_stations, nuM[cj].clone(),
+                config,
+                itermax, itcap, os_cfg, last)
+            trips["solver_iters"] += int(its)
+            trips["cg_iters"] += int(cgs)
+            trips["tcg_iters"] += int(tcgs)
+            nuM[cj] = nu_new
+            init_res = init_c.sum()
+            final_res = final_c.sum()
             dcost = torch.where(
                 init_res > 0,
                 torch.clamp((init_res - final_res) / init_res, min=0.0),
@@ -190,7 +299,7 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                            nerr_acc)
 
     mean_nu = torch.clamp(nuM.mean(), config.nulow, config.nuhigh)
-    # host wall split: the LM loop reads the device every iteration and
+    # host wall split: the solvers read the device every iteration and
     # the refine's line search every evaluation, so each span ends within
     # one small kernel of its device work
     t_refine = time.perf_counter()
@@ -198,11 +307,12 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     lbfgs_k = 0
     if config.max_lbfgs > 0:
         J, res_1, lbfgs_k = refine(x8, coh, sta1, sta2, chunk_idx, J,
-                                   wt_base, n_stations, config)
+                                   wt_base, n_stations, config,
+                                   mean_nu=mean_nu if _is_robust(mode)
+                                   else None)
     else:
         res_1 = _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base)
     res_1 = float(res_1)
     return J, {"res_0": res_0, "res_1": res_1, "mean_nu": mean_nu,
                "em_s": em_s, "refine_s": time.perf_counter() - t_refine,
-               "nerr": nerr, "solver_iters": solver_iters,
-               "lbfgs_iters": lbfgs_k}
+               "nerr": nerr, **trips, "lbfgs_iters": lbfgs_k}

@@ -6,7 +6,9 @@ JAX package, so it runs on a card machine without them:
 
 Each kernel is held against its plain PyTorch version in float32 at
 max|diff| <= 1e-4 max|ref| (the chip_smoke.py gate), and a CUDA tensor
-must launch the kernel or raise — never fall back."""
+must launch the kernel or raise — never fall back. The last test drives
+the robust RTR solver with ``--inner cg`` on the card against the same
+solve on the CPU in float64."""
 
 import numpy as np
 import pytest
@@ -89,3 +91,86 @@ def test_sweep_kernel_refuses_float64(card):
     s = torch.zeros(6, dtype=torch.long, device=card)
     with pytest.raises(TypeError):
         tswp.sweep_blocks(x8, J, coh, s, s, s, x8, x8, 6, 1)
+
+
+def _blocks_on_card(card, K, seed, N=9, T=12):
+    rng = np.random.default_rng(seed)
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=card)
+    s1, s2 = lng(np.tile(p, T)), lng(np.tile(q, T))
+    cid = lng(np.minimum((np.arange(B) // nb) // -(-T // K), K - 1))
+    coh = c64(rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2)))
+    J = c64((rng.normal(size=(K, N, 2, 2))
+             + 1j * rng.normal(size=(K, N, 2, 2))) * 0.3 + np.eye(2))
+    x8, wt = f32(rng.random((B, 8))), f32(rng.random((B, 8)))
+    fac, _, _ = tswp.gn_blocks(x8, J, coh, s1, s2, cid, wt, N, K, nb)
+    return fac, s1, s2, nb
+
+
+@pytest.mark.parametrize("K,shifted", [(1, False), (4, True)])
+def test_matvec_kernel_matches_plain(card, K, shifted):
+    N = 9
+    fac, s1, s2, nb = _blocks_on_card(card, K, 10 + K, N=N)
+    gen = torch.Generator(device=card).manual_seed(K)
+    v = torch.randn((K, 8 * N), device=card, generator=gen)
+    shift = torch.rand((K,), device=card, generator=gen) if shifted \
+        else None
+    n0 = tswp.MATVEC_LAUNCHES
+    got = tswp.gn_matvec_blocks(fac, v, s1, s2, N, shift=shift)
+    torch.cuda.synchronize()
+    assert tswp.MATVEC_LAUNCHES == n0 + 1
+    ref = tswp.gn_matvec_blocks_plain(fac, v, s1[:nb], s2[:nb], N,
+                                      shift=shift)
+    assert got.shape == ref.shape and _close(got, ref)
+    # contiguous copies of the strided sweep views give the same product
+    flat = tswp.GNBlocks(*(t.contiguous() for t in fac))
+    again = tswp.gn_matvec_blocks(flat, v, s1, s2, N, shift=shift)
+    assert _close(again, ref)
+
+
+def test_matvec_kernel_refuses_float64(card):
+    fac, s1, s2, nb = _blocks_on_card(card, 1, 3)
+    f64 = tswp.GNBlocks(*(t.double() for t in fac))
+    with pytest.raises(TypeError):
+        tswp.gn_matvec_blocks(f64, torch.zeros((1, 72), dtype=torch.float64,
+                                               device=card), s1, s2, 9)
+
+
+def test_robust_rtr_cg_on_card_matches_cpu(card):
+    """One robust RTR cluster solve with the matvec kernel in every tCG
+    product, against the CPU float64 solve: final cost within 1e-3."""
+    from sagecal_tpu_torch.solvers import rtr as trtr
+    rng = np.random.default_rng(6)
+    N, T, K = 9, 12, 2
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    cid = np.minimum((np.arange(B) // nb) // -(-T // K), K - 1)
+    coh = rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2))
+    Jt = (rng.normal(size=(K, N, 2, 2))
+          + 1j * rng.normal(size=(K, N, 2, 2))) * 0.2 + np.eye(2)
+    sa, sb = np.tile(p, T), np.tile(q, T)
+    V = Jt[cid, sa] @ coh @ np.conj(np.swapaxes(Jt[cid, sb], -1, -2))
+    V = V + 0.05 * (rng.normal(size=V.shape) + 1j * rng.normal(size=V.shape))
+    x8 = np.stack([V.reshape(B, 4).real, V.reshape(B, 4).imag],
+                  -1).reshape(B, 8)
+    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    out = {}
+    for dev, rdt, cdt in ((card, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        r = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
+        c = lambda a: torch.as_tensor(a, dtype=cdt, device=dev)
+        i = lambda a: torch.as_tensor(a, device=dev).long()
+        n0 = tswp.MATVEC_LAUNCHES
+        J, nu, info = trtr.rtr_solve_robust(
+            r(x8), c(coh), i(sa), i(sb), i(cid), r(np.ones((B, 8))), c(J0),
+            N, row_period=nb, config=trtr.RTRConfig(itmax=6, inner="cg"))
+        out[str(dev)] = (info["final_cost"].double().cpu(),
+                         tswp.MATVEC_LAUNCHES - n0)
+    (gc, gl), (cc, cl) = out[str(card)], out["cpu"]
+    assert gl > 0 and cl == 0
+    assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
     """In a fresh interpreter where importing jax or sagecal_tpu fails,
     every port module and chip_smoke.py import."""
     mods = _modules()
-    assert "sagecal_tpu_torch.ops.sweep" in mods
+    for m in ("ops.sweep", "solvers.robust", "solvers.rtr"):
+        assert "sagecal_tpu_torch." + m in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -69,7 +70,9 @@ def test_kernel_build_is_lazy():
     """Importing the kernel modules builds nothing and needs no nvcc."""
     from sagecal_tpu_torch.ops import coh, cuda_lib, sweep
     assert coh.LAUNCHES == 0 and sweep.LAUNCHES == 0
+    assert sweep.MATVEC_LAUNCHES == 0
     assert cuda_lib._LIBS == {}
-    assert set(cuda_lib.SOURCES) == {"coh", "sweep"}
+    assert set(cuda_lib.SOURCES) == {"coh", "sweep", "matvec"}
+    assert set(cuda_lib.SIGNATURES) == set(cuda_lib.SOURCES)
     for name in cuda_lib.SOURCES:
         assert (cuda_lib.CSRC / f"{name}.cu").is_file()

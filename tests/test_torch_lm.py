@@ -1,10 +1,13 @@
 """Port LM solver and LBFGS refine (sagecal_tpu_torch/solvers) against
-the JAX reference in float64: lm_solve on the fused-sweep route must
-land on the reference's final cost (rtol 1e-8) after the same number of
-executed iterations, and the joint refine must reach the same residual
-(the same maths; only summation order differs)."""
+the JAX reference in float64: lm_solve on the fused-sweep route, with the
+block-Cholesky or the PCG inner solver and with ordered subsets, must
+land on the reference's final cost (rtol 1e-8, J atol 1e-6) after the
+same number of executed iterations and PCG trips, and the joint refine
+must reach the same residual (the same maths; only summation order
+differs)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -142,7 +145,96 @@ def test_lbfgs_quadratic_matches_reference(linesearch):
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("inner,kernel,jones", [("cg", "pallas", "full"),
+def _solve_pair(K, seed, itmax, inner, os_k=None, wt=None):
+    """(JAX, port) lm_solve results on one problem; ``os_k`` > 0 turns on
+    ordered subsets of the 4 timeslots, rotating (randomize off)."""
+    N = 6
+    x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=seed, noise=0.1)
+    wt = np.ones((x8.shape[0], 8)) if wt is None else wt
+    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    jos = tos = None
+    if os_k:
+        ids, n = lm_mod.os_subset_ids(4, nbase)
+        jos = lm_mod.OSConfig(os_id=jnp.asarray(ids), n_subsets=n,
+                              key=jax.random.PRNGKey(0), randomize=False)
+        tos = tlm.OSConfig(os_id=_t(ids), n_subsets=n, randomize=False)
+    ref = lm_mod.lm_solve(
+        *(jnp.asarray(a) for a in (x8, coh[0], s1, s2, cid, wt, J0)), N,
+        row_period=nbase, os=jos,
+        config=lm_mod.LMConfig(itmax=itmax, kernel="pallas", inner=inner))
+    got = tlm.lm_solve(
+        _t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(), _t(cid).long(),
+        _t(wt), _t(J0), N, row_period=nbase, os=tos,
+        config=tlm.LMConfig(itmax=itmax, inner=inner))
+    return ref, got
+
+
+CG_OS_CASES = [(2, "cg", False), (1, "chol", True), (2, "cg", True)]
+
+
+@pytest.mark.parametrize("K,inner,use_os", CG_OS_CASES)
+def test_lm_cg_and_os_match_reference(K, inner, use_os):
+    (Jr, info), (Jp, tinfo) = _solve_pair(K, 90 + K, 10, inner,
+                                          os_k=use_os)
+    assert tinfo["iters"] == int(info["iters"])
+    assert tinfo["cg_iters"] == int(info["cg_iters"])
+    assert (tinfo["cg_iters"] > 0) == (inner == "cg")
+    np.testing.assert_allclose(tinfo["init_cost"].numpy(),
+                               np.asarray(info["init_cost"]), rtol=1e-10)
+    np.testing.assert_allclose(tinfo["final_cost"].numpy(),
+                               np.asarray(info["final_cost"]), rtol=1e-8)
+    np.testing.assert_allclose(Jp.numpy(), np.asarray(Jr), atol=1e-6)
+
+
+@pytest.mark.parametrize("K", [2])
+def test_solve_damped_cg_matches_reference(K):
+    """One PCG solve on the Gram blocks: same trips, same step (rtol
+    1e-10 of its largest element), a masked-out chunk returns 0."""
+    from sagecal_tpu.ops import sweep_pallas as swp
+    from sagecal_tpu_torch.ops import sweep as tswp
+    N = 6
+    x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=95, noise=0.2)
+    wt = np.ones((x8.shape[0], 8))
+    J = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    args = (x8, J, coh[0], s1, s2, cid, wt)
+    fac, JTe, _ = swp.gn_blocks(*(jnp.asarray(a) for a in args), N, K, nbase,
+                                interpret=True)
+    tfac, tJTe, _ = tswp.gn_blocks(*(_t(a) for a in args), N, K, nbase)
+    mu = np.linspace(0.05, 0.2, K)
+    active = np.array([True, False][:K]) if K > 1 else None
+    dp, ok, k = lm_mod._solve_damped_cg(
+        fac, JTe, jnp.asarray(mu), 1e-9, 0.0, jnp.asarray(s1),
+        jnp.asarray(s2), jnp.asarray(cid), K, N, nbase, 0.05, 25,
+        active=None if active is None else jnp.asarray(active))
+    tdp, tok, tk = tlm._solve_damped_cg(
+        tfac, tJTe, _t(mu), 1e-9, 0.0, _t(s1).long(), _t(s2).long(), N,
+        0.05, 25, active=None if active is None else _t(active))
+    assert tk == int(k) > 1 and tok.tolist() == np.asarray(ok).tolist()
+    want = np.asarray(dp)
+    np.testing.assert_allclose(tdp.numpy(), want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
+    if K > 1:
+        assert not tdp[1].any()
+
+
+def test_os_subset_ids_and_draws():
+    """Subset ids equal the reference's; randomized draws are a fixed
+    function of (seed, iteration), in range, and cover the subsets."""
+    for T, nb in ((4, 15), (120, 1891), (25, 3)):
+        ids, n = lm_mod.os_subset_ids(T, nb)
+        tids, tn = tlm.os_subset_ids(T, nb)
+        np.testing.assert_array_equal(tids, np.asarray(ids))
+        assert tn == n
+    os = tlm.OSConfig(os_id=torch.zeros(4), n_subsets=10, seed=123)
+    draws = [os.subset(k) for k in range(200)]
+    assert draws == [os.subset(k) for k in range(200)]
+    assert set(draws) == set(range(10))
+    assert [os._replace(randomize=False).subset(k) for k in range(12)] == [
+        k % 10 for k in range(12)]
+    assert tlm.fold_in(5, 1) != tlm.fold_in(5, 2) != tlm.fold_in(6, 1)
+
+
+@pytest.mark.parametrize("inner,kernel,jones", [("cg", "xla", "full"),
                                                 ("chol", "xla", "full"),
                                                 ("chol", "pallas", "diag")])
 def test_unported_routes_raise(inner, kernel, jones):

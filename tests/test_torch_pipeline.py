@@ -1,12 +1,23 @@
-"""The port's full-batch slice end to end against the JAX reference.
+"""The port's full-batch calibration end to end against the JAX reference.
 
 One SimMS (the tests/test_pipeline.py fixture: 10 stations, 2 clusters
 with 1 and 2 hybrid chunks, 2 tiles of 4 timeslots, 2 channels) is
 written once by the JAX package and copied; both CLIs calibrate a copy
 with ``-j 1 -e 2 -g 10 -l 5 -t 4 -R 0 --kernel pallas`` (the JAX one
 with fuse/promote pinned off, the port with ``--platform cpu``), both in
-float64. Gates: per-tile res_0/res_1 rtol 1e-8, solutions atol 1e-6,
-written residual column 1e-7 of the data's largest magnitude."""
+float64. A second fixture runs both CLIs on fresh copies at the default
+solver mode (no ``-j``: 5, which 10 stations downgrade to 3, OS-LM then
+OS robust LM) and at ``-j 5 --inner cg``. Gates: per-tile res_0/res_1
+rtol 1e-8 (and equal nu), solutions atol 1e-6, written residual column
+1e-7 of the data's largest magnitude.
+
+The default-mode run solves both clusters as one chunk. With a 2-chunk
+cluster the first OS subset (timeslot 0) holds no row of chunk 1, so the
+reference seeds that chunk's damping from an all-zero block (mu0 =
+1e-33) and its Cholesky steps are regularized by the 1e-9 jitter alone:
+float64 roundoff then grows ~1e9-fold along the near-null directions, in
+the JAX package as in the port (~2e-6 in J). The PCG route does not
+amplify it, so the ``--inner cg`` run keeps the 2-chunk cluster."""
 
 import math
 import shutil
@@ -34,8 +45,39 @@ CLUSTER = """\
 0 1 P0A P0B
 1 2 P1A
 """
+CLUSTER_ONE_CHUNK = """\
+0 1 P0A P0B
+1 1 P1A
+"""
 FLAGS = ["-j", "1", "-e", "2", "-g", "10", "-l", "5", "-t", "4", "-R", "0",
          "--kernel", "pallas"]
+#: the default-mode runs: no -j (5, run as 3 at 10 stations) on
+#: single-chunk clusters, and -j 5 with the matrix-free inner solver;
+#: each with its cluster file
+MODE_FLAGS = {"default": ["-e", "2", "-g", "6", "-l", "4", "-t", "4", "-R",
+                          "0", "--kernel", "pallas"],
+              "cg": ["-j", "5", "--inner", "cg", "-e", "2", "-g", "6", "-l",
+                     "4", "-t", "4", "-R", "0", "--kernel", "pallas"]}
+MODE_CLUSTERS = {"default": "one_chunk.cluster", "cg": "sky.txt.cluster"}
+
+
+def _both_clis(tmp, tag, flags):
+    """Run both CLIs on fresh copies of the fixture's SimMS; returns the
+    (JAX, port) histories."""
+    for side in ("jax", "torch"):
+        shutil.copytree(tmp / "pristine.ms", tmp / f"{tag}_{side}.ms")
+    common = ["-s", str(tmp / "sky.txt"), "-c", str(tmp / MODE_CLUSTERS[tag])]
+    jargs = cli.build_parser().parse_args(
+        ["-d", str(tmp / f"{tag}_jax.ms"), "-p", str(tmp / f"{tag}_jax.sol")]
+        + common + flags + ["--solve-fuse", "off", "--solve-promote", "off"])
+    jhist = pipeline.run(cli.config_from_args(jargs), log=lambda *a: None)
+    targs = tcli.build_parser().parse_args(
+        ["-d", str(tmp / f"{tag}_torch.ms"), "-p",
+         str(tmp / f"{tag}_torch.sol")] + common + flags
+        + ["--platform", "cpu"])
+    thist = tpipeline.run(tcli.config_from_args(targs), device="cpu",
+                          log=lambda *a: None)
+    return jhist, thist
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +87,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_pipeline")
     (tmp / "sky.txt").write_text(SKY)
     (tmp / "sky.txt.cluster").write_text(CLUSTER)
+    (tmp / "one_chunk.cluster").write_text(CLUSTER_ONE_CHUNK)
     ra0 = (0 + 41 / 60) * math.pi / 12
     dec0 = 40 * math.pi / 180
     srcs = skymodel.parse_sky_model(str(tmp / "sky.txt"), ra0, dec0, 150e6)
@@ -60,6 +103,7 @@ def runs(tmp_path_factory):
              for i in range(2)]
     ds.SimMS.create(str(tmp / "jax.ms"), tiles)
     shutil.copytree(tmp / "jax.ms", tmp / "torch.ms")
+    shutil.copytree(tmp / "jax.ms", tmp / "pristine.ms")
     common = ["-s", str(tmp / "sky.txt"), "-c", str(tmp / "sky.txt.cluster")]
 
     jargs = cli.build_parser().parse_args(
@@ -87,7 +131,7 @@ def test_residuals_fall_every_tile(runs):
     for h in runs["thist"]:
         assert np.isfinite(h["res_1"]) and h["res_1"] < h["res_0"]
         # the CPU run takes the plain versions: no kernel launches
-        assert h["launches"] == {"coh": 0, "sweep": 0}
+        assert h["launches"] == {"coh": 0, "sweep": 0, "matvec": 0}
         assert h["solver_iters"] > 0 and h["lbfgs_iters"] > 0
 
 
@@ -148,8 +192,61 @@ def test_port_reads_jax_written_simms(runs):
         np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
 
 
-@pytest.mark.parametrize("extra", [["-j", "5"], ["-N", "2"], ["-B", "1"],
-                                   ["--inner", "cg"], ["--kernel", "xla"],
+@pytest.fixture(scope="module")
+def mode_runs(runs):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {tag: _both_clis(runs["tmp"], tag, flags)
+           for tag, flags in MODE_FLAGS.items()}
+    yield out
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("tag", sorted(MODE_FLAGS))
+@pytest.mark.parametrize("key", ["res_0", "res_1"])
+def test_mode_residual_norms_match(mode_runs, tag, key):
+    j, t = mode_runs[tag]
+    assert len(j) == len(t) == 2
+    np.testing.assert_allclose([h[key] for h in t], [h[key] for h in j],
+                               rtol=1e-8)
+    assert [h["mean_nu"] for h in t] == [h["mean_nu"] for h in j]
+
+
+@pytest.mark.parametrize("tag", sorted(MODE_FLAGS))
+def test_mode_solutions_and_column_match(runs, mode_runs, tag):
+    tmp = runs["tmp"]
+    nchunk = [1, 1] if tag == "default" else runs["sky"].nchunk
+    _, jb = sol.read_solutions(str(tmp / f"{tag}_jax.sol"), nchunk)
+    _, tb = tsol.read_solutions(str(tmp / f"{tag}_torch.sol"), nchunk)
+    assert len(tb) == len(jb) == 2
+    for a, b in zip(tb, jb):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+    jms = ds.SimMS(str(tmp / f"{tag}_jax.ms"), data_column="CORRECTED_DATA")
+    tms = tds.SimMS(str(tmp / f"{tag}_torch.ms"),
+                    data_column="CORRECTED_DATA")
+    raw = tds.SimMS(str(tmp / "pristine.ms"))
+    for i in range(2):
+        scale = np.abs(raw.read_tile(i).x).max()
+        np.testing.assert_allclose(tms.read_tile(i).x, jms.read_tile(i).x,
+                                   atol=1e-7 * scale)
+
+
+def test_mode_runs_use_their_solvers(mode_runs):
+    """The default mode (3 at 10 stations) is robust: nu moves off its
+    start; -j 5 --inner cg takes PCG trips; residuals fall on every tile
+    and the CPU runs launch no kernel."""
+    for tag, (_, t) in mode_runs.items():
+        for h in t:
+            assert np.isfinite(h["res_1"]) and h["res_1"] < h["res_0"]
+            assert h["launches"] == {"coh": 0, "sweep": 0, "matvec": 0}
+            assert h["solver_iters"] > 0 and h["lbfgs_iters"] > 0
+    assert any(h["mean_nu"] != 2.0 for h in mode_runs["default"][1])
+    assert all(h["cg_iters"] > 0 for h in mode_runs["cg"][1])
+
+
+@pytest.mark.parametrize("extra", [["--inflight", "2"], ["-N", "2"],
+                                   ["-B", "1"], ["--tile-batch", "2"],
+                                   ["--kernel", "xla"],
                                    ["--jones", "diag"], ["-q", "x.sol"],
                                    ["--dtype-policy", "bf16"],
                                    ["--prefetch", "0"]])
@@ -159,8 +256,32 @@ def test_unported_flags_raise(runs, extra):
             "-c", str(tmp / "sky.txt.cluster"), "--platform", "cpu"] + extra
     if "-j" not in extra:
         argv += ["-j", "1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP|next slice"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(argv)
+
+
+@pytest.mark.parametrize("extra", [[], ["-j", "0"], ["-j", "2"],
+                                   ["-j", "3", "--inner", "cg"], ["-j", "4"],
+                                   ["-j", "6", "-L", "3", "-H", "20"]])
+def test_cli_runs_solver_modes(runs, tmp_path, extra):
+    """The port's CLI runs to the end with no -j (the default 5) and at
+    every other mode, with -L/-H accepted, writing residuals and
+    solutions; residuals fall on every tile."""
+    shutil.copytree(runs["tmp"] / "pristine.ms", tmp_path / "obs.ms")
+    argv = ["-d", str(tmp_path / "obs.ms"), "-s",
+            str(runs["tmp"] / "sky.txt"), "-c",
+            str(runs["tmp"] / "sky.txt.cluster"), "-p",
+            str(tmp_path / "sol.txt"), "-e", "1", "-g", "3", "-l", "2",
+            "-t", "4", "--platform", "cpu"] + extra
+    assert tcli.main(argv) == 0
+    _, blocks = tsol.read_solutions(str(tmp_path / "sol.txt"),
+                                    runs["sky"].nchunk)
+    assert len(blocks) == 2
+    out = tds.SimMS(str(tmp_path / "obs.ms"), data_column="CORRECTED_DATA")
+    raw = tds.SimMS(str(tmp_path / "obs.ms"))
+    for i in range(2):
+        assert np.abs(out.read_tile(i).x).mean() < \
+            np.abs(raw.read_tile(i).x).mean()
 
 
 def test_cli_missing_args():

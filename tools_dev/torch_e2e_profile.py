@@ -1,6 +1,7 @@
 """Where the time of one full-width port tile goes, on the card.
 
     python3 tools_dev/torch_e2e_profile.py [--out build/e2e_profile]
+        [--flags "-j 5 --inner cg"]
 
 Builds chip_smoke.py's full-width synthetic observation (62 stations,
 120 timeslots, 8 channels, 8 clusters x 64 sources, nchunk up to 4),
@@ -9,7 +10,8 @@ boosted tile), then profiles the second tile with ``torch.profiler``
 (CPU and CUDA activities). Prints one JSON line: the tile's wall
 seconds, the summed device-kernel time, the device idle share over the
 tile, and the top operators by device time and by host time; the full
-operator tables go to ``--out``.
+operator tables go to ``--out``. ``--flags`` gives the solver flags of
+the run (default ``-j 1``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "e2e_profile"))
+    ap.add_argument("--flags", default="-j 1",
+                    help="solver flags of the profiled run")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -47,8 +51,8 @@ def main() -> int:
         work, cs.N_STATIONS, cs.TILESZ, cs.FREQS, cs.N_CLUSTERS,
         cs.N_SOURCES, cs.NCHUNK, 2, "cuda", seed=5, noise=0.01)
     cfg = config_from_args(build_parser().parse_args(
-        ["-d", ms_path, "-s", sky, "-c", clus, "-j", "1", "-e", "3", "-g",
-         "10", "-l", "10", "-m", "7"]))
+        ["-d", ms_path, "-s", sky, "-c", clus, "-e", "3", "-g", "10", "-l",
+         "10", "-m", "7"] + args.flags.split()))
     ms = ds.SimMS(ms_path)
     meta = ms.meta
     sk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
@@ -96,7 +100,8 @@ def main() -> int:
         device=torch.cuda.get_device_name(0), wall_tile0_s=wall0,
         wall_tile1_s=wall1, device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / (wall1 * 1e3),
-        solver_iters=info["solver_iters"], lbfgs_iters=info["lbfgs_iters"],
+        flags=args.flags, solver_iters=info["solver_iters"],
+        tcg_iters=info.get("tcg_iters", 0), lbfgs_iters=info["lbfgs_iters"],
         top_device=top_dev, top_host=top_host)), flush=True)
     shutil.rmtree(work, ignore_errors=True)
     return 0
