@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``sagecal_tpu_torch/csrc`` (into
 version on the card at the shapes the full-batch path gives it (phases
 ``coh``, ``sweep``, ``matvec``), checks the port's pipeline on the card
 against the same pipeline on the CPU at ``-j 1``, at the default solver
-mode and at ``-j 5 --inner cg`` (``slice_parity``), and drives the
+mode (on 16 stations, where it runs as OS-LM, and on 41, robust RTR) and
+at ``-j 5 --inner cg`` (``slice_parity``), and drives the
 full-batch CLI end to end on a synthetic observation at full width (62
 LOFAR-like stations, 120 timeslots, 8 channels, 8 clusters x 64
 sources): ``e2e`` at ``-j 1`` on one tile, ``e2e_rtr`` at ``-j 5 --inner
@@ -350,8 +351,11 @@ def phase_matvec():
         shift = torch.rand((K,), device="cuda", generator=gen,
                            dtype=torch.float32) + 0.1
         s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
+        # built once per tile on the main path (sagefit_host)
+        lists = swp.station_lists(sta1, sta2, nb, N)
         n0 = swp.MATVEC_LAUNCHES
-        got = swp.gn_matvec_blocks(fac, v, sta1, sta2, N, shift=shift)
+        got = swp.gn_matvec_blocks(fac, v, sta1, sta2, N, shift=shift,
+                                   lists=lists)
         torch.cuda.synchronize()
         if swp.MATVEC_LAUNCHES != n0 + 1:
             raise AssertionError("matvec: the wrapper did not launch")
@@ -374,7 +378,8 @@ def phase_matvec():
         if not lib_err <= KERNEL_RTOL:
             raise AssertionError(f"matvec yardstick disagrees: {lib_err}")
         ms = cuda_ms(lambda: swp.gn_matvec_blocks(fac, v, sta1, sta2, N,
-                                                  shift=shift), 200)
+                                                  shift=shift, lists=lists),
+                     200)
         plain_ms = cuda_ms(lambda: swp.gn_matvec_blocks_plain(
             fac, v, s1b, s2b, N, shift=shift), 50)
         library_ms = cuda_ms(library, 50)
@@ -408,12 +413,15 @@ def _reset():
 #: flags, kernels that must launch on the card). The default -j (5) runs
 #: as mode 3 (OS-LM under Cholesky) at 16 stations, on single-chunk
 #: clusters: with a 2-chunk cluster the first OS subset holds no row of
-#: chunk 1, the reference seeds its damping at 1e-33 and roundoff grows
-#: ~1e9-fold, so float32 runs land up to 2e-2 from float64 (measured with
-#: tools_dev/torch_parity_spread.py). 41 stations keep robust RTR from the
-#: LMCUT downgrade
+#: chunk 1, the reference seeds its damping at 1e-33, and one ulp of data
+#: already moves the float64 reference's own J by ~3e-6 (the CPU tests
+#: ``*_two_chunks_within_reference_spread``), so float32 runs land up to
+#: 2e-2 from float64. At 41 stations (above the LMCUT downgrade) the
+#: default is robust RTR with the dense --inner chol operator
+#: (``default_rtr``); ``j5_cg`` runs it with the matvec kernel
 PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep")),
                ("default", 16, (1, 1, 1), [], ("coh", "sweep")),
+               ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep")),
                ("j5_cg", 41, (1, 2, 1), ["-j", "5", "--inner", "cg"],
                 ("coh", "sweep", "matvec")))
 
@@ -458,7 +466,11 @@ def phase_slice_parity():
                    cpu=[[h["res_0"], h["res_1"], h["mean_nu"]]
                         for h in hist["cpu"]],
                    max_rel=max(rels), launches=launches, seconds=secs,
-                   cg_iters=[h.get("cg_iters", 0) for h in hist["cuda"]])
+                   tile_s={d: [60.0 * h["minutes"] for h in hist[d]]
+                           for d in hist},
+                   solver_iters=[h["solver_iters"] for h in hist["cuda"]],
+                   cg_iters=[h.get("cg_iters", 0) for h in hist["cuda"]],
+                   tcg_iters=[h["tcg_iters"] for h in hist["cuda"]])
         emit("slice_parity", **rec)
         if not max(rels) <= PARITY_RTOL:
             raise AssertionError(f"slice_parity {tag}: {max(rels):.3e} > "

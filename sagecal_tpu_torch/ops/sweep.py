@@ -34,7 +34,6 @@ CPU tensor it runs :func:`gn_matvec_blocks_plain` (gather, einsum,
 from __future__ import annotations
 
 import math
-import weakref
 from typing import NamedTuple
 
 import torch
@@ -337,32 +336,30 @@ def gn_matvec_blocks_plain(fac: GNBlocks, v, s1b, s2b, n_stations: int,
     return y
 
 
-#: the last station layout's lists: (sta1 ref, sta2 ref, key, lists)
-_LISTS: list = []
+class StationLists(NamedTuple):
+    """A tile's baseline layout as the matvec kernel reads it (int32):
+    s1/s2 [nb] the baselines' stations; ``ent[ptr[n]:ptr[n + 1]]`` lists
+    the (baseline b, side) entries of station n as 2 b + side, side 0
+    where n = s1[b] and 1 where n = s2[b], in a fixed order."""
+
+    s1: torch.Tensor
+    s2: torch.Tensor
+    ptr: torch.Tensor
+    ent: torch.Tensor
 
 
-def station_lists(sta1, sta2, nb: int, n_stations: int):
-    """(s1 int32 [nb], s2 int32 [nb], ptr int32 [N + 1], ent int32
-    [2 nb]) for the matvec kernel: ``ent[ptr[n]:ptr[n + 1]]`` lists the
-    (baseline b, side) entries of station n as 2 b + side, side 0 where
-    n = sta1[b] and 1 where n = sta2[b], in a fixed order. Built on the
-    device at the first call for a pair of station tensors and kept for
-    as long as those tensors live unchanged (one build per tile)."""
-    key = (sta1._version, sta2._version, nb, n_stations, sta1.device)
-    if _LISTS:
-        r1, r2, k0, lists = _LISTS[0]
-        if r1() is sta1 and r2() is sta2 and k0 == key:
-            return lists
+def station_lists(sta1, sta2, nb: int, n_stations: int) -> StationLists:
+    """The :class:`StationLists` of rows ``sta1``/``sta2`` (baseline
+    period ``nb``), built on their device. ``sagefit_host`` builds them
+    once per tile and hands them to every matvec of the tile."""
     s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
     side = torch.cat([s1b, s2b])
     order = torch.sort(side, stable=True).indices   # e = side nb + b
     ent = (order % nb) * 2 + order // nb
     ptr = torch.zeros(n_stations + 1, dtype=torch.long, device=side.device)
     ptr[1:] = torch.cumsum(torch.bincount(side, minlength=n_stations), 0)
-    lists = tuple(t.to(torch.int32).contiguous()
-                  for t in (s1b, s2b, ptr, ent))
-    _LISTS[:] = [(weakref.ref(sta1), weakref.ref(sta2), key, lists)]
-    return lists
+    return StationLists(*(t.to(torch.int32).contiguous()
+                          for t in (s1b, s2b, ptr, ent)))
 
 
 def _block_view(t, nb: int):
@@ -376,7 +373,8 @@ def _block_view(t, nb: int):
     return t.contiguous(), words
 
 
-def _matvec_cuda(fac: GNBlocks, v, sta1, sta2, n_stations: int, shift):
+def _matvec_cuda(fac: GNBlocks, v, lists: StationLists, n_stations: int,
+                 shift):
     global MATVEC_LAUNCHES
     dev = v.device
     K, nb = fac.pp.shape[0], fac.pp.shape[1]
@@ -397,7 +395,13 @@ def _matvec_cuda(fac: GNBlocks, v, sta1, sta2, n_stations: int, shift):
     qq, sq = _block_view(fac.qq, nb)
     pq, spq = _block_view(fac.pq, nb)
     v = v.contiguous()
-    s1, s2, ptr, ent = station_lists(sta1, sta2, nb, n_stations)
+    s1, s2, ptr, ent = lists
+    if s1.shape[0] != nb or ptr.shape[0] != n_stations + 1 \
+            or s1.device != dev:
+        raise ValueError(f"matvec kernel: station lists for {s1.shape[0]} "
+                         f"baselines and {ptr.shape[0] - 1} stations on "
+                         f"{s1.device}, expected {nb} and {n_stations} on "
+                         f"{dev}")
     sh = None
     if shift is not None:
         sh = torch.as_tensor(shift, device=dev).to(torch.float32)
@@ -416,12 +420,16 @@ def _matvec_cuda(fac: GNBlocks, v, sta1, sta2, n_stations: int, shift):
 
 
 def gn_matvec_blocks(fac: GNBlocks, v, sta1, sta2, n_stations: int,
-                     shift=None):
+                     shift=None, lists: StationLists | None = None):
     """(JTJ + shift I) @ v from the per-baseline Gram blocks
     (``sweep_pallas.gn_matvec_blocks``): v [K, 8N], shift [K] or None;
-    sta1/sta2 the rows' station indices (baseline-periodic)."""
+    sta1/sta2 the rows' station indices (baseline-periodic). On the card
+    the kernel walks ``lists`` (:func:`station_lists` of the same rows),
+    built for this call when not given."""
     nb = fac.pp.shape[1]
     if v.device.type == "cuda":
-        return _matvec_cuda(fac, v, sta1, sta2, n_stations, shift)
+        if lists is None:
+            lists = station_lists(sta1, sta2, nb, n_stations)
+        return _matvec_cuda(fac, v, lists, n_stations, shift)
     return gn_matvec_blocks_plain(fac, v, sta1[:nb].long(),
                                   sta2[:nb].long(), n_stations, shift)

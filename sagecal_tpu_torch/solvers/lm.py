@@ -133,7 +133,7 @@ def check_route(config, kmax: int, row_period: int, B: int) -> None:
 
 def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
                      n_stations: int, eta: float, maxiter: int,
-                     active=None):
+                     active=None, lists=None):
     """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe on the
     Gram blocks, batched over chunks; returns (dp, ok, trips).
 
@@ -141,7 +141,8 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     station-block preconditioner solve. A chunk stops at ||r||^2 <=
     (eta ||JTe||)^2 and freezes (masked updates) while the batch runs to
     the slowest live chunk; ``active`` [K] masks chunks out entirely
-    (their rhs is zeroed, so they start converged). ``trips`` counts the
+    (their rhs is zeroed, so they start converged); ``lists`` the tile's
+    ``swp.station_lists`` for the kernel. ``trips`` counts the
     executed loop iterations (one host read of the active mask each)."""
     shift = mu + jitter + rho
     L = ne.gn_precond_factor(fac.D, shift)
@@ -159,7 +160,7 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     k = 0
     while k < maxiter and bool(act.any()):
         Ap = swp.gn_matvec_blocks(fac, p, sta1, sta2, n_stations,
-                                  shift=shift)
+                                  shift=shift, lists=lists)
         pAp = (p * Ap).sum(dim=-1)
         alpha = torch.where(act & (pAp > 0),
                             rz / torch.clamp(pAp, min=tiny), zero)
@@ -179,13 +180,14 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
 def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
              chunk_mask=None, config: LMConfig = LMConfig(),
              itmax_dynamic=None, os: OSConfig | None = None,
-             row_period: int = 0):
+             row_period: int = 0, lists=None):
     """Levenberg-Marquardt solve of all chunks of one cluster.
 
     x8 [B, 8] data (residual + this cluster's model); coh [B, 2, 2];
     sta1/sta2/chunk_id [B]; wt [B, 8] sqrt-weights; J0 [K, N, 2, 2];
     chunk_mask [K] bool; ``itmax_dynamic`` an optional iteration cap
-    <= config.itmax; ``os`` the optional ordered-subsets setting. Returns
+    <= config.itmax; ``os`` the optional ordered-subsets setting;
+    ``lists`` the tile's ``swp.station_lists`` for the PCG matvec. Returns
     (J [K, N, 2, 2], info) with init_cost / final_cost [K], iters
     (executed iterations) and cg_iters (executed PCG trips)."""
     kmax = J0.shape[0]
@@ -239,7 +241,8 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         if inner_cg:
             dp, ok, trips = _solve_damped_cg(
                 fac, JTe, mu, config.jitter, 0.0, sta1, sta2, N,
-                config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask)
+                config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask,
+                lists=lists)
             cg_trips += trips
         else:
             dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,

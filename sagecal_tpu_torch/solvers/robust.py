@@ -79,7 +79,7 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                     n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                     chunk_mask=None, config=lm_mod.LMConfig(),
                     wt_rounds: int = 3, itmax_dynamic=None, os=None,
-                    row_period: int = 0):
+                    row_period: int = 0, lists=None):
     """Student's-t IRLS-LM (rlevmar_der_single_nocuda, robustlm.c:2008);
     with ``os`` the ordered-subsets variant (robustlm.c:2607): the inner
     LM sees subsets while the weight and nu updates stay full-data.
@@ -102,7 +102,7 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         J, info = lm_mod.lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J,
                                   n_stations, chunk_mask, config,
                                   itmax_dynamic=itmax_dynamic, os=os_r,
-                                  row_period=row_period)
+                                  row_period=row_period, lists=lists)
         e2 = ne.residual8(x8, J, coh, sta1, sta2, chunk_id)
         nu = update_nu_ml(update_weights(e2, nu), mask, nu, nulow, nuhigh)
         infos.append(info)

@@ -21,9 +21,9 @@ the card), under ``inner="chol"`` one dense [K, 8N, 8N] product.
 
 Host reads: the outer loop reads one [K] bool per iteration (the JAX
 ``while_loop`` condition) and one to decide whether any chunk accepted
-(``lax.cond`` on it); tCG either reads its [K] ``done`` mask each trip
-and stops when every chunk is done (``tcg_early_exit``, the same result),
-or runs the reference's fixed trip count with masked updates and no read.
+(``lax.cond`` on it); tCG reads its [K] ``done`` mask each trip and
+stops when every chunk is done, where the reference runs its fixed trip
+count with masked updates: the same result in fewer Hessian products.
 ``--jones diag|phase`` and ADMM are not ported.
 """
 
@@ -52,9 +52,6 @@ class RTRConfig(NamedTuple):
     inner: str = "chol"        # tCG operator: dense ("chol") or blocks
     kernel: str = "pallas"     # only the fused sweep is ported
     jones_mode: str = "full"
-    # stop tCG once every chunk is done (one host read a trip) instead of
-    # running all tcg_iters masked trips; the two give the same result
-    tcg_early_exit: bool = True
 
 
 class NSDConfig(NamedTuple):
@@ -156,7 +153,7 @@ def _tcg(hess_fn, rgrad, delta, cfg: RTRConfig):
     one = torch.ones_like(r0n)
     trips = 0
     for _ in range(cfg.tcg_iters):
-        if cfg.tcg_early_exit and bool(done.all()):
+        if bool(done.all()):
             break
         Hd = hess_fn(d)
         trips += 1
@@ -201,10 +198,12 @@ def _egrad(cost_fn):
 @torch.no_grad()
 def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
               chunk_mask=None, config: RTRConfig = RTRConfig(),
-              itmax_dynamic=None, robust_nu=None, row_period: int = 0):
+              itmax_dynamic=None, robust_nu=None, row_period: int = 0,
+              lists=None):
     """Trust-region solve of all chunks of one cluster (rtr_solve.c:1208).
 
-    Same call convention as ``lm.lm_solve``; ``robust_nu`` switches the
+    Same call convention as ``lm.lm_solve`` (``lists`` the tile's
+    ``swp.station_lists`` for the tCG matvec); ``robust_nu`` switches the
     objective to fixed-nu Student's t. Returns (J [K, N, 2, 2], info)
     with init_cost / final_cost [K], iters (outer iterations) and
     tcg_iters (executed Hessian products)."""
@@ -245,7 +244,7 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
 
             def hv(v):
                 return proj(2.0 * swp.gn_matvec_blocks(fac, v, sta1, sta2,
-                                                       N))
+                                                       N, lists=lists))
             return hv
         JTJ, _, _ = swp.normal_equations_fused(x8, Jm, coh, sta1, sta2,
                                                chunk_id, wt_eff, N, kmax,
@@ -303,7 +302,7 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                      n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                      chunk_mask=None, config: RTRConfig = RTRConfig(),
                      wt_rounds: int = 2, itmax_dynamic=None,
-                     row_period: int = 0):
+                     row_period: int = 0, lists=None):
     """Student's-t robust RTR (rtr_solve_robust.c:1441): IRLS rounds of
     {fixed-nu robust RTR -> weight E-step -> AECM nu update, p = 2}.
     Returns (J, nu, info)."""
@@ -315,7 +314,7 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         J, info = rtr_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J,
                             n_stations, chunk_mask, config,
                             itmax_dynamic=itmax_dynamic, robust_nu=nu,
-                            row_period=row_period)
+                            row_period=row_period, lists=lists)
         e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt_base
         w = rb.update_weights(e, nu)
         nu = rb.update_nu_aecm(rb.mean_logsumw(w, mask), nu, p=2,

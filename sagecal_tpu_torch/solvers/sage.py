@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.config import SolverMode
+from sagecal_tpu_torch.ops import sweep as swp
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.solvers import lbfgs as lbfgs_mod
 from sagecal_tpu_torch.solvers import lm as lm_mod
@@ -106,10 +107,11 @@ def _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base):
 
 def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
                    wt_base, J_m, n_stations: int, nu_cj, config: SageConfig,
-                   itermax: int, itcap: int, os_cfg, last: bool):
+                   itermax: int, itcap: int, os_cfg, last: bool, lists):
     """One cluster's per-chunk solve by solver mode (``sage._cluster_solve``,
-    lmfit.c:906-962). Returns (Jn, nu_new, init_cost [K], final_cost [K],
-    iters, cg_iters, tcg_iters)."""
+    lmfit.c:906-962); ``lists`` the tile's station lists for the matvec
+    kernel (``inner="cg"``). Returns (Jn, nu_new, init_cost [K],
+    final_cost [K], iters, cg_iters, tcg_iters)."""
     nbase = int(config.nbase)
     lm_cfg = lm_mod.LMConfig(itmax=itcap, inner=config.inner,
                              kernel=config.kernel,
@@ -119,7 +121,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
         Jn, info = lm_mod.lm_solve(
             xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
             chunk_mask=cmask_m, config=lm_cfg, itmax_dynamic=itermax,
-            os=os, row_period=nbase)
+            os=os, row_period=nbase, lists=lists)
         return (Jn, nu_cj, info["init_cost"], info["final_cost"],
                 info["iters"], info["cg_iters"], 0)
 
@@ -128,7 +130,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
             xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
             nu0=nu_cj, nulow=config.nulow, nuhigh=config.nuhigh,
             chunk_mask=cmask_m, config=lm_cfg, wt_rounds=3,
-            itmax_dynamic=itermax, os=os, row_period=nbase)
+            itmax_dynamic=itermax, os=os, row_period=nbase, lists=lists)
         return (Jn, nu_new, info["init_cost"], info["final_cost"],
                 info["iters"], info["cg_iters"], 0)
 
@@ -141,7 +143,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
             Jn, info = rtr_mod.rtr_solve(
                 xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
                 n_stations, chunk_mask=cmask_m, config=rtr_cfg,
-                itmax_dynamic=itermax, row_period=nbase)
+                itmax_dynamic=itermax, row_period=nbase, lists=lists)
             nu_new = nu_cj
         else:
             # 2 rounds: the reference robust RTR updates the weights
@@ -150,7 +152,8 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
                 xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
                 n_stations, nu0=nu_cj, nulow=config.nulow,
                 nuhigh=config.nuhigh, chunk_mask=cmask_m, config=rtr_cfg,
-                wt_rounds=2, itmax_dynamic=itermax, row_period=nbase)
+                wt_rounds=2, itmax_dynamic=itermax, row_period=nbase,
+                lists=lists)
         return (Jn, nu_new, info["init_cost"], info["final_cost"],
                 info["iters"], 0, info["tcg_iters"])
 
@@ -240,6 +243,9 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     shim = ClusterOrder(seed)
     chunk_idx = chunk_idx.long()
     sta1, sta2 = sta1.long(), sta2.long()
+    # the matvec kernel's station lists, built once for the tile
+    lists = (swp.station_lists(sta1, sta2, int(config.nbase), n_stations)
+             if config.inner == "cg" and dev.type == "cuda" else None)
     os_ids = None
     if os_id is not None and mode in _OS_MODES:
         os_ids = (torch.as_tensor(np.asarray(os_id[0]), device=dev).long(),
@@ -277,8 +283,7 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
             Jn, nu_new, init_c, final_c, its, cgs, tcgs = _cluster_solve(
                 mode, xdummy, coh[cj], sta1, sta2, chunk_idx[cj],
                 chunk_mask[cj], wt_base, J[cj], n_stations, nuM[cj].clone(),
-                config,
-                itermax, itcap, os_cfg, last)
+                config, itermax, itcap, os_cfg, last, lists)
             trips["solver_iters"] += int(its)
             trips["cg_iters"] += int(cgs)
             trips["tcg_iters"] += int(tcgs)

@@ -126,10 +126,16 @@ def test_matvec_kernel_matches_plain(card, K, shifted):
     ref = tswp.gn_matvec_blocks_plain(fac, v, s1[:nb], s2[:nb], N,
                                       shift=shift)
     assert got.shape == ref.shape and _close(got, ref)
-    # contiguous copies of the strided sweep views give the same product
+    # contiguous copies of the strided sweep views, on station lists built
+    # once beforehand as sagefit_host builds them, give the same product
     flat = tswp.GNBlocks(*(t.contiguous() for t in fac))
-    again = tswp.gn_matvec_blocks(flat, v, s1, s2, N, shift=shift)
+    lists = tswp.station_lists(s1, s2, nb, N)
+    again = tswp.gn_matvec_blocks(flat, v, s1, s2, N, shift=shift,
+                                  lists=lists)
     assert _close(again, ref)
+    with pytest.raises(ValueError):
+        tswp.gn_matvec_blocks(fac, v, s1, s2, N, shift=shift,
+                              lists=tswp.station_lists(s1, s2, nb - 1, N))
 
 
 def test_matvec_kernel_refuses_float64(card):

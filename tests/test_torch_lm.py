@@ -186,6 +186,51 @@ def test_lm_cg_and_os_match_reference(K, inner, use_os):
     np.testing.assert_allclose(Jp.numpy(), np.asarray(Jr), atol=1e-6)
 
 
+def test_lm_os_chol_two_chunks_within_reference_spread():
+    """OS-LM under Cholesky with K = 2, whose first subset (timeslot 0)
+    holds no row of chunk 1: the reference seeds that chunk's damping at
+    mu0 = 1e-33 and float64 roundoff grows ~1e9-fold. The witness: the
+    reference against itself on the data moved by one ulp (3 seeded
+    draws) moves J by more than 1e-7 (measured 8.2e-7) and the cost by
+    ~4e-9. The port takes the same iterations and lands within
+    max(plain gate, 10 x that spread) (measured 1.2e-6 in J, 1.4e-8 in
+    the cost)."""
+    N, K = 6, 2
+    x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=93, noise=0.1)
+    wt = np.ones((x8.shape[0], 8))
+    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    ids, n = lm_mod.os_subset_ids(4, nbase)
+    jos = lm_mod.OSConfig(os_id=jnp.asarray(ids), n_subsets=n,
+                          key=jax.random.PRNGKey(0), randomize=False)
+
+    def jax_run(x):
+        J, info = lm_mod.lm_solve(
+            *(jnp.asarray(a) for a in (x, coh[0], s1, s2, cid, wt, J0)), N,
+            row_period=nbase, os=jos,
+            config=lm_mod.LMConfig(itmax=10, kernel="pallas", inner="chol"))
+        return np.asarray(J), np.asarray(info["final_cost"]), info
+
+    Jr, cr, info = jax_run(x8)
+    rng = np.random.default_rng(0)
+    pert = [jax_run(x8 * (1.0 + 2.0 ** -52 * rng.choice([-1.0, 1.0],
+                                                        x8.shape)))
+            for _ in range(3)]
+    s_J = max(float(np.abs(Jq - Jr).max()) for Jq, _, _ in pert)
+    s_c = max(float(np.abs(cq / cr - 1.0).max()) for _, cq, _ in pert)
+    assert 1e-7 < s_J < 1e-4 and s_c < 1e-6
+    Jp, tinfo = tlm.lm_solve(
+        _t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(), _t(cid).long(),
+        _t(wt), _t(J0), N, row_period=nbase,
+        os=tlm.OSConfig(os_id=_t(ids), n_subsets=n, randomize=False),
+        config=tlm.LMConfig(itmax=10, inner="chol"))
+    assert tinfo["iters"] == int(info["iters"])
+    np.testing.assert_allclose(tinfo["init_cost"].numpy(),
+                               np.asarray(info["init_cost"]), rtol=1e-10)
+    np.testing.assert_allclose(tinfo["final_cost"].numpy(), cr,
+                               rtol=max(1e-8, 10 * s_c))
+    np.testing.assert_allclose(Jp.numpy(), Jr, atol=max(1e-6, 10 * s_J))
+
+
 @pytest.mark.parametrize("K", [2])
 def test_solve_damped_cg_matches_reference(K):
     """One PCG solve on the Gram blocks: same trips, same step (rtol

@@ -133,8 +133,11 @@ def test_station_lists_drive_the_kernel_gather(repeat):
     nb = 5 if repeat else N * (N - 1) // 2
     _, tf, s1, s2 = _blocks(K, nb, N, seed=30, s1=s1, s2=s2)
     t1, t2 = torch.as_tensor(s1), torch.as_tensor(s2)
-    l1, l2, ptr, ent = tswp.station_lists(t1, t2, nb, N)
-    assert tswp.station_lists(t1, t2, nb, N)[2] is ptr      # cached
+    lists = tswp.station_lists(t1, t2, nb, N)
+    l1, l2, ptr, ent = lists
+    # a pure function of the layout: a second build is the same
+    assert all(torch.equal(a, b) for a, b in
+               zip(lists, tswp.station_lists(t1.clone(), t2.clone(), nb, N)))
     assert l1.dtype == ptr.dtype == ent.dtype == torch.int32
     assert int(ptr[-1]) == 2 * nb and sorted(ent.tolist()) == list(
         range(2 * nb))
@@ -153,7 +156,8 @@ def test_station_lists_drive_the_kernel_gather(repeat):
     yb = torch.stack([yp.reshape(K, nb, 8), yq.reshape(K, nb, 8)], dim=2)
     shift = torch.tensor([0.5, 0.25], dtype=torch.float64)
     _close(_gather_replica(yb, ptr, ent, v, shift, K, N).numpy(),
-           tswp.gn_matvec_blocks(tf, v, t1, t2, N, shift=shift).numpy())
+           tswp.gn_matvec_blocks(tf, v, t1, t2, N, shift=shift,
+                                 lists=lists).numpy())
 
 
 def test_block_view_keeps_sweep_output_strides():

@@ -16,8 +16,11 @@ cluster the first OS subset (timeslot 0) holds no row of chunk 1, so the
 reference seeds that chunk's damping from an all-zero block (mu0 =
 1e-33) and its Cholesky steps are regularized by the 1e-9 jitter alone:
 float64 roundoff then grows ~1e9-fold along the near-null directions, in
-the JAX package as in the port (~2e-6 in J). The PCG route does not
-amplify it, so the ``--inner cg`` run keeps the 2-chunk cluster."""
+the JAX package as in the port (~2e-6 in J). That route is held to the
+reference's own one-ulp spread in test_torch_lm.py and
+test_torch_sage_lm.py (``*_two_chunks_within_reference_spread``). The PCG
+route does not amplify it, so the ``--inner cg`` run keeps the 2-chunk
+cluster."""
 
 import math
 import shutil

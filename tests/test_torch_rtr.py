@@ -124,27 +124,6 @@ def test_solver_matches_reference(rtr_runs, solver, K, inner):
         assert tinfo["tcg_iters"] > 0
 
 
-@pytest.mark.parametrize("inner", ["chol", "cg"])
-def test_tcg_early_exit_is_exact(inner):
-    """Stopping tCG once every chunk is done gives the fixed-trip result
-    bit for bit, in fewer Hessian products."""
-    N, K = 6, 2
-    x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=80, noise=0.2)
-    args = [_t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(),
-            _t(cid).long(), _t(np.ones((x8.shape[0], 8))),
-            _t(np.tile(np.eye(2, dtype=complex), (K, N, 1, 1)))]
-    out = {}
-    for early in (True, False):
-        cfg = trtr.RTRConfig(itmax=4, inner=inner, tcg_early_exit=early)
-        out[early] = trtr.rtr_solve(*args, N, row_period=nbase, config=cfg,
-                                    robust_nu=4.0)
-    (Ja, ia), (Jb, ib) = out[True], out[False]
-    assert torch.equal(Ja, Jb) and torch.equal(ia["final_cost"],
-                                               ib["final_cost"])
-    assert ia["iters"] == ib["iters"]
-    assert ia["tcg_iters"] < ib["tcg_iters"] == 30 * ib["iters"]
-
-
 def test_unported_routes_raise():
     x8, coh, s1, s2, cid, nbase = _problem()
     args = [_t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(),

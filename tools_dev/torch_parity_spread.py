@@ -5,8 +5,7 @@
 Runs chip_smoke.py's ``slice_parity`` configurations (``--tags``, by
 default ``-j 1`` and the default ``-j``; ``j5_cg`` adds a minute of CPU
 reference) once on the CPU (float64, the reference) and ``--reps`` times
-on the card (float32). ``--nchunk``
-overrides the configurations' chunks per cluster (e.g. ``1,2,1``). The card's
+on the card (float32). The card's
 ``index_add_`` sums with atomics in no fixed order, so its runs differ
 from each other; this prints one JSON line per configuration with the
 max relative residual difference of every card run against the CPU run,
@@ -31,8 +30,6 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=6)
     ap.add_argument("--tags", default="j1,default",
                     help="slice_parity configurations to run")
-    ap.add_argument("--nchunk", default=None,
-                    help="chunks per cluster, overriding the configuration")
     args = ap.parse_args()
     import torch
     import chip_smoke as cs
@@ -43,8 +40,6 @@ def main() -> int:
     for tag, n_st, nchunk, flags, _ in cs.PARITY_RUNS:
         if tag not in args.tags.split(","):
             continue
-        if args.nchunk:
-            nchunk = tuple(int(c) for c in args.nchunk.split(","))
         work = os.path.join(cs.WORK, "spread_" + tag)
         shutil.rmtree(work, ignore_errors=True)
         ms, sky, clus = cs.make_observation(work, n_st, 10, cs.FREQS[:2], 3,
