@@ -5,14 +5,18 @@
 Builds the port's CUDA kernels from ``sagecal_tpu_torch/csrc`` (into
 ``build/torch_kernels/``), holds each kernel against its plain PyTorch
 version on the card at the shapes the full-batch path gives it (phases
-``coh``, ``sweep``, ``matvec``), checks the port's pipeline on the card
-against the same pipeline on the CPU at ``-j 1``, at the default solver
-mode (on 16 stations, where it runs as OS-LM, and on 41, robust RTR) and
-at ``-j 5 --inner cg`` (``slice_parity``), and drives the
-full-batch CLI end to end on a synthetic observation at full width (62
-LOFAR-like stations, 120 timeslots, 8 channels, 8 clusters x 64
-sources): ``e2e`` at ``-j 1`` on one tile, ``e2e_rtr`` at ``-j 5 --inner
-cg`` (robust RTR with the matvec kernel in every tCG product) on two.
+``coh``, ``sweep``, ``matvec``, ``visits``), checks the port's pipeline on
+the card against the same pipeline on the CPU at ``-j 1``, at the default
+solver mode (on 16 stations, where it runs as OS-LM, and on 41, robust
+RTR), at ``-j 5 --inner cg``, and with in-flight cluster groups
+(``--inflight 2`` on 8 clusters at ``-j 1`` and ``-j 5 --inner cg``;
+``slice_parity``), and drives the full-batch CLI end to end on a
+synthetic observation at full width (62 LOFAR-like stations, 120
+timeslots, 8 channels, clusters of 64 sources): ``e2e`` at ``-j 1`` on
+one tile and ``e2e_rtr`` at ``-j 5 --inner cg`` (robust RTR with the
+matvec kernel in every tCG product) on two, with 8 clusters;
+``e2e_inflight`` at ``-j 5 --inner cg --inflight 4`` on two tiles with 16
+clusters (the multi-visit sweep kernel in every group solve).
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -44,6 +48,10 @@ PEAK_F32_OPS_S = 67e12
 #: order), and the card (float32) pipeline vs the CPU (float64) one
 KERNEL_RTOL = 1e-4
 PARITY_RTOL = 1e-3
+#: a group's relaxation decision may differ between the card and the CPU
+#: only where the trial that decided it was within this relative margin
+#: of its threshold on both sides (float32 against float64 roundoff)
+FLIP_MARGIN = 1e-3
 
 N_STATIONS = 62
 TILESZ = 120
@@ -51,6 +59,10 @@ FREQS = 150e6 + 0.18e6 * (np.arange(8) - 3.5)
 N_CLUSTERS = 8
 N_SOURCES = 64
 NCHUNK = (1, 1, 2, 1, 4, 1, 2, 1)
+#: e2e_inflight: 16 clusters, so that groups of 4 survive the M//4 clamp
+NCHUNK16 = NCHUNK * 2
+#: visits: the in-flight group width of e2e_inflight
+N_VISITS = 4
 RA0 = 2.0 * math.pi / 12
 DEC0 = 52.0 * math.pi / 180
 
@@ -397,10 +409,92 @@ def phase_matvec():
     return out
 
 
+def _visits_inputs(K: int, batched_wt: bool, seed: int = 4):
+    """V = N_VISITS visits at the full-width path's shapes: data, Jones
+    and coherencies per visit, the chunk ids shared (clusters of equal
+    chunk counts), the weights per visit or shared."""
+    import torch
+    dev = "cuda"
+    rng = np.random.default_rng(seed)
+    V, T, N = N_VISITS, TILESZ, N_STATIONS
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    sta1 = torch.as_tensor(np.tile(p, T), device=dev)
+    sta2 = torch.as_tensor(np.tile(q, T), device=dev)
+    cid = torch.as_tensor(np.minimum((np.arange(B) // nb) // -(-T // K),
+                                     K - 1), dtype=torch.int32, device=dev)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=dev)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    wshape = (V, B, 8) if batched_wt else (B, 8)
+    coh = c64(rng.normal(size=(V, B, 2, 2))
+              + 1j * rng.normal(size=(V, B, 2, 2)))
+    J = c64((rng.normal(size=(V, K, N, 2, 2))
+             + 1j * rng.normal(size=(V, K, N, 2, 2))) * 0.2 + np.eye(2))
+    x8 = f32(rng.normal(size=(V, B, 8)))
+    wt = f32(rng.random(wshape) * (rng.random(wshape[:-1] + (1,)) > 0.05))
+    cw = f32(rng.random(wshape))
+    return (x8, J, coh, sta1, sta2, cid, wt, cw, nb, K, V), (B, nb)
+
+
+def phase_visits():
+    """The multi-visit sweep kernel against its plain version, at V = 4
+    visits of the full-width path (the groups of e2e_inflight), with the
+    weights shared (plain LM, RTR) and per visit (robust weights); timed
+    against its plain version and against V serial sweep-kernel calls."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    out = {}
+    for K in (1, 4):
+        for batched_wt in (False, True):
+            args, (B, nb) = _visits_inputs(K, batched_wt)
+            x8, J, coh, sta1, sta2, cid, wt, cw, _, _, V = args
+            s1b, s2b = sta1[:nb], sta2[:nb]
+            n0 = swp.VISITS_LAUNCHES
+            got = swp.sweep_blocks_visits(*args)
+            torch.cuda.synchronize()
+            if swp.VISITS_LAUNCHES != n0 + 1:
+                raise AssertionError("visits: the wrapper did not launch")
+            plain = lambda: swp.sweep_blocks_visits_plain(
+                x8, J[:, :, s1b], J[:, :, s2b], coh, cid, wt, cw, nb, V)
+            pairs = [rel_err(g, r) for g, r in zip(got, plain())]
+            errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
+                            (rel for _, rel in pairs)))
+            bad = {k: v for k, v in errs.items() if not v <= KERNEL_RTOL}
+            if bad:
+                raise AssertionError(f"visits kernel K={K} batched_wt="
+                                     f"{batched_wt}: {bad} > {KERNEL_RTOL}")
+            wv = (lambda a, v: a[v]) if batched_wt else (lambda a, v: a)
+
+            def serial():
+                return [swp.sweep_blocks(x8[v], J[v], coh[v], sta1, sta2,
+                                         cid, wv(wt, v), wv(cw, v), nb, K)
+                        for v in range(V)]
+
+            ms = cuda_ms(lambda: swp.sweep_blocks_visits(*args), 20)
+            serial_ms = cuda_ms(serial, 20)
+            plain_ms = cuda_ms(plain, 3)
+            # per-visit operands read once per visit, shared ones once:
+            # x 8, coherency 8, weights 8 + 8 words a row, chunk id 1
+            words = 16 * V + 16 * (V if batched_wt else 1) + 1
+            n_bytes = 4 * (words * B + 2 * V * K * nb * 8
+                           + V * K * nb * swp.N_OUT)
+            n_rows = V * int(((cid >= 0) & (cid < K)).sum())
+            bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
+            rec = dict(V=V, K=K, T=TILESZ, nb=nb, batched_wt=batched_wt,
+                       rel_err=errs, max_abs_err=max(a for a, _ in pairs),
+                       ms=ms, serial_ms=serial_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=None,
+                       slices=swp._time_slices(TILESZ, nb, V * K))
+            emit("visits", **rec)
+            out[(K, batched_wt)] = rec
+    return out
+
+
 def _counts():
     from sagecal_tpu_torch.ops import coh, sweep
     return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES,
-            "matvec": sweep.MATVEC_LAUNCHES}
+            "matvec": sweep.MATVEC_LAUNCHES, "visits": sweep.VISITS_LAUNCHES}
 
 
 def _reset():
@@ -418,48 +512,116 @@ def _reset():
 #: ``*_two_chunks_within_reference_spread``), so float32 runs land up to
 #: 2e-2 from float64. At 41 stations (above the LMCUT downgrade) the
 #: default is robust RTR with the dense --inner chol operator
-#: (``default_rtr``); ``j5_cg`` runs it with the matvec kernel
+#: (``default_rtr``); ``j5_cg`` runs it with the matvec kernel.
+#: The inflight runs solve 8 clusters (groups of 2 survive the M//4
+#: clamp) in groups through the multi-visit sweep kernel, on 41 stations.
+#: At 16 stations and -g 10, -j 1 read 1.5e-3 from float64 in 1 of 3 card
+#: runs (tile 1's starting residual: tile 0's J after capped LM runs
+#: carries the roundoff of its trajectory); more stations and -g 30 (LM
+#: runs nearer convergence) make the result depend less on the path. The
+#: RTR one read 2.2e-3 at -e 1 (tile 0 stops far from convergence) and
+#: 1.2-1.6e-4 at -e 2.
 PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep")),
                ("default", 16, (1, 1, 1), [], ("coh", "sweep")),
                ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep")),
                ("j5_cg", 41, (1, 2, 1), ["-j", "5", "--inner", "cg"],
-                ("coh", "sweep", "matvec")))
+                ("coh", "sweep", "matvec")),
+               ("inflight_j1", 41, (1, 2, 1, 1, 2, 1, 1, 1),
+                ["-j", "1", "--inflight", "2", "-g", "30"],
+                ("coh", "visits")),
+               ("inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
+                ["-j", "5", "--inner", "cg", "--inflight", "2"],
+                ("coh", "visits", "matvec")))
+
+
+def _first_flip(cuda_hist, cpu_hist):
+    """The first in-flight group whose relaxation differs between the
+    card and the CPU run, as (tile, group, card record, CPU record), or
+    None when every decision agrees. A record is (sweep, members, omega,
+    margins of the trials made)."""
+    for ti, (hg, hc) in enumerate(zip(cuda_hist, cpu_hist)):
+        for gi, (a, b) in enumerate(zip(hg["groups"], hc["groups"])):
+            if a[2] != b[2] or a[1] != b[1]:
+                return ti, gi, a, b
+    return None
+
+
+#: the CPU float64 reference runs of slice_parity go to this many worker
+#: processes of this many threads each, beside the card runs
+PARITY_WORKERS = 4
+PARITY_THREADS = 2
+
+
+def _parity_run(path: str, sky: str, clus: str, flags, device):
+    """One slice_parity pipeline run over both tiles of ``path``: (the
+    per-tile history, seconds). ``device`` None is the card."""
+    from sagecal_tpu_torch import pipeline
+    from sagecal_tpu_torch.cli import build_parser, config_from_args
+    args = build_parser().parse_args(
+        ["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10", "-l",
+         "5", "-R", "0", "-t", "10"] + flags)
+    t0 = time.perf_counter()
+    hist = pipeline.run(config_from_args(args), device=device,
+                        log=lambda *a: None)
+    return hist, time.perf_counter() - t0
+
+
+def _parity_cpu(job):
+    """A CPU reference run in a worker process: ``job`` the (path, sky,
+    cluster, flags) of :func:`_parity_run`."""
+    import torch
+    torch.set_num_threads(PARITY_THREADS)
+    return _parity_run(*job, device="cpu")
 
 
 def phase_slice_parity():
     """The port's pipeline on the card (kernels, float32) against the
-    same pipeline on the CPU (plain versions, float64), per solver
-    mode."""
-    from sagecal_tpu_torch import pipeline
-    from sagecal_tpu_torch.cli import build_parser, config_from_args
-    out = {}
-    for tag, n_st, nchunk, flags, must in PARITY_RUNS:
+    same pipeline on the CPU (plain versions, float64), per solver mode.
+    The CPU runs go to worker processes, longest first, while the card
+    runs here one after another."""
+    import multiprocessing
+    obs = {}
+    for tag, n_st, nchunk, flags, _ in PARITY_RUNS:
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        ms, sky, clus = make_observation(work, n_st, 10, FREQS[:2], 3, 6,
-                                         nchunk, 2, "cpu", seed=9,
-                                         noise=0.02)
+        ms, sky, clus = make_observation(work, n_st, 10, FREQS[:2],
+                                         len(nchunk), 6, nchunk, 2, "cpu",
+                                         seed=9, noise=0.02)
         shutil.copytree(ms, ms + ".cpu")
-        hist, secs = {}, {}
-        for dev, path in (("cuda", ms), ("cpu", ms + ".cpu")):
-            args = build_parser().parse_args(
-                ["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10",
-                 "-l", "5", "-R", "0", "-t", "10"] + flags)
+        obs[tag] = (ms, sky, clus)
+    # the 41-station runs and the groups take longest on the CPU
+    longest = sorted(PARITY_RUNS, key=lambda r: (-r[1], -len(r[2])))
+    out = {}
+    with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
+        cpu_runs = {}
+        for tag, _, _, flags, _ in longest:
+            ms, sky, clus = obs[tag]
+            cpu_runs[tag] = pool.apply_async(
+                _parity_cpu, ((ms + ".cpu", sky, clus, flags),))
+        card_runs = {}
+        for tag, _, _, flags, must in PARITY_RUNS:
             _reset()
-            t0 = time.perf_counter()
-            hist[dev] = pipeline.run(config_from_args(args),
-                                     device=None if dev == "cuda" else "cpu",
-                                     log=lambda *a: None)
-            secs[dev] = time.perf_counter() - t0
-            if dev == "cuda":
-                launches = _counts()
-                if not all(launches[k] for k in must):
-                    raise AssertionError(
-                        f"slice_parity {tag}: a kernel never launched on "
-                        f"the card: {launches}")
+            card_runs[tag] = _parity_run(*obs[tag], flags, device=None)
+            launches = _counts()
+            if not all(launches[k] for k in must):
+                raise AssertionError(
+                    f"slice_parity {tag}: a kernel never launched on the "
+                    f"card: {launches}")
+            card_runs[tag] += (launches,)
+        cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
+        pool.close()
+        pool.join()
+    for tag, n_st, nchunk, flags, _ in PARITY_RUNS:
+        hist, secs = {}, {}
+        hist["cuda"], secs["cuda"], launches = card_runs[tag]
+        hist["cpu"], secs["cpu"] = cpu_done[tag]
         rels = [abs(hg[key] - hc[key]) / abs(hc[key])
                 for hg, hc in zip(hist["cuda"], hist["cpu"])
                 for key in ("res_0", "res_1")]
+        # in-flight groups: the relaxation decisions are compared first
+        flip = _first_flip(hist["cuda"], hist["cpu"])
+        omegas = {d: [[g[2] for g in h["groups"]] for h in hist[d]]
+                  for d in hist}
         rec = dict(tag=tag, stations=n_st, nchunk=nchunk, flags=flags,
                    cuda=[[h["res_0"], h["res_1"], h["mean_nu"]]
                          for h in hist["cuda"]],
@@ -470,23 +632,42 @@ def phase_slice_parity():
                            for d in hist},
                    solver_iters=[h["solver_iters"] for h in hist["cuda"]],
                    cg_iters=[h.get("cg_iters", 0) for h in hist["cuda"]],
-                   tcg_iters=[h["tcg_iters"] for h in hist["cuda"]])
+                   tcg_iters=[h["tcg_iters"] for h in hist["cuda"]],
+                   rejected_groups={d: [h["rejected_groups"]
+                                        for h in hist[d]] for d in hist},
+                   omegas=omegas, flip=flip)
         emit("slice_parity", **rec)
-        if not max(rels) <= PARITY_RTOL:
+        if flip is not None:
+            # the trial where the two runs first decided differently
+            _, _, a, b = flip
+            i = next(i for i, (ma, mb) in enumerate(zip(a[3], b[3]))
+                     if (ma >= 0) != (mb >= 0))
+            if max(abs(a[3][i]), abs(b[3][i])) > FLIP_MARGIN:
+                raise AssertionError(
+                    f"slice_parity {tag}: relaxation decision flipped far "
+                    f"from its threshold: card {a}, CPU {b}")
+            emit("slice_parity_flip", tag=tag, trial=i,
+                 card_margin=a[3][i], cpu_margin=b[3][i],
+                 residual_gate="replaced by the flip report")
+        elif not max(rels) <= PARITY_RTOL:
             raise AssertionError(f"slice_parity {tag}: {max(rels):.3e} > "
                                  f"{PARITY_RTOL}")
+        if not all(h["res_1"] < h["res_0"] for d in hist for h in hist[d]):
+            raise AssertionError(f"slice_parity {tag}: residuals did not "
+                                 "fall on every tile")
         out[tag] = rec
     return out
 
 
-def observation_e2e():
-    """The full-width synthetic observation of the e2e phases (2 tiles,
-    simulated on the card). Returns (ms, sky, cluster, setup seconds)."""
-    work = os.path.join(WORK, "e2e")
+def observation_e2e(tag: str = "e2e", nchunk=NCHUNK):
+    """A full-width synthetic observation of the e2e phases (2 tiles,
+    simulated on the card), with one cluster of N_SOURCES per entry of
+    ``nchunk``. Returns (ms, sky, cluster, setup seconds)."""
+    work = os.path.join(WORK, tag)
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
     ms, sky, clus = make_observation(work, N_STATIONS, TILESZ, FREQS,
-                                     N_CLUSTERS, N_SOURCES, NCHUNK, 2,
+                                     len(nchunk), N_SOURCES, nchunk, 2,
                                      "cuda", seed=5, noise=0.01)
     return ms, sky, clus, time.perf_counter() - t0
 
@@ -544,9 +725,9 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must):
         ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
     rec = dict(flags=flags, tiles=tiles, wall_s=wall, setup_s=setup_s,
                launches=launches, intervals=len(blocks),
-               written_over_data=ratio, kmax=max(NCHUNK),
+               written_over_data=ratio, kmax=int(max(sk.nchunk)),
                B=TILESZ * N_STATIONS * (N_STATIONS - 1) // 2,
-               F=len(FREQS), M=N_CLUSTERS, S=N_SOURCES)
+               F=len(FREQS), M=sk.n_clusters, S=N_SOURCES)
     emit(phase, **rec)
     if len(blocks) != n_tiles:
         raise AssertionError(f"solutions file holds {len(blocks)} intervals")
@@ -563,11 +744,17 @@ def main() -> int:
     coh = phase_coh()
     sweep = phase_sweep()
     matvec = phase_matvec()
+    visits = phase_visits()
     phase_slice_parity()
     obs = observation_e2e()
     phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"))
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
                     ("coh", "sweep", "matvec"))
+    shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
+    inflight = phase_e2e(observation_e2e("e2e16", NCHUNK16), "e2e_inflight",
+                         ["-j", "5", "--inner", "cg", "--inflight",
+                          str(N_VISITS)], 2, ("coh", "visits", "matvec"))
+    vis = visits[(4, True)]
 
     import torch
     kernels = [
@@ -595,6 +782,14 @@ def main() -> int:
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],
              library_ms=matvec[4]["library_ms"]),
+        dict(name="sweep_blocks_visits", route="cuda",
+             source="sagecal_tpu_torch/csrc/sweep.cu",
+             replaces="sagecal_tpu/ops/sweep_pallas.py:439",
+             launches=inflight["launches"]["visits"],
+             max_abs_err=max(r["max_abs_err"] for r in visits.values()),
+             ms=vis["ms"], plain_ms=vis["plain_ms"],
+             bound_ms=vis["bound_ms"], bound_by=vis["bound_by"],
+             library_ms=None, serial_ms=vis["serial_ms"]),
     ]
     shutil.rmtree(WORK, ignore_errors=True)
     print(smi, flush=True)

@@ -4,9 +4,10 @@
 The parser accepts every flag of the JAX CLI so command lines translate
 directly. The port runs full-batch calibration with
 ``-d -s -c -p -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k --kernel
---inner --jones --dtype-policy --platform`` (every solver mode ``-j 0..6``,
-``--inner chol|cg``); ``--solve-fuse`` and
-``--solve-promote`` are accepted as no-ops (PyTorch runs eagerly).
+--inner --inflight --jones --dtype-policy --platform`` (every solver mode
+``-j 0..6``, ``--inner chol|cg``, in-flight cluster groups);
+``--solve-fuse`` and ``--solve-promote`` are accepted as no-ops (PyTorch
+runs eagerly).
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 
@@ -44,7 +45,6 @@ UNPORTED = {
     "rho_file": (None, "queue A item 12 (-G)"),
     "linsolv": (1, "queue A item 4 (--linsolv)"),
     "tile_batch": (1, "queue A item 9 (--tile-batch)"),
-    "inflight": (1, "queue A item 9 and queue B item 4 (--inflight)"),
     "tile_bucket": (0, "queue A item 14 (--tile-bucket)"),
     "resume": (False, "queue A item 1 (--resume checkpoints)"),
     "faults": (None, "queue A item 13 (--faults)"),
@@ -104,7 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="accepted; a no-op (PyTorch runs eagerly)")
     a("--solve-promote", choices=("auto", "on", "off"), default="auto",
       help="accepted; a no-op (PyTorch runs eagerly)")
-    a("--inflight", type=int, default=1)
+    a("--inflight", type=int, default=1,
+      help="clusters solved together per SAGE step (block-Jacobi groups, "
+           "clamped to M//4; 1 = sequential)")
     a("--tile-bucket", type=int, default=0)
     a("--resume", action="store_true")
     a("--faults", default=None)
@@ -171,6 +173,7 @@ def config_from_args(args) -> RunConfig:
         n_epochs=args.epochs, max_timeslots=args.max_timeslots,
         verbose=args.verbose,
         solve_fuse=args.solve_fuse, solve_promote=args.solve_promote,
+        cluster_inflight=args.inflight,
         solver_inner=args.inner, solver_kernel=args.kernel,
         jones_mode=args.jones, dtype_policy=args.dtype_policy)
 

@@ -85,6 +85,9 @@ class RunConfig:
     # whole-solve promotion; PyTorch runs eagerly, so both are no-ops
     solve_fuse: str = "auto"           # --solve-fuse
     solve_promote: str = "auto"        # --solve-promote
+    # clusters solved concurrently per SAGE sweep step (block-Jacobi
+    # groups, sage.SageConfig.inflight); 1 = the reference's sequencing
+    cluster_inflight: int = 1          # --inflight
     solver_inner: str = "chol"         # --inner
     solver_kernel: str = "pallas"      # --kernel (only the fused sweep)
     jones_mode: str = "full"           # --jones

@@ -29,6 +29,22 @@
 //    [K, nb, 145] (pp 32, qq 32, pq 64, jtep 8, jteq 8, cost 1).
 // No atomics, so the result is deterministic. The time axis is split
 // into enough slices to fill the card (the wrapper picks the count).
+//
+// Second entry point: the multi-visit sweep. Replaces the TPU kernel
+// sagecal_tpu/ops/sweep_pallas.py:_visits_kernel (launched by
+// sweep_blocks_visits), which runs the same body for V stacked cluster
+// visits in one grid. Each of x, w, cw, cid, coh and the Jones carries a
+// visit stride, or a stride of 0 when one array is shared by all visits
+// (the TPU kernel's static `batched` tuple). Bound by bytes like pass 1:
+// 33 words a row when every operand is per visit, 17 when the weights
+// are shared. The TPU kernel walks time outer so that a shared block is
+// fetched once per time block; here visits_partials_kernel numbers its
+// blocks with the visit fastest, then the chunk, then the baseline block,
+// so the V visits (and K chunks) of one (baseline block, time slice) run
+// as neighbouring blocks: a shared row is read once from memory and
+// served to the others from L2. Its partials [nsl, V K, 121, nb] go
+// through the same fixed-order sweep_reduce_kernel, into one [V K, nb,
+// 145] buffer whose visits fold into the chunk axis for the caller.
 
 #include <cuda_runtime.h>
 
@@ -56,34 +72,18 @@ __device__ __forceinline__ void load8(const float* p, float* v)
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__global__ void __launch_bounds__(SW_THREADS)
-sweep_partials_kernel(const float* __restrict__ x,    // [T*nb, 8]
-                      const float* __restrict__ w,    // [T*nb, 8]
-                      const float* __restrict__ cw,   // [T*nb, 8]
-                      const int* __restrict__ cid,    // [T*nb]
-                      const float* __restrict__ coh,  // [T*nb, 2, 2, re/im]
-                      const float* __restrict__ jp,   // [K, nb, 2, 2, re/im]
-                      const float* __restrict__ jq,   // [K, nb, 2, 2, re/im]
-                      float* __restrict__ part,       // [nsl, K, 121, nb]
-                      int T, int nb, int K, int tl)
+// the sums of one (chunk k, baseline b) over rows t0 <= t < t1 of a
+// visit: P, Q the chunk's Jones of the baseline's two stations, entries
+// e = row * 2 + col (row-major), (re, im)
+__device__ __forceinline__ void sweep_rows(const float* __restrict__ x,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ cw,
+                                           const int* __restrict__ cid,
+                                           const float* __restrict__ coh,
+                                           const float* P, const float* Q,
+                                           int nb, int K, int k, int b,
+                                           int t0, int t1, float* acc)
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    const int k = blockIdx.y;
-    const int sl = blockIdx.z;
-    if (b >= nb) return;
-
-    // this chunk's Jones of the baseline's two stations, entries
-    // e = row * 2 + col (row-major), (re, im)
-    float P[8], Q[8];
-    load8(jp + ((size_t)k * nb + b) * 8, P);
-    load8(jq + ((size_t)k * nb + b) * 8, Q);
-
-    float acc[SW_NACC];
-#pragma unroll
-    for (int q = 0; q < SW_NACC; ++q) acc[q] = 0.f;
-
-    const int t0 = sl * tl;
-    const int t1 = min(T, t0 + tl);
     for (int t = t0; t < t1; ++t) {
         const size_t row = (size_t)t * nb + b;
         // rows of other chunks carry zero weight: skip them outright
@@ -203,7 +203,75 @@ sweep_partials_kernel(const float* __restrict__ x,    // [T*nb, 8]
             }
         }
     }
+}
+
+__global__ void __launch_bounds__(SW_THREADS)
+sweep_partials_kernel(const float* __restrict__ x,    // [T*nb, 8]
+                      const float* __restrict__ w,    // [T*nb, 8]
+                      const float* __restrict__ cw,   // [T*nb, 8]
+                      const int* __restrict__ cid,    // [T*nb]
+                      const float* __restrict__ coh,  // [T*nb, 2, 2, re/im]
+                      const float* __restrict__ jp,   // [K, nb, 2, 2, re/im]
+                      const float* __restrict__ jq,   // [K, nb, 2, 2, re/im]
+                      float* __restrict__ part,       // [nsl, K, 121, nb]
+                      int T, int nb, int K, int tl)
+{
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    const int k = blockIdx.y;
+    const int sl = blockIdx.z;
+    if (b >= nb) return;
+
+    float P[8], Q[8];
+    load8(jp + ((size_t)k * nb + b) * 8, P);
+    load8(jq + ((size_t)k * nb + b) * 8, Q);
+
+    float acc[SW_NACC];
+#pragma unroll
+    for (int q = 0; q < SW_NACC; ++q) acc[q] = 0.f;
+
+    const int t0 = sl * tl;
+    sweep_rows(x, w, cw, cid, coh, P, Q, nb, K, k, b, t0, min(T, t0 + tl),
+               acc);
     float* dst = part + ((size_t)sl * K + k) * SW_NACC * nb + b;
+#pragma unroll
+    for (int q = 0; q < SW_NACC; ++q) dst[(size_t)q * nb] = acc[q];
+}
+
+__global__ void __launch_bounds__(SW_THREADS)
+visits_partials_kernel(const float* __restrict__ x,   // [(V,) T*nb, 8]
+                       const float* __restrict__ w,   // [(V,) T*nb, 8]
+                       const float* __restrict__ cw,  // [(V,) T*nb, 8]
+                       const int* __restrict__ cid,   // [(V,) T*nb]
+                       const float* __restrict__ coh, // [(V,) T*nb, 8]
+                       const float* __restrict__ jp,  // [(V,) K, nb, 8]
+                       const float* __restrict__ jq,  // [(V,) K, nb, 8]
+                       float* __restrict__ part,      // [nsl, V*K, 121, nb]
+                       int T, int nb, int K, int V, int tl,
+                       long long sx, long long sw, long long scw,
+                       long long scid, long long scoh, long long sj)
+{
+    // block x = ((baseline block * K) + k) * V + v: visits fastest
+    int bx = blockIdx.x;
+    const int v = bx % V;
+    bx /= V;
+    const int k = bx % K;
+    const int b = (bx / K) * blockDim.x + threadIdx.x;
+    const int sl = blockIdx.y;
+    if (b >= nb) return;
+
+    float P[8], Q[8];
+    load8(jp + v * sj + ((size_t)k * nb + b) * 8, P);
+    load8(jq + v * sj + ((size_t)k * nb + b) * 8, Q);
+
+    float acc[SW_NACC];
+#pragma unroll
+    for (int q = 0; q < SW_NACC; ++q) acc[q] = 0.f;
+
+    const int t0 = sl * tl;
+    sweep_rows(x + v * sx, w + v * sw, cw + v * scw, cid + v * scid,
+               coh + v * scoh, P, Q, nb, K, k, b, t0, min(T, t0 + tl), acc);
+    float* dst = part + ((size_t)sl * V * K + (size_t)v * K + k) * SW_NACC
+        * nb + b;
 #pragma unroll
     for (int q = 0; q < SW_NACC; ++q) dst[(size_t)q * nb] = acc[q];
 }
@@ -263,5 +331,24 @@ extern "C" int sweep_reduce_launch(const float* part, float* out, int nb,
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
     sweep_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         part, out, nb, K, nsl);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int visits_partials_launch(const float* x, const float* w,
+                                      const float* cw, const int* cid,
+                                      const float* coh, const float* jp,
+                                      const float* jq, float* part, int T,
+                                      int nb, int K, int V, int nsl, int tl,
+                                      long long sx, long long sw,
+                                      long long scw, long long scid,
+                                      long long scoh, long long sj,
+                                      void* stream)
+{
+    if (nb == 0 || K == 0 || V == 0 || nsl == 0) return 0;
+    const unsigned nbb = (unsigned)((nb + SW_THREADS - 1) / SW_THREADS);
+    dim3 grid(nbb * (unsigned)K * (unsigned)V, nsl);
+    visits_partials_kernel<<<grid, SW_THREADS, 0, (cudaStream_t)stream>>>(
+        x, w, cw, cid, coh, jp, jq, part, T, nb, K, V, tl, sx, sw, scw,
+        scid, scoh, sj);
     return (int)cudaGetLastError();
 }

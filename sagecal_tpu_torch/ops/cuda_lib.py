@@ -48,6 +48,11 @@ SIGNATURES = {
                                   _I, _I, _I, _P],
         # part, out, nb, K, nsl, stream
         "sweep_reduce_launch": [_P, _P, _I, _I, _I, _P],
+        # x, w, cw, cid, coh, jp, jq, part, T, nb, K, V, nsl, tl, and the
+        # visit strides of x, w, cw, cid, coh, jones (0 = shared), stream
+        "visits_partials_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                                   _P],
     },
     "matvec": {
         # pp, qq, pq, sp, sq, spq, v, s1, s2, ptr, ent, shift, yb, y,

@@ -29,6 +29,20 @@ the Gram blocks, the product behind every ``--inner cg`` PCG and tCG
 trip. On a CUDA tensor it launches ``csrc/matvec.cu`` or raises; on a
 CPU tensor it runs :func:`gn_matvec_blocks_plain` (gather, einsum,
 ``index_add_``).
+
+:func:`sweep_blocks_visits` replaces the third, ``_visits_kernel``
+(``sweep_pallas.py:439``, launched by ``sweep_blocks_visits`` ``:582``;
+the JAX package reaches it only under ``jax.vmap``, through the
+``custom_vmap`` rule of ``_sweep_vmappable`` ``:719``): the same pass for
+V cluster visits in one launch, each operand either per visit or shared
+by all. On a CUDA tensor it launches the second entry point of
+``csrc/sweep.cu`` or raises; on a CPU tensor it runs
+:func:`sweep_blocks_visits_plain`. The solvers reach it through
+:class:`Lanes`, the layout of an in-flight cluster group
+(``solvers/sage.py``): V visits folded into the row and chunk axes, so
+everything after the sweep sees V K chunks. It is bound by bytes like the
+single-visit sweep; a shared operand is read once from memory and served
+to the other visits from L2 (notes in ``csrc/sweep.cu``).
 """
 
 from __future__ import annotations
@@ -61,15 +75,17 @@ TARGET_THREADS = 132 * 256
 MATVEC_FLOPS_PER_BASELINE = 2 * 192
 
 #: kernel launches since the last reset (the plain versions never count):
-#: the sweep kernel, and the matvec kernel
+#: the sweep kernel, the matvec kernel and the multi-visit sweep kernel
 LAUNCHES = 0
 MATVEC_LAUNCHES = 0
+VISITS_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES, MATVEC_LAUNCHES
+    global LAUNCHES, MATVEC_LAUNCHES, VISITS_LAUNCHES
     LAUNCHES = 0
     MATVEC_LAUNCHES = 0
+    VISITS_LAUNCHES = 0
 
 
 def supported(kmax: int, row_period: int, B: int) -> bool:
@@ -141,7 +157,8 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
 
 def _time_slices(T: int, nb: int, K: int):
     """(slice count, rows per slice) so that about TARGET_THREADS
-    (chunk, baseline, slice) threads are in flight."""
+    (chunk, baseline, slice) threads are in flight (K counts every
+    visit's chunks in the multi-visit sweep)."""
     want = max(1, -(-TARGET_THREADS // max(K * nb, 1)))
     tl = -(-T // min(T, want))
     return -(-T // tl), tl
@@ -215,6 +232,152 @@ def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
     return sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb)
 
 
+class Lanes(NamedTuple):
+    """V cluster visits solved as one problem (an in-flight group of
+    ``solvers/sage.py``), folded into the axes the solvers batch over:
+    rows [V B] with visit v's rows at v B .. (v + 1) B, chunks [V K] with
+    visit v's chunk k at v K + k (its chunk ids offset by v K). A per-row
+    operand that every visit shares stays [B, ...]. ``cid`` holds the
+    visits' own chunk ids (0 .. K - 1, int32) for the sweep: [B] when all
+    visits have the same, else [V, B]."""
+
+    V: int
+    K: int
+    cid: torch.Tensor
+
+    @property
+    def B(self) -> int:
+        return self.cid.shape[-1]
+
+    def shared(self, t) -> bool:
+        """True when the per-row tensor ``t`` is one [B, ...] array for all
+        visits."""
+        return self.V > 1 and t.shape[0] == self.B
+
+    def rows(self, t):
+        """``t`` in the folded [V B, ...] layout (a shared one repeated)."""
+        if self.shared(t):
+            return t.repeat((self.V,) + (1,) * (t.dim() - 1))
+        return t
+
+    def visits(self, t):
+        """A folded per-row tensor as a [V, B, ...] view; a shared one as
+        it is."""
+        if self.shared(t):
+            return t
+        return t.view((self.V, self.B) + tuple(t.shape[1:]))
+
+    def per_row(self, s):
+        """Per-visit values [V] as a [V B, 1] column."""
+        return s.repeat_interleave(self.B)[:, None]
+
+
+def sweep_blocks_visits_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt,
+                              nb: int, vsize: int):
+    """Plain PyTorch version of the multi-visit sweep: each operand
+    carries a leading [V] axis or is one array shared by all V visits
+    (x8/wt/cost_wt [(V,) B, 8], Jp/Jq [(V,) K, nb, 2, 2], coh [(V,) B, 2,
+    2], chunk_id [(V,) B]). Returns the :func:`sweep_blocks_plain` tuple
+    with a leading [V] on every output."""
+    def pick(a, ndim, v):
+        return a[v] if a.dim() == ndim + 1 else a
+
+    outs = [sweep_blocks_plain(pick(x8, 2, v), pick(Jp, 4, v),
+                               pick(Jq, 4, v), pick(coh, 3, v),
+                               pick(chunk_id, 1, v), pick(wt, 2, v),
+                               pick(cost_wt, 2, v), nb)
+            for v in range(int(vsize))]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
+
+
+def _visits_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int, V: int,
+                 K: int):
+    global VISITS_LAUNCHES
+    dev = Jp.device
+    for name, a in (("x8", x8), ("wt", wt), ("cost_wt", cost_wt)):
+        if a.dtype != torch.float32 or a.device != dev:
+            raise TypeError(f"visits kernel: {name} must be float32 on {dev} "
+                            f"(got {a.dtype} on {a.device}); reduced "
+                            "storage policies are ROADMAP queue A item 9")
+    if coh.dtype != torch.complex64 or Jp.dtype != torch.complex64 \
+            or coh.device != dev:
+        raise TypeError("visits kernel: coherencies and Jones must be "
+                        f"complex64 on {dev}")
+    B = x8.shape[-2]
+    T = B // nb
+
+    def arg(a, ndim):
+        """(contiguous tensor, elements between visits: 0 when shared)."""
+        a = a.contiguous()
+        return a, (a[0].numel() if a.dim() == ndim + 1 else 0)
+
+    x8, sx = arg(x8, 2)
+    wt, sw = arg(wt, 2)
+    cost_wt, scw = arg(cost_wt, 2)
+    cohr, scoh = arg(torch.view_as_real(coh.resolve_conj()), 4)
+    jpr, sj = arg(torch.view_as_real(Jp.resolve_conj()), 5)
+    jqr, _ = arg(torch.view_as_real(Jq.resolve_conj()), 5)
+    cid, scid = arg(chunk_id.to(device=dev, dtype=torch.int32), 1)
+    nsl, tl = _time_slices(T, nb, V * K)
+    part = torch.empty((nsl, V * K, N_ACC, nb), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((V * K, nb, N_OUT), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("sweep")
+    stream = cuda_lib.stream_ptr(dev)
+    cuda_lib.check(lib.visits_partials_launch(
+        x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
+        cohr.data_ptr(), jpr.data_ptr(), jqr.data_ptr(), part.data_ptr(),
+        T, nb, K, V, nsl, tl, sx, sw, scw, scid, scoh, sj, stream),
+        "visits_partials_kernel")
+    cuda_lib.check(lib.sweep_reduce_launch(
+        part.data_ptr(), out.data_ptr(), nb, V * K, nsl, stream),
+        "sweep_reduce_kernel")
+    VISITS_LAUNCHES += 1
+    pp = out[..., 0:32].view(V, K, nb, 2, 4, 4)
+    qq = out[..., 32:64].view(V, K, nb, 2, 4, 4)
+    pq = out[..., 64:128].view(V, K, nb, 2, 2, 4, 4)
+    jtep = out[..., 128:136].view(V, K, nb, 2, 4)
+    jteq = out[..., 136:144].view(V, K, nb, 2, 4)
+    return pp, qq, pq, jtep, jteq, out[..., 144].sum(dim=-1).view(V, K)
+
+
+def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
+                        row_period: int, kmax: int, vsize: int,
+                        jones: str = "full"):
+    """V cluster visits in one pass (``sweep_pallas.sweep_blocks_visits``).
+
+    Each of x8/wt/cost_wt [(V,) B, 8], J [(V,) K, N, 2, 2], coh [(V,) B,
+    2, 2] and chunk_id [(V,) B] carries a leading [V] axis or is one
+    array shared by every visit (the JAX package's static ``batched``
+    6-tuple, read here off the ranks); sta1/sta2 are shared and
+    baseline-periodic. Returns the :func:`sweep_blocks` tuple with a
+    leading [V] axis on every output. On the card the outputs are views
+    of one [V K, nb, 145] buffer, so the visits fold into the chunk axis
+    without a copy."""
+    if jones != "full":
+        raise NotImplementedError(
+            f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
+            "item 9: constrained Jones modes)")
+    nb, K, V = int(row_period), int(kmax), int(vsize)
+    if J.shape[-4] != K or x8.shape[-2] % nb \
+            or any(a.dim() == nd + 1 and a.shape[0] != V
+                   for a, nd in ((x8, 2), (J, 4), (coh, 3), (chunk_id, 1),
+                                 (wt, 2), (cost_wt, 2))):
+        raise ValueError(f"sweep_blocks_visits: J has {J.shape[-4]} chunks "
+                         f"for kmax={K}, rows are not a multiple of "
+                         f"row_period={nb}, or a batched operand's visit "
+                         f"axis is not {V}")
+    s1b = sta1[:nb].long()
+    s2b = sta2[:nb].long()
+    Jp = J.index_select(-3, s1b)                     # [(V,) K, nb, 2, 2]
+    Jq = J.index_select(-3, s2b)
+    if J.device.type == "cuda":
+        return _visits_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb, V,
+                            K)
+    return sweep_blocks_visits_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt,
+                                     nb, V)
+
+
 def _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, N: int):
     """(D [K, N, 2, 4, 4], JTe [K, 8N]) from the per-baseline partials;
     ``index_add_`` accumulates repeated station indices."""
@@ -229,13 +392,25 @@ def _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, N: int):
 
 def gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
               kmax: int, row_period: int, cost_wt=None,
-              jones: str = "full"):
+              jones: str = "full", lanes: Lanes | None = None):
     """Operator assembly from one fused sweep: (GNBlocks, JTe [K, 8N],
-    cost [K]) — ``sweep_pallas.gn_blocks``."""
+    cost [K]) — ``sweep_pallas.gn_blocks``. With ``lanes`` the rows and
+    chunks are a group's folded layout (K = V lanes.K), and one
+    multi-visit sweep replaces the JAX package's vmapped sweep
+    (``sweep_pallas._sweep_dispatch``)."""
     cw = wt if cost_wt is None else cost_wt
-    pp, qq, pq, jtep, jteq, cost = sweep_blocks(
-        x8, J, coh, sta1, sta2, chunk_id, wt, cw, row_period, kmax,
-        jones=jones)
+    if lanes is None:
+        pp, qq, pq, jtep, jteq, cost = sweep_blocks(
+            x8, J, coh, sta1, sta2, chunk_id, wt, cw, row_period, kmax,
+            jones=jones)
+    else:
+        V, Kl = lanes.V, lanes.K
+        outs = sweep_blocks_visits(
+            lanes.visits(x8), J.view((V, Kl) + tuple(J.shape[1:])),
+            lanes.visits(coh), sta1, sta2, lanes.cid, lanes.visits(wt),
+            lanes.visits(cw), row_period, Kl, V, jones=jones)
+        pp, qq, pq, jtep, jteq, cost = (
+            o.reshape((V * Kl,) + tuple(o.shape[2:])) for o in outs)
     nb = int(row_period)
     s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
     D, JTe = _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, n_stations)
@@ -302,13 +477,14 @@ def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
 
 def normal_equations_fused(x8, J, coh, sta1, sta2, chunk_id, wt,
                            n_stations: int, kmax: int, row_period: int,
-                           cost_wt=None, jones: str = "full"):
+                           cost_wt=None, jones: str = "full",
+                           lanes: Lanes | None = None):
     """Dense (JTJ [K, 8N, 8N], JTe, cost) from one fused sweep
     (``sweep_pallas.normal_equations_fused``): the blocks expanded by
     :func:`_assemble_damped` without a shift."""
     fac, JTe, cost = gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt,
                                n_stations, kmax, row_period,
-                               cost_wt=cost_wt, jones=jones)
+                               cost_wt=cost_wt, jones=jones, lanes=lanes)
     return _assemble_damped(fac, None, sta1, sta2, n_stations), JTe, cost
 
 

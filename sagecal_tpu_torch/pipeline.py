@@ -12,7 +12,11 @@ residuals and the solutions, with the reference's heuristics:
   stations, 6x otherwise;
 - LMCUT solver downgrade of the RTR/NSD modes for small arrays;
 - divergence reset: a residual of 0, non-finite or above RES_RATIO x
-  the best so far resets the solutions and re-arms the boost.
+  the best so far resets the solutions and re-arms the boost;
+- in-flight cluster groups (``--inflight``): the first tile (and the
+  first after a reset) solves cold, the others warm; a divergence reset
+  with groups active falls back to sequential updates for the rest of
+  the run.
 
 The JAX package's serve cache, fleet, priors, overlapped scheduler,
 fault injection, tracing and checkpoint/resume are not ported yet;
@@ -129,7 +133,8 @@ class FullBatchPipeline:
             nulow=cfg.robust_nulow, nuhigh=cfg.robust_nuhigh,
             randomize=cfg.randomize, inner=cfg.solver_inner,
             kernel=cfg.solver_kernel,
-            jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]))
+            jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]),
+            inflight=max(1, int(cfg.cluster_inflight)))
         # ordered-subsets partition of the [tilesz, nbase] rows for the
         # OS modes 0/2/3 (the other modes ignore it)
         self.os_info = lm_mod.os_subset_ids(meta["tilesz"], meta["nbase"])
@@ -154,16 +159,19 @@ class FullBatchPipeline:
                     sta1=self._t(tile.sta1, torch.long),
                     sta2=self._t(tile.sta2, torch.long))
 
-    def solve(self, stg: dict, J0: np.ndarray, tile_idx: int, boost: int):
+    def solve(self, stg: dict, J0: np.ndarray, tile_idx: int, boost: int,
+              warm: bool = False):
         """One solve interval: solve coherencies, then SAGE-EM with the
-        EM budget multiplied by ``boost``. Returns (J numpy, info)."""
+        EM budget multiplied by ``boost``; ``warm`` when J0 comes from the
+        previous tile (no cold first-sweep group width). Returns (J
+        numpy, info)."""
         meta = self.meta
         coh = rp.coherencies(self.dsky, stg["u"], stg["v"], stg["w"],
                              self._t([meta["freq0"]]), meta["fdelta"])[:, :, 0]
         cdt = devmod.complex_dtype(self.rdt)
         J0t = torch.as_tensor(J0, device=self.device).to(cdt)
         scfg = self.base_cfg._replace(
-            max_emiter=self.base_cfg.max_emiter * boost)
+            max_emiter=self.base_cfg.max_emiter * boost, inflight_warm=warm)
         J, info = sage.sagefit_host(
             stg["x8"], coh, stg["sta1"], stg["sta2"], self.cidx, self.cmask,
             J0t, self.n, stg["wt"], config=scfg, seed=199 * 1000 + tile_idx,
@@ -184,6 +192,19 @@ class FullBatchPipeline:
             rho=self.cfg.mmse_rho)
         return utils.r2c(rr.residual_writeback(res).cpu().numpy()).astype(
             np.complex128)
+
+    def _inflight_downgrade(self, log=print) -> None:
+        """Divergence guard for ``--inflight`` (``pipeline.
+        _inflight_downgrade``): a divergence reset with cluster groups
+        active is taken as group overcorrection, and the run falls back to
+        sequential cluster updates (G = 1) for every remaining tile.
+        Sticky; the caller skips it for a res_1 == 0 reset (flagged
+        data)."""
+        if self.base_cfg.inflight <= 1:
+            return
+        log("inflight downgrade: divergence reset with cluster groups "
+            "active; falling back to sequential updates (G=1)")
+        self.base_cfg = self.base_cfg._replace(inflight=1)
 
     def initial_jones(self) -> np.ndarray:
         return np.tile(np.eye(2, dtype=np.complex128),
@@ -211,12 +232,13 @@ class FullBatchPipeline:
             for ti in range(n_tiles):
                 t0 = time.time()
                 launches0 = (coh_ops.LAUNCHES, swp.LAUNCHES,
-                             swp.MATVEC_LAUNCHES)
+                             swp.MATVEC_LAUNCHES, swp.VISITS_LAUNCHES)
                 tile = ms.read_tile(ti)
                 stg = self.stage(tile)
                 t_solve = time.time()
                 Jnew, info = self.solve(stg, J, ti,
-                                        self.boost if first else 1)
+                                        self.boost if first else 1,
+                                        warm=not first)
                 first = False
                 res_0 = float(info["res_0"])
                 res_1 = float(info["res_1"])
@@ -226,6 +248,8 @@ class FullBatchPipeline:
                         res_prev is not None
                         and res_1 > RES_RATIO * res_prev):
                     log(f"tile {ti}: Resetting Solution")
+                    if res_1 != 0.0:   # zero = flagged data
+                        self._inflight_downgrade(log)
                     J = pinit.copy()
                     first = True
                     res_prev = res_1 if np.isfinite(res_1) else None
@@ -253,18 +277,20 @@ class FullBatchPipeline:
                        "mean_nu": mean_nu, "minutes": dt,
                        **lm_mod.executed_trips(info),
                        "tcg_iters": info["tcg_iters"],
+                       "groups": info["groups"],
                        "launches": {
                            "coh": coh_ops.LAUNCHES - launches0[0],
                            "sweep": swp.LAUNCHES - launches0[1],
-                           "matvec": swp.MATVEC_LAUNCHES - launches0[2]},
+                           "matvec": swp.MATVEC_LAUNCHES - launches0[2],
+                           "visits": swp.VISITS_LAUNCHES - launches0[3]},
                        **secs}
                 history.append(rec)
                 if self.cfg.verbose:
                     log(f"Timeslot: {ti} stats: " + json.dumps(
                         {k: rec[k] for k in ("solver_iters", "cg_iters",
                                              "tcg_iters", "lbfgs_iters",
-                                             "mean_nu", "launches",
-                                             *secs)}))
+                                             "rejected_groups", "mean_nu",
+                                             "launches", *secs)}))
         finally:
             if writer:
                 writer.close()

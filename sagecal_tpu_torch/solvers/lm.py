@@ -29,6 +29,13 @@ The loops are Python loops that read one [K]-bool back per iteration
 (per PCG trip under ``inner="cg"``) to decide whether any chunk is still
 live (the JAX ``while_loop`` conditions); everything else stays on the
 device.
+
+Lanes (``lanes=``, an ``ops.sweep.Lanes``): one call solves an in-flight
+group's V cluster visits, folded into rows [V B] and chunks [V K], where
+the JAX package vmaps the solve. Per visit: its iteration cap, its OS
+subset draws, and its executed iterations and PCG trips (a visit counts
+the loop iterations in which one of its chunks was live). A chunk that
+stops is frozen, so every visit's result is its own solve's.
 """
 
 from __future__ import annotations
@@ -115,7 +122,8 @@ def check_jones(config) -> None:
 
 def check_route(config, kmax: int, row_period: int, B: int) -> None:
     """Raise for a solver route the port does not run: ``config`` is an
-    LMConfig or an RTRConfig (inner, kernel, jones_mode)."""
+    LMConfig or an RTRConfig (inner, kernel, jones_mode); ``kmax`` and
+    ``B`` are one visit's chunk and row counts."""
     if config.inner not in ("chol", "cg"):
         raise ValueError(f"inner={config.inner!r}: expected chol or cg")
     if config.kernel != "pallas":
@@ -131,9 +139,28 @@ def check_route(config, kmax: int, row_period: int, B: int) -> None:
             "queue A item 3")
 
 
+def live_lanes(mask, V: int) -> np.ndarray:
+    """[V] host bools: visit v has a True among its chunks of the [V K]
+    ``mask`` (one device read; V = 1 is a plain any())."""
+    return np.asarray(mask.view(V, -1).any(dim=1).cpu())
+
+
+def _lane_caps(itmax: int, itmax_dynamic, lanes):
+    """(loop bound, stop threshold): the iteration cap of a solve, per
+    chunk [V K] on a group (``itmax_dynamic`` one cap per visit)."""
+    if lanes is None:
+        cap = itmax if itmax_dynamic is None else \
+            min(int(itmax_dynamic), itmax)
+        return cap, cap
+    caps = np.full(lanes.V, itmax) if itmax_dynamic is None else \
+        np.minimum(np.asarray(itmax_dynamic, dtype=np.int64), itmax)
+    return int(caps.max()), torch.as_tensor(
+        np.repeat(caps, lanes.K), device=lanes.cid.device)
+
+
 def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
                      n_stations: int, eta: float, maxiter: int,
-                     active=None, lists=None):
+                     active=None, lists=None, V: int = 1):
     """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe on the
     Gram blocks, batched over chunks; returns (dp, ok, trips).
 
@@ -142,8 +169,9 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     (eta ||JTe||)^2 and freezes (masked updates) while the batch runs to
     the slowest live chunk; ``active`` [K] masks chunks out entirely
     (their rhs is zeroed, so they start converged); ``lists`` the tile's
-    ``swp.station_lists`` for the kernel. ``trips`` counts the
-    executed loop iterations (one host read of the active mask each)."""
+    ``swp.station_lists`` for the kernel. ``trips`` [V] counts the
+    executed loop iterations of each of the V visits whose chunks the K
+    axis holds (one host read of the active mask each)."""
     shift = mu + jitter + rho
     L = ne.gn_precond_factor(fac.D, shift)
     kmax = JTe.shape[0]
@@ -158,7 +186,12 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     rz = (b * p).sum(dim=-1)
     act = (r * r).sum(dim=-1) > tol2
     k = 0
-    while k < maxiter and bool(act.any()):
+    trips = np.zeros(V, dtype=np.int64)
+    while k < maxiter:
+        lv = live_lanes(act, V)
+        if not lv.any():
+            break
+        trips += lv
         Ap = swp.gn_matvec_blocks(fac, p, sta1, sta2, n_stations,
                                   shift=shift, lists=lists)
         pAp = (p * Ap).sum(dim=-1)
@@ -174,13 +207,13 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
         k += 1
         act = (r * r).sum(dim=-1) > tol2
     ok = torch.isfinite(x).all(dim=-1)
-    return torch.where(ok[:, None], x, torch.zeros_like(x)), ok, k
+    return torch.where(ok[:, None], x, torch.zeros_like(x)), ok, trips
 
 
 def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
              chunk_mask=None, config: LMConfig = LMConfig(),
              itmax_dynamic=None, os: OSConfig | None = None,
-             row_period: int = 0, lists=None):
+             row_period: int = 0, lists=None, lanes=None):
     """Levenberg-Marquardt solve of all chunks of one cluster.
 
     x8 [B, 8] data (residual + this cluster's model); coh [B, 2, 2];
@@ -189,9 +222,14 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     <= config.itmax; ``os`` the optional ordered-subsets setting;
     ``lists`` the tile's ``swp.station_lists`` for the PCG matvec. Returns
     (J [K, N, 2, 2], info) with init_cost / final_cost [K], iters
-    (executed iterations) and cg_iters (executed PCG trips)."""
+    (executed iterations) and cg_iters (executed PCG trips).
+
+    With ``lanes`` the arrays are a group's folded layout (module
+    docstring; ``wt`` [B, 8] when shared), ``itmax_dynamic`` and ``os``
+    hold one entry per visit, and iters / cg_iters are [V] arrays."""
     kmax = J0.shape[0]
-    check_route(config, kmax, row_period, x8.shape[0])
+    V = 1 if lanes is None else lanes.V
+    check_route(config, kmax // V, row_period, x8.shape[0] // V)
     dev = x8.device
     dtype = x8.dtype
     N = n_stations
@@ -206,13 +244,17 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     def nrm_eq(pv, w=None, cw=None):
         return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
                              wt if w is None else w, N, kmax, row_period,
-                             cost_wt=cw)
+                             cost_wt=cw, lanes=lanes)
 
     if os is not None:
-        os_id = os.os_id.to(dev)
+        os_id = (os if lanes is None else os[0]).os_id.to(dev)
 
-        def os_wt(sub: int):
-            return wt * (os_id == sub).to(wt.dtype)[:, None]
+        def os_wt(k: int):
+            """The weights of iteration k's subset (each visit's own)."""
+            if lanes is None:
+                return wt * (os_id == os.subset(k)).to(wt.dtype)[:, None]
+            sel = torch.stack([os_id == o.subset(k) for o in os])
+            return lanes.rows(wt) * sel.reshape(-1).to(wt.dtype)[:, None]
 
         def os_live(w):
             """[K]: the subset holds >= 1 usable row of chunk k."""
@@ -220,7 +262,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             return torch.zeros((kmax,), dtype=dtype, device=dev).scatter_reduce(
                 0, chunk_id, row, "amax") > 0
 
-        wt0 = os_wt(os.subset(0))
+        wt0 = os_wt(0)
         fac, JTe, cost = nrm_eq(p, wt0, wt)
         live = os_live(wt0)
     else:
@@ -232,24 +274,28 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     mu = config.tau * torch.clamp(diag_max, min=1e-30)
     nu = torch.full((kmax,), 2.0, dtype=dtype, device=dev)
     stop = torch.zeros((kmax,), dtype=torch.bool, device=dev)
-    itmax = config.itmax if itmax_dynamic is None else \
-        min(int(itmax_dynamic), config.itmax)
+    itmax, cap = _lane_caps(config.itmax, itmax_dynamic, lanes)
 
     k = 0
-    cg_trips = 0
-    while k < itmax and bool((~stop & chunk_mask).any()):
+    its = np.zeros(V, dtype=np.int64)
+    cg_trips = np.zeros(V, dtype=np.int64)
+    while k < itmax:
+        lv = live_lanes(~stop & chunk_mask, V)
+        if not lv.any():
+            break
+        its += lv
         if inner_cg:
             dp, ok, trips = _solve_damped_cg(
                 fac, JTe, mu, config.jitter, 0.0, sta1, sta2, N,
                 config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask,
-                lists=lists)
+                lists=lists, V=V)
             cg_trips += trips
         else:
             dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,
                                              sta1, sta2, N)
         pnew = p + dp
         if os is not None:
-            wt_next = os_wt(os.subset(k + 1))
+            wt_next = os_wt(k + 1)
             facn, JTen, cost_new = nrm_eq(pnew, wt_next, wt)
             sub_live = os_live(wt_next)
         else:
@@ -283,11 +329,13 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             small_grad = small_grad & live
         small_cost = cost <= config.eps3
         stop = stop | small_grad | (accept & small_dp) | small_cost \
-            | (k + 1 >= itmax)
+            | (k + 1 >= cap)
         k += 1
     J = p_to_J(p)
     J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
-    return J, {"init_cost": cost0, "final_cost": cost, "iters": k,
+    if lanes is None:
+        its, cg_trips = int(its[0]), int(cg_trips[0])
+    return J, {"init_cost": cost0, "final_cost": cost, "iters": its,
                "cg_iters": cg_trips}
 
 

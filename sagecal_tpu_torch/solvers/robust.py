@@ -75,36 +75,65 @@ def update_nu_aecm(logsumw, nu_old, p: int = 8, nulow=2.0, nuhigh=30.0,
     return _pick(nus, q, nu_old)
 
 
+def lane_nu(nu, w, mask, lanes, update):
+    """A nu update per visit of a group: ``update(w_v, mask_v, nu_v)`` on
+    each visit's rows of ``w`` (folded [V B, 8]) and ``mask`` (folded or
+    shared); the serial call when ``lanes`` is None."""
+    if lanes is None:
+        return update(w, mask, nu)
+    wv = lanes.visits(w)
+    mv = lanes.visits(mask)
+    return torch.stack([update(wv[v], mv if lanes.shared(mask) else mv[v],
+                               nu[v]) for v in range(lanes.V)])
+
+
 def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                     n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                     chunk_mask=None, config=lm_mod.LMConfig(),
                     wt_rounds: int = 3, itmax_dynamic=None, os=None,
-                    row_period: int = 0, lists=None):
+                    row_period: int = 0, lists=None, lanes=None):
     """Student's-t IRLS-LM (rlevmar_der_single_nocuda, robustlm.c:2008);
     with ``os`` the ordered-subsets variant (robustlm.c:2607): the inner
     LM sees subsets while the weight and nu updates stay full-data.
 
     ``wt_base`` [B, 8] 0/1 row weights; the robust sqrt(w) multiplies it.
-    Returns (J, nu, info); nu is one scalar tensor shared by all chunks."""
+    Returns (J, nu, info); nu is one scalar tensor shared by all chunks.
+    With ``lanes`` (``lm.lm_solve``) nu0 and nu are [V], one per visit,
+    and ``os`` holds one setting per visit."""
     mask = wt_base > 0
     nu = torch.as_tensor(nu0, dtype=x8.dtype, device=x8.device)
     J = J0
+    # per-row views of a group's shared weights and per-visit nu
+    wt_r = wt_base if lanes is None else lanes.rows(wt_base)
+
+    def nu_rows(n):
+        return n if lanes is None else lanes.per_row(n)
+
     infos = []
     for rs in range(wt_rounds):
         if rs == 0:
             wt = wt_base
         else:
             e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id)
-            wt = wt_base * torch.sqrt(update_weights(e, nu))
+            wt = wt_r * torch.sqrt(update_weights(e, nu_rows(nu)))
         # distinct subset draws per IRLS round
-        os_r = (os._replace(seed=lm_mod.fold_in(os.seed, 7919 + rs))
-                if os is not None else None)
+        if os is None:
+            os_r = None
+        elif lanes is None:
+            os_r = os._replace(seed=lm_mod.fold_in(os.seed, 7919 + rs))
+        else:
+            os_r = [o._replace(seed=lm_mod.fold_in(o.seed, 7919 + rs))
+                    for o in os]
         J, info = lm_mod.lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J,
                                   n_stations, chunk_mask, config,
                                   itmax_dynamic=itmax_dynamic, os=os_r,
-                                  row_period=row_period, lists=lists)
+                                  row_period=row_period, lists=lists,
+                                  lanes=lanes)
         e2 = ne.residual8(x8, J, coh, sta1, sta2, chunk_id)
-        nu = update_nu_ml(update_weights(e2, nu), mask, nu, nulow, nuhigh)
+        w2 = update_weights(e2, nu_rows(nu))
+        nu = lane_nu(nu, w2, mask, lanes,
+                     lambda w_, m_, n_: update_nu_ml(w_, m_, n_, nulow,
+                                                     nuhigh))
         infos.append(info)
     return J, nu, {"init_cost": infos[0]["init_cost"],
                    "final_cost": infos[-1]["final_cost"],

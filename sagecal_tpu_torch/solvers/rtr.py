@@ -25,12 +25,18 @@ Host reads: the outer loop reads one [K] bool per iteration (the JAX
 stops when every chunk is done, where the reference runs its fixed trip
 count with masked updates: the same result in fewer Hessian products.
 ``--jones diag|phase`` and ADMM are not ported.
+
+With ``lanes`` (``ops.sweep.Lanes``, as in ``lm.lm_solve``) one call
+solves an in-flight group's V cluster visits, each with its own
+iteration cap and nu; the tCG products are then counted once per
+executed product of the group.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sagecal_tpu_torch.ops import sweep as swp
@@ -105,17 +111,24 @@ def project_tangent(p, v, kmax, n_stations):
 
 
 def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
-                    npar: int = 8):
+                    npar: int = 8, lanes=None):
     """iw diagonal preconditioner [K, npar N]: 1 / (# live baselines per
-    station) per chunk, mean-normalized, repeated over the station's
-    params (rtr_solve.c fns_fcount)."""
+    station) per chunk, mean-normalized (per visit of a group), repeated
+    over the station's params (rtr_solve.c fns_fcount)."""
+    if lanes is not None:
+        wt = lanes.rows(wt)
     live = (wt.sum(dim=-1) > 0).to(wt.dtype)
     flat1 = chunk_id.long() * n_stations + sta1.long()
     flat2 = chunk_id.long() * n_stations + sta2.long()
     cnt = live.new_zeros((kmax * n_stations,))
     cnt.index_add_(0, flat1, live).index_add_(0, flat2, live)
     iw = 1.0 / torch.clamp(cnt, min=1.0)
-    iw = iw / torch.clamp(iw.mean(), min=1e-30)
+    if lanes is None:
+        iw = iw / torch.clamp(iw.mean(), min=1e-30)
+    else:
+        iw = iw.view(lanes.V, -1)
+        iw = torch.stack([iw[v] / torch.clamp(iw[v].mean(), min=1e-30)
+                          for v in range(lanes.V)])
     return iw.reshape(kmax, n_stations).repeat_interleave(npar, dim=-1)
 
 
@@ -199,29 +212,36 @@ def _egrad(cost_fn):
 def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
               chunk_mask=None, config: RTRConfig = RTRConfig(),
               itmax_dynamic=None, robust_nu=None, row_period: int = 0,
-              lists=None):
+              lists=None, lanes=None):
     """Trust-region solve of all chunks of one cluster (rtr_solve.c:1208).
 
     Same call convention as ``lm.lm_solve`` (``lists`` the tile's
-    ``swp.station_lists`` for the tCG matvec); ``robust_nu`` switches the
+    ``swp.station_lists`` for the tCG matvec, ``lanes`` a group's
+    folded layout with ``robust_nu`` [V]); ``robust_nu`` switches the
     objective to fixed-nu Student's t. Returns (J [K, N, 2, 2], info)
-    with init_cost / final_cost [K], iters (outer iterations) and
-    tcg_iters (executed Hessian products)."""
+    with init_cost / final_cost [K], iters (outer iterations; [V] on a
+    group) and tcg_iters (executed Hessian products)."""
     kmax = J0.shape[0]
-    lm_mod.check_route(config, kmax, row_period, x8.shape[0])
+    V = 1 if lanes is None else lanes.V
+    lm_mod.check_route(config, kmax // V, row_period, x8.shape[0] // V)
     dev, dtype = x8.device, x8.dtype
     N = n_stations
     p0 = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
+    # per-row views of a group's shared weights and per-visit nu
+    wt_r, nu_r = wt, robust_nu
     if robust_nu is not None:
         robust_nu = torch.as_tensor(robust_nu, dtype=dtype, device=dev)
+        nu_r = robust_nu if lanes is None else lanes.per_row(robust_nu)
+    if lanes is not None:
+        wt_r = lanes.rows(wt)
 
     def p_to_J(p):
         return ne.jones_r2c(p.reshape(kmax, N, 8))
 
-    cost_fn = make_cost(x8, coh, sta1, sta2, chunk_id, wt, kmax, N,
-                        robust_nu=robust_nu)
+    cost_fn = make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
+                        robust_nu=nu_r)
     egrad = _egrad(cost_fn)
 
     def rgrad_at(p):
@@ -235,12 +255,13 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         if robust_nu is None:
             wt_eff = wt
         else:
-            e = ne.residual8(x8, Jm, coh, sta1, sta2, chunk_id) * wt
-            wt_eff = wt * torch.sqrt(robust_nu) / (robust_nu + e * e)
+            e = ne.residual8(x8, Jm, coh, sta1, sta2, chunk_id) * wt_r
+            wt_eff = wt_r * torch.sqrt(nu_r) / (nu_r + e * e)
         proj = _projector(p, kmax, N)
         if config.inner == "cg":
             fac, _, _ = swp.gn_blocks(x8, Jm, coh, sta1, sta2, chunk_id,
-                                      wt_eff, N, kmax, row_period)
+                                      wt_eff, N, kmax, row_period,
+                                      lanes=lanes)
 
             def hv(v):
                 return proj(2.0 * swp.gn_matvec_blocks(fac, v, sta1, sta2,
@@ -248,7 +269,7 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             return hv
         JTJ, _, _ = swp.normal_equations_fused(x8, Jm, coh, sta1, sta2,
                                                chunk_id, wt_eff, N, kmax,
-                                               row_period)
+                                               row_period, lanes=lanes)
 
         def hv(v):
             return proj(2.0 * torch.einsum("kij,kj->ki", JTJ, v))
@@ -260,14 +281,18 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     delta = config.delta0_frac * xnorm0
     g = rgrad_at(p0)
     g0n = torch.sqrt(_dot(g, g))
-    itmax = config.itmax if itmax_dynamic is None else \
-        min(int(itmax_dynamic), config.itmax)
+    itmax, cap = lm_mod._lane_caps(config.itmax, itmax_dynamic, lanes)
 
     p, cost = p0, cost0
     stop = torch.zeros((kmax,), dtype=torch.bool, device=dev)
     k = 0
+    its = np.zeros(V, dtype=np.int64)
     tcg = 0
-    while k < itmax and bool((~stop & chunk_mask).any()):
+    while k < itmax:
+        lv = lm_mod.live_lanes(~stop & chunk_mask, V)
+        if not lv.any():
+            break
+        its += lv
         eta, md, trips = _tcg(make_hess(p), g, delta, config)
         tcg += trips
         p_new = p + eta
@@ -290,35 +315,43 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         gn = torch.sqrt(_dot(g, g))
         stop = stop | (gn <= config.eps_grad * torch.clamp(g0n, min=1e-30)) \
             | (delta <= 1e-12 * torch.clamp(xnorm0, min=1e-30)) \
-            | (k + 1 >= itmax)
+            | (k + 1 >= cap)
         k += 1
     J = p_to_J(p)
     J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
-    return J, {"init_cost": cost0, "final_cost": cost, "iters": k,
+    return J, {"init_cost": cost0, "final_cost": cost,
+               "iters": int(its[0]) if lanes is None else its,
                "tcg_iters": tcg}
+
+
+def _aecm(nulow, nuhigh):
+    """The robust RTR/NSD nu update (AECM, p = 2) as a ``robust.lane_nu``
+    update."""
+    return lambda w, m, n: rb.update_nu_aecm(rb.mean_logsumw(w, m), n, p=2,
+                                             nulow=nulow, nuhigh=nuhigh)
 
 
 def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                      n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                      chunk_mask=None, config: RTRConfig = RTRConfig(),
                      wt_rounds: int = 2, itmax_dynamic=None,
-                     row_period: int = 0, lists=None):
+                     row_period: int = 0, lists=None, lanes=None):
     """Student's-t robust RTR (rtr_solve_robust.c:1441): IRLS rounds of
     {fixed-nu robust RTR -> weight E-step -> AECM nu update, p = 2}.
-    Returns (J, nu, info)."""
+    Returns (J, nu, info); nu is [V] on a group (``lanes``)."""
     mask = wt_base > 0
     nu = torch.as_tensor(nu0, dtype=x8.dtype, device=x8.device)
     J = J0
+    wt_r = wt_base if lanes is None else lanes.rows(wt_base)
     infos = []
     for _ in range(wt_rounds):
         J, info = rtr_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J,
                             n_stations, chunk_mask, config,
                             itmax_dynamic=itmax_dynamic, robust_nu=nu,
-                            row_period=row_period, lists=lists)
-        e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt_base
-        w = rb.update_weights(e, nu)
-        nu = rb.update_nu_aecm(rb.mean_logsumw(w, mask), nu, p=2,
-                               nulow=nulow, nuhigh=nuhigh)
+                            row_period=row_period, lists=lists, lanes=lanes)
+        e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt_r
+        w = rb.update_weights(e, nu if lanes is None else lanes.per_row(nu))
+        nu = rb.lane_nu(nu, w, mask, lanes, _aecm(nulow, nuhigh))
         infos.append(info)
     return J, nu, {"init_cost": infos[0]["init_cost"],
                    "final_cost": infos[-1]["final_cost"],
@@ -330,7 +363,7 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
 def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                      n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                      chunk_mask=None, config: NSDConfig = NSDConfig(),
-                     itmax_dynamic=None):
+                     itmax_dynamic=None, lanes=None):
     """Nesterov accelerated steepest descent with Student's-t cost
     (nsd_solve_nocuda_robust, rtr_solve_robust.c:1878): momentum
     t_{k+1} = (1 + sqrt(1 + 4 t_k^2)) / 2, per-chunk backtracking line
@@ -339,7 +372,9 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
 
     The reference scans all ``config.itmax`` steps and freezes those past
     ``itmax_dynamic``; here only the live steps run, and the final cost
-    is priced with the nu the frozen steps would carry."""
+    is priced with the nu the frozen steps would carry. On a group
+    (``lanes``; nu [V], one cap per visit) the steps run to the largest
+    cap and a visit past its own keeps its point, momentum and nu."""
     lm_mod.check_jones(config)
     kmax = J0.shape[0]
     dev, dtype = x8.device, x8.dtype
@@ -347,22 +382,32 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     p = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
-    nu = torch.as_tensor(nu0, dtype=dtype, device=dev)
+    # one nu per visit (a single visit without lanes)
+    V = 1 if lanes is None else lanes.V
+    nu = torch.as_tensor(nu0, dtype=dtype, device=dev).expand(V).clone()
+    wt_r = wt_base if lanes is None else lanes.rows(wt_base)
+
+    def per_row(s):
+        return s if lanes is None else lanes.per_row(s)
 
     def cost_of(nu_):
-        return make_cost(x8, coh, sta1, sta2, chunk_id, wt_base, kmax, N,
-                         robust_nu=nu_)
+        return make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
+                         robust_nu=per_row(nu_))
 
-    iw = station_precond(wt_base, sta1, sta2, chunk_id, kmax, N)
+    iw = station_precond(wt_base, sta1, sta2, chunk_id, kmax, N,
+                         lanes=lanes)
     mask = wt_base > 0
-    itmax = config.itmax if itmax_dynamic is None else \
-        min(int(itmax_dynamic), config.itmax)
+    caps = np.minimum(np.full(V, config.itmax) if itmax_dynamic is None
+                      else np.asarray(itmax_dynamic, dtype=np.int64),
+                      config.itmax)
 
     cost0 = cost_of(nu)(p)
     p_prev = p
     t = torch.ones((), dtype=dtype, device=dev)
     nu_last = nu                  # the nu the last executed step priced
-    for _ in range(max(itmax, 0)):
+    for step in range(max(int(caps.max()), 0)):
+        live_v = torch.as_tensor(step < caps, device=dev)
+        live_c = live_v.repeat_interleave(kmax // V)
         cfn = cost_of(nu)
         tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         y = p + ((t - 1.0) / tn) * (p - p_prev)
@@ -382,19 +427,23 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
             best_c = torch.where(better, c_c, best_c)
             found = found | better
         # momentum restarts where the line search failed
-        p_new = torch.where((found & chunk_mask)[:, None], best_p, p)
+        p_new = torch.where((found & chunk_mask & live_c)[:, None], best_p,
+                            p)
         e = ne.residual8(x8, ne.jones_r2c(p_new.reshape(kmax, N, 8)), coh,
-                         sta1, sta2, chunk_id) * wt_base
-        w = rb.update_weights(e, nu)
-        nu_last = nu
-        nu = rb.update_nu_aecm(rb.mean_logsumw(w, mask), nu, p=2,
-                               nulow=nulow, nuhigh=nuhigh)
-        p, p_prev, t = p_new, p, tn
+                         sta1, sta2, chunk_id) * wt_r
+        w = rb.update_weights(e, per_row(nu))
+        nu_last = torch.where(live_v, nu, nu_last)
+        nu = torch.where(live_v, rb.lane_nu(nu, w, mask, lanes,
+                                            _aecm(nulow, nuhigh)), nu)
+        p_prev = torch.where(live_c[:, None], p, p_prev)
+        p, t = p_new, tn
     # the reference's last scan step prices its output with the nu it
     # entered with: the last live step's when every step is live, the
     # updated nu when frozen steps follow
-    final_cost = cost_of(nu_last if itmax >= config.itmax else nu)(p)
+    full = torch.as_tensor(caps >= config.itmax, device=dev)
+    final_cost = cost_of(torch.where(full, nu_last, nu))(p)
     J = ne.jones_r2c(p.reshape(kmax, N, 8))
     J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
-    return J, nu, {"init_cost": cost0, "final_cost": final_cost,
-                   "iters": config.itmax}
+    return J, (nu[0] if lanes is None else nu), {
+        "init_cost": cost0, "final_cost": final_cost,
+        "iters": config.itmax if lanes is None else np.full(V, config.itmax)}

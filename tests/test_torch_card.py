@@ -6,9 +6,10 @@ JAX package, so it runs on a card machine without them:
 
 Each kernel is held against its plain PyTorch version in float32 at
 max|diff| <= 1e-4 max|ref| (the chip_smoke.py gate), and a CUDA tensor
-must launch the kernel or raise — never fall back. The last test drives
-the robust RTR solver with ``--inner cg`` on the card against the same
-solve on the CPU in float64."""
+must launch the kernel or raise — never fall back. The last two tests drive
+the robust RTR solver with ``--inner cg`` on the card, alone and as an
+in-flight group of two clusters, against the same solve on the CPU in
+float64."""
 
 import numpy as np
 import pytest
@@ -93,6 +94,52 @@ def test_sweep_kernel_refuses_float64(card):
         tswp.sweep_blocks(x8, J, coh, s, s, s, x8, x8, 6, 1)
 
 
+@pytest.mark.parametrize("K,shared", [(1, "wt"), (4, "wt"), (2, "cid"),
+                                      (4, "none")])
+def test_visits_kernel_matches_plain(card, K, shared):
+    """V = 3 visits with the weights, or the chunk ids, shared, or all
+    operands per visit: one launch, each visit's blocks the plain
+    version's."""
+    rng = np.random.default_rng(20 + K)
+    V, N, T = 3, 9, 12
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=card)
+    s1, s2 = lng(np.tile(p, T)), lng(np.tile(q, T))
+    cid = lng(np.stack([np.minimum((np.arange(B) // nb) // -(-T // K) + v,
+                                   K - 1) for v in range(V)]))
+    if shared == "cid":
+        cid = cid[0]
+    coh = c64(rng.normal(size=(V, B, 2, 2))
+              + 1j * rng.normal(size=(V, B, 2, 2)))
+    J = c64((rng.normal(size=(V, K, N, 2, 2))
+             + 1j * rng.normal(size=(V, K, N, 2, 2))) * 0.3 + np.eye(2))
+    wshape = (B, 8) if shared == "wt" else (V, B, 8)
+    x8 = f32(rng.random((V, B, 8)))
+    wt, cw = f32(rng.random(wshape)), f32(rng.random(wshape))
+    n0 = tswp.VISITS_LAUNCHES
+    got = tswp.sweep_blocks_visits(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                                   V)
+    assert tswp.VISITS_LAUNCHES == n0 + 1
+    ref = tswp.sweep_blocks_visits_plain(x8, J[:, :, s1[:nb]],
+                                         J[:, :, s2[:nb]], coh, cid, wt, cw,
+                                         nb, V)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _close(g, r)
+
+
+def test_visits_kernel_refuses_float64(card):
+    x8 = torch.zeros((2, 6, 8), dtype=torch.float64, device=card)
+    J = torch.zeros((2, 1, 4, 2, 2), dtype=torch.complex128, device=card)
+    coh = torch.zeros((2, 6, 2, 2), dtype=torch.complex128, device=card)
+    s = torch.zeros(6, dtype=torch.long, device=card)
+    with pytest.raises(TypeError):
+        tswp.sweep_blocks_visits(x8, J, coh, s, s, s, x8, x8, 6, 1, 2)
+
+
 def _blocks_on_card(card, K, seed, N=9, T=12):
     rng = np.random.default_rng(seed)
     p, q = np.triu_indices(N, k=1)
@@ -144,6 +191,51 @@ def test_matvec_kernel_refuses_float64(card):
     with pytest.raises(TypeError):
         tswp.gn_matvec_blocks(f64, torch.zeros((1, 72), dtype=torch.float64,
                                                device=card), s1, s2, 9)
+
+
+def test_group_solve_on_card_matches_cpu(card):
+    """One in-flight group of 2 clusters (LM, PCG on the matvec kernel)
+    solved through the multi-visit sweep kernel, against the CPU float64
+    group solve: each lane's final cost within 1e-3. (LM: on these data
+    the robust RTR trajectory already parts between float32 and float64
+    on the CPU, serial or grouped alike.)"""
+    from sagecal_tpu_torch.solvers import sage as tsage
+    rng = np.random.default_rng(8)
+    V, N, T, K = 2, 9, 12, 2
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    cid = np.stack([np.minimum((np.arange(B) // nb) // -(-T // K), K - 1)]
+                   * V)
+    coh = rng.normal(size=(V, B, 2, 2)) + 1j * rng.normal(size=(V, B, 2, 2))
+    Jt = (rng.normal(size=(V, K, N, 2, 2))
+          + 1j * rng.normal(size=(V, K, N, 2, 2))) * 0.2 + np.eye(2)
+    sa, sb = np.tile(p, T), np.tile(q, T)
+    Vis = np.stack([Jt[v][cid[v], sa] @ coh[v]
+                    @ np.conj(np.swapaxes(Jt[v][cid[v], sb], -1, -2))
+                    for v in range(V)])
+    Vis = Vis + 0.05 * (rng.normal(size=Vis.shape)
+                        + 1j * rng.normal(size=Vis.shape))
+    x8 = np.stack([Vis.reshape(V, B, 4).real, Vis.reshape(V, B, 4).imag],
+                  -1).reshape(V, B, 8)
+    J0 = np.tile(np.eye(2, dtype=complex), (V, K, N, 1, 1))
+    cfg = tsage.SageConfig(max_iter=6, solver_mode=1, inner="cg", nbase=nb)
+    out = {}
+    for dev, rdt, cdt in ((card, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        r = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
+        c = lambda a: torch.as_tensor(a, dtype=cdt, device=dev)
+        i = lambda a: torch.as_tensor(a, device=dev).long()
+        n0 = tswp.VISITS_LAUNCHES
+        res = tsage._group_solve(
+            1, r(x8), c(coh), i(cid), torch.ones((V, K), dtype=torch.bool,
+                                                 device=dev),
+            c(J0), r([2.0, 2.0]), i(sa), i(sb), r(np.ones((B, 8))), N, cfg,
+            [6, 6], 9, None, False, None, cid_shared=True)
+        out[str(dev)] = (res[3].double().cpu(), tswp.VISITS_LAUNCHES - n0)
+    (gc, gl), (cc, cl) = out[str(card)], out["cpu"]
+    assert gl > 0 and cl == 0
+    assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
 
 
 def test_robust_rtr_cg_on_card_matches_cpu(card):

@@ -7,9 +7,11 @@ with ``-j 1 -e 2 -g 10 -l 5 -t 4 -R 0 --kernel pallas`` (the JAX one
 with fuse/promote pinned off, the port with ``--platform cpu``), both in
 float64. A second fixture runs both CLIs on fresh copies at the default
 solver mode (no ``-j``: 5, which 10 stations downgrade to 3, OS-LM then
-OS robust LM) and at ``-j 5 --inner cg``. Gates: per-tile res_0/res_1
-rtol 1e-8 (and equal nu), solutions atol 1e-6, written residual column
-1e-7 of the data's largest magnitude.
+OS robust LM), at ``-j 5 --inner cg``, and at ``-j 1 --inflight 2`` on a
+second SimMS of 8 clusters (in-flight groups need M >= 8: the width is
+clamped to M//4). Gates: per-tile res_0/res_1 rtol 1e-8 (and equal nu),
+solutions atol 1e-6, written residual column 1e-7 of the data's largest
+magnitude.
 
 The default-mode run solves both clusters as one chunk. With a 2-chunk
 cluster the first OS subset (timeslot 0) holds no row of chunk 1, so the
@@ -52,6 +54,12 @@ CLUSTER_ONE_CHUNK = """\
 0 1 P0A P0B
 1 1 P1A
 """
+#: 8 clusters of one source each around the same field (the second
+#: cluster in 2 hybrid chunks), for the in-flight group runs
+SKY8 = "".join(f"Q{m} 0 {38 + m} 0 {38 + 0.5 * m:.1f} {10 * m} 0 "
+               f"{1.5 + 0.25 * m:.2f} 0 0 0 0 0 0 0 0 150e6\n"
+               for m in range(8))
+CLUSTER8 = "".join(f"{m} {2 if m == 1 else 1} Q{m}\n" for m in range(8))
 FLAGS = ["-j", "1", "-e", "2", "-g", "10", "-l", "5", "-t", "4", "-R", "0",
          "--kernel", "pallas"]
 #: the default-mode runs: no -j (5, run as 3 at 10 stations) on
@@ -60,16 +68,25 @@ FLAGS = ["-j", "1", "-e", "2", "-g", "10", "-l", "5", "-t", "4", "-R", "0",
 MODE_FLAGS = {"default": ["-e", "2", "-g", "6", "-l", "4", "-t", "4", "-R",
                           "0", "--kernel", "pallas"],
               "cg": ["-j", "5", "--inner", "cg", "-e", "2", "-g", "6", "-l",
-                     "4", "-t", "4", "-R", "0", "--kernel", "pallas"]}
-MODE_CLUSTERS = {"default": "one_chunk.cluster", "cg": "sky.txt.cluster"}
+                     "4", "-t", "4", "-R", "0", "--kernel", "pallas"],
+              "inflight": ["-j", "1", "--inflight", "2", "-e", "2", "-g",
+                           "6", "-l", "4", "-t", "4", "-R", "0", "--kernel",
+                           "pallas"]}
+#: (sky, cluster file, pristine SimMS) of each mode run
+MODE_FILES = {"default": ("sky.txt", "one_chunk.cluster", "pristine.ms"),
+              "cg": ("sky.txt", "sky.txt.cluster", "pristine.ms"),
+              "inflight": ("sky8.txt", "sky8.txt.cluster", "pristine8.ms")}
+#: what the CPU runs launch: no kernel
+NO_LAUNCHES = {"coh": 0, "sweep": 0, "matvec": 0, "visits": 0}
 
 
 def _both_clis(tmp, tag, flags):
     """Run both CLIs on fresh copies of the fixture's SimMS; returns the
     (JAX, port) histories."""
+    sky, clusters, pristine = MODE_FILES[tag]
     for side in ("jax", "torch"):
-        shutil.copytree(tmp / "pristine.ms", tmp / f"{tag}_{side}.ms")
-    common = ["-s", str(tmp / "sky.txt"), "-c", str(tmp / MODE_CLUSTERS[tag])]
+        shutil.copytree(tmp / pristine, tmp / f"{tag}_{side}.ms")
+    common = ["-s", str(tmp / sky), "-c", str(tmp / clusters)]
     jargs = cli.build_parser().parse_args(
         ["-d", str(tmp / f"{tag}_jax.ms"), "-p", str(tmp / f"{tag}_jax.sol")]
         + common + flags + ["--solve-fuse", "off", "--solve-promote", "off"])
@@ -107,6 +124,20 @@ def runs(tmp_path_factory):
     ds.SimMS.create(str(tmp / "jax.ms"), tiles)
     shutil.copytree(tmp / "jax.ms", tmp / "torch.ms")
     shutil.copytree(tmp / "jax.ms", tmp / "pristine.ms")
+    # the 8-cluster observation of the in-flight group runs
+    (tmp / "sky8.txt").write_text(SKY8)
+    (tmp / "sky8.txt.cluster").write_text(CLUSTER8)
+    sky8 = skymodel.build_cluster_sky(
+        skymodel.parse_sky_model(str(tmp / "sky8.txt"), ra0, dec0, 150e6),
+        skymodel.parse_cluster_file(str(tmp / "sky8.txt.cluster")))
+    J8 = ds.random_jones(sky8.n_clusters, sky8.nchunk, 10, seed=4,
+                         scale=0.2)
+    ds.SimMS.create(str(tmp / "pristine8.ms"), [
+        ds.simulate_dataset(rp.sky_to_device(sky8, jnp.float64),
+                            n_stations=10, tilesz=4, freqs=[149e6, 151e6],
+                            ra0=ra0, dec0=dec0, jones=J8,
+                            nchunk=sky8.nchunk, noise_sigma=0.02, seed=5 + i)
+        for i in range(2)])
     common = ["-s", str(tmp / "sky.txt"), "-c", str(tmp / "sky.txt.cluster")]
 
     jargs = cli.build_parser().parse_args(
@@ -134,7 +165,7 @@ def test_residuals_fall_every_tile(runs):
     for h in runs["thist"]:
         assert np.isfinite(h["res_1"]) and h["res_1"] < h["res_0"]
         # the CPU run takes the plain versions: no kernel launches
-        assert h["launches"] == {"coh": 0, "sweep": 0, "matvec": 0}
+        assert h["launches"] == NO_LAUNCHES
         assert h["solver_iters"] > 0 and h["lbfgs_iters"] > 0
 
 
@@ -218,7 +249,8 @@ def test_mode_residual_norms_match(mode_runs, tag, key):
 @pytest.mark.parametrize("tag", sorted(MODE_FLAGS))
 def test_mode_solutions_and_column_match(runs, mode_runs, tag):
     tmp = runs["tmp"]
-    nchunk = [1, 1] if tag == "default" else runs["sky"].nchunk
+    nchunk = [c[1] for c in skymodel.parse_cluster_file(
+        str(tmp / MODE_FILES[tag][1]))]
     _, jb = sol.read_solutions(str(tmp / f"{tag}_jax.sol"), nchunk)
     _, tb = tsol.read_solutions(str(tmp / f"{tag}_torch.sol"), nchunk)
     assert len(tb) == len(jb) == 2
@@ -227,7 +259,7 @@ def test_mode_solutions_and_column_match(runs, mode_runs, tag):
     jms = ds.SimMS(str(tmp / f"{tag}_jax.ms"), data_column="CORRECTED_DATA")
     tms = tds.SimMS(str(tmp / f"{tag}_torch.ms"),
                     data_column="CORRECTED_DATA")
-    raw = tds.SimMS(str(tmp / "pristine.ms"))
+    raw = tds.SimMS(str(tmp / MODE_FILES[tag][2]))
     for i in range(2):
         scale = np.abs(raw.read_tile(i).x).max()
         np.testing.assert_allclose(tms.read_tile(i).x, jms.read_tile(i).x,
@@ -236,18 +268,23 @@ def test_mode_solutions_and_column_match(runs, mode_runs, tag):
 
 def test_mode_runs_use_their_solvers(mode_runs):
     """The default mode (3 at 10 stations) is robust: nu moves off its
-    start; -j 5 --inner cg takes PCG trips; residuals fall on every tile
-    and the CPU runs launch no kernel."""
+    start; -j 5 --inner cg takes PCG trips; --inflight 2 solves in groups
+    of 2 and counts its rejected groups; residuals fall on every tile and
+    the CPU runs launch no kernel."""
     for tag, (_, t) in mode_runs.items():
         for h in t:
             assert np.isfinite(h["res_1"]) and h["res_1"] < h["res_0"]
-            assert h["launches"] == {"coh": 0, "sweep": 0, "matvec": 0}
+            assert h["launches"] == NO_LAUNCHES
             assert h["solver_iters"] > 0 and h["lbfgs_iters"] > 0
+            assert bool(h["groups"]) == (tag == "inflight")
     assert any(h["mean_nu"] != 2.0 for h in mode_runs["default"][1])
     assert all(h["cg_iters"] > 0 for h in mode_runs["cg"][1])
+    t = mode_runs["inflight"][1]
+    assert all(h["rejected_groups"] == sum(not g[2] for g in h["groups"])
+               and all(len(g[1]) == 2 for g in h["groups"]) for h in t)
 
 
-@pytest.mark.parametrize("extra", [["--inflight", "2"], ["-N", "2"],
+@pytest.mark.parametrize("extra", [["--resume"], ["-N", "2"],
                                    ["-B", "1"], ["--tile-batch", "2"],
                                    ["--kernel", "xla"],
                                    ["--jones", "diag"], ["-q", "x.sol"],
@@ -263,28 +300,47 @@ def test_unported_flags_raise(runs, extra):
         tcli.main(argv)
 
 
-@pytest.mark.parametrize("extra", [[], ["-j", "0"], ["-j", "2"],
-                                   ["-j", "3", "--inner", "cg"], ["-j", "4"],
-                                   ["-j", "6", "-L", "3", "-H", "20"]])
-def test_cli_runs_solver_modes(runs, tmp_path, extra):
-    """The port's CLI runs to the end with no -j (the default 5) and at
-    every other mode, with -L/-H accepted, writing residuals and
-    solutions; residuals fall on every tile."""
-    shutil.copytree(runs["tmp"] / "pristine.ms", tmp_path / "obs.ms")
-    argv = ["-d", str(tmp_path / "obs.ms"), "-s",
-            str(runs["tmp"] / "sky.txt"), "-c",
-            str(runs["tmp"] / "sky.txt.cluster"), "-p",
-            str(tmp_path / "sol.txt"), "-e", "1", "-g", "3", "-l", "2",
-            "-t", "4", "--platform", "cpu"] + extra
+def _cli_run(runs, tmp_path, extra, files):
+    """The port's CLI on a fresh copy of a fixture SimMS; checks that it
+    writes both tiles' solutions and residuals, the residuals below the
+    data on every tile."""
+    sky, clusters, pristine = files
+    tmp = runs["tmp"]
+    shutil.copytree(tmp / pristine, tmp_path / "obs.ms")
+    argv = ["-d", str(tmp_path / "obs.ms"), "-s", str(tmp / sky), "-c",
+            str(tmp / clusters), "-p", str(tmp_path / "sol.txt"), "-e", "1",
+            "-g", "3", "-l", "2", "-t", "4", "--platform", "cpu"] + extra
     assert tcli.main(argv) == 0
-    _, blocks = tsol.read_solutions(str(tmp_path / "sol.txt"),
-                                    runs["sky"].nchunk)
+    nchunk = [c[1] for c in skymodel.parse_cluster_file(str(tmp / clusters))]
+    _, blocks = tsol.read_solutions(str(tmp_path / "sol.txt"), nchunk)
     assert len(blocks) == 2
     out = tds.SimMS(str(tmp_path / "obs.ms"), data_column="CORRECTED_DATA")
     raw = tds.SimMS(str(tmp_path / "obs.ms"))
     for i in range(2):
         assert np.abs(out.read_tile(i).x).mean() < \
             np.abs(raw.read_tile(i).x).mean()
+
+
+@pytest.mark.parametrize("extra", [[], ["-j", "0"], ["-j", "2"],
+                                   ["-j", "3", "--inner", "cg"], ["-j", "4"],
+                                   ["-j", "6", "-L", "3", "-H", "20"],
+                                   ["--inflight", "2"],
+                                   ["-j", "1", "--inflight", "2"]])
+def test_cli_runs_solver_modes(runs, tmp_path, extra):
+    """The port's CLI runs to the end with no -j (the default 5) and at
+    every other mode, with -L/-H accepted, and with in-flight groups on
+    the 8-cluster sky, writing residuals and solutions; residuals fall on
+    every tile."""
+    _cli_run(runs, tmp_path, extra,
+             MODE_FILES["inflight" if "--inflight" in extra else "cg"])
+
+
+@pytest.mark.parametrize("mode", ["0", "2", "3", "4", "5", "6"])
+def test_cli_inflight_every_mode(runs, tmp_path, mode):
+    """--inflight 2 on the 8-cluster sky at every other solver mode (at 10
+    stations 4 runs as 0, and 5 and 6 as 3: the LMCUT downgrade)."""
+    _cli_run(runs, tmp_path, ["-j", mode, "--inflight", "2"],
+             MODE_FILES["inflight"])
 
 
 def test_cli_missing_args():

@@ -1,10 +1,11 @@
 """Where the time of one full-width port tile goes, on the card.
 
     python3 tools_dev/torch_e2e_profile.py [--out build/e2e_profile]
-        [--flags "-j 5 --inner cg"]
+        [--flags "-j 5 --inner cg"] [--clusters 8|16]
 
 Builds chip_smoke.py's full-width synthetic observation (62 stations,
-120 timeslots, 8 channels, 8 clusters x 64 sources, nchunk up to 4),
+120 timeslots, 8 channels, 8 or 16 clusters x 64 sources, nchunk up to
+4; 16 is the ``e2e_inflight`` observation),
 runs its first tile through the port's pipeline unprofiled (the x6
 boosted tile), then profiles the second tile with ``torch.profiler``
 (CPU and CUDA activities). Prints one JSON line: the tile's wall
@@ -33,6 +34,7 @@ def main() -> int:
                                                   "e2e_profile"))
     ap.add_argument("--flags", default="-j 1",
                     help="solver flags of the profiled run")
+    ap.add_argument("--clusters", type=int, choices=(8, 16), default=8)
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -47,9 +49,10 @@ def main() -> int:
         raise RuntimeError("needs a CUDA device")
     work = os.path.join(cs.WORK, "profile")
     shutil.rmtree(work, ignore_errors=True)
+    nchunk = cs.NCHUNK if args.clusters == 8 else cs.NCHUNK16
     ms_path, sky, clus = cs.make_observation(
-        work, cs.N_STATIONS, cs.TILESZ, cs.FREQS, cs.N_CLUSTERS,
-        cs.N_SOURCES, cs.NCHUNK, 2, "cuda", seed=5, noise=0.01)
+        work, cs.N_STATIONS, cs.TILESZ, cs.FREQS, len(nchunk),
+        cs.N_SOURCES, nchunk, 2, "cuda", seed=5, noise=0.01)
     cfg = config_from_args(build_parser().parse_args(
         ["-d", ms_path, "-s", sky, "-c", clus, "-e", "3", "-g", "10", "-l",
          "10", "-m", "7"] + args.flags.split()))
@@ -62,7 +65,7 @@ def main() -> int:
     def tile(ti, J, boost):
         t = ms.read_tile(ti)
         stg = pipe.stage(t)
-        Jn, info = pipe.solve(stg, J, ti, boost)
+        Jn, info = pipe.solve(stg, J, ti, boost, warm=ti > 0)
         t.x = pipe.residuals(Jn, t, stg)
         ms.write_tile(ti, t)
         return Jn, info
@@ -100,7 +103,9 @@ def main() -> int:
         device=torch.cuda.get_device_name(0), wall_tile0_s=wall0,
         wall_tile1_s=wall1, device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / (wall1 * 1e3),
-        flags=args.flags, solver_iters=info["solver_iters"],
+        flags=args.flags, clusters=args.clusters,
+        rejected_groups=info["rejected_groups"],
+        solver_iters=info["solver_iters"],
         tcg_iters=info.get("tcg_iters", 0), lbfgs_iters=info["lbfgs_iters"],
         top_device=top_dev, top_host=top_host)), flush=True)
     shutil.rmtree(work, ignore_errors=True)

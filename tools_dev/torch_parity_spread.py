@@ -33,8 +33,6 @@ def main() -> int:
     args = ap.parse_args()
     import torch
     import chip_smoke as cs
-    from sagecal_tpu_torch import pipeline
-    from sagecal_tpu_torch.cli import build_parser, config_from_args
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     for tag, n_st, nchunk, flags, _ in cs.PARITY_RUNS:
@@ -42,18 +40,14 @@ def main() -> int:
             continue
         work = os.path.join(cs.WORK, "spread_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        ms, sky, clus = cs.make_observation(work, n_st, 10, cs.FREQS[:2], 3,
-                                            6, nchunk, 2, "cpu", seed=9,
-                                            noise=0.02)
+        ms, sky, clus = cs.make_observation(work, n_st, 10, cs.FREQS[:2],
+                                            len(nchunk), 6, nchunk, 2, "cpu",
+                                            seed=9, noise=0.02)
 
         def run(device):
             path = os.path.join(work, f"run_{len(os.listdir(work))}.ms")
             shutil.copytree(ms, path)
-            a = build_parser().parse_args(
-                ["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10",
-                 "-l", "5", "-R", "0", "-t", "10"] + flags)
-            return pipeline.run(config_from_args(a), device=device,
-                                log=lambda *x: None)
+            return cs._parity_run(path, sky, clus, flags, device)[0]
 
         keys = ("res_0", "res_1", "mean_nu")
         ref = run("cpu")
