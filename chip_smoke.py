@@ -89,6 +89,67 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 200) -> float:
+    """CUDA-event time of ``reps`` back-to-back calls of ``fn()`` divided
+    by the count (close to device time once the host keeps ahead)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_us(fn, names: tuple, reps: int = 20):
+    """Mean device time (us) of the CUDA kernels whose name contains one
+    of ``names`` per call of ``fn()`` (``("",)``: every kernel), from a
+    ``torch.profiler`` trace of ``reps`` calls (CUPTI); None when the
+    trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names):
+            total += getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+    return total / reps if total > 0 else None
+
+
+def ptxas_resources(source: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} of one source's
+    kernels, read from the compiler's ``-Xptxas -v`` report."""
+    import re
+    from sagecal_tpu_torch.ops import cuda_lib
+    res, name = {}, None
+    for ln in cuda_lib.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+            res[name] = {"registers": None, "spill_stores": 0,
+                         "spill_loads": 0}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            res[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            res[name]["registers"] = int(m.group(1))
+    return res
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     tb = n_bytes / PEAK_BYTES_S * 1e3
     to = n_ops / PEAK_F32_OPS_S * 1e3
@@ -273,19 +334,23 @@ def phase_coh():
     return out
 
 
-def _sweep_inputs(K: int, seed: int = 2):
+def _sweep_inputs(K: int, seed: int = 2, N: int = N_STATIONS,
+                  T: int = TILESZ, nchunk: int | None = None):
+    """The sweep's inputs at the path's shapes: N stations, T timeslots,
+    chunk ids of a cluster with ``nchunk`` hybrid chunks (default K)
+    solved at kmax = K, as ``predict.chunk_indices`` makes them; chunks
+    past nchunk, or past the timeslots, have no rows."""
     import torch
     dev = "cuda"
     rng = np.random.default_rng(seed)
-    T, N = TILESZ, N_STATIONS
     p, q = np.triu_indices(N, k=1)
     nb = len(p)
     B = T * nb
     sta1 = torch.as_tensor(np.tile(p, T), device=dev)
     sta2 = torch.as_tensor(np.tile(q, T), device=dev)
-    tilechunk = -(-T // K)
-    cid = torch.as_tensor(np.minimum((np.arange(B) // nb) // tilechunk,
-                                     K - 1), dtype=torch.int32, device=dev)
+    nck = K if nchunk is None else nchunk
+    cid = torch.as_tensor(np.minimum((np.arange(B) // nb) // -(-T // nck),
+                                     nck - 1), device=dev)
     c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=dev)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     coh = c64(rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2)))
@@ -297,37 +362,95 @@ def _sweep_inputs(K: int, seed: int = 2):
     return (x8, J, coh, sta1, sta2, cid, wt, cw, nb, K), (B, nb)
 
 
+#: edge shapes of the sweep and matvec phases: (tag, stations, timeslots,
+#: kmax, the cluster's own chunk count). nb = 190 is not a multiple of the
+#: kernel's 32-baseline tile (nor is 1891); "empty_chunk" is a 1-chunk
+#: cluster solved at kmax = 2 (chunk 1 has no rows), "one_slot" one
+#: timeslot at kmax = 2 (chunk 1 starts past it).
+EDGES = (("nb190", 20, 5, 3, 3), ("empty_chunk", N_STATIONS, TILESZ, 2, 1),
+         ("one_slot", N_STATIONS, 1, 2, 2))
+
+
+def _sweep_check(tag, args, nb):
+    """The sweep kernel against its plain version on ``args``, twice
+    (bitwise equal), and an empty chunk's blocks exactly zero. Returns
+    (relative errors per output, max |diff|, the first call's outputs)."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, K = args
+    n0 = swp.LAUNCHES
+    got = swp.sweep_blocks(*args)
+    again = swp.sweep_blocks(*args)
+    torch.cuda.synchronize()
+    if swp.LAUNCHES != n0 + 2:
+        raise AssertionError(f"sweep {tag}: the wrapper did not launch once "
+                             "a call")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"sweep {tag}: two calls differ")
+    s1b, s2b = sta1[:nb], sta2[:nb]
+    ref = swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh, cid, wt, cw,
+                                 nb)
+    pairs = [rel_err(g, r) for g, r in zip(got, ref)]
+    errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
+                    (rel for _, rel in pairs)))
+    bad = {k: v for k, v in errs.items() if not v <= KERNEL_RTOL}
+    if bad:
+        raise AssertionError(f"sweep kernel {tag}: {bad} > {KERNEL_RTOL}")
+    if K > 1:
+        for k in range(K):
+            if not bool((cid == k).any()) and any(
+                    bool(g[k].abs().max() > 0) for g in got):
+                raise AssertionError(f"sweep {tag}: empty chunk {k} has "
+                                     "non-zero blocks")
+    return errs, max(a for a, _ in pairs), got
+
+
 def phase_sweep():
+    """The fused sweep kernel against its plain version at full width (K =
+    1 and 4) and at the edge shapes, each twice (bitwise equal); timed as
+    ``call_ms`` (one call, median CUDA-event time after a synchronize) and
+    ``device_ms`` (200 back-to-back calls over the count)."""
+    import torch
     from sagecal_tpu_torch.ops import sweep as swp
     out = {}
+    ptxas = ptxas_resources("sweep")
     for K in (1, 4):
         args, (B, nb) = _sweep_inputs(K)
         x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
-        got = swp.sweep_blocks(*args)
+        errs, abs_err, _ = _sweep_check(f"K={K}", args, nb)
+        ms = cuda_ms(lambda: swp.sweep_blocks(*args), 50)
+        dev_ms = device_ms(lambda: swp.sweep_blocks(*args))
+        k_us = kernel_us(lambda: swp.sweep_blocks(*args), ("sweep_cluster",))
         s1b, s2b = sta1[:nb], sta2[:nb]
-        ref = swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh, cid, wt,
-                                     cw, nb)
-        pairs = [rel_err(g, r) for g, r in zip(got, ref)]
-        errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
-                        (rel for _, rel in pairs)))
-        abs_err = max(a for a, _ in pairs)
-        bad = {k: v for k, v in errs.items() if not v <= KERNEL_RTOL}
-        if bad:
-            raise AssertionError(f"sweep kernel K={K}: {bad} > {KERNEL_RTOL}")
-        ms = cuda_ms(lambda: swp.sweep_blocks(*args), 20)
         plain_ms = cuda_ms(
             lambda: swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh,
                                            cid, wt, cw, nb), 3)
-        n_bytes = 4 * (3 * B * 8 + B + B * 8 + 2 * K * nb * 8
-                       + K * nb * swp.N_OUT)
+        # rows (x, w, cw, coherency), chunk ids (int32, as the TPU kernel
+        # reads them) when K > 1, the Jones and the baselines' stations
+        # (int32) read once; the caller layout and the costs written once
+        n_bytes = 4 * (32 * B + B * (K > 1) + K * N_STATIONS * 8 + 2 * nb
+                       + K * nb * swp.N_OUT + K)
         # each row enters the sums of its own chunk only
         n_rows = int(((cid >= 0) & (cid < K)).sum())
         bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
+        geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
+            torch.device("cuda", torch.cuda.current_device()), K))
         rec = dict(K=K, T=TILESZ, nb=nb, rel_err=errs, max_abs_err=abs_err,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=None, slices=swp._time_slices(TILESZ, nb, K))
+                   ms=ms, call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=None, bound_share=bms / dev_ms,
+                   kernel_bound_share=k_us and bms / (k_us / 1e3),
+                   geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
+                                 times=geo.times),
+                   deterministic=True, ptxas=ptxas)
         emit("sweep", **rec)
         out[K] = rec
+    for tag, N, T, K, nck in EDGES:
+        args, (B, nb) = _sweep_inputs(K, seed=6, N=N, T=T, nchunk=nck)
+        errs, abs_err, _ = _sweep_check(tag, args, nb)
+        emit("sweep_edge", tag=tag, N=N, T=T, nb=nb, K=K, nchunk=nck,
+             rel_err=errs, max_abs_err=abs_err, deterministic=True)
+        out[tag] = dict(max_abs_err=abs_err)
     return out
 
 
@@ -346,36 +469,61 @@ def _baseline_blocks(fac):
     return Bk.reshape(K, nb, 16, 16).contiguous()
 
 
+def _matvec_check(tag, fac, sta1, sta2, N, shift, gen):
+    """The matvec kernel through a plan against its plain version, twice
+    (bitwise equal). Returns (v, plan, abs err, rel err)."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    K, nb = fac.pp.shape[0], fac.pp.shape[1]
+    v = torch.randn((K, 8 * N), device="cuda", generator=gen,
+                    dtype=torch.float32)
+    # built once per tile on the main path (sagefit_host), the plan once
+    # per Gram-block set (a tCG operator, a PCG solve)
+    lists = swp.station_lists(sta1, sta2, nb, N)
+    plan = swp.matvec_plan(fac, sta1, sta2, N, shift=shift, lists=lists)
+    n0 = swp.MATVEC_LAUNCHES
+    got = swp.matvec_apply(plan, v)
+    again = swp.matvec_apply(plan, v)
+    torch.cuda.synchronize()
+    if swp.MATVEC_LAUNCHES != n0 + 2:
+        raise AssertionError(f"matvec {tag}: the wrapper did not launch once "
+                             "a call")
+    if not torch.equal(got, again):
+        raise AssertionError(f"matvec {tag}: two calls differ")
+    ref = swp.gn_matvec_blocks_plain(fac, v, sta1[:nb].long(),
+                                     sta2[:nb].long(), N, shift=shift)
+    abs_err, rel = rel_err(got, ref)
+    if not rel <= KERNEL_RTOL:
+        raise AssertionError(f"matvec kernel {tag}: {rel:.3e} > "
+                             f"{KERNEL_RTOL}")
+    return v, plan, abs_err, rel
+
+
 def phase_matvec():
     """The blocks matvec kernel against its plain version on Gram blocks
-    from a full-width sweep (the layout the tCG and PCG loops hand it)."""
+    from a full-width sweep (the layout the tCG and PCG loops hand it), on
+    a 190-baseline layout and on the multi-visit sweep's [V K, nb, REC]
+    records; twice each (bitwise equal). Timed through a plan, as the
+    solver loops call it: ``call_ms`` and ``device_ms`` as in the sweep
+    phase."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
     out = {}
+    ptxas = ptxas_resources("matvec")
     for K in (1, 4):
         args, (B, nb) = _sweep_inputs(K, seed=3)
         x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
         N = N_STATIONS
         fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb)
+        if swp._block_view(fac.pp, nb)[0] is not fac.pp:
+            raise AssertionError("matvec: the sweep's records were copied")
         gen = torch.Generator(device="cuda").manual_seed(K)
-        v = torch.randn((K, 8 * N), device="cuda", generator=gen,
-                        dtype=torch.float32)
         shift = torch.rand((K,), device="cuda", generator=gen,
                            dtype=torch.float32) + 0.1
+        v, plan, abs_err, rel = _matvec_check(f"K={K}", fac, sta1, sta2, N,
+                                              shift, gen)
         s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
-        # built once per tile on the main path (sagefit_host)
-        lists = swp.station_lists(sta1, sta2, nb, N)
-        n0 = swp.MATVEC_LAUNCHES
-        got = swp.gn_matvec_blocks(fac, v, sta1, sta2, N, shift=shift,
-                                   lists=lists)
-        torch.cuda.synchronize()
-        if swp.MATVEC_LAUNCHES != n0 + 1:
-            raise AssertionError("matvec: the wrapper did not launch")
         ref = swp.gn_matvec_blocks_plain(fac, v, s1b, s2b, N, shift=shift)
-        abs_err, rel = rel_err(got, ref)
-        if not rel <= KERNEL_RTOL:
-            raise AssertionError(f"matvec kernel K={K}: {rel:.3e} > "
-                                 f"{KERNEL_RTOL}")
         Bk = _baseline_blocks(fac)
 
         def library():
@@ -389,23 +537,51 @@ def phase_matvec():
         lib_err = rel_err(library(), ref)[1]
         if not lib_err <= KERNEL_RTOL:
             raise AssertionError(f"matvec yardstick disagrees: {lib_err}")
-        ms = cuda_ms(lambda: swp.gn_matvec_blocks(fac, v, sta1, sta2, N,
-                                                  shift=shift, lists=lists),
-                     200)
+        ms = cuda_ms(lambda: swp.matvec_apply(plan, v), 200)
+        dev_ms = device_ms(lambda: swp.matvec_apply(plan, v))
+        k_us = kernel_us(lambda: swp.matvec_apply(plan, v), ("matvec_station",))
         plain_ms = cuda_ms(lambda: swp.gn_matvec_blocks_plain(
             fac, v, s1b, s2b, N, shift=shift), 50)
         library_ms = cuda_ms(library, 50)
-        # blocks read once, v gathered per baseline end and read for the
-        # shift, y written once
-        n_bytes = 4 * (K * nb * (32 + 32 + 64) + K * nb * 16
-                       + 2 * K * N * 8)
+        # blocks, v, the shift and the baselines' stations (int32) read
+        # once, y written once
+        n_bytes = 4 * (K * nb * (32 + 32 + 64) + 2 * K * N * 8 + K + 2 * nb)
         bms, by = bound_ms(n_bytes, swp.MATVEC_FLOPS_PER_BASELINE * K * nb
                            + 2 * K * N * 8)
         rec = dict(K=K, nb=nb, N=N, max_abs_err=abs_err, rel_err=rel, ms=ms,
+                   call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=library_ms, library_rel_err=lib_err)
+                   bound_share=bms / dev_ms,
+                   kernel_bound_share=k_us and bms / (k_us / 1e3),
+                   library_ms=library_ms, library_rel_err=lib_err,
+                   deterministic=True, ptxas=ptxas)
         emit("matvec", **rec)
         out[K] = rec
+    # a 190-baseline layout (not a multiple of 32), K = 3
+    args, (B, nb) = _sweep_inputs(3, seed=7, N=20, T=5)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, K = args
+    fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, 20, K, nb)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    _, _, abs_err, rel = _matvec_check("nb190", fac, sta1, sta2, 20, None,
+                                       gen)
+    emit("matvec_edge", tag="nb190", N=20, nb=nb, K=K, max_abs_err=abs_err,
+         rel_err=rel, deterministic=True)
+    out["nb190"] = dict(max_abs_err=abs_err)
+    # the multi-visit sweep's records, folded as a group's lanes
+    vargs, (B, nb) = _visits_inputs(2, True, seed=8)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, K, V = vargs
+    lanes = swp.Lanes(V=V, K=K, cid=cid)
+    fac, _, _ = swp.gn_blocks(x8.reshape(V * B, 8), J.reshape(
+        (V * K,) + tuple(J.shape[2:])), coh.reshape(V * B, 2, 2), sta1, sta2,
+        cid, wt.reshape(V * B, 8), N_STATIONS, V * K, nb, lanes=lanes)
+    if swp._block_view(fac.pq, nb)[0] is not fac.pq:
+        raise AssertionError("matvec: the multi-visit records were copied")
+    shift = torch.rand((V * K,), device="cuda", generator=gen) + 0.1
+    _, _, abs_err, rel = _matvec_check("visits", fac, sta1, sta2,
+                                       N_STATIONS, shift, gen)
+    emit("matvec_edge", tag="visits", V=V, K=K, nb=nb, max_abs_err=abs_err,
+         rel_err=rel, deterministic=True)
+    out["visits"] = dict(max_abs_err=abs_err)
     return out
 
 
@@ -472,18 +648,23 @@ def phase_visits():
                         for v in range(V)]
 
             ms = cuda_ms(lambda: swp.sweep_blocks_visits(*args), 20)
+            k_us = kernel_us(lambda: swp.sweep_blocks_visits(*args),
+                             ("visits_partials",))
             serial_ms = cuda_ms(serial, 20)
             plain_ms = cuda_ms(plain, 3)
             # per-visit operands read once per visit, shared ones once:
-            # x 8, coherency 8, weights 8 + 8 words a row, chunk id 1
-            words = 16 * V + 16 * (V if batched_wt else 1) + 1
-            n_bytes = 4 * (words * B + 2 * V * K * nb * 8
-                           + V * K * nb * swp.N_OUT)
+            # x 8, coherency 8, weights 8 + 8 words a row, the chunk id
+            # (int32) when K > 1; the Jones and the baselines' stations
+            # read once; the caller layout and the costs written once
+            words = 16 * V + 16 * (V if batched_wt else 1) + (K > 1)
+            n_bytes = 4 * (words * B + V * K * N_STATIONS * 8 + 2 * nb
+                           + V * K * (nb * swp.N_OUT + 1))
             n_rows = V * int(((cid >= 0) & (cid < K)).sum())
             bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
             rec = dict(V=V, K=K, T=TILESZ, nb=nb, batched_wt=batched_wt,
                        rel_err=errs, max_abs_err=max(a for a, _ in pairs),
-                       ms=ms, serial_ms=serial_ms, plain_ms=plain_ms,
+                       ms=ms, kernel_us=k_us, serial_ms=serial_ms,
+                       plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=None,
                        slices=swp._time_slices(TILESZ, nb, V * K))
             emit("visits", **rec)
@@ -773,7 +954,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
              ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
              bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
-             library_ms=None),
+             library_ms=None, device_ms=sweep[4]["device_ms"],
+             device_ms_k1=sweep[1]["device_ms"],
+             call_ms_k1=sweep[1]["call_ms"],
+             registers=sweep[4]["ptxas"]),
         dict(name="gn_matvec_blocks", route="cuda",
              source="sagecal_tpu_torch/csrc/matvec.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:946",
@@ -781,7 +965,11 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],
-             library_ms=matvec[4]["library_ms"]),
+             library_ms=matvec[4]["library_ms"],
+             device_ms=matvec[4]["device_ms"],
+             device_ms_k1=matvec[1]["device_ms"],
+             call_ms_k1=matvec[1]["call_ms"],
+             registers=matvec[4]["ptxas"]),
         dict(name="sweep_blocks_visits", route="cuda",
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:439",

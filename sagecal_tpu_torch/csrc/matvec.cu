@@ -14,163 +14,166 @@
 //   y[k, n]  = sum over the baselines of station n of yp or yq
 //              + shift[k] v[k, n]
 //
-// What bounds it: bytes. A (chunk, baseline) reads 128 block words and
-// 16 words of v against 192 multiply-adds, so one product moves about
-// K nb 576 bytes (4.4 MB at K = 4, nb = 1891: ~1.3 us at 3.35 TB/s)
-// and the two launches, not the arithmetic, set its time at the
-// calibration shapes.
+// What bounds it on this card: latency, then launches. A product must
+// read 128 block words per (chunk, baseline), v and the stations once
+// and write y once, against 192 multiply-adds a (chunk, baseline): 3.9
+// MB at K = 4, nb = 1891, N = 62 (1.17 us at 3.35 TB/s; 0.29 us at K =
+// 1; chip_smoke.py's count), and in the tCG and PCG loops the blocks
+// sit in L2, where the sweep just wrote them. So the time is the chain of dependent
+// loads each warp waits on, one launch, and the host's call.
 //
-// Design. The TPU wrapper gathers v per baseline and scatters y per
-// station outside its kernel (XLA gathers and a scatter-add). Here:
-//  - pass 1 (matvec_blocks_kernel): one thread per (k, b) reads
-//    vp = v[k, s1[b]] and vq = v[k, s2[b]] through the station indices
-//    (the gather is fused), applies the block and writes yp, yq to a
-//    [K, nb, 2, 8] scratch. The blocks may be strided views of the
-//    sweep's [K, nb, 145] output (one stride per block kind), so no
-//    copy is made between the sweep and the matvec.
-//  - pass 2 (matvec_gather_kernel): one warp per (k, station n) walks
-//    the station's list of (baseline, side) entries, built once per
-//    station layout by the wrapper (CSR: ptr [N + 1], ent [2 nb] with
-//    ent = 2 b + side, in ascending order), accumulates 8 sums per lane
-//    and reduces them over the warp by a fixed shuffle tree, then adds
-//    shift[k] v[k, n].
-// No atomics: the result is deterministic, as in the sweep's reduce.
+// Design (one launch, no scratch):
+//  - one block of MV_WARPS warps per (station n, chunk k). The station's
+//    entries in the CSR lists (ent [2 nb] with ent = 2 b + side, built
+//    once per tile by the wrapper) are cut into MV_WARPS contiguous
+//    runs, one per warp: the wrapper's runs [N, MV_WARPS, 2] (start, end)
+//    (ops/sweep.py:matvec_runs, built with the lists), which the kernel
+//    reads as they are;
+//  - a warp loads the metadata of 32 entries at once (each lane one
+//    entry and its other station), then walks them, broadcasting each
+//    entry by shuffle; the record loads of successive entries do not
+//    depend on each other, so several are in flight per lane;
+//  - for one entry, lanes 0-7 each load one float4 row of the diagonal
+//    block (pp on side 0, qq on side 1) and lanes 8-23 one float4 row of
+//    pq: the 96 words the side needs in 24 16-byte loads of neighbouring
+//    addresses. This needs every block row 16-byte aligned: the sweep
+//    writes records of SW_REC = 160 words (640 bytes, 128-byte aligned),
+//    and other layouts are copied once per plan by the wrapper;
+//  - each lane keeps one scalar sum (out index fixed per lane) and, on
+//    side 1, a float4 of pq^T products; at the end the lanes' shares are
+//    reduced by a fixed shuffle tree, the warps' by a fixed sum in shared
+//    memory, and shift[k] v[k, n] is added.
+// No atomics and a fixed order: two calls on the same inputs give the
+// same bits. The launch takes its fixed arguments from a MatvecParams
+// record the wrapper fills once per Gram-block set (the "plan"), so a
+// call passes only v, y and the stream.
+//
+// Measured (nvcc 12.8 -Xptxas -v, sm_90a): 40 registers, no spills; on
+// an H100 80GB HBM3 ~6 us of device time a product at nb = 1891, N = 62
+// (K = 1 and 4), against 7.3 us for the two kernels it replaces
+// (tools_dev/torch_ab_kernels.py; PERF.md).
 
 #include <cuda_runtime.h>
 
-#define MV_THREADS 128
+#define MV_WARPS 8
+#define MV_THREADS (MV_WARPS * 32)
 
-__global__ void __launch_bounds__(MV_THREADS)
-matvec_blocks_kernel(const float* __restrict__ pp,  // [K, nb] x sp words
-                     const float* __restrict__ qq,  // [K, nb] x sq words
-                     const float* __restrict__ pq,  // [K, nb] x spq words
-                     long long sp, long long sq, long long spq,
-                     const float* __restrict__ v,   // [K, N, 2, 4]
-                     const int* __restrict__ s1,    // [nb]
-                     const int* __restrict__ s2,    // [nb]
-                     float* __restrict__ yb,        // [K, nb, 2, 8]
-                     int nb, int N)
+struct MatvecParams {
+    const float* pp;       // [K, nb] records, sp words apart
+    const float* qq;       // [K, nb] records, sq words apart
+    const float* pq;       // [K, nb] records, spq words apart
+    long long sp, sq, spq;
+    const int* s1;         // [nb] stations of the baselines
+    const int* s2;
+    const int* runs;       // [N, MV_WARPS, 2] each warp's run of ent
+    const int* ent;        // [2 nb]
+    const float* shift;    // [K] or null
+    int K, nb, N;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p)
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    const int k = blockIdx.y;
-    if (b >= nb) return;
-    const size_t kb = (size_t)k * nb + b;
-    const float* P = pp + kb * sp;      // [a][i][j]
-    const float* Q = qq + kb * sq;      // [o][j][i]
-    const float* X = pq + kb * spq;     // [a][o][i][j]
-    const float* vpp = v + ((size_t)k * N + s1[b]) * 8;
-    const float* vqp = v + ((size_t)k * N + s2[b]) * 8;
-    float vp[8], vq[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-        vp[c] = vpp[c];
-        vq[c] = vqp[c];
-    }
-    float y[16];
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float acc = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                acc += P[(a * 4 + i) * 4 + j] * vp[a * 4 + j];
-#pragma unroll
-            for (int o = 0; o < 2; ++o)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc += X[((a * 2 + o) * 4 + i) * 4 + j] * vq[o * 4 + j];
-            y[a * 4 + i] = acc;
-        }
-    }
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float acc = 0.f;
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                acc += Q[(o * 4 + j) * 4 + i] * vq[o * 4 + i];
-#pragma unroll
-            for (int a = 0; a < 2; ++a)
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    acc += X[((a * 2 + o) * 4 + i) * 4 + j] * vp[a * 4 + i];
-            y[8 + o * 4 + j] = acc;
-        }
-    }
-    float4* dst = reinterpret_cast<float4*>(yb + kb * 16);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-        dst[c] = make_float4(y[4 * c], y[4 * c + 1], y[4 * c + 2],
-                             y[4 * c + 3]);
+    return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b)
+{
+    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+__device__ __forceinline__ float comp(const float4 a, int j)
+{
+    return j == 0 ? a.x : (j == 1 ? a.y : (j == 2 ? a.z : a.w));
 }
 
 __global__ void __launch_bounds__(MV_THREADS)
-matvec_gather_kernel(const float* __restrict__ yb,     // [K, nb, 2, 8]
-                     const int* __restrict__ ptr,      // [N + 1]
-                     const int* __restrict__ ent,      // [2 nb]
-                     const float* __restrict__ v,      // [K, N, 8]
-                     const float* __restrict__ shift,  // [K] or null
-                     float* __restrict__ y,            // [K, N, 8]
-                     int K, int nb, int N)
+matvec_station_kernel(const MatvecParams p, const float* __restrict__ v,
+                      float* __restrict__ y)
 {
-    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (warp >= K * N) return;          // uniform over the warp
-    const int k = warp / N;
-    const int n = warp - k * N;
-    float acc[8];
+    __shared__ float red[MV_WARPS][8];
+    const int n = blockIdx.x, k = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const unsigned full = 0xffffffffu;
+    const float* vk = v + (size_t)k * p.N * 8;
+    // lanes 8-23: row g of pq = [a][o][i][0..3]
+    const int g = lane - 8;
+    const int a = (g >> 3) & 1, o = (g >> 2) & 1, i = g & 3;
+    const bool diag = lane < 8, cross = lane >= 8 && lane < 24;
+    const float4 vown = diag ? ld4(vk + (size_t)n * 8 + (lane >> 2) * 4)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc0 = 0.f;
+    float4 acc1 = make_float4(0.f, 0.f, 0.f, 0.f);
+    const size_t kb = (size_t)k * p.nb;
+
+    const int* run = p.runs + ((size_t)n * MV_WARPS + warp) * 2;
+    const int w0 = run[0], w1 = run[1];
+    for (int base = w0; base < w1; base += 32) {
+        const int m = min(32, w1 - base);
+        int my_ent = 0, my_oth = 0;
+        if (lane < m) {
+            my_ent = p.ent[base + lane];
+            const int b = my_ent >> 1;
+            my_oth = (my_ent & 1) ? p.s1[b] : p.s2[b];
+        }
+#pragma unroll 4
+        for (int j = 0; j < m; ++j) {
+            const int en = __shfl_sync(full, my_ent, j);
+            const int ot = __shfl_sync(full, my_oth, j);
+            const size_t b = kb + (en >> 1);
+            const bool side1 = en & 1;              // uniform over the warp
+            const float* vo = vk + (size_t)ot * 8;
+            if (diag) {
+                const float* blk = side1 ? p.qq + b * p.sq : p.pp + b * p.sp;
+                acc0 += dot4(ld4(blk + lane * 4), vown);
+            } else if (cross) {
+                const float4 m4 = ld4(p.pq + b * p.spq + g * 4);
+                if (!side1) {
+                    acc0 += dot4(m4, ld4(vo + o * 4));
+                } else {
+                    const float s = __ldg(vo + a * 4 + i);
+                    acc1.x += m4.x * s;
+                    acc1.y += m4.y * s;
+                    acc1.z += m4.z * s;
+                    acc1.w += m4.w * s;
+                }
+            }
+        }
+    }
+    // each lane's share of the station's 8 outputs, then a fixed tree
+    const int out0 = diag ? lane : (cross ? a * 4 + i : -1);
+    float c[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-    const float* ybk = yb + (size_t)k * nb * 16;
-    const int e1 = ptr[n + 1];
-    for (int e = ptr[n] + lane; e < e1; e += 32) {
-        const float4* src =
-            reinterpret_cast<const float4*>(ybk + (size_t)ent[e] * 8);
-        const float4 lo = src[0];
-        const float4 hi = src[1];
-        acc[0] += lo.x; acc[1] += lo.y; acc[2] += lo.z; acc[3] += lo.w;
-        acc[4] += hi.x; acc[5] += hi.y; acc[6] += hi.z; acc[7] += hi.w;
+    for (int q = 0; q < 8; ++q) {
+        c[q] = (q == out0) ? acc0 : 0.f;
+        if (cross && (q >> 2) == o) c[q] += comp(acc1, q & 3);
     }
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int q = 0; q < 8; ++q)
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
-            acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
+            c[q] += __shfl_down_sync(full, c[q], off);
     if (lane == 0) {
-        const size_t o = ((size_t)k * N + n) * 8;
-        if (shift != nullptr) {
-            const float sh = shift[k];
 #pragma unroll
-            for (int c = 0; c < 8; ++c) y[o + c] = acc[c] + sh * v[o + c];
-        } else {
+        for (int q = 0; q < 8; ++q) red[warp][q] = c[q];
+    }
+    __syncthreads();
+    if (threadIdx.x < 8) {
+        const int q = threadIdx.x;
+        float s = 0.f;
 #pragma unroll
-            for (int c = 0; c < 8; ++c) y[o + c] = acc[c];
-        }
+        for (int w = 0; w < MV_WARPS; ++w) s += red[w][q];
+        const size_t at = ((size_t)k * p.N + n) * 8 + q;
+        if (p.shift != nullptr) s += p.shift[k] * v[at];
+        y[at] = s;
     }
 }
 
-extern "C" int matvec_launch(const float* pp, const float* qq,
-                             const float* pq, long long sp, long long sq,
-                             long long spq, const float* v, const int* s1,
-                             const int* s2, const int* ptr, const int* ent,
-                             const float* shift, float* yb, float* y, int K,
-                             int nb, int N, void* stream)
+extern "C" int matvec_launch(const MatvecParams* p, const float* v,
+                             float* y, void* stream)
 {
-    if (K == 0 || N == 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (nb > 0) {
-        dim3 grid((nb + MV_THREADS - 1) / MV_THREADS, K);
-        matvec_blocks_kernel<<<grid, MV_THREADS, 0, st>>>(
-            pp, qq, pq, sp, sq, spq, v, s1, s2, yb, nb, N);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    const long long threads = (long long)K * N * 32;
-    const unsigned blocks =
-        (unsigned)((threads + MV_THREADS - 1) / MV_THREADS);
-    matvec_gather_kernel<<<blocks, MV_THREADS, 0, st>>>(
-        yb, ptr, ent, v, shift, y, K, nb, N);
+    if (p->K == 0 || p->N == 0) return 0;
+    dim3 grid(p->N, p->K);
+    matvec_station_kernel<<<grid, MV_THREADS, 0, (cudaStream_t)stream>>>(
+        *p, v, y);
     return (int)cudaGetLastError();
 }

@@ -2,61 +2,109 @@
 //
 // Replaces the TPU kernel sagecal_tpu/ops/sweep_pallas.py:_sweep_kernel
 // (maths in _sweep_body, launched by sweep_blocks). One pass over a
-// cluster visit's rows per hybrid chunk k: model V = Jp C Jq^H, residual
-// r = x - V, the Wirtinger factors of A = C Jq^H and Bm = Jp C, and per
-// baseline the time-summed Gram blocks pp/qq [2,4,4], pq [2,2,4,4], the
-// gradients jtep/jteq [2,4] and the acceptance cost sum (r cw)^2. The
-// TPU kernel masks the rows of other chunks by folding (cid == k) into
-// the weights; here a thread of chunk k skips them (same sums for
-// finite data), so each row's payload is loaded and computed once over
-// all chunks; only its chunk id is read by every chunk.
+// cluster visit's rows: model V = Jp C Jq^H, residual r = x - V, the
+// Wirtinger factors of A = C Jq^H and Bm = Jp C, and per (hybrid chunk k,
+// baseline b) the time-summed Gram blocks pp/qq [2,4,4], pq [2,2,4,4],
+// the gradients jtep/jteq [2,4] and the acceptance cost sum (r cw)^2.
+// The TPU kernel masks the rows of other chunks by folding (cid == k)
+// into the weights, once per chunk; here each row is read once and added
+// to the sums of its own chunk (same sums for finite data).
 //
-// What bounds it: bytes. A row is 33 words read once (x, w, cw 8 each,
-// coherency 8, chunk id 1) against ~1200 float32 operations
-// (SWEEP_FLOPS_PER_ROW in ops/sweep.py), so at the card's ratio of
-// operations to bytes the row stream and the partial sums decide.
+// What bounds it on this card: bytes. A row is 32 words read once (x, w,
+// cw and the coherency, 8 each) plus, at K > 1, its chunk id (one word
+// as the TPU kernel's int32; the port reads the solvers' int64) against
+// ~1200 float32 operations (SWEEP_FLOPS_PER_ROW in ops/sweep.py): at
+// T = 120, nb = 1891 the row stream is 29 MB (30 MB with the ids), and
+// with the records written the bound is 9.0 us at K = 1 and 10.3 us at
+// K = 4 at 3.35 TB/s (chip_smoke.py's count). The first port kept all
+// 121 sums of a (chunk, baseline, time slice) in one thread's registers
+// (248 registers, 8 warps an SM), wrote per-slice partials (16-18 MB)
+// and summed them in a second launch, and launched a block for every
+// (chunk, slice) pair, 60% of which only read chunk ids at K = 4.
 //
-// Design. The TPU grid walks time sequentially and carries the sums in
-// its output blocks; blocks on the card run in parallel, so:
-//  - pass 1 (sweep_partials_kernel): one thread per (chunk k, baseline
-//    b, time slice); it loops over its slice's rows and keeps the 121
-//    distinct sums in registers (pp and qq are symmetric: 10 of 16
-//    entries each), loading each 32-byte row field as two float4s
-//    (rows are baseline-major [T, nb, 8], so neighbouring threads read
-//    neighbouring rows). It writes its partials once, [slice, k, q, b].
-//  - pass 2 (sweep_reduce_kernel): one thread per output element sums
-//    the slices in a fixed order and writes the caller layout
-//    [K, nb, 145] (pp 32, qq 32, pq 64, jtep 8, jteq 8, cost 1).
-// No atomics, so the result is deterministic. The time axis is split
-// into enough slices to fill the card (the wrapper picks the count).
+// Design (sweep_cluster_kernel, one launch):
+//  - a tile is 32 baselines, one per lane. A block is three warps over
+//    the same tile and time range, one per role: warps 0 and 1 own
+//    pp[a], pq[a] and jtep[a] for a = 0, 1 (46 sums each), warp 2 owns
+//    qq, jteq and the cost (29 sums). Each recomputes the cheap per-row
+//    products it needs (A, a row or all of Bm and V) from the same row,
+//    which the three warps read from L1/L2; no warp keeps more than 46
+//    sums, and the branch on the role is uniform over each warp;
+//  - a thread block cluster of C blocks (C <= 8, picked by the wrapper
+//    to fill the card in one wave) takes the C time ranges of one tile.
+//    The ranges, and each block's share of the tile's record words in
+//    the epilogue, are the wrapper's (ops/sweep.py:sweep_geometry),
+//    passed in and checked at launch to cover each timeslot and word once;
+//  - each lane routes a row to the sums of the row's chunk: it keeps one
+//    chunk's sums in registers, with that chunk's two Jones gathered from
+//    J [K, N, 2, 2] through sta1/sta2 (no gather launch), and on a change
+//    of chunk adds them to its own column of the block's shared-memory
+//    sums [K][32][121] (so rows of any chunk-id pattern are counted once,
+//    and no block exists for a chunk with no rows);
+//  - after a cluster barrier the C blocks sum the C blocks' shared sums
+//    through distributed shared memory, in rank order, and write the
+//    tile's records [K, 32, SW_REC] with neighbouring threads on
+//    neighbouring words (each block a share of the words). A per-block
+//    bit mask of the chunks it saw skips sums that are all zero;
+//  - rank 0 of each cluster sums its tile's cost per chunk (a fixed
+//    shuffle tree) into tile_cost [K, tiles]; the block that finishes
+//    last (an atomic ticket after a memory fence) sums those in tile
+//    order into cost [K] and resets the ticket, so the caller needs no
+//    sum launch;
+//  - each lane loads the next row's operands before it sums the current
+//    one, so their latency hides behind the ~300 multiply-adds a row.
+// Records are SW_REC = 160 words (pp 0, qq 32, pq 64, jtep 128, jteq
+// 136, cost 144, zeros to 160): 640 bytes, so every block row is
+// 16-byte aligned for the matvec's float4 loads. No float atomics and a
+// fixed order everywhere: two calls on the same inputs give the same
+// bits. Measured (nvcc 12.8 -Xptxas -v, sm_90a): 164 registers (127
+// without the next-row loads), no spills, no stack frame (the geometry
+// is read with constant indices, so the arguments stay in the parameter
+// bank), so 4 blocks (12 warps) an SM
+// at K = 1 and 3 at K = 4, where the shared sums (62 KB a block) bind;
+// device time and its share of the bound are in PERF.md's kernel table.
 //
 // Second entry point: the multi-visit sweep. Replaces the TPU kernel
 // sagecal_tpu/ops/sweep_pallas.py:_visits_kernel (launched by
 // sweep_blocks_visits), which runs the same body for V stacked cluster
 // visits in one grid. Each of x, w, cw, cid, coh and the Jones carries a
 // visit stride, or a stride of 0 when one array is shared by all visits
-// (the TPU kernel's static `batched` tuple). Bound by bytes like pass 1:
-// 33 words a row when every operand is per visit, 17 when the weights
-// are shared. The TPU kernel walks time outer so that a shared block is
-// fetched once per time block; here visits_partials_kernel numbers its
-// blocks with the visit fastest, then the chunk, then the baseline block,
-// so the V visits (and K chunks) of one (baseline block, time slice) run
-// as neighbouring blocks: a shared row is read once from memory and
-// served to the others from L2. Its partials [nsl, V K, 121, nb] go
-// through the same fixed-order sweep_reduce_kernel, into one [V K, nb,
-// 145] buffer whose visits fold into the chunk axis for the caller.
+// (the TPU kernel's static `batched` tuple). Bound by bytes like the
+// sweep: 33 words a row when every operand is per visit, 17 when the
+// weights are shared. The TPU kernel walks time outer so that a shared
+// block is fetched once per time block; here visits_partials_kernel
+// (one thread per (visit, chunk, baseline, time slice), the 121 sums in
+// registers: 254, no spills; the first port's design) numbers its
+// blocks with the visit fastest, then the chunk, then the baseline
+// block, so the V visits (and K chunks) of one (baseline block, time
+// slice) run as neighbouring blocks: a shared row is read once from
+// memory and served to the others from L2. Its partials [nsl, V K, 121,
+// nb] go through the fixed-order sweep_reduce_kernel into [V K, nb,
+// SW_REC] records whose visits fold into the chunk axis for the caller.
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 #define SW_THREADS 128
 #define SW_NACC 121
 #define SW_NOUT 145
+#define SW_REC 160
 #define Q_PP 0
 #define Q_QQ 20
 #define Q_PQ 40
 #define Q_JP 104
 #define Q_JQ 112
 #define Q_COST 120
+// sweep_cluster_kernel: a tile of 32 baselines, three role warps
+#define SC_TILE 32
+#define SC_THREADS 96
+#define SC_NP 46
+#define SC_NQ 29
+#define SC_MAX_K 4
+#define SC_MAX_CLUSTER 8
+#define SC_EPI 4
 
 // index of (i, j), i <= j, in the packed upper triangle of a 4x4 block
 __host__ __device__ __forceinline__ int sym_pair(int i, int j)
@@ -70,6 +118,480 @@ __device__ __forceinline__ void load8(const float* p, float* v)
     const float4 b = reinterpret_cast<const float4*>(p)[1];
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* v)
+{
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// output element e of the [145] caller layout -> canonical sum index q
+__device__ __forceinline__ int out_to_acc(int e)
+{
+    if (e < 64) {                       // pp (e < 32) or qq
+        const int base = e < 32 ? Q_PP : Q_QQ;
+        const int r = e & 31;
+        const int s = r >> 4, i = (r >> 2) & 3, j = r & 3;
+        return base + s * 10 + (i <= j ? sym_pair(i, j) : sym_pair(j, i));
+    }
+    if (e < 128) return Q_PQ + (e - 64);
+    if (e < 136) return Q_JP + (e - 128);
+    if (e < 144) return Q_JQ + (e - 136);
+    return Q_COST;
+}
+
+// A = C Jq^H [d][o] of a row: C, Q entries e = row * 2 + col, (re, im)
+__device__ __forceinline__ void prod_a(const float* cv, const float* Q,
+                                       float Ar[2][2], float Ai[2][2])
+{
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+            float zr = 0.f, zi = 0.f;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float xr = cv[(d * 2 + e) * 2];
+                const float xi = cv[(d * 2 + e) * 2 + 1];
+                const float yr = Q[(o * 2 + e) * 2];
+                const float yi = -Q[(o * 2 + e) * 2 + 1];
+                zr += xr * yr - xi * yi;
+                zi += xr * yi + xi * yr;
+            }
+            Ar[d][o] = zr;
+            Ai[d][o] = zi;
+        }
+    }
+}
+
+// row a of Bm = Jp C and of V = Jp A
+__device__ __forceinline__ void prod_row(const float* cv, const float* P,
+                                         const float Ar[2][2],
+                                         const float Ai[2][2], int a,
+                                         float* Br, float* Bi, float* Vr,
+                                         float* Vi)
+{
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+        float br = 0.f, bi = 0.f, vr = 0.f, vi = 0.f;
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+            const float pr = P[(a * 2 + d) * 2];
+            const float pi = P[(a * 2 + d) * 2 + 1];
+            const float cr = cv[(d * 2 + o) * 2];
+            const float ci = cv[(d * 2 + o) * 2 + 1];
+            br += pr * cr - pi * ci;
+            bi += pr * ci + pi * cr;
+            vr += pr * Ar[d][o] - pi * Ai[d][o];
+            vi += pr * Ai[d][o] + pi * Ar[d][o];
+        }
+        Br[o] = br;
+        Bi[o] = bi;
+        Vr[o] = vr;
+        Vi[o] = vi;
+    }
+}
+
+// canonical sum index of a role's accumulator r
+template <int ROLE>
+__device__ __forceinline__ int role_q(int r)
+{
+    if (ROLE < 2) {
+        if (r < 10) return Q_PP + ROLE * 10 + r;
+        if (r < 42) return Q_PQ + ROLE * 32 + (r - 10);
+        return Q_JP + ROLE * 4 + (r - 42);
+    }
+    if (r < 20) return Q_QQ + r;
+    if (r < 28) return Q_JQ + (r - 20);
+    return Q_COST;
+}
+
+// one row into a role's sums. Roles 0 and 1 (a = ROLE): pp[a] (10, packed
+// upper triangle), pq[a][o][i][j] (32), jtep[a][i] (4). Role 2: qq[o]
+// (2 x 10), jteq[o][i] (8), cost (1).
+template <int ROLE>
+__device__ __forceinline__ void role_row(const float* xv, const float* wv,
+                                         const float* cwv, const float* cv,
+                                         const float* P, const float* Q,
+                                         float* acc)
+{
+    float Ar[2][2], Ai[2][2];
+    prod_a(cv, Q, Ar, Ai);
+    if (ROLE < 2) {
+        const int a = ROLE;
+        float Br[2], Bi[2], Vr[2], Vi[2];
+        prod_row(cv, P, Ar, Ai, a, Br, Bi, Vr, Vi);
+        // xv, wv hold components (o, ri) of row a
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+#pragma unroll
+            for (int ri = 0; ri < 2; ++ri) {
+                const int c = o * 2 + ri;
+                const float r = xv[c] - (ri == 0 ? Vr[o] : Vi[o]);
+                const float ww = wv[c] * wv[c];
+                const float rw = r * ww;
+                // fa[o][ri][m], m = d * 2 + ci; fb[a][ri][m]
+                float fa[4], fb[4];
+#pragma unroll
+                for (int d = 0; d < 2; ++d) {
+                    fa[d * 2] = ri == 0 ? Ar[d][o] : Ai[d][o];
+                    fa[d * 2 + 1] = ri == 0 ? -Ai[d][o] : Ar[d][o];
+                    fb[d * 2] = ri == 0 ? Br[d] : Bi[d];
+                    fb[d * 2 + 1] = ri == 0 ? Bi[d] : -Br[d];
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float wa = ww * fa[i];
+#pragma unroll
+                    for (int j = i; j < 4; ++j)
+                        acc[sym_pair(i, j)] += wa * fa[j];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        acc[10 + (o * 4 + i) * 4 + j] += wa * fb[j];
+                    acc[42 + i] += rw * fa[i];
+                }
+            }
+        }
+    } else {
+        float Br[2][2], Bi[2][2], Vr[2][2], Vi[2][2];
+        prod_row(cv, P, Ar, Ai, 0, Br[0], Bi[0], Vr[0], Vi[0]);
+        prod_row(cv, P, Ar, Ai, 1, Br[1], Bi[1], Vr[1], Vi[1]);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+#pragma unroll
+                for (int ri = 0; ri < 2; ++ri) {
+                    const int c = (a * 2 + o) * 2 + ri;
+                    const float r = xv[c] - (ri == 0 ? Vr[a][o] : Vi[a][o]);
+                    const float ww = wv[c] * wv[c];
+                    const float rw = r * ww;
+                    const float rc = r * cwv[c];
+                    acc[28] += rc * rc;
+                    float fb[4];
+#pragma unroll
+                    for (int d = 0; d < 2; ++d) {
+                        fb[d * 2] = ri == 0 ? Br[a][d] : Bi[a][d];
+                        fb[d * 2 + 1] = ri == 0 ? Bi[a][d] : -Br[a][d];
+                    }
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        const float wb = ww * fb[i];
+#pragma unroll
+                        for (int j = i; j < 4; ++j)
+                            acc[o * 10 + sym_pair(i, j)] += wb * fb[j];
+                        acc[20 + o * 4 + i] += rw * fb[i];
+                    }
+                }
+            }
+        }
+    }
+}
+
+struct SweepArgs {
+    const float* x;          // [T nb, 8]
+    const float* w;          // [T nb, 8]
+    const float* cw;         // [T nb, 8]
+    const long long* cid;    // [T nb]
+    const float* coh;        // [T nb, 2, 2, re/im]
+    const float* J;          // [K, N, 2, 2, re/im]
+    const long long* s1;     // [nb] (the first row period of sta1)
+    const long long* s2;
+    float* out;              // [K, nb, SW_REC]
+    float* cost;             // [K]
+    float* tile_cost;        // [K, tiles]: each tile's cost, per chunk
+    unsigned* ticket;        // one counter, 0 between launches
+    int T, nb, K, N;
+    // the wrapper's launch geometry (ops/sweep.py:sweep_geometry): rank r
+    // of a cluster walks timeslots tb[r] .. tb[r + 1] and writes the
+    // record words wb[last][r] .. wb[last][r + 1] of its tile (last = 1
+    // on the grid's last tile)
+    int tb[SC_MAX_CLUSTER + 1];
+    int wb[2][SC_MAX_CLUSTER + 1];
+};
+
+// add a lane's sums of chunk k to its column of the block's shared sums
+template <int ROLE, int NS>
+__device__ __forceinline__ void flush_sums(float* acc, float* sums, int k,
+                                           int lane, unsigned* seen)
+{
+    float* col = sums + ((size_t)k * SC_TILE + lane) * SW_NACC;
+#pragma unroll
+    for (int r = 0; r < NS; ++r) {
+        col[role_q<ROLE>(r)] += acc[r];
+        acc[r] = 0.f;
+    }
+    atomicOr(seen, 1u << k);
+}
+
+// one row's operands for a role: the coherency, chunk id (K > 1) and the
+// role's components of x and w (and all of cw for role 2)
+template <int ROLE>
+__device__ __forceinline__ void load_row(const SweepArgs& p, size_t row,
+                                         float* cv, float* xv, float* wv,
+                                         float* cwv, long long& c)
+{
+    c = p.K > 1 ? p.cid[row] : 0;
+    load8(p.coh + row * 8, cv);
+    if (ROLE < 2) {
+        load4(p.x + row * 8 + ROLE * 4, xv);
+        load4(p.w + row * 8 + ROLE * 4, wv);
+    } else {
+        load8(p.x + row * 8, xv);
+        load8(p.w + row * 8, wv);
+        load8(p.cw + row * 8, cwv);
+    }
+}
+
+// a role warp's pass over its rows: sums of the current chunk in
+// registers, added to the block's shared sums [K][32][121] on a change
+// of chunk and at the end. The next row's operands are loaded before
+// the current row is summed, so their latency hides behind the sums.
+template <int ROLE>
+__device__ void role_pass(const SweepArgs& p, int b, int lane, int t0,
+                          int t1, float* sums, unsigned* seen)
+{
+    constexpr int NS = ROLE < 2 ? SC_NP : SC_NQ;
+    float acc[NS];
+#pragma unroll
+    for (int r = 0; r < NS; ++r) acc[r] = 0.f;
+    if (b >= p.nb || t0 >= t1) return;
+    const long long st1 = p.s1[b], st2 = p.s2[b];
+    float P[8], Q[8];
+    long long cur = -1;
+    bool ok = false;
+    float cv[8], xv[8], wv[8], cwv[8];
+    long long c;
+    load_row<ROLE>(p, (size_t)t0 * p.nb + b, cv, xv, wv, cwv, c);
+    for (int t = t0; t < t1; ++t) {
+        float cvn[8], xvn[8], wvn[8], cwvn[8];
+        long long cn = 0;
+        if (t + 1 < t1)
+            load_row<ROLE>(p, (size_t)(t + 1) * p.nb + b, cvn, xvn, wvn,
+                           cwvn, cn);
+        // at K = 1 every row is chunk 0 (the TPU kernel applies no mask)
+        if (c != cur) {
+            if (ok) flush_sums<ROLE, NS>(acc, sums, (int)cur, lane, seen);
+            cur = c;
+            ok = c >= 0 && c < p.K;
+            if (ok) {
+                load8(p.J + ((size_t)c * p.N + st1) * 8, P);
+                load8(p.J + ((size_t)c * p.N + st2) * 8, Q);
+            }
+        }
+        if (ok) role_row<ROLE>(xv, wv, cwv, cv, P, Q, acc);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            cv[e] = cvn[e];
+            xv[e] = xvn[e];
+            wv[e] = wvn[e];
+            cwv[e] = cwvn[e];
+        }
+        c = cn;
+    }
+    if (ok) flush_sums<ROLE, NS>(acc, sums, (int)cur, lane, seen);
+}
+
+__global__ void __launch_bounds__(SC_THREADS, 4)
+sweep_cluster_kernel(const SweepArgs p)
+{
+    extern __shared__ float sums[];             // [K][32][121]
+    __shared__ unsigned seen;                   // chunks with rows here
+    __shared__ bool last;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, lane = tid & 31, role = tid >> 5;
+    const int rank = blockIdx.x, C = gridDim.x;
+    const int b0 = blockIdx.y * SC_TILE;
+    const int nsum = p.K * SC_TILE * SW_NACC;
+    for (int i = tid; i < nsum; i += SC_THREADS) sums[i] = 0.f;
+    if (tid == 0) seen = 0u;
+    __syncthreads();
+
+    // this block's share of the geometry, read with constant indices so
+    // that the arguments stay in the parameter bank
+    const bool last_tile = blockIdx.y == gridDim.y - 1;
+    int t0 = 0, t1 = 0, w0 = 0, i1 = 0;
+#pragma unroll
+    for (int r = 0; r < SC_MAX_CLUSTER; ++r) {
+        if (r == rank) {
+            t0 = p.tb[r];
+            t1 = p.tb[r + 1];
+            w0 = last_tile ? p.wb[1][r] : p.wb[0][r];
+            i1 = last_tile ? p.wb[1][r + 1] : p.wb[0][r + 1];
+        }
+    }
+    if (role == 0)
+        role_pass<0>(p, b0 + lane, lane, t0, t1, sums, &seen);
+    else if (role == 1)
+        role_pass<1>(p, b0 + lane, lane, t0, t1, sums, &seen);
+    else
+        role_pass<2>(p, b0 + lane, lane, t0, t1, sums, &seen);
+    __syncthreads();
+    cluster.sync();
+
+    // the cluster's sums, rank by rank, into the tile's records
+    unsigned masks = 0u;
+    for (int r = 0; r < C; ++r)
+        masks |= *cluster.map_shared_rank(&seen, r) << (SC_MAX_K * r);
+    const int per_k = min(SC_TILE, p.nb - b0) * SW_REC;
+    // SC_EPI words a thread at once, so that their remote loads overlap;
+    // each word still sums the ranks in rank order
+    for (int i0 = w0 + tid; i0 < i1; i0 += SC_EPI * SC_THREADS) {
+        int off[SC_EPI], k[SC_EPI];
+        size_t dst[SC_EPI];
+        float s[SC_EPI];
+#pragma unroll
+        for (int u = 0; u < SC_EPI; ++u) {
+            const int i = i0 + u * SC_THREADS;
+            int rem = i;
+            k[u] = 0;
+            while (rem >= per_k) {
+                rem -= per_k;
+                ++k[u];
+            }
+            const int l = rem / SW_REC;
+            const int pos = rem - l * SW_REC;
+            off[u] = i < i1 && pos < SW_NOUT
+                ? (k[u] * SC_TILE + l) * SW_NACC + out_to_acc(pos) : -1;
+            dst[u] = i < i1 ? ((size_t)k[u] * p.nb + b0 + l) * SW_REC + pos
+                            : 0;
+            s[u] = 0.f;
+        }
+        for (int r = 0; r < C; ++r) {
+            const float* peer = cluster.map_shared_rank(sums, r);
+#pragma unroll
+            for (int u = 0; u < SC_EPI; ++u)
+                if (off[u] >= 0 && ((masks >> (SC_MAX_K * r + k[u])) & 1u))
+                    s[u] += peer[off[u]];
+        }
+#pragma unroll
+        for (int u = 0; u < SC_EPI; ++u)
+            if (i0 + u * SC_THREADS < i1) p.out[dst[u]] = s[u];
+    }
+    // the tile's cost per chunk: rank 0, one warp per chunk, a fixed tree
+    const int tiles = gridDim.y;
+    if (rank == 0) {
+        for (int k = role; k < p.K; k += SC_THREADS / 32) {
+            const int off = (k * SC_TILE + lane) * SW_NACC + Q_COST;
+            float s = 0.f;
+            for (int r = 0; r < C; ++r)
+                if ((masks >> (SC_MAX_K * r + k)) & 1u)
+                    s += cluster.map_shared_rank(sums, r)[off];
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                s += __shfl_down_sync(0xffffffffu, s, o);
+            if (lane == 0) p.tile_cost[k * tiles + blockIdx.y] = s;
+        }
+    }
+    cluster.sync();
+
+    // the last block of the grid sums the tiles' costs in tile order
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+        last = atomicAdd(p.ticket, 1u) == gridDim.x * gridDim.y - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    float v[SC_MAX_K];
+#pragma unroll
+    for (int k = 0; k < SC_MAX_K; ++k) {
+        v[k] = 0.f;
+        if (k < p.K)
+            for (int j = tid; j < tiles; j += SC_THREADS)
+                v[k] += __ldcg(p.tile_cost + k * tiles + j);
+    }
+    float* red = sums;              // peers are done with it
+#pragma unroll
+    for (int k = 0; k < SC_MAX_K; ++k) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            v[k] += __shfl_down_sync(0xffffffffu, v[k], o);
+        if (lane == 0) red[role * SC_MAX_K + k] = v[k];
+    }
+    __syncthreads();
+    if (tid < p.K) {
+        float c = 0.f;
+        for (int w = 0; w < SC_THREADS / 32; ++w) c += red[w * SC_MAX_K + tid];
+        p.cost[tid] = c;
+    }
+    if (tid == 0) *p.ticket = 0u;
+}
+
+static size_t cluster_smem(int K)
+{
+    return (size_t)K * SC_TILE * SW_NACC * sizeof(float);
+}
+
+static cudaError_t cluster_smem_attr(void)
+{
+    static bool done = false;
+    if (done) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)cluster_smem(SC_MAX_K));
+    done = err == cudaSuccess;
+    return err;
+}
+
+// blocks of sweep_cluster_kernel an SM holds at K chunks (0 on error)
+extern "C" int sweep_blocks_per_sm(int K)
+{
+    if (cluster_smem_attr() != cudaSuccess) return 0;
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, sweep_cluster_kernel, SC_THREADS, cluster_smem(K))
+        != cudaSuccess)
+        return 0;
+    return n;
+}
+
+extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
+                            const long long* cid, const float* coh,
+                            const float* J, const long long* s1,
+                            const long long* s2, float* out, float* cost,
+                            float* tile_cost, unsigned* ticket, int T,
+                            int nb, int K, int N, int C, const int* tb,
+                            const int* wb, void* stream)
+{
+    if (K < 1 || K > SC_MAX_K || C < 1 || C > SC_MAX_CLUSTER || T < 1
+        || nb < 1)
+        return (int)cudaErrorInvalidValue;
+    const int tiles = (nb + SC_TILE - 1) / SC_TILE;
+    SweepArgs p = {x, w, cw, cid, coh, J, s1, s2, out, cost, tile_cost,
+                   ticket, T, nb, K, N};
+    // the geometry must cover every timeslot and every record word of a
+    // tile once, in rank order
+    bool ok = tb[0] == 0 && tb[C] == T;
+    for (int last = 0; last < 2; ++last) {
+        const int nbt = last ? nb - SC_TILE * (tiles - 1) : min(SC_TILE, nb);
+        const int* wr = wb + last * (SC_MAX_CLUSTER + 1);
+        ok = ok && wr[0] == 0 && wr[C] == K * nbt * SW_REC;
+        for (int r = 0; r <= C; ++r) {
+            ok = ok && (r == 0 || (tb[r - 1] <= tb[r] && wr[r - 1] <= wr[r]));
+            p.tb[r] = tb[r];
+            p.wb[last][r] = wr[r];
+        }
+    }
+    if (!ok) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cluster_smem_attr();
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, tiles, 1);
+    cfg.blockDim = dim3(SC_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = cluster_smem(K);
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e2 = cudaLaunchKernelEx(&cfg, sweep_cluster_kernel, p);
+    if (e2 != cudaSuccess) return (int)e2;
+    return (int)cudaGetLastError();
 }
 
 // the sums of one (chunk k, baseline b) over rows t0 <= t < t1 of a
@@ -206,38 +728,6 @@ __device__ __forceinline__ void sweep_rows(const float* __restrict__ x,
 }
 
 __global__ void __launch_bounds__(SW_THREADS)
-sweep_partials_kernel(const float* __restrict__ x,    // [T*nb, 8]
-                      const float* __restrict__ w,    // [T*nb, 8]
-                      const float* __restrict__ cw,   // [T*nb, 8]
-                      const int* __restrict__ cid,    // [T*nb]
-                      const float* __restrict__ coh,  // [T*nb, 2, 2, re/im]
-                      const float* __restrict__ jp,   // [K, nb, 2, 2, re/im]
-                      const float* __restrict__ jq,   // [K, nb, 2, 2, re/im]
-                      float* __restrict__ part,       // [nsl, K, 121, nb]
-                      int T, int nb, int K, int tl)
-{
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    const int k = blockIdx.y;
-    const int sl = blockIdx.z;
-    if (b >= nb) return;
-
-    float P[8], Q[8];
-    load8(jp + ((size_t)k * nb + b) * 8, P);
-    load8(jq + ((size_t)k * nb + b) * 8, Q);
-
-    float acc[SW_NACC];
-#pragma unroll
-    for (int q = 0; q < SW_NACC; ++q) acc[q] = 0.f;
-
-    const int t0 = sl * tl;
-    sweep_rows(x, w, cw, cid, coh, P, Q, nb, K, k, b, t0, min(T, t0 + tl),
-               acc);
-    float* dst = part + ((size_t)sl * K + k) * SW_NACC * nb + b;
-#pragma unroll
-    for (int q = 0; q < SW_NACC; ++q) dst[(size_t)q * nb] = acc[q];
-}
-
-__global__ void __launch_bounds__(SW_THREADS)
 visits_partials_kernel(const float* __restrict__ x,   // [(V,) T*nb, 8]
                        const float* __restrict__ w,   // [(V,) T*nb, 8]
                        const float* __restrict__ cw,  // [(V,) T*nb, 8]
@@ -276,24 +766,9 @@ visits_partials_kernel(const float* __restrict__ x,   // [(V,) T*nb, 8]
     for (int q = 0; q < SW_NACC; ++q) dst[(size_t)q * nb] = acc[q];
 }
 
-// output element e of the [145] caller layout -> partial-sum index q
-__device__ __forceinline__ int out_to_acc(int e)
-{
-    if (e < 64) {                       // pp (e < 32) or qq
-        const int base = e < 32 ? Q_PP : Q_QQ;
-        const int r = e & 31;
-        const int s = r >> 4, i = (r >> 2) & 3, j = r & 3;
-        return base + s * 10 + (i <= j ? sym_pair(i, j) : sym_pair(j, i));
-    }
-    if (e < 128) return Q_PQ + (e - 64);
-    if (e < 136) return Q_JP + (e - 128);
-    if (e < 144) return Q_JQ + (e - 136);
-    return Q_COST;
-}
-
 __global__ void sweep_reduce_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out,  // [K, nb, 145]
-                                    int nb, int K, int nsl)
+                                    float* __restrict__ out,  // [K, nb, rec]
+                                    int nb, int K, int nsl, int rec)
 {
     const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     const size_t total = (size_t)K * SW_NOUT * nb;
@@ -305,32 +780,18 @@ __global__ void sweep_reduce_kernel(const float* __restrict__ part,
     float s = 0.f;
     for (int sl = 0; sl < nsl; ++sl)
         s += part[(((size_t)sl * K + k) * SW_NACC + q) * nb + b];
-    out[((size_t)k * nb + b) * SW_NOUT + e] = s;
-}
-
-extern "C" int sweep_partials_launch(const float* x, const float* w,
-                                     const float* cw, const int* cid,
-                                     const float* coh, const float* jp,
-                                     const float* jq, float* part, int T,
-                                     int nb, int K, int nsl, int tl,
-                                     void* stream)
-{
-    if (nb == 0 || K == 0 || nsl == 0) return 0;
-    dim3 grid((nb + SW_THREADS - 1) / SW_THREADS, K, nsl);
-    sweep_partials_kernel<<<grid, SW_THREADS, 0, (cudaStream_t)stream>>>(
-        x, w, cw, cid, coh, jp, jq, part, T, nb, K, tl);
-    return (int)cudaGetLastError();
+    out[((size_t)k * nb + b) * rec + e] = s;
 }
 
 extern "C" int sweep_reduce_launch(const float* part, float* out, int nb,
-                                   int K, int nsl, void* stream)
+                                   int K, int nsl, int rec, void* stream)
 {
     const size_t total = (size_t)K * SW_NOUT * nb;
     if (total == 0) return 0;
     const int threads = 256;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
     sweep_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        part, out, nb, K, nsl);
+        part, out, nb, K, nsl, rec);
     return (int)cudaGetLastError();
 }
 

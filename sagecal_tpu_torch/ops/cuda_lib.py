@@ -43,11 +43,15 @@ SIGNATURES = {
                               _P],
     },
     "sweep": {
-        # x, w, cw, cid, coh, jp, jq, part, T, nb, K, nsl, tl, stream
-        "sweep_partials_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _P],
-        # part, out, nb, K, nsl, stream
-        "sweep_reduce_launch": [_P, _P, _I, _I, _I, _P],
+        # x, w, cw, cid, coh, J, s1, s2, out, cost, tile costs, ticket,
+        # T, nb, K, N, cluster, its time bounds [cluster + 1] and word
+        # bounds [2][9] (ops/sweep.py:sweep_geometry), stream
+        "sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _P, _P, _P],
+        # K -> blocks of the sweep kernel an SM holds
+        "sweep_blocks_per_sm": [_I],
+        # part, out, nb, K, nsl, record stride, stream
+        "sweep_reduce_launch": [_P, _P, _I, _I, _I, _I, _P],
         # x, w, cw, cid, coh, jp, jq, part, T, nb, K, V, nsl, tl, and the
         # visit strides of x, w, cw, cid, coh, jones (0 = shared), stream
         "visits_partials_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -55,12 +59,20 @@ SIGNATURES = {
                                    _P],
     },
     "matvec": {
-        # pp, qq, pq, sp, sq, spq, v, s1, s2, ptr, ent, shift, yb, y,
-        # K, nb, N, stream
-        "matvec_launch": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _I, _I, _I, _P],
+        # &MatvecParams, v, y, stream
+        "matvec_launch": [_P, _P, _P, _P],
     },
 }
+
+
+class MatvecParams(ctypes.Structure):
+    """The fixed arguments of ``csrc/matvec.cu``'s launch (its C struct
+    ``MatvecParams``), filled once per Gram-block set."""
+
+    _fields_ = [("pp", _P), ("qq", _P), ("pq", _P), ("sp", _L), ("sq", _L),
+                ("spq", _L), ("s1", _P), ("s2", _P), ("runs", _P),
+                ("ent", _P), ("shift", _P), ("K", _I), ("nb", _I),
+                ("N", _I)]
 
 _LIBS: dict = {}
 
@@ -143,5 +155,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, from the
+    raw-stream query PyTorch's own compiled kernels launch with (cheaper
+    a call than building a ``torch.cuda.Stream``)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    idx = torch.device(device).index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)

@@ -11,12 +11,16 @@ runs the plain PyTorch version :func:`sweep_blocks_plain` (``_sweep_body``
 over [T, nb] tensors plus the time sum) in the tensors' dtype.
 
 What bounds the kernel on the card is bytes: 33 words a row (x, w, cw,
-coherency, chunk id), each row read by its own chunk only, against
-:data:`SWEEP_FLOPS_PER_ROW` float32 operations; the design notes are in
-``csrc/sweep.cu``.
+coherency, chunk id), each row read once and added to its own chunk's
+sums, against :data:`SWEEP_FLOPS_PER_ROW` float32 operations. It is one
+launch (thread block clusters over time, the Jones gathered inside, the
+per-chunk cost summed inside) whose launch geometry is the plain
+function :func:`sweep_geometry`; it writes block records of :data:`REC`
+words that the callers see as strided views (:func:`record_views`). The
+design notes are in ``csrc/sweep.cu``.
 
-Around the kernel, as torch ops: the per-baseline Jones gathers,
-:func:`_station_aggregates` (``index_add_``, repeated stations
+Around the kernel, as torch ops: :func:`_station_aggregates`
+(``index_add_``, repeated stations
 accumulate), :func:`gn_blocks`, :func:`normal_equations_fused`,
 :func:`_assemble_damped`, :func:`chol_solve_blocks_shift` and
 :func:`solve_damped_blocks` with its single boosted-jitter retry
@@ -26,9 +30,11 @@ accumulate), :func:`gn_blocks`, :func:`normal_equations_fused`,
 ``_matvec_kernel`` (``sweep_pallas.py:946``, launched by
 ``_matvec_blocks_jit`` ``:988``): y = (JTJ + shift I) v straight from
 the Gram blocks, the product behind every ``--inner cg`` PCG and tCG
-trip. On a CUDA tensor it launches ``csrc/matvec.cu`` or raises; on a
-CPU tensor it runs :func:`gn_matvec_blocks_plain` (gather, einsum,
-``index_add_``).
+trip. On a CUDA tensor it launches ``csrc/matvec.cu`` (one launch per
+product) or raises; on a CPU tensor it runs :func:`gn_matvec_blocks_plain`
+(gather, einsum, ``index_add_``). A loop of products with the same
+blocks checks and lays them out once (:func:`matvec_plan`) and calls
+:func:`matvec_apply` per product.
 
 :func:`sweep_blocks_visits` replaces the third, ``_visits_kernel``
 (``sweep_pallas.py:439``, launched by ``sweep_blocks_visits`` ``:582``;
@@ -47,6 +53,8 @@ to the other visits from L2 (notes in ``csrc/sweep.cu``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -66,9 +74,25 @@ MAX_CHUNKS = 4
 #: layout's element count (pp 32, qq 32, pq 64, jtep 8, jteq 8, cost 1)
 N_ACC = 121
 N_OUT = 145
-#: threads the wrapper aims to have in flight when it splits the time
-#: axis (132 SMs x 256 resident threads at the kernel's register use)
+#: words of one (chunk, baseline) block record on the card: the 145 of
+#: the caller layout padded to 640 bytes, so that every block row starts
+#: on 16 bytes (the matvec's float4 loads) and a record on 128
+REC = 160
+#: the record's parts (``csrc/sweep.cu``): pp, qq, pq, jtep, jteq as
+#: (offset, shape, strides) in words, then the baseline's cost
+REC_PARTS = ((0, (2, 4, 4), (16, 4, 1)), (32, (2, 4, 4), (16, 4, 1)),
+             (64, (2, 2, 4, 4), (32, 16, 4, 1)), (128, (2, 4), (4, 1)),
+             (136, (2, 4), (4, 1)))
+REC_COST = 144
+#: the sweep kernel's tile (one baseline per lane of a warp) and its
+#: largest thread block cluster (portable size)
+SWEEP_TILE = 32
+MAX_CLUSTER = 8
+#: threads the multi-visit wrapper aims to have in flight when it splits
+#: the time axis (132 SMs x 256 resident threads at its register use)
 TARGET_THREADS = 132 * 256
+#: warps of one matvec block (``MV_WARPS`` in ``csrc/matvec.cu``)
+MATVEC_WARPS = 8
 
 #: float32 operations per (chunk, baseline) of one blocks matvec: 192
 #: multiply-adds (pp and qq 16 each per side, pq 64 each way)
@@ -157,14 +181,124 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
 
 def _time_slices(T: int, nb: int, K: int):
     """(slice count, rows per slice) so that about TARGET_THREADS
-    (chunk, baseline, slice) threads are in flight (K counts every
-    visit's chunks in the multi-visit sweep)."""
+    (chunk, baseline, slice) threads of the multi-visit kernel are in
+    flight (K counts every visit's chunks)."""
     want = max(1, -(-TARGET_THREADS // max(K * nb, 1)))
     tl = -(-T // min(T, want))
     return -(-T // tl), tl
 
 
-def _sweep_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
+def record_views(out):
+    """(pp, qq, pq, jtep, jteq) as strided views of contiguous block
+    records ``out`` [..., nb, R] (R >= 145 words: :data:`REC` on the
+    card), e.g. [K, nb, R] or [V, K, nb, R]."""
+    lead, st = out.shape[:-1], out.stride()[:-1]
+    base = out.storage_offset()
+    return tuple(out.as_strided(lead + shp, st + inner, base + o)
+                 for o, shp, inner in REC_PARTS)
+
+
+class SweepGeometry(NamedTuple):
+    """Launch geometry of the sweep kernel, which the kernel reads as
+    given: ``tiles`` tiles of :data:`SWEEP_TILE` baselines, each taken by
+    one cluster of ``cluster`` blocks. Block ``rank`` of a cluster walks
+    timeslots ``times[rank]`` .. ``times[rank + 1]`` of its tile for
+    every chunk (a row goes to the sums of its own chunk id), then sums
+    the cluster's record words ``words[last][rank]`` ..
+    ``words[last][rank + 1]`` of the tile's K x nbt x rec words
+    (chunk-major, then baseline, then word) and writes them: ``last`` is
+    1 on the last tile (nbt = nb - SWEEP_TILE (tiles - 1)), 0 on the
+    others (nbt = SWEEP_TILE). The records are ``rec`` words apart."""
+
+    tiles: int
+    cluster: int
+    times: tuple
+    words: tuple
+    rec: int
+
+
+def sweep_geometry(T: int, nb: int, K: int, slots: int) -> SweepGeometry:
+    """The sweep kernel's launch geometry for T timeslots of nb baselines
+    and K chunks on a card that holds ``slots`` blocks at once: the
+    largest cluster (<= :data:`MAX_CLUSTER`, <= T) with which every block
+    runs in the first wave, its time ranges as even as the timeslots
+    allow, and each tile's record words split evenly among its blocks."""
+    if T < 1 or nb < 1 or not 1 <= K <= MAX_CHUNKS:
+        raise ValueError(f"sweep_geometry: T={T}, nb={nb}, K={K}")
+    tiles = -(-nb // SWEEP_TILE)
+    tl = -(-T // max(1, min(MAX_CLUSTER, T, slots // tiles)))
+    c = -(-T // tl)
+
+    def split(nbt):
+        total = K * nbt * REC
+        span = -(-total // c)
+        return tuple(min(total, r * span) for r in range(c + 1))
+
+    return SweepGeometry(
+        tiles=tiles, cluster=c,
+        times=tuple(min(T, r * tl) for r in range(c + 1)),
+        words=(split(min(SWEEP_TILE, nb)),
+               split(nb - SWEEP_TILE * (tiles - 1))),
+        rec=REC)
+
+
+@functools.lru_cache(maxsize=64)
+def _geometry_args(T: int, nb: int, K: int, slots: int):
+    """(geometry, its time bounds, its word bounds) as the C arrays
+    ``sweep_launch`` takes, built once per shape."""
+    geo = sweep_geometry(T, nb, K, slots)
+    row = ctypes.c_int * (MAX_CLUSTER + 1)
+    return (geo, row(*geo.times),
+            (ctypes.c_int * (2 * MAX_CLUSTER + 2))(
+                *(w for part in geo.words
+                  for w in part + (0,) * (MAX_CLUSTER - geo.cluster))))
+
+
+_SLOTS: dict = {}
+_TICKETS: dict = {}
+
+
+def _sweep_slots(dev, K: int) -> int:
+    """Blocks of the sweep kernel the card ``dev`` holds at once at K
+    chunks (the CUDA occupancy query, cached)."""
+    key = (dev.index, K)
+    n = _SLOTS.get(key)
+    if n is None:
+        per_sm = cuda_lib.load("sweep").sweep_blocks_per_sm(K)
+        if per_sm < 1:
+            raise RuntimeError("sweep kernel: the occupancy query failed "
+                               f"at K={K}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n = _SLOTS[key] = per_sm * sms
+    return n
+
+
+def _ticket(dev, stream: int):
+    """The sweep kernel's last-block ticket for (device, stream): one
+    int32, zero between launches (the last block resets it)."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
+def _aligned(t):
+    """``t`` contiguous with its data on 16 bytes (the kernels' float4
+    loads): as it is when it already is, else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _int64(t):
+    """``t`` as contiguous int64 (as it is when it already is)."""
+    if t.dtype != torch.int64:
+        t = t.long()
+    return t.contiguous()
+
+
+def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int):
     global LAUNCHES
     dev = x8.device
     for name, a in (("x8", x8), ("wt", wt), ("cost_wt", cost_wt)):
@@ -172,36 +306,43 @@ def _sweep_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
             raise TypeError(f"sweep kernel: {name} must be float32 on {dev} "
                             f"(got {a.dtype} on {a.device}); reduced "
                             "storage policies are ROADMAP queue A item 9")
-    if coh.dtype != torch.complex64 or Jp.dtype != torch.complex64:
+    if coh.dtype != torch.complex64 or J.dtype != torch.complex64 \
+            or coh.device != dev or J.device != dev:
         raise TypeError("sweep kernel: coherencies and Jones must be "
-                        "complex64")
-    K = Jp.shape[0]
+                        f"complex64 on {dev}")
+    K, N = J.shape[0], J.shape[1]
     B = x8.shape[0]
     T = B // nb
-    x8, wt, cost_wt = x8.contiguous(), wt.contiguous(), cost_wt.contiguous()
-    cohr = torch.view_as_real(coh.resolve_conj().contiguous())
-    jpr = torch.view_as_real(Jp.resolve_conj().contiguous())
-    jqr = torch.view_as_real(Jq.resolve_conj().contiguous())
-    cid = chunk_id.to(device=dev, dtype=torch.int32).contiguous()
-    nsl, tl = _time_slices(T, nb, K)
-    part = torch.empty((nsl, K, N_ACC, nb), dtype=torch.float32, device=dev)
-    out = torch.empty((K, nb, N_OUT), dtype=torch.float32, device=dev)
-    lib = cuda_lib.load("sweep")
+    if not 1 <= K <= MAX_CHUNKS or T < 1 or any(
+            a.shape[0] != B for a in (wt, cost_wt, coh, chunk_id)) \
+            or sta1.shape[0] < nb or sta2.shape[0] < nb \
+            or sta1.device != dev or sta2.device != dev \
+            or chunk_id.device != dev:
+        raise ValueError(f"sweep kernel: K={K} (1..{MAX_CHUNKS}), {B} rows "
+                         "and per-row operands of equal length on "
+                         f"{dev} expected")
+    # the kernel reads complex64 as (re, im) float pairs and the indices
+    # as int64, the solvers' own layouts: no copy on the main path
+    x8, wt, cost_wt, coh, J = (_aligned(a.resolve_conj())
+                               for a in (x8, wt, cost_wt, coh, J))
+    s1, s2, cid = (_int64(a) for a in (sta1, sta2, chunk_id))
+    geo, times, words = _geometry_args(T, nb, K, _sweep_slots(dev, K))
+    # the records, then cost [K], then the tiles' costs [K, tiles]
+    n_rec = K * nb * REC
+    buf = torch.empty(n_rec + K * (1 + geo.tiles), dtype=torch.float32,
+                      device=dev)
+    out = buf.as_strided((K, nb, REC), (nb * REC, REC, 1))
+    cost = buf.as_strided((K,), (1,), n_rec)
+    ptr = buf.data_ptr()
     stream = cuda_lib.stream_ptr(dev)
-    cuda_lib.check(lib.sweep_partials_launch(
+    cuda_lib.check(cuda_lib.load("sweep").sweep_launch(
         x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
-        cohr.data_ptr(), jpr.data_ptr(), jqr.data_ptr(), part.data_ptr(),
-        T, nb, K, nsl, tl, stream), "sweep_partials_kernel")
-    cuda_lib.check(lib.sweep_reduce_launch(
-        part.data_ptr(), out.data_ptr(), nb, K, nsl, stream),
-        "sweep_reduce_kernel")
+        coh.data_ptr(), J.data_ptr(), s1.data_ptr(), s2.data_ptr(), ptr,
+        ptr + 4 * n_rec, ptr + 4 * (n_rec + K),
+        _ticket(dev, stream).data_ptr(), T, nb, K, N, geo.cluster, times,
+        words, stream), "sweep_cluster_kernel")
     LAUNCHES += 1
-    pp = out[..., 0:32].view(K, nb, 2, 4, 4)
-    qq = out[..., 32:64].view(K, nb, 2, 4, 4)
-    pq = out[..., 64:128].view(K, nb, 2, 2, 4, 4)
-    jtep = out[..., 128:136].view(K, nb, 2, 4)
-    jteq = out[..., 136:144].view(K, nb, 2, 4)
-    return pp, qq, pq, jtep, jteq, out[..., 144].sum(dim=-1)
+    return record_views(out) + (cost,)
 
 
 def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
@@ -223,12 +364,12 @@ def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
         raise ValueError(f"sweep_blocks: J has {J.shape[0]} chunks for "
                          f"kmax={K}, or {x8.shape[0]} rows are not a "
                          f"multiple of row_period={nb}")
+    if x8.device.type == "cuda":
+        return _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb)
     s1b = sta1[:nb].long()
     s2b = sta2[:nb].long()
     Jp = J[:, s1b]                                   # [K, nb, 2, 2]
     Jq = J[:, s2b]
-    if x8.device.type == "cuda":
-        return _sweep_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb)
     return sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb)
 
 
@@ -321,7 +462,7 @@ def _visits_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int, V: int,
     nsl, tl = _time_slices(T, nb, V * K)
     part = torch.empty((nsl, V * K, N_ACC, nb), dtype=torch.float32,
                        device=dev)
-    out = torch.empty((V * K, nb, N_OUT), dtype=torch.float32, device=dev)
+    out = torch.empty((V * K, nb, REC), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("sweep")
     stream = cuda_lib.stream_ptr(dev)
     cuda_lib.check(lib.visits_partials_launch(
@@ -330,15 +471,11 @@ def _visits_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int, V: int,
         T, nb, K, V, nsl, tl, sx, sw, scw, scid, scoh, sj, stream),
         "visits_partials_kernel")
     cuda_lib.check(lib.sweep_reduce_launch(
-        part.data_ptr(), out.data_ptr(), nb, V * K, nsl, stream),
+        part.data_ptr(), out.data_ptr(), nb, V * K, nsl, REC, stream),
         "sweep_reduce_kernel")
     VISITS_LAUNCHES += 1
-    pp = out[..., 0:32].view(V, K, nb, 2, 4, 4)
-    qq = out[..., 32:64].view(V, K, nb, 2, 4, 4)
-    pq = out[..., 64:128].view(V, K, nb, 2, 2, 4, 4)
-    jtep = out[..., 128:136].view(V, K, nb, 2, 4)
-    jteq = out[..., 136:144].view(V, K, nb, 2, 4)
-    return pp, qq, pq, jtep, jteq, out[..., 144].sum(dim=-1).view(V, K)
+    return record_views(out.view(V, K, nb, REC)) + (
+        out[..., REC_COST].sum(dim=-1).view(V, K),)
 
 
 def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
@@ -352,8 +489,8 @@ def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
     6-tuple, read here off the ranks); sta1/sta2 are shared and
     baseline-periodic. Returns the :func:`sweep_blocks` tuple with a
     leading [V] axis on every output. On the card the outputs are views
-    of one [V K, nb, 145] buffer, so the visits fold into the chunk axis
-    without a copy."""
+    of one [V K, nb, REC] record buffer, so the visits fold into the
+    chunk axis without a copy."""
     if jones != "full":
         raise NotImplementedError(
             f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
@@ -516,12 +653,15 @@ class StationLists(NamedTuple):
     """A tile's baseline layout as the matvec kernel reads it (int32):
     s1/s2 [nb] the baselines' stations; ``ent[ptr[n]:ptr[n + 1]]`` lists
     the (baseline b, side) entries of station n as 2 b + side, side 0
-    where n = s1[b] and 1 where n = s2[b], in a fixed order."""
+    where n = s1[b] and 1 where n = s2[b], in a fixed order; ``runs``
+    [N, MATVEC_WARPS, 2] the kernel's split of each station's entries
+    among its warps (:func:`matvec_runs`)."""
 
     s1: torch.Tensor
     s2: torch.Tensor
     ptr: torch.Tensor
     ent: torch.Tensor
+    runs: torch.Tensor
 
 
 def station_lists(sta1, sta2, nb: int, n_stations: int) -> StationLists:
@@ -535,62 +675,136 @@ def station_lists(sta1, sta2, nb: int, n_stations: int) -> StationLists:
     ptr = torch.zeros(n_stations + 1, dtype=torch.long, device=side.device)
     ptr[1:] = torch.cumsum(torch.bincount(side, minlength=n_stations), 0)
     return StationLists(*(t.to(torch.int32).contiguous()
-                          for t in (s1b, s2b, ptr, ent)))
+                          for t in (s1b, s2b, ptr, ent, matvec_runs(ptr))))
 
 
 def _block_view(t, nb: int):
     """(tensor, words between consecutive baselines) with each baseline's
-    block contiguous; a strided view of the sweep output is used as it
-    is."""
+    block contiguous and its rows on 16 bytes, as the matvec kernel reads
+    them: an aligned strided view of the sweep's records (:data:`REC`
+    words apart) is used as it is, anything else is copied."""
     words = math.prod(t.shape[2:])
     st = t.stride()
-    if t[0, 0].is_contiguous() and st[0] == nb * st[1] and st[1] >= words:
+    if t[0, 0].is_contiguous() and st[0] == nb * st[1] and st[1] >= words \
+            and st[1] % 4 == 0 and t.data_ptr() % 16 == 0:
         return t, st[1]
-    return t.contiguous(), words
+    return _aligned(t), words
 
 
-def _matvec_cuda(fac: GNBlocks, v, lists: StationLists, n_stations: int,
-                 shift):
-    global MATVEC_LAUNCHES
-    dev = v.device
-    K, nb = fac.pp.shape[0], fac.pp.shape[1]
-    md = fac.pp.shape[-1]
+def matvec_runs(ptr, warps: int = MATVEC_WARPS):
+    """The matvec kernel's split of the station lists, which it reads as
+    given: [N, warps, 2] (start, end) of the run of ``ent`` entries each
+    warp of a station's block walks (contiguous runs of ceil(count /
+    warps), the last ones shorter or empty). ``ptr`` [N + 1] as in
+    :class:`StationLists`."""
+    ptr = torch.as_tensor(ptr, dtype=torch.int64)
+    e0, e1 = ptr[:-1, None], ptr[1:, None]
+    per = (e1 - e0 + warps - 1) // warps
+    w0 = e0 + torch.arange(warps, device=ptr.device) * per
+    return torch.stack([torch.minimum(w0, e1), torch.minimum(e1, w0 + per)],
+                       dim=-1)
+
+
+class MatvecPlan(NamedTuple):
+    """What :func:`matvec_apply` needs of one Gram-block set, checked and
+    laid out once (:func:`matvec_plan`). On the card ``params`` is the
+    kernel's filled argument record and ``keep`` the tensors it points
+    into; on the CPU ``params`` is None and the plain version runs."""
+
+    fac: GNBlocks
+    n_stations: int
+    shift: object
+    s1b: torch.Tensor
+    s2b: torch.Tensor
+    params: object
+    launch: object
+    keep: tuple
+
+
+def _check_lists(lists: StationLists, nb: int, N: int, dev) -> None:
+    s1, s2, ptr, ent, runs = lists
+    if s1.shape != (nb,) or s2.shape != (nb,) or ptr.shape != (N + 1,) \
+            or ent.shape != (2 * nb,) or runs.shape != (N, MATVEC_WARPS, 2):
+        raise ValueError(f"matvec: station lists for {s1.shape[0]} "
+                         f"baselines and {ptr.shape[0] - 1} stations, "
+                         f"expected {nb} and {N}")
+    if any(t.dtype != torch.int32 or t.device != dev for t in lists):
+        raise TypeError(f"matvec: station lists must be int32 on {dev}")
+
+
+def matvec_plan(fac: GNBlocks, sta1, sta2, n_stations: int, shift=None,
+                lists: StationLists | None = None) -> MatvecPlan:
+    """Check and lay out the blocks ``fac`` once for every product
+    (JTJ + shift I) v taken with them (:func:`matvec_apply`): the solvers
+    build one plan per Gram-block set (a tCG operator, a PCG solve) and
+    call the kernel through it. Raises on blocks of mismatched shapes,
+    dtypes or devices, on ``lists`` that are not the layout's, and on the
+    card for anything but float32 full Jones; nothing falls back."""
+    pp, qq, pq = fac.pp, fac.qq, fac.pq
+    K, nb = pp.shape[0], pp.shape[1]
+    md = pp.shape[-1]
+    N = int(n_stations)
+    if pp.shape != (K, nb, 2, md, md) or qq.shape != pp.shape \
+            or pq.shape != (K, nb, 2, 2, md, md):
+        raise ValueError(f"matvec: blocks of shapes {tuple(pp.shape)}, "
+                         f"{tuple(qq.shape)}, {tuple(pq.shape)}")
+    dev = pp.device
+    if any(t.dtype != pp.dtype or t.device != dev for t in (qq, pq)):
+        raise TypeError("matvec: pp, qq and pq must share dtype and device")
+    if shift is not None and torch.as_tensor(shift).numel() not in (1, K):
+        raise ValueError(f"matvec: shift of {torch.as_tensor(shift).numel()}"
+                         f" values for {K} chunks")
+    if dev.type != "cuda":
+        if lists is not None:
+            _check_lists(lists, nb, N, lists.s1.device)
+        return MatvecPlan(fac, N, shift, sta1[:nb].long(), sta2[:nb].long(),
+                          None, None, ())
     if md != 4:
         raise NotImplementedError(
             "the matvec kernel is full Jones (md = 4); --jones diag|phase "
             "is ROADMAP queue A item 9")
-    for name, a in (("pp", fac.pp), ("qq", fac.qq), ("pq", fac.pq),
-                    ("v", v)):
-        if a.dtype != torch.float32 or a.device != dev:
-            raise TypeError(f"matvec kernel: {name} must be float32 on {dev} "
-                            f"(got {a.dtype} on {a.device})")
-    if v.shape != (K, 8 * n_stations):
-        raise ValueError(f"matvec kernel: v has shape {tuple(v.shape)}, "
-                         f"expected ({K}, {8 * n_stations})")
-    pp, sp = _block_view(fac.pp, nb)
-    qq, sq = _block_view(fac.qq, nb)
-    pq, spq = _block_view(fac.pq, nb)
-    v = v.contiguous()
-    s1, s2, ptr, ent = lists
-    if s1.shape[0] != nb or ptr.shape[0] != n_stations + 1 \
-            or s1.device != dev:
-        raise ValueError(f"matvec kernel: station lists for {s1.shape[0]} "
-                         f"baselines and {ptr.shape[0] - 1} stations on "
-                         f"{s1.device}, expected {nb} and {n_stations} on "
-                         f"{dev}")
+    if pp.dtype != torch.float32:
+        raise TypeError(f"matvec kernel: blocks must be float32 on {dev} "
+                        f"(got {pp.dtype})")
+    if lists is None:
+        lists = station_lists(sta1, sta2, nb, N)
+    _check_lists(lists, nb, N, dev)
+    (pp, sp), (qq, sq), (pq, spq) = (_block_view(t, nb) for t in (pp, qq, pq))
     sh = None
     if shift is not None:
         sh = torch.as_tensor(shift, device=dev).to(torch.float32)
         sh = sh.expand(K).contiguous()
-    yb = torch.empty((K, nb, 16), dtype=torch.float32, device=dev)
-    y = torch.empty((K, 8 * n_stations), dtype=torch.float32, device=dev)
-    lib = cuda_lib.load("matvec")
-    cuda_lib.check(lib.matvec_launch(
+    s1, s2, _, ent, runs = lists
+    params = cuda_lib.MatvecParams(
         pp.data_ptr(), qq.data_ptr(), pq.data_ptr(), sp, sq, spq,
-        v.data_ptr(), s1.data_ptr(), s2.data_ptr(), ptr.data_ptr(),
-        ent.data_ptr(), None if sh is None else sh.data_ptr(),
-        yb.data_ptr(), y.data_ptr(), K, nb, n_stations,
-        cuda_lib.stream_ptr(dev)), "matvec kernels")
+        s1.data_ptr(), s2.data_ptr(), runs.data_ptr(), ent.data_ptr(),
+        None if sh is None else sh.data_ptr(), K, nb, N)
+    return MatvecPlan(fac, N, shift, s1, s2, params,
+                      cuda_lib.load("matvec").matvec_launch,
+                      (pp, qq, pq, sh, lists))
+
+
+def matvec_apply(plan: MatvecPlan, v):
+    """(JTJ + shift I) v for the blocks of ``plan``: v [K, 8N]. On the
+    card one launch of ``csrc/matvec.cu``; the call checks only ``v``."""
+    global MATVEC_LAUNCHES
+    if plan.params is None:
+        return gn_matvec_blocks_plain(plan.fac, v, plan.s1b, plan.s2b,
+                                      plan.n_stations, plan.shift)
+    p = plan.params
+    if v.dtype != torch.float32 or not v.is_cuda \
+            or v.shape != (p.K, 8 * p.N):
+        raise TypeError(f"matvec kernel: v must be float32 [{p.K}, "
+                        f"{8 * p.N}] on the card (got {v.dtype} "
+                        f"{tuple(v.shape)} on {v.device})")
+    if v.device != plan.fac.pp.device:
+        raise TypeError(f"matvec kernel: v on {v.device}, blocks on "
+                        f"{plan.fac.pp.device}")
+    v = _aligned(v)
+    y = torch.empty_like(v)
+    cuda_lib.check(plan.launch(
+        ctypes.addressof(p), v.data_ptr(), y.data_ptr(),
+        cuda_lib.stream_ptr(v.device)), "matvec_station_kernel")
     MATVEC_LAUNCHES += 1
     return y
 
@@ -599,13 +813,10 @@ def gn_matvec_blocks(fac: GNBlocks, v, sta1, sta2, n_stations: int,
                      shift=None, lists: StationLists | None = None):
     """(JTJ + shift I) @ v from the per-baseline Gram blocks
     (``sweep_pallas.gn_matvec_blocks``): v [K, 8N], shift [K] or None;
-    sta1/sta2 the rows' station indices (baseline-periodic). On the card
-    the kernel walks ``lists`` (:func:`station_lists` of the same rows),
-    built for this call when not given."""
-    nb = fac.pp.shape[1]
-    if v.device.type == "cuda":
-        if lists is None:
-            lists = station_lists(sta1, sta2, nb, n_stations)
-        return _matvec_cuda(fac, v, lists, n_stations, shift)
-    return gn_matvec_blocks_plain(fac, v, sta1[:nb].long(),
-                                  sta2[:nb].long(), n_stations, shift)
+    sta1/sta2 the rows' station indices (baseline-periodic). One
+    :func:`matvec_plan` and one :func:`matvec_apply`: a loop that takes
+    many products with the same blocks builds the plan once itself. On
+    the card the kernel walks ``lists`` (:func:`station_lists` of the
+    same rows), built for this call when not given."""
+    return matvec_apply(matvec_plan(fac, sta1, sta2, n_stations, shift=shift,
+                                    lists=lists), v)

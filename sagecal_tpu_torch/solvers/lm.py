@@ -164,8 +164,9 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe on the
     Gram blocks, batched over chunks; returns (dp, ok, trips).
 
-    Each trip is one blocks matvec (``swp.gn_matvec_blocks``) and one
-    station-block preconditioner solve. A chunk stops at ||r||^2 <=
+    Each trip is one blocks matvec (``swp.matvec_apply`` on one plan of
+    the blocks and the shift) and one station-block preconditioner
+    solve. A chunk stops at ||r||^2 <=
     (eta ||JTe||)^2 and freezes (masked updates) while the batch runs to
     the slowest live chunk; ``active`` [K] masks chunks out entirely
     (their rhs is zeroed, so they start converged); ``lists`` the tile's
@@ -187,13 +188,14 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     act = (r * r).sum(dim=-1) > tol2
     k = 0
     trips = np.zeros(V, dtype=np.int64)
+    plan = swp.matvec_plan(fac, sta1, sta2, n_stations, shift=shift,
+                           lists=lists)
     while k < maxiter:
         lv = live_lanes(act, V)
         if not lv.any():
             break
         trips += lv
-        Ap = swp.gn_matvec_blocks(fac, p, sta1, sta2, n_stations,
-                                  shift=shift, lists=lists)
+        Ap = swp.matvec_apply(plan, p)
         pAp = (p * Ap).sum(dim=-1)
         alpha = torch.where(act & (pAp > 0),
                             rz / torch.clamp(pAp, min=tiny), zero)

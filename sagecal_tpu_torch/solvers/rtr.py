@@ -262,10 +262,10 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             fac, _, _ = swp.gn_blocks(x8, Jm, coh, sta1, sta2, chunk_id,
                                       wt_eff, N, kmax, row_period,
                                       lanes=lanes)
+            plan = swp.matvec_plan(fac, sta1, sta2, N, lists=lists)
 
             def hv(v):
-                return proj(2.0 * swp.gn_matvec_blocks(fac, v, sta1, sta2,
-                                                       N, lists=lists))
+                return proj(2.0 * swp.matvec_apply(plan, v))
             return hv
         JTJ, _, _ = swp.normal_equations_fused(x8, Jm, coh, sta1, sta2,
                                                chunk_id, wt_eff, N, kmax,

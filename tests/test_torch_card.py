@@ -85,6 +85,65 @@ def test_sweep_kernel_matches_plain(card, K):
         assert g.shape == r.shape and _close(g, r)
 
 
+@pytest.mark.parametrize("N,T,K,nchunk", [(62, 120, 4, 4), (20, 5, 3, 3),
+                                            (62, 120, 2, 1), (62, 1, 2, 2)])
+def test_sweep_kernel_edges_are_deterministic(card, N, T, K, nchunk):
+    """The sweep kernel at the full-width shape (nb = 1891) and at edges:
+    nb = 190 (not a multiple of the 32-baseline tile), a 1-chunk cluster
+    at kmax = 2 and one timeslot at kmax = 2 (chunk 1 without rows, whose
+    blocks and cost are exactly zero); each matches the plain version and
+    two calls give the same bits."""
+    rng = np.random.default_rng(N + T + K)
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=card)
+    s1, s2 = lng(np.tile(p, T)), lng(np.tile(q, T))
+    cid = lng(np.minimum((np.arange(B) // nb) // -(-T // nchunk),
+                         nchunk - 1))
+    coh = c64(rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2)))
+    J = c64((rng.normal(size=(K, N, 2, 2))
+             + 1j * rng.normal(size=(K, N, 2, 2))) * 0.3 + np.eye(2))
+    x8, wt, cw = (f32(rng.random((B, 8))) for _ in range(3))
+    got = tswp.sweep_blocks(x8, J, coh, s1, s2, cid, wt, cw, nb, K)
+    again = tswp.sweep_blocks(x8, J, coh, s1, s2, cid, wt, cw, nb, K)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = tswp.sweep_blocks_plain(x8, J[:, s1[:nb]], J[:, s2[:nb]], coh,
+                                  cid, wt, cw, nb)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _close(g, r)
+    for k in range(K):
+        if not bool((cid == k).any()):
+            assert all(float(g[k].abs().max()) == 0.0 for g in got)
+
+
+def test_sweep_launch_refuses_a_geometry_that_misses_rows(card,
+                                                          monkeypatch):
+    """The kernel walks the time ranges the wrapper's geometry gives it,
+    and the launch refuses one that leaves a timeslot out."""
+    real = tswp._geometry_args
+
+    def short(T, nb, K, slots):
+        geo, tb, wb = real(T, nb, K, slots)
+        tb = type(tb)(*tb)
+        tb[geo.cluster] -= 1
+        return geo, tb, wb
+
+    monkeypatch.setattr(tswp, "_geometry_args", short)
+    N, T = 6, 4
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    x8 = torch.ones((T * nb, 8), device=card)
+    coh = torch.ones((T * nb, 2, 2), dtype=torch.complex64, device=card)
+    J = torch.ones((1, N, 2, 2), dtype=torch.complex64, device=card)
+    with pytest.raises(RuntimeError, match="sweep_cluster_kernel"):
+        tswp.sweep_blocks(x8, J, coh, lng(np.tile(p, T)), lng(np.tile(q, T)),
+                          lng(np.zeros(T * nb)), x8, x8, nb, 1)
+
+
 def test_sweep_kernel_refuses_float64(card):
     x8 = torch.zeros((6, 8), dtype=torch.float64, device=card)
     J = torch.zeros((1, 4, 2, 2), dtype=torch.complex128, device=card)
@@ -183,6 +242,41 @@ def test_matvec_kernel_matches_plain(card, K, shifted):
     with pytest.raises(ValueError):
         tswp.gn_matvec_blocks(fac, v, s1, s2, N, shift=shift,
                               lists=tswp.station_lists(s1, s2, nb - 1, N))
+
+
+def test_matvec_kernel_on_visit_records_is_deterministic(card):
+    """The matvec kernel reads a group's [V K, nb, REC] records from the
+    multi-visit sweep in place, through one plan, and two products give
+    the same bits."""
+    rng = np.random.default_rng(5)
+    V, K, N, T = 3, 2, 9, 12
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=card)
+    s1, s2 = lng(np.tile(p, T)), lng(np.tile(q, T))
+    cid = lng(np.minimum((np.arange(B) // nb) // -(-T // K), K - 1))
+    coh = c64(rng.normal(size=(V * B, 2, 2))
+              + 1j * rng.normal(size=(V * B, 2, 2)))
+    J = c64((rng.normal(size=(V * K, N, 2, 2))
+             + 1j * rng.normal(size=(V * K, N, 2, 2))) * 0.3 + np.eye(2))
+    x8, wt = f32(rng.random((V * B, 8))), f32(rng.random((B, 8)))
+    lanes = tswp.Lanes(V=V, K=K, cid=cid.to(torch.int32))
+    fac, _, _ = tswp.gn_blocks(x8, J, coh, s1, s2, cid, wt, N, V * K, nb,
+                               lanes=lanes)
+    assert tswp._block_view(fac.pq, nb)[0] is fac.pq
+    plan = tswp.matvec_plan(fac, s1, s2, N, shift=torch.full(
+        (V * K,), 0.25, device=card))
+    v = torch.randn((V * K, 8 * N), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    got, again = tswp.matvec_apply(plan, v), tswp.matvec_apply(plan, v)
+    assert torch.equal(got, again)
+    ref = tswp.gn_matvec_blocks_plain(fac, v, s1[:nb], s2[:nb], N,
+                                      shift=torch.full((V * K,), 0.25,
+                                                       device=card))
+    assert _close(got, ref)
 
 
 def test_matvec_kernel_refuses_float64(card):

@@ -4,9 +4,9 @@ reference in float64: ``gn_matvec_blocks_plain`` against the Pallas
 ``_matvec_kernel`` in interpret mode, with and without a shift, K in
 {1, 2} and on a baseline list whose stations repeat (rtol 1e-10 of the
 largest element: the same sums in another order), the preconditioner
-pair and ``normal_equations_fused`` likewise. The station lists the
-CUDA kernel's second pass walks are checked here by a PyTorch replica of
-that pass."""
+pair and ``normal_equations_fused`` likewise. The station lists and the
+warps' runs of them that the CUDA kernel walks are checked here by a
+PyTorch replica of its walk; the per-blocks plan by its checks."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -112,33 +112,53 @@ def test_matvec_is_the_dense_operator(K):
            torch.einsum("kij,kj->ki", A, v).numpy())
 
 
-def _gather_replica(yb, ptr, ent, v, shift, K, N):
-    """The CUDA kernel's second pass in PyTorch: per (k, station) the sum
-    of the listed (baseline, side) products plus shift v."""
-    y = torch.zeros((K, N, 8), dtype=yb.dtype)
-    flat = yb.reshape(K, -1, 8)                      # [K, 2 nb, 8]
+def _kernel_replica(fac, v, lists, shift, K, N):
+    """The CUDA kernel's walk in PyTorch: per (chunk, station) each warp
+    of the block takes its run of the station's (baseline, side) entries
+    (``lists.runs``, which the kernel reads as given), applies the side's
+    diagonal block to the station's own v and the pq block (or its
+    transpose) to the other station's v, and the warps' sums are added in
+    order, then shift v."""
+    s1, s2, _, ent, runs = lists
+    vr = v.reshape(K, N, 2, 4)
+    y = torch.zeros((K, N, 2, 4), dtype=v.dtype)
     for n in range(N):
-        idx = ent[ptr[n]:ptr[n + 1]].long()
-        y[:, n] = flat[:, idx].sum(dim=1)
-    return (y.reshape(K, 8 * N) + shift[:, None] * v)
+        for w0, w1 in runs[n].tolist():
+            part = torch.zeros((K, 2, 4), dtype=v.dtype)
+            for e in ent[w0:w1].tolist():
+                b, side = e // 2, e % 2
+                if side == 0:
+                    vo = vr[:, int(s2[b])]
+                    part += (torch.einsum("kaij,kaj->kai", fac.pp[:, b],
+                                          vr[:, n])
+                             + torch.einsum("kaoij,koj->kai", fac.pq[:, b],
+                                            vo))
+                else:
+                    vo = vr[:, int(s1[b])]
+                    part += (torch.einsum("koji,koi->koj", fac.qq[:, b],
+                                          vr[:, n])
+                             + torch.einsum("kaoij,kai->koj", fac.pq[:, b],
+                                            vo))
+            y[:, n] += part
+    return y.reshape(K, 8 * N) + shift[:, None] * v
 
 
 @pytest.mark.parametrize("repeat", [False, True])
 def test_station_lists_drive_the_kernel_gather(repeat):
     """ptr/ent list every (baseline, side) once, grouped by station in
-    ascending order, and the kernel's two passes replayed on them give
-    the plain matvec."""
+    ascending order, and the kernel's per-station walk replayed on them
+    gives the plain matvec."""
     N, K = 5, 2
     s1, s2 = ([0, 0, 1, 0, 3], [1, 2, 2, 1, 4]) if repeat else (None, None)
     nb = 5 if repeat else N * (N - 1) // 2
     _, tf, s1, s2 = _blocks(K, nb, N, seed=30, s1=s1, s2=s2)
     t1, t2 = torch.as_tensor(s1), torch.as_tensor(s2)
     lists = tswp.station_lists(t1, t2, nb, N)
-    l1, l2, ptr, ent = lists
+    l1, l2, ptr, ent, runs = lists
     # a pure function of the layout: a second build is the same
     assert all(torch.equal(a, b) for a, b in
                zip(lists, tswp.station_lists(t1.clone(), t2.clone(), nb, N)))
-    assert l1.dtype == ptr.dtype == ent.dtype == torch.int32
+    assert l1.dtype == ptr.dtype == ent.dtype == runs.dtype == torch.int32
     assert int(ptr[-1]) == 2 * nb and sorted(ent.tolist()) == list(
         range(2 * nb))
     for n in range(N):
@@ -146,31 +166,110 @@ def test_station_lists_drive_the_kernel_gather(repeat):
         assert e == sorted(e, key=lambda x: (x % 2, x // 2))
         assert all((s1 if x % 2 == 0 else s2)[x // 2] == n for x in e)
     v = torch.as_tensor(np.random.default_rng(3).normal(size=(K, 8 * N)))
-    vr = v.reshape(K, N, 8)
-    vp, vq = vr[:, t1.long()], vr[:, t2.long()]
-    pp, qq, pq = tf.pp, tf.qq, tf.pq
-    yp = (torch.einsum("kbaij,kbaj->kbai", pp, vp.reshape(K, nb, 2, 4))
-          + torch.einsum("kbaoij,kboj->kbai", pq, vq.reshape(K, nb, 2, 4)))
-    yq = (torch.einsum("kboji,kboi->kboj", qq, vq.reshape(K, nb, 2, 4))
-          + torch.einsum("kbaoij,kbai->kboj", pq, vp.reshape(K, nb, 2, 4)))
-    yb = torch.stack([yp.reshape(K, nb, 8), yq.reshape(K, nb, 8)], dim=2)
     shift = torch.tensor([0.5, 0.25], dtype=torch.float64)
-    _close(_gather_replica(yb, ptr, ent, v, shift, K, N).numpy(),
+    _close(_kernel_replica(tf, v, lists, shift, K, N).numpy(),
            tswp.gn_matvec_blocks(tf, v, t1, t2, N, shift=shift,
                                  lists=lists).numpy())
 
 
 def test_block_view_keeps_sweep_output_strides():
-    """The kernel reads the sweep's [K, nb, 145] output in place."""
+    """The kernel reads the sweep's [K, nb, REC] records in place; a
+    layout whose rows are not on 16 bytes (the 145-word caller layout)
+    is copied once."""
     K, nb = 2, 9
-    out = torch.zeros((K, nb, tswp.N_OUT))
+    out = torch.zeros((K, nb, tswp.REC))
     pp = out[..., 0:32].view(K, nb, 2, 4, 4)
     pq = out[..., 64:128].view(K, nb, 2, 2, 4, 4)
     for blk in (pp, pq):
         t, stride = tswp._block_view(blk, nb)
-        assert t is blk and stride == tswp.N_OUT
+        assert t is blk and stride == tswp.REC
     t, stride = tswp._block_view(pp.transpose(-1, -2), nb)
     assert t.is_contiguous() and stride == 32
+    packed = torch.zeros((K, nb, tswp.N_OUT))
+    t, stride = tswp._block_view(packed[..., 64:128].view(K, nb, 2, 2, 4, 4),
+                                 nb)
+    assert t.is_contiguous() and stride == 64
+
+
+def _layouts(N):
+    """Baseline layouts with nb in {1, 7, 1891}: one baseline, a list
+    whose stations repeat, and the full-width array."""
+    if N == 2:
+        return [0], [1]
+    if N == 4:
+        return [0, 0, 1, 0, 2, 1, 3], [1, 2, 2, 3, 3, 3, 0]
+    p, q = np.triu_indices(N, k=1)
+    return p.tolist(), q.tolist()
+
+
+@pytest.mark.parametrize("N", [2, 4, 62])
+def test_matvec_runs_cover_each_entry_once(N):
+    """The kernel's launch geometry: one block per (station, chunk), and
+    the warps' runs of a station's entries cover each entry of the
+    station lists exactly once, within the station's own range. The
+    station lists carry the runs the kernel reads."""
+    s1, s2 = _layouts(N)
+    nb = len(s1)
+    lists = tswp.station_lists(torch.tensor(s1), torch.tensor(s2), nb, N)
+    ptr = lists.ptr.long()
+    assert torch.equal(lists.runs.long(), tswp.matvec_runs(ptr))
+    for warps in (1, 3, tswp.MATVEC_WARPS):
+        runs = tswp.matvec_runs(ptr, warps)
+        assert runs.shape == (N, warps, 2)
+        seen = np.zeros(2 * nb, dtype=int)
+        for n in range(N):
+            for w0, w1 in runs[n].tolist():
+                assert ptr[n] <= w0 <= w1 <= ptr[n + 1]
+                seen[w0:w1] += 1
+        assert (seen == 1).all()
+
+
+def _fac_cpu(K=2, N=6, seed=60):
+    _, tf, s1, s2 = _blocks(K, N * (N - 1) // 2, N, seed=seed)
+    return tf, torch.as_tensor(s1), torch.as_tensor(s2)
+
+
+def test_matvec_plan_is_the_product():
+    """A plan built once and applied to several vectors gives the
+    one-call product each time (the solvers' PCG and tCG loops)."""
+    tf, t1, t2 = _fac_cpu()
+    N, K = 6, 2
+    shift = torch.tensor([0.3, 0.6], dtype=torch.float64)
+    lists = tswp.station_lists(t1, t2, 15, N)
+    plan = tswp.matvec_plan(tf, t1, t2, N, shift=shift, lists=lists)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        v = torch.as_tensor(rng.normal(size=(K, 8 * N)))
+        _close(tswp.matvec_apply(plan, v).numpy(),
+               tswp.gn_matvec_blocks(tf, v, t1, t2, N, shift=shift).numpy())
+
+
+def test_matvec_plan_rejects_mismatches():
+    """The per-blocks plan raises on station lists of another layout, on
+    blocks of mixed dtypes and on blocks or shifts of mismatched shapes."""
+    tf, t1, t2 = _fac_cpu()
+    N = 6
+    with pytest.raises(ValueError):
+        tswp.matvec_plan(tf, t1, t2, N,
+                         lists=tswp.station_lists(t1, t2, 14, N))
+    with pytest.raises(ValueError):
+        tswp.matvec_plan(tf, t1, t2, N,
+                         lists=tswp.station_lists(t1, t2, 15, N + 1))
+    lists = tswp.station_lists(t1, t2, 15, N)
+    with pytest.raises(TypeError):
+        tswp.matvec_plan(tf, t1, t2, N, lists=tswp.StationLists(
+            *(t.long() for t in lists)))
+    with pytest.raises(ValueError):
+        tswp.matvec_plan(tf, t1, t2, N, lists=lists._replace(
+            runs=tswp.matvec_runs(lists.ptr, 3).int()))
+    with pytest.raises(TypeError):
+        tswp.matvec_plan(tf._replace(pq=tf.pq.float()), t1, t2, N)
+    with pytest.raises(ValueError):
+        tswp.matvec_plan(tf._replace(qq=tf.qq[:, :-1]), t1, t2, N)
+    with pytest.raises(ValueError):
+        tswp.matvec_plan(tf._replace(pq=tf.pq[..., :2]), t1, t2, N)
+    with pytest.raises(ValueError):
+        tswp.matvec_plan(tf, t1, t2, N, shift=torch.ones(3))
 
 
 @pytest.mark.parametrize("K", [1, 2])

@@ -206,3 +206,97 @@ def test_unported_modes_raise():
                           t(s1), t(s2), t(cid), t(np.ones((60, 8))),
                           t(np.ones((60, 8))), nbase, 1, jones="diag")
 
+
+
+def _chunk_ids(T, nb, K, nchunk):
+    """Row chunk ids of a cluster with ``nchunk`` hybrid chunks solved
+    with kmax = K (``predict.chunk_indices``): chunks nchunk .. K - 1, and
+    any that the timeslots do not reach, have no rows."""
+    tilechunk = -(-T // nchunk)
+    return np.minimum((np.arange(T * nb) // nb) // tilechunk, nchunk - 1)
+
+
+GEOMETRY = [(T, nb, K) for T in (1, 5, 120) for nb in (1, 7, 1891)
+            for K in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("T,nb,K", GEOMETRY)
+def test_sweep_geometry_covers_rows_once(T, nb, K):
+    """The sweep kernel's launch geometry, which the wrapper passes to
+    the kernel, replayed: every row is walked by exactly one (cluster,
+    block, lane) and added to the sums of its own chunk only (every row
+    to chunk 0 at K = 1), whatever chunks are empty; every word of every
+    tile's records is written by exactly one block of its cluster."""
+    for slots, nchunk in ((660, K), (396, 1), (8, max(1, K - 1))):
+        geo = tswp.sweep_geometry(T, nb, K, slots)
+        C = geo.cluster
+        assert 1 <= C <= tswp.MAX_CLUSTER and C <= T
+        assert len(geo.times) == C + 1 and geo.times[0] == 0
+        assert geo.times[-1] == T and all(len(w) == C + 1 for w in geo.words)
+        assert geo.rec % 4 == 0 and geo.rec >= tswp.N_OUT
+        # the C arrays the launch passes to the kernel hold this geometry
+        g2, tb, wb = tswp._geometry_args(T, nb, K, slots)
+        row = tswp.MAX_CLUSTER + 1
+        assert g2 == geo and tuple(tb)[:C + 1] == geo.times
+        assert (tuple(wb)[:C + 1], tuple(wb)[row:row + C + 1]) == geo.words
+        cid = _chunk_ids(T, nb, K, nchunk).reshape(T, nb)
+        walked = np.zeros((T, nb), dtype=int)
+        sums = np.zeros((K, nb), dtype=int)
+        for tile in range(geo.tiles):
+            b0 = tile * tswp.SWEEP_TILE
+            b1 = min(nb, b0 + tswp.SWEEP_TILE)
+            words = geo.words[tile == geo.tiles - 1]
+            covered = np.zeros(K * (b1 - b0) * geo.rec, int)
+            for rank in range(C):
+                t0, t1 = geo.times[rank], geo.times[rank + 1]
+                assert t0 < t1
+                walked[t0:t1, b0:b1] += 1
+                c = cid[t0:t1, b0:b1] if K > 1 else np.zeros(
+                    (t1 - t0, b1 - b0), int)
+                for k in range(K):
+                    sums[k, b0:b1] += (c == k).sum(axis=0)
+                covered[words[rank]:words[rank + 1]] += 1
+            assert (covered == 1).all()
+        assert (walked == 1).all()
+        want = np.stack([(cid == k).sum(axis=0) for k in range(K)]) \
+            if K > 1 else np.full((1, nb), T)
+        np.testing.assert_array_equal(sums, want)
+
+
+def test_aligned_records_match_packed_layout():
+    """The card's records (REC words a baseline) and the packed 145-word
+    caller layout hold the same blocks: record_views, the station
+    aggregates, the Gram blocks and the matvec's block views agree."""
+    K, N, T = 2, 6, 4
+    x8, coh, s1, s2, cid, nbase = _toy(N=N, T=T, K=K, seed=21, noise=0.05)
+    rng = np.random.default_rng(22)
+    J = (rng.normal(size=(K, N, 2, 2))
+         + 1j * rng.normal(size=(K, N, 2, 2))) * 0.3 + np.eye(2)
+    t = _t
+    wt = t(rng.random((x8.shape[0], 8)))
+    got = tswp.sweep_blocks(t(x8), t(J), t(coh), t(s1), t(s2), t(cid), wt,
+                            wt, nbase, K)
+    views = {}
+    for R in (tswp.N_OUT, tswp.REC):
+        out = torch.zeros((K, nbase, R), dtype=torch.float64)
+        for (o, shp, _), g in zip(tswp.REC_PARTS, got[:5]):
+            out[..., o:o + int(np.prod(shp))] = g.reshape(K, nbase, -1)
+        views[R] = tswp.record_views(out)
+        for g, v in zip(got[:5], views[R]):
+            assert v.shape == g.shape and torch.equal(v, g)
+    b1, b2 = t(s1[:nbase]).long(), t(s2[:nbase]).long()
+    pk, al = views[tswp.N_OUT], views[tswp.REC]
+    D0, JTe0 = tswp._station_aggregates(pk[0], pk[1], pk[3], pk[4], b1, b2,
+                                        N)
+    D1, JTe1 = tswp._station_aggregates(al[0], al[1], al[3], al[4], b1, b2,
+                                        N)
+    assert torch.equal(D0, D1) and torch.equal(JTe0, JTe1)
+    fac = tswp.gn_blocks(t(x8), t(J), t(coh), t(s1), t(s2), t(cid), wt, N,
+                         K, nbase)[0]
+    assert torch.equal(fac.D, D1)
+    for blk in range(3):
+        tp, sp = tswp._block_view(pk[blk], nbase)
+        ta, sa = tswp._block_view(al[blk], nbase)
+        assert ta is al[blk] and sa == tswp.REC
+        assert tp is not pk[blk] and sp == int(np.prod(pk[blk].shape[2:]))
+        assert torch.equal(tp, ta)
