@@ -127,6 +127,22 @@ def kernel_us(fn, names: tuple, reps: int = 20):
     return total / reps if total > 0 else None
 
 
+def kernels_per_call(fn, reps: int = 5) -> float:
+    """CUDA kernels launched per call of ``fn()``, counted in a
+    ``torch.profiler`` trace of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0)) > 0) / reps
+
+
 def ptxas_resources(source: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} of one source's
     kernels, read from the compiler's ``-Xptxas -v`` report."""
@@ -137,6 +153,10 @@ def ptxas_resources(source: str) -> dict:
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
             name = m.group(2)[:int(m.group(1))]
+            # a kernel template's bool argument (ILb0E / ILb1E)
+            flag = m.group(2)[int(m.group(1)):]
+            if flag.startswith("ILb"):
+                name += "<true>" if flag[3] == "1" else "<false>"
             res[name] = {"registers": None, "spill_stores": 0,
                          "spill_loads": 0}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -319,6 +339,9 @@ def phase_coh():
             raise AssertionError(f"coh kernel F={F}: max|diff|/max|ref| = "
                                  f"{rel:.3e} > {KERNEL_RTOL}")
         ms = cuda_ms(lambda: coh_ops.coherencies_points(*args), 20)
+        dev_ms = device_ms(lambda: coh_ops.coherencies_points(*args), 50)
+        k_us = kernel_us(lambda: coh_ops.coherencies_points(*args),
+                         ("coh_points",))
         plain_ms = cuda_ms(lambda: coh_ops.coherencies_points_plain(*args), 3)
         n_ops = (M * F * B * (coh_ops.COH_OPS_PER_TERM * S)
                  + F * B * coh_ops.COH_OPS_PER_GAUSS * n_gauss)
@@ -326,9 +349,10 @@ def phase_coh():
                        + gauss.numel() + F + M * B * F * 8)
         bms, by = bound_ms(n_bytes, n_ops)
         rec = dict(call=call, M=M, F=F, B=B, S=S, n_gauss=n_gauss,
-                   max_abs_err=abs_err, rel_err=rel, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=None)
+                   max_abs_err=abs_err, rel_err=rel, ms=ms, device_ms=dev_ms,
+                   kernel_us=k_us, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=None,
+                   kernel_bound_share=k_us and bms / (k_us / 1e3))
         emit("coh", **rec)
         out[call] = rec
     return out
@@ -421,6 +445,9 @@ def phase_sweep():
         ms = cuda_ms(lambda: swp.sweep_blocks(*args), 50)
         dev_ms = device_ms(lambda: swp.sweep_blocks(*args))
         k_us = kernel_us(lambda: swp.sweep_blocks(*args), ("sweep_cluster",))
+        n_kernels = kernels_per_call(lambda: swp.sweep_blocks(*args))
+        if n_kernels != 1:
+            raise AssertionError(f"sweep K={K}: {n_kernels} kernels a call")
         s1b, s2b = sta1[:nb], sta2[:nb]
         plain_ms = cuda_ms(
             lambda: swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh,
@@ -440,6 +467,7 @@ def phase_sweep():
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=None, bound_share=bms / dev_ms,
                    kernel_bound_share=k_us and bms / (k_us / 1e3),
+                   kernels_per_call=n_kernels,
                    geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
                                  times=geo.times),
                    deterministic=True, ptxas=ptxas)
@@ -585,21 +613,32 @@ def phase_matvec():
     return out
 
 
-def _visits_inputs(K: int, batched_wt: bool, seed: int = 4):
-    """V = N_VISITS visits at the full-width path's shapes: data, Jones
-    and coherencies per visit, the chunk ids shared (clusters of equal
-    chunk counts), the weights per visit or shared."""
+def _visits_inputs(K: int, batched_wt: bool, seed: int = 4,
+                   V: int = N_VISITS, N: int = N_STATIONS, T: int = TILESZ,
+                   nchunk: int | None = None):
+    """V visits at the path's shapes (by default those of e2e_inflight's
+    groups): data, Jones and coherencies per visit, the weights per visit
+    or shared. With ``nchunk`` the chunk ids are per visit: visit v a
+    cluster of max(1, nchunk - v) chunks solved at kmax = K; else one
+    shared array (clusters of equal chunk counts). The ids are int64, as
+    a group's lanes hold them."""
     import torch
     dev = "cuda"
     rng = np.random.default_rng(seed)
-    V, T, N = N_VISITS, TILESZ, N_STATIONS
     p, q = np.triu_indices(N, k=1)
     nb = len(p)
     B = T * nb
     sta1 = torch.as_tensor(np.tile(p, T), device=dev)
     sta2 = torch.as_tensor(np.tile(q, T), device=dev)
-    cid = torch.as_tensor(np.minimum((np.arange(B) // nb) // -(-T // K),
-                                     K - 1), dtype=torch.int32, device=dev)
+    rows = np.arange(B) // nb
+
+    def ids(nck):
+        return np.minimum(rows // -(-T // nck), nck - 1)
+
+    cid = torch.as_tensor(
+        ids(K) if nchunk is None
+        else np.stack([ids(max(1, nchunk - v)) for v in range(V)]),
+        dtype=torch.int64, device=dev)
     c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=dev)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     wshape = (V, B, 8) if batched_wt else (B, 8)
@@ -613,33 +652,66 @@ def _visits_inputs(K: int, batched_wt: bool, seed: int = 4):
     return (x8, J, coh, sta1, sta2, cid, wt, cw, nb, K, V), (B, nb)
 
 
-def phase_visits():
-    """The multi-visit sweep kernel against its plain version, at V = 4
-    visits of the full-width path (the groups of e2e_inflight), with the
-    weights shared (plain LM, RTR) and per visit (robust weights); timed
-    against its plain version and against V serial sweep-kernel calls."""
+def _visits_check(tag, args):
+    """The multi-visit sweep against its plain version on ``args``, twice
+    (one launch a call, bitwise equal), and each empty (visit, chunk)'s
+    blocks exactly zero. Returns (relative errors per output, max
+    |diff|)."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
+    x8, J, coh, sta1, sta2, cid, wt, cw, nb, K, V = args
+    n0 = swp.VISITS_LAUNCHES
+    got = swp.sweep_blocks_visits(*args)
+    again = swp.sweep_blocks_visits(*args)
+    torch.cuda.synchronize()
+    if swp.VISITS_LAUNCHES != n0 + 2:
+        raise AssertionError(f"visits {tag}: the wrapper did not launch once "
+                             "a call")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"visits {tag}: two calls differ")
+    s1b, s2b = sta1[:nb], sta2[:nb]
+    ref = swp.sweep_blocks_visits_plain(x8, J[:, :, s1b], J[:, :, s2b], coh,
+                                        cid, wt, cw, nb, V)
+    pairs = [rel_err(g, r) for g, r in zip(got, ref)]
+    errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
+                    (rel for _, rel in pairs)))
+    bad = {k: v for k, v in errs.items() if not v <= KERNEL_RTOL}
+    if bad:
+        raise AssertionError(f"visits kernel {tag}: {bad} > {KERNEL_RTOL}")
+    vcid = cid if cid.dim() == 2 else cid.expand(V, -1)
+    for v in range(V):
+        for k in range(K):
+            if K > 1 and not bool((vcid[v] == k).any()) and any(
+                    bool(g[v, k].abs().max() > 0) for g in got):
+                raise AssertionError(f"visits {tag}: empty chunk {k} of "
+                                     f"visit {v} has non-zero blocks")
+    return errs, max(a for a, _ in pairs)
+
+
+#: the visits phase's edge shapes: EDGES at V = 3 (a ragged group of a
+#: width-4 sweep), each visit with its own chunk ids
+N_RAGGED = 3
+
+
+def phase_visits():
+    """The multi-visit sweep (the sweep kernel's visit axis) against its
+    plain version, at V = 4 visits of the full-width path (the groups of
+    e2e_inflight), with the weights shared (plain LM, RTR) and per visit
+    (robust weights), and at the edge shapes at V = 3, each twice
+    (bitwise equal); timed as the sweep phase times the sweep, and
+    against V serial sweep-kernel calls."""
+    from sagecal_tpu_torch.ops import sweep as swp
     out = {}
+    ptxas = ptxas_resources("sweep")
     for K in (1, 4):
         for batched_wt in (False, True):
             args, (B, nb) = _visits_inputs(K, batched_wt)
             x8, J, coh, sta1, sta2, cid, wt, cw, _, _, V = args
+            errs, abs_err = _visits_check(f"K={K} batched_wt={batched_wt}",
+                                          args)
             s1b, s2b = sta1[:nb], sta2[:nb]
-            n0 = swp.VISITS_LAUNCHES
-            got = swp.sweep_blocks_visits(*args)
-            torch.cuda.synchronize()
-            if swp.VISITS_LAUNCHES != n0 + 1:
-                raise AssertionError("visits: the wrapper did not launch")
             plain = lambda: swp.sweep_blocks_visits_plain(
                 x8, J[:, :, s1b], J[:, :, s2b], coh, cid, wt, cw, nb, V)
-            pairs = [rel_err(g, r) for g, r in zip(got, plain())]
-            errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
-                            (rel for _, rel in pairs)))
-            bad = {k: v for k, v in errs.items() if not v <= KERNEL_RTOL}
-            if bad:
-                raise AssertionError(f"visits kernel K={K} batched_wt="
-                                     f"{batched_wt}: {bad} > {KERNEL_RTOL}")
             wv = (lambda a, v: a[v]) if batched_wt else (lambda a, v: a)
 
             def serial():
@@ -647,28 +719,49 @@ def phase_visits():
                                          cid, wv(wt, v), wv(cw, v), nb, K)
                         for v in range(V)]
 
-            ms = cuda_ms(lambda: swp.sweep_blocks_visits(*args), 20)
-            k_us = kernel_us(lambda: swp.sweep_blocks_visits(*args),
-                             ("visits_partials",))
-            serial_ms = cuda_ms(serial, 20)
+            call = lambda: swp.sweep_blocks_visits(*args)
+            ms = cuda_ms(call, 50)
+            dev_ms = device_ms(call)
+            k_us = kernel_us(call, ("sweep_cluster",))
+            n_kernels = kernels_per_call(call)
+            if n_kernels != 1:
+                raise AssertionError(f"visits K={K}: {n_kernels} kernels a "
+                                     "call")
+            serial_ms = cuda_ms(serial, 50)
             plain_ms = cuda_ms(plain, 3)
             # per-visit operands read once per visit, shared ones once:
             # x 8, coherency 8, weights 8 + 8 words a row, the chunk id
             # (int32) when K > 1; the Jones and the baselines' stations
-            # read once; the caller layout and the costs written once
-            words = 16 * V + 16 * (V if batched_wt else 1) + (K > 1)
+            # (int32) read once; the caller layout and the costs written
+            # once
+            words = 16 * V + 16 * (V if batched_wt else 1) \
+                + (K > 1) * (V if cid.dim() == 2 else 1)
             n_bytes = 4 * (words * B + V * K * N_STATIONS * 8 + 2 * nb
                            + V * K * (nb * swp.N_OUT + 1))
             n_rows = V * int(((cid >= 0) & (cid < K)).sum())
             bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
+            geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
+                x8.device, K), V)
             rec = dict(V=V, K=K, T=TILESZ, nb=nb, batched_wt=batched_wt,
-                       rel_err=errs, max_abs_err=max(a for a, _ in pairs),
-                       ms=ms, kernel_us=k_us, serial_ms=serial_ms,
-                       plain_ms=plain_ms,
-                       bound_ms=bms, bound_by=by, library_ms=None,
-                       slices=swp._time_slices(TILESZ, nb, V * K))
+                       rel_err=errs, max_abs_err=abs_err, ms=ms, call_ms=ms,
+                       device_ms=dev_ms, kernel_us=k_us,
+                       kernels_per_call=n_kernels, serial_ms=serial_ms,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=None, bound_share=bms / dev_ms,
+                       kernel_bound_share=k_us and bms / (k_us / 1e3),
+                       geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
+                                     times=geo.times),
+                       deterministic=True, ptxas=ptxas)
             emit("visits", **rec)
             out[(K, batched_wt)] = rec
+    for tag, N, T, K, nck in EDGES:
+        args, (B, nb) = _visits_inputs(K, False, seed=9, V=N_RAGGED, N=N,
+                                       T=T, nchunk=nck)
+        errs, abs_err = _visits_check(tag, args)
+        emit("visits_edge", tag=tag, V=N_RAGGED, N=N, T=T, nb=nb, K=K,
+             nchunk=nck, rel_err=errs, max_abs_err=abs_err,
+             deterministic=True)
+        out[tag] = dict(max_abs_err=abs_err)
     return out
 
 
@@ -946,7 +1039,13 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in coh.values()),
              ms=coh["residual"]["ms"], plain_ms=coh["residual"]["plain_ms"],
              bound_ms=coh["residual"]["bound_ms"],
-             bound_by=coh["residual"]["bound_by"], library_ms=None),
+             bound_by=coh["residual"]["bound_by"], library_ms=None,
+             device_ms=coh["residual"]["device_ms"],
+             kernel_us=coh["residual"]["kernel_us"],
+             device_ms_f1=coh["solve"]["device_ms"],
+             kernel_us_f1=coh["solve"]["kernel_us"],
+             call_ms_f1=coh["solve"]["ms"],
+             registers=ptxas_resources("coh")),
         dict(name="sweep_blocks", route="cuda",
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:395",
@@ -977,7 +1076,14 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in visits.values()),
              ms=vis["ms"], plain_ms=vis["plain_ms"],
              bound_ms=vis["bound_ms"], bound_by=vis["bound_by"],
-             library_ms=None, serial_ms=vis["serial_ms"]),
+             library_ms=None, device_ms=vis["device_ms"],
+             kernel_us=vis["kernel_us"],
+             kernel_bound_share=vis["kernel_bound_share"],
+             serial_ms=vis["serial_ms"],
+             device_ms_k1=visits[(1, True)]["device_ms"],
+             call_ms_k1=visits[(1, True)]["call_ms"],
+             serial_ms_k1=visits[(1, True)]["serial_ms"],
+             registers=vis["ptxas"]),
     ]
     shutil.rmtree(WORK, ignore_errors=True)
     print(smi, flush=True)

@@ -1,93 +1,94 @@
-// Fused LM sweep on Hopper (CUDA C++, sm_90a), full-Jones mode (md = 4).
+// Fused LM sweep on Hopper (CUDA C++, sm_90a), full-Jones mode (md = 4),
+// for one cluster visit or V visits in one launch.
 //
-// Replaces the TPU kernel sagecal_tpu/ops/sweep_pallas.py:_sweep_kernel
-// (maths in _sweep_body, launched by sweep_blocks). One pass over a
-// cluster visit's rows: model V = Jp C Jq^H, residual r = x - V, the
-// Wirtinger factors of A = C Jq^H and Bm = Jp C, and per (hybrid chunk k,
-// baseline b) the time-summed Gram blocks pp/qq [2,4,4], pq [2,2,4,4],
-// the gradients jtep/jteq [2,4] and the acceptance cost sum (r cw)^2.
-// The TPU kernel masks the rows of other chunks by folding (cid == k)
-// into the weights, once per chunk; here each row is read once and added
-// to the sums of its own chunk (same sums for finite data).
+// Replaces two TPU kernels of sagecal_tpu/ops/sweep_pallas.py:
+// _sweep_kernel (maths in _sweep_body, launched by sweep_blocks) and
+// _visits_kernel (the same body for V stacked cluster visits in one
+// grid, launched by sweep_blocks_visits). One pass over a visit's rows:
+// model V = Jp C Jq^H, residual r = x - V, the Wirtinger factors of
+// A = C Jq^H and Bm = Jp C, and per (visit v, hybrid chunk k, baseline b)
+// the time-summed Gram blocks pp/qq [2,4,4], pq [2,2,4,4], the gradients
+// jtep/jteq [2,4] and the acceptance cost sum (r cw)^2. The TPU kernel
+// masks the rows of other chunks by folding (cid == k) into the weights,
+// once per chunk; here each row is read once and added to the sums of
+// its own chunk (same sums for finite data). Each of x, w, cw, the chunk
+// ids, the coherencies and the Jones carries a visit stride, 0 when one
+// array is shared by all visits (the TPU kernel's static `batched`
+// tuple); the single-visit sweep is the case V = 1.
 //
 // What bounds it on this card: bytes. A row is 32 words read once (x, w,
 // cw and the coherency, 8 each) plus, at K > 1, its chunk id (one word
 // as the TPU kernel's int32; the port reads the solvers' int64) against
 // ~1200 float32 operations (SWEEP_FLOPS_PER_ROW in ops/sweep.py): at
-// T = 120, nb = 1891 the row stream is 29 MB (30 MB with the ids), and
-// with the records written the bound is 9.0 us at K = 1 and 10.3 us at
-// K = 4 at 3.35 TB/s (chip_smoke.py's count). The first port kept all
-// 121 sums of a (chunk, baseline, time slice) in one thread's registers
-// (248 registers, 8 warps an SM), wrote per-slice partials (16-18 MB)
-// and summed them in a second launch, and launched a block for every
-// (chunk, slice) pair, 60% of which only read chunk ids at K = 4.
+// T = 120, nb = 1891 the row stream is 29 MB a visit (30 MB with the
+// ids), and with the records written the bound is 9.0 us at K = 1 and
+// 10.3 us at K = 4 at 3.35 TB/s; a shared operand is read once for all
+// V visits, so V = 4 with shared weights needs 17 words a row a visit
+// (chip_smoke.py's counts). The first port kept all 121 sums of a (chunk,
+// baseline, time slice) in one thread's registers (248-254 registers,
+// 8 warps an SM), wrote per-slice partials and summed them in a second
+// launch, with the Jones gathered and the cost summed by further
+// launches: about five launches a multi-visit call.
 //
-// Design (sweep_cluster_kernel, one launch):
+// Design (sweep_cluster_kernel, one launch for any V; instantiated for
+// V = 1, where every visit offset is compiled away, and for V > 1):
 //  - a tile is 32 baselines, one per lane. A block is three warps over
-//    the same tile and time range, one per role: warps 0 and 1 own
-//    pp[a], pq[a] and jtep[a] for a = 0, 1 (46 sums each), warp 2 owns
-//    qq, jteq and the cost (29 sums). Each recomputes the cheap per-row
-//    products it needs (A, a row or all of Bm and V) from the same row,
-//    which the three warps read from L1/L2; no warp keeps more than 46
-//    sums, and the branch on the role is uniform over each warp;
-//  - a thread block cluster of C blocks (C <= 8, picked by the wrapper
-//    to fill the card in one wave) takes the C time ranges of one tile.
-//    The ranges, and each block's share of the tile's record words in
-//    the epilogue, are the wrapper's (ops/sweep.py:sweep_geometry),
-//    passed in and checked at launch to cover each timeslot and word once;
+//    the same (visit, tile) and time range, one per role: warps 0 and 1
+//    own pp[a], pq[a] and jtep[a] for a = 0, 1 (46 sums each), warp 2
+//    owns qq, jteq and the cost (29 sums). Each recomputes the cheap
+//    per-row products it needs (A, a row or all of Bm and V) from the
+//    same row, which the three warps read from L1/L2; no warp keeps more
+//    than 46 sums, and the branch on the role is uniform over each warp;
+//  - the grid is (C, V, tiles): a thread block cluster of C blocks
+//    (C <= 8) takes the C time ranges of one (visit, tile), and the
+//    visit is a grid dimension the clusters do not span. Blocks are
+//    numbered rank fastest, then visit, then tile, so the V visits of a
+//    (tile, time range) run as neighbouring clusters and a shared row is
+//    read once from memory and served to the others from L2, as the TPU
+//    kernel fetches a shared block once per time block. C, the ranges
+//    and each block's share of the tile's record words in the epilogue
+//    are the wrapper's (ops/sweep.py:sweep_geometry, which weighs C
+//    against the waves the V visits take), passed in and checked at
+//    launch to cover each timeslot and word once;
 //  - each lane routes a row to the sums of the row's chunk: it keeps one
-//    chunk's sums in registers, with that chunk's two Jones gathered from
-//    J [K, N, 2, 2] through sta1/sta2 (no gather launch), and on a change
-//    of chunk adds them to its own column of the block's shared-memory
-//    sums [K][32][121] (so rows of any chunk-id pattern are counted once,
-//    and no block exists for a chunk with no rows);
+//    chunk's sums in registers, with that chunk's two Jones read from
+//    J [(V,) K, N, 2, 2] through sta1/sta2 (no gather launch), and on a
+//    change of chunk adds them to its own column of the block's
+//    shared-memory sums [K][32][121] (so rows of any chunk-id pattern
+//    are counted once, and no block exists for a chunk with no rows);
 //  - after a cluster barrier the C blocks sum the C blocks' shared sums
 //    through distributed shared memory, in rank order, and write the
-//    tile's records [K, 32, SW_REC] with neighbouring threads on
-//    neighbouring words (each block a share of the words). A per-block
-//    bit mask of the chunks it saw skips sums that are all zero;
+//    tile's records [K, 32, SW_REC] of their visit with neighbouring
+//    threads on neighbouring words (each block a share of the words). A
+//    per-block bit mask of the chunks it saw skips sums that are all
+//    zero;
 //  - rank 0 of each cluster sums its tile's cost per chunk (a fixed
-//    shuffle tree) into tile_cost [K, tiles]; the block that finishes
-//    last (an atomic ticket after a memory fence) sums those in tile
-//    order into cost [K] and resets the ticket, so the caller needs no
-//    sum launch;
+//    shuffle tree) into tile_cost [V K, tiles]; the block that finishes
+//    last of the whole grid (an atomic ticket after a memory fence)
+//    sums those in tile order into cost [V K], four (visit, chunk) pairs
+//    at a time, and resets the ticket, so the caller needs no sum
+//    launch;
 //  - each lane loads the next row's operands before it sums the current
 //    one, so their latency hides behind the ~300 multiply-adds a row.
 // Records are SW_REC = 160 words (pp 0, qq 32, pq 64, jtep 128, jteq
 // 136, cost 144, zeros to 160): 640 bytes, so every block row is
-// 16-byte aligned for the matvec's float4 loads. No float atomics and a
-// fixed order everywhere: two calls on the same inputs give the same
-// bits. Measured (nvcc 12.8 -Xptxas -v, sm_90a): 164 registers (127
-// without the next-row loads), no spills, no stack frame (the geometry
-// is read with constant indices, so the arguments stay in the parameter
-// bank), so 4 blocks (12 warps) an SM
-// at K = 1 and 3 at K = 4, where the shared sums (62 KB a block) bind;
-// device time and its share of the bound are in PERF.md's kernel table.
-//
-// Second entry point: the multi-visit sweep. Replaces the TPU kernel
-// sagecal_tpu/ops/sweep_pallas.py:_visits_kernel (launched by
-// sweep_blocks_visits), which runs the same body for V stacked cluster
-// visits in one grid. Each of x, w, cw, cid, coh and the Jones carries a
-// visit stride, or a stride of 0 when one array is shared by all visits
-// (the TPU kernel's static `batched` tuple). Bound by bytes like the
-// sweep: 33 words a row when every operand is per visit, 17 when the
-// weights are shared. The TPU kernel walks time outer so that a shared
-// block is fetched once per time block; here visits_partials_kernel
-// (one thread per (visit, chunk, baseline, time slice), the 121 sums in
-// registers: 254, no spills; the first port's design) numbers its
-// blocks with the visit fastest, then the chunk, then the baseline
-// block, so the V visits (and K chunks) of one (baseline block, time
-// slice) run as neighbouring blocks: a shared row is read once from
-// memory and served to the others from L2. Its partials [nsl, V K, 121,
-// nb] go through the fixed-order sweep_reduce_kernel into [V K, nb,
-// SW_REC] records whose visits fold into the chunk axis for the caller.
+// 16-byte aligned for the matvec's float4 loads, which read the V K
+// records of a group in place. No float atomics and a fixed order
+// everywhere: two calls on the same inputs give the same bits. The
+// strides and the geometry are read with constant indices, so the
+// arguments stay in the parameter bank (through a pointer they went to
+// local memory: 43.3 us against 41.7 us at K = 4). One instantiation
+// for every V cost the single-visit sweep 1-2 us on an H100 (its visit
+// offsets, and chunk ids read as int32 at a runtime stride); the V = 1
+// instantiation has the registers and time of a kernel without the
+// visit axis. Registers, spills and device times are in PERF.md's
+// kernel table (chip_smoke.py reads them from nvcc -Xptxas -v).
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 
 namespace cg = cooperative_groups;
 
-#define SW_THREADS 128
 #define SW_NACC 121
 #define SW_NOUT 145
 #define SW_REC 160
@@ -290,18 +291,20 @@ __device__ __forceinline__ void role_row(const float* xv, const float* wv,
 }
 
 struct SweepArgs {
-    const float* x;          // [T nb, 8]
-    const float* w;          // [T nb, 8]
-    const float* cw;         // [T nb, 8]
-    const long long* cid;    // [T nb]
-    const float* coh;        // [T nb, 2, 2, re/im]
-    const float* J;          // [K, N, 2, 2, re/im]
+    const float* x;          // [(V,) T nb, 8]
+    const float* w;          // [(V,) T nb, 8]
+    const float* cw;         // [(V,) T nb, 8]
+    const long long* cid;    // [(V,) T nb], as the solvers hold them
+    const float* coh;        // [(V,) T nb, 2, 2, re/im]
+    const float* J;          // [(V,) K, N, 2, 2, re/im]
     const long long* s1;     // [nb] (the first row period of sta1)
     const long long* s2;
-    float* out;              // [K, nb, SW_REC]
-    float* cost;             // [K]
-    float* tile_cost;        // [K, tiles]: each tile's cost, per chunk
+    float* out;              // [V K, nb, SW_REC]
+    float* cost;             // [V K]
+    float* tile_cost;        // [V K, tiles]: each tile's cost, per chunk
     unsigned* ticket;        // one counter, 0 between launches
+    // elements of each operand between two visits (0: shared by all)
+    long long vx, vw, vcw, vcid, vcoh, vj;
     int T, nb, K, N;
     // the wrapper's launch geometry (ops/sweep.py:sweep_geometry): rank r
     // of a cluster walks timeslots tb[r] .. tb[r + 1] and writes the
@@ -325,32 +328,35 @@ __device__ __forceinline__ void flush_sums(float* acc, float* sums, int k,
     atomicOr(seen, 1u << k);
 }
 
-// one row's operands for a role: the coherency, chunk id (K > 1) and the
-// role's components of x and w (and all of cw for role 2)
+// one row of visit v's operands for a role: the coherency, chunk id
+// (K > 1) and the role's components of x and w (and all of cw for
+// role 2)
 template <int ROLE>
-__device__ __forceinline__ void load_row(const SweepArgs& p, size_t row,
-                                         float* cv, float* xv, float* wv,
-                                         float* cwv, long long& c)
+__device__ __forceinline__ void load_row(const SweepArgs& p, long long v,
+                                         size_t row, float* cv, float* xv,
+                                         float* wv, float* cwv, long long& c)
 {
-    c = p.K > 1 ? p.cid[row] : 0;
-    load8(p.coh + row * 8, cv);
+    c = p.K > 1 ? p.cid[v * p.vcid + row] : 0;
+    load8(p.coh + v * p.vcoh + row * 8, cv);
     if (ROLE < 2) {
-        load4(p.x + row * 8 + ROLE * 4, xv);
-        load4(p.w + row * 8 + ROLE * 4, wv);
+        load4(p.x + v * p.vx + row * 8 + ROLE * 4, xv);
+        load4(p.w + v * p.vw + row * 8 + ROLE * 4, wv);
     } else {
-        load8(p.x + row * 8, xv);
-        load8(p.w + row * 8, wv);
-        load8(p.cw + row * 8, cwv);
+        load8(p.x + v * p.vx + row * 8, xv);
+        load8(p.w + v * p.vw + row * 8, wv);
+        load8(p.cw + v * p.vcw + row * 8, cwv);
     }
 }
 
-// a role warp's pass over its rows: sums of the current chunk in
-// registers, added to the block's shared sums [K][32][121] on a change
-// of chunk and at the end. The next row's operands are loaded before
-// the current row is summed, so their latency hides behind the sums.
+// a role warp's pass over its rows of visit v: sums of the current chunk
+// in registers, added to the block's shared sums [K][32][121] on a
+// change of chunk and at the end. The next row's operands are loaded
+// before the current row is summed, so their latency hides behind the
+// sums.
 template <int ROLE>
-__device__ void role_pass(const SweepArgs& p, int b, int lane, int t0,
-                          int t1, float* sums, unsigned* seen)
+__device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
+                                          int lane, int t0, int t1,
+                                          float* sums, unsigned* seen)
 {
     constexpr int NS = ROLE < 2 ? SC_NP : SC_NQ;
     float acc[NS];
@@ -358,17 +364,18 @@ __device__ void role_pass(const SweepArgs& p, int b, int lane, int t0,
     for (int r = 0; r < NS; ++r) acc[r] = 0.f;
     if (b >= p.nb || t0 >= t1) return;
     const long long st1 = p.s1[b], st2 = p.s2[b];
+    const float* Jv = p.J + v * p.vj;
     float P[8], Q[8];
     long long cur = -1;
     bool ok = false;
     float cv[8], xv[8], wv[8], cwv[8];
     long long c;
-    load_row<ROLE>(p, (size_t)t0 * p.nb + b, cv, xv, wv, cwv, c);
+    load_row<ROLE>(p, v, (size_t)t0 * p.nb + b, cv, xv, wv, cwv, c);
     for (int t = t0; t < t1; ++t) {
         float cvn[8], xvn[8], wvn[8], cwvn[8];
         long long cn = 0;
         if (t + 1 < t1)
-            load_row<ROLE>(p, (size_t)(t + 1) * p.nb + b, cvn, xvn, wvn,
+            load_row<ROLE>(p, v, (size_t)(t + 1) * p.nb + b, cvn, xvn, wvn,
                            cwvn, cn);
         // at K = 1 every row is chunk 0 (the TPU kernel applies no mask)
         if (c != cur) {
@@ -376,8 +383,8 @@ __device__ void role_pass(const SweepArgs& p, int b, int lane, int t0,
             cur = c;
             ok = c >= 0 && c < p.K;
             if (ok) {
-                load8(p.J + ((size_t)c * p.N + st1) * 8, P);
-                load8(p.J + ((size_t)c * p.N + st2) * 8, Q);
+                load8(Jv + ((size_t)c * p.N + st1) * 8, P);
+                load8(Jv + ((size_t)c * p.N + st2) * 8, Q);
             }
         }
         if (ok) role_row<ROLE>(xv, wv, cwv, cv, P, Q, acc);
@@ -393,6 +400,11 @@ __device__ void role_pass(const SweepArgs& p, int b, int lane, int t0,
     if (ok) flush_sums<ROLE, NS>(acc, sums, (int)cur, lane, seen);
 }
 
+// MULTI = false is the single-visit case: visit 0 of every operand, the
+// visit offsets compiled away (a second instantiation of the same code,
+// so that V = 1 keeps the registers and the speed of a kernel without
+// the visit axis)
+template <bool MULTI>
 __global__ void __launch_bounds__(SC_THREADS, 4)
 sweep_cluster_kernel(const SweepArgs p)
 {
@@ -402,7 +414,9 @@ sweep_cluster_kernel(const SweepArgs p)
     cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x, lane = tid & 31, role = tid >> 5;
     const int rank = blockIdx.x, C = gridDim.x;
-    const int b0 = blockIdx.y * SC_TILE;
+    const int v = MULTI ? (int)blockIdx.y : 0;
+    const int tile = blockIdx.z, tiles = gridDim.z;
+    const int b0 = tile * SC_TILE;
     const int nsum = p.K * SC_TILE * SW_NACC;
     for (int i = tid; i < nsum; i += SC_THREADS) sums[i] = 0.f;
     if (tid == 0) seen = 0u;
@@ -410,7 +424,7 @@ sweep_cluster_kernel(const SweepArgs p)
 
     // this block's share of the geometry, read with constant indices so
     // that the arguments stay in the parameter bank
-    const bool last_tile = blockIdx.y == gridDim.y - 1;
+    const bool last_tile = tile == tiles - 1;
     int t0 = 0, t1 = 0, w0 = 0, i1 = 0;
 #pragma unroll
     for (int r = 0; r < SC_MAX_CLUSTER; ++r) {
@@ -422,19 +436,20 @@ sweep_cluster_kernel(const SweepArgs p)
         }
     }
     if (role == 0)
-        role_pass<0>(p, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<0>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     else if (role == 1)
-        role_pass<1>(p, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<1>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     else
-        role_pass<2>(p, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<2>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     __syncthreads();
     cluster.sync();
 
-    // the cluster's sums, rank by rank, into the tile's records
+    // the cluster's sums, rank by rank, into the tile's records of visit v
     unsigned masks = 0u;
     for (int r = 0; r < C; ++r)
         masks |= *cluster.map_shared_rank(&seen, r) << (SC_MAX_K * r);
     const int per_k = min(SC_TILE, p.nb - b0) * SW_REC;
+    float* out = p.out + (size_t)v * p.K * p.nb * SW_REC;
     // SC_EPI words a thread at once, so that their remote loads overlap;
     // each word still sums the ranks in rank order
     for (int i0 = w0 + tid; i0 < i1; i0 += SC_EPI * SC_THREADS) {
@@ -467,10 +482,9 @@ sweep_cluster_kernel(const SweepArgs p)
         }
 #pragma unroll
         for (int u = 0; u < SC_EPI; ++u)
-            if (i0 + u * SC_THREADS < i1) p.out[dst[u]] = s[u];
+            if (i0 + u * SC_THREADS < i1) out[dst[u]] = s[u];
     }
     // the tile's cost per chunk: rank 0, one warp per chunk, a fixed tree
-    const int tiles = gridDim.y;
     if (rank == 0) {
         for (int k = role; k < p.K; k += SC_THREADS / 32) {
             const int off = (k * SC_TILE + lane) * SW_NACC + Q_COST;
@@ -481,40 +495,51 @@ sweep_cluster_kernel(const SweepArgs p)
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1)
                 s += __shfl_down_sync(0xffffffffu, s, o);
-            if (lane == 0) p.tile_cost[k * tiles + blockIdx.y] = s;
+            if (lane == 0)
+                p.tile_cost[((size_t)v * p.K + k) * tiles + tile] = s;
         }
     }
     cluster.sync();
 
-    // the last block of the grid sums the tiles' costs in tile order
+    // the last block of the grid sums the tiles' costs in tile order:
+    // SC_MAX_K (visit, chunk) pairs at a time, each thread a fixed set of
+    // tiles of each, then a fixed shuffle tree and a fixed sum of the
+    // warps' shares
     __threadfence();
     __syncthreads();
     if (tid == 0)
-        last = atomicAdd(p.ticket, 1u) == gridDim.x * gridDim.y - 1;
+        last = atomicAdd(p.ticket, 1u)
+            == gridDim.x * gridDim.y * gridDim.z - 1;
     __syncthreads();
     if (!last) return;
     __threadfence();
-    float v[SC_MAX_K];
-#pragma unroll
-    for (int k = 0; k < SC_MAX_K; ++k) {
-        v[k] = 0.f;
-        if (k < p.K)
-            for (int j = tid; j < tiles; j += SC_THREADS)
-                v[k] += __ldcg(p.tile_cost + k * tiles + j);
-    }
     float* red = sums;              // peers are done with it
+    const int pairs = gridDim.y * p.K;
+    for (int q0 = 0; q0 < pairs; q0 += SC_MAX_K) {
+        if (q0 > 0) __syncthreads();    // the last pairs' shares are read
+        float s[SC_MAX_K];
 #pragma unroll
-    for (int k = 0; k < SC_MAX_K; ++k) {
+        for (int u = 0; u < SC_MAX_K; ++u) {
+            s[u] = 0.f;
+            if (q0 + u < pairs)
+                for (int j = tid; j < tiles; j += SC_THREADS)
+                    s[u] += __ldcg(p.tile_cost + (size_t)(q0 + u) * tiles
+                                   + j);
+        }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            v[k] += __shfl_down_sync(0xffffffffu, v[k], o);
-        if (lane == 0) red[role * SC_MAX_K + k] = v[k];
-    }
-    __syncthreads();
-    if (tid < p.K) {
-        float c = 0.f;
-        for (int w = 0; w < SC_THREADS / 32; ++w) c += red[w * SC_MAX_K + tid];
-        p.cost[tid] = c;
+        for (int u = 0; u < SC_MAX_K; ++u) {
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                s[u] += __shfl_down_sync(0xffffffffu, s[u], o);
+            if (lane == 0) red[role * SC_MAX_K + u] = s[u];
+        }
+        __syncthreads();
+        if (tid < SC_MAX_K && q0 + tid < pairs) {
+            float c = 0.f;
+            for (int w = 0; w < SC_THREADS / 32; ++w)
+                c += red[w * SC_MAX_K + tid];
+            p.cost[q0 + tid] = c;
+        }
     }
     if (tid == 0) *p.ticket = 0u;
 }
@@ -528,39 +553,56 @@ static cudaError_t cluster_smem_attr(void)
 {
     static bool done = false;
     if (done) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(
+        sweep_cluster_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)cluster_smem(SC_MAX_K));
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            sweep_cluster_kernel<true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)cluster_smem(SC_MAX_K));
     done = err == cudaSuccess;
     return err;
 }
 
-// blocks of sweep_cluster_kernel an SM holds at K chunks (0 on error)
+// blocks of sweep_cluster_kernel an SM holds at K chunks, the fewer of
+// its two instantiations (0 on error)
 extern "C" int sweep_blocks_per_sm(int K)
 {
     if (cluster_smem_attr() != cudaSuccess) return 0;
-    int n = 0;
+    int n1 = 0, n2 = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, sweep_cluster_kernel, SC_THREADS, cluster_smem(K))
-        != cudaSuccess)
+            &n1, sweep_cluster_kernel<false>, SC_THREADS, cluster_smem(K))
+            != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n2, sweep_cluster_kernel<true>, SC_THREADS, cluster_smem(K))
+            != cudaSuccess)
         return 0;
-    return n;
+    return min(n1, n2);
 }
 
+// One launch for V visits (V = 1: the single-visit sweep). The visit
+// strides vs[6] are the elements between two visits of x, w, cw, the
+// chunk ids, the coherencies and the Jones (floats), 0 for an operand
+// that all visits share.
 extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
                             const long long* cid, const float* coh,
                             const float* J, const long long* s1,
                             const long long* s2, float* out, float* cost,
                             float* tile_cost, unsigned* ticket, int T,
-                            int nb, int K, int N, int C, const int* tb,
-                            const int* wb, void* stream)
+                            int nb, int K, int N, int V,
+                            const long long* vs, int C,
+                            const int* tb, const int* wb, void* stream)
 {
     if (K < 1 || K > SC_MAX_K || C < 1 || C > SC_MAX_CLUSTER || T < 1
-        || nb < 1)
+        || nb < 1 || V < 1 || V > 65535)
         return (int)cudaErrorInvalidValue;
     const int tiles = (nb + SC_TILE - 1) / SC_TILE;
+    if (tiles > 65535) return (int)cudaErrorInvalidValue;
     SweepArgs p = {x, w, cw, cid, coh, J, s1, s2, out, cost, tile_cost,
-                   ticket, T, nb, K, N};
+                   ticket, vs[0], vs[1], vs[2], vs[3], vs[4], vs[5], T, nb,
+                   K, N};
     // the geometry must cover every timeslot and every record word of a
     // tile once, in rank order
     bool ok = tb[0] == 0 && tb[C] == T;
@@ -578,7 +620,7 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
     const cudaError_t err = cluster_smem_attr();
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(C, tiles, 1);
+    cfg.gridDim = dim3(C, V, tiles);
     cfg.blockDim = dim3(SC_THREADS, 1, 1);
     cfg.dynamicSmemBytes = cluster_smem(K);
     cfg.stream = (cudaStream_t)stream;
@@ -589,227 +631,9 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e2 = cudaLaunchKernelEx(&cfg, sweep_cluster_kernel, p);
+    const cudaError_t e2 = V == 1
+        ? cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<false>, p)
+        : cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<true>, p);
     if (e2 != cudaSuccess) return (int)e2;
-    return (int)cudaGetLastError();
-}
-
-// the sums of one (chunk k, baseline b) over rows t0 <= t < t1 of a
-// visit: P, Q the chunk's Jones of the baseline's two stations, entries
-// e = row * 2 + col (row-major), (re, im)
-__device__ __forceinline__ void sweep_rows(const float* __restrict__ x,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ cw,
-                                           const int* __restrict__ cid,
-                                           const float* __restrict__ coh,
-                                           const float* P, const float* Q,
-                                           int nb, int K, int k, int b,
-                                           int t0, int t1, float* acc)
-{
-    for (int t = t0; t < t1; ++t) {
-        const size_t row = (size_t)t * nb + b;
-        // rows of other chunks carry zero weight: skip them outright
-        // (the chunk id is per timeslot, so the branch is warp-uniform)
-        if (K > 1 && cid[row] != k) continue;
-        float xv[8], wv[8], cwv[8], cv[8];
-        load8(x + row * 8, xv);
-        load8(w + row * 8, wv);
-        load8(cw + row * 8, cwv);
-        load8(coh + row * 8, cv);
-        // A = C Jq^H, Bm = Jp C, V = Jp A: [a][o] (re, im)
-        float Ar[2][2], Ai[2][2], Br[2][2], Bi[2][2], Vr[2][2], Vi[2][2];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-            for (int o = 0; o < 2; ++o) {
-                float zr = 0.f, zi = 0.f, yr_, yi_;
-#pragma unroll
-                for (int d = 0; d < 2; ++d) {
-                    const float xr = cv[(a * 2 + d) * 2];
-                    const float xi = cv[(a * 2 + d) * 2 + 1];
-                    yr_ = Q[(o * 2 + d) * 2];
-                    yi_ = -Q[(o * 2 + d) * 2 + 1];
-                    zr += xr * yr_ - xi * yi_;
-                    zi += xr * yi_ + xi * yr_;
-                }
-                Ar[a][o] = zr;
-                Ai[a][o] = zi;
-                zr = 0.f;
-                zi = 0.f;
-#pragma unroll
-                for (int d = 0; d < 2; ++d) {
-                    const float xr = P[(a * 2 + d) * 2];
-                    const float xi = P[(a * 2 + d) * 2 + 1];
-                    const float cr = cv[(d * 2 + o) * 2];
-                    const float ci = cv[(d * 2 + o) * 2 + 1];
-                    zr += xr * cr - xi * ci;
-                    zi += xr * ci + xi * cr;
-                }
-                Br[a][o] = zr;
-                Bi[a][o] = zi;
-            }
-        }
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-            for (int o = 0; o < 2; ++o) {
-                float zr = 0.f, zi = 0.f;
-#pragma unroll
-                for (int d = 0; d < 2; ++d) {
-                    const float xr = P[(a * 2 + d) * 2];
-                    const float xi = P[(a * 2 + d) * 2 + 1];
-                    zr += xr * Ar[d][o] - xi * Ai[d][o];
-                    zi += xr * Ai[d][o] + xi * Ar[d][o];
-                }
-                Vr[a][o] = zr;
-                Vi[a][o] = zi;
-            }
-        }
-        // residual, squared weights and the acceptance cost;
-        // component c = (a * 2 + o) * 2 + ri
-        float w2[8], rw2[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const int a = c >> 2, o = (c >> 1) & 1, ri = c & 1;
-            const float r = xv[c] - (ri == 0 ? Vr[a][o] : Vi[a][o]);
-            w2[c] = wv[c] * wv[c];
-            rw2[c] = r * w2[c];
-            const float rc = r * cwv[c];
-            acc[Q_COST] += rc * rc;
-        }
-        // Wirtinger factors (normal_eq._ma_factor / _mb_factor):
-        // fa[o][ri][m], fb[a][ri][m] with m = d * 2 + ci
-        float fa[2][2][4], fb[2][2][4];
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-#pragma unroll
-            for (int d = 0; d < 2; ++d) {
-                fa[s][0][d * 2] = Ar[d][s];
-                fa[s][0][d * 2 + 1] = -Ai[d][s];
-                fa[s][1][d * 2] = Ai[d][s];
-                fa[s][1][d * 2 + 1] = Ar[d][s];
-                fb[s][0][d * 2] = Br[s][d];
-                fb[s][0][d * 2 + 1] = Bi[s][d];
-                fb[s][1][d * 2] = Bi[s][d];
-                fb[s][1][d * 2 + 1] = -Br[s][d];
-            }
-        }
-        // Gram blocks and gradients
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-            for (int o = 0; o < 2; ++o) {
-#pragma unroll
-                for (int ri = 0; ri < 2; ++ri) {
-                    const int c = (a * 2 + o) * 2 + ri;
-                    const float ww = w2[c];
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float wa = ww * fa[o][ri][i];
-                        const float wb = ww * fb[a][ri][i];
-#pragma unroll
-                        for (int j = i; j < 4; ++j) {
-                            acc[Q_PP + a * 10 + sym_pair(i, j)] +=
-                                wa * fa[o][ri][j];
-                            acc[Q_QQ + o * 10 + sym_pair(i, j)] +=
-                                wb * fb[a][ri][j];
-                        }
-#pragma unroll
-                        for (int j = 0; j < 4; ++j)
-                            acc[Q_PQ + ((a * 2 + o) * 4 + i) * 4 + j] +=
-                                wa * fb[a][ri][j];
-                        acc[Q_JP + a * 4 + i] += rw2[c] * fa[o][ri][i];
-                        acc[Q_JQ + o * 4 + i] += rw2[c] * fb[a][ri][i];
-                    }
-                }
-            }
-        }
-    }
-}
-
-__global__ void __launch_bounds__(SW_THREADS)
-visits_partials_kernel(const float* __restrict__ x,   // [(V,) T*nb, 8]
-                       const float* __restrict__ w,   // [(V,) T*nb, 8]
-                       const float* __restrict__ cw,  // [(V,) T*nb, 8]
-                       const int* __restrict__ cid,   // [(V,) T*nb]
-                       const float* __restrict__ coh, // [(V,) T*nb, 8]
-                       const float* __restrict__ jp,  // [(V,) K, nb, 8]
-                       const float* __restrict__ jq,  // [(V,) K, nb, 8]
-                       float* __restrict__ part,      // [nsl, V*K, 121, nb]
-                       int T, int nb, int K, int V, int tl,
-                       long long sx, long long sw, long long scw,
-                       long long scid, long long scoh, long long sj)
-{
-    // block x = ((baseline block * K) + k) * V + v: visits fastest
-    int bx = blockIdx.x;
-    const int v = bx % V;
-    bx /= V;
-    const int k = bx % K;
-    const int b = (bx / K) * blockDim.x + threadIdx.x;
-    const int sl = blockIdx.y;
-    if (b >= nb) return;
-
-    float P[8], Q[8];
-    load8(jp + v * sj + ((size_t)k * nb + b) * 8, P);
-    load8(jq + v * sj + ((size_t)k * nb + b) * 8, Q);
-
-    float acc[SW_NACC];
-#pragma unroll
-    for (int q = 0; q < SW_NACC; ++q) acc[q] = 0.f;
-
-    const int t0 = sl * tl;
-    sweep_rows(x + v * sx, w + v * sw, cw + v * scw, cid + v * scid,
-               coh + v * scoh, P, Q, nb, K, k, b, t0, min(T, t0 + tl), acc);
-    float* dst = part + ((size_t)sl * V * K + (size_t)v * K + k) * SW_NACC
-        * nb + b;
-#pragma unroll
-    for (int q = 0; q < SW_NACC; ++q) dst[(size_t)q * nb] = acc[q];
-}
-
-__global__ void sweep_reduce_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out,  // [K, nb, rec]
-                                    int nb, int K, int nsl, int rec)
-{
-    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const size_t total = (size_t)K * SW_NOUT * nb;
-    if (idx >= total) return;
-    const int b = (int)(idx % nb);
-    const int e = (int)((idx / nb) % SW_NOUT);
-    const int k = (int)(idx / ((size_t)nb * SW_NOUT));
-    const int q = out_to_acc(e);
-    float s = 0.f;
-    for (int sl = 0; sl < nsl; ++sl)
-        s += part[(((size_t)sl * K + k) * SW_NACC + q) * nb + b];
-    out[((size_t)k * nb + b) * rec + e] = s;
-}
-
-extern "C" int sweep_reduce_launch(const float* part, float* out, int nb,
-                                   int K, int nsl, int rec, void* stream)
-{
-    const size_t total = (size_t)K * SW_NOUT * nb;
-    if (total == 0) return 0;
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    sweep_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        part, out, nb, K, nsl, rec);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int visits_partials_launch(const float* x, const float* w,
-                                      const float* cw, const int* cid,
-                                      const float* coh, const float* jp,
-                                      const float* jq, float* part, int T,
-                                      int nb, int K, int V, int nsl, int tl,
-                                      long long sx, long long sw,
-                                      long long scw, long long scid,
-                                      long long scoh, long long sj,
-                                      void* stream)
-{
-    if (nb == 0 || K == 0 || V == 0 || nsl == 0) return 0;
-    const unsigned nbb = (unsigned)((nb + SW_THREADS - 1) / SW_THREADS);
-    dim3 grid(nbb * (unsigned)K * (unsigned)V, nsl);
-    visits_partials_kernel<<<grid, SW_THREADS, 0, (cudaStream_t)stream>>>(
-        x, w, cw, cid, coh, jp, jq, part, T, nb, K, V, tl, sx, sw, scw,
-        scid, scoh, sj);
     return (int)cudaGetLastError();
 }

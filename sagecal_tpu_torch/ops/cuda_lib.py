@@ -44,19 +44,13 @@ SIGNATURES = {
     },
     "sweep": {
         # x, w, cw, cid, coh, J, s1, s2, out, cost, tile costs, ticket,
-        # T, nb, K, N, cluster, its time bounds [cluster + 1] and word
+        # T, nb, K, N, V, the visit strides [6] of x, w, cw, cid, coh, J
+        # (0 = shared), cluster, its time bounds [cluster + 1] and word
         # bounds [2][9] (ops/sweep.py:sweep_geometry), stream
         "sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _P, _P, _P],
+                         _I, _I, _I, _I, _P, _I, _P, _P, _P],
         # K -> blocks of the sweep kernel an SM holds
         "sweep_blocks_per_sm": [_I],
-        # part, out, nb, K, nsl, record stride, stream
-        "sweep_reduce_launch": [_P, _P, _I, _I, _I, _I, _P],
-        # x, w, cw, cid, coh, jp, jq, part, T, nb, K, V, nsl, tl, and the
-        # visit strides of x, w, cw, cid, coh, jones (0 = shared), stream
-        "visits_partials_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                                   _P],
     },
     "matvec": {
         # &MatvecParams, v, y, stream

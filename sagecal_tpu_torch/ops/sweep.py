@@ -14,8 +14,8 @@ What bounds the kernel on the card is bytes: 33 words a row (x, w, cw,
 coherency, chunk id), each row read once and added to its own chunk's
 sums, against :data:`SWEEP_FLOPS_PER_ROW` float32 operations. It is one
 launch (thread block clusters over time, the Jones gathered inside, the
-per-chunk cost summed inside) whose launch geometry is the plain
-function :func:`sweep_geometry`; it writes block records of :data:`REC`
+per-chunk cost summed inside) for one visit or V, whose launch geometry
+is the plain function :func:`sweep_geometry`; it writes block records of :data:`REC`
 words that the callers see as strided views (:func:`record_views`). The
 design notes are in ``csrc/sweep.cu``.
 
@@ -40,15 +40,15 @@ blocks checks and lays them out once (:func:`matvec_plan`) and calls
 (``sweep_pallas.py:439``, launched by ``sweep_blocks_visits`` ``:582``;
 the JAX package reaches it only under ``jax.vmap``, through the
 ``custom_vmap`` rule of ``_sweep_vmappable`` ``:719``): the same pass for
-V cluster visits in one launch, each operand either per visit or shared
-by all. On a CUDA tensor it launches the second entry point of
-``csrc/sweep.cu`` or raises; on a CPU tensor it runs
+V cluster visits, each operand either per visit or shared by all. On a
+CUDA tensor it is the same kernel at V visits (one launch, the visit a
+grid axis of its own) or raises; on a CPU tensor it runs
 :func:`sweep_blocks_visits_plain`. The solvers reach it through
 :class:`Lanes`, the layout of an in-flight cluster group
 (``solvers/sage.py``): V visits folded into the row and chunk axes, so
-everything after the sweep sees V K chunks. It is bound by bytes like the
-single-visit sweep; a shared operand is read once from memory and served
-to the other visits from L2 (notes in ``csrc/sweep.cu``).
+everything after the sweep sees V K chunks. A shared operand is read
+once from memory and served to the other visits from L2 (notes in
+``csrc/sweep.cu``).
 """
 
 from __future__ import annotations
@@ -70,9 +70,8 @@ from sagecal_tpu_torch.ops import cuda_lib
 SWEEP_FLOPS_PER_ROW = 168 + 48 + 240 + 240 + 384 + 128
 #: hybrid-chunk cap, as in the JAX package
 MAX_CHUNKS = 4
-#: distinct sums per (chunk, baseline) in the kernel, and the caller
-#: layout's element count (pp 32, qq 32, pq 64, jtep 8, jteq 8, cost 1)
-N_ACC = 121
+#: the caller layout's element count per (chunk, baseline): pp 32, qq 32,
+#: pq 64, jtep 8, jteq 8, cost 1
 N_OUT = 145
 #: words of one (chunk, baseline) block record on the card: the 145 of
 #: the caller layout padded to 640 bytes, so that every block row starts
@@ -88,9 +87,10 @@ REC_COST = 144
 #: largest thread block cluster (portable size)
 SWEEP_TILE = 32
 MAX_CLUSTER = 8
-#: threads the multi-visit wrapper aims to have in flight when it splits
-#: the time axis (132 SMs x 256 resident threads at its register use)
-TARGET_THREADS = 132 * 256
+#: a sweep block's fixed work (zeroing its shared sums, the cluster
+#: barriers, the epilogue over its tile's records) in timeslot steps,
+#: as :func:`sweep_geometry` weighs it against the rows a block walks
+BLOCK_STEPS = 8
 #: warps of one matvec block (``MV_WARPS`` in ``csrc/matvec.cu``)
 MATVEC_WARPS = 8
 
@@ -99,7 +99,8 @@ MATVEC_WARPS = 8
 MATVEC_FLOPS_PER_BASELINE = 2 * 192
 
 #: kernel launches since the last reset (the plain versions never count):
-#: the sweep kernel, the matvec kernel and the multi-visit sweep kernel
+#: the sweep kernel called by :func:`sweep_blocks`, the matvec kernel, and
+#: the sweep kernel called by :func:`sweep_blocks_visits`
 LAUNCHES = 0
 MATVEC_LAUNCHES = 0
 VISITS_LAUNCHES = 0
@@ -179,15 +180,6 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
     return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
 
 
-def _time_slices(T: int, nb: int, K: int):
-    """(slice count, rows per slice) so that about TARGET_THREADS
-    (chunk, baseline, slice) threads of the multi-visit kernel are in
-    flight (K counts every visit's chunks)."""
-    want = max(1, -(-TARGET_THREADS // max(K * nb, 1)))
-    tl = -(-T // min(T, want))
-    return -(-T // tl), tl
-
-
 def record_views(out):
     """(pp, qq, pq, jtep, jteq) as strided views of contiguous block
     records ``out`` [..., nb, R] (R >= 145 words: :data:`REC` on the
@@ -200,7 +192,8 @@ def record_views(out):
 
 class SweepGeometry(NamedTuple):
     """Launch geometry of the sweep kernel, which the kernel reads as
-    given: ``tiles`` tiles of :data:`SWEEP_TILE` baselines, each taken by
+    given, the same for each of the V visits of a launch: ``tiles``
+    tiles of :data:`SWEEP_TILE` baselines, each (visit, tile) taken by
     one cluster of ``cluster`` blocks. Block ``rank`` of a cluster walks
     timeslots ``times[rank]`` .. ``times[rank + 1]`` of its tile for
     every chunk (a row goes to the sums of its own chunk id), then sums
@@ -217,17 +210,33 @@ class SweepGeometry(NamedTuple):
     rec: int
 
 
-def sweep_geometry(T: int, nb: int, K: int, slots: int) -> SweepGeometry:
-    """The sweep kernel's launch geometry for T timeslots of nb baselines
-    and K chunks on a card that holds ``slots`` blocks at once: the
-    largest cluster (<= :data:`MAX_CLUSTER`, <= T) with which every block
-    runs in the first wave, its time ranges as even as the timeslots
-    allow, and each tile's record words split evenly among its blocks."""
-    if T < 1 or nb < 1 or not 1 <= K <= MAX_CHUNKS:
-        raise ValueError(f"sweep_geometry: T={T}, nb={nb}, K={K}")
+def sweep_geometry(T: int, nb: int, K: int, slots: int, V: int = 1,
+                   cluster: int | None = None) -> SweepGeometry:
+    """The sweep kernel's launch geometry for V visits of T timeslots of
+    nb baselines and K chunks on a card that holds ``slots`` blocks at
+    once. The cluster size C (<= :data:`MAX_CLUSTER`, <= T) is the one
+    whose C V tiles blocks finish first: ceil(C V tiles / slots) waves,
+    each of ceil(T / C) timeslot steps plus :data:`BLOCK_STEPS` of a
+    block's fixed work, ties to the larger C. At V = 1 that is the
+    largest cluster with which every block runs in the first wave, where
+    one exists. ``cluster`` takes that C instead of choosing it
+    (``tools_dev/torch_sweep_clusters.py`` times the choices). The time
+    ranges are as even as the timeslots allow, and each tile's record
+    words are split evenly among its blocks."""
+    if T < 1 or nb < 1 or not 1 <= K <= MAX_CHUNKS or V < 1 or slots < 1:
+        raise ValueError(f"sweep_geometry: T={T}, nb={nb}, K={K}, V={V}, "
+                         f"slots={slots}")
     tiles = -(-nb // SWEEP_TILE)
-    tl = -(-T // max(1, min(MAX_CLUSTER, T, slots // tiles)))
-    c = -(-T // tl)
+    best = None
+    choices = range(1, min(MAX_CLUSTER, T) + 1) if cluster is None \
+        else (min(cluster, MAX_CLUSTER, T),)
+    for c0 in choices:
+        tl = -(-T // c0)
+        c = -(-T // tl)
+        steps = -(-c * V * tiles // slots) * (tl + BLOCK_STEPS)
+        if best is None or steps <= best[0]:
+            best = (steps, c, tl)
+    _, c, tl = best
 
     def split(nbt):
         total = K * nbt * REC
@@ -243,15 +252,26 @@ def sweep_geometry(T: int, nb: int, K: int, slots: int) -> SweepGeometry:
 
 
 @functools.lru_cache(maxsize=64)
-def _geometry_args(T: int, nb: int, K: int, slots: int):
+def _geometry_args(T: int, nb: int, K: int, slots: int, V: int = 1):
     """(geometry, its time bounds, its word bounds) as the C arrays
     ``sweep_launch`` takes, built once per shape."""
-    geo = sweep_geometry(T, nb, K, slots)
+    geo = sweep_geometry(T, nb, K, slots, V)
     row = ctypes.c_int * (MAX_CLUSTER + 1)
     return (geo, row(*geo.times),
             (ctypes.c_int * (2 * MAX_CLUSTER + 2))(
                 *(w for part in geo.words
                   for w in part + (0,) * (MAX_CLUSTER - geo.cluster))))
+
+
+@functools.lru_cache(maxsize=64)
+def _visit_strides(*strides):
+    """The visit strides of the six operands as the C array
+    ``sweep_launch`` takes, built once per combination."""
+    return (ctypes.c_longlong * 6)(*strides)
+
+
+#: the single visit's strides (every operand read at visit 0)
+_NO_STRIDES = _visit_strides(0, 0, 0, 0, 0, 0)
 
 
 _SLOTS: dict = {}
@@ -298,27 +318,49 @@ def _int64(t):
     return t.contiguous()
 
 
-def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int):
-    global LAUNCHES
+def visit_strides(x8, wt, cost_wt, chunk_id, coh, J) -> tuple:
+    """The sweep kernel's visit strides of its six operands, as it reads
+    them: the elements between two visits' data (floats, complex values
+    as (re, im) pairs; int64 chunk ids) of an operand with a leading [V]
+    axis, 0 for one that all visits share."""
+    return tuple(
+        a[0].numel() * (2 if a.is_complex() else 1)
+        if a.dim() == nd + 1 else 0
+        for a, nd in ((x8, 2), (wt, 2), (cost_wt, 2), (chunk_id, 1),
+                      (coh, 3), (J, 4)))
+
+
+def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
+                V: int, visits: bool):
+    """One launch of the sweep kernel over V visits. Each operand
+    carries a leading [V] axis (one more dimension than a single visit's
+    x8/wt/cost_wt [B, 8], coh [B, 2, 2], chunk_id [B], J [K, N, 2, 2])
+    or is shared by all visits; the callers check the visit axes.
+    Returns the record views [V K, nb, ...] and cost [V K]; ``visits``
+    picks the launch counter."""
+    global LAUNCHES, VISITS_LAUNCHES
     dev = x8.device
+    what = "visits" if visits else "sweep"
     for name, a in (("x8", x8), ("wt", wt), ("cost_wt", cost_wt)):
         if a.dtype != torch.float32 or a.device != dev:
-            raise TypeError(f"sweep kernel: {name} must be float32 on {dev} "
+            raise TypeError(f"{what} kernel: {name} must be float32 on {dev} "
                             f"(got {a.dtype} on {a.device}); reduced "
-                            "storage policies are ROADMAP queue A item 9")
+                            "storage dtypes are ROADMAP queue B item 4 "
+                            "(with queue A item 7)")
     if coh.dtype != torch.complex64 or J.dtype != torch.complex64 \
             or coh.device != dev or J.device != dev:
-        raise TypeError("sweep kernel: coherencies and Jones must be "
+        raise TypeError(f"{what} kernel: coherencies and Jones must be "
                         f"complex64 on {dev}")
-    K, N = J.shape[0], J.shape[1]
-    B = x8.shape[0]
+    K, N = J.shape[-4], J.shape[-3]
+    B = x8.shape[-2]
     T = B // nb
-    if not 1 <= K <= MAX_CHUNKS or T < 1 or any(
-            a.shape[0] != B for a in (wt, cost_wt, coh, chunk_id)) \
+    if not 1 <= K <= MAX_CHUNKS or T < 1 or wt.shape[-2] != B \
+            or cost_wt.shape[-2] != B or coh.shape[-3] != B \
+            or chunk_id.shape[-1] != B \
             or sta1.shape[0] < nb or sta2.shape[0] < nb \
             or sta1.device != dev or sta2.device != dev \
             or chunk_id.device != dev:
-        raise ValueError(f"sweep kernel: K={K} (1..{MAX_CHUNKS}), {B} rows "
+        raise ValueError(f"{what} kernel: K={K} (1..{MAX_CHUNKS}), {B} rows "
                          "and per-row operands of equal length on "
                          f"{dev} expected")
     # the kernel reads complex64 as (re, im) float pairs and the indices
@@ -326,23 +368,28 @@ def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int):
     x8, wt, cost_wt, coh, J = (_aligned(a.resolve_conj())
                                for a in (x8, wt, cost_wt, coh, J))
     s1, s2, cid = (_int64(a) for a in (sta1, sta2, chunk_id))
-    geo, times, words = _geometry_args(T, nb, K, _sweep_slots(dev, K))
-    # the records, then cost [K], then the tiles' costs [K, tiles]
-    n_rec = K * nb * REC
-    buf = torch.empty(n_rec + K * (1 + geo.tiles), dtype=torch.float32,
+    strides = _visit_strides(*visit_strides(
+        x8, wt, cost_wt, cid, coh, J)) if V > 1 else _NO_STRIDES
+    geo, times, words = _geometry_args(T, nb, K, _sweep_slots(dev, K), V)
+    # the records, then cost [V K], then the tiles' costs [V K, tiles]
+    n_rec = V * K * nb * REC
+    buf = torch.empty(n_rec + V * K * (1 + geo.tiles), dtype=torch.float32,
                       device=dev)
-    out = buf.as_strided((K, nb, REC), (nb * REC, REC, 1))
-    cost = buf.as_strided((K,), (1,), n_rec)
+    out = buf.as_strided((V * K, nb, REC), (nb * REC, REC, 1))
+    cost = buf.as_strided((V * K,), (1,), n_rec)
     ptr = buf.data_ptr()
     stream = cuda_lib.stream_ptr(dev)
     cuda_lib.check(cuda_lib.load("sweep").sweep_launch(
         x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
         coh.data_ptr(), J.data_ptr(), s1.data_ptr(), s2.data_ptr(), ptr,
-        ptr + 4 * n_rec, ptr + 4 * (n_rec + K),
-        _ticket(dev, stream).data_ptr(), T, nb, K, N, geo.cluster, times,
-        words, stream), "sweep_cluster_kernel")
-    LAUNCHES += 1
-    return record_views(out) + (cost,)
+        ptr + 4 * n_rec, ptr + 4 * (n_rec + V * K),
+        _ticket(dev, stream).data_ptr(), T, nb, K, N, V, strides,
+        geo.cluster, times, words, stream), "sweep_cluster_kernel")
+    if visits:
+        VISITS_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out, cost
 
 
 def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
@@ -357,7 +404,7 @@ def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
     if jones != "full":
         raise NotImplementedError(
             f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
-            "item 9: constrained Jones modes)")
+            "item 4: constrained Jones modes)")
     nb = int(row_period)
     K = int(kmax)
     if J.shape[0] != K or x8.shape[0] % nb:
@@ -365,7 +412,9 @@ def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
                          f"kmax={K}, or {x8.shape[0]} rows are not a "
                          f"multiple of row_period={nb}")
     if x8.device.type == "cuda":
-        return _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb)
+        out, cost = _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt,
+                                cost_wt, nb, 1, False)
+        return record_views(out) + (cost,)
     s1b = sta1[:nb].long()
     s2b = sta2[:nb].long()
     Jp = J[:, s1b]                                   # [K, nb, 2, 2]
@@ -379,8 +428,9 @@ class Lanes(NamedTuple):
     rows [V B] with visit v's rows at v B .. (v + 1) B, chunks [V K] with
     visit v's chunk k at v K + k (its chunk ids offset by v K). A per-row
     operand that every visit shares stays [B, ...]. ``cid`` holds the
-    visits' own chunk ids (0 .. K - 1, int32) for the sweep: [B] when all
-    visits have the same, else [V, B]."""
+    visits' own chunk ids (0 .. K - 1, int64 as the solvers hold them,
+    which the sweep kernel reads without a copy) for the sweep: [B] when
+    all visits have the same, else [V, B]."""
 
     V: int
     K: int
@@ -431,53 +481,6 @@ def sweep_blocks_visits_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt,
     return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
 
 
-def _visits_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int, V: int,
-                 K: int):
-    global VISITS_LAUNCHES
-    dev = Jp.device
-    for name, a in (("x8", x8), ("wt", wt), ("cost_wt", cost_wt)):
-        if a.dtype != torch.float32 or a.device != dev:
-            raise TypeError(f"visits kernel: {name} must be float32 on {dev} "
-                            f"(got {a.dtype} on {a.device}); reduced "
-                            "storage policies are ROADMAP queue A item 9")
-    if coh.dtype != torch.complex64 or Jp.dtype != torch.complex64 \
-            or coh.device != dev:
-        raise TypeError("visits kernel: coherencies and Jones must be "
-                        f"complex64 on {dev}")
-    B = x8.shape[-2]
-    T = B // nb
-
-    def arg(a, ndim):
-        """(contiguous tensor, elements between visits: 0 when shared)."""
-        a = a.contiguous()
-        return a, (a[0].numel() if a.dim() == ndim + 1 else 0)
-
-    x8, sx = arg(x8, 2)
-    wt, sw = arg(wt, 2)
-    cost_wt, scw = arg(cost_wt, 2)
-    cohr, scoh = arg(torch.view_as_real(coh.resolve_conj()), 4)
-    jpr, sj = arg(torch.view_as_real(Jp.resolve_conj()), 5)
-    jqr, _ = arg(torch.view_as_real(Jq.resolve_conj()), 5)
-    cid, scid = arg(chunk_id.to(device=dev, dtype=torch.int32), 1)
-    nsl, tl = _time_slices(T, nb, V * K)
-    part = torch.empty((nsl, V * K, N_ACC, nb), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((V * K, nb, REC), dtype=torch.float32, device=dev)
-    lib = cuda_lib.load("sweep")
-    stream = cuda_lib.stream_ptr(dev)
-    cuda_lib.check(lib.visits_partials_launch(
-        x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
-        cohr.data_ptr(), jpr.data_ptr(), jqr.data_ptr(), part.data_ptr(),
-        T, nb, K, V, nsl, tl, sx, sw, scw, scid, scoh, sj, stream),
-        "visits_partials_kernel")
-    cuda_lib.check(lib.sweep_reduce_launch(
-        part.data_ptr(), out.data_ptr(), nb, V * K, nsl, REC, stream),
-        "sweep_reduce_kernel")
-    VISITS_LAUNCHES += 1
-    return record_views(out.view(V, K, nb, REC)) + (
-        out[..., REC_COST].sum(dim=-1).view(V, K),)
-
-
 def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
                         row_period: int, kmax: int, vsize: int,
                         jones: str = "full"):
@@ -488,13 +491,14 @@ def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
     array shared by every visit (the JAX package's static ``batched``
     6-tuple, read here off the ranks); sta1/sta2 are shared and
     baseline-periodic. Returns the :func:`sweep_blocks` tuple with a
-    leading [V] axis on every output. On the card the outputs are views
-    of one [V K, nb, REC] record buffer, so the visits fold into the
-    chunk axis without a copy."""
+    leading [V] axis on every output. On the card this is one launch of
+    the sweep kernel at V visits (V the group's real member count), and
+    the outputs are views of one [V K, nb, REC] record buffer, so the
+    visits fold into the chunk axis without a copy."""
     if jones != "full":
         raise NotImplementedError(
             f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
-            "item 9: constrained Jones modes)")
+            "item 4: constrained Jones modes)")
     nb, K, V = int(row_period), int(kmax), int(vsize)
     if J.shape[-4] != K or x8.shape[-2] % nb \
             or any(a.dim() == nd + 1 and a.shape[0] != V
@@ -504,13 +508,14 @@ def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
                          f"for kmax={K}, rows are not a multiple of "
                          f"row_period={nb}, or a batched operand's visit "
                          f"axis is not {V}")
+    if J.device.type == "cuda":
+        out, cost = _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt,
+                                cost_wt, nb, V, True)
+        return record_views(out.view(V, K, nb, REC)) + (cost.view(V, K),)
     s1b = sta1[:nb].long()
     s2b = sta2[:nb].long()
     Jp = J.index_select(-3, s1b)                     # [(V,) K, nb, 2, 2]
     Jq = J.index_select(-3, s2b)
-    if J.device.type == "cuda":
-        return _visits_cuda(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb, V,
-                            K)
     return sweep_blocks_visits_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt,
                                      nb, V)
 

@@ -257,8 +257,7 @@ def _group_solve(mode: int, xd_g, coh_g, cidx_g, cmask_g, J_g, nu_g, sta1,
     [V, K], final_cost [V, K], iters [V], cg_iters [V], tcg_iters)."""
     V, K = J_g.shape[0], J_g.shape[1]
     B = xd_g.shape[1]
-    cidx_i = cidx_g.to(torch.int32)
-    lanes = swp.Lanes(V, K, cidx_i[0] if cid_shared else cidx_i)
+    lanes = swp.Lanes(V, K, cidx_g[0] if cid_shared else cidx_g)
     off = torch.arange(V, device=cidx_g.device)[:, None] * K
     Jn, nu_new, ic, fc, its, cgs, tcgs = _cluster_solve(
         mode, xd_g.reshape(V * B, 8), coh_g.reshape(V * B, 2, 2),

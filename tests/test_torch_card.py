@@ -125,8 +125,8 @@ def test_sweep_launch_refuses_a_geometry_that_misses_rows(card,
     and the launch refuses one that leaves a timeslot out."""
     real = tswp._geometry_args
 
-    def short(T, nb, K, slots):
-        geo, tb, wb = real(T, nb, K, slots)
+    def short(T, nb, K, slots, V=1):
+        geo, tb, wb = real(T, nb, K, slots, V)
         tb = type(tb)(*tb)
         tb[geo.cluster] -= 1
         return geo, tb, wb
@@ -188,6 +188,80 @@ def test_visits_kernel_matches_plain(card, K, shared):
                                          nb, V)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and _close(g, r)
+
+
+@pytest.mark.parametrize("N,T,K,nchunk", [(62, 120, 4, 4), (20, 5, 3, 3),
+                                            (62, 120, 2, 1), (62, 1, 2, 2)])
+def test_visits_kernel_edges_are_deterministic(card, N, T, K, nchunk):
+    """The multi-visit sweep at V = 3 (a ragged group: V is the real
+    member count), each visit with its own chunk ids (visit v a
+    cluster of max(1, nchunk - v) chunks at kmax = K), the weights
+    shared: at nb = 1891 and at the sweep's edge shapes (nb = 190, a
+    1-chunk cluster at kmax = 2, one timeslot). One launch a call, each
+    visit's blocks the plain version's, an empty (visit, chunk)'s blocks
+    exactly zero, and two calls give the same bits."""
+    rng = np.random.default_rng(30 + N + T + K)
+    V = 3
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=card)
+    s1, s2 = lng(np.tile(p, T)), lng(np.tile(q, T))
+    rows = np.arange(B) // nb
+    cid = torch.as_tensor(np.stack([
+        np.minimum(rows // -(-T // max(1, nchunk - v)),
+                   max(1, nchunk - v) - 1) for v in range(V)]),
+        dtype=torch.int64, device=card)
+    coh = c64(rng.normal(size=(V, B, 2, 2))
+              + 1j * rng.normal(size=(V, B, 2, 2)))
+    J = c64((rng.normal(size=(V, K, N, 2, 2))
+             + 1j * rng.normal(size=(V, K, N, 2, 2))) * 0.3 + np.eye(2))
+    x8, wt, cw = f32(rng.random((V, B, 8))), f32(rng.random((B, 8))), \
+        f32(rng.random((B, 8)))
+    n0 = tswp.VISITS_LAUNCHES
+    got = tswp.sweep_blocks_visits(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                                   V)
+    again = tswp.sweep_blocks_visits(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                                     V)
+    assert tswp.VISITS_LAUNCHES == n0 + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = tswp.sweep_blocks_visits_plain(x8, J[:, :, s1[:nb]],
+                                         J[:, :, s2[:nb]], coh, cid, wt, cw,
+                                         nb, V)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _close(g, r)
+    for v in range(V):
+        for k in range(K):
+            if not bool((cid[v] == k).any()):
+                assert all(float(g[v, k].abs().max()) == 0.0 for g in got)
+
+
+def test_visits_launch_refuses_a_geometry_that_misses_rows(card,
+                                                           monkeypatch):
+    """At V > 1 the kernel walks the same wrapper geometry for every
+    visit, and the launch refuses one that leaves a timeslot out."""
+    real = tswp._geometry_args
+
+    def short(T, nb, K, slots, V=1):
+        geo, tb, wb = real(T, nb, K, slots, V)
+        tb = type(tb)(*tb)
+        tb[geo.cluster] -= 1
+        return geo, tb, wb
+
+    monkeypatch.setattr(tswp, "_geometry_args", short)
+    V, N, T = 2, 6, 4
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    x8 = torch.ones((V, T * nb, 8), device=card)
+    coh = torch.ones((V, T * nb, 2, 2), dtype=torch.complex64, device=card)
+    J = torch.ones((V, 1, N, 2, 2), dtype=torch.complex64, device=card)
+    with pytest.raises(RuntimeError, match="sweep_cluster_kernel"):
+        tswp.sweep_blocks_visits(x8, J, coh, lng(np.tile(p, T)),
+                                 lng(np.tile(q, T)), lng(np.zeros(T * nb)),
+                                 x8[0], x8[0], nb, 1, V)
 
 
 def test_visits_kernel_refuses_float64(card):
@@ -263,7 +337,7 @@ def test_matvec_kernel_on_visit_records_is_deterministic(card):
     J = c64((rng.normal(size=(V * K, N, 2, 2))
              + 1j * rng.normal(size=(V * K, N, 2, 2))) * 0.3 + np.eye(2))
     x8, wt = f32(rng.random((V * B, 8))), f32(rng.random((B, 8)))
-    lanes = tswp.Lanes(V=V, K=K, cid=cid.to(torch.int32))
+    lanes = tswp.Lanes(V=V, K=K, cid=cid)
     fac, _, _ = tswp.gn_blocks(x8, J, coh, s1, s2, cid, wt, N, V * K, nb,
                                lanes=lanes)
     assert tswp._block_view(fac.pq, nb)[0] is fac.pq
@@ -332,17 +406,26 @@ def test_group_solve_on_card_matches_cpu(card):
     assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
 
 
-def test_robust_rtr_cg_on_card_matches_cpu(card):
-    """One robust RTR cluster solve with the matvec kernel in every tCG
-    product, against the CPU float64 solve: final cost within 1e-3."""
-    from sagecal_tpu_torch.solvers import rtr as trtr
+def robust_rtr_problem(point: bool = True):
+    """The robust RTR card test's input (seed 6, N = 9, T = 12, K = 2):
+    visibilities of a truth 0.2 from identity with noise 0.05, solved from
+    J0 = identity. ``point``: the coherencies of a point source, a seeded
+    phase times 2 I, on which the solve is well posed (a one-ulp change
+    of the data moves the final cost by ~1e-15 in float64); else random
+    coherencies, on which float64 roundoff already splits the trajectory
+    (tests/test_torch_rtr.py holds both packages to both facts). Returns
+    (x8, coh, sta1, sta2, cid, J0, N, nb) as numpy arrays."""
     rng = np.random.default_rng(6)
     N, T, K = 9, 12, 2
     p, q = np.triu_indices(N, k=1)
     nb = len(p)
     B = T * nb
     cid = np.minimum((np.arange(B) // nb) // -(-T // K), K - 1)
-    coh = rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2))
+    if point:
+        phase = np.exp(2j * np.pi * rng.random(B))
+        coh = phase[:, None, None] * (2.0 * np.eye(2))
+    else:
+        coh = rng.normal(size=(B, 2, 2)) + 1j * rng.normal(size=(B, 2, 2))
     Jt = (rng.normal(size=(K, N, 2, 2))
           + 1j * rng.normal(size=(K, N, 2, 2))) * 0.2 + np.eye(2)
     sa, sb = np.tile(p, T), np.tile(q, T)
@@ -351,6 +434,17 @@ def test_robust_rtr_cg_on_card_matches_cpu(card):
     x8 = np.stack([V.reshape(B, 4).real, V.reshape(B, 4).imag],
                   -1).reshape(B, 8)
     J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    return x8, coh, sa, sb, cid, J0, N, nb
+
+
+def test_robust_rtr_cg_on_card_matches_cpu(card):
+    """One robust RTR cluster solve with the matvec kernel in every tCG
+    product, against the CPU float64 solve: final cost within 1e-3, on
+    the well-posed point-source input (on random coherencies float64
+    roundoff alone splits the trajectory: tests/test_torch_rtr.py)."""
+    from sagecal_tpu_torch.solvers import rtr as trtr
+    x8, coh, sa, sb, cid, J0, N, nb = robust_rtr_problem(point=True)
+    B = x8.shape[0]
     out = {}
     for dev, rdt, cdt in ((card, torch.float32, torch.complex64),
                           ("cpu", torch.float64, torch.complex128)):

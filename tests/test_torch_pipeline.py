@@ -9,7 +9,11 @@ float64. A second fixture runs both CLIs on fresh copies at the default
 solver mode (no ``-j``: 5, which 10 stations downgrade to 3, OS-LM then
 OS robust LM), at ``-j 5 --inner cg``, and at ``-j 1 --inflight 2`` on a
 second SimMS of 8 clusters (in-flight groups need M >= 8: the width is
-clamped to M//4). Gates: per-tile res_0/res_1 rtol 1e-8 (and equal nu),
+clamped to M//4). The same fixture runs ``-j 1``, the default mode and
+``-j 5 --inner cg`` once more with no ``--kernel`` flag on either CLI,
+so each takes its own default assembly (the reference's XLA normal
+equations, the port's fused sweep): the port's default command line is
+held against the reference's at the same gates. Gates: per-tile res_0/res_1 rtol 1e-8 (and equal nu),
 solutions atol 1e-6, written residual column 1e-7 of the data's largest
 magnitude.
 
@@ -72,10 +76,22 @@ MODE_FLAGS = {"default": ["-e", "2", "-g", "6", "-l", "4", "-t", "4", "-R",
               "inflight": ["-j", "1", "--inflight", "2", "-e", "2", "-g",
                            "6", "-l", "4", "-t", "4", "-R", "0", "--kernel",
                            "pallas"]}
+#: -j 1, the default mode and -j 5 --inner cg with each CLI's default
+#: assembly: the runs above (and the module fixture's -j 1) without
+#: --kernel
+NO_KERNEL_FLAG = {"j1": FLAGS, "default": MODE_FLAGS["default"],
+                  "cg": MODE_FLAGS["cg"]}
+MODE_FLAGS.update({f"nokernel_{tag}": [f for f in flags
+                                        if f not in ("--kernel", "pallas")]
+                   for tag, flags in NO_KERNEL_FLAG.items()})
 #: (sky, cluster file, pristine SimMS) of each mode run
 MODE_FILES = {"default": ("sky.txt", "one_chunk.cluster", "pristine.ms"),
               "cg": ("sky.txt", "sky.txt.cluster", "pristine.ms"),
-              "inflight": ("sky8.txt", "sky8.txt.cluster", "pristine8.ms")}
+              "inflight": ("sky8.txt", "sky8.txt.cluster", "pristine8.ms"),
+              "nokernel_j1": ("sky.txt", "sky.txt.cluster", "pristine.ms"),
+              "nokernel_default": ("sky.txt", "one_chunk.cluster",
+                                   "pristine.ms"),
+              "nokernel_cg": ("sky.txt", "sky.txt.cluster", "pristine.ms")}
 #: what the CPU runs launch: no kernel
 NO_LAUNCHES = {"coh": 0, "sweep": 0, "matvec": 0, "visits": 0}
 

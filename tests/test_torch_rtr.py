@@ -4,7 +4,11 @@ preconditioner (rtol 1e-10), the robust cost, and rtr_solve (tCG
 operator dense and matrix-free), rtr_solve_robust and nsd_solve_robust
 at N = 6, T = 4, K in {1, 2}: equal executed iterations and nu, final
 cost rtol 1e-8, J atol 1e-6. Each JAX solve runs once per module (the
-reference runs the Pallas sweep in interpret mode)."""
+reference runs the Pallas sweep in interpret mode). Last, a witness of
+the robust RTR card test's inputs (tests/test_torch_card.py): under
+one-ulp perturbations of the data, float64 roundoff splits the
+trajectory on its former random-coherency input in both packages, and
+not on its point-source input."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,6 +18,7 @@ import torch
 from sagecal_tpu.solvers import rtr as rtr_mod
 from sagecal_tpu_torch.solvers import rtr as trtr
 
+from test_torch_card import robust_rtr_problem
 from test_torch_lm import _problem, _t
 
 
@@ -137,3 +142,76 @@ def test_unported_routes_raise():
                        config=trtr.RTRConfig(kernel="xla"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trtr.nsd_solve_robust(*args, config=trtr.NSDConfig(jones_mode="diag"))
+
+
+#: seeds of the one-ulp relative perturbations of x8 in the witness
+ULP_SEEDS = range(100, 108)
+
+
+def _robust_cg_both(x8, coh, sa, sb, cid, J0, N, nb):
+    """(JAX, port) final cost [K] and J of one float64 robust RTR solve
+    with the card test's settings (itmax 6, ``--inner cg``); the JAX
+    reference on its default (XLA) assembly."""
+    wt = np.ones((x8.shape[0], 8))
+    j = jnp.asarray
+    J, _, info = rtr_mod.rtr_solve_robust(
+        j(x8), j(coh), j(sa.astype(np.int32)), j(sb.astype(np.int32)),
+        j(cid.astype(np.int32)), j(wt), j(J0), N, row_period=nb,
+        config=rtr_mod.RTRConfig(itmax=6, inner="cg"))
+    tJ, _, tinfo = trtr.rtr_solve_robust(
+        _t(x8), _t(coh), _t(sa).long(), _t(sb).long(), _t(cid).long(),
+        _t(wt), _t(J0), N, row_period=nb,
+        config=trtr.RTRConfig(itmax=6, inner="cg"))
+    return ((np.asarray(info["final_cost"]), np.asarray(J)),
+            (tinfo["final_cost"].numpy(), tJ.numpy()))
+
+
+def _ulp_draws(point):
+    """Both packages' solves of the card test's input, unperturbed and
+    under each of ULP_SEEDS' one-ulp (2^-52) relative perturbations of
+    x8, with each package's relative move of the final cost from its own
+    unperturbed solve."""
+    x8, *rest = robust_rtr_problem(point)
+    base = _robust_cg_both(x8, *rest)
+    draws = []
+    for seed in ULP_SEEDS:
+        sign = np.random.default_rng(seed).choice([-1.0, 1.0], x8.shape)
+        both = _robust_cg_both(x8 * (1.0 + sign * 2.0 ** -52), *rest)
+        moved = [float(np.abs(c - b[0]).max() / np.abs(b[0]).max())
+                 for (c, _), b in zip(both, base)]
+        draws.append((both, moved))
+    return base, draws
+
+
+def _agree(ref, got):
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-8)
+    np.testing.assert_allclose(got[1], ref[1], atol=1e-6)
+
+
+def test_card_rtr_random_input_is_roundoff_chaotic():
+    """The card test's former input (random coherencies): the packages
+    agree unperturbed, and in each package a one-ulp perturbation of x8
+    moves the float64 final cost by more than 1e-3 in at least one of
+    the draws. Which draws split depends on the summation order, so the
+    packages agree draw by draw only where neither split (moved <=
+    1e-6). A card (float32) run cannot meet a 1e-3 gate that float64 on
+    the CPU does not meet."""
+    base, draws = _ulp_draws(point=False)
+    _agree(*base)
+    assert max(m[0] for _, m in draws) > 1e-3        # the reference
+    assert max(m[1] for _, m in draws) > 1e-3        # the port
+    calm = [both for both, m in draws if max(m) <= 1e-6]
+    assert calm
+    for both in calm:
+        _agree(*both)
+
+
+def test_card_rtr_point_input_is_well_posed():
+    """The card test's point-source input: one-ulp perturbations of x8
+    move neither package's float64 final cost by more than 1e-6, and the
+    packages agree draw by draw."""
+    base, draws = _ulp_draws(point=True)
+    _agree(*base)
+    for both, moved in draws:
+        assert max(moved) <= 1e-6
+        _agree(*both)

@@ -192,12 +192,6 @@ def test_solve_damped_blocks_retry_branch():
                                atol=1e-8 * np.abs(dp).max())
 
 
-def test_time_slices_cover_all_rows():
-    for T, nb, K in ((120, 1891, 1), (120, 1891, 4), (4, 15, 2), (1, 3, 1)):
-        nsl, tl = tswp._time_slices(T, nb, K)
-        assert nsl * tl >= T > (nsl - 1) * tl
-
-
 def test_unported_modes_raise():
     x8, coh, s1, s2, cid, nbase = _toy()
     t = _t
@@ -220,47 +214,77 @@ GEOMETRY = [(T, nb, K) for T in (1, 5, 120) for nb in (1, 7, 1891)
             for K in (1, 2, 3, 4)]
 
 
+@pytest.mark.parametrize("V", [1, 2, 4])
 @pytest.mark.parametrize("T,nb,K", GEOMETRY)
-def test_sweep_geometry_covers_rows_once(T, nb, K):
-    """The sweep kernel's launch geometry, which the wrapper passes to
-    the kernel, replayed: every row is walked by exactly one (cluster,
-    block, lane) and added to the sums of its own chunk only (every row
-    to chunk 0 at K = 1), whatever chunks are empty; every word of every
-    tile's records is written by exactly one block of its cluster."""
+def test_sweep_geometry_covers_rows_once(T, nb, K, V):
+    """The sweep kernel's launch geometry for V visits, which the wrapper
+    passes to the kernel, replayed block by block in the kernel's grid
+    order (rank fastest, then visit, then tile): every row of every
+    visit is walked by exactly one (cluster, block, lane) and added to
+    the sums of its own visit and chunk only (every row to chunk 0 at K
+    = 1), whatever chunks are empty; every word of every (visit, tile)'s
+    records is written by exactly one block of its cluster. At V = 1 the
+    cluster is the largest with which every block runs in the first
+    wave, where one exists."""
     for slots, nchunk in ((660, K), (396, 1), (8, max(1, K - 1))):
-        geo = tswp.sweep_geometry(T, nb, K, slots)
+        geo = tswp.sweep_geometry(T, nb, K, slots, V)
         C = geo.cluster
         assert 1 <= C <= tswp.MAX_CLUSTER and C <= T
         assert len(geo.times) == C + 1 and geo.times[0] == 0
         assert geo.times[-1] == T and all(len(w) == C + 1 for w in geo.words)
         assert geo.rec % 4 == 0 and geo.rec >= tswp.N_OUT
+        if V == 1 and slots >= geo.tiles:
+            first = min(tswp.MAX_CLUSTER, T, slots // geo.tiles)
+            assert C == -(-T // -(-T // first))
         # the C arrays the launch passes to the kernel hold this geometry
-        g2, tb, wb = tswp._geometry_args(T, nb, K, slots)
+        g2, tb, wb = tswp._geometry_args(T, nb, K, slots, V)
         row = tswp.MAX_CLUSTER + 1
         assert g2 == geo and tuple(tb)[:C + 1] == geo.times
         assert (tuple(wb)[:C + 1], tuple(wb)[row:row + C + 1]) == geo.words
-        cid = _chunk_ids(T, nb, K, nchunk).reshape(T, nb)
-        walked = np.zeros((T, nb), dtype=int)
-        sums = np.zeros((K, nb), dtype=int)
-        for tile in range(geo.tiles):
+        # visit v has its own chunk ids (a cluster of nchunk - v chunks)
+        cid = np.stack([_chunk_ids(T, nb, K, max(1, nchunk - v)).reshape(
+            T, nb) for v in range(V)])
+        walked = np.zeros((V, T, nb), dtype=int)
+        sums = np.zeros((V, K, nb), dtype=int)
+        covered = np.zeros((V, geo.tiles, K * tswp.SWEEP_TILE * geo.rec),
+                           dtype=int)
+        for block in range(C * V * geo.tiles):
+            rank, v, tile = block % C, block // C % V, block // (C * V)
             b0 = tile * tswp.SWEEP_TILE
             b1 = min(nb, b0 + tswp.SWEEP_TILE)
             words = geo.words[tile == geo.tiles - 1]
-            covered = np.zeros(K * (b1 - b0) * geo.rec, int)
-            for rank in range(C):
-                t0, t1 = geo.times[rank], geo.times[rank + 1]
-                assert t0 < t1
-                walked[t0:t1, b0:b1] += 1
-                c = cid[t0:t1, b0:b1] if K > 1 else np.zeros(
-                    (t1 - t0, b1 - b0), int)
-                for k in range(K):
-                    sums[k, b0:b1] += (c == k).sum(axis=0)
-                covered[words[rank]:words[rank + 1]] += 1
-            assert (covered == 1).all()
+            t0, t1 = geo.times[rank], geo.times[rank + 1]
+            assert t0 < t1
+            walked[v, t0:t1, b0:b1] += 1
+            c = cid[v, t0:t1, b0:b1] if K > 1 else np.zeros(
+                (t1 - t0, b1 - b0), int)
+            for k in range(K):
+                sums[v, k, b0:b1] += (c == k).sum(axis=0)
+            covered[v, tile, words[rank]:words[rank + 1]] += 1
         assert (walked == 1).all()
-        want = np.stack([(cid == k).sum(axis=0) for k in range(K)]) \
-            if K > 1 else np.full((1, nb), T)
+        for tile in range(geo.tiles):
+            nbt = min(nb, (tile + 1) * tswp.SWEEP_TILE) \
+                - tile * tswp.SWEEP_TILE
+            n = K * nbt * geo.rec
+            assert (covered[:, tile, :n] == 1).all()
+            assert (covered[:, tile, n:] == 0).all()
+        want = np.stack([[(cid[v] == k).sum(axis=0) for k in range(K)]
+                         for v in range(V)]) \
+            if K > 1 else np.full((V, 1, nb), T)
         np.testing.assert_array_equal(sums, want)
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_sweep_geometry_takes_a_given_cluster(cluster):
+    """A cluster size given to sweep_geometry (as the cluster-timing tool
+    gives it) replaces the rule's choice, capped by T, and its time
+    ranges still cover every timeslot once."""
+    for T in (1, 5, 120):
+        geo = tswp.sweep_geometry(T, 1891, 4, 396, 4, cluster=cluster)
+        assert geo.cluster <= min(cluster, T)
+        assert geo.cluster == -(-T // -(-T // min(cluster, T)))
+        assert geo.times[0] == 0 and geo.times[-1] == T
+        assert all(a < b for a, b in zip(geo.times, geo.times[1:]))
 
 
 def test_aligned_records_match_packed_layout():

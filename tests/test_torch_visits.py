@@ -102,7 +102,7 @@ def test_lane_folding_matches_serial_gn_blocks():
     nb, B = d["nb"], d["x8"].shape[1]
     wt = t(d["wt"][0])
     folded_cid = t(d["cid"] + K * np.arange(V)[:, None]).reshape(V * B)
-    lanes = tswp.Lanes(V, K, t(d["cid"]).to(torch.int32))
+    lanes = tswp.Lanes(V, K, t(d["cid"]).long())
     fac, JTe, cost = tswp.gn_blocks(
         t(d["x8"]).reshape(V * B, 8), t(d["J"]).reshape(V * K, N, 2, 2),
         t(d["coh"]).reshape(V * B, 2, 2), t(np.tile(d["sta1"], V)),
@@ -130,6 +130,29 @@ def test_lanes_layout_helpers():
     assert lanes.visits(shared) is shared
     nu = torch.tensor([2.0, 5.0])
     assert lanes.per_row(nu)[:, 0].tolist() == [2.0] * 5 + [5.0] * 5
+
+
+def test_visit_strides_address_each_visit():
+    """The visit strides the sweep kernel takes: for an operand with a
+    [V] axis, the stride (in its float or int64 elements) times the
+    element size is the distance in bytes from visit v's data to visit
+    v + 1's (complex values two floats); a shared operand's stride is 0,
+    as its one array serves every visit."""
+    d = _visits()
+    t = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt)
+    x8, J = t(d["x8"], torch.float32), t(d["J"], torch.complex64)
+    coh = t(d["coh"], torch.complex64)
+    cid = t(d["cid"], torch.int64)
+    wt, cw = t(d["wt"], torch.float32), t(d["cw"], torch.float32)
+    per_visit = (x8, wt, cw, cid, coh, J)
+    strides = tswp.visit_strides(*per_visit)
+    for a, st in zip(per_visit, strides):
+        size = 8 if a.dtype == torch.int64 else 4
+        assert st * size == a[1].data_ptr() - a[0].data_ptr() > 0
+    shared = (x8, wt[0], cw[0], cid[0], coh, J[0])
+    got = tswp.visit_strides(*shared)
+    assert got[1:4] == (0, 0, 0) and got[5] == 0
+    assert got[0] == strides[0] and got[4] == strides[4]
 
 
 def test_visits_refuses_bad_shapes_and_modes():

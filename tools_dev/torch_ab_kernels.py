@@ -1,12 +1,15 @@
-"""Sweep and matvec kernel times of two checkouts of the port on one card.
+"""Sweep, multi-visit sweep and matvec kernel times of two checkouts of
+the port on one card.
 
     python3 tools_dev/torch_ab_kernels.py --trees A B [--rounds 1]
         [--reps 200] [--out FILE]
 
-Times the fused sweep (``sweep_blocks``) and the blocks matvec at the
-full-width path's shapes (62 stations, nb = 1891 baselines, 120
-timeslots; K = 1 and 4 chunks, the matvec with a shift) in each
-checkout, in the order A B B A (``--rounds`` times), each run in a fresh
+Times the fused sweep (``sweep_blocks``), the multi-visit sweep
+(``sweep_blocks_visits`` at V = 4 visits, the weights shared and per
+visit, beside the four serial ``sweep_blocks`` calls it replaces) and
+the blocks matvec at the full-width path's shapes (62 stations, nb =
+1891 baselines, 120 timeslots; K = 1 and 4 chunks, the matvec with a
+shift) in each checkout, in the order A B B A (``--rounds`` times), each run in a fresh
 process with the checkout first on ``sys.path`` (so its kernels build
 from its own sources into its own ``build/torch_kernels/``). The inputs,
 timers and compiler-report reader are this tool's own checkout's
@@ -20,8 +23,9 @@ kernel and K it reports
   synchronize (what a solver loop that reads the device pays);
 - ``kernel_us``: the device time per call of the checkout's own
   sweep or matvec kernels, and ``all_kernels_us`` that of every kernel
-  the call launches (gathers, copies, sums), from a ``torch.profiler``
-  trace of 20 calls;
+  the call launches (gathers, copies, sums; the multi-visit route's
+  kernels have other names in other checkouts, so read this one there),
+  from a ``torch.profiler`` trace of 20 calls;
 - the registers and spills of the checkout's kernels (``nvcc -Xptxas
   -v`` in its build log).
 
@@ -62,7 +66,7 @@ def timed(fn, names):
 
 
 cuda_lib.build_all()
-rec = {"tree": root, "sweep": {}, "matvec": {},
+rec = {"tree": root, "sweep": {}, "visits": {}, "serial": {}, "matvec": {},
        "ptxas": {n: cs.ptxas_resources(n) for n in ("sweep", "matvec")}}
 for K in (1, 4):
     args, _ = cs._sweep_inputs(K, seed=2)
@@ -82,6 +86,16 @@ for K in (1, 4):
         fn = lambda: swp.gn_matvec_blocks(fac, v, sta1, sta2, N,
                                           shift=shift, lists=lists)
     rec["matvec"][K] = timed(fn, ("matvec_",))
+    for batched in (False, True):
+        vargs, _ = cs._visits_inputs(K, batched)
+        x8, J, coh, sta1, sta2, cid, wt, cw, nb, _, V = vargs
+        wv = (lambda a, v: a[v]) if batched else (lambda a, v: a)
+        key = f"{K}_{'per_visit' if batched else 'shared'}"
+        rec["visits"][key] = timed(lambda: swp.sweep_blocks_visits(*vargs),
+                                   ("",))
+        rec["serial"][key] = timed(lambda: [
+            swp.sweep_blocks(x8[v], J[v], coh[v], sta1, sta2, cid, wv(wt, v),
+                             wv(cw, v), nb, K) for v in range(V)], ("",))
 print("AB_KERNELS " + json.dumps(rec), flush=True)
 """
 
