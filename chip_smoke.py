@@ -110,7 +110,10 @@ def kernel_us(fn, names: tuple, reps: int = 20):
     """Mean device time (us) of the CUDA kernels whose name contains one
     of ``names`` per call of ``fn()`` (``("",)``: every kernel), from a
     ``torch.profiler`` trace of ``reps`` calls (CUPTI); None when the
-    trace holds no such kernel."""
+    trace holds no such kernel. A trace on the card can lose kernel
+    records (3 of 20 once), so each kernel counts its mean over the
+    records kept times its launches a call: records over ``reps``,
+    rounded, for a kernel in at least every other call, else unrounded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -121,26 +124,52 @@ def kernel_us(fn, names: tuple, reps: int = 20):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-    return total / reps if total > 0 else None
+        t = getattr(ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0.0))
+        if any(n in ev.key for n in names) and t > 0 and ev.count:
+            per_call = ev.count / reps
+            total += t / ev.count * (round(per_call) if per_call >= 0.5
+                                     else per_call)
+    return total if total > 0 else None
 
 
-def kernels_per_call(fn, reps: int = 5) -> float:
-    """CUDA kernels launched per call of ``fn()``, counted in a
-    ``torch.profiler`` trace of ``reps`` calls."""
+def kernels_per_call(fn, name: str, launches, reps: int = 5):
+    """(CUDA kernels launched per call of ``fn()``, traces taken), counted
+    in a ``torch.profiler`` trace of ``reps`` calls between two spin
+    kernels (``torch.cuda._sleep``) that are not counted. A trace is
+    accepted when its kernels a call are a whole number and its count of
+    the kernel ``name`` equals the wrapper's own launch counter
+    (``launches()``) over the same calls: a trace on the card now and
+    then loses a kernel record (1 of 8 traces in a probe; two in a row
+    once), so up to 4 traces are taken, and none that agrees fails the
+    phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0)) > 0) / reps
+    seen = []
+    for traces in range(1, 5):
+        n0 = launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(2000)
+            torch.cuda.synchronize()
+        counted = (launches() - n0) / reps
+        kernels = [ev for ev in prof.key_averages()
+                   if "spin_kernel" not in ev.key
+                   and getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total", 0.0)) > 0]
+        total = sum(ev.count for ev in kernels) / reps
+        named = sum(ev.count for ev in kernels if name in ev.key) / reps
+        if total == int(total) and named == counted:
+            return total, traces
+        seen.append(dict(kernels=total, named=named, counter=counted))
+    raise AssertionError(f"{name}: no trace of 4 agreed with the launch "
+                         f"counter: {seen}")
 
 
 def ptxas_resources(source: str) -> dict:
@@ -153,10 +182,12 @@ def ptxas_resources(source: str) -> dict:
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
             name = m.group(2)[:int(m.group(1))]
-            # a kernel template's bool argument (ILb0E / ILb1E)
-            flag = m.group(2)[int(m.group(1)):]
-            if flag.startswith("ILb"):
-                name += "<true>" if flag[3] == "1" else "<false>"
+            # a kernel template's int and bool arguments (ILi8ELb1EE)
+            t = re.match(r"I((?:L[ib]\d+E)+)E", m.group(2)[int(m.group(1)):])
+            if t:
+                name += "<" + ", ".join(
+                    v if k == "i" else ("true" if v == "1" else "false")
+                    for k, v in re.findall(r"L([ib])(\d+)E", t.group(1))) + ">"
             res[name] = {"registers": None, "spill_stores": 0,
                          "spill_loads": 0}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -294,7 +325,9 @@ def phase_build():
 
 
 def _coh_inputs(F: int, per_channel: bool, seed: int = 1):
-    """The coherency kernel's inputs at the full-width path's shapes."""
+    """The coherency kernel's inputs at the full-width path's shapes, the
+    number of gaussians, and the host's channel list (from which the
+    pipeline decides the channel step)."""
     import torch
     from sagecal_tpu_torch.io import dataset as ds
     from sagecal_tpu_torch.ops import coh as coh_ops
@@ -313,48 +346,228 @@ def _coh_inputs(F: int, per_channel: bool, seed: int = 1):
     u, v, w, _, _ = ds.uvw_tracks(xyz, DEC0, ha)
     t = lambda a: torch.as_tensor((a / ds.C_M_S).reshape(-1),
                                   dtype=torch.float32, device=dev)
-    freqs = torch.as_tensor(FREQS[:F] if F > 1 else [150e6],
-                            dtype=torch.float32, device=dev)
+    fl = FREQS[:F] if F > 1 else np.array([150e6])
+    freqs = torch.as_tensor(fl, dtype=torch.float32, device=dev)
     uvw3 = torch.stack([t(u), t(v), t(w)])
     geom = torch.stack([dsky.ll, dsky.mm, dsky.nn], dim=1)
     flux = coh_ops.stokes_weights(dsky, freqs, per_channel)
     gauss = coh_ops.gauss_coeffs(dsky)
     fdelta = 0.18e6 * (8 if F == 1 else 1)
     n_gauss = int((sky.stype == skymodel.STYPE_GAUSSIAN).sum())
-    return (uvw3, geom, flux, gauss, freqs, fdelta), n_gauss
+    return (uvw3, geom, flux, gauss, freqs, fdelta), n_gauss, fl
+
+
+#: edge shapes of the coh phase: (tag, channels F, sources S, source
+#: kinds, channel spacing), at M = 3 clusters and B = 1000 rows (not a
+#: multiple of the kernel's 256-row block). F = 17 takes three channel
+#: tiles (6, 6, 5), S = 130 crosses the 128-source shared-memory chunk.
+COH_EDGES = (("F1", 1, 64, "mixed", "even"), ("F3", 3, 64, "mixed", "even"),
+             ("F8", 8, 64, "mixed", "even"),
+             ("F17", 17, 64, "mixed", "even"),
+             ("S1", 8, 1, "mixed", "even"), ("S130", 8, 130, "mixed", "even"),
+             ("points", 8, 64, "point", "even"),
+             ("gaussians", 8, 64, "gauss", "even"),
+             ("uneven", 8, 64, "mixed", "uneven"),
+             ("F17_S130_uneven", 17, 130, "mixed", "uneven"))
+
+
+def _coh_edge_inputs(F: int, S: int, kind: str, spacing: str,
+                     seed: int = 11, M: int = 3, B: int = 1000):
+    """Coherency kernel inputs at an edge shape, at the full-width path's
+    phase magnitudes: B rows of the 62-station tracks (the longest
+    baseline among them), clusters of S sources ~0.004 around centres
+    ~0.03 from the phase centre, Stokes weights with a -0.7 spectral
+    index, gaussian projection and shape coefficients on the sources
+    ``kind`` marks (every source, none, or every fourth). Returns (args,
+    number of gaussians, the host's channel list)."""
+    import torch
+    from sagecal_tpu_torch.io import dataset as ds
+    rng = np.random.default_rng(seed)
+    xyz = ds.random_array(N_STATIONS, seed=1)
+    ha = np.linspace(0.0, ds.OMEGA_E * 10.0 * TILESZ, TILESZ, endpoint=False)
+    u, v, w, _, _ = ds.uvw_tracks(xyz, DEC0, ha)
+    u, v, w = (a.reshape(-1) / ds.C_M_S for a in (u, v, w))
+    rows = rng.choice(u.size, B, replace=False)
+    rows[0] = np.argmax(u * u + v * v)
+    uvw3 = np.stack([u[rows], v[rows], w[rows]])
+    lm = rng.normal(0, 0.03, (M, 2, 1)) + rng.normal(0, 0.004, (M, 2, S))
+    n = np.sqrt(1 - (lm ** 2).sum(1)) - 1
+    geom = np.concatenate([lm, n[:, None]], axis=1)
+    if spacing == "even":
+        fl = 150e6 + 0.18e6 * (np.arange(F) - (F - 1) / 2)
+    else:
+        fl = 149e6 + np.cumsum(np.round(rng.uniform(0.1e6, 0.3e6, F), -3))
+    sI = rng.uniform(0.2, 2.0, (M, 1, S)) * (fl[:, None] / 150e6) ** -0.7
+    sQ, sU, sV = (rng.uniform(-0.1, 0.1, (M, 1, S)) for _ in range(3))
+    flux = np.stack(np.broadcast_arrays(sI + sQ, sI - sQ, sU, sV), axis=2)
+    xi, phi, eP = (rng.uniform(0, np.pi, (M, S)) for _ in range(3))
+    eX = 2 * rng.uniform(1e-4, 4e-4, (M, S))
+    eY = 2 * rng.uniform(5e-5, 2e-4, (M, S))
+    isg = {"point": np.zeros((M, S)), "gauss": np.ones((M, S)),
+           "mixed": (np.arange(S) % 4 == 0) * np.ones((M, S))}[kind]
+    gauss = np.stack([np.cos(xi), -np.cos(phi) * np.sin(xi),
+                      np.sin(phi) * np.sin(xi), np.sin(xi),
+                      np.cos(phi) * np.cos(xi), -np.sin(phi) * np.cos(xi),
+                      eX * np.cos(eP), -eX * np.sin(eP), eY * np.sin(eP),
+                      eY * np.cos(eP), isg], axis=1)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    args = (f32(uvw3), f32(geom), f32(flux), f32(gauss), f32(fl),
+            0.18e6 * (8 if F == 1 else 1))
+    return args, int(isg.sum()), fl
+
+
+def _coh_random_inputs(F: int, S: int, seed: int = 0, M: int = 3,
+                       B: int = 1000):
+    """Coherency kernel inputs of random geometry: uvw of ~1e-5 s (up to
+    ~12 km; phases up to ~4e3 rad), sources ~0.03 from the phase centre,
+    random fluxes and gaussian coefficients, about half the sources
+    gaussians, channels 1 MHz apart from 150 MHz. Returns (args, number
+    of gaussians, the host's channel list)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    uvw3 = rng.normal(0, 1e-5, (3, B))
+    geom = np.stack([rng.normal(0, 0.03, (M, S)),
+                     rng.normal(0, 0.03, (M, S)),
+                     -rng.random((M, S)) * 1e-3], axis=1)
+    flux = rng.random((M, F, 4, S))
+    gauss = rng.normal(0, 1e-3, (M, 11, S))
+    gauss[:, 10] = rng.random((M, S)) > 0.5
+    fl = 150e6 + 1e6 * np.arange(F)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    args = (f32(uvw3), f32(geom), f32(flux), f32(gauss), f32(fl), 0.18e6)
+    return args, int(gauss[:, 10].sum()), fl
+
+
+#: random-geometry cases of the coh phase: (tag, F, S, held to the plain
+#: version). With one source an output carries its float32 phase
+#: roundoff undiluted, and at ~4e3 rad kernel against plain measures the
+#: plain version's own roundoff: that case is held to float64 alone.
+COH_RANDOM = (("random_uvw", 4, 20, True), ("random_uvw_S1", 8, 1, False))
+
+
+def _coh_check(tag, args, step, vs_plain: bool = True):
+    """The coherency kernel against its plain version on ``args``, twice
+    (one launch a call, bitwise equal), and both against the plain
+    version in float64 on the card as the truth: the kernel's error
+    there may be at most 2x the float32 plain version's (a change of
+    formulation moves float32 roundoff in a phase of 1e3 rad).
+    ``vs_plain`` False leaves out only the kernel-against-plain gate
+    (COH_RANDOM). Returns (max |diff|, relative error, the kernel's and
+    the float32 plain's error against float64)."""
+    import torch
+    from sagecal_tpu_torch.ops import coh as coh_ops
+    n0 = coh_ops.LAUNCHES
+    got = coh_ops.coherencies_points(*args, step=step)
+    again = coh_ops.coherencies_points(*args, step=step)
+    torch.cuda.synchronize()
+    if coh_ops.LAUNCHES != n0 + 2:
+        raise AssertionError(f"coh {tag}: the wrapper did not launch once "
+                             "a call")
+    if not torch.equal(got, again):
+        raise AssertionError(f"coh {tag}: two calls differ")
+    ref = coh_ops.coherencies_points_plain(*args)
+    abs_err, rel = rel_err(got, ref)
+    if vs_plain and not rel <= KERNEL_RTOL:
+        raise AssertionError(f"coh kernel {tag}: max|diff|/max|ref| = "
+                             f"{rel:.3e} > {KERNEL_RTOL}")
+    truth = coh_ops.coherencies_points_plain(
+        *(a.double() for a in args[:5]), args[5])
+    err_kernel = rel_err(got.double(), truth)[1]
+    err_plain = rel_err(ref.double(), truth)[1]
+    del truth
+    if not err_kernel <= 2 * err_plain:
+        raise AssertionError(f"coh kernel {tag}: error against float64 "
+                             f"{err_kernel:.3e} > 2x the float32 plain "
+                             f"version's {err_plain:.3e}")
+    return abs_err, rel, err_kernel, err_plain
 
 
 def phase_coh():
+    """The coherency kernel against its plain version (and both against
+    float64) at the full-width path's shapes, the solve (F = 1) and the
+    residual (F = 8, evenly spaced channels: the phasor recurrence; also
+    timed and checked with the per-channel sincos the kernel takes for
+    uneven channels), then at the edge shapes and on random geometry
+    (COH_RANDOM); one kernel a call by a ``torch.profiler`` count that
+    agrees with the wrapper's launch counter."""
     from sagecal_tpu_torch.ops import coh as coh_ops
     out = {}
+    ptxas = ptxas_resources("coh")
     for F, per_channel, call in ((1, False, "solve"), (8, True, "residual")):
-        args, n_gauss = _coh_inputs(F, per_channel)
+        args, n_gauss, fl = _coh_inputs(F, per_channel)
+        step = coh_ops.channel_step(fl)
         uvw3, geom, flux, gauss, freqs, _ = args
         M, _, S = geom.shape
         B = uvw3.shape[1]
-        got = coh_ops.coherencies_points(*args)
-        ref = coh_ops.coherencies_points_plain(*args)
-        abs_err, rel = rel_err(got, ref)
-        if not rel <= KERNEL_RTOL:
-            raise AssertionError(f"coh kernel F={F}: max|diff|/max|ref| = "
-                                 f"{rel:.3e} > {KERNEL_RTOL}")
-        ms = cuda_ms(lambda: coh_ops.coherencies_points(*args), 20)
-        dev_ms = device_ms(lambda: coh_ops.coherencies_points(*args), 50)
-        k_us = kernel_us(lambda: coh_ops.coherencies_points(*args),
-                         ("coh_points",))
+        abs_err, rel, err_kernel, err_plain = _coh_check(call, args, step)
+        fn = lambda: coh_ops.coherencies_points(*args, step=step)
+        ms = cuda_ms(fn, 20)
+        dev_ms = device_ms(fn, 50)
+        k_us = kernel_us(fn, ("coh_points",))
+        if k_us is None:
+            raise AssertionError(f"coh {call}: the profiler found no "
+                                 "coh_points kernel")
+        n_kernels, traces = kernels_per_call(fn, "coh_points",
+                                             lambda: coh_ops.LAUNCHES)
+        if n_kernels != 1:
+            raise AssertionError(f"coh {call}: {n_kernels} kernels a call")
         plain_ms = cuda_ms(lambda: coh_ops.coherencies_points_plain(*args), 3)
-        n_ops = (M * F * B * (coh_ops.COH_OPS_PER_TERM * S)
-                 + F * B * coh_ops.COH_OPS_PER_GAUSS * n_gauss)
+        n_ops = coh_ops.op_count(M, F, B, S, n_gauss)
         n_bytes = 4 * (uvw3.numel() + geom.numel() + flux.numel()
                        + gauss.numel() + F + M * B * F * 8)
         bms, by = bound_ms(n_bytes, n_ops)
         rec = dict(call=call, M=M, F=F, B=B, S=S, n_gauss=n_gauss,
-                   max_abs_err=abs_err, rel_err=rel, ms=ms, device_ms=dev_ms,
-                   kernel_us=k_us, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=None,
-                   kernel_bound_share=k_us and bms / (k_us / 1e3))
+                   step=step, max_abs_err=abs_err, rel_err=rel,
+                   f64_err_kernel=err_kernel, f64_err_plain_f32=err_plain,
+                   ms=ms, device_ms=dev_ms, kernel_us=k_us,
+                   kernels_per_call=n_kernels, kernel_traces=traces,
+                   plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=None,
+                   kernel_bound_share=bms / (k_us / 1e3),
+                   geometry=coh_ops.coh_geometry(F, B)._asdict(),
+                   deterministic=True, ptxas=ptxas)
+        if step is not None:
+            # the same call by per-channel sincos (the uneven route)
+            _, t_rel, t_err, _ = _coh_check(call + "_sincos", args, None)
+            t_us = kernel_us(lambda: coh_ops.coherencies_points(*args),
+                             ("coh_points",))
+            if t_us is None:
+                raise AssertionError(f"coh {call}: the profiler found no "
+                                     "coh_points kernel (sincos)")
+            rec.update(sincos_kernel_us=t_us, sincos_rel_err=t_rel,
+                       sincos_f64_err_kernel=t_err)
         emit("coh", **rec)
         out[call] = rec
+    cases = [(tag, F, S, _coh_edge_inputs, (F, S, kind, spacing),
+              spacing == "uneven", True)
+             for tag, F, S, kind, spacing in COH_EDGES]
+    cases += [(tag, F, S, _coh_random_inputs, (F, S), False, vs_plain)
+              for tag, F, S, vs_plain in COH_RANDOM]
+    for tag, F, S, make, shape, uneven, vs_plain in cases:
+        args, n_gauss, fl = make(*shape)
+        step = coh_ops.channel_step(fl)
+        if (step is None) != (uneven or F == 1):
+            raise AssertionError(f"coh {tag}: channel_step gave {step}")
+        abs_err, rel, err_kernel, err_plain = _coh_check(tag, args, step,
+                                                         vs_plain)
+        n_kernels, traces = kernels_per_call(
+            lambda: coh_ops.coherencies_points(*args, step=step),
+            "coh_points", lambda: coh_ops.LAUNCHES)
+        if n_kernels != 1:
+            raise AssertionError(f"coh {tag}: {n_kernels} kernels a call")
+        rec = dict(tag=tag, F=F, S=S, B=args[0].shape[1],
+                   M=args[1].shape[0], n_gauss=n_gauss, step=step,
+                   max_abs_err=abs_err, rel_err=rel, vs_plain=vs_plain,
+                   f64_err_kernel=err_kernel, f64_err_plain_f32=err_plain,
+                   kernels_per_call=n_kernels, kernel_traces=traces,
+                   deterministic=True)
+        if step is not None:
+            # the same inputs by per-channel sincos (the uneven route)
+            _, t_rel, t_err, _ = _coh_check(tag + "_sincos", args, None,
+                                            vs_plain)
+            rec.update(sincos_rel_err=t_rel, sincos_f64_err_kernel=t_err)
+        emit("coh_edge", **rec)
+        out[tag] = dict(max_abs_err=abs_err)
     return out
 
 
@@ -445,7 +658,9 @@ def phase_sweep():
         ms = cuda_ms(lambda: swp.sweep_blocks(*args), 50)
         dev_ms = device_ms(lambda: swp.sweep_blocks(*args))
         k_us = kernel_us(lambda: swp.sweep_blocks(*args), ("sweep_cluster",))
-        n_kernels = kernels_per_call(lambda: swp.sweep_blocks(*args))
+        n_kernels, traces = kernels_per_call(
+            lambda: swp.sweep_blocks(*args), "sweep_cluster",
+            lambda: swp.LAUNCHES)
         if n_kernels != 1:
             raise AssertionError(f"sweep K={K}: {n_kernels} kernels a call")
         s1b, s2b = sta1[:nb], sta2[:nb]
@@ -467,7 +682,7 @@ def phase_sweep():
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=None, bound_share=bms / dev_ms,
                    kernel_bound_share=k_us and bms / (k_us / 1e3),
-                   kernels_per_call=n_kernels,
+                   kernels_per_call=n_kernels, kernel_traces=traces,
                    geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
                                  times=geo.times),
                    deterministic=True, ptxas=ptxas)
@@ -723,7 +938,8 @@ def phase_visits():
             ms = cuda_ms(call, 50)
             dev_ms = device_ms(call)
             k_us = kernel_us(call, ("sweep_cluster",))
-            n_kernels = kernels_per_call(call)
+            n_kernels, traces = kernels_per_call(
+                call, "sweep_cluster", lambda: swp.VISITS_LAUNCHES)
             if n_kernels != 1:
                 raise AssertionError(f"visits K={K}: {n_kernels} kernels a "
                                      "call")
@@ -745,7 +961,8 @@ def phase_visits():
             rec = dict(V=V, K=K, T=TILESZ, nb=nb, batched_wt=batched_wt,
                        rel_err=errs, max_abs_err=abs_err, ms=ms, call_ms=ms,
                        device_ms=dev_ms, kernel_us=k_us,
-                       kernels_per_call=n_kernels, serial_ms=serial_ms,
+                       kernels_per_call=n_kernels, kernel_traces=traces,
+                       serial_ms=serial_ms,
                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                        library_ms=None, bound_share=bms / dev_ms,
                        kernel_bound_share=k_us and bms / (k_us / 1e3),
@@ -1042,10 +1259,15 @@ def main() -> int:
              bound_by=coh["residual"]["bound_by"], library_ms=None,
              device_ms=coh["residual"]["device_ms"],
              kernel_us=coh["residual"]["kernel_us"],
+             kernel_bound_share=coh["residual"]["kernel_bound_share"],
+             sincos_kernel_us=coh["residual"]["sincos_kernel_us"],
+             f64_err_kernel=coh["residual"]["f64_err_kernel"],
+             f64_err_plain_f32=coh["residual"]["f64_err_plain_f32"],
              device_ms_f1=coh["solve"]["device_ms"],
              kernel_us_f1=coh["solve"]["kernel_us"],
              call_ms_f1=coh["solve"]["ms"],
-             registers=ptxas_resources("coh")),
+             bound_ms_f1=coh["solve"]["bound_ms"],
+             registers=coh["solve"]["ptxas"]),
         dict(name="sweep_blocks", route="cuda",
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:395",

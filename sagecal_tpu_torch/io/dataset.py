@@ -160,7 +160,7 @@ def simulate_dataset(sky_arrays, n_stations: int, tilesz: int,
     dev = sky_arrays.ll.device
     rdt = sky_arrays.ll.dtype
     t = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
-    coh = rp.coherencies(sky_arrays, t(us), t(vs), t(ws), t(freqs),
+    coh = rp.coherencies(sky_arrays, t(us), t(vs), t(ws), freqs,
                          fdelta_chan, per_channel_flux=True)
     M = coh.shape[0]
     if nchunk is None:

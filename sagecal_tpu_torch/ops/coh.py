@@ -8,10 +8,14 @@ CUDA tensor it launches the hand-written kernel in ``csrc/coh.cu``
 version :func:`coherencies_points_plain`, the [S, B] broadcast of the
 same maths, in the tensors' own dtype (float64 in the tests).
 
-What bounds the kernel on the card is arithmetic: ~40 float32
-operations per (cluster, channel, row, source) term, ~65 for a gaussian,
-with a sincos, a sin, a division and an exp on the slow transcendental
-path (:data:`COH_OPS_PER_TERM`); the design notes are in ``csrc/coh.cu``.
+What bounds the kernel on the card is instruction issue; the function's
+own operation count, the yardstick of its bound, splits into work per
+(cluster, row, source) and work per (cluster, channel, row, source)
+(:data:`COH_OPS_PER_SOURCE_ROW`, :data:`COH_OPS_PER_TERM`). The kernel
+does the first once per row and source and the second per channel of a
+tile (:func:`coh_geometry`); where the channels are evenly spaced
+(:func:`channel_step`, decided on the host) each next channel's phasor
+is a rotation of the last. The design notes are in ``csrc/coh.cu``.
 
 The spectral scaling (:func:`stokes_weights`) and the gaussian
 coefficients (:func:`gauss_coeffs`) stay PyTorch ops outside the kernel,
@@ -21,6 +25,7 @@ as they stay XLA in the JAX package.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,13 +35,27 @@ from sagecal_tpu_torch.ops import cuda_lib
 
 TWO_PI = 2.0 * math.pi
 
-#: float32 operations per (cluster, channel, row, source) term, counted
-#: from the kernel body: phase geometry 7, phase 1, smearing argument 1,
-#: |sin(x)/x| 3, sincos 2, weighting 2, the eight Stokes-weighted sums 24
-COH_OPS_PER_TERM = 40
-#: extra operations of a gaussian term (projection 10, shape 8, envelope
-#: exponent 3, exp 1, scale 2, product 1)
-COH_OPS_PER_GAUSS = 25
+# The function's operations, counted from ``_coh_kernel``'s maths (not
+# from either CUDA kernel), each transcendental (sin, cos, exp) and the
+# division charged 1:
+#: per (cluster, row, source), whatever the channel count: geometry
+#: l u + m v + n w 5, times 2 pi 1, smearing argument 1, |sin(x)/x| 3
+COH_OPS_PER_SOURCE_ROW = 10
+#: per (cluster, channel, row, source): phase 1, sincos 2, smearing times
+#: cos and sin 2, the eight Stokes-weighted sums 24
+COH_OPS_PER_TERM = 29
+#: extra per (cluster, row, gaussian source): projection up, vp 10, shape
+#: rotation 6, q = ut^2 + vt^2 (without f) 3
+COH_OPS_PER_GAUSS_ROW = 19
+#: extra per (cluster, channel, row, gaussian source): f^2 q 1, negation
+#: 1, exp 1, times pi/2 1, times the smearing 1
+COH_OPS_PER_GAUSS_TERM = 5
+
+#: the kernel's channel capacities (template instances of csrc/coh.cu):
+#: one channel (the solve), else tiles of up to 8 (the residual)
+COH_FT = (1, 8)
+#: rows per block (csrc/coh.cu COH_THREADS): one thread per row
+COH_ROWS = 256
 
 #: kernel launches since the last reset (the plain version never counts)
 LAUNCHES = 0
@@ -47,26 +66,72 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
+def op_count(M: int, F: int, B: int, S: int, n_gauss: int) -> int:
+    """The function's operations for M clusters of S sources (``n_gauss``
+    gaussians over all clusters), F channels and B rows: the yardstick of
+    the kernel's operation bound."""
+    return B * (M * S * (COH_OPS_PER_SOURCE_ROW + F * COH_OPS_PER_TERM)
+                + n_gauss * (COH_OPS_PER_GAUSS_ROW
+                             + F * COH_OPS_PER_GAUSS_TERM))
+
+
+class CohGeometry(NamedTuple):
+    """The coherency kernel's launch: ``ft`` its channel capacity (a
+    template instance), ``tile`` channels per tile, grid (``row_blocks``,
+    ``n_tiles``, M) of ``COH_ROWS`` threads, one per row."""
+    ft: int
+    tile: int
+    n_tiles: int
+    row_blocks: int
+
+
+def coh_geometry(F: int, B: int) -> CohGeometry:
+    """Channel tiles of at most 8 channels, as even as the count allows
+    (17 -> 6, 6, 5), and one thread per row; a tile of 2..7 channels runs
+    the 8-channel instance with its last slots idle."""
+    n_tiles = -(-F // COH_FT[-1])
+    tile = -(-F // n_tiles)
+    ft = next(c for c in COH_FT if c >= tile)
+    return CohGeometry(ft, tile, n_tiles, -(-B // COH_ROWS))
+
+
+def channel_step(freqs) -> float | None:
+    """The channel spacing of a host channel list when it is even (to
+    1e-8 of the highest channel, far below a float32 ulp), else None (a
+    single channel is None too). The kernel then rotates each channel's
+    phasor from the last instead of taking a sincos; the decision is made
+    here, from the list the pipeline holds, never by reading the
+    device."""
+    f = np.atleast_1d(np.asarray(freqs, dtype=np.float64))
+    if f.size < 2:
+        return None
+    step = (f[-1] - f[0]) / (f.size - 1)
+    even = f[0] + step * np.arange(f.size)
+    if step == 0 or np.max(np.abs(f - even)) > 1e-8 * np.max(np.abs(f)):
+        return None
+    return float(step)
+
+
 def stokes_weights(sky, freqs, per_channel_flux: bool):
     """[M, F, 4, S] (I+Q, I-Q, U, V) channel flux weights; padded
-    sources get zero weight."""
+    sources get zero weight. One broadcast over the channels (the JAX
+    version's ``vmap``)."""
     from sagecal_tpu_torch.rime import predict as rp
     freqs = torch.atleast_1d(freqs)
-    z = sky.smask.to(sky.ll.dtype)
-    out = []
-    for fi in range(freqs.shape[0]):
-        if per_channel_flux:
-            args = (sky.spec_idx, sky.spec_idx1, sky.spec_idx2, sky.f0,
-                    freqs[fi])
-            sI = rp._spectral_flux(sky.sI0, *args)
-            sQ = rp._spectral_flux(sky.sQ0, *args)
-            sU = rp._spectral_flux(sky.sU0, *args)
-            sV = rp._spectral_flux(sky.sV0, *args)
-        else:
-            sI, sQ, sU, sV = sky.sI, sky.sQ, sky.sU, sky.sV
-        out.append(torch.stack([(sI + sQ) * z, (sI - sQ) * z, sU * z,
-                                sV * z], dim=1))          # [M, 4, S]
-    return torch.stack(out, dim=1)                        # [M, F, 4, S]
+    z = sky.smask.to(sky.ll.dtype)[:, None]                # [M, 1, S]
+    if per_channel_flux:
+        args = (sky.spec_idx[:, None], sky.spec_idx1[:, None],
+                sky.spec_idx2[:, None], sky.f0[:, None], freqs[:, None])
+        sI, sQ, sU, sV = (rp._spectral_flux(s0[:, None], *args)
+                          for s0 in (sky.sI0, sky.sQ0, sky.sU0, sky.sV0))
+    else:
+        sI, sQ, sU, sV = (s[:, None] for s in (sky.sI, sky.sQ, sky.sU,
+                                               sky.sV))
+    F = freqs.shape[0]
+    return torch.stack([((sI + sQ) * z).expand(-1, F, -1),
+                        ((sI - sQ) * z).expand(-1, F, -1),
+                        (sU * z).expand(-1, F, -1),
+                        (sV * z).expand(-1, F, -1)], dim=2)  # [M, F, 4, S]
 
 
 def gauss_coeffs(sky):
@@ -143,11 +208,16 @@ def coherencies_points_plain(uvw3, geom, flux, gauss, freqs, fdelta):
     return out
 
 
-def coherencies_points(uvw3, geom, flux, gauss, freqs, fdelta):
+def coherencies_points(uvw3, geom, flux, gauss, freqs, fdelta,
+                       step: float | None = None):
     """All-cluster point/gaussian coherencies as [M, B, F, 8] reals.
 
     uvw3 [3, B] seconds; geom [M, 3, S]; flux [M, F, 4, S]; gauss
     [M, 11, S]; freqs [F]; fdelta the per-channel smearing bandwidth.
+    ``step`` is :func:`channel_step` of the host list ``freqs`` was
+    uploaded from (None for per-channel phasors): the kernel then takes
+    each next channel's phasor from the step and not from ``freqs``, so
+    the two must come from one list, as :func:`coherencies` makes them.
     A CUDA tensor launches the kernel (float32 only); a CPU tensor runs
     the plain version."""
     if uvw3.device.type != "cuda":
@@ -168,11 +238,14 @@ def coherencies_points(uvw3, geom, flux, gauss, freqs, fdelta):
         raise ValueError(f"coh kernel: shape mismatch geom {geom.shape}, "
                          f"flux {flux.shape}, gauss {gauss.shape}")
     out = torch.empty((M, B, F, 8), dtype=torch.float32, device=uvw3.device)
+    geo = coh_geometry(F, B)
+    recur = step is not None and F > 1
     lib = cuda_lib.load("coh")
     rc = lib.coh_points_launch(
         uvw3.data_ptr(), geom.data_ptr(), flux.data_ptr(), gauss.data_ptr(),
-        freqs.data_ptr(), float(fdelta), out.data_ptr(), M, F, B, S,
-        cuda_lib.stream_ptr(uvw3.device))
+        freqs.data_ptr(), float(fdelta), float(step) if recur else 0.0,
+        out.data_ptr(), M, F, B, S, geo.ft, geo.tile, geo.n_tiles,
+        geo.row_blocks, int(recur), cuda_lib.stream_ptr(uvw3.device))
     cuda_lib.check(rc, "coh_points_kernel")
     LAUNCHES += 1
     return out
@@ -180,13 +253,24 @@ def coherencies_points(uvw3, geom, flux, gauss, freqs, fdelta):
 
 def coherencies(sky, u, v, w, freqs, fdelta, per_channel_flux: bool = False):
     """Drop-in for ``rime.predict.coherencies`` on point/gaussian
-    models: [M, B, F, 2, 2] complex."""
+    models: [M, B, F, 2, 2] complex.
+
+    ``freqs`` is the host's channel list (a numpy array, a sequence or a
+    CPU tensor): it is uploaded to ``u``'s device here, and the channel
+    step the kernel rotates phasors by is decided from the same list
+    (:func:`channel_step`), never by reading the device."""
+    if torch.is_tensor(freqs):
+        if freqs.device.type != "cpu":
+            raise TypeError("coherencies: the channel list must be on the "
+                            f"host, not on {freqs.device}")
+        freqs = freqs.numpy()
+    fl = np.atleast_1d(np.asarray(freqs))
+    freqs = torch.as_tensor(fl, dtype=u.dtype, device=u.device)
     uvw3 = torch.stack([u, v, w], dim=0)
     geom = torch.stack([sky.ll, sky.mm, sky.nn], dim=1)     # [M, 3, S]
-    freqs = torch.atleast_1d(freqs)
     flux = stokes_weights(sky, freqs, per_channel_flux)
     out = coherencies_points(uvw3, geom, flux, gauss_coeffs(sky), freqs,
-                             fdelta)
+                             fdelta, step=channel_step(fl))
     M, B, F = out.shape[:3]
     return torch.view_as_complex(out.view(M, B, F, 4, 2)).view(
         M, B, F, 2, 2)

@@ -38,9 +38,11 @@ _L = ctypes.c_longlong
 # C signatures: every launch returns cudaGetLastError() as an int
 SIGNATURES = {
     "coh": {
-        # uvw3, geom, flux, gauss, freqs, fdelta, out, M, F, B, S, stream
-        "coh_points_launch": [_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
-                              _P],
+        # uvw3, geom, flux, gauss, freqs, fdelta, step, out, M, F, B, S,
+        # the geometry ft, tile, n_tiles, row_blocks (ops/coh.py:
+        # coh_geometry), recur, stream
+        "coh_points_launch": [_P, _P, _P, _P, _P, _F, _F, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P],
     },
     "sweep": {
         # x, w, cw, cid, coh, J, s1, s2, out, cost, tile costs, ticket,

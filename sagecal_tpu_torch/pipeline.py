@@ -167,7 +167,7 @@ class FullBatchPipeline:
         numpy, info)."""
         meta = self.meta
         coh = rp.coherencies(self.dsky, stg["u"], stg["v"], stg["w"],
-                             self._t([meta["freq0"]]), meta["fdelta"])[:, :, 0]
+                             [meta["freq0"]], meta["fdelta"])[:, :, 0]
         cdt = devmod.complex_dtype(self.rdt)
         J0t = torch.as_tensor(J0, device=self.device).to(cdt)
         scfg = self.base_cfg._replace(
@@ -181,12 +181,11 @@ class FullBatchPipeline:
     def residuals(self, J: np.ndarray, tile: ds.VisTile, stg: dict):
         """[B, F, 2, 2] complex128 residual of every channel."""
         meta = self.meta
-        freqs = self._t(meta["freqs"])
         cdt = devmod.complex_dtype(self.rdt)
         res = rr.calculate_residuals_multifreq(
             self.dsky, torch.as_tensor(J, device=self.device).to(cdt),
             torch.as_tensor(tile.x, device=self.device).to(cdt),
-            stg["u"], stg["v"], stg["w"], freqs,
+            stg["u"], stg["v"], stg["w"], meta["freqs"],
             meta["fdelta"] / len(meta["freqs"]), stg["sta1"], stg["sta2"],
             self.cidx, self.sub_mask, correct_idx=self.correct_idx,
             rho=self.cfg.mmse_rho)

@@ -86,8 +86,9 @@ def coherencies(sky: SkyArrays, u, v, w, freqs, fdelta,
                 per_channel_flux: bool = False):
     """All-cluster coherencies [M, B, F, 2, 2] complex (no Jones).
 
-    ``fdelta`` is the smearing bandwidth per channel. Point and gaussian
-    sources only (the coherency kernel's scope)."""
+    ``freqs`` is the host's channel list (``ops/coh.py:coherencies``
+    uploads it); ``fdelta`` is the smearing bandwidth per channel. Point
+    and gaussian sources only (the coherency kernel's scope)."""
     if not coh_ops.supported(sky):
         raise NotImplementedError(
             "shapelet/disk/ring sources are not ported yet (ROADMAP queue "

@@ -53,7 +53,8 @@ def calculate_residuals_multifreq(sky: rp.SkyArrays, J, x, u, v, w, freqs,
 
     x [B, F, 2, 2]; J [M, Kmax, N, 2, 2]; chunk_idx [M, B];
     subtract_mask [M] bool; ``correct_idx`` the padded index of the
-    cluster whose solutions correct the residual."""
+    cluster whose solutions correct the residual; ``freqs`` the host's
+    channel list (``rime.predict.coherencies``)."""
     coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
                          per_channel_flux=True)
     model = rp.predict_model(coh, J, sta1, sta2, chunk_idx,

@@ -32,24 +32,94 @@ def _close(got, ref):
     return float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
-def test_coh_kernel_matches_plain(card):
-    rng = np.random.default_rng(0)
-    M, S, B, F = 3, 20, 1000, 4
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
-    uvw3 = f32(rng.normal(0, 1e-5, (3, B)))
-    geom = f32(np.stack([rng.normal(0, 0.03, (M, S)),
-                         rng.normal(0, 0.03, (M, S)),
-                         -rng.random((M, S)) * 1e-3], axis=1))
-    flux = f32(rng.random((M, F, 4, S)))
-    gauss = f32(rng.normal(0, 1e-3, (M, 11, S)))
-    gauss[:, 10] = f32(rng.random((M, S)) > 0.5)
-    freqs = f32(150e6 + 1e6 * np.arange(F))
+#: the coherency kernel's edge shapes (chip_smoke.py COH_EDGES): channels
+#: F (17: three channel tiles), sources S (130 crosses the 128-source
+#: shared-memory chunk), which sources are gaussians, channel spacing;
+#: and "random", chip_smoke.py's random geometry (COH_RANDOM)
+COH_EDGES = [(1, 64, "mixed", "even"), (3, 64, "mixed", "even"),
+             (8, 64, "mixed", "even"), (17, 64, "mixed", "even"),
+             (8, 1, "mixed", "even"), (8, 130, "mixed", "even"),
+             (8, 64, "point", "even"), (8, 64, "gauss", "even"),
+             (8, 64, "mixed", "uneven"), (17, 130, "mixed", "uneven"),
+             (4, 20, "random", "even")]
+
+
+def _coh_case(F, S, kind, spacing):
+    """chip_smoke.py's coh inputs (run from the repository root): the
+    edge inputs, M = 3 clusters and B = 1000 rows (not a multiple of the
+    256-row block) of the 62-station tracks, a ~3 degree field (phases up
+    to ~1e3 rad); or ("random") random uvw of ~1e-5 s and sources ~0.03
+    from the phase centre (phases up to ~4e3 rad), about half of them
+    gaussians."""
+    import chip_smoke
+    if kind == "random":
+        return chip_smoke._coh_random_inputs(F, S)
+    return chip_smoke._coh_edge_inputs(F, S, kind, spacing)
+
+
+def _coh_errors(args, step):
+    """Two kernel calls (one launch each, bitwise equal), the float32
+    plain version, and the errors of both against the plain version in
+    float64: (kernel, plain, kernel's error, plain's error)."""
     n0 = tcoh.LAUNCHES
-    got = tcoh.coherencies_points(uvw3, geom, flux, gauss, freqs, 0.18e6)
-    assert tcoh.LAUNCHES == n0 + 1
-    ref = tcoh.coherencies_points_plain(uvw3, geom, flux, gauss, freqs,
-                                        0.18e6)
-    assert got.shape == (M, B, F, 8) and _close(got, ref)
+    got = tcoh.coherencies_points(*args, step=step)
+    again = tcoh.coherencies_points(*args, step=step)
+    torch.cuda.synchronize()
+    assert tcoh.LAUNCHES == n0 + 2
+    assert torch.equal(got, again)
+    ref = tcoh.coherencies_points_plain(*args)
+    truth = tcoh.coherencies_points_plain(*(a.double() for a in args[:5]),
+                                          args[5])
+    err = lambda x: float((x.double() - truth).abs().max()
+                          / truth.abs().max())
+    return got, ref, err(got), err(ref)
+
+
+@pytest.mark.parametrize("F,S,kind,spacing", COH_EDGES)
+def test_coh_kernel_matches_plain(card, F, S, kind, spacing):
+    """One launch a call, two calls bitwise equal, within 1e-4 of the
+    plain version, and against the plain version in float64 at most
+    twice the float32 plain version's error; by the channel step the
+    host finds and, where it finds one, by per-channel sincos too."""
+    args, _, fl = _coh_case(F, S, kind, spacing)
+    step = tcoh.channel_step(fl)
+    assert (step is None) == (spacing == "uneven" or F == 1)
+    M, B = args[1].shape[0], args[0].shape[1]
+    for route in ((None,) if step is None else (step, None)):
+        got, ref, err_kernel, err_plain = _coh_errors(args, route)
+        assert got.shape == (M, B, F, 8) and _close(got, ref)
+        assert err_kernel <= 2 * err_plain
+
+
+def test_coh_kernel_one_source_is_near_float64(card):
+    """chip_smoke.py's random geometry with one source (phases up to ~4e3
+    rad). An output then carries its term's float32 phase roundoff
+    undiluted, and kernel against plain measures the plain version's own
+    roundoff, so this case is held to float64 alone: the kernel's error
+    against the plain version in float64 is at most twice the float32
+    plain version's, by either phasor route."""
+    import chip_smoke
+    args, _, fl = chip_smoke._coh_random_inputs(8, 1)
+    step = tcoh.channel_step(fl)
+    assert step is not None
+    for route in (step, None):
+        got, _, err_kernel, err_plain = _coh_errors(args, route)
+        assert got.shape == (3, 1000, 8, 8)
+        assert err_kernel <= 2 * err_plain
+
+
+def test_coh_launch_refuses_a_geometry_that_misses_a_channel(card,
+                                                             monkeypatch):
+    """The kernel walks the channel tiles the wrapper's geometry gives it,
+    and the launch refuses tiles that leave a channel out."""
+    real = tcoh.coh_geometry
+    monkeypatch.setattr(tcoh, "coh_geometry", lambda F, B: real(F, B)
+                        ._replace(tile=real(F, B).tile - 1))
+    z = torch.zeros((3, 300), device=card)
+    with pytest.raises(RuntimeError, match="coh_points_kernel"):
+        tcoh.coherencies_points(z, z.new_zeros((1, 3, 2)),
+                                z.new_zeros((1, 8, 4, 2)),
+                                z.new_zeros((1, 11, 2)), z.new_zeros(8), 1.0)
 
 
 def test_coh_kernel_refuses_float64(card):

@@ -1,18 +1,22 @@
-"""Sweep, multi-visit sweep and matvec kernel times of two checkouts of
-the port on one card.
+"""Coherency, sweep, multi-visit sweep and matvec kernel times of two
+checkouts of the port on one card.
 
     python3 tools_dev/torch_ab_kernels.py --trees A B [--rounds 1]
-        [--reps 200] [--out FILE]
+        [--reps 200] [--kernels coh sweep visits matvec] [--out FILE]
 
-Times the fused sweep (``sweep_blocks``), the multi-visit sweep
-(``sweep_blocks_visits`` at V = 4 visits, the weights shared and per
-visit, beside the four serial ``sweep_blocks`` calls it replaces) and
-the blocks matvec at the full-width path's shapes (62 stations, nb =
-1891 baselines, 120 timeslots; K = 1 and 4 chunks, the matvec with a
-shift) in each checkout, in the order A B B A (``--rounds`` times), each run in a fresh
-process with the checkout first on ``sys.path`` (so its kernels build
-from its own sources into its own ``build/torch_kernels/``). The inputs,
-timers and compiler-report reader are this tool's own checkout's
+Times the coherency kernel (``coherencies_points`` at chip_smoke.py's
+full-width inputs: the solve at F = 1 and the residual at F = 8, the
+latter with the channel step where the checkout takes one, and again
+without it as ``residual_sincos``), the fused sweep (``sweep_blocks``),
+the multi-visit sweep (``sweep_blocks_visits`` at V = 4 visits, the
+weights shared and per visit, beside the four serial ``sweep_blocks``
+calls it replaces) and the blocks matvec at the full-width path's shapes
+(62 stations, nb = 1891 baselines, 120 timeslots; K = 1 and 4 chunks,
+the matvec with a shift) in each checkout, in the order A B B A
+(``--rounds`` times), each run in a fresh process with the checkout
+first on ``sys.path`` (so its kernels build from its own sources into
+its own ``build/torch_kernels/``). The inputs, timers and
+compiler-report reader are this tool's own checkout's
 (``chip_smoke.py``), from fixed seeds, the same for both checkouts. Per
 kernel and K it reports
 
@@ -22,8 +26,8 @@ kernel and K it reports
 - ``call_ms``: the median CUDA-event time of one call after a
   synchronize (what a solver loop that reads the device pays);
 - ``kernel_us``: the device time per call of the checkout's own
-  sweep or matvec kernels, and ``all_kernels_us`` that of every kernel
-  the call launches (gathers, copies, sums; the multi-visit route's
+  coherency, sweep or matvec kernels, and ``all_kernels_us`` that of
+  every kernel the call launches (gathers, copies, sums; the multi-visit route's
   kernels have other names in other checkouts, so read this one there),
   from a ``torch.profiler`` trace of 20 calls;
 - the registers and spills of the checkout's kernels (``nvcc -Xptxas
@@ -47,10 +51,12 @@ import sys
 #: run in the child, with the checkout first on sys.path; the timing and
 #: input helpers are those of this tool's own checkout (its chip_smoke.py)
 CHILD = r"""
-import importlib.util, json, sys
+import importlib.util, inspect, json, sys
 root, reps, here = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+kernels = sys.argv[4].split(",")
 sys.path.insert(0, root)
 import torch
+from sagecal_tpu_torch.ops import coh as tcoh
 from sagecal_tpu_torch.ops import cuda_lib
 from sagecal_tpu_torch.ops import sweep as swp
 spec = importlib.util.spec_from_file_location("ab_smoke", here)
@@ -66,27 +72,44 @@ def timed(fn, names):
 
 
 cuda_lib.build_all()
-rec = {"tree": root, "sweep": {}, "visits": {}, "serial": {}, "matvec": {},
-       "ptxas": {n: cs.ptxas_resources(n) for n in ("sweep", "matvec")}}
+rec = {"tree": root, "coh": {}, "sweep": {}, "visits": {}, "serial": {},
+       "matvec": {},
+       "ptxas": {n: cs.ptxas_resources(n) for n in ("coh", "sweep",
+                                                    "matvec")}}
+has_step = "step" in inspect.signature(tcoh.coherencies_points).parameters
+for F, per_channel, call in ((1, False, "solve"), (8, True, "residual")) \
+        if "coh" in kernels else ():
+    args, _, fl = cs._coh_inputs(F, per_channel)
+    step = tcoh.channel_step(fl) if has_step else None
+    kw = {"step": step} if has_step else {}
+    rec["coh"][call] = timed(lambda: tcoh.coherencies_points(*args, **kw),
+                             ("coh_",))
+    if kw and step is not None:
+        rec["coh"][call + "_sincos"] = timed(
+            lambda: tcoh.coherencies_points(*args), ("coh_",))
 for K in (1, 4):
-    args, _ = cs._sweep_inputs(K, seed=2)
-    rec["sweep"][K] = timed(lambda: swp.sweep_blocks(*args),
-                            ("sweep_partials", "sweep_reduce", "sweep_cluster"))
-    (x8, J, coh, sta1, sta2, cid, wt, cw, nb, _), _ = cs._sweep_inputs(
-        K, seed=3)
-    fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb)
-    gen = torch.Generator(device="cuda").manual_seed(K)
-    v = torch.randn((K, 8 * N), device="cuda", generator=gen)
-    shift = torch.rand((K,), device="cuda", generator=gen) + 0.1
-    lists = swp.station_lists(sta1, sta2, nb, N)
-    if hasattr(swp, "matvec_plan"):
-        plan = swp.matvec_plan(fac, sta1, sta2, N, shift=shift, lists=lists)
-        fn = lambda: swp.matvec_apply(plan, v)
-    else:
-        fn = lambda: swp.gn_matvec_blocks(fac, v, sta1, sta2, N,
-                                          shift=shift, lists=lists)
-    rec["matvec"][K] = timed(fn, ("matvec_",))
-    for batched in (False, True):
+    if "sweep" in kernels:
+        args, _ = cs._sweep_inputs(K, seed=2)
+        rec["sweep"][K] = timed(lambda: swp.sweep_blocks(*args),
+                                ("sweep_partials", "sweep_reduce",
+                                 "sweep_cluster"))
+    if "matvec" in kernels:
+        (x8, J, coh, sta1, sta2, cid, wt, cw, nb, _), _ = cs._sweep_inputs(
+            K, seed=3)
+        fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb)
+        gen = torch.Generator(device="cuda").manual_seed(K)
+        v = torch.randn((K, 8 * N), device="cuda", generator=gen)
+        shift = torch.rand((K,), device="cuda", generator=gen) + 0.1
+        lists = swp.station_lists(sta1, sta2, nb, N)
+        if hasattr(swp, "matvec_plan"):
+            plan = swp.matvec_plan(fac, sta1, sta2, N, shift=shift,
+                                   lists=lists)
+            fn = lambda: swp.matvec_apply(plan, v)
+        else:
+            fn = lambda: swp.gn_matvec_blocks(fac, v, sta1, sta2, N,
+                                              shift=shift, lists=lists)
+        rec["matvec"][K] = timed(fn, ("matvec_",))
+    for batched in (False, True) if "visits" in kernels else ():
         vargs, _ = cs._visits_inputs(K, batched)
         x8, J, coh, sta1, sta2, cid, wt, cw, nb, _, V = vargs
         wv = (lambda a, v: a[v]) if batched else (lambda a, v: a)
@@ -98,6 +121,8 @@ for K in (1, 4):
                              wv(cw, v), nb, K) for v in range(V)], ("",))
 print("AB_KERNELS " + json.dumps(rec), flush=True)
 """
+
+KERNELS = ("coh", "sweep", "visits", "matvec")
 
 #: this tool's own chip_smoke.py, whose helpers the child uses
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(
@@ -112,6 +137,8 @@ def main() -> int:
                     help="repeats of the A B B A order")
     ap.add_argument("--reps", type=int, default=200,
                     help="back-to-back calls per device_ms")
+    ap.add_argument("--kernels", nargs="+", default=KERNELS,
+                    choices=KERNELS, help="the kernels to time")
     ap.add_argument("--out", default=None, help="JSON file of the records")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -122,7 +149,8 @@ def main() -> int:
     recs = []
     for tree in (a, b, b, a) * args.rounds:
         p = subprocess.run([sys.executable, "-c", CHILD, tree,
-                            str(args.reps), SMOKE], cwd=tree,
+                            str(args.reps), SMOKE, ",".join(args.kernels)],
+                           cwd=tree,
                            capture_output=True, text=True)
         if p.returncode:
             sys.stderr.write(p.stdout[-4000:] + p.stderr[-4000:])
