@@ -17,6 +17,17 @@ one tile and ``e2e_rtr`` at ``-j 5 --inner cg`` (robust RTR with the
 matvec kernel in every tCG product) on two, with 8 clusters;
 ``e2e_inflight`` at ``-j 5 --inner cg --inflight 4`` on two tiles with 16
 clusters (the multi-visit sweep kernel in every group solve).
+Skies of every morphology: ``predict_mixed`` holds the split predict
+(the coherency kernel on the point/gaussian half, the eager envelopes on
+the shapelet/disk/ring rest) at full width against the generic predict in
+float64 on the card; ``slice_parity`` adds ``xla_default`` (``-j 5
+--kernel xla``, the JAX CLI's default command line, on a mixed sky),
+``xla_cg`` (its ``--inner cg``) and ``kmax5`` (a 5-chunk cluster, no
+``--kernel`` flag: the XLA fallback); and ``e2e_mixed`` runs ``-j 5
+--kernel xla`` at full width on the mixed sky (one tile, twice: whether
+the two runs are bitwise equal is recorded). The XLA-route runs must
+launch no sweep, matvec or visits kernel and count XLA solves; every other
+run must count none.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -234,26 +245,62 @@ def _dms(rad: float):
     return f"{sign}{dd} {mm} {ss:.6f}"
 
 
-def write_sky(path: str, n_clusters: int, n_sources: int, nchunk, seed: int):
+def mixed_kinds(n_sources: int) -> str:
+    """The morphologies of a mixed cluster, one letter a source (the LSM
+    name's lead: P point, G gaussian, D disk, R ring, S shapelet): at 64
+    sources 4 shapelets, 2 disks, 2 rings, 16 gaussians and 40 points;
+    fewer sources take the pattern SDRGP over and over."""
+    if n_sources >= 24:
+        return "SSSSDDRR" + "G" * 16 + "P" * (n_sources - 24)
+    return ("SDRGP" * n_sources)[:n_sources]
+
+
+def _write_modes(path: str, n0: int, rng) -> None:
+    """A shapelet's ``.fits.modes`` file: n0^2 modes, decaying with the
+    order, and a scale beta of 0.5-2 mrad."""
+    n1, n2 = np.meshgrid(np.arange(n0), np.arange(n0))
+    modes = rng.normal(0, 1.0, (n0, n0)) * 0.5 / (1.0 + n1 + n2)
+    with open(path, "w") as f:
+        f.write("0 0 0 0 0 0\n"
+                f"{n0} {float(rng.uniform(5e-4, 2e-3)):.8e}\n")
+        f.writelines(f"{i} {x:.10e}\n" for i, x in enumerate(modes.ravel()))
+
+
+def write_sky(path: str, n_clusters: int, n_sources: int, nchunk, seed: int,
+              mixed: bool = False):
     """An LSM sky file + cluster file: ``n_clusters`` patches of
     ``n_sources`` sources within ~3 degrees of the phase centre, a
-    quarter of them gaussians."""
+    quarter of them gaussians; with ``mixed`` the morphologies of
+    :func:`mixed_kinds` (shapelets of n0 = 2..6, their ``.fits.modes``
+    files beside the sky file; disks and rings of 0.1-1 mrad)."""
     rng = np.random.default_rng(seed)
     lines, clus = [], []
     for m in range(n_clusters):
         c_ra = RA0 + rng.normal(0, 0.03) / math.cos(DEC0)
         c_dec = DEC0 + rng.normal(0, 0.03)
+        kinds = mixed_kinds(n_sources) if mixed else "".join(
+            "G" if s % 4 == 0 else "P" for s in range(n_sources))
         names = []
-        for s in range(n_sources):
-            gauss = s % 4 == 0
-            name = f"{'G' if gauss else 'P'}{m}_{s}"
+        n_sh = 0
+        for s, kind in enumerate(kinds):
+            name = f"{kind}{m}_{s}"
             ra = c_ra + rng.normal(0, 0.004) / math.cos(DEC0)
             dec = c_dec + rng.normal(0, 0.004)
             sI = float(rng.uniform(0.2, 2.0))
-            eX, eY, eP = ((float(rng.uniform(1e-4, 4e-4)),
-                           float(rng.uniform(5e-5, 2e-4)),
-                           float(rng.uniform(0, math.pi)))
-                          if gauss else (0.0, 0.0, 0.0))
+            eX = eY = eP = 0.0
+            if kind == "G":
+                eX, eY, eP = (float(rng.uniform(1e-4, 4e-4)),
+                              float(rng.uniform(5e-5, 2e-4)),
+                              float(rng.uniform(0, math.pi)))
+            elif kind in "DR":
+                eX = float(rng.uniform(1e-4, 1e-3))
+            elif kind == "S":
+                eX, eY = (float(x) for x in rng.uniform(0.7, 1.3, 2))
+                eP = float(rng.uniform(0, math.pi))
+                _write_modes(os.path.join(os.path.dirname(path),
+                                          name + ".fits.modes"),
+                             2 + (m + n_sh) % 5, rng)
+                n_sh += 1
             lines.append(f"{name} {_hms(ra)} {_dms(dec)} {sI:.6f} 0 0 0 "
                          f"-0.7 0 {eX:.6e} {eY:.6e} {eP:.6f} 150e6")
             names.append(name)
@@ -267,21 +314,24 @@ def write_sky(path: str, n_clusters: int, n_sources: int, nchunk, seed: int):
 
 def make_observation(work: str, n_stations: int, tilesz: int, freqs,
                      n_clusters: int, n_sources: int, nchunk, n_tiles: int,
-                     device, seed: int = 5, noise: float = 0.01):
-    """Sky files + a SimMS of ``n_tiles`` tiles corrupted by random
-    Jones, simulated on ``device``. Returns (ms, sky, cluster) paths."""
+                     device, seed: int = 5, noise: float = 0.01,
+                     mixed: bool = False):
+    """Sky files (``mixed``: :func:`write_sky`'s mixed morphologies) + a
+    SimMS of ``n_tiles`` tiles corrupted by random Jones, simulated on
+    ``device``. Returns (ms, sky, cluster) paths."""
     import torch
     from sagecal_tpu_torch import skymodel
     from sagecal_tpu_torch.io import dataset as ds
     from sagecal_tpu_torch.rime import predict as rp
     os.makedirs(work, exist_ok=True)
     sky_path, clus_path = write_sky(os.path.join(work, "sky.txt"),
-                                    n_clusters, n_sources, nchunk, seed)
+                                    n_clusters, n_sources, nchunk, seed,
+                                    mixed=mixed)
     sky = skymodel.read_sky_cluster(sky_path, clus_path, RA0, DEC0,
                                     float(np.mean(freqs)))
     rdt = torch.float32 if torch.device(device).type == "cuda" \
         else torch.float64
-    dsky = rp.sky_to_device(sky, rdt, device)
+    dsky = rp.split_sky(sky, rdt, device)
     J = ds.random_jones(sky.n_clusters, sky.nchunk, n_stations, seed=seed,
                         scale=0.2)
     tiles = [ds.simulate_dataset(dsky, n_stations, tilesz, freqs, RA0, DEC0,
@@ -984,14 +1034,37 @@ def phase_visits():
 
 def _counts():
     from sagecal_tpu_torch.ops import coh, sweep
+    from sagecal_tpu_torch.solvers import lm
     return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES,
-            "matvec": sweep.MATVEC_LAUNCHES, "visits": sweep.VISITS_LAUNCHES}
+            "matvec": sweep.MATVEC_LAUNCHES, "visits": sweep.VISITS_LAUNCHES,
+            "xla_solves": lm.XLA_SOLVES}
 
 
 def _reset():
     from sagecal_tpu_torch.ops import coh, sweep
+    from sagecal_tpu_torch.solvers import lm
     coh.reset_launches()
     sweep.reset_launches()
+    lm.reset_xla_solves()
+
+
+#: the kernels the XLA assembly never launches
+SOLVE_KERNELS = ("sweep", "matvec", "visits")
+
+
+def _check_route(tag: str, launches: dict, must, xla: bool) -> None:
+    """Raise unless every kernel in ``must`` launched and, on the XLA
+    route (``xla``), every solve took the XLA assembly and no sweep,
+    matvec or visits kernel launched."""
+    if not all(launches[k] for k in must):
+        raise AssertionError(f"{tag}: a kernel never launched: {launches}")
+    if xla and (any(launches[k] for k in SOLVE_KERNELS)
+                or not launches["xla_solves"]):
+        raise AssertionError(f"{tag}: the XLA route launched a solve "
+                             f"kernel or counted no XLA solve: {launches}")
+    if not xla and launches["xla_solves"]:
+        raise AssertionError(f"{tag}: the sweep route slid to the XLA "
+                             f"assembly: {launches}")
 
 
 #: slice_parity runs: (tag, stations, chunks per cluster, CLI solver
@@ -1012,17 +1085,35 @@ def _reset():
 #: runs nearer convergence) make the result depend less on the path. The
 #: RTR one read 2.2e-3 at -e 1 (tile 0 stops far from convergence) and
 #: 1.2-1.6e-4 at -e 2.
-PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep")),
-               ("default", 16, (1, 1, 1), [], ("coh", "sweep")),
-               ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep")),
+#: The XLA-route runs take the mixed sky (every morphology: the split
+#: predict) at 41 stations: ``xla_default`` is the JAX CLI's default
+#: command line (robust RTR, --inner chol, --kernel xla), ``xla_cg`` its
+#: --inner cg (each tCG product one gn_matvec pass), and ``kmax5`` a
+#: cluster of 5 hybrid chunks with no --kernel flag, which the fused
+#: sweep cannot take: the XLA fallback. Each tuple ends with ``mixed``.
+PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
+               ("default", 16, (1, 1, 1), [], ("coh", "sweep"), False),
+               ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep"), False),
                ("j5_cg", 41, (1, 2, 1), ["-j", "5", "--inner", "cg"],
-                ("coh", "sweep", "matvec")),
+                ("coh", "sweep", "matvec"), False),
                ("inflight_j1", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "1", "--inflight", "2", "-g", "30"],
-                ("coh", "visits")),
+                ("coh", "visits"), False),
                ("inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "5", "--inner", "cg", "--inflight", "2"],
-                ("coh", "visits", "matvec")))
+                ("coh", "visits", "matvec"), False),
+               ("xla_default", 41, (1, 2, 1), ["-j", "5", "--kernel", "xla"],
+                ("coh",), True),
+               ("xla_cg", 41, (1, 2, 1),
+                ["-j", "5", "--inner", "cg", "--kernel", "xla"], ("coh",),
+                True),
+               ("kmax5", 41, (1, 5, 1), [], ("coh",), False))
+
+
+def _xla_route(flags, nchunk) -> bool:
+    """A run's solves take the XLA assembly: --kernel xla, or a cluster
+    of more hybrid chunks than the fused sweep takes (4)."""
+    return "xla" in flags or max(nchunk) > 4
 
 
 def _first_flip(cuda_hist, cpu_hist):
@@ -1072,12 +1163,12 @@ def phase_slice_parity():
     runs here one after another."""
     import multiprocessing
     obs = {}
-    for tag, n_st, nchunk, flags, _ in PARITY_RUNS:
+    for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
         ms, sky, clus = make_observation(work, n_st, 10, FREQS[:2],
                                          len(nchunk), 6, nchunk, 2, "cpu",
-                                         seed=9, noise=0.02)
+                                         seed=9, noise=0.02, mixed=mixed)
         shutil.copytree(ms, ms + ".cpu")
         obs[tag] = (ms, sky, clus)
     # the 41-station runs and the groups take longest on the CPU
@@ -1085,24 +1176,22 @@ def phase_slice_parity():
     out = {}
     with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
         cpu_runs = {}
-        for tag, _, _, flags, _ in longest:
+        for tag, _, _, flags, _, _ in longest:
             ms, sky, clus = obs[tag]
             cpu_runs[tag] = pool.apply_async(
                 _parity_cpu, ((ms + ".cpu", sky, clus, flags),))
         card_runs = {}
-        for tag, _, _, flags, must in PARITY_RUNS:
+        for tag, _, nchunk, flags, must, _ in PARITY_RUNS:
             _reset()
             card_runs[tag] = _parity_run(*obs[tag], flags, device=None)
             launches = _counts()
-            if not all(launches[k] for k in must):
-                raise AssertionError(
-                    f"slice_parity {tag}: a kernel never launched on the "
-                    f"card: {launches}")
+            _check_route(f"slice_parity {tag}", launches, must,
+                         _xla_route(flags, nchunk))
             card_runs[tag] += (launches,)
         cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
         pool.close()
         pool.join()
-    for tag, n_st, nchunk, flags, _ in PARITY_RUNS:
+    for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
         hist, secs = {}, {}
         hist["cuda"], secs["cuda"], launches = card_runs[tag]
         hist["cpu"], secs["cpu"] = cpu_done[tag]
@@ -1114,6 +1203,7 @@ def phase_slice_parity():
         omegas = {d: [[g[2] for g in h["groups"]] for h in hist[d]]
                   for d in hist}
         rec = dict(tag=tag, stations=n_st, nchunk=nchunk, flags=flags,
+                   mixed=mixed,
                    cuda=[[h["res_0"], h["res_1"], h["mean_nu"]]
                          for h in hist["cuda"]],
                    cpu=[[h["res_0"], h["res_1"], h["mean_nu"]]
@@ -1150,51 +1240,151 @@ def phase_slice_parity():
     return out
 
 
-def observation_e2e(tag: str = "e2e", nchunk=NCHUNK):
-    """A full-width synthetic observation of the e2e phases (2 tiles,
-    simulated on the card), with one cluster of N_SOURCES per entry of
-    ``nchunk``. Returns (ms, sky, cluster, setup seconds)."""
+def observation_e2e(tag: str = "e2e", nchunk=NCHUNK, mixed: bool = False,
+                    n_tiles: int = 2):
+    """A full-width synthetic observation of the e2e phases (``n_tiles``
+    tiles, simulated on the card), with one cluster of N_SOURCES per
+    entry of ``nchunk`` (``mixed``: every morphology, :func:`write_sky`).
+    Returns (ms, sky, cluster, setup seconds)."""
     work = os.path.join(WORK, tag)
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
     ms, sky, clus = make_observation(work, N_STATIONS, TILESZ, FREQS,
-                                     len(nchunk), N_SOURCES, nchunk, 2,
-                                     "cuda", seed=5, noise=0.01)
+                                     len(nchunk), N_SOURCES, nchunk, n_tiles,
+                                     "cuda", seed=5, noise=0.01, mixed=mixed)
     return ms, sky, clus, time.perf_counter() - t0
 
 
-def phase_e2e(obs, phase: str, flags, n_tiles: int, must):
-    """The full-batch CLI at full width on the card, over the first
-    ``n_tiles`` tiles of ``obs`` with solver ``flags``; ``must`` names
-    the kernels that have to launch."""
+def phase_predict_mixed():
+    """The split predict at full width on a mixed sky (:func:`write_sky`
+    with ``mixed``: per cluster 40 points, 16 gaussians, 4 shapelets of
+    n0 = 2..6, 2 disks, 2 rings; M = 8, B = 226,920 rows, the residual's
+    8 channels with per-channel flux), float32 on the card (the
+    coherency kernel on the point/gaussian half, the eager envelopes on
+    the rest), against the port's generic predict of the whole sky on
+    the card in float64; and the rest half alone against its float64
+    self. Gate max|diff|/max|ref| <= KERNEL_RTOL. Records the split's
+    call ms, the rest's share of it, the coh launches (1 a call) and the
+    peak device memory of a split call."""
+    import torch
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.ops import coh as coh_ops
+    from sagecal_tpu_torch.rime import predict as rp
+    work = os.path.join(WORK, "predict_mixed")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sky_path, clus_path = write_sky(os.path.join(work, "sky.txt"),
+                                    N_CLUSTERS, N_SOURCES, NCHUNK, 21,
+                                    mixed=True)
+    sky = skymodel.read_sky_cluster(sky_path, clus_path, RA0, DEC0,
+                                    float(np.mean(FREQS)))
+    xyz = ds.random_array(N_STATIONS, seed=1)
+    ha = np.linspace(0.0, ds.OMEGA_E * 10.0 * TILESZ, TILESZ, endpoint=False)
+    u, v, w, _, _ = ds.uvw_tracks(xyz, DEC0, ha)
+    uvw = {dt: [torch.as_tensor((a / ds.C_M_S).reshape(-1), dtype=dt,
+                                device="cuda") for a in (u, v, w)]
+           for dt in (torch.float32, torch.float64)}
+    fdelta = 0.18e6
+    split = rp.split_sky(sky, torch.float32, "cuda")
+    split64 = rp.split_sky(sky, torch.float64, "cuda")
+    whole64 = rp.sky_to_device(sky, torch.float64, "cuda")
+
+    def predict():
+        return rp.coherencies(split, *uvw[torch.float32], FREQS, fdelta,
+                              per_channel_flux=True)
+
+    def rest(sp, dt):
+        return rp.coherencies_generic(sp.rest, *uvw[dt], FREQS, fdelta,
+                                      per_channel_flux=True,
+                                      with_shapelets=sp.with_shapelets)
+
+    _reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = predict()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = coh_ops.LAUNCHES
+    ref = rp.coherencies_generic(whole64, *uvw[torch.float64], FREQS, fdelta,
+                                 per_channel_flux=True)
+    abs_err, rel = rel_err(got.to(torch.complex128), ref)
+    del ref
+    rest32 = rest(split, torch.float32)
+    rest_abs, rest_rel = rel_err(rest32.to(torch.complex128),
+                                 rest(split64, torch.float64))
+    call_ms = cuda_ms(predict, 3)
+    rest_ms = cuda_ms(lambda: rest(split, torch.float32), 3)
+    finite = bool(torch.isfinite(torch.view_as_real(got)).all())
+    rec = dict(M=sky.n_clusters, B=int(uvw[torch.float32][0].shape[0]),
+               F=len(FREQS), S=sky.max_sources,
+               S_rest=int(split.rest.ll.shape[1]),
+               n0max=int(round(math.sqrt(sky.sh_modes.shape[-1]))),
+               stypes={int(k): int(n) for k, n in zip(*np.unique(
+                   sky.stype[sky.smask], return_counts=True))},
+               max_abs_err=abs_err, rel_err=rel, rest_max_abs_err=rest_abs,
+               rest_rel_err=rest_rel, call_ms=call_ms, rest_ms=rest_ms,
+               rest_share=rest_ms / call_ms, coh_launches=launches,
+               peak_gb=peak / 2 ** 30, finite=finite)
+    emit("predict_mixed", **rec)
+    if launches != 1:
+        raise AssertionError(f"predict_mixed: {launches} coh launches a "
+                             "split call")
+    if not (finite and rel <= KERNEL_RTOL and rest_rel <= KERNEL_RTOL):
+        raise AssertionError(f"predict_mixed: split {rel:.3e}, rest "
+                             f"{rest_rel:.3e} > {KERNEL_RTOL}")
+    return rec
+
+
+def _e2e_cli(obs, name: str, flags, n_tiles: int):
+    """One full-batch CLI run on a fresh copy of ``obs``'s SimMS: (rc,
+    stdout, wall s, launches, ms path, solutions path, peak device
+    bytes)."""
     import contextlib
     import io
     import torch
-    from sagecal_tpu_torch import cli, skymodel
-    from sagecal_tpu_torch.io import dataset as ds
-    from sagecal_tpu_torch.io import solutions as sol
-    src, sky, clus, setup_s = obs
-    ms = os.path.join(os.path.dirname(src), phase + ".ms")
+    from sagecal_tpu_torch import cli
+    src, sky, clus, _ = obs
+    ms = os.path.join(os.path.dirname(src), name + ".ms")
     shutil.rmtree(ms, ignore_errors=True)
     shutil.copytree(src, ms)
-    solpath = os.path.join(os.path.dirname(ms), phase + "_solutions.txt")
+    solpath = os.path.join(os.path.dirname(ms), name + "_solutions.txt")
     buf = io.StringIO()
     _reset()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-d", ms, "-s", sky, "-c", clus, "-p", solpath,
                        "-e", "3", "-g", "10", "-l", "10", "-m", "7", "-t",
                        str(TILESZ), "-T", str(n_tiles), "-V"] + flags)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _counts()
+    return (rc, buf.getvalue(), time.perf_counter() - t0, _counts(), ms,
+            solpath, torch.cuda.max_memory_allocated())
+
+
+def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
+              xla: bool = False, repeat: bool = False):
+    """The full-batch CLI at full width on the card, over the first
+    ``n_tiles`` tiles of ``obs`` with solver ``flags``; ``must`` names
+    the kernels that have to launch, ``xla`` a run whose solves must all
+    take the XLA assembly (no sweep, matvec or visits launch).
+    ``repeat`` runs the same command again and records whether the
+    output column and the solutions are bitwise equal (gated on
+    nothing: ``index_add_`` atomics need not repeat)."""
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    _, sky, clus, setup_s = obs
+    rc, out, wall, launches, ms, solpath, peak = _e2e_cli(obs, phase, flags,
+                                                          n_tiles)
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
-    if not all(launches[k] for k in must):
-        raise AssertionError(f"{phase}: a kernel never launched: {launches}")
+    _check_route(phase, launches, must, xla)
     tiles = []
-    for ln in buf.getvalue().splitlines():
+    route = []
+    for ln in out.splitlines():
         if ln.startswith("Timeslot:") and "initial=" in ln:
             tiles.append({
                 "res_0": float(ln.split("initial=")[1].split(",")[0]),
@@ -1202,6 +1392,8 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must):
                 "wall_s": 60 * float(ln.split("spent=")[1].split()[0])})
         elif ln.startswith("Timeslot:") and "stats:" in ln:
             tiles[-1].update(json.loads(ln.split("stats:", 1)[1]))
+        elif "solver route:" in ln:
+            route.append(ln.split("solver route:", 1)[1].strip())
     ds_out = ds.SimMS(ms, data_column="CORRECTED_DATA")
     ds_in = ds.SimMS(ms)
     meta = ds_out.meta
@@ -1215,10 +1407,25 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must):
             raise AssertionError(f"tile {i}: output column not written")
         ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
     rec = dict(flags=flags, tiles=tiles, wall_s=wall, setup_s=setup_s,
-               launches=launches, intervals=len(blocks),
+               launches=launches, route=route, intervals=len(blocks),
                written_over_data=ratio, kmax=int(max(sk.nchunk)),
+               peak_gb=peak / 2 ** 30,
                B=TILESZ * N_STATIONS * (N_STATIONS - 1) // 2,
-               F=len(FREQS), M=sk.n_clusters, S=N_SOURCES)
+               F=len(FREQS), M=sk.n_clusters, S=sk.max_sources,
+               stypes={int(k): int(v) for k, v in zip(*np.unique(
+                   sk.stype[sk.smask], return_counts=True))})
+    if repeat:
+        rc2, _, wall2, launches2, ms2, sol2, _ = _e2e_cli(
+            obs, phase + "_repeat", flags, n_tiles)
+        same_col = all(np.array_equal(
+            ds.SimMS(ms2, data_column="CORRECTED_DATA").read_tile(i).x,
+            ds_out.read_tile(i).x) for i in range(n_tiles))
+        with open(solpath) as a, open(sol2) as b:
+            same_sol = a.read() == b.read()
+        rec.update(repeat_rc=rc2, repeat_wall_s=wall2,
+                   repeat_launches=launches2,
+                   repeat_bitwise_column=same_col,
+                   repeat_bitwise_solutions=same_sol)
     emit(phase, **rec)
     if len(blocks) != n_tiles:
         raise AssertionError(f"solutions file holds {len(blocks)} intervals")
@@ -1236,6 +1443,7 @@ def main() -> int:
     sweep = phase_sweep()
     matvec = phase_matvec()
     visits = phase_visits()
+    predict_mixed = phase_predict_mixed()
     phase_slice_parity()
     obs = observation_e2e()
     phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"))
@@ -1245,6 +1453,11 @@ def main() -> int:
     inflight = phase_e2e(observation_e2e("e2e16", NCHUNK16), "e2e_inflight",
                          ["-j", "5", "--inner", "cg", "--inflight",
                           str(N_VISITS)], 2, ("coh", "visits", "matvec"))
+    # the JAX CLI's default command line (-j 5 --inner chol --kernel xla)
+    # on the mixed sky: the split predict and the XLA assembly
+    mixed = phase_e2e(observation_e2e("e2e_mixed", mixed=True, n_tiles=1),
+                      "e2e_mixed", ["-j", "5", "--kernel", "xla"], 1,
+                      ("coh",), xla=True, repeat=True)
     vis = visits[(4, True)]
 
     import torch
@@ -1253,6 +1466,8 @@ def main() -> int:
              source="sagecal_tpu_torch/csrc/coh.cu",
              replaces="sagecal_tpu/ops/coh_pallas.py:49",
              launches=rtr["launches"]["coh"],
+             launches_e2e_mixed=mixed["launches"]["coh"],
+             predict_mixed_call_ms=predict_mixed["call_ms"],
              max_abs_err=max(r["max_abs_err"] for r in coh.values()),
              ms=coh["residual"]["ms"], plain_ms=coh["residual"]["plain_ms"],
              bound_ms=coh["residual"]["bound_ms"],

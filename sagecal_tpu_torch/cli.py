@@ -5,15 +5,20 @@ The parser accepts every flag of the JAX CLI so command lines translate
 directly. The port runs full-batch calibration with
 ``-d -s -c -p -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k --kernel
 --inner --inflight --jones --dtype-policy --platform`` (every solver mode
-``-j 0..6``, ``--inner chol|cg``, in-flight cluster groups);
+``-j 0..6``, ``--inner chol|cg``, ``--kernel pallas|xla``, in-flight
+cluster groups, skies of every source morphology);
 ``--solve-fuse`` and ``--solve-promote`` are accepted as no-ops (PyTorch
 runs eagerly).
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 
 ``--platform cpu`` runs on the CPU in float64; without it the run needs
-a CUDA device (float32). ``--kernel`` defaults to ``pallas``, the fused
-sweep (the only assembly ported); ``xla`` raises.
+a CUDA device (float32). ``--kernel`` defaults to ``pallas``: the fused
+sweep wherever it fits, the XLA assembly where it does not (more than 4
+hybrid chunks, rows not baseline-major), as the JAX package falls back;
+``xla`` takes the XLA assembly always, the JAX CLI's default. The port
+keeps ``pallas`` so that its main path runs its kernels; the tests hold
+both CLIs without ``--kernel`` against each other.
 """
 
 from __future__ import annotations
@@ -26,35 +31,35 @@ from sagecal_tpu_torch.config import (BeamMode, RunConfig, SimulationMode,
 
 # flags parsed for parity but not ported: dest -> (default, ROADMAP item)
 UNPORTED = {
-    "ms_list": (None, "queue A item 1 (-f dataset lists)"),
-    "init_solutions": (None, "queue A item 9 (-q warm start)"),
-    "whiten": (0, "queue A item 4 (-W whitening, robust.py)"),
-    "per_channel": (0, "queue A item 9 (-b 1 per-channel solve)"),
-    "simulation": (0, "queue A item 9 (-a simulation modes)"),
-    "ignore_clusters": (None, "queue A item 9 (-z ignore list)"),
-    "phase_only": (0, "queue A item 12 (-J phase-only correction)"),
-    "beam": (0, "queue A item 9 (-B beam)"),
-    "epochs": (0, "queue A item 11 (-N stochastic calibration)"),
-    "minibatches": (1, "queue A item 11 (-M minibatches)"),
-    "loss": ("robust", "queue A item 11 (--loss)"),
-    "admm": (1, "queue A item 12 (-A consensus)"),
-    "nsolbw": (1, "queue A item 12 (-w mini-bands)"),
-    "npoly": (2, "queue A item 12 (-P)"),
-    "polytype": (2, "queue A item 12 (-Q)"),
-    "rho": (5.0, "queue A item 12 (-r)"),
-    "rho_file": (None, "queue A item 12 (-G)"),
-    "linsolv": (1, "queue A item 4 (--linsolv)"),
-    "tile_batch": (1, "queue A item 9 (--tile-batch)"),
-    "tile_bucket": (0, "queue A item 14 (--tile-bucket)"),
-    "resume": (False, "queue A item 1 (--resume checkpoints)"),
-    "faults": (None, "queue A item 13 (--faults)"),
-    "prefetch": (1, "queue A item 13 (--prefetch overlap)"),
-    "prior_cache": ("off", "queue A item 14 (--prior-cache)"),
-    "shard_baselines": (False, "queue A item 12 (--shard-baselines)"),
-    "cpu_devices": (0, "queue A item 12 (--cpu-devices)"),
-    "profile": (None, "queue A item 10 (--profile)"),
-    "diag": (None, "queue A item 13 (--diag)"),
-    "metrics": (None, "queue A item 13 (--metrics)"),
+    "ms_list": (None, "queue A item 7 (-f dataset lists)"),
+    "init_solutions": (None, "queue A item 7 (-q warm start)"),
+    "whiten": (0, "queue A item 7 (-W whitening, robust.py)"),
+    "per_channel": (0, "queue A item 7 (-b 1 per-channel solve)"),
+    "simulation": (0, "queue A item 7 (-a simulation modes)"),
+    "ignore_clusters": (None, "queue A item 7 (-z ignore list)"),
+    "phase_only": (0, "queue A item 7 (-J phase-only correction)"),
+    "beam": (0, "queue A item 7 (-B beam)"),
+    "epochs": (0, "queue A item 8 (-N stochastic calibration)"),
+    "minibatches": (1, "queue A item 8 (-M minibatches)"),
+    "loss": ("robust", "queue A item 8 (--loss)"),
+    "admm": (1, "queue A item 9 (-A consensus)"),
+    "nsolbw": (1, "queue A item 9 (-w mini-bands)"),
+    "npoly": (2, "queue A item 9 (-P)"),
+    "polytype": (2, "queue A item 9 (-Q)"),
+    "rho": (5.0, "queue A item 9 (-r)"),
+    "rho_file": (None, "queue A item 9 (-G)"),
+    "linsolv": (1, "queue A item 7 (--linsolv)"),
+    "tile_batch": (1, "queue A item 5 (--tile-batch)"),
+    "tile_bucket": (0, "queue A item 11 (--tile-bucket)"),
+    "resume": (False, "queue A item 7 (--resume checkpoints)"),
+    "faults": (None, "queue A item 10 (--faults)"),
+    "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
+    "prior_cache": ("off", "queue A item 11 (--prior-cache)"),
+    "shard_baselines": (False, "queue A item 9 (--shard-baselines)"),
+    "cpu_devices": (0, "queue A item 9 (--cpu-devices)"),
+    "profile": (None, "queue A item 1 (--profile)"),
+    "diag": (None, "queue A item 10 (--diag)"),
+    "metrics": (None, "queue A item 10 (--metrics)"),
 }
 
 
@@ -115,8 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
     a("--dtype-policy", choices=("f32", "bf16", "f16"), default="f32")
     a("--inner", choices=("chol", "cg"), default="chol")
     a("--kernel", choices=("xla", "pallas"), default="pallas",
-      help="pallas (default): the fused-sweep CUDA kernel; xla is not "
-           "ported yet and raises")
+      help="normal-equation assembly: pallas (default here) the "
+           "fused-sweep CUDA kernel where it fits (<= 4 hybrid chunks, "
+           "baseline-major rows), else the XLA assembly; xla (the JAX "
+           "CLI's default) the eager XLA assembly always. Both CLIs "
+           "without --kernel are held against each other by the tests")
     a("--jones", choices=("full", "diag", "phase"), default="full")
     a("--shard-baselines", action="store_true")
     a("--platform", default=None,

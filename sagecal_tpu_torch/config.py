@@ -89,7 +89,10 @@ class RunConfig:
     # groups, sage.SageConfig.inflight); 1 = the reference's sequencing
     cluster_inflight: int = 1          # --inflight
     solver_inner: str = "chol"         # --inner
-    solver_kernel: str = "pallas"      # --kernel (only the fused sweep)
+    # --kernel: "pallas" the fused sweep where it fits (else the XLA
+    # assembly, as the JAX package falls back); "xla" the XLA assembly.
+    # The JAX CLI defaults to "xla"; the port keeps its kernels' route
+    solver_kernel: str = "pallas"
     jones_mode: str = "full"           # --jones
     dtype_policy: str = "f32"          # --dtype-policy
 

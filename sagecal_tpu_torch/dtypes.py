@@ -2,8 +2,8 @@
 
 Only the ``f32`` policy is ported: its storage dtype is the pipeline's
 real dtype (float32 on the card, float64 on the CPU). The reduced
-policies (``bf16``/``f16``) raise until ROADMAP queue A item 9 ports
-them.
+policies (``bf16``/``f16``) raise until ROADMAP queue A item 7 ports
+them (with queue B item 4).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ def validate(policy: str) -> str:
     if policy != "f32":
         raise NotImplementedError(
             f"--dtype-policy {policy} is not ported yet (ROADMAP queue A "
-            "item 9: reduced storage policies)")
+            "item 7: reduced storage policies)")
     return policy
 
 
@@ -34,7 +34,7 @@ def storage_dtype(policy: str, default=torch.float32):
 def _check_ported(dtype) -> None:
     if dtype in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
-            f"{dtype} storage is not ported yet (ROADMAP queue A item 9: "
+            f"{dtype} storage is not ported yet (ROADMAP queue A item 7: "
             "reduced storage policies)")
 
 

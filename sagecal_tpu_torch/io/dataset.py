@@ -70,7 +70,7 @@ class VisTile:
         if self.cflags is not None or uvtaper_m > 0.0:
             raise NotImplementedError(
                 "per-channel flags / uv taper need the native tile "
-                "packing (ROADMAP queue A item 1: io/native.py)")
+                "packing (ROADMAP queue A item 7: io/native.py)")
         return utils.vis_to_x8(self.averaged()), self.flags
 
 
@@ -134,9 +134,10 @@ def simulate_dataset(sky_arrays, n_stations: int, tilesz: int,
                      chan_width: float | None = None,
                      start_mjd_s: float = 4.93e9) -> VisTile:
     """Synthesize a corrupted dataset from a port sky model
-    (:class:`rime.predict.SkyArrays`), on the sky's device: per-channel
-    model visibilities, corrupted by ``jones`` per cluster, plus noise
-    drawn with numpy from ``seed``."""
+    (:class:`rime.predict.SkyArrays`, or a ``rime.predict.SplitSky``), on
+    the sky's device: per-channel model visibilities of every source
+    morphology (``rime.predict.coherencies``), corrupted by ``jones`` per
+    cluster, plus noise drawn with numpy from ``seed``."""
     from sagecal_tpu_torch.rime import predict as rp
 
     freqs = np.atleast_1d(np.asarray(freqs, np.float64))
@@ -157,8 +158,10 @@ def simulate_dataset(sky_arrays, n_stations: int, tilesz: int,
     fdelta_chan = fdelta_tot / len(freqs)
     time_mjd = start_mjd_s + tdelta * (np.arange(tilesz) + 0.5)
 
-    dev = sky_arrays.ll.device
-    rdt = sky_arrays.ll.dtype
+    ref = sky_arrays if isinstance(sky_arrays, rp.SkyArrays) else (
+        sky_arrays.pg if sky_arrays.pg is not None else sky_arrays.rest)
+    dev = ref.ll.device
+    rdt = ref.ll.dtype
     t = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
     coh = rp.coherencies(sky_arrays, t(us), t(vs), t(ws), freqs,
                          fdelta_chan, per_channel_flux=True)
@@ -288,14 +291,14 @@ def open_dataset(ms: str | None, ms_list: str | None = None,
                  data_column: str = "DATA",
                  out_column: str = "CORRECTED_DATA") -> SimMS:
     """Resolve ``-d`` into a SimMS directory. Multi-MS lists (``-f``)
-    and CASA tables come with ROADMAP queue A item 1."""
+    and CASA tables come with ROADMAP queue A item 7."""
     if ms_list:
         raise NotImplementedError(
-            "-f dataset lists are not ported yet (ROADMAP queue A item 1)")
+            "-f dataset lists are not ported yet (ROADMAP queue A item 7)")
     if not ms:
         raise ValueError("open_dataset: need -d dataset")
     if not os.path.isfile(os.path.join(ms, SimMS.META)):
         raise NotImplementedError(
             f"{ms} is not a SimMS directory; CASA MeasurementSets are not "
-            "ported yet (ROADMAP queue A item 9: io/casams.py)")
+            "ported yet (ROADMAP queue A item 7: io/casams.py)")
     return SimMS(ms, data_column=data_column, out_column=out_column)

@@ -5,7 +5,7 @@ it: ``#`` comments, a header line ``freq(MHz) bandwidth(MHz)
 time_interval(min) stations clusters effective_clusters``, then per
 solve interval 8N rows of one column per effective cluster. The 8 reals
 per station map to the 2x2 Jones as ``[S0+jS1, S4+jS5; S2+jS3, S6+jS7]``.
-The binary checkpoint sidecar comes with ROADMAP queue A item 1.
+The binary checkpoint sidecar comes with ROADMAP queue A item 7.
 """
 
 from __future__ import annotations

@@ -155,15 +155,26 @@ def gauss_coeffs(sky):
                        dim=1)
 
 
-def supported(sky) -> bool:
-    """True when every live source is a point or gaussian (host-side)."""
+def _live_pg(sky):
+    """[live sources] bools: the source is a point or a gaussian (host)."""
     stype = np.asarray(sky.stype.cpu() if torch.is_tensor(sky.stype)
                        else sky.stype)
     smask = np.asarray(sky.smask.cpu() if torch.is_tensor(sky.smask)
                        else sky.smask)
     live = stype[smask]
-    return bool(np.all((live == skymodel.STYPE_POINT)
-                       | (live == skymodel.STYPE_GAUSSIAN)))
+    return (live == skymodel.STYPE_POINT) | (live == skymodel.STYPE_GAUSSIAN)
+
+
+def supported(sky) -> bool:
+    """True when every live source is a point or gaussian (host-side)."""
+    return bool(np.all(_live_pg(sky)))
+
+
+def any_supported(sky) -> bool:
+    """True when at least one live source is a point or gaussian
+    (host-side): only then does the predict split the sky and launch the
+    kernel on its point/gaussian half (``rime/predict.py:split_sky``)."""
+    return bool(np.any(_live_pg(sky)))
 
 
 def coherencies_points_plain(uvw3, geom, flux, gauss, freqs, fdelta):

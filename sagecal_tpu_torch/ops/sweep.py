@@ -767,7 +767,7 @@ def matvec_plan(fac: GNBlocks, sta1, sta2, n_stations: int, shift=None,
     if md != 4:
         raise NotImplementedError(
             "the matvec kernel is full Jones (md = 4); --jones diag|phase "
-            "is ROADMAP queue A item 9")
+            "is ROADMAP queue A item 4")
     if pp.dtype != torch.float32:
         raise TypeError(f"matvec kernel: blocks must be float32 on {dev} "
                         f"(got {pp.dtype})")

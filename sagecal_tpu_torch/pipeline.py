@@ -2,11 +2,14 @@
 ``sagecal_tpu/pipeline.py``).
 
 Stream solve intervals (tiles) from the dataset, predict the solve
-coherencies (the coherency kernel), run SAGE-EM (every solver mode
-``-j 0..6``: LM, OS-LM, robust LM, RTR, robust RTR and NSD on the
-fused-sweep kernel, ``--inner cg`` on the matvec kernel; then the joint
-LBFGS refine), subtract the model from every channel and write the
-residuals and the solutions, with the reference's heuristics:
+coherencies (the coherency kernel on the point/gaussian half of the sky,
+the eager envelopes on the rest: ``rime/predict.py``, the sky split once
+at construction), run SAGE-EM (every solver mode ``-j 0..6``: LM, OS-LM,
+robust LM, RTR, robust RTR and NSD, on the fused-sweep kernel or the XLA
+assembly as ``--kernel`` and the shapes decide, ``--inner cg`` on the
+matvec kernel or the matrix-free [B] operator; then the joint LBFGS
+refine), subtract the model from every channel and write the residuals
+and the solutions, with the reference's heuristics:
 
 - first-tile iteration boost: 4x EM iterations for arrays <= LMCUT (40)
   stations, 6x otherwise;
@@ -68,25 +71,23 @@ def check_supported(cfg: RunConfig) -> None:
     does not run yet, naming the ROADMAP item that will port it."""
     checks = [
         (cfg.n_epochs > 0, "-N stochastic calibration (ROADMAP queue A "
-         "item 11)"),
-        (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 9)"),
+         "item 8)"),
+        (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 7)"),
         (cfg.simulation != SimulationMode.OFF, "-a simulation modes "
-         "(ROADMAP queue A item 9)"),
+         "(ROADMAP queue A item 7)"),
         (cfg.per_channel_bfgs, "-b 1 per-channel solve (ROADMAP queue A "
-         "item 9)"),
-        (cfg.whiten, "-W 1 whitening (ROADMAP queue A item 4: robust.py)"),
+         "item 7)"),
+        (cfg.whiten, "-W 1 whitening (ROADMAP queue A item 7: robust.py)"),
         (cfg.phase_only, "-J 1 phase-only correction (ROADMAP queue A "
-         "item 12: consensus/manifold.py)"),
+         "item 7: consensus/manifold.py)"),
         (cfg.ignore_clusters_file is not None, "-z ignore list (ROADMAP "
-         "queue A item 9, with the simulation modes)"),
+         "queue A item 7, with the simulation modes)"),
         (cfg.init_solutions is not None, "-q warm start (ROADMAP queue A "
-         "item 9)"),
+         "item 7)"),
         (cfg.ms_list is not None, "-f dataset lists (ROADMAP queue A "
-         "item 1)"),
-        (cfg.solver_kernel != "pallas", "--kernel xla: the XLA assembly "
-         "(ROADMAP queue A item 3)"),
+         "item 7)"),
         (cfg.jones_mode != "full", f"--jones {cfg.jones_mode} (ROADMAP "
-         "queue A item 9)"),
+         "queue A item 4)"),
     ]
     for bad, what in checks:
         if bad:
@@ -111,11 +112,11 @@ class FullBatchPipeline:
         self.device = devmod.resolve(device)
         self.rdt = devmod.real_dtype(self.device)
         self.sdt = dtypes.storage_dtype(cfg.dtype_policy, self.rdt)
-        if not coh_ops.supported(sky):
-            raise NotImplementedError(
-                "shapelet/disk/ring sources are not ported yet (ROADMAP "
-                "queue A item 2)")
-        self.dsky = rp.sky_to_device(sky, self.rdt, self.device)
+        # both device skies once (the JAX package's _pallas_skies): the
+        # point/gaussian half for the coherency kernel, the rest for the
+        # generic predict; on the CPU too, where the kernel half runs its
+        # plain version. A kernel that fails raises: there is no fallback.
+        self.dsky = rp.split_sky(sky, self.rdt, self.device)
         meta = ms.meta
         self.meta = meta
         self.kmax = int(sky.nchunk.max())
@@ -139,6 +140,11 @@ class FullBatchPipeline:
         # OS modes 0/2/3 (the other modes ignore it)
         self.os_info = lm_mod.os_subset_ids(meta["tilesz"], meta["nbase"])
         self.boost = first_tile_boost(self.n)
+        # the assembly route, from one visit's shapes (every cluster's
+        # solve carries kmax chunks), as each solve picks it
+        self.route = lm_mod.route_name(
+            cfg.solver_kernel, self.kmax, int(meta["nbase"]),
+            int(meta["tilesz"]) * int(meta["nbase"]))
         self.sub_mask = sky.subtract_mask()
         self.correct_idx = skymodel.correct_cluster_index(
             sky, cfg.correct_cluster, warn=log)
@@ -231,7 +237,10 @@ class FullBatchPipeline:
             for ti in range(n_tiles):
                 t0 = time.time()
                 launches0 = (coh_ops.LAUNCHES, swp.LAUNCHES,
-                             swp.MATVEC_LAUNCHES, swp.VISITS_LAUNCHES)
+                             swp.MATVEC_LAUNCHES, swp.VISITS_LAUNCHES,
+                             lm_mod.XLA_SOLVES)
+                if self.cfg.verbose:
+                    log(f"tile {ti}: solver route: {self.route}")
                 tile = ms.read_tile(ti)
                 stg = self.stage(tile)
                 t_solve = time.time()
@@ -282,6 +291,7 @@ class FullBatchPipeline:
                            "sweep": swp.LAUNCHES - launches0[1],
                            "matvec": swp.MATVEC_LAUNCHES - launches0[2],
                            "visits": swp.VISITS_LAUNCHES - launches0[3]},
+                       "xla_solves": lm_mod.XLA_SOLVES - launches0[4],
                        **secs}
                 history.append(rec)
                 if self.cfg.verbose:
@@ -289,7 +299,8 @@ class FullBatchPipeline:
                         {k: rec[k] for k in ("solver_iters", "cg_iters",
                                              "tcg_iters", "lbfgs_iters",
                                              "rejected_groups", "mean_nu",
-                                             "launches", *secs)}))
+                                             "launches", "xla_solves",
+                                             *secs)}))
         finally:
             if writer:
                 writer.close()

@@ -4,10 +4,14 @@ Conventions are the JAX package's: u, v, w in seconds; fringe phase
 2 pi (u l + v m + w n) f with n carrying the -1; channel smearing
 |sinc(G fdelta/2)|; Stokes -> correlations [[I+Q, U+iV], [U-iV, I-Q]].
 
-This slice predicts point and gaussian sources through the coherency
-kernel (``ops/coh.py``). A sky with shapelet, disk or ring sources
-raises ``NotImplementedError``; those envelopes and the hybrid split
-come with ROADMAP queue A item 2.
+Every source morphology is predicted. Point and gaussian sources go
+through the coherency kernel (``ops/coh.py``); shapelet, disk and ring
+sources through the generic eager predict (:func:`coherencies_generic`,
+envelopes in ``rime/envelopes.py``) on a compact repack of the rest
+(``skymodel.split_for_kernel``), and the two halves add elementwise
+(:func:`coherencies_split`). The split is made on the host, once per sky
+(:func:`split_sky`), on the card and on the CPU alike: on the CPU the
+kernel half runs through the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -17,8 +21,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sagecal_tpu_torch import utils
+from sagecal_tpu_torch import device as devmod
+from sagecal_tpu_torch import skymodel, utils
 from sagecal_tpu_torch.ops import coh as coh_ops
+from sagecal_tpu_torch.rime import envelopes
 
 
 class SkyArrays(NamedTuple):
@@ -82,19 +88,149 @@ def _spectral_flux(s0, spec_idx, spec_idx1, spec_idx2, f0, freq):
     return torch.where(spec_idx != 0.0, scaled, s0)
 
 
-def coherencies(sky: SkyArrays, u, v, w, freqs, fdelta,
-                per_channel_flux: bool = False):
-    """All-cluster coherencies [M, B, F, 2, 2] complex (no Jones).
+class SplitSky(NamedTuple):
+    """A sky split for the predict (``pipeline._pallas_skies`` of the JAX
+    package): ``pg`` the point/gaussian half for the coherency kernel
+    (None when the sky has no live point or gaussian), ``rest`` the
+    compact repack of the other sources for the generic predict (None
+    when there are none), ``with_shapelets`` whether ``rest`` holds a
+    shapelet. Both halves keep the clusters in order."""
 
-    ``freqs`` is the host's channel list (``ops/coh.py:coherencies``
-    uploads it); ``fdelta`` is the smearing bandwidth per channel. Point
-    and gaussian sources only (the coherency kernel's scope)."""
-    if not coh_ops.supported(sky):
-        raise NotImplementedError(
-            "shapelet/disk/ring sources are not ported yet (ROADMAP queue "
-            "A item 2: rime/envelopes.py and the hybrid split)")
-    return coh_ops.coherencies(sky, u, v, w, freqs, fdelta,
-                               per_channel_flux=per_channel_flux)
+    pg: SkyArrays | None
+    rest: SkyArrays | None
+    with_shapelets: bool
+
+
+def split_sky(sky, real_dtype=torch.float32, device="cpu") -> SplitSky:
+    """Host ClusterSky -> :class:`SplitSky` on ``device``: a sky with no
+    live point or gaussian is all rest (no kernel launch); otherwise
+    ``skymodel.split_for_kernel``."""
+    if not coh_ops.any_supported(sky):
+        pg, rest = None, sky
+    else:
+        pg, rest = skymodel.split_for_kernel(sky)
+    return SplitSky(
+        None if pg is None else sky_to_device(pg, real_dtype, device),
+        None if rest is None else sky_to_device(rest, real_dtype, device),
+        rest is not None and bool(np.any(np.asarray(rest.sh_n0) > 0)))
+
+
+def split_arrays(sky: SkyArrays) -> SplitSky:
+    """:func:`split_sky` of a device sky (one host read of its [M, S]
+    fields), for callers that hold no host sky."""
+    host = {k: getattr(sky, k).cpu().numpy() for k in SkyArrays._fields}
+    M = host["ll"].shape[0]
+    csky = skymodel.ClusterSky(cluster_ids=np.arange(M, dtype=np.int32),
+                               nchunk=np.ones(M, np.int32),
+                               names=[[] for _ in range(M)], **host)
+    return split_sky(csky, sky.ll.dtype, sky.ll.device)
+
+
+def _cluster_coherency(csky: SkyArrays, u, v, w, freqs, fdelta,
+                       per_channel_flux: bool, n0max: int,
+                       with_shapelets: bool):
+    """Coherencies of one cluster, [B, F, 2, 2] complex: ``csky`` a
+    SkyArrays row ([S] tensors), u, v, w [B] seconds, ``freqs`` the host
+    channel list. One channel at a time (the JAX package's ``vmap``), so
+    the peak is one channel's [B, S] grid (the shapelet's [B, S, n0max,
+    n0max] in row blocks, ``envelopes.shapelet``)."""
+    cdtype = devmod.complex_dtype(u.dtype)
+    # G [B, S]: the frequency-independent phase term (seconds)
+    G = 2.0 * np.pi * (u[:, None] * csky.ll[None, :]
+                       + v[:, None] * csky.mm[None, :]
+                       + w[:, None] * csky.nn[None, :])
+    smfac = G * (fdelta * 0.5)
+    smear = torch.where(torch.abs(G) > 0,
+                        torch.abs(torch.sinc(smfac / np.pi)),
+                        torch.ones_like(G)).to(cdtype)
+    live = csky.smask[None, :]
+    b00 = (csky.sI + csky.sQ).to(cdtype)
+    b01 = torch.complex(csky.sU, csky.sV)
+    b10 = torch.complex(csky.sU, -csky.sV)
+    b11 = (csky.sI - csky.sQ).to(cdtype)
+    src = {k: getattr(csky, k)[None, :] for k in (
+        "stype", "eX", "eY", "eP", "cxi", "sxi", "cphi", "sphi",
+        "use_projection", "sh_beta", "sh_n0")}
+    out = []
+    for freq in np.atleast_1d(np.asarray(freqs, np.float64)):
+        freq = float(freq)
+        phase = G * freq
+        phasor = torch.complex(torch.cos(phase), torch.sin(phase)) * smear
+        ul, vl, wl = u[:, None] * freq, v[:, None] * freq, w[:, None] * freq
+        phasor = envelopes.apply_envelopes(
+            phasor, src["stype"], ul, vl, wl, src["eX"], src["eY"],
+            src["eP"], src["cxi"], src["sxi"], src["cphi"], src["sphi"],
+            src["use_projection"], src["sh_beta"], csky.sh_modes[None],
+            src["sh_n0"], n0max, with_shapelets)
+        if per_channel_flux:
+            f = torch.as_tensor(freq, dtype=u.dtype, device=u.device)
+            args = (csky.spec_idx, csky.spec_idx1, csky.spec_idx2, csky.f0,
+                    f)
+            sI, sQ, sU, sV = (_spectral_flux(s0, *args) for s0 in (
+                csky.sI0, csky.sQ0, csky.sU0, csky.sV0))
+            c00, c01 = (sI + sQ).to(cdtype), torch.complex(sU, sV)
+            c10, c11 = torch.complex(sU, -sV), (sI - sQ).to(cdtype)
+        else:
+            c00, c01, c10, c11 = b00, b01, b10, b11
+        phasor = torch.where(live, phasor, torch.zeros_like(phasor))
+        xx = torch.sum(phasor * c00[None, :], dim=1)
+        xy = torch.sum(phasor * c01[None, :], dim=1)
+        yx = torch.sum(phasor * c10[None, :], dim=1)
+        yy = torch.sum(phasor * c11[None, :], dim=1)
+        out.append(torch.stack([torch.stack([xx, xy], -1),
+                                torch.stack([yx, yy], -1)], -2))
+    return torch.stack(out, dim=1)                          # [B, F, 2, 2]
+
+
+def coherencies_generic(sky: SkyArrays, u, v, w, freqs, fdelta,
+                        per_channel_flux: bool = False,
+                        with_shapelets: bool | None = None):
+    """All-cluster coherencies [M, B, F, 2, 2] of any sky, eagerly (the
+    JAX package's generic ``coherencies``, without the beam: ``-B`` is
+    ROADMAP queue A item 7). One cluster at a time (its ``lax.map``);
+    ``n0max`` comes from the mode grid's width and ``with_shapelets``,
+    when not given, from one host read of ``sh_n0``."""
+    if with_shapelets is None:
+        with_shapelets = bool((sky.sh_n0 > 0).any())
+    n0max = int(round(np.sqrt(sky.sh_modes.shape[-1])))
+    return torch.stack([
+        _cluster_coherency(SkyArrays(*(f[m] for f in sky)), u, v, w, freqs,
+                           fdelta, per_channel_flux, n0max, with_shapelets)
+        for m in range(sky.ll.shape[0])])
+
+
+def coherencies_split(sky_pg, sky_rest, u, v, w, freqs, fdelta,
+                      per_channel_flux: bool = False,
+                      with_shapelets: bool | None = None):
+    """Hybrid coherencies: the coherency kernel (``ops/coh.py``) on the
+    point/gaussian half plus :func:`coherencies_generic` on the compact
+    rest; either half may be None. The halves keep the clusters in
+    order, so their coherencies add elementwise."""
+    out = None
+    if sky_pg is not None:
+        out = coh_ops.coherencies(sky_pg, u, v, w, freqs, fdelta,
+                                  per_channel_flux=per_channel_flux)
+    if sky_rest is not None:
+        rest = coherencies_generic(sky_rest, u, v, w, freqs, fdelta,
+                                   per_channel_flux=per_channel_flux,
+                                   with_shapelets=with_shapelets)
+        out = rest if out is None else out + rest
+    return out
+
+
+def coherencies(sky, u, v, w, freqs, fdelta, per_channel_flux: bool = False):
+    """All-cluster coherencies [M, B, F, 2, 2] complex (no Jones), through
+    the split (:func:`coherencies_split`).
+
+    ``sky`` is a :class:`SplitSky` (the pipeline splits once) or a
+    SkyArrays, which is split here (:func:`split_arrays`). ``freqs`` is
+    the host's channel list (``ops/coh.py:coherencies`` uploads it);
+    ``fdelta`` the smearing bandwidth per channel."""
+    if not isinstance(sky, SplitSky):
+        sky = split_arrays(sky)
+    return coherencies_split(sky.pg, sky.rest, u, v, w, freqs, fdelta,
+                             per_channel_flux=per_channel_flux,
+                             with_shapelets=sky.with_shapelets)
 
 
 def uvcut_flags(flags, u, v, freqs, uvmin, uvmax):

@@ -45,7 +45,7 @@ def correct_by_cluster(res, J_m, sta1, sta2, chunk_idx_m, rho):
     return utils.mul22(utils.mul22(Gp, res), Gq, conj_b=True)
 
 
-def calculate_residuals_multifreq(sky: rp.SkyArrays, J, x, u, v, w, freqs,
+def calculate_residuals_multifreq(sky, J, x, u, v, w, freqs,
                                   fdelta_chan, sta1, sta2, chunk_idx,
                                   subtract_mask, correct_idx=None,
                                   rho: float = 1e-9):
@@ -53,8 +53,9 @@ def calculate_residuals_multifreq(sky: rp.SkyArrays, J, x, u, v, w, freqs,
 
     x [B, F, 2, 2]; J [M, Kmax, N, 2, 2]; chunk_idx [M, B];
     subtract_mask [M] bool; ``correct_idx`` the padded index of the
-    cluster whose solutions correct the residual; ``freqs`` the host's
-    channel list (``rime.predict.coherencies``)."""
+    cluster whose solutions correct the residual; ``sky`` a
+    ``rime.predict.SplitSky`` (or a SkyArrays, split per call) and
+    ``freqs`` the host's channel list (``rime.predict.coherencies``)."""
     coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
                          per_channel_flux=True)
     model = rp.predict_model(coh, J, sta1, sta2, chunk_idx,

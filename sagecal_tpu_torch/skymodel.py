@@ -3,8 +3,9 @@
 A numpy-only copy of the JAX package's parser (the port never imports
 ``sagecal_tpu``): LSM text format, cluster files, and the padded
 [M, Smax] struct-of-arrays :class:`ClusterSky` the predict layer ships
-to the device. The hybrid split for mixed skies comes with the
-shapelet/disk/ring port (ROADMAP queue A item 2).
+to the device, and the split of a mixed sky into the coherency
+kernel's point/gaussian half and a compact rest
+(:func:`split_for_kernel`).
 """
 
 from __future__ import annotations
@@ -341,6 +342,51 @@ def read_sky_cluster(sky_path: str, cluster_path: str, ra0: float,
     sources = parse_sky_model(sky_path, ra0, dec0, freq0, format_3)
     clusters = parse_cluster_file(cluster_path)
     return build_cluster_sky(sources, clusters, dtype=dtype)
+
+
+def split_for_kernel(sky: ClusterSky):
+    """Split a model into (point+gaussian, rest) for the hybrid predict
+    (``skymodel.split_for_pallas`` of the JAX package).
+
+    The coherency kernel (``ops/coh.py``) covers point and gaussian
+    sources; shapelet, disk and ring sources go to the generic predict.
+    Returns ``(sky_pg, sky_rest)``: ``sky_pg`` is the input with the other
+    sources masked out (``smask``), ``sky_rest`` a compact repack (Smax =
+    the largest per-cluster rest count) of the remaining live sources,
+    with ``f0`` filled with 1.0 (``log(freq / f0)`` stays finite), ``smask``
+    with False and every other field with 0; or None when every live
+    source is a point or a gaussian. Cluster order, ``cluster_ids``,
+    ``nchunk`` and ``names`` are kept on both halves, so their coherencies
+    add elementwise."""
+    is_pg = ((sky.stype == STYPE_POINT) | (sky.stype == STYPE_GAUSSIAN)) \
+        & sky.smask
+    rest = sky.smask & ~is_pg
+    sky_pg = dataclasses.replace(sky, smask=is_pg)
+    nrest = rest.sum(axis=1)
+    if nrest.max() == 0:
+        return sky_pg, None
+    M = sky.smask.shape[0]
+    S2 = int(nrest.max())
+
+    def pack(a, fill=0.0):
+        out = np.full((M, S2) + a.shape[2:], fill, a.dtype)
+        for m in range(M):
+            idx = np.where(rest[m])[0]
+            out[m, : len(idx)] = a[m, idx]
+        return out
+
+    fields = {}
+    for f in dataclasses.fields(sky):
+        a = getattr(sky, f.name)
+        if f.name in ("cluster_ids", "nchunk", "names"):
+            fields[f.name] = a
+        elif f.name == "smask":
+            fields[f.name] = pack(a, fill=False)
+        elif f.name == "f0":
+            fields[f.name] = pack(a, fill=1.0)
+        else:
+            fields[f.name] = pack(a)
+    return sky_pg, ClusterSky(**fields)
 
 
 def correct_cluster_index(sky, ccid, warn=None):

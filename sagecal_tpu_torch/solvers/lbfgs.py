@@ -7,7 +7,7 @@ and Armijo backtracking. Cost and gradient are plain callables; the SAGE
 refine passes ``torch.autograd.grad`` of its cost. The loops are Python
 loops whose branch tests read scalars back from the device — the same
 decisions the JAX ``while_loop``/``cond`` bodies make. The minibatch
-variant with persistent memory is ROADMAP queue A item 11.
+variant with persistent memory is ROADMAP queue A item 8.
 """
 
 from __future__ import annotations

@@ -3,17 +3,30 @@
 
 Every hybrid time chunk of a cluster is an independent 8N-parameter
 problem; all chunks solve together as one batched damped Gauss-Newton
-iteration. Each damping iteration is ONE fused sweep over the rows
-(``ops/sweep.py``, the CUDA kernel on the card) giving the per-baseline
-Gram blocks, gradient and acceptance cost at the trial point. The damped
-system is then solved by one of two inner solvers (``LMConfig.inner``):
+iteration. Each damping iteration is ONE pass over the rows giving the
+normal equations, gradient and acceptance cost at the trial point, by one
+of two assemblies, chosen on the host from shapes (:func:`use_sweep`, as
+``lm.py:396-403`` of the JAX package chooses):
 
-- ``"chol"``: the ``blocks_chol`` route (``lm.py:439``): assemble,
-  factor and solve from the blocks, with one boosted-jitter retry;
+- the fused sweep (``--kernel pallas`` where it fits: at most
+  ``MAX_CHUNKS`` hybrid chunks and baseline-major rows): per-baseline Gram
+  blocks from the sweep kernel (``ops/sweep.py``);
+- the XLA assembly (``--kernel xla``, and the fallback for any other
+  shape): eager ``normal_eq.normal_equations`` / ``gn_factors``, counted
+  in :data:`XLA_SOLVES`.
+
+The damped system is then solved by one of two inner solvers
+(``LMConfig.inner``):
+
+- ``"chol"``: on the sweep route the ``blocks_chol`` route
+  (``lm.py:439``): assemble, factor and solve from the blocks; on the XLA
+  route the dense (JTJ + shift I) Cholesky (:func:`_solve_damped`); both
+  with one boosted-jitter retry;
 - ``"cg"``: matrix-free preconditioned CG (``_solve_damped_cg``): each
-  trip is one blocks matvec (the matvec kernel on the card) under the
-  station-block preconditioner, stopped at the inexact-Newton forcing
-  tolerance ||r|| <= cg_tol ||JTe||; executed trips are counted.
+  trip is one blocks matvec (the matvec kernel on the card) or one
+  ``normal_eq.gn_matvec`` [B] pass under the station-block
+  preconditioner, stopped at the inexact-Newton forcing tolerance ||r||
+  <= cg_tol ||JTe||; executed trips are counted.
 
 Ordered subsets (``OSConfig``, clmfit.c:1074): each iteration's
 equations come from one contiguous time subset while acceptance tests
@@ -72,8 +85,18 @@ class LMConfig(NamedTuple):
     inner: str = "chol"        # "chol" (block Cholesky) or "cg" (PCG)
     cg_tol: float = 0.1        # forcing eta: stop at ||r|| <= eta ||JTe||
     cg_maxiter: int = 25       # PCG trip cap per damping iteration
-    kernel: str = "pallas"     # only the fused sweep is ported
+    kernel: str = "pallas"     # "pallas" (fused sweep where it fits), "xla"
     jones_mode: str = "full"
+
+
+#: solves (``lm_solve`` and ``rtr.rtr_solve`` calls) that took the XLA
+#: assembly since the last reset; the pipeline reports it per tile
+XLA_SOLVES = 0
+
+
+def reset_xla_solves() -> None:
+    global XLA_SOLVES
+    XLA_SOLVES = 0
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -117,26 +140,43 @@ def check_jones(config) -> None:
     if config.jones_mode != "full":
         raise NotImplementedError(
             f"--jones {config.jones_mode} is not ported yet (ROADMAP queue "
-            "A item 9)")
+            "A item 4)")
 
 
-def check_route(config, kmax: int, row_period: int, B: int) -> None:
-    """Raise for a solver route the port does not run: ``config`` is an
-    LMConfig or an RTRConfig (inner, kernel, jones_mode); ``kmax`` and
-    ``B`` are one visit's chunk and row counts."""
+def use_sweep(kernel: str, kmax: int, row_period: int, B: int) -> bool:
+    """The assembly route, chosen on the host from shapes before any
+    launch (``lm.py:396-403`` of the JAX package): True for the fused
+    sweep (``kernel == "pallas"`` and ``swp.supported``), False for the
+    XLA assembly. ``kmax`` and ``B`` are one visit's chunk and row
+    counts, so a group takes the route its members would alone."""
+    return kernel == "pallas" and swp.supported(kmax, row_period, B)
+
+
+def route_name(kernel: str, kmax: int, row_period: int, B: int) -> str:
+    """A line for the ``-V`` log: the route :func:`use_sweep` picks and
+    why."""
+    if use_sweep(kernel, kmax, row_period, B):
+        return "fused sweep (--kernel pallas)"
+    if kernel == "xla":
+        return "XLA assembly (--kernel xla)"
+    return (f"XLA assembly (the fused sweep does not fit: kmax={kmax} > "
+            f"{swp.MAX_CHUNKS} or rows not baseline-major)")
+
+
+def solve_route(config, kmax: int, row_period: int, B: int) -> bool:
+    """The route of one solve (:func:`use_sweep`) after raising for a
+    configuration the port does not run (``config`` an LMConfig or an
+    RTRConfig: inner, kernel, jones_mode); a solve on the XLA assembly
+    counts in :data:`XLA_SOLVES`."""
+    global XLA_SOLVES
     if config.inner not in ("chol", "cg"):
         raise ValueError(f"inner={config.inner!r}: expected chol or cg")
-    if config.kernel != "pallas":
-        raise NotImplementedError(
-            "--kernel xla needs the XLA normal-equation assembly, not "
-            "ported yet (ROADMAP queue A item 3)")
+    if config.kernel not in ("pallas", "xla"):
+        raise ValueError(f"kernel={config.kernel!r}: expected pallas or xla")
     check_jones(config)
-    if not swp.supported(kmax, row_period, B):
-        raise NotImplementedError(
-            f"the fused sweep needs baseline-major rows and at most "
-            f"{swp.MAX_CHUNKS} hybrid chunks (kmax={kmax}, row_period="
-            f"{row_period}, B={B}); the generic XLA assembly is ROADMAP "
-            "queue A item 3")
+    sweep = use_sweep(config.kernel, kmax, row_period, B)
+    XLA_SOLVES += not sweep
+    return sweep
 
 
 def live_lanes(mask, V: int) -> np.ndarray:
@@ -158,15 +198,45 @@ def _lane_caps(itmax: int, itmax_dynamic, lanes):
         np.repeat(caps, lanes.K), device=lanes.cid.device)
 
 
+def _solve_damped_chol(JTJ, JTe, shift):
+    """One batched shifted Cholesky of the dense system (``lm.
+    _chol_solve_shift``): (dp, ok), ok = factorization succeeded and dp
+    finite, per chunk."""
+    eye = torch.eye(JTJ.shape[-1], dtype=JTJ.dtype, device=JTJ.device)
+    L, info = torch.linalg.cholesky_ex(JTJ + shift[:, None, None] * eye)
+    dp = torch.cholesky_solve(JTe[..., None], L)[..., 0]
+    return dp, (info == 0) & torch.isfinite(dp).all(dim=-1)
+
+
+def _solve_damped(JTJ, JTe, mu, jitter):
+    """Solve (JTJ + (mu + jitter) I) dp = JTe on the dense matrix of the
+    XLA route (``lm._solve_damped``). A chunk whose factorization fails
+    gets ONE retry with the shift boosted by 1e-3 max|diag(JTJ)|; one that
+    fails again returns dp = 0. The retry is computed for every chunk and
+    selected per chunk (no host read)."""
+    shift = mu + jitter
+    dp, ok = _solve_damped_chol(JTJ, JTe, shift)
+    diag_max = torch.diagonal(JTJ, dim1=-2, dim2=-1).abs().amax(dim=-1)
+    dp2, ok2 = _solve_damped_chol(
+        JTJ, JTe, shift + 1e-3 * torch.clamp(diag_max, min=1e-30))
+    zero = torch.zeros_like(dp)
+    dpw = torch.where(ok[:, None], dp, torch.where(ok2[:, None], dp2, zero))
+    return dpw, ok | ok2
+
+
 def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
                      n_stations: int, eta: float, maxiter: int,
-                     active=None, lists=None, V: int = 1):
-    """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe on the
-    Gram blocks, batched over chunks; returns (dp, ok, trips).
+                     active=None, lists=None, V: int = 1, chunk_id=None,
+                     row_period: int = 0):
+    """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe,
+    batched over chunks; returns (dp, ok, trips).
 
-    Each trip is one blocks matvec (``swp.matvec_apply`` on one plan of
-    the blocks and the shift) and one station-block preconditioner
-    solve. A chunk stops at ||r||^2 <=
+    ``fac`` is the sweep route's Gram blocks (``swp.GNBlocks``: each trip
+    is one blocks matvec, ``swp.matvec_apply`` on one plan of the blocks
+    and the shift) or the XLA route's ``ne.GNFactors`` (each trip one
+    ``ne.gn_matvec`` [B] pass over the Wirtinger factors, with
+    ``chunk_id`` and ``row_period``); either way one station-block
+    preconditioner solve follows. A chunk stops at ||r||^2 <=
     (eta ||JTe||)^2 and freezes (masked updates) while the batch runs to
     the slowest live chunk; ``active`` [K] masks chunks out entirely
     (their rhs is zeroed, so they start converged); ``lists`` the tile's
@@ -188,14 +258,23 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     act = (r * r).sum(dim=-1) > tol2
     k = 0
     trips = np.zeros(V, dtype=np.int64)
-    plan = swp.matvec_plan(fac, sta1, sta2, n_stations, shift=shift,
-                           lists=lists)
+    if isinstance(fac, ne.GNFactors):
+        def matvec(v):
+            return ne.gn_matvec(fac, v, sta1, sta2, chunk_id, kmax,
+                                n_stations, shift=shift,
+                                row_period=row_period, visits=V)
+    else:
+        plan = swp.matvec_plan(fac, sta1, sta2, n_stations, shift=shift,
+                               lists=lists)
+
+        def matvec(v):
+            return swp.matvec_apply(plan, v)
     while k < maxiter:
         lv = live_lanes(act, V)
         if not lv.any():
             break
         trips += lv
-        Ap = swp.matvec_apply(plan, p)
+        Ap = matvec(p)
         pAp = (p * Ap).sum(dim=-1)
         alpha = torch.where(act & (pAp > 0),
                             rz / torch.clamp(pAp, min=tiny), zero)
@@ -231,11 +310,13 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     hold one entry per visit, and iters / cg_iters are [V] arrays."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
-    check_route(config, kmax // V, row_period, x8.shape[0] // V)
+    sweep = solve_route(config, kmax // V, row_period, x8.shape[0] // V)
     dev = x8.device
     dtype = x8.dtype
     N = n_stations
     inner_cg = config.inner == "cg"
+    # the XLA route's dense (JTJ, JTe, cost) under "chol"
+    dense = not sweep and not inner_cg
     p = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
@@ -243,10 +324,19 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     def p_to_J(pv):
         return ne.jones_r2c(pv.reshape(kmax, N, 8))
 
+    def rows(w):
+        return w if lanes is None or w is None else lanes.rows(w)
+
     def nrm_eq(pv, w=None, cw=None):
-        return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
-                             wt if w is None else w, N, kmax, row_period,
-                             cost_wt=cw, lanes=lanes)
+        w = wt if w is None else w
+        if sweep:
+            return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
+                                 w, N, kmax, row_period, cost_wt=cw,
+                                 lanes=lanes)
+        assemble = ne.normal_equations if dense else ne.gn_factors
+        return assemble(x8, p_to_J(pv), coh, sta1, sta2, chunk_id, rows(w),
+                        N, kmax, cost_wt=rows(cw), row_period=row_period,
+                        visits=V)
 
     if os is not None:
         os_id = (os if lanes is None else os[0]).os_id.to(dev)
@@ -271,8 +361,11 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         fac, JTe, cost = nrm_eq(p)
         live = torch.ones((kmax,), dtype=torch.bool, device=dev)
     cost0 = cost
-    dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
-    diag_max = dd.reshape(kmax, -1).abs().amax(dim=-1)
+    if dense:
+        diag_max = torch.diagonal(fac, dim1=-2, dim2=-1).abs().amax(dim=-1)
+    else:
+        dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
+        diag_max = dd.reshape(kmax, -1).abs().amax(dim=-1)
     mu = config.tau * torch.clamp(diag_max, min=1e-30)
     nu = torch.full((kmax,), 2.0, dtype=dtype, device=dev)
     stop = torch.zeros((kmax,), dtype=torch.bool, device=dev)
@@ -290,8 +383,10 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             dp, ok, trips = _solve_damped_cg(
                 fac, JTe, mu, config.jitter, 0.0, sta1, sta2, N,
                 config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask,
-                lists=lists, V=V)
+                lists=lists, V=V, chunk_id=chunk_id, row_period=row_period)
             cg_trips += trips
+        elif dense:
+            dp, ok = _solve_damped(fac, JTe, mu, config.jitter)
         else:
             dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,
                                              sta1, sta2, N)
@@ -320,9 +415,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         # is never retried: its dp is 0, so the new subset's equations
         # at pnew are the old point's
         adopt = accept | (~live & chunk_mask) if os is not None else accept
-        fac = swp.GNBlocks(*(
-            torch.where(adopt.reshape((kmax,) + (1,) * (new.ndim - 1)),
-                        new, old) for new, old in zip(facn, fac)))
+        fac = _adopt(adopt, facn, fac, chunk_id)
         JTe = torch.where(adopt[:, None], JTen, JTe)
         if os is not None:
             live = torch.where(adopt, sub_live, live)
@@ -339,6 +432,25 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         its, cg_trips = int(its[0]), int(cg_trips[0])
     return J, {"init_cost": cost0, "final_cost": cost, "iters": its,
                "cg_iters": cg_trips}
+
+
+def _adopt(adopt, new, old, chunk_id):
+    """The operator a chunk carries into the next iteration: ``new`` where
+    ``adopt`` [K], else ``old``. Gram blocks and the dense matrix carry a
+    leading K axis; the XLA route's per-row factors (MA, MB, w2) map
+    chunks onto rows through ``chunk_id``, and its D is per chunk."""
+    def sel(mask, a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)),
+                           a, b)
+    if torch.is_tensor(new):
+        return sel(adopt, new, old)
+    if isinstance(new, ne.GNFactors):
+        ra = adopt[chunk_id]
+        return ne.GNFactors(MA=sel(ra, new.MA, old.MA),
+                            MB=sel(ra, new.MB, old.MB),
+                            w2=sel(ra, new.w2, old.w2),
+                            D=sel(adopt, new.D, old.D))
+    return swp.GNBlocks(*(sel(adopt, a, b) for a, b in zip(new, old)))
 
 
 def make_weights(flags, dtype=torch.float32):

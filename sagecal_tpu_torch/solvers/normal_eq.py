@@ -1,14 +1,38 @@
-"""Residuals, costs and the PCG preconditioner of the per-direction
-solve (port of the parts of ``sagecal_tpu/solvers/normal_eq.py`` the
-fused-sweep route needs).
+"""Residuals, costs, the XLA-route normal equations and the PCG
+preconditioner of the per-direction solve (port of
+``sagecal_tpu/solvers/normal_eq.py``, full Jones).
 
 Real parametrization per station: 8 reals, (Re, Im) of J in row-major
 order (00, 01, 10, 11); residual 8-vector per row likewise (Re, Im) of
-(V00, V01, V10, V11). The XLA normal-equation assembly (``--kernel
-xla``) is ROADMAP queue A item 3.
+(V00, V01, V10, V11).
+
+The XLA-route assembly (``--kernel xla``, and the fallback when the fused
+sweep does not fit: ``solvers/lm.py:use_sweep``) is eager PyTorch, as it
+is XLA in the JAX package: :func:`normal_equations` (the dense (JTJ, JTe,
+cost) of ``--inner chol``) and :func:`gn_factors` / :func:`gn_matvec` (the
+matrix-free operator of ``--inner cg``), from the two [B, 2, 2, 4]
+Wirtinger factors (:func:`_ma_factor`, :func:`_mb_factor`); the per-row
+Jacobians are never formed. Each aggregates per station in one of two
+ways: the baseline-major contraction over the time axis when every visit
+solves one chunk and the rows are [T, nbase] (``row_period``), else the
+generic ``index_add_`` scatter. The JAX package's ``dtp.acc`` / ``dtp.pet``
+/ ``dtp.to_storage`` casts are identities at float32/float64, the only
+storage dtypes the port runs (``dtypes._check_ported``), so they are left
+out; the reduced-dtype assemblies (``_normal_equations_reduced``,
+``os_subset_equations``) come with ``--dtype-policy`` (ROADMAP queue A
+item 7). ``_normal_equations_dense`` stays the tests' oracle in the JAX
+package and is not ported.
+
+In-flight groups (``ops.sweep.Lanes``: rows [V B], chunk ids v K + k,
+Jones [V K, N]) go through the same functions with ``visits`` = V: the
+generic scatter serves the folded layout as it is, and the baseline-major
+contraction runs per visit on the rows reshaped to [V, T, nbase] (one
+chunk per visit: chunk v), as the JAX package's vmapped solve does.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -48,3 +72,238 @@ def gn_precond_apply(L, r, kmax: int, n_stations: int):
     md = L.shape[-1]
     rr = r.reshape(kmax, n_stations, 2, md, 1)
     return torch.cholesky_solve(rr, L).reshape(kmax, 2 * md * n_stations)
+
+
+def _real_jac(D, conj_param: bool):
+    """Complex derivative tensor [B, 2, 2, 2, 2] -> real Jacobian [B, 8, 8]:
+    D[b, a, o, c, d] = dV_ao / dtheta_cd with theta the complex parameter
+    (its conjugate when ``conj_param``); rows (Re, Im) of V, columns
+    (Re, Im) of theta, both row-major."""
+    B = D.shape[0]
+    Dr, Di = D.real, D.imag
+    J = torch.stack([
+        torch.stack([Dr, Di if conj_param else -Di], dim=-1),    # ri = Re
+        torch.stack([Di, -Dr if conj_param else Dr], dim=-1),    # ri = Im
+    ], dim=3)  # [B, a, o, ri, c, d, ci]
+    return J.reshape(B, 8, 8)
+
+
+def baseline_jacobians(J, coh, sta1, sta2, chunk_id):
+    """Per-baseline real Jacobian blocks (dV/dtheta_p, dV/dtheta_q):
+    [B, 8, 8] each."""
+    Jp = J[chunk_id, sta1]
+    Jq = J[chunk_id, sta2]
+    A = coh @ Jq.conj().transpose(-1, -2)
+    Bm = Jp @ coh
+    eye = torch.eye(2, dtype=A.dtype, device=A.device)
+    Dp = torch.einsum("ac,bdo->baocd", eye, A)
+    Dq = torch.einsum("oc,bad->baocd", eye, Bm)
+    return _real_jac(Dp, conj_param=False), _real_jac(Dq, conj_param=True)
+
+
+def _ma_factor(A):
+    """[B, 2, 2] complex A (dV_ao/d(J_p)_ad = A_do) -> MA [B, 2, 2, 4] real,
+    MA[b, o, ri, (d, ci)]: the 4x4 block every station-p Jacobian row
+    block repeats."""
+    Ar = A.real.transpose(-1, -2)                  # [B, o, d]
+    Ai = A.imag.transpose(-1, -2)
+    MA = torch.stack([torch.stack([Ar, -Ai], -1),  # ri = Re
+                      torch.stack([Ai, Ar], -1)], 2)  # ri = Im
+    return MA.reshape(A.shape[0], 2, 2, 4)
+
+
+def _mb_factor(Bm):
+    """[B, 2, 2] complex Bm (dV_ao/d(conj J_q)_od = Bm_ad) -> MB
+    [B, 2, 2, 4] real, MB[b, a, ri, (d, ci)] (conjugate-linear: the
+    Im-parameter column flips sign)."""
+    Br, Bi = Bm.real, Bm.imag                      # [B, a, d]
+    MB = torch.stack([torch.stack([Br, Bi], -1),   # ri = Re
+                      torch.stack([Bi, -Br], -1)], 2)  # ri = Im
+    return MB.reshape(Bm.shape[0], 2, 2, 4)
+
+
+def _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt):
+    """The one [B] pass shared by the assemblies: (MA, MB, r w, the cost's
+    weighted residual)."""
+    Jp = J[chunk_id, sta1]                         # [B, 2, 2]
+    Jq = J[chunk_id, sta2]
+    A = coh @ Jq.conj().transpose(-1, -2)          # dV/dJp factor
+    Bm = Jp @ coh                                  # dV/dconj(Jq) factor
+    V = Jp @ A                                     # = Jp C Jq^H
+    r = x8 - torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8)
+    rw = r * wt
+    rc = rw if cost_wt is None else r * cost_wt
+    return _ma_factor(A), _mb_factor(Bm), rw, rc
+
+
+def _baseline_major(kmax: int, row_period: int, B: int, visits: int):
+    """True when the aggregation contracts the time axis per visit: one
+    chunk per visit and [visits, T, nbase] rows."""
+    return (kmax == visits and row_period > 0
+            and B % (visits * row_period) == 0)
+
+
+def _index(chunk_id, sta, N: int):
+    return chunk_id * N + sta
+
+
+def _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id, N: int, kmax: int,
+               row_period: int, visits: int, cross: bool):
+    """The station aggregation of one [B] pass: (D [K, N, 2, 4, 4], the
+    cross blocks O [K, N N, 2, 2, 4, 4] when ``cross`` else None, JTe
+    [K, N, 2, 4], cost [K]). Per visit by the time-axis contraction onto
+    [nbase] blocks when :func:`_baseline_major`, else the generic
+    ``index_add_`` scatter with the weights folded into one [B, 2, 2, 2,
+    4] product each (every contraction a plain batched product)."""
+    B = rw.shape[0]
+    dt, dev = rw.dtype, rw.device
+    O = None
+    if _baseline_major(kmax, row_period, B, visits):
+        nb = row_period
+        T = B // (visits * nb)
+        wv = wt.reshape(visits, T, nb, 2, 2, 2)    # [v, t, n, a, o, ri]
+        WMAh = wv[..., None] * MA.reshape(visits, T, nb, 1, 2, 2, 4)
+        WMBh = wv[..., None] * MB.reshape(visits, T, nb, 2, 1, 2, 4)
+        rwv = rw.reshape(visits, T, nb, 2, 2, 2)
+        pp = torch.einsum("vtnaori,vtnaorj->vnaij", WMAh, WMAh)
+        qq = torch.einsum("vtnaori,vtnaorj->vnoij", WMBh, WMBh)
+        jtep = torch.einsum("vtnaori,vtnaor->vnai", WMAh, rwv)
+        jteq = torch.einsum("vtnaori,vtnaor->vnoi", WMBh, rwv)
+        s1b, s2b = sta1[:nb], sta2[:nb]
+        D = torch.zeros((visits, N, 2, 4, 4), dtype=dt, device=dev)
+        D.index_add_(1, s1b, pp).index_add_(1, s2b, qq)
+        if cross:
+            pq = torch.einsum("vtnaori,vtnaorj->vnaoij", WMAh, WMBh)
+            O = torch.zeros((visits, N * N, 2, 2, 4, 4), dtype=dt,
+                            device=dev)
+            O.index_add_(1, s1b * N + s2b, pq)
+        JTe = torch.zeros((visits, N, 2, 4), dtype=dt, device=dev)
+        JTe.index_add_(1, s1b, jtep).index_add_(1, s2b, jteq)
+        return D, O, JTe, (rc * rc).reshape(visits, -1).sum(dim=1)
+    w2 = (wt * wt).reshape(B, 2, 2, 2)             # [B, a, o, ri]
+    rw2 = (rw * wt).reshape(B, 2, 2, 2)            # w^2 r
+    WMA = w2[..., None] * MA[:, None]              # [B, a, o, ri, 4]
+    WMB = w2[..., None] * MB[:, :, None]
+    pp = torch.einsum("baori,borj->baij", WMA, MA)
+    qq = torch.einsum("baorj,bari->boij", WMB, MB)
+    jtep = torch.einsum("baor,bori->bai", rw2, MA)
+    jteq = torch.einsum("baor,bari->boi", rw2, MB)
+    i1, i2 = _index(chunk_id, sta1, N), _index(chunk_id, sta2, N)
+    D = torch.zeros((kmax * N, 2, 4, 4), dtype=dt, device=dev)
+    D.index_add_(0, i1, pp).index_add_(0, i2, qq)
+    if cross:
+        pq = torch.einsum("baori,barj->baoij", WMA, MB)
+        O = torch.zeros((kmax * N * N, 2, 2, 4, 4), dtype=dt, device=dev)
+        O.index_add_(0, i1 * N + sta2, pq)
+    JTe = torch.zeros((kmax * N, 2, 4), dtype=dt, device=dev)
+    JTe.index_add_(0, i1, jtep).index_add_(0, i2, jteq)
+    cost = torch.zeros((kmax,), dtype=dt, device=dev).index_add_(
+        0, chunk_id, (rc * rc).sum(dim=1))
+    return D, O, JTe, cost
+
+
+def normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
+                     kmax: int, cost_wt=None, row_period: int = 0,
+                     visits: int = 1):
+    """Weighted Gauss-Newton normal equations, batched over chunks: (JTJ
+    [K, 8N, 8N], JTe [K, 8N], cost [K]) with cost = sum_b ||wt_b r_b||^2
+    (``normal_eq.normal_equations``).
+
+    ``wt`` [B, 8] are sqrt-weights (0 for flagged rows, sqrt(w) for IRLS);
+    ``cost_wt`` an optional second set the cost uses instead (the OS
+    body's full-data acceptance cost beside subset equations);
+    ``row_period`` the rows' baseline period, which with one chunk per
+    visit turns the station aggregation into a contraction over time
+    (module docstring; ``visits`` the V of a folded group). The station-
+    pair cross blocks are aggregated once and symmetrized densely."""
+    N = n_stations
+    MA, MB, rw, rc = _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
+                               cost_wt)
+    D, O, JTe, cost = _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id,
+                                 N, kmax, row_period, visits, cross=True)
+    # dense expansion: off-diagonal station blocks [8, 8] from the pq
+    # blocks at (row c, col c'), symmetrized; station-diagonal blocks the
+    # block-diagonal embeddings of D
+    Off = O.view(kmax, N, N, 2, 2, 4, 4).permute(0, 1, 2, 3, 5, 4, 6) \
+        .reshape(kmax, N, N, 8, 8)
+    JTJ = Off + Off.transpose(1, 2).transpose(-1, -2)
+    eye2 = torch.eye(2, dtype=D.dtype, device=D.device)
+    Dfull = torch.einsum("knaij,ab->knaibj", D.view(kmax, N, 2, 4, 4),
+                         eye2).reshape(kmax, N, 8, 8)
+    idx = torch.arange(N, device=D.device)
+    JTJ[:, idx, idx] += Dfull
+    JTJ = JTJ.permute(0, 1, 3, 2, 4).reshape(kmax, 8 * N, 8 * N)
+    return JTJ, JTe.reshape(kmax, 8 * N), cost
+
+
+class GNFactors(NamedTuple):
+    """Per-iteration invariants of the matrix-free Gauss-Newton operator
+    (``normal_eq.GNFactors``): MA/MB [B, 2, 2, 4] unweighted Wirtinger
+    factors, w2 [B, 2, 2, 2] squared sqrt-weights (a, o, ri), D
+    [K, N, 2, 4, 4] weight-folded station-diagonal Gram blocks (the
+    preconditioner and the mu0 seed)."""
+
+    MA: torch.Tensor
+    MB: torch.Tensor
+    w2: torch.Tensor
+    D: torch.Tensor
+
+
+def gn_factors(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
+               kmax: int, cost_wt=None, row_period: int = 0,
+               visits: int = 1):
+    """Matrix-free analogue of :func:`normal_equations`: (GNFactors, JTe
+    [K, 8N], cost [K]) from one [B] pass, without the cross blocks and
+    the dense expansion (``normal_eq.gn_factors``)."""
+    N = n_stations
+    MA, MB, rw, rc = _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
+                               cost_wt)
+    D, _, JTe, cost = _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id,
+                                 N, kmax, row_period, visits, cross=False)
+    w2 = (wt * wt).reshape(-1, 2, 2, 2)
+    return GNFactors(MA=MA, MB=MB, w2=w2, D=D.view(kmax, N, 2, 4, 4)), \
+        JTe.reshape(kmax, 8 * N), cost
+
+
+def gn_matvec(fac: GNFactors, v, sta1, sta2, chunk_id, kmax: int,
+              n_stations: int, shift=None, row_period: int = 0,
+              visits: int = 1):
+    """(JTJ + shift I) @ v from the Wirtinger factors, one [B] pass
+    (``normal_eq.gn_matvec``): u = J v through MA/MB, then y = J^T (w^2 u)
+    back through the same factors. ``v`` [K, 8N]; ``shift`` [K], a scalar
+    or None."""
+    N = n_stations
+    B = fac.MA.shape[0]
+    vr = v.reshape(kmax, N, 2, 4)
+    if _baseline_major(kmax, row_period, B, visits):
+        Vn = visits
+        nb = row_period
+        T = B // (Vn * nb)
+        s1b, s2b = sta1[:nb], sta2[:nb]
+        MA_r = fac.MA.reshape(Vn, T, nb, 2, 2, 4)   # [v, t, n, o, ri, j]
+        MB_r = fac.MB.reshape(Vn, T, nb, 2, 2, 4)   # [v, t, n, a, ri, j]
+        vpn = vr[:, s1b]                            # [v, n, a, j]
+        vqn = vr[:, s2b]                            # [v, n, o, j]
+        u = (torch.einsum("vtnorj,vnaj->vtnaor", MA_r, vpn)
+             + torch.einsum("vtnarj,vnoj->vtnaor", MB_r, vqn))
+        uw = u * fac.w2.reshape(Vn, T, nb, 2, 2, 2)
+        ypn = torch.einsum("vtnaor,vtnorj->vnaj", uw, MA_r)
+        yqn = torch.einsum("vtnaor,vtnarj->vnoj", uw, MB_r)
+        y = torch.zeros((Vn, N, 2, 4), dtype=v.dtype, device=v.device)
+        y.index_add_(1, s1b, ypn).index_add_(1, s2b, yqn)
+    else:
+        vp = vr[chunk_id, sta1]                     # [B, a, j]
+        vq = vr[chunk_id, sta2]                     # [B, o, j]
+        u = (torch.einsum("borj,baj->baor", fac.MA, vp)
+             + torch.einsum("barj,boj->baor", fac.MB, vq))
+        uw = u * fac.w2
+        yp = torch.einsum("baor,borj->baj", uw, fac.MA)
+        yq = torch.einsum("baor,barj->boj", uw, fac.MB)
+        y = torch.zeros((kmax * N, 2, 4), dtype=v.dtype, device=v.device)
+        y.index_add_(0, _index(chunk_id, sta1, N), yp)
+        y.index_add_(0, _index(chunk_id, sta2, N), yq)
+    y = y.reshape(kmax, 8 * N)
+    if shift is not None:
+        y = y + torch.as_tensor(shift, dtype=y.dtype,
+                                device=y.device)[..., None] * v
+    return y

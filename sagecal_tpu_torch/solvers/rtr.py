@@ -15,16 +15,21 @@ All hybrid chunks of a cluster solve together: tangent vectors are
 [K, 8N] reals with per-chunk scalars as [K] tensors. The Euclidean
 gradient comes from ``torch.autograd.grad`` of the (weighted, optionally
 Student's-t) cost. The tCG Hessian is the Gauss-Newton operator at the
-outer point, from one fused sweep (``ops/sweep.py``): under
-``inner="cg"`` each product is one blocks matvec (the matvec kernel on
-the card), under ``inner="chol"`` one dense [K, 8N, 8N] product.
+outer point, assembled on the route ``lm.use_sweep`` picks from shapes:
+from one fused sweep (``ops/sweep.py``), where under ``inner="cg"`` each
+product is one blocks matvec (the matvec kernel on the card); or by the
+XLA assembly (``normal_eq``), where under ``inner="cg"`` each product is
+one ``gn_matvec`` [B] pass. Under ``inner="chol"`` either route gives a
+dense [K, 8N, 8N] matrix and each product is one batched matrix-vector
+product.
 
 Host reads: the outer loop reads one [K] bool per iteration (the JAX
 ``while_loop`` condition) and one to decide whether any chunk accepted
 (``lax.cond`` on it); tCG reads its [K] ``done`` mask each trip and
 stops when every chunk is done, where the reference runs its fixed trip
 count with masked updates: the same result in fewer Hessian products.
-``--jones diag|phase`` and ADMM are not ported.
+``--jones diag|phase`` (ROADMAP queue A item 4) and ADMM are not
+ported.
 
 With ``lanes`` (``ops.sweep.Lanes``, as in ``lm.lm_solve``) one call
 solves an in-flight group's V cluster visits, each with its own
@@ -55,8 +60,8 @@ class RTRConfig(NamedTuple):
     delta0_frac: float = 0.25  # Delta0 = frac * ||X0||_F per chunk
     delta_bar_frac: float = 2.0
     eps_grad: float = 1e-12    # relative gradient stop
-    inner: str = "chol"        # tCG operator: dense ("chol") or blocks
-    kernel: str = "pallas"     # only the fused sweep is ported
+    inner: str = "chol"        # tCG operator: dense ("chol") or matrix-free
+    kernel: str = "pallas"     # "pallas" (fused sweep where it fits), "xla"
     jones_mode: str = "full"
 
 
@@ -223,7 +228,8 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     group) and tcg_iters (executed Hessian products)."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
-    lm_mod.check_route(config, kmax // V, row_period, x8.shape[0] // V)
+    sweep = lm_mod.solve_route(config, kmax // V, row_period,
+                               x8.shape[0] // V)
     dev, dtype = x8.device, x8.dtype
     N = n_stations
     p0 = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
@@ -239,6 +245,9 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
 
     def p_to_J(p):
         return ne.jones_r2c(p.reshape(kmax, N, 8))
+
+    def rows(w):
+        return w if lanes is None else lanes.rows(w)
 
     cost_fn = make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
                         robust_nu=nu_r)
@@ -259,17 +268,33 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             wt_eff = wt_r * torch.sqrt(nu_r) / (nu_r + e * e)
         proj = _projector(p, kmax, N)
         if config.inner == "cg":
-            fac, _, _ = swp.gn_blocks(x8, Jm, coh, sta1, sta2, chunk_id,
-                                      wt_eff, N, kmax, row_period,
-                                      lanes=lanes)
-            plan = swp.matvec_plan(fac, sta1, sta2, N, lists=lists)
+            if sweep:
+                fac, _, _ = swp.gn_blocks(x8, Jm, coh, sta1, sta2, chunk_id,
+                                          wt_eff, N, kmax, row_period,
+                                          lanes=lanes)
+                plan = swp.matvec_plan(fac, sta1, sta2, N, lists=lists)
+
+                def hv(v):
+                    return proj(2.0 * swp.matvec_apply(plan, v))
+                return hv
+            # matrix-free: each product one [B] pass over the factors
+            fac, _, _ = ne.gn_factors(x8, Jm, coh, sta1, sta2, chunk_id,
+                                      rows(wt_eff), N, kmax,
+                                      row_period=row_period, visits=V)
 
             def hv(v):
-                return proj(2.0 * swp.matvec_apply(plan, v))
+                return proj(2.0 * ne.gn_matvec(
+                    fac, v, sta1, sta2, chunk_id, kmax, N,
+                    row_period=row_period, visits=V))
             return hv
-        JTJ, _, _ = swp.normal_equations_fused(x8, Jm, coh, sta1, sta2,
-                                               chunk_id, wt_eff, N, kmax,
-                                               row_period, lanes=lanes)
+        if sweep:
+            JTJ, _, _ = swp.normal_equations_fused(
+                x8, Jm, coh, sta1, sta2, chunk_id, wt_eff, N, kmax,
+                row_period, lanes=lanes)
+        else:
+            JTJ, _, _ = ne.normal_equations(
+                x8, Jm, coh, sta1, sta2, chunk_id, rows(wt_eff), N, kmax,
+                row_period=row_period, visits=V)
 
         def hv(v):
             return proj(2.0 * torch.einsum("kij,kj->ki", JTJ, v))

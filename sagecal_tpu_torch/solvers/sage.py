@@ -489,7 +489,10 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                            nerr_acc / torch.clamp(total, min=1e-30),
                            nerr_acc)
 
-    mean_nu = torch.clamp(nuM.mean(), config.nulow, config.nuhigh)
+    # the mean as the JAX package's compiled program takes it: XLA turns
+    # the division by M into a multiply by 1/M (one ulp apart at M = 3)
+    mean_nu = torch.clamp(nuM.sum() * (1.0 / M), config.nulow,
+                          config.nuhigh)
     # host wall split: the solvers read the device every iteration and
     # the refine's line search every evaluation, so each span ends within
     # one small kernel of its device work

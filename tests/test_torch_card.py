@@ -6,10 +6,12 @@ JAX package, so it runs on a card machine without them:
 
 Each kernel is held against its plain PyTorch version in float32 at
 max|diff| <= 1e-4 max|ref| (the chip_smoke.py gate), and a CUDA tensor
-must launch the kernel or raise — never fall back. The last two tests drive
-the robust RTR solver with ``--inner cg`` on the card, alone and as an
-in-flight group of two clusters, against the same solve on the CPU in
-float64."""
+must launch the kernel or raise — never fall back. Two tests drive the
+solvers with ``--inner cg`` on the card (robust RTR alone, LM as an
+in-flight group of two clusters) against the same solve on the CPU in
+float64; the last two hold the split predict of a mixed sky against the
+generic predict in float64 on the card, and one LM solve on the XLA
+assembly against the CPU."""
 
 import numpy as np
 import pytest
@@ -529,4 +531,55 @@ def test_robust_rtr_cg_on_card_matches_cpu(card):
                          tswp.MATVEC_LAUNCHES - n0)
     (gc, gl), (cc, cl) = out[str(card)], out["cpu"]
     assert gl > 0 and cl == 0
+    assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
+
+
+def test_split_predict_on_card_matches_float64(card, tmp_path):
+    """The split predict of a mixed sky (chip_smoke.py's write_sky: every
+    morphology, shapelets of n0 = 2..6) in float32 on the card (the
+    coherency kernel on the point/gaussian half, one launch, plus the
+    eager rest) against the port's generic predict in float64 on the
+    card: max|diff| <= 1e-4 max|ref|."""
+    import chip_smoke
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.rime import predict as trp
+    sky_path, clus_path = chip_smoke.write_sky(
+        str(tmp_path / "sky.txt"), 3, 30, (1, 1, 1), seed=4, mixed=True)
+    sky = skymodel.read_sky_cluster(sky_path, clus_path, chip_smoke.RA0,
+                                    chip_smoke.DEC0, 150e6)
+    rng = np.random.default_rng(2)
+    uvw = rng.normal(0, 4e-6, (3, 2000)) * np.array([[1.0], [1.0], [0.1]])
+    freqs = chip_smoke.FREQS
+    t = lambda dt: [torch.as_tensor(a, dtype=dt, device=card) for a in uvw]
+    n0 = tcoh.LAUNCHES
+    got = trp.coherencies(trp.split_sky(sky, torch.float32, card),
+                          *t(torch.float32), freqs, 0.18e6,
+                          per_channel_flux=True)
+    assert tcoh.LAUNCHES - n0 == 1
+    ref = trp.coherencies_generic(
+        trp.sky_to_device(sky, torch.float64, card), *t(torch.float64),
+        freqs, 0.18e6, per_channel_flux=True)
+    assert _close(got.to(torch.complex128), ref)
+
+
+def test_xla_lm_solve_on_card_matches_cpu(card):
+    """One LM solve on the XLA assembly (--kernel xla, --inner chol) on
+    the card, against the CPU float64 solve: final cost within 1e-3; the
+    solve counts in XLA_SOLVES and launches no sweep kernel."""
+    from sagecal_tpu_torch.solvers import lm as tlm
+    x8, coh, sa, sb, cid, J0, N, nb = robust_rtr_problem(point=True)
+    B = x8.shape[0]
+    out = {}
+    for dev, rdt, cdt in ((card, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        r = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
+        c = lambda a: torch.as_tensor(a, dtype=cdt, device=dev)
+        i = lambda a: torch.as_tensor(a, device=dev).long()
+        n0, s0 = tlm.XLA_SOLVES, tswp.LAUNCHES
+        J, info = tlm.lm_solve(
+            r(x8), c(coh), i(sa), i(sb), i(cid), r(np.ones((B, 8))), c(J0),
+            N, row_period=nb, config=tlm.LMConfig(itmax=8, kernel="xla"))
+        out[str(dev)] = info["final_cost"].double().cpu()
+        assert tlm.XLA_SOLVES - n0 == 1 and tswp.LAUNCHES == s0
+    gc, cc = out[str(card)], out["cpu"]
     assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())

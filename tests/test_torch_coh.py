@@ -129,14 +129,23 @@ def test_supported_matches_reference():
 
 
 def test_extended_sources_raise():
+    """A disk source no longer raises: the predict splits the sky (the
+    kernel's plain version on the points, the eager envelope on the disk)
+    and matches the JAX predict."""
     sky = point_sky()
     sky.stype[0, 1] = skymodel.STYPE_DISK
+    sky.eX[0, 1] = sky.eY[0, 1] = 2e-3
+    assert not tcoh.supported(sky) and tcoh.any_supported(sky)
     dsky = rp.sky_to_device(sky, jnp.float64)
     tsky = convert.sky_from_numpy(
         {k: np.asarray(getattr(dsky, k)) for k in dsky._fields})
-    z = torch.zeros(5, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trp.coherencies(tsky, z, z, z, torch.tensor([150e6]), 0.18e6)
+    arrs = _inputs(np.float64)
+    want = np.asarray(rp.coherencies(dsky, *(jnp.asarray(a) for a in arrs),
+                                     0.18e6))
+    u, v, w, f = (torch.as_tensor(a) for a in arrs)
+    got = trp.coherencies(tsky, u, v, w, f, 0.18e6).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10,
+                               atol=1e-12 * np.abs(want).max())
 
 
 def test_gauss_coeffs_and_weights_match():

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
     """In a fresh interpreter where importing jax or sagecal_tpu fails,
     every port module and chip_smoke.py import."""
     mods = _modules()
-    for m in ("ops.sweep", "solvers.robust", "solvers.rtr"):
+    for m in ("ops.sweep", "solvers.robust", "solvers.rtr",
+              "rime.envelopes", "solvers.normal_eq"):
         assert "sagecal_tpu_torch." + m in mods
     code = (
         "import sys\n"

@@ -283,11 +283,25 @@ def test_os_subset_ids_and_draws():
                                                 ("chol", "xla", "full"),
                                                 ("chol", "pallas", "diag")])
 def test_unported_routes_raise(inner, kernel, jones):
+    """--jones diag raises on either assembly; the XLA assembly itself
+    (--kernel xla, both inner solvers) now runs, counted in XLA_SOLVES."""
     x8, coh, s1, s2, cid, nbase = _problem()
+
+    def solve(jones_mode):
+        return tlm.lm_solve(
+            _t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(),
+            _t(cid).long(), _t(np.ones((x8.shape[0], 8))),
+            _t(np.tile(np.eye(2, dtype=complex), (1, 6, 1, 1))), 6,
+            row_period=nbase,
+            config=tlm.LMConfig(inner=inner, kernel=kernel,
+                                jones_mode=jones_mode))
+    if jones == "full":
+        n0 = tlm.XLA_SOLVES
+        J, info = solve("full")
+        assert tlm.XLA_SOLVES == n0 + 1
+        assert torch.isfinite(J).all()
+        assert float(info["final_cost"].sum()) < float(
+            info["init_cost"].sum())
+        jones = "diag"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.lm_solve(_t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(),
-                     _t(cid).long(), _t(np.ones((x8.shape[0], 8))),
-                     _t(np.tile(np.eye(2, dtype=complex), (1, 6, 1, 1))), 6,
-                     row_period=nbase,
-                     config=tlm.LMConfig(inner=inner, kernel=kernel,
-                                         jones_mode=jones))
+        solve(jones)

@@ -302,7 +302,7 @@ def test_mode_runs_use_their_solvers(mode_runs):
 
 @pytest.mark.parametrize("extra", [["--resume"], ["-N", "2"],
                                    ["-B", "1"], ["--tile-batch", "2"],
-                                   ["--kernel", "xla"],
+                                   ["-W", "1"],
                                    ["--jones", "diag"], ["-q", "x.sol"],
                                    ["--dtype-policy", "bf16"],
                                    ["--prefetch", "0"]])

@@ -76,12 +76,18 @@ def test_make_cost_matches_reference(nu):
     _close(got.numpy(), want)
 
 
-#: (solver, K, inner): rtr = rtr_solve, robust = rtr_solve_robust
+#: (solver, K, inner): rtr = rtr_solve, robust = rtr_solve_robust; an
+#: ``_xla`` suffix runs both packages on the XLA assembly (--kernel xla:
+#: the dense normal_equations under chol, gn_factors + gn_matvec under cg)
 CASES = [("rtr", 1, "chol"), ("rtr", 2, "cg"), ("robust", 2, "chol"),
-         ("robust", 1, "cg"), ("nsd", 1, None), ("nsd", 2, None)]
+         ("robust", 1, "cg"), ("nsd", 1, None), ("nsd", 2, None),
+         ("rtr_xla", 1, "chol"), ("rtr_xla", 2, "cg"),
+         ("robust_xla", 2, "chol"), ("robust_xla", 1, "cg")]
 
 
 def _run(solver, K, inner):
+    kernel = "xla" if solver.endswith("_xla") else "pallas"
+    solver = solver.replace("_xla", "")
     N = 6
     x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=70 + K, noise=0.2)
     if solver != "rtr":
@@ -98,8 +104,8 @@ def _run(solver, K, inner):
         got = trtr.nsd_solve_robust(*targs, N, config=trtr.NSDConfig(itmax=6),
                                     itmax_dynamic=4 + K)
         return ref, got
-    cfg = rtr_mod.RTRConfig(itmax=6, kernel="pallas", inner=inner)
-    tcfg = trtr.RTRConfig(itmax=6, inner=inner)
+    cfg = rtr_mod.RTRConfig(itmax=6, kernel=kernel, inner=inner)
+    tcfg = trtr.RTRConfig(itmax=6, inner=inner, kernel=kernel)
     if solver == "rtr":
         J, info = rtr_mod.rtr_solve(*jargs, N, row_period=nbase, config=cfg)
         tJ, tinfo = trtr.rtr_solve(*targs, N, row_period=nbase, config=tcfg)
@@ -137,9 +143,12 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trtr.rtr_solve(*args, row_period=nbase,
                        config=trtr.RTRConfig(jones_mode="phase"))
+    # the XLA assembly runs (rtr_runs holds it against the reference);
+    # --jones phase raises on that route too
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trtr.rtr_solve(*args, row_period=nbase,
-                       config=trtr.RTRConfig(kernel="xla"))
+                       config=trtr.RTRConfig(kernel="xla",
+                                             jones_mode="phase"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trtr.nsd_solve_robust(*args, config=trtr.NSDConfig(jones_mode="diag"))
 
