@@ -24,10 +24,16 @@ float64 on the card; ``slice_parity`` adds ``xla_default`` (``-j 5
 --kernel xla``, the JAX CLI's default command line, on a mixed sky),
 ``xla_cg`` (its ``--inner cg``) and ``kmax5`` (a 5-chunk cluster, no
 ``--kernel`` flag: the XLA fallback); and ``e2e_mixed`` runs ``-j 5
---kernel xla`` at full width on the mixed sky (one tile, twice: whether
-the two runs are bitwise equal is recorded). The XLA-route runs must
-launch no sweep, matvec or visits kernel and count XLA solves; every other
-run must count none.
+--kernel xla`` at full width on the mixed sky (one tile). The XLA-route
+runs must launch no sweep, matvec or visits kernel and count XLA solves;
+every other run must count none.
+Constrained Jones modes (``--jones diag|phase``): the sweep, visits and
+matvec phases run each kernel at md = 2 and md = 1 too; ``slice_parity``
+adds ``diag_j1``, ``phase_cg`` and ``diag_inflight_rtr``; and ``e2e_diag``
+(``-j 1 --jones diag``) and ``e2e_phase`` (``-j 5 --inner cg --jones
+phase``) run one tile each on e2e_rtr's observation. A run in a mode must
+launch its solve kernels at that mode's md only, and its solutions'
+off-diagonals must be exactly 0.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -117,11 +123,13 @@ def device_ms(fn, reps: int = 200) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_us(fn, names: tuple, reps: int = 20):
+def kernel_us(fn, names: tuple, reps: int = 20, traces: int = 4):
     """Mean device time (us) of the CUDA kernels whose name contains one
     of ``names`` per call of ``fn()`` (``("",)``: every kernel), from a
-    ``torch.profiler`` trace of ``reps`` calls (CUPTI); None when the
-    trace holds no such kernel. A trace on the card can lose kernel
+    ``torch.profiler`` trace of ``reps`` calls (CUPTI); None when none of
+    up to ``traces`` traces holds such a kernel (a trace on the card now
+    and then drops every record of a kernel, so another is taken, as
+    :func:`kernels_per_call` does). A trace can also lose some kernel
     records (3 of 20 once), so each kernel counts its mean over the
     records kept times its launches a call: records over ``reps``,
     rounded, for a kernel in at least every other call, else unrounded."""
@@ -129,19 +137,22 @@ def kernel_us(fn, names: tuple, reps: int = 20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total",
-                    getattr(ev, "cuda_time_total", 0.0))
-        if any(n in ev.key for n in names) and t > 0 and ev.count:
-            per_call = ev.count / reps
-            total += t / ev.count * (round(per_call) if per_call >= 0.5
-                                     else per_call)
-    return total if total > 0 else None
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+            if any(n in ev.key for n in names) and t > 0 and ev.count:
+                per_call = ev.count / reps
+                total += t / ev.count * (round(per_call) if per_call >= 0.5
+                                         else per_call)
+        if total > 0:
+            return total
+    return None
 
 
 def kernels_per_call(fn, name: str, launches, reps: int = 5):
@@ -658,16 +669,23 @@ EDGES = (("nb190", 20, 5, 3, 3), ("empty_chunk", N_STATIONS, TILESZ, 2, 1),
          ("one_slot", N_STATIONS, 1, 2, 2))
 
 
-def _sweep_check(tag, args, nb):
-    """The sweep kernel against its plain version on ``args``, twice
-    (bitwise equal), and an empty chunk's blocks exactly zero. Returns
-    (relative errors per output, max |diff|, the first call's outputs)."""
+#: the Jones modes of the constrained solves (``--jones diag|phase``) and
+#: their block widths md: the sweep, visits and matvec kernels run at md
+#: = 2 and 1 beside full Jones (md = 4)
+MODES = (("diag", 2), ("phase", 1))
+
+
+def _sweep_check(tag, args, nb, jones="full"):
+    """The sweep kernel against its plain version on ``args`` in the Jones
+    mode ``jones``, twice (bitwise equal), and an empty chunk's blocks
+    exactly zero. Returns (relative errors per output, max |diff|, the
+    first call's outputs)."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
     x8, J, coh, sta1, sta2, cid, wt, cw, _, K = args
     n0 = swp.LAUNCHES
-    got = swp.sweep_blocks(*args)
-    again = swp.sweep_blocks(*args)
+    got = swp.sweep_blocks(*args, jones=jones)
+    again = swp.sweep_blocks(*args, jones=jones)
     torch.cuda.synchronize()
     if swp.LAUNCHES != n0 + 2:
         raise AssertionError(f"sweep {tag}: the wrapper did not launch once "
@@ -676,7 +694,7 @@ def _sweep_check(tag, args, nb):
         raise AssertionError(f"sweep {tag}: two calls differ")
     s1b, s2b = sta1[:nb], sta2[:nb]
     ref = swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh, cid, wt, cw,
-                                 nb)
+                                 nb, jones)
     pairs = [rel_err(g, r) for g, r in zip(got, ref)]
     errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
                     (rel for _, rel in pairs)))
@@ -692,83 +710,103 @@ def _sweep_check(tag, args, nb):
     return errs, max(a for a, _ in pairs), got
 
 
-def phase_sweep():
-    """The fused sweep kernel against its plain version at full width (K =
-    1 and 4) and at the edge shapes, each twice (bitwise equal); timed as
-    ``call_ms`` (one call, median CUDA-event time after a synchronize) and
-    ``device_ms`` (200 back-to-back calls over the count)."""
+def _sweep_timed(K: int, jones: str, ptxas: dict) -> dict:
+    """The sweep kernel at full width (K chunks, Jones mode ``jones``):
+    checked against its plain version, one kernel a call, and timed as
+    ``call_ms`` (one call, median CUDA-event time after a synchronize),
+    ``device_ms`` (200 back-to-back calls over the count) and the
+    profiler's ``kernel_us``, beside its bound."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
+    from sagecal_tpu_torch.solvers import normal_eq as ne
+    md = ne.jones_mdim(jones)
+    args, (B, nb) = _sweep_inputs(K)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
+    errs, abs_err, _ = _sweep_check(f"K={K} {jones}", args, nb, jones)
+    call = lambda: swp.sweep_blocks(*args, jones=jones)
+    ms = cuda_ms(call, 50)
+    dev_ms = device_ms(call)
+    k_us = kernel_us(call, ("sweep_cluster",))
+    n_kernels, traces = kernels_per_call(call, "sweep_cluster",
+                                         lambda: swp.LAUNCHES)
+    if n_kernels != 1:
+        raise AssertionError(f"sweep K={K} {jones}: {n_kernels} kernels a "
+                             "call")
+    s1b, s2b = sta1[:nb], sta2[:nb]
+    plain_ms = cuda_ms(
+        lambda: swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh, cid,
+                                       wt, cw, nb, jones), 3)
+    # rows (x, w, cw, coherency), chunk ids (int32, as the TPU kernel reads
+    # them) when K > 1, the Jones and the baselines' stations (int32) read
+    # once; the caller layout of md and the costs written once
+    n_bytes = 4 * (32 * B + B * (K > 1) + K * N_STATIONS * 8 + 2 * nb
+                   + K * nb * swp.n_out(md) + K)
+    # each row enters the sums of its own chunk only
+    n_rows = int(((cid >= 0) & (cid < K)).sum())
+    bms, by = bound_ms(n_bytes, swp.sweep_flops_per_row(md) * n_rows)
+    geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
+        torch.device("cuda", torch.cuda.current_device()), K, md), md=md)
+    rec = dict(K=K, jones=jones, md=md, T=TILESZ, nb=nb, rel_err=errs,
+               max_abs_err=abs_err, ms=ms, call_ms=ms, device_ms=dev_ms,
+               kernel_us=k_us, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=None, bound_share=bms / dev_ms,
+               kernel_bound_share=k_us and bms / (k_us / 1e3),
+               kernels_per_call=n_kernels, kernel_traces=traces,
+               geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
+                             times=geo.times),
+               deterministic=True, ptxas=ptxas)
+    emit("sweep", **rec)
+    return rec
+
+
+def phase_sweep():
+    """The fused sweep kernel against its plain version at full width (K =
+    1 and 4) in each Jones mode (md = 4, 2, 1) and at the edge shapes
+    (every edge in full Jones, the empty chunk in diag and phase too),
+    each twice (bitwise equal); timed by :func:`_sweep_timed`. Records
+    are keyed K (full Jones) and (jones, K)."""
     out = {}
     ptxas = ptxas_resources("sweep")
     for K in (1, 4):
-        args, (B, nb) = _sweep_inputs(K)
-        x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
-        errs, abs_err, _ = _sweep_check(f"K={K}", args, nb)
-        ms = cuda_ms(lambda: swp.sweep_blocks(*args), 50)
-        dev_ms = device_ms(lambda: swp.sweep_blocks(*args))
-        k_us = kernel_us(lambda: swp.sweep_blocks(*args), ("sweep_cluster",))
-        n_kernels, traces = kernels_per_call(
-            lambda: swp.sweep_blocks(*args), "sweep_cluster",
-            lambda: swp.LAUNCHES)
-        if n_kernels != 1:
-            raise AssertionError(f"sweep K={K}: {n_kernels} kernels a call")
-        s1b, s2b = sta1[:nb], sta2[:nb]
-        plain_ms = cuda_ms(
-            lambda: swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh,
-                                           cid, wt, cw, nb), 3)
-        # rows (x, w, cw, coherency), chunk ids (int32, as the TPU kernel
-        # reads them) when K > 1, the Jones and the baselines' stations
-        # (int32) read once; the caller layout and the costs written once
-        n_bytes = 4 * (32 * B + B * (K > 1) + K * N_STATIONS * 8 + 2 * nb
-                       + K * nb * swp.N_OUT + K)
-        # each row enters the sums of its own chunk only
-        n_rows = int(((cid >= 0) & (cid < K)).sum())
-        bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
-        geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
-            torch.device("cuda", torch.cuda.current_device()), K))
-        rec = dict(K=K, T=TILESZ, nb=nb, rel_err=errs, max_abs_err=abs_err,
-                   ms=ms, call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=None, bound_share=bms / dev_ms,
-                   kernel_bound_share=k_us and bms / (k_us / 1e3),
-                   kernels_per_call=n_kernels, kernel_traces=traces,
-                   geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
-                                 times=geo.times),
-                   deterministic=True, ptxas=ptxas)
-        emit("sweep", **rec)
-        out[K] = rec
+        out[K] = _sweep_timed(K, "full", ptxas)
+    for jones, _ in MODES:
+        for K in (1, 4):
+            out[(jones, K)] = _sweep_timed(K, jones, ptxas)
     for tag, N, T, K, nck in EDGES:
-        args, (B, nb) = _sweep_inputs(K, seed=6, N=N, T=T, nchunk=nck)
-        errs, abs_err, _ = _sweep_check(tag, args, nb)
-        emit("sweep_edge", tag=tag, N=N, T=T, nb=nb, K=K, nchunk=nck,
-             rel_err=errs, max_abs_err=abs_err, deterministic=True)
-        out[tag] = dict(max_abs_err=abs_err)
+        for jones in ("full",) + (tuple(m for m, _ in MODES)
+                                  if tag == "empty_chunk" else ()):
+            args, (B, nb) = _sweep_inputs(K, seed=6, N=N, T=T, nchunk=nck)
+            errs, abs_err, _ = _sweep_check(f"{tag} {jones}", args, nb,
+                                            jones)
+            emit("sweep_edge", tag=tag, jones=jones, N=N, T=T, nb=nb, K=K,
+                 nchunk=nck, rel_err=errs, max_abs_err=abs_err,
+                 deterministic=True)
+            out[(tag, jones)] = dict(max_abs_err=abs_err)
     return out
 
 
 def _baseline_blocks(fac):
-    """The [K, nb, 16, 16] baseline blocks [pp pq; pq^T qq] acting on
+    """The [K, nb, 4 md, 4 md] baseline blocks [pp pq; pq^T qq] acting on
     (vp, vq), assembled once for the library-call yardstick."""
-    import torch
-    K, nb = fac.pp.shape[0], fac.pp.shape[1]
-    Bk = fac.pp.new_zeros((K, nb, 2, 2, 4, 2, 2, 4))   # [row s,a][col s,a]
+    K, nb, md = fac.pp.shape[0], fac.pp.shape[1], fac.pp.shape[-1]
+    Bk = fac.pp.new_zeros((K, nb, 2, 2, md, 2, 2, md))  # [row s,a][col s,a]
     for a in range(2):
         Bk[:, :, 0, a, :, 0, a, :] = fac.pp[:, :, a]
         Bk[:, :, 1, a, :, 1, a, :] = fac.qq[:, :, a]
         for o in range(2):
             Bk[:, :, 0, a, :, 1, o, :] = fac.pq[:, :, a, o]
             Bk[:, :, 1, o, :, 0, a, :] = fac.pq[:, :, a, o].transpose(-1, -2)
-    return Bk.reshape(K, nb, 16, 16).contiguous()
+    return Bk.reshape(K, nb, 4 * md, 4 * md).contiguous()
 
 
 def _matvec_check(tag, fac, sta1, sta2, N, shift, gen):
     """The matvec kernel through a plan against its plain version, twice
-    (bitwise equal). Returns (v, plan, abs err, rel err)."""
+    (bitwise equal), at the blocks' width md. Returns (v, plan, abs err,
+    rel err)."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
-    K, nb = fac.pp.shape[0], fac.pp.shape[1]
-    v = torch.randn((K, 8 * N), device="cuda", generator=gen,
+    K, nb, md = fac.pp.shape[0], fac.pp.shape[1], fac.pp.shape[-1]
+    v = torch.randn((K, 2 * md * N), device="cuda", generator=gen,
                     dtype=torch.float32)
     # built once per tile on the main path (sagefit_host), the plan once
     # per Gram-block set (a tCG operator, a PCG solve)
@@ -792,64 +830,88 @@ def _matvec_check(tag, fac, sta1, sta2, N, shift, gen):
     return v, plan, abs_err, rel
 
 
+def _matvec_timed(K: int, jones: str, ptxas: dict) -> dict:
+    """The matvec kernel on Gram blocks from a full-width sweep in the
+    Jones mode ``jones`` (the layout the tCG and PCG loops hand it),
+    checked against its plain version and timed through a plan, as the
+    solver loops call it, beside its bound and a library yardstick."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    from sagecal_tpu_torch.solvers import normal_eq as ne
+    md = ne.jones_mdim(jones)
+    args, (B, nb) = _sweep_inputs(K, seed=3)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
+    N = N_STATIONS
+    fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb,
+                              jones=jones)
+    if swp._block_view(fac.pp, nb)[0] is not fac.pp:
+        raise AssertionError("matvec: the sweep's records were copied")
+    gen = torch.Generator(device="cuda").manual_seed(K)
+    shift = torch.rand((K,), device="cuda", generator=gen,
+                       dtype=torch.float32) + 0.1
+    v, plan, abs_err, rel = _matvec_check(f"K={K} {jones}", fac, sta1, sta2,
+                                          N, shift, gen)
+    s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
+    ref = swp.gn_matvec_blocks_plain(fac, v, s1b, s2b, N, shift=shift)
+    Bk = _baseline_blocks(fac)
+    nv = 2 * md
+
+    def library():
+        vr = v.reshape(K, N, nv)
+        vg = torch.cat([vr[:, s1b], vr[:, s2b]], dim=-1)[..., None]
+        yb = torch.matmul(Bk, vg)[..., 0]
+        y = v.new_zeros((K, N, nv))
+        y.index_add_(1, s1b, yb[..., :nv]).index_add_(1, s2b, yb[..., nv:])
+        return y.reshape(K, nv * N) + shift[:, None] * v
+
+    lib_err = rel_err(library(), ref)[1]
+    if not lib_err <= KERNEL_RTOL:
+        raise AssertionError(f"matvec yardstick disagrees: {lib_err}")
+    call = lambda: swp.matvec_apply(plan, v)
+    ms = cuda_ms(call, 200)
+    dev_ms = device_ms(call)
+    k_us = kernel_us(call, ("matvec_station",))
+    n_kernels, traces = kernels_per_call(call, "matvec_station",
+                                         lambda: swp.MATVEC_LAUNCHES)
+    if n_kernels != 1:
+        raise AssertionError(f"matvec K={K} {jones}: {n_kernels} kernels a "
+                             "call")
+    plain_ms = cuda_ms(lambda: swp.gn_matvec_blocks_plain(
+        fac, v, s1b, s2b, N, shift=shift), 50)
+    library_ms = cuda_ms(library, 50)
+    # blocks (8 md^2 words a (chunk, baseline)), v, the shift and the
+    # baselines' stations (int32) read once, y written once
+    n_bytes = 4 * (K * nb * 8 * md * md + 2 * K * N * nv + K + 2 * nb)
+    bms, by = bound_ms(n_bytes, swp.matvec_flops_per_baseline(md) * K * nb
+                       + 2 * K * N * nv)
+    rec = dict(K=K, jones=jones, md=md, nb=nb, N=N, max_abs_err=abs_err,
+               rel_err=rel, ms=ms, call_ms=ms, device_ms=dev_ms,
+               kernel_us=k_us, kernels_per_call=n_kernels,
+               kernel_traces=traces, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, bound_share=bms / dev_ms,
+               kernel_bound_share=k_us and bms / (k_us / 1e3),
+               library_ms=library_ms, library_rel_err=lib_err,
+               deterministic=True, ptxas=ptxas)
+    emit("matvec", **rec)
+    return rec
+
+
 def phase_matvec():
     """The blocks matvec kernel against its plain version on Gram blocks
-    from a full-width sweep (the layout the tCG and PCG loops hand it), on
-    a 190-baseline layout and on the multi-visit sweep's [V K, nb, REC]
-    records; twice each (bitwise equal). Timed through a plan, as the
-    solver loops call it: ``call_ms`` and ``device_ms`` as in the sweep
-    phase."""
+    from a full-width sweep in each Jones mode (K = 1 and 4), on a
+    190-baseline layout and on the multi-visit sweep's [V K, nb, REC]
+    records; twice each (bitwise equal), one kernel a call, timed by
+    :func:`_matvec_timed`. Records are keyed K (full Jones) and (jones,
+    K)."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
     out = {}
     ptxas = ptxas_resources("matvec")
     for K in (1, 4):
-        args, (B, nb) = _sweep_inputs(K, seed=3)
-        x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
-        N = N_STATIONS
-        fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb)
-        if swp._block_view(fac.pp, nb)[0] is not fac.pp:
-            raise AssertionError("matvec: the sweep's records were copied")
-        gen = torch.Generator(device="cuda").manual_seed(K)
-        shift = torch.rand((K,), device="cuda", generator=gen,
-                           dtype=torch.float32) + 0.1
-        v, plan, abs_err, rel = _matvec_check(f"K={K}", fac, sta1, sta2, N,
-                                              shift, gen)
-        s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
-        ref = swp.gn_matvec_blocks_plain(fac, v, s1b, s2b, N, shift=shift)
-        Bk = _baseline_blocks(fac)
-
-        def library():
-            vr = v.reshape(K, N, 8)
-            vg = torch.cat([vr[:, s1b], vr[:, s2b]], dim=-1)[..., None]
-            yb = torch.matmul(Bk, vg)[..., 0]
-            y = v.new_zeros((K, N, 8))
-            y.index_add_(1, s1b, yb[..., :8]).index_add_(1, s2b, yb[..., 8:])
-            return y.reshape(K, 8 * N) + shift[:, None] * v
-
-        lib_err = rel_err(library(), ref)[1]
-        if not lib_err <= KERNEL_RTOL:
-            raise AssertionError(f"matvec yardstick disagrees: {lib_err}")
-        ms = cuda_ms(lambda: swp.matvec_apply(plan, v), 200)
-        dev_ms = device_ms(lambda: swp.matvec_apply(plan, v))
-        k_us = kernel_us(lambda: swp.matvec_apply(plan, v), ("matvec_station",))
-        plain_ms = cuda_ms(lambda: swp.gn_matvec_blocks_plain(
-            fac, v, s1b, s2b, N, shift=shift), 50)
-        library_ms = cuda_ms(library, 50)
-        # blocks, v, the shift and the baselines' stations (int32) read
-        # once, y written once
-        n_bytes = 4 * (K * nb * (32 + 32 + 64) + 2 * K * N * 8 + K + 2 * nb)
-        bms, by = bound_ms(n_bytes, swp.MATVEC_FLOPS_PER_BASELINE * K * nb
-                           + 2 * K * N * 8)
-        rec = dict(K=K, nb=nb, N=N, max_abs_err=abs_err, rel_err=rel, ms=ms,
-                   call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   bound_share=bms / dev_ms,
-                   kernel_bound_share=k_us and bms / (k_us / 1e3),
-                   library_ms=library_ms, library_rel_err=lib_err,
-                   deterministic=True, ptxas=ptxas)
-        emit("matvec", **rec)
-        out[K] = rec
+        out[K] = _matvec_timed(K, "full", ptxas)
+    for jones, _ in MODES:
+        for K in (1, 4):
+            out[(jones, K)] = _matvec_timed(K, jones, ptxas)
     # a 190-baseline layout (not a multiple of 32), K = 3
     args, (B, nb) = _sweep_inputs(3, seed=7, N=20, T=5)
     x8, J, coh, sta1, sta2, cid, wt, cw, _, K = args
@@ -860,21 +922,25 @@ def phase_matvec():
     emit("matvec_edge", tag="nb190", N=20, nb=nb, K=K, max_abs_err=abs_err,
          rel_err=rel, deterministic=True)
     out["nb190"] = dict(max_abs_err=abs_err)
-    # the multi-visit sweep's records, folded as a group's lanes
+    # the multi-visit sweep's records, folded as a group's lanes, in each
+    # Jones mode
     vargs, (B, nb) = _visits_inputs(2, True, seed=8)
     x8, J, coh, sta1, sta2, cid, wt, cw, _, K, V = vargs
     lanes = swp.Lanes(V=V, K=K, cid=cid)
-    fac, _, _ = swp.gn_blocks(x8.reshape(V * B, 8), J.reshape(
-        (V * K,) + tuple(J.shape[2:])), coh.reshape(V * B, 2, 2), sta1, sta2,
-        cid, wt.reshape(V * B, 8), N_STATIONS, V * K, nb, lanes=lanes)
-    if swp._block_view(fac.pq, nb)[0] is not fac.pq:
-        raise AssertionError("matvec: the multi-visit records were copied")
-    shift = torch.rand((V * K,), device="cuda", generator=gen) + 0.1
-    _, _, abs_err, rel = _matvec_check("visits", fac, sta1, sta2,
-                                       N_STATIONS, shift, gen)
-    emit("matvec_edge", tag="visits", V=V, K=K, nb=nb, max_abs_err=abs_err,
-         rel_err=rel, deterministic=True)
-    out["visits"] = dict(max_abs_err=abs_err)
+    for jones in ("full",) + tuple(m for m, _ in MODES):
+        fac, _, _ = swp.gn_blocks(x8.reshape(V * B, 8), J.reshape(
+            (V * K,) + tuple(J.shape[2:])), coh.reshape(V * B, 2, 2), sta1,
+            sta2, cid, wt.reshape(V * B, 8), N_STATIONS, V * K, nb,
+            jones=jones, lanes=lanes)
+        if swp._block_view(fac.pq, nb)[0] is not fac.pq:
+            raise AssertionError("matvec: the multi-visit records were "
+                                 "copied")
+        shift = torch.rand((V * K,), device="cuda", generator=gen) + 0.1
+        _, _, abs_err, rel = _matvec_check(f"visits {jones}", fac, sta1,
+                                           sta2, N_STATIONS, shift, gen)
+        emit("matvec_edge", tag="visits", jones=jones, V=V, K=K, nb=nb,
+             max_abs_err=abs_err, rel_err=rel, deterministic=True)
+        out[("visits", jones)] = dict(max_abs_err=abs_err)
     return out
 
 
@@ -917,17 +983,17 @@ def _visits_inputs(K: int, batched_wt: bool, seed: int = 4,
     return (x8, J, coh, sta1, sta2, cid, wt, cw, nb, K, V), (B, nb)
 
 
-def _visits_check(tag, args):
-    """The multi-visit sweep against its plain version on ``args``, twice
-    (one launch a call, bitwise equal), and each empty (visit, chunk)'s
-    blocks exactly zero. Returns (relative errors per output, max
-    |diff|)."""
+def _visits_check(tag, args, jones="full"):
+    """The multi-visit sweep against its plain version on ``args`` in the
+    Jones mode ``jones``, twice (one launch a call, bitwise equal), and
+    each empty (visit, chunk)'s blocks exactly zero. Returns (relative
+    errors per output, max |diff|)."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
     x8, J, coh, sta1, sta2, cid, wt, cw, nb, K, V = args
     n0 = swp.VISITS_LAUNCHES
-    got = swp.sweep_blocks_visits(*args)
-    again = swp.sweep_blocks_visits(*args)
+    got = swp.sweep_blocks_visits(*args, jones=jones)
+    again = swp.sweep_blocks_visits(*args, jones=jones)
     torch.cuda.synchronize()
     if swp.VISITS_LAUNCHES != n0 + 2:
         raise AssertionError(f"visits {tag}: the wrapper did not launch once "
@@ -936,7 +1002,7 @@ def _visits_check(tag, args):
         raise AssertionError(f"visits {tag}: two calls differ")
     s1b, s2b = sta1[:nb], sta2[:nb]
     ref = swp.sweep_blocks_visits_plain(x8, J[:, :, s1b], J[:, :, s2b], coh,
-                                        cid, wt, cw, nb, V)
+                                        cid, wt, cw, nb, V, jones)
     pairs = [rel_err(g, r) for g, r in zip(got, ref)]
     errs = dict(zip(("pp", "qq", "pq", "jtep", "jteq", "cost"),
                     (rel for _, rel in pairs)))
@@ -958,77 +1024,94 @@ def _visits_check(tag, args):
 N_RAGGED = 3
 
 
+def _visits_timed(K: int, batched_wt: bool, jones: str, ptxas: dict,
+                  serial: bool) -> dict:
+    """The multi-visit sweep at V = 4 visits of the full-width path in
+    the Jones mode ``jones``, checked against its plain version, one
+    kernel a call, timed as the sweep is (and, with ``serial``, against V
+    serial sweep-kernel calls)."""
+    from sagecal_tpu_torch.ops import sweep as swp
+    from sagecal_tpu_torch.solvers import normal_eq as ne
+    md = ne.jones_mdim(jones)
+    args, (B, nb) = _visits_inputs(K, batched_wt)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, _, V = args
+    errs, abs_err = _visits_check(
+        f"K={K} batched_wt={batched_wt} {jones}", args, jones)
+    s1b, s2b = sta1[:nb], sta2[:nb]
+    plain = lambda: swp.sweep_blocks_visits_plain(
+        x8, J[:, :, s1b], J[:, :, s2b], coh, cid, wt, cw, nb, V, jones)
+    wv = (lambda a, v: a[v]) if batched_wt else (lambda a, v: a)
+
+    def serial_calls():
+        return [swp.sweep_blocks(x8[v], J[v], coh[v], sta1, sta2, cid,
+                                 wv(wt, v), wv(cw, v), nb, K, jones=jones)
+                for v in range(V)]
+
+    call = lambda: swp.sweep_blocks_visits(*args, jones=jones)
+    ms = cuda_ms(call, 50)
+    dev_ms = device_ms(call)
+    k_us = kernel_us(call, ("sweep_cluster",))
+    n_kernels, traces = kernels_per_call(call, "sweep_cluster",
+                                         lambda: swp.VISITS_LAUNCHES)
+    if n_kernels != 1:
+        raise AssertionError(f"visits K={K} {jones}: {n_kernels} kernels a "
+                             "call")
+    serial_ms = cuda_ms(serial_calls, 50) if serial else None
+    plain_ms = cuda_ms(plain, 3)
+    # per-visit operands read once per visit, shared ones once: x 8,
+    # coherency 8, weights 8 + 8 words a row, the chunk id (int32) when
+    # K > 1; the Jones and the baselines' stations (int32) read once; the
+    # caller layout of md and the costs written once
+    words = 16 * V + 16 * (V if batched_wt else 1) \
+        + (K > 1) * (V if cid.dim() == 2 else 1)
+    n_bytes = 4 * (words * B + V * K * N_STATIONS * 8 + 2 * nb
+                   + V * K * (nb * swp.n_out(md) + 1))
+    n_rows = V * int(((cid >= 0) & (cid < K)).sum())
+    bms, by = bound_ms(n_bytes, swp.sweep_flops_per_row(md) * n_rows)
+    geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
+        x8.device, K, md), V, md=md)
+    rec = dict(V=V, K=K, jones=jones, md=md, T=TILESZ, nb=nb,
+               batched_wt=batched_wt, rel_err=errs, max_abs_err=abs_err,
+               ms=ms, call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
+               kernels_per_call=n_kernels, kernel_traces=traces,
+               serial_ms=serial_ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=None, bound_share=bms / dev_ms,
+               kernel_bound_share=k_us and bms / (k_us / 1e3),
+               geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
+                             times=geo.times),
+               deterministic=True, ptxas=ptxas)
+    emit("visits", **rec)
+    return rec
+
+
 def phase_visits():
     """The multi-visit sweep (the sweep kernel's visit axis) against its
     plain version, at V = 4 visits of the full-width path (the groups of
-    e2e_inflight), with the weights shared (plain LM, RTR) and per visit
-    (robust weights), and at the edge shapes at V = 3, each twice
-    (bitwise equal); timed as the sweep phase times the sweep, and
-    against V serial sweep-kernel calls."""
-    from sagecal_tpu_torch.ops import sweep as swp
+    e2e_inflight): in full Jones with the weights shared (plain LM, RTR)
+    and per visit (robust weights), in diag and phase with the weights
+    per visit; and at the edge shapes at V = 3 (the empty chunk in every
+    mode), each twice (bitwise equal); timed by :func:`_visits_timed`,
+    full Jones also against V serial sweep-kernel calls. Records are
+    keyed (K, batched_wt) (full Jones) and (jones, K)."""
     out = {}
     ptxas = ptxas_resources("sweep")
     for K in (1, 4):
         for batched_wt in (False, True):
-            args, (B, nb) = _visits_inputs(K, batched_wt)
-            x8, J, coh, sta1, sta2, cid, wt, cw, _, _, V = args
-            errs, abs_err = _visits_check(f"K={K} batched_wt={batched_wt}",
-                                          args)
-            s1b, s2b = sta1[:nb], sta2[:nb]
-            plain = lambda: swp.sweep_blocks_visits_plain(
-                x8, J[:, :, s1b], J[:, :, s2b], coh, cid, wt, cw, nb, V)
-            wv = (lambda a, v: a[v]) if batched_wt else (lambda a, v: a)
-
-            def serial():
-                return [swp.sweep_blocks(x8[v], J[v], coh[v], sta1, sta2,
-                                         cid, wv(wt, v), wv(cw, v), nb, K)
-                        for v in range(V)]
-
-            call = lambda: swp.sweep_blocks_visits(*args)
-            ms = cuda_ms(call, 50)
-            dev_ms = device_ms(call)
-            k_us = kernel_us(call, ("sweep_cluster",))
-            n_kernels, traces = kernels_per_call(
-                call, "sweep_cluster", lambda: swp.VISITS_LAUNCHES)
-            if n_kernels != 1:
-                raise AssertionError(f"visits K={K}: {n_kernels} kernels a "
-                                     "call")
-            serial_ms = cuda_ms(serial, 50)
-            plain_ms = cuda_ms(plain, 3)
-            # per-visit operands read once per visit, shared ones once:
-            # x 8, coherency 8, weights 8 + 8 words a row, the chunk id
-            # (int32) when K > 1; the Jones and the baselines' stations
-            # (int32) read once; the caller layout and the costs written
-            # once
-            words = 16 * V + 16 * (V if batched_wt else 1) \
-                + (K > 1) * (V if cid.dim() == 2 else 1)
-            n_bytes = 4 * (words * B + V * K * N_STATIONS * 8 + 2 * nb
-                           + V * K * (nb * swp.N_OUT + 1))
-            n_rows = V * int(((cid >= 0) & (cid < K)).sum())
-            bms, by = bound_ms(n_bytes, swp.SWEEP_FLOPS_PER_ROW * n_rows)
-            geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
-                x8.device, K), V)
-            rec = dict(V=V, K=K, T=TILESZ, nb=nb, batched_wt=batched_wt,
-                       rel_err=errs, max_abs_err=abs_err, ms=ms, call_ms=ms,
-                       device_ms=dev_ms, kernel_us=k_us,
-                       kernels_per_call=n_kernels, kernel_traces=traces,
-                       serial_ms=serial_ms,
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=None, bound_share=bms / dev_ms,
-                       kernel_bound_share=k_us and bms / (k_us / 1e3),
-                       geometry=dict(tiles=geo.tiles, cluster=geo.cluster,
-                                     times=geo.times),
-                       deterministic=True, ptxas=ptxas)
-            emit("visits", **rec)
-            out[(K, batched_wt)] = rec
+            out[(K, batched_wt)] = _visits_timed(K, batched_wt, "full",
+                                                 ptxas, True)
+    for jones, _ in MODES:
+        for K in (1, 4):
+            out[(jones, K)] = _visits_timed(K, True, jones, ptxas, False)
     for tag, N, T, K, nck in EDGES:
-        args, (B, nb) = _visits_inputs(K, False, seed=9, V=N_RAGGED, N=N,
-                                       T=T, nchunk=nck)
-        errs, abs_err = _visits_check(tag, args)
-        emit("visits_edge", tag=tag, V=N_RAGGED, N=N, T=T, nb=nb, K=K,
-             nchunk=nck, rel_err=errs, max_abs_err=abs_err,
-             deterministic=True)
-        out[tag] = dict(max_abs_err=abs_err)
+        for jones in ("full",) + (tuple(m for m, _ in MODES)
+                                  if tag == "empty_chunk" else ()):
+            args, (B, nb) = _visits_inputs(K, False, seed=9, V=N_RAGGED,
+                                           N=N, T=T, nchunk=nck)
+            errs, abs_err = _visits_check(f"{tag} {jones}", args, jones)
+            emit("visits_edge", tag=tag, jones=jones, V=N_RAGGED, N=N, T=T,
+                 nb=nb, K=K, nchunk=nck, rel_err=errs, max_abs_err=abs_err,
+                 deterministic=True)
+            out[(tag, jones)] = dict(max_abs_err=abs_err)
     return out
 
 
@@ -1037,7 +1120,9 @@ def _counts():
     from sagecal_tpu_torch.solvers import lm
     return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES,
             "matvec": sweep.MATVEC_LAUNCHES, "visits": sweep.VISITS_LAUNCHES,
-            "xla_solves": lm.XLA_SOLVES}
+            "xla_solves": lm.XLA_SOLVES,
+            "by_md": {f"{k}_md{md}": n
+                      for (k, md), n in sorted(sweep.MD_LAUNCHES.items())}}
 
 
 def _reset():
@@ -1052,12 +1137,24 @@ def _reset():
 SOLVE_KERNELS = ("sweep", "matvec", "visits")
 
 
-def _check_route(tag: str, launches: dict, must, xla: bool) -> None:
-    """Raise unless every kernel in ``must`` launched and, on the XLA
-    route (``xla``), every solve took the XLA assembly and no sweep,
-    matvec or visits kernel launched."""
+def _md_of(flags) -> int:
+    """The block width md of a run's ``--jones`` flag (4 without it)."""
+    from sagecal_tpu_torch.solvers import normal_eq as ne
+    return ne.jones_mdim(flags[flags.index("--jones") + 1]) \
+        if "--jones" in flags else 4
+
+
+def _check_route(tag: str, launches: dict, must, xla: bool,
+                 md: int = 4) -> None:
+    """Raise unless every kernel in ``must`` launched, every sweep,
+    matvec and visits launch at the run's block width ``md`` (its Jones
+    mode), and, on the XLA route (``xla``), every solve took the XLA
+    assembly and no sweep, matvec or visits kernel launched."""
     if not all(launches[k] for k in must):
         raise AssertionError(f"{tag}: a kernel never launched: {launches}")
+    if any(not key.endswith(f"_md{md}") for key in launches["by_md"]):
+        raise AssertionError(f"{tag}: a solve kernel launched at another "
+                             f"block width than md = {md}: {launches}")
     if xla and (any(launches[k] for k in SOLVE_KERNELS)
                 or not launches["xla_solves"]):
         raise AssertionError(f"{tag}: the XLA route launched a solve "
@@ -1091,6 +1188,10 @@ def _check_route(tag: str, launches: dict, must, xla: bool) -> None:
 #: --inner cg (each tCG product one gn_matvec pass), and ``kmax5`` a
 #: cluster of 5 hybrid chunks with no --kernel flag, which the fused
 #: sweep cannot take: the XLA fallback. Each tuple ends with ``mixed``.
+#: The constrained Jones modes: ``diag_j1`` (-j 1 --jones diag, the sweep
+#: kernel at md = 2), ``phase_cg`` (-j 5 --inner cg --jones phase: the
+#: sweep and matvec kernels at md = 1) and ``diag_inflight_rtr`` (groups
+#: through the visits kernel and the matvec at md = 2).
 PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                ("default", 16, (1, 1, 1), [], ("coh", "sweep"), False),
                ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep"), False),
@@ -1107,7 +1208,15 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                ("xla_cg", 41, (1, 2, 1),
                 ["-j", "5", "--inner", "cg", "--kernel", "xla"], ("coh",),
                 True),
-               ("kmax5", 41, (1, 5, 1), [], ("coh",), False))
+               ("kmax5", 41, (1, 5, 1), [], ("coh",), False),
+               ("diag_j1", 16, (1, 2, 1), ["-j", "1", "--jones", "diag"],
+                ("coh", "sweep"), False),
+               ("phase_cg", 41, (1, 2, 1),
+                ["-j", "5", "--inner", "cg", "--jones", "phase"],
+                ("coh", "sweep", "matvec"), False),
+               ("diag_inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
+                ["-j", "5", "--inner", "cg", "--inflight", "2", "--jones",
+                 "diag"], ("coh", "visits", "matvec"), False))
 
 
 def _xla_route(flags, nchunk) -> bool:
@@ -1186,7 +1295,7 @@ def phase_slice_parity():
             card_runs[tag] = _parity_run(*obs[tag], flags, device=None)
             launches = _counts()
             _check_route(f"slice_parity {tag}", launches, must,
-                         _xla_route(flags, nchunk))
+                         _xla_route(flags, nchunk), _md_of(flags))
             card_runs[tag] += (launches,)
         cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
         pool.close()
@@ -1365,14 +1474,13 @@ def _e2e_cli(obs, name: str, flags, n_tiles: int):
 
 
 def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
-              xla: bool = False, repeat: bool = False):
+              xla: bool = False):
     """The full-batch CLI at full width on the card, over the first
     ``n_tiles`` tiles of ``obs`` with solver ``flags``; ``must`` names
-    the kernels that have to launch, ``xla`` a run whose solves must all
-    take the XLA assembly (no sweep, matvec or visits launch).
-    ``repeat`` runs the same command again and records whether the
-    output column and the solutions are bitwise equal (gated on
-    nothing: ``index_add_`` atomics need not repeat)."""
+    the kernels that have to launch (at the block width of the run's
+    ``--jones`` mode), ``xla`` a run whose solves must all take the XLA
+    assembly (no sweep, matvec or visits launch). Under ``--jones
+    diag|phase`` the solutions' off-diagonals must be exactly 0."""
     from sagecal_tpu_torch import skymodel
     from sagecal_tpu_torch.io import dataset as ds
     from sagecal_tpu_torch.io import solutions as sol
@@ -1381,7 +1489,7 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
                                                           n_tiles)
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
-    _check_route(phase, launches, must, xla)
+    _check_route(phase, launches, must, xla, _md_of(flags))
     tiles = []
     route = []
     for ln in out.splitlines():
@@ -1400,6 +1508,11 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
     sk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
                                    meta["freq0"])
     _, blocks = sol.read_solutions(solpath, sk.nchunk)
+    if _md_of(flags) < 4 and any(np.asarray(b)[..., 0, 1].any()
+                                 or np.asarray(b)[..., 1, 0].any()
+                                 for b in blocks):
+        raise AssertionError(f"{phase}: a constrained solution has a "
+                             "non-zero off-diagonal")
     ratio = []
     for i in range(n_tiles):
         xo, xi = ds_out.read_tile(i).x, ds_in.read_tile(i).x
@@ -1414,18 +1527,6 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
                F=len(FREQS), M=sk.n_clusters, S=sk.max_sources,
                stypes={int(k): int(v) for k, v in zip(*np.unique(
                    sk.stype[sk.smask], return_counts=True))})
-    if repeat:
-        rc2, _, wall2, launches2, ms2, sol2, _ = _e2e_cli(
-            obs, phase + "_repeat", flags, n_tiles)
-        same_col = all(np.array_equal(
-            ds.SimMS(ms2, data_column="CORRECTED_DATA").read_tile(i).x,
-            ds_out.read_tile(i).x) for i in range(n_tiles))
-        with open(solpath) as a, open(sol2) as b:
-            same_sol = a.read() == b.read()
-        rec.update(repeat_rc=rc2, repeat_wall_s=wall2,
-                   repeat_launches=launches2,
-                   repeat_bitwise_column=same_col,
-                   repeat_bitwise_solutions=same_sol)
     emit(phase, **rec)
     if len(blocks) != n_tiles:
         raise AssertionError(f"solutions file holds {len(blocks)} intervals")
@@ -1449,6 +1550,13 @@ def main() -> int:
     phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"))
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
                     ("coh", "sweep", "matvec"))
+    # the constrained Jones modes on the same observation: the sweep
+    # kernel at md = 2, and the sweep and matvec kernels at md = 1
+    e2e_md = {2: phase_e2e(obs, "e2e_diag", ["-j", "1", "--jones", "diag"],
+                           1, ("coh", "sweep")),
+              1: phase_e2e(obs, "e2e_phase", ["-j", "5", "--inner", "cg",
+                                              "--jones", "phase"], 1,
+                           ("coh", "sweep", "matvec"))}
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
     inflight = phase_e2e(observation_e2e("e2e16", NCHUNK16), "e2e_inflight",
                          ["-j", "5", "--inner", "cg", "--inflight",
@@ -1457,8 +1565,31 @@ def main() -> int:
     # on the mixed sky: the split predict and the XLA assembly
     mixed = phase_e2e(observation_e2e("e2e_mixed", mixed=True, n_tiles=1),
                       "e2e_mixed", ["-j", "5", "--kernel", "xla"], 1,
-                      ("coh",), xla=True, repeat=True)
+                      ("coh",), xla=True)
     vis = visits[(4, True)]
+
+    def by_md(recs, kernel):
+        """A kernel's diag (md = 2) and phase (md = 1) figures: its records
+        at K = 4 (and K = 1), and its launches over e2e_diag and
+        e2e_phase."""
+        out = {}
+        for jones, md in MODES:
+            r4, r1 = recs[(jones, 4)], recs[(jones, 1)]
+            out[f"md{md}"] = dict(
+                kernel_us=r4["kernel_us"], kernel_us_k1=r1["kernel_us"],
+                kernel_bound_share=r4["kernel_bound_share"],
+                kernel_bound_share_k1=r1["kernel_bound_share"],
+                ms=r4["ms"], call_ms_k1=r1["call_ms"],
+                device_ms=r4["device_ms"], device_ms_k1=r1["device_ms"],
+                plain_ms=r4["plain_ms"], bound_ms=r4["bound_ms"],
+                bound_ms_k1=r1["bound_ms"], bound_by=r4["bound_by"],
+                library_ms=r4["library_ms"],
+                max_abs_err=max(r4["max_abs_err"], r1["max_abs_err"]),
+                launches_e2e_diag=e2e_md[2]["launches"]["by_md"].get(
+                    f"{kernel}_md{md}", 0),
+                launches_e2e_phase=e2e_md[1]["launches"]["by_md"].get(
+                    f"{kernel}_md{md}", 0))
+        return out
 
     import torch
     kernels = [
@@ -1493,7 +1624,9 @@ def main() -> int:
              library_ms=None, device_ms=sweep[4]["device_ms"],
              device_ms_k1=sweep[1]["device_ms"],
              call_ms_k1=sweep[1]["call_ms"],
-             registers=sweep[4]["ptxas"]),
+             kernel_us=sweep[4]["kernel_us"],
+             kernel_us_k1=sweep[1]["kernel_us"],
+             registers=sweep[4]["ptxas"], **by_md(sweep, "sweep")),
         dict(name="gn_matvec_blocks", route="cuda",
              source="sagecal_tpu_torch/csrc/matvec.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:946",
@@ -1505,7 +1638,9 @@ def main() -> int:
              device_ms=matvec[4]["device_ms"],
              device_ms_k1=matvec[1]["device_ms"],
              call_ms_k1=matvec[1]["call_ms"],
-             registers=matvec[4]["ptxas"]),
+             kernel_us=matvec[4]["kernel_us"],
+             kernel_us_k1=matvec[1]["kernel_us"],
+             registers=matvec[4]["ptxas"], **by_md(matvec, "matvec")),
         dict(name="sweep_blocks_visits", route="cuda",
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:439",
@@ -1520,7 +1655,7 @@ def main() -> int:
              device_ms_k1=visits[(1, True)]["device_ms"],
              call_ms_k1=visits[(1, True)]["call_ms"],
              serial_ms_k1=visits[(1, True)]["serial_ms"],
-             registers=vis["ptxas"]),
+             registers=vis["ptxas"], **by_md(visits, "visits")),
     ]
     shutil.rmtree(WORK, ignore_errors=True)
     print(smi, flush=True)

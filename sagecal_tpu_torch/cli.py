@@ -6,7 +6,8 @@ directly. The port runs full-batch calibration with
 ``-d -s -c -p -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k --kernel
 --inner --inflight --jones --dtype-policy --platform`` (every solver mode
 ``-j 0..6``, ``--inner chol|cg``, ``--kernel pallas|xla``, in-flight
-cluster groups, skies of every source morphology);
+cluster groups, ``--jones full|diag|phase``, skies of every source
+morphology);
 ``--solve-fuse`` and ``--solve-promote`` are accepted as no-ops (PyTorch
 runs eagerly).
 Any other flag given a non-default value raises ``NotImplementedError``

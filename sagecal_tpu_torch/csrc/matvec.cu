@@ -1,5 +1,5 @@
-// Gauss-Newton blocks matvec on Hopper (CUDA C++, sm_90a), full-Jones
-// mode (md = 4).
+// Gauss-Newton blocks matvec on Hopper (CUDA C++, sm_90a), in each Jones
+// mode: full (block width md = 4), diagonal (md = 2), phase-only (md = 1).
 //
 // Replaces the TPU kernel sagecal_tpu/ops/sweep_pallas.py:_matvec_kernel
 // (launched by _matvec_blocks_jit, reached through gn_matvec_blocks). It
@@ -52,6 +52,22 @@
 // an H100 80GB HBM3 ~6 us of device time a product at nb = 1891, N = 62
 // (K = 1 and 4), against 7.3 us for the two kernels it replaces
 // (tools_dev/torch_ab_kernels.py; PERF.md).
+//
+// Constrained Jones modes (--jones diag|phase; the TPU kernel reads md off
+// its block shapes): md is a template parameter, and md = 4 keeps the
+// kernel above (40 registers, its time within the spread of an A/B call
+// against it, tools_dev/torch_ab_kernels.py). A (chunk, baseline) block
+// then is [pp pq; pq^T qq] of 4 md x 4 md, 32 words of blocks a (chunk,
+// baseline) at md = 2 and 8 at md = 1 against 128, so the bound falls
+// with md while the chain of dependent loads does not. An entry needs
+// 6 md lanes (2 md rows of the diagonal block, 4 md rows of pq), so a
+// warp takes 24 / (6 md) entries at once: 1 at md = 4, 2 at md = 2, 4 at
+// md = 1, which shortens each warp's chain by as much. A block row is md
+// words, read with one load of its width (float4, float2, float): the
+// sweep's records put every block on a multiple of md words (REC = 160,
+// 44, 16 words), and the wrapper copies any other layout. The lanes'
+// shares of the station's 2 md outputs are reduced by the same fixed
+// tree: two calls on the same inputs give the same bits.
 
 #include <cuda_runtime.h>
 
@@ -69,40 +85,73 @@ struct MatvecParams {
     const int* ent;        // [2 nb]
     const float* shift;    // [K] or null
     int K, nb, N;
+    int md;                // block width: 4 full, 2 diag, 1 phase
 };
 
-__device__ __forceinline__ float4 ld4(const float* p)
+// md consecutive floats, read with one load of their width
+template <int MD>
+struct Row {
+    float f[MD];
+};
+
+template <int MD>
+__device__ __forceinline__ Row<MD> ldrow(const float* p)
 {
-    return __ldg(reinterpret_cast<const float4*>(p));
+    Row<MD> r;
+    if constexpr (MD == 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+        r.f[0] = t.x; r.f[1] = t.y; r.f[2] = t.z; r.f[3] = t.w;
+    } else if constexpr (MD == 2) {
+        const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+        r.f[0] = t.x; r.f[1] = t.y;
+    } else {
+        r.f[0] = __ldg(p);
+    }
+    return r;
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b)
+template <int MD>
+__device__ __forceinline__ float dot(const Row<MD>& a, const Row<MD>& b)
 {
-    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    float s = a.f[0] * b.f[0];
+#pragma unroll
+    for (int j = 1; j < MD; ++j) s += a.f[j] * b.f[j];
+    return s;
 }
 
-__device__ __forceinline__ float comp(const float4 a, int j)
-{
-    return j == 0 ? a.x : (j == 1 ? a.y : (j == 2 ? a.z : a.w));
-}
-
+template <int MD>
 __global__ void __launch_bounds__(MV_THREADS)
 matvec_station_kernel(const MatvecParams p, const float* __restrict__ v,
                       float* __restrict__ y)
 {
-    __shared__ float red[MV_WARPS][8];
+    constexpr int NV = 2 * MD;        // a station's parameters
+    constexpr int SLOT = 6 * MD;      // lanes of one entry
+    constexpr int E = 24 / SLOT;      // entries a warp takes at once
+    constexpr int LOG = MD == 4 ? 2 : (MD == 2 ? 1 : 0);
+    __shared__ float red[MV_WARPS][NV];
     const int n = blockIdx.x, k = blockIdx.y;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const unsigned full = 0xffffffffu;
-    const float* vk = v + (size_t)k * p.N * 8;
-    // lanes 8-23: row g of pq = [a][o][i][0..3]
-    const int g = lane - 8;
-    const int a = (g >> 3) & 1, o = (g >> 2) & 1, i = g & 3;
-    const bool diag = lane < 8, cross = lane >= 8 && lane < 24;
-    const float4 vown = diag ? ld4(vk + (size_t)n * 8 + (lane >> 2) * 4)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* vk = v + (size_t)k * p.N * NV;
+    // the lane's entry slot and its place there: lanes 0 .. 2 md - 1 a
+    // row of the diagonal block, the next 4 md a row g of pq = [a][o][i].
+    // At md = 4 the slot is the lane itself, and the row index is split
+    // with shifts and masks: the general division and modulo cost the
+    // md = 4 kernel ~0.9 us a product on an H100.
+    const int slot = E == 1 ? 0 : lane / SLOT;
+    const int l = lane - slot * SLOT;
+    const int g = l - NV;
+    const int a = (g >> (LOG + 1)) & 1, o = (g >> LOG) & 1, i = g & (MD - 1);
+    const bool diag = slot < E && l < NV;
+    const bool cross = slot < E && l >= NV && l < SLOT;
+    Row<MD> vown;
+#pragma unroll
+    for (int j = 0; j < MD; ++j) vown.f[j] = 0.f;
+    if (diag) vown = ldrow<MD>(vk + (size_t)n * NV + (l >> LOG) * MD);
     float acc0 = 0.f;
-    float4 acc1 = make_float4(0.f, 0.f, 0.f, 0.f);
+    Row<MD> acc1;
+#pragma unroll
+    for (int j = 0; j < MD; ++j) acc1.f[j] = 0.f;
     const size_t kb = (size_t)k * p.nb;
 
     const int* run = p.runs + ((size_t)n * MV_WARPS + warp) * 2;
@@ -116,53 +165,54 @@ matvec_station_kernel(const MatvecParams p, const float* __restrict__ v,
             my_oth = (my_ent & 1) ? p.s1[b] : p.s2[b];
         }
 #pragma unroll 4
-        for (int j = 0; j < m; ++j) {
+        for (int j0 = 0; j0 < m; j0 += E) {
+            // slot s takes entry j0 + s
+            const int j = E == 1 ? j0 : min(j0 + slot, 31);
             const int en = __shfl_sync(full, my_ent, j);
             const int ot = __shfl_sync(full, my_oth, j);
+            if (E > 1 && j0 + slot >= m) continue;
             const size_t b = kb + (en >> 1);
-            const bool side1 = en & 1;              // uniform over the warp
-            const float* vo = vk + (size_t)ot * 8;
+            const bool side1 = en & 1;
+            const float* vo = vk + (size_t)ot * NV;
             if (diag) {
                 const float* blk = side1 ? p.qq + b * p.sq : p.pp + b * p.sp;
-                acc0 += dot4(ld4(blk + lane * 4), vown);
+                acc0 += dot<MD>(ldrow<MD>(blk + l * MD), vown);
             } else if (cross) {
-                const float4 m4 = ld4(p.pq + b * p.spq + g * 4);
+                const Row<MD> mr = ldrow<MD>(p.pq + b * p.spq + g * MD);
                 if (!side1) {
-                    acc0 += dot4(m4, ld4(vo + o * 4));
+                    acc0 += dot<MD>(mr, ldrow<MD>(vo + o * MD));
                 } else {
-                    const float s = __ldg(vo + a * 4 + i);
-                    acc1.x += m4.x * s;
-                    acc1.y += m4.y * s;
-                    acc1.z += m4.z * s;
-                    acc1.w += m4.w * s;
+                    const float s = __ldg(vo + a * MD + i);
+#pragma unroll
+                    for (int q = 0; q < MD; ++q) acc1.f[q] += mr.f[q] * s;
                 }
             }
         }
     }
-    // each lane's share of the station's 8 outputs, then a fixed tree
-    const int out0 = diag ? lane : (cross ? a * 4 + i : -1);
-    float c[8];
+    // each lane's share of the station's NV outputs, then a fixed tree
+    const int out0 = diag ? l : (cross ? a * MD + i : -1);
+    float c[NV];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < NV; ++q) {
         c[q] = (q == out0) ? acc0 : 0.f;
-        if (cross && (q >> 2) == o) c[q] += comp(acc1, q & 3);
+        if (cross && (q / MD) == o) c[q] += acc1.f[q % MD];
     }
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
+    for (int q = 0; q < NV; ++q)
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             c[q] += __shfl_down_sync(full, c[q], off);
     if (lane == 0) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) red[warp][q] = c[q];
+        for (int q = 0; q < NV; ++q) red[warp][q] = c[q];
     }
     __syncthreads();
-    if (threadIdx.x < 8) {
+    if (threadIdx.x < NV) {
         const int q = threadIdx.x;
         float s = 0.f;
 #pragma unroll
         for (int w = 0; w < MV_WARPS; ++w) s += red[w][q];
-        const size_t at = ((size_t)k * p.N + n) * 8 + q;
+        const size_t at = ((size_t)k * p.N + n) * NV + q;
         if (p.shift != nullptr) s += p.shift[k] * v[at];
         y[at] = s;
     }
@@ -173,7 +223,14 @@ extern "C" int matvec_launch(const MatvecParams* p, const float* v,
 {
     if (p->K == 0 || p->N == 0) return 0;
     dim3 grid(p->N, p->K);
-    matvec_station_kernel<<<grid, MV_THREADS, 0, (cudaStream_t)stream>>>(
-        *p, v, y);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (p->md == 4)
+        matvec_station_kernel<4><<<grid, MV_THREADS, 0, st>>>(*p, v, y);
+    else if (p->md == 2)
+        matvec_station_kernel<2><<<grid, MV_THREADS, 0, st>>>(*p, v, y);
+    else if (p->md == 1)
+        matvec_station_kernel<1><<<grid, MV_THREADS, 0, st>>>(*p, v, y);
+    else
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Fused LM sweep on Hopper (CUDA C++, sm_90a), full-Jones mode (md = 4),
-// for one cluster visit or V visits in one launch.
+// Fused LM sweep on Hopper (CUDA C++, sm_90a), for one cluster visit or V
+// visits in one launch, in each Jones mode: full (block width md = 4),
+// diagonal (md = 2) and phase-only (md = 1).
 //
 // Replaces two TPU kernels of sagecal_tpu/ops/sweep_pallas.py:
 // _sweep_kernel (maths in _sweep_body, launched by sweep_blocks) and
@@ -7,19 +8,19 @@
 // grid, launched by sweep_blocks_visits). One pass over a visit's rows:
 // model V = Jp C Jq^H, residual r = x - V, the Wirtinger factors of
 // A = C Jq^H and Bm = Jp C, and per (visit v, hybrid chunk k, baseline b)
-// the time-summed Gram blocks pp/qq [2,4,4], pq [2,2,4,4], the gradients
-// jtep/jteq [2,4] and the acceptance cost sum (r cw)^2. The TPU kernel
-// masks the rows of other chunks by folding (cid == k) into the weights,
-// once per chunk; here each row is read once and added to the sums of
-// its own chunk (same sums for finite data). Each of x, w, cw, the chunk
-// ids, the coherencies and the Jones carries a visit stride, 0 when one
-// array is shared by all visits (the TPU kernel's static `batched`
-// tuple); the single-visit sweep is the case V = 1.
+// the time-summed Gram blocks pp/qq [2,md,md], pq [2,2,md,md], the
+// gradients jtep/jteq [2,md] and the acceptance cost sum (r cw)^2. The
+// TPU kernel masks the rows of other chunks by folding (cid == k) into
+// the weights, once per chunk; here each row is read once and added to
+// the sums of its own chunk (same sums for finite data). Each of x, w,
+// cw, the chunk ids, the coherencies and the Jones carries a visit
+// stride, 0 when one array is shared by all visits (the TPU kernel's
+// static `batched` tuple); the single-visit sweep is the case V = 1.
 //
 // What bounds it on this card: bytes. A row is 32 words read once (x, w,
 // cw and the coherency, 8 each) plus, at K > 1, its chunk id (one word
 // as the TPU kernel's int32; the port reads the solvers' int64) against
-// ~1200 float32 operations (SWEEP_FLOPS_PER_ROW in ops/sweep.py): at
+// ~1200 float32 operations (sweep_flops_per_row in ops/sweep.py): at
 // T = 120, nb = 1891 the row stream is 29 MB a visit (30 MB with the
 // ids), and with the records written the bound is 9.0 us at K = 1 and
 // 10.3 us at K = 4 at 3.35 TB/s; a shared operand is read once for all
@@ -54,11 +55,12 @@
 //    chunk's sums in registers, with that chunk's two Jones read from
 //    J [(V,) K, N, 2, 2] through sta1/sta2 (no gather launch), and on a
 //    change of chunk adds them to its own column of the block's
-//    shared-memory sums [K][32][121] (so rows of any chunk-id pattern
-//    are counted once, and no block exists for a chunk with no rows);
+//    shared-memory sums [K][32][121] at md = 4 (so rows of any chunk-id
+//    pattern are counted once, and no block exists for a chunk with no
+//    rows);
 //  - after a cluster barrier the C blocks sum the C blocks' shared sums
 //    through distributed shared memory, in rank order, and write the
-//    tile's records [K, 32, SW_REC] of their visit with neighbouring
+//    tile's records [K, 32, REC] of their visit with neighbouring
 //    threads on neighbouring words (each block a share of the words). A
 //    per-block bit mask of the chunks it saw skips sums that are all
 //    zero;
@@ -70,8 +72,8 @@
 //    launch;
 //  - each lane loads the next row's operands before it sums the current
 //    one, so their latency hides behind the ~300 multiply-adds a row.
-// Records are SW_REC = 160 words (pp 0, qq 32, pq 64, jtep 128, jteq
-// 136, cost 144, zeros to 160): 640 bytes, so every block row is
+// Records at md = 4 are REC = 160 words (pp 0, qq 32, pq 64, jtep 128,
+// jteq 136, cost 144, zeros to 160): 640 bytes, so every block row is
 // 16-byte aligned for the matvec's float4 loads, which read the V K
 // records of a group in place. No float atomics and a fixed order
 // everywhere: two calls on the same inputs give the same bits. The
@@ -83,34 +85,73 @@
 // instantiation has the registers and time of a kernel without the
 // visit axis. Registers, spills and device times are in PERF.md's
 // kernel table (chip_smoke.py reads them from nvcc -Xptxas -v).
+//
+// Constrained Jones modes (--jones diag|phase; the TPU kernel's `jones`
+// argument of _sweep_body, which picks md at trace time): md is a
+// template parameter, so md = 4 compiles to the full-Jones kernel above
+// and md = 2 and 1 are two more instantiations of the same code (for
+// both V = 1 and V > 1). What bounds them is the same row stream: the
+// rows are 32 words whatever md is, and only the sums shrink, to 37 at
+// md = 2 (pp 6 + qq 6 packed upper triangles, pq 16, jtep 4, jteq 4,
+// cost 1) and 13 at md = 1. The three role warps stay (13 + 13 + 11 and
+// 4 + 4 + 5 sums), each with far fewer registers, and the shared sums
+// shrink to [K][32][37] and [K][32][13], so more blocks fit an SM.
+//  - The kernel constrains J itself: at md < 4 it zeroes the
+//    off-diagonal entries of the two Jones it reads (the TPU wrapper
+//    multiplies J by the identity before its kernel), so the
+//    off-diagonals never leak into A = C Jq^H or Bm = Jp C, and the call
+//    stays one launch.
+//  - Diagonal mode reads the d == c planes of the full factors: for
+//    station p the Re/Im pair of A[a][o] (row a, the station's own
+//    diagonal index), for station q that of Bm[a][o].
+//  - Phase mode rotates those planes by the Jones diagonals:
+//    u = i Jp_aa A[a][o] gives the p factor (-Im u, Re u), and
+//    w = conj(Jq_oo) Bm[a][o] the q factor (Im w, -Re w).
+//  - Records: the caller layout of md (pp 2 md^2, qq 2 md^2, pq 4 md^2,
+//    jtep 2 md, jteq 2 md, cost: 41 words at md = 2, 13 at md = 1) padded
+//    to 44 and 16 words. Every block starts on a multiple of md words,
+//    so the matvec reads a block row of md words with one aligned load
+//    (float2 at md = 2, float at md = 1; csrc/matvec.cu).
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 
 namespace cg = cooperative_groups;
 
-#define SW_NACC 121
-#define SW_NOUT 145
-#define SW_REC 160
-#define Q_PP 0
-#define Q_QQ 20
-#define Q_PQ 40
-#define Q_JP 104
-#define Q_JQ 112
-#define Q_COST 120
 // sweep_cluster_kernel: a tile of 32 baselines, three role warps
 #define SC_TILE 32
 #define SC_THREADS 96
-#define SC_NP 46
-#define SC_NQ 29
 #define SC_MAX_K 4
 #define SC_MAX_CLUSTER 8
 #define SC_EPI 4
 
-// index of (i, j), i <= j, in the packed upper triangle of a 4x4 block
+// the sums and records of block width MD (4 full, 2 diag, 1 phase).
+// Canonical sum index q: pp [2][S] (packed upper triangles), qq [2][S],
+// pq [2][2][MD][MD], jtep [2][MD], jteq [2][MD], cost; role warps 0 and
+// 1 own pp[a], pq[a] and jtep[a] (NP sums), role 2 qq, jteq and the cost
+// (NQ). REC: the record's words (the caller layout's NOUT padded).
+template <int MD>
+struct Lay {
+    static constexpr int S = MD * (MD + 1) / 2;
+    static constexpr int NP = S + 2 * MD * MD + MD;
+    static constexpr int NQ = 2 * S + 2 * MD + 1;
+    static constexpr int NACC = 2 * NP + NQ;
+    static constexpr int Q_PP = 0;
+    static constexpr int Q_QQ = 2 * S;
+    static constexpr int Q_PQ = 4 * S;
+    static constexpr int Q_JP = 4 * S + 4 * MD * MD;
+    static constexpr int Q_JQ = Q_JP + 2 * MD;
+    static constexpr int Q_COST = Q_JQ + 2 * MD;
+    static constexpr int NOUT = 8 * MD * MD + 4 * MD + 1;
+    static constexpr int REC = MD == 4 ? 160 : (MD == 2 ? 44 : 16);
+};
+
+// index of (i, j), i <= j, in the packed upper triangle of an MD x MD
+// block
+template <int MD>
 __host__ __device__ __forceinline__ int sym_pair(int i, int j)
 {
-    return i * 4 - (i * (i - 1)) / 2 + (j - i);
+    return i * MD - (i * (i - 1)) / 2 + (j - i);
 }
 
 __device__ __forceinline__ void load8(const float* p, float* v)
@@ -127,19 +168,23 @@ __device__ __forceinline__ void load4(const float* p, float* v)
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
 
-// output element e of the [145] caller layout -> canonical sum index q
+// output element e of the caller layout -> canonical sum index q
+template <int MD>
 __device__ __forceinline__ int out_to_acc(int e)
 {
-    if (e < 64) {                       // pp (e < 32) or qq
-        const int base = e < 32 ? Q_PP : Q_QQ;
-        const int r = e & 31;
-        const int s = r >> 4, i = (r >> 2) & 3, j = r & 3;
-        return base + s * 10 + (i <= j ? sym_pair(i, j) : sym_pair(j, i));
+    using L = Lay<MD>;
+    constexpr int B2 = 2 * MD * MD;             // words of pp (or qq)
+    if (e < 2 * B2) {                           // pp (e < B2) or qq
+        const int base = e < B2 ? L::Q_PP : L::Q_QQ;
+        const int r = e < B2 ? e : e - B2;
+        const int s = r / (MD * MD), i = (r / MD) % MD, j = r % MD;
+        return base + s * L::S
+            + (i <= j ? sym_pair<MD>(i, j) : sym_pair<MD>(j, i));
     }
-    if (e < 128) return Q_PQ + (e - 64);
-    if (e < 136) return Q_JP + (e - 128);
-    if (e < 144) return Q_JQ + (e - 136);
-    return Q_COST;
+    if (e < 4 * B2) return L::Q_PQ + (e - 2 * B2);
+    if (e < 4 * B2 + 2 * MD) return L::Q_JP + (e - 4 * B2);
+    if (e < 4 * B2 + 4 * MD) return L::Q_JQ + (e - 4 * B2 - 2 * MD);
+    return L::Q_COST;
 }
 
 // A = C Jq^H [d][o] of a row: C, Q entries e = row * 2 + col, (re, im)
@@ -194,29 +239,86 @@ __device__ __forceinline__ void prod_row(const float* cv, const float* P,
     }
 }
 
-// canonical sum index of a role's accumulator r
-template <int ROLE>
-__device__ __forceinline__ int role_q(int r)
+// the station-p factor FA(a, o, ri, m), m < MD, of a row (_ma_entry of the
+// TPU kernel, and its diag and phase forms). Ar/Ai: A [d][o].
+template <int MD>
+__device__ __forceinline__ void factor_p(const float Ar[2][2],
+                                         const float Ai[2][2],
+                                         const float* P, int a, int o,
+                                         int ri, float* fa)
 {
-    if (ROLE < 2) {
-        if (r < 10) return Q_PP + ROLE * 10 + r;
-        if (r < 42) return Q_PQ + ROLE * 32 + (r - 10);
-        return Q_JP + ROLE * 4 + (r - 42);
+    if constexpr (MD == 4) {
+        // fa[m], m = d * 2 + ci: every d
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+            fa[d * 2] = ri == 0 ? Ar[d][o] : Ai[d][o];
+            fa[d * 2 + 1] = ri == 0 ? -Ai[d][o] : Ar[d][o];
+        }
+    } else if constexpr (MD == 2) {
+        // the d == a plane: (Re, Im) of the diagonal entry j_aa
+        fa[0] = ri == 0 ? Ar[a][o] : Ai[a][o];
+        fa[1] = ri == 0 ? -Ai[a][o] : Ar[a][o];
+    } else {
+        // u = i Jp_aa A[a][o]: (-Im u, Re u)
+        const float pr = P[a * 6], pi = P[a * 6 + 1];
+        const float ur = pr * Ar[a][o] - pi * Ai[a][o];
+        const float ui = pr * Ai[a][o] + pi * Ar[a][o];
+        fa[0] = ri == 0 ? -ui : ur;
     }
-    if (r < 20) return Q_QQ + r;
-    if (r < 28) return Q_JQ + (r - 20);
-    return Q_COST;
 }
 
-// one row into a role's sums. Roles 0 and 1 (a = ROLE): pp[a] (10, packed
-// upper triangle), pq[a][o][i][j] (32), jtep[a][i] (4). Role 2: qq[o]
-// (2 x 10), jteq[o][i] (8), cost (1).
-template <int ROLE>
+// the station-q factor FB(o, a, ri, m), m < MD, of a row (_mb_entry and
+// its diag and phase forms). Br/Bi: row a of Bm [d].
+template <int MD>
+__device__ __forceinline__ void factor_q(const float* Br, const float* Bi,
+                                         const float* Q, int o, int ri,
+                                         float* fb)
+{
+    if constexpr (MD == 4) {
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+            fb[d * 2] = ri == 0 ? Br[d] : Bi[d];
+            fb[d * 2 + 1] = ri == 0 ? Bi[d] : -Br[d];
+        }
+    } else if constexpr (MD == 2) {
+        // the d == o plane
+        fb[0] = ri == 0 ? Br[o] : Bi[o];
+        fb[1] = ri == 0 ? Bi[o] : -Br[o];
+    } else {
+        // w = conj(Jq_oo) Bm[a][o]: (Im w, -Re w)
+        const float qr = Q[o * 6], qi = Q[o * 6 + 1];
+        const float wr = qr * Br[o] + qi * Bi[o];
+        const float wi = qr * Bi[o] - qi * Br[o];
+        fb[0] = ri == 0 ? wi : -wr;
+    }
+}
+
+// canonical sum index of a role's accumulator r
+template <int ROLE, int MD>
+__device__ __forceinline__ int role_q(int r)
+{
+    using L = Lay<MD>;
+    if (ROLE < 2) {
+        if (r < L::S) return L::Q_PP + ROLE * L::S + r;
+        if (r < L::S + 2 * MD * MD)
+            return L::Q_PQ + ROLE * 2 * MD * MD + (r - L::S);
+        return L::Q_JP + ROLE * MD + (r - L::S - 2 * MD * MD);
+    }
+    if (r < 2 * L::S) return L::Q_QQ + r;
+    if (r < 2 * L::S + 2 * MD) return L::Q_JQ + (r - 2 * L::S);
+    return L::Q_COST;
+}
+
+// one row into a role's sums. Roles 0 and 1 (a = ROLE): pp[a] (S, packed
+// upper triangle), pq[a][o][i][j] (2 MD^2), jtep[a][i] (MD). Role 2:
+// qq[o] (2 x S), jteq[o][i] (2 MD), cost (1).
+template <int ROLE, int MD>
 __device__ __forceinline__ void role_row(const float* xv, const float* wv,
                                          const float* cwv, const float* cv,
                                          const float* P, const float* Q,
                                          float* acc)
 {
+    constexpr int S = Lay<MD>::S;
     float Ar[2][2], Ai[2][2];
     prod_a(cv, Q, Ar, Ai);
     if (ROLE < 2) {
@@ -232,25 +334,19 @@ __device__ __forceinline__ void role_row(const float* xv, const float* wv,
                 const float r = xv[c] - (ri == 0 ? Vr[o] : Vi[o]);
                 const float ww = wv[c] * wv[c];
                 const float rw = r * ww;
-                // fa[o][ri][m], m = d * 2 + ci; fb[a][ri][m]
-                float fa[4], fb[4];
+                float fa[MD], fb[MD];
+                factor_p<MD>(Ar, Ai, P, a, o, ri, fa);
+                factor_q<MD>(Br, Bi, Q, o, ri, fb);
 #pragma unroll
-                for (int d = 0; d < 2; ++d) {
-                    fa[d * 2] = ri == 0 ? Ar[d][o] : Ai[d][o];
-                    fa[d * 2 + 1] = ri == 0 ? -Ai[d][o] : Ar[d][o];
-                    fb[d * 2] = ri == 0 ? Br[d] : Bi[d];
-                    fb[d * 2 + 1] = ri == 0 ? Bi[d] : -Br[d];
-                }
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
+                for (int i = 0; i < MD; ++i) {
                     const float wa = ww * fa[i];
 #pragma unroll
-                    for (int j = i; j < 4; ++j)
-                        acc[sym_pair(i, j)] += wa * fa[j];
+                    for (int j = i; j < MD; ++j)
+                        acc[sym_pair<MD>(i, j)] += wa * fa[j];
 #pragma unroll
-                    for (int j = 0; j < 4; ++j)
-                        acc[10 + (o * 4 + i) * 4 + j] += wa * fb[j];
-                    acc[42 + i] += rw * fa[i];
+                    for (int j = 0; j < MD; ++j)
+                        acc[S + (o * MD + i) * MD + j] += wa * fb[j];
+                    acc[S + 2 * MD * MD + i] += rw * fa[i];
                 }
             }
         }
@@ -269,20 +365,16 @@ __device__ __forceinline__ void role_row(const float* xv, const float* wv,
                     const float ww = wv[c] * wv[c];
                     const float rw = r * ww;
                     const float rc = r * cwv[c];
-                    acc[28] += rc * rc;
-                    float fb[4];
+                    acc[2 * S + 2 * MD] += rc * rc;
+                    float fb[MD];
+                    factor_q<MD>(Br[a], Bi[a], Q, o, ri, fb);
 #pragma unroll
-                    for (int d = 0; d < 2; ++d) {
-                        fb[d * 2] = ri == 0 ? Br[a][d] : Bi[a][d];
-                        fb[d * 2 + 1] = ri == 0 ? Bi[a][d] : -Br[a][d];
-                    }
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
+                    for (int i = 0; i < MD; ++i) {
                         const float wb = ww * fb[i];
 #pragma unroll
-                        for (int j = i; j < 4; ++j)
-                            acc[o * 10 + sym_pair(i, j)] += wb * fb[j];
-                        acc[20 + o * 4 + i] += rw * fb[i];
+                        for (int j = i; j < MD; ++j)
+                            acc[o * S + sym_pair<MD>(i, j)] += wb * fb[j];
+                        acc[2 * S + o * MD + i] += rw * fb[i];
                     }
                 }
             }
@@ -299,7 +391,7 @@ struct SweepArgs {
     const float* J;          // [(V,) K, N, 2, 2, re/im]
     const long long* s1;     // [nb] (the first row period of sta1)
     const long long* s2;
-    float* out;              // [V K, nb, SW_REC]
+    float* out;              // [V K, nb, REC]
     float* cost;             // [V K]
     float* tile_cost;        // [V K, tiles]: each tile's cost, per chunk
     unsigned* ticket;        // one counter, 0 between launches
@@ -315,14 +407,14 @@ struct SweepArgs {
 };
 
 // add a lane's sums of chunk k to its column of the block's shared sums
-template <int ROLE, int NS>
+template <int ROLE, int NS, int MD>
 __device__ __forceinline__ void flush_sums(float* acc, float* sums, int k,
                                            int lane, unsigned* seen)
 {
-    float* col = sums + ((size_t)k * SC_TILE + lane) * SW_NACC;
+    float* col = sums + ((size_t)k * SC_TILE + lane) * Lay<MD>::NACC;
 #pragma unroll
     for (int r = 0; r < NS; ++r) {
-        col[role_q<ROLE>(r)] += acc[r];
+        col[role_q<ROLE, MD>(r)] += acc[r];
         acc[r] = 0.f;
     }
     atomicOr(seen, 1u << k);
@@ -348,17 +440,29 @@ __device__ __forceinline__ void load_row(const SweepArgs& p, long long v,
     }
 }
 
+// a chunk's Jones of one station, constrained to the mode: at MD < 4 the
+// off-diagonal entries are zeroed (the TPU wrapper's J * I)
+template <int MD>
+__device__ __forceinline__ void load_jones(const float* j, float* P)
+{
+    load8(j, P);
+    if (MD < 4) {
+#pragma unroll
+        for (int e = 2; e < 6; ++e) P[e] = 0.f;
+    }
+}
+
 // a role warp's pass over its rows of visit v: sums of the current chunk
-// in registers, added to the block's shared sums [K][32][121] on a
+// in registers, added to the block's shared sums [K][32][NACC] on a
 // change of chunk and at the end. The next row's operands are loaded
 // before the current row is summed, so their latency hides behind the
 // sums.
-template <int ROLE>
+template <int ROLE, int MD>
 __device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
                                           int lane, int t0, int t1,
                                           float* sums, unsigned* seen)
 {
-    constexpr int NS = ROLE < 2 ? SC_NP : SC_NQ;
+    constexpr int NS = ROLE < 2 ? Lay<MD>::NP : Lay<MD>::NQ;
     float acc[NS];
 #pragma unroll
     for (int r = 0; r < NS; ++r) acc[r] = 0.f;
@@ -379,15 +483,15 @@ __device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
                            cwvn, cn);
         // at K = 1 every row is chunk 0 (the TPU kernel applies no mask)
         if (c != cur) {
-            if (ok) flush_sums<ROLE, NS>(acc, sums, (int)cur, lane, seen);
+            if (ok) flush_sums<ROLE, NS, MD>(acc, sums, (int)cur, lane, seen);
             cur = c;
             ok = c >= 0 && c < p.K;
             if (ok) {
-                load8(Jv + ((size_t)c * p.N + st1) * 8, P);
-                load8(Jv + ((size_t)c * p.N + st2) * 8, Q);
+                load_jones<MD>(Jv + ((size_t)c * p.N + st1) * 8, P);
+                load_jones<MD>(Jv + ((size_t)c * p.N + st2) * 8, Q);
             }
         }
-        if (ok) role_row<ROLE>(xv, wv, cwv, cv, P, Q, acc);
+        if (ok) role_row<ROLE, MD>(xv, wv, cwv, cv, P, Q, acc);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
             cv[e] = cvn[e];
@@ -397,18 +501,19 @@ __device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
         }
         c = cn;
     }
-    if (ok) flush_sums<ROLE, NS>(acc, sums, (int)cur, lane, seen);
+    if (ok) flush_sums<ROLE, NS, MD>(acc, sums, (int)cur, lane, seen);
 }
 
 // MULTI = false is the single-visit case: visit 0 of every operand, the
 // visit offsets compiled away (a second instantiation of the same code,
 // so that V = 1 keeps the registers and the speed of a kernel without
-// the visit axis)
-template <bool MULTI>
+// the visit axis). MD: the Jones mode's block width.
+template <bool MULTI, int MD>
 __global__ void __launch_bounds__(SC_THREADS, 4)
 sweep_cluster_kernel(const SweepArgs p)
 {
-    extern __shared__ float sums[];             // [K][32][121]
+    using L = Lay<MD>;
+    extern __shared__ float sums[];             // [K][32][NACC]
     __shared__ unsigned seen;                   // chunks with rows here
     __shared__ bool last;
     cg::cluster_group cluster = cg::this_cluster();
@@ -417,7 +522,7 @@ sweep_cluster_kernel(const SweepArgs p)
     const int v = MULTI ? (int)blockIdx.y : 0;
     const int tile = blockIdx.z, tiles = gridDim.z;
     const int b0 = tile * SC_TILE;
-    const int nsum = p.K * SC_TILE * SW_NACC;
+    const int nsum = p.K * SC_TILE * L::NACC;
     for (int i = tid; i < nsum; i += SC_THREADS) sums[i] = 0.f;
     if (tid == 0) seen = 0u;
     __syncthreads();
@@ -436,11 +541,11 @@ sweep_cluster_kernel(const SweepArgs p)
         }
     }
     if (role == 0)
-        role_pass<0>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<0, MD>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     else if (role == 1)
-        role_pass<1>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<1, MD>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     else
-        role_pass<2>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<2, MD>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     __syncthreads();
     cluster.sync();
 
@@ -448,8 +553,8 @@ sweep_cluster_kernel(const SweepArgs p)
     unsigned masks = 0u;
     for (int r = 0; r < C; ++r)
         masks |= *cluster.map_shared_rank(&seen, r) << (SC_MAX_K * r);
-    const int per_k = min(SC_TILE, p.nb - b0) * SW_REC;
-    float* out = p.out + (size_t)v * p.K * p.nb * SW_REC;
+    const int per_k = min(SC_TILE, p.nb - b0) * L::REC;
+    float* out = p.out + (size_t)v * p.K * p.nb * L::REC;
     // SC_EPI words a thread at once, so that their remote loads overlap;
     // each word still sums the ranks in rank order
     for (int i0 = w0 + tid; i0 < i1; i0 += SC_EPI * SC_THREADS) {
@@ -465,11 +570,11 @@ sweep_cluster_kernel(const SweepArgs p)
                 rem -= per_k;
                 ++k[u];
             }
-            const int l = rem / SW_REC;
-            const int pos = rem - l * SW_REC;
-            off[u] = i < i1 && pos < SW_NOUT
-                ? (k[u] * SC_TILE + l) * SW_NACC + out_to_acc(pos) : -1;
-            dst[u] = i < i1 ? ((size_t)k[u] * p.nb + b0 + l) * SW_REC + pos
+            const int l = rem / L::REC;
+            const int pos = rem - l * L::REC;
+            off[u] = i < i1 && pos < L::NOUT
+                ? (k[u] * SC_TILE + l) * L::NACC + out_to_acc<MD>(pos) : -1;
+            dst[u] = i < i1 ? ((size_t)k[u] * p.nb + b0 + l) * L::REC + pos
                             : 0;
             s[u] = 0.f;
         }
@@ -487,7 +592,7 @@ sweep_cluster_kernel(const SweepArgs p)
     // the tile's cost per chunk: rank 0, one warp per chunk, a fixed tree
     if (rank == 0) {
         for (int k = role; k < p.K; k += SC_THREADS / 32) {
-            const int off = (k * SC_TILE + lane) * SW_NACC + Q_COST;
+            const int off = (k * SC_TILE + lane) * L::NACC + L::Q_COST;
             float s = 0.f;
             for (int r = 0; r < C; ++r)
                 if ((masks >> (SC_MAX_K * r + k)) & 1u)
@@ -544,62 +649,91 @@ sweep_cluster_kernel(const SweepArgs p)
     if (tid == 0) *p.ticket = 0u;
 }
 
+template <int MD>
 static size_t cluster_smem(int K)
 {
-    return (size_t)K * SC_TILE * SW_NACC * sizeof(float);
+    return (size_t)K * SC_TILE * Lay<MD>::NACC * sizeof(float);
+}
+
+template <int MD>
+static cudaError_t smem_attr_md(void)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        sweep_cluster_kernel<false, MD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)cluster_smem<MD>(SC_MAX_K));
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            sweep_cluster_kernel<true, MD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)cluster_smem<MD>(SC_MAX_K));
+    return err;
 }
 
 static cudaError_t cluster_smem_attr(void)
 {
     static bool done = false;
     if (done) return cudaSuccess;
-    cudaError_t err = cudaFuncSetAttribute(
-        sweep_cluster_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)cluster_smem(SC_MAX_K));
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            sweep_cluster_kernel<true>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)cluster_smem(SC_MAX_K));
+    cudaError_t err = smem_attr_md<4>();
+    if (err == cudaSuccess) err = smem_attr_md<2>();
+    if (err == cudaSuccess) err = smem_attr_md<1>();
     done = err == cudaSuccess;
     return err;
 }
 
-// blocks of sweep_cluster_kernel an SM holds at K chunks, the fewer of
-// its two instantiations (0 on error)
-extern "C" int sweep_blocks_per_sm(int K)
+template <int MD>
+static int blocks_per_sm_md(int K)
 {
-    if (cluster_smem_attr() != cudaSuccess) return 0;
     int n1 = 0, n2 = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n1, sweep_cluster_kernel<false>, SC_THREADS, cluster_smem(K))
-            != cudaSuccess
+            &n1, sweep_cluster_kernel<false, MD>, SC_THREADS,
+            cluster_smem<MD>(K)) != cudaSuccess
         || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n2, sweep_cluster_kernel<true>, SC_THREADS, cluster_smem(K))
-            != cudaSuccess)
+            &n2, sweep_cluster_kernel<true, MD>, SC_THREADS,
+            cluster_smem<MD>(K)) != cudaSuccess)
         return 0;
     return min(n1, n2);
 }
 
-// One launch for V visits (V = 1: the single-visit sweep). The visit
-// strides vs[6] are the elements between two visits of x, w, cw, the
-// chunk ids, the coherencies and the Jones (floats), 0 for an operand
-// that all visits share.
+// blocks of sweep_cluster_kernel an SM holds at K chunks and block width
+// md, the fewer of its two instantiations (0 on error)
+extern "C" int sweep_blocks_per_sm(int K, int md)
+{
+    if (cluster_smem_attr() != cudaSuccess) return 0;
+    return md == 4 ? blocks_per_sm_md<4>(K)
+        : (md == 2 ? blocks_per_sm_md<2>(K)
+           : (md == 1 ? blocks_per_sm_md<1>(K) : 0));
+}
+
+template <int MD>
+static cudaError_t launch_md(cudaLaunchConfig_t* cfg, const SweepArgs& p,
+                             int V)
+{
+    cfg->dynamicSmemBytes = cluster_smem<MD>(p.K);
+    return V == 1 ? cudaLaunchKernelEx(cfg, sweep_cluster_kernel<false, MD>, p)
+                  : cudaLaunchKernelEx(cfg, sweep_cluster_kernel<true, MD>, p);
+}
+
+// One launch for V visits (V = 1: the single-visit sweep) at block width
+// md (4 full, 2 diag, 1 phase). The visit strides vs[6] are the elements
+// between two visits of x, w, cw, the chunk ids, the coherencies and the
+// Jones (floats), 0 for an operand that all visits share.
 extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
                             const long long* cid, const float* coh,
                             const float* J, const long long* s1,
                             const long long* s2, float* out, float* cost,
                             float* tile_cost, unsigned* ticket, int T,
-                            int nb, int K, int N, int V,
+                            int nb, int K, int N, int V, int md,
                             const long long* vs, int C,
                             const int* tb, const int* wb, void* stream)
 {
     if (K < 1 || K > SC_MAX_K || C < 1 || C > SC_MAX_CLUSTER || T < 1
-        || nb < 1 || V < 1 || V > 65535)
+        || nb < 1 || V < 1 || V > 65535 || (md != 4 && md != 2 && md != 1))
         return (int)cudaErrorInvalidValue;
     const int tiles = (nb + SC_TILE - 1) / SC_TILE;
     if (tiles > 65535) return (int)cudaErrorInvalidValue;
+    const int rec = md == 4 ? Lay<4>::REC
+        : (md == 2 ? Lay<2>::REC : Lay<1>::REC);
     SweepArgs p = {x, w, cw, cid, coh, J, s1, s2, out, cost, tile_cost,
                    ticket, vs[0], vs[1], vs[2], vs[3], vs[4], vs[5], T, nb,
                    K, N};
@@ -609,7 +743,7 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
     for (int last = 0; last < 2; ++last) {
         const int nbt = last ? nb - SC_TILE * (tiles - 1) : min(SC_TILE, nb);
         const int* wr = wb + last * (SC_MAX_CLUSTER + 1);
-        ok = ok && wr[0] == 0 && wr[C] == K * nbt * SW_REC;
+        ok = ok && wr[0] == 0 && wr[C] == K * nbt * rec;
         for (int r = 0; r <= C; ++r) {
             ok = ok && (r == 0 || (tb[r - 1] <= tb[r] && wr[r - 1] <= wr[r]));
             p.tb[r] = tb[r];
@@ -622,7 +756,6 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(C, V, tiles);
     cfg.blockDim = dim3(SC_THREADS, 1, 1);
-    cfg.dynamicSmemBytes = cluster_smem(K);
     cfg.stream = (cudaStream_t)stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -631,9 +764,8 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e2 = V == 1
-        ? cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<false>, p)
-        : cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<true>, p);
+    const cudaError_t e2 = md == 4 ? launch_md<4>(&cfg, p, V)
+        : (md == 2 ? launch_md<2>(&cfg, p, V) : launch_md<1>(&cfg, p, V));
     if (e2 != cudaSuccess) return (int)e2;
     return (int)cudaGetLastError();
 }

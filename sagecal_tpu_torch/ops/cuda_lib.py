@@ -46,13 +46,14 @@ SIGNATURES = {
     },
     "sweep": {
         # x, w, cw, cid, coh, J, s1, s2, out, cost, tile costs, ticket,
-        # T, nb, K, N, V, the visit strides [6] of x, w, cw, cid, coh, J
-        # (0 = shared), cluster, its time bounds [cluster + 1] and word
-        # bounds [2][9] (ops/sweep.py:sweep_geometry), stream
+        # T, nb, K, N, V, md (the Jones mode's block width), the visit
+        # strides [6] of x, w, cw, cid, coh, J (0 = shared), cluster, its
+        # time bounds [cluster + 1] and word bounds [2][9]
+        # (ops/sweep.py:sweep_geometry), stream
         "sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _P, _I, _P, _P, _P],
-        # K -> blocks of the sweep kernel an SM holds
-        "sweep_blocks_per_sm": [_I],
+                         _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        # (K, md) -> blocks of the sweep kernel an SM holds
+        "sweep_blocks_per_sm": [_I, _I],
     },
     "matvec": {
         # &MatvecParams, v, y, stream
@@ -68,7 +69,7 @@ class MatvecParams(ctypes.Structure):
     _fields_ = [("pp", _P), ("qq", _P), ("pq", _P), ("sp", _L), ("sq", _L),
                 ("spq", _L), ("s1", _P), ("s2", _P), ("runs", _P),
                 ("ent", _P), ("shift", _P), ("K", _I), ("nb", _I),
-                ("N", _I)]
+                ("N", _I), ("md", _I)]
 
 _LIBS: dict = {}
 

@@ -6,18 +6,22 @@
 ``sweep_blocks`` ``:482``): one pass over a cluster visit's rows per
 hybrid chunk, giving per-baseline Gram blocks, gradients and the
 acceptance cost. On a CUDA tensor it launches the hand-written kernel
-in ``csrc/sweep.cu`` (full Jones, float32) or raises; on a CPU tensor it
-runs the plain PyTorch version :func:`sweep_blocks_plain` (``_sweep_body``
-over [T, nb] tensors plus the time sum) in the tensors' dtype.
+in ``csrc/sweep.cu`` (float32) or raises; on a CPU tensor it runs the
+plain PyTorch version :func:`sweep_blocks_plain` (``_sweep_body`` over
+[T, nb] tensors plus the time sum) in the tensors' dtype. Both take the
+Jones mode (``jones``: full, diag, phase), whose block width md = 4, 2, 1
+sets the blocks' trailing dimensions, the kernel's instantiation and its
+records (:data:`REC_WORDS`); J is constrained to the mode on entry (the
+kernel zeroes the off-diagonals it reads itself).
 
 What bounds the kernel on the card is bytes: 33 words a row (x, w, cw,
 coherency, chunk id), each row read once and added to its own chunk's
-sums, against :data:`SWEEP_FLOPS_PER_ROW` float32 operations. It is one
+sums, against :func:`sweep_flops_per_row` float32 operations. It is one
 launch (thread block clusters over time, the Jones gathered inside, the
 per-chunk cost summed inside) for one visit or V, whose launch geometry
-is the plain function :func:`sweep_geometry`; it writes block records of :data:`REC`
-words that the callers see as strided views (:func:`record_views`). The
-design notes are in ``csrc/sweep.cu``.
+is the plain function :func:`sweep_geometry`; it writes block records of
+:data:`REC_WORDS` words that the callers see as strided views
+(:func:`record_views`). The design notes are in ``csrc/sweep.cu``.
 
 Around the kernel, as torch ops: :func:`_station_aggregates`
 (``index_add_``, repeated stations
@@ -61,28 +65,56 @@ from typing import NamedTuple
 import torch
 
 from sagecal_tpu_torch.ops import cuda_lib
+from sagecal_tpu_torch.solvers import normal_eq as ne
 
-#: float32 operations per row visit for one chunk, counted from the
-#: kernel body: A = C Jq^H, Bm = Jp C, V = Jp A (56 each), residual,
-#: squared weights and weighted residual (24), acceptance cost (24),
-#: the symmetric pp/qq blocks (2 x 20 sums x 4 terms x 3), the pq block
-#: (64 x 2 x 3), the gradients (16 x 4 x 2)
-SWEEP_FLOPS_PER_ROW = 168 + 48 + 240 + 240 + 384 + 128
+
+def sweep_flops_per_row(md: int = 4) -> int:
+    """float32 operations per row visit for one chunk at block width
+    md, counted from the kernel body: A = C Jq^H, Bm = Jp C, V = Jp A
+    (56 each), residual, squared weights and weighted residual (24),
+    acceptance cost (24), the symmetric pp/qq blocks (2 x 2 S sums x 4
+    terms x 3, S = md (md + 1) / 2), the pq block (4 md^2 x 2 x 3), the
+    gradients (4 md x 4 x 2), and at md = 1 the phase rotations (8 x
+    6)."""
+    S = md * (md + 1) // 2
+    return (168 + 48 + 48 * S + 24 * md * md + 32 * md
+            + (48 if md == 1 else 0))
+
+
 #: hybrid-chunk cap, as in the JAX package
 MAX_CHUNKS = 4
-#: the caller layout's element count per (chunk, baseline): pp 32, qq 32,
-#: pq 64, jtep 8, jteq 8, cost 1
-N_OUT = 145
-#: words of one (chunk, baseline) block record on the card: the 145 of
-#: the caller layout padded to 640 bytes, so that every block row starts
-#: on 16 bytes (the matvec's float4 loads) and a record on 128
-REC = 160
-#: the record's parts (``csrc/sweep.cu``): pp, qq, pq, jtep, jteq as
-#: (offset, shape, strides) in words, then the baseline's cost
-REC_PARTS = ((0, (2, 4, 4), (16, 4, 1)), (32, (2, 4, 4), (16, 4, 1)),
-             (64, (2, 2, 4, 4), (32, 16, 4, 1)), (128, (2, 4), (4, 1)),
-             (136, (2, 4), (4, 1)))
-REC_COST = 144
+
+
+def n_out(md: int = 4) -> int:
+    """The caller layout's element count per (chunk, baseline): pp 2
+    md^2, qq 2 md^2, pq 4 md^2, jtep 2 md, jteq 2 md, cost 1 (145, 41,
+    13)."""
+    return 8 * md * md + 4 * md + 1
+
+
+#: words of one (chunk, baseline) block record on the card, per md: at md
+#: = 4 the 145 of the caller layout padded to 640 bytes, so that every
+#: block row starts on 16 bytes (the matvec's float4 loads) and a record
+#: on 128; at md = 2 and 1 the 41 and 13 padded to 44 and 16, so that
+#: every block row of md words starts on a multiple of md words (the
+#: matvec's float2 and float loads)
+REC_WORDS = {4: 160, 2: 44, 1: 16}
+
+
+def rec_parts(md: int = 4) -> tuple:
+    """The record's parts (``csrc/sweep.cu``) at block width md: pp, qq,
+    pq, jtep, jteq as (offset, shape, strides) in words; the caller
+    layout's order, so the baseline's cost follows at n_out(md) - 1."""
+    m2 = md * md
+    return ((0, (2, md, md), (m2, md, 1)), (2 * m2, (2, md, md), (m2, md, 1)),
+            (4 * m2, (2, 2, md, md), (2 * m2, m2, md, 1)),
+            (8 * m2, (2, md), (md, 1)), (8 * m2 + 2 * md, (2, md), (md, 1)))
+
+
+#: the full-Jones (md = 4) layout: caller elements, record words, parts
+N_OUT = n_out(4)
+REC = REC_WORDS[4]
+REC_PARTS = rec_parts(4)
 #: the sweep kernel's tile (one baseline per lane of a warp) and its
 #: largest thread block cluster (portable size)
 SWEEP_TILE = 32
@@ -94,16 +126,20 @@ BLOCK_STEPS = 8
 #: warps of one matvec block (``MV_WARPS`` in ``csrc/matvec.cu``)
 MATVEC_WARPS = 8
 
-#: float32 operations per (chunk, baseline) of one blocks matvec: 192
-#: multiply-adds (pp and qq 16 each per side, pq 64 each way)
-MATVEC_FLOPS_PER_BASELINE = 2 * 192
+def matvec_flops_per_baseline(md: int = 4) -> int:
+    """float32 operations per (chunk, baseline) of one blocks matvec at
+    block width md: 12 md^2 multiply-adds (pp and qq 2 md^2 each per side,
+    pq 4 md^2 each way; 192 at md = 4)."""
+    return 2 * 12 * md * md
 
 #: kernel launches since the last reset (the plain versions never count):
 #: the sweep kernel called by :func:`sweep_blocks`, the matvec kernel, and
-#: the sweep kernel called by :func:`sweep_blocks_visits`
+#: the sweep kernel called by :func:`sweep_blocks_visits`; the same
+#: launches by block width, {("sweep" | "matvec" | "visits", md): n}
 LAUNCHES = 0
 MATVEC_LAUNCHES = 0
 VISITS_LAUNCHES = 0
+MD_LAUNCHES: dict = {}
 
 
 def reset_launches() -> None:
@@ -111,6 +147,11 @@ def reset_launches() -> None:
     LAUNCHES = 0
     MATVEC_LAUNCHES = 0
     VISITS_LAUNCHES = 0
+    MD_LAUNCHES.clear()
+
+
+def _count_md(kernel: str, md: int) -> None:
+    MD_LAUNCHES[(kernel, md)] = MD_LAUNCHES.get((kernel, md), 0) + 1
 
 
 def supported(kmax: int, row_period: int, B: int) -> bool:
@@ -123,8 +164,9 @@ def supported(kmax: int, row_period: int, B: int) -> bool:
 class GNBlocks(NamedTuple):
     """Per-(chunk, baseline) Gram blocks of the Gauss-Newton operator.
 
-    pp, qq [K, nb, 2, 4, 4]; pq [K, nb, 2, 2, 4, 4]; D [K, N, 2, 4, 4]
-    the station-aggregated diagonal blocks."""
+    pp, qq [K, nb, 2, md, md]; pq [K, nb, 2, 2, md, md]; D [K, N, 2, md,
+    md] the station-aggregated diagonal blocks (md = 4 full Jones, 2
+    diag, 1 phase)."""
 
     pp: torch.Tensor
     qq: torch.Tensor
@@ -146,15 +188,20 @@ def _factors(A, Bm):
     return fa.reshape(shp), fb.reshape(shp)
 
 
-def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
+def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
+                       jones: str = "full"):
     """Plain PyTorch version of the fused sweep.
 
     x8/wt/cost_wt [B, 8] real; Jp/Jq [K, nb, 2, 2] complex (per-baseline
-    Jones of each chunk); coh [B, 2, 2] complex; chunk_id [B]. Returns
-    (pp, qq, pq, jtep, jteq, cost) in the caller layouts [K, nb, ...]
-    and cost [K]."""
+    Jones of each chunk, constrained here to the mode ``jones``); coh [B,
+    2, 2] complex; chunk_id [B]. Returns (pp, qq, pq, jtep, jteq, cost) in
+    the caller layouts [K, nb, ...] (blocks md wide) and cost [K]. The
+    diag and phase blocks come from the mode factors of the JAX kernel's
+    ``_sweep_body`` (``normal_eq._mode_factors``)."""
     K = Jp.shape[0]
     T = x8.shape[0] // nb
+    Jp = ne.jones_constrain(Jp, jones)
+    Jq = ne.jones_constrain(Jq, jones)
     x = x8.reshape(T, nb, 8)
     C = coh.reshape(T, nb, 2, 2)
     cid = chunk_id.reshape(T, nb)
@@ -167,27 +214,40 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int):
         Bm = Jp[k] @ C
         V = Jp[k] @ A
         r = x - torch.view_as_real(V.reshape(T, nb, 4)).reshape(T, nb, 8)
-        fa, fb = _factors(A, Bm)                     # [T, nb, 2, 2, 4]
         w2 = (w * w).reshape(T, nb, 2, 2, 2)         # [T, nb, a, o, ri]
         rw2 = (r.reshape(T, nb, 2, 2, 2)) * w2
-        pp = torch.einsum("tbaor,tbori,tborj->baij", w2, fa, fa)
-        qq = torch.einsum("tbaor,tbari,tbarj->boij", w2, fb, fb)
-        pq = torch.einsum("tbaor,tbori,tbarj->baoij", w2, fa, fb)
-        jtep = torch.einsum("tbaor,tbori->bai", rw2, fa)
-        jteq = torch.einsum("tbaor,tbari->boi", rw2, fb)
+        if jones == "full":
+            fa, fb = _factors(A, Bm)                 # [T, nb, 2, 2, 4]
+            pp = torch.einsum("tbaor,tbori,tborj->baij", w2, fa, fa)
+            qq = torch.einsum("tbaor,tbari,tbarj->boij", w2, fb, fb)
+            pq = torch.einsum("tbaor,tbori,tbarj->baoij", w2, fa, fb)
+            jtep = torch.einsum("tbaor,tbori->bai", rw2, fa)
+            jteq = torch.einsum("tbaor,tbari->boi", rw2, fb)
+        else:
+            # FA [T, nb, c, o, ri, md], FB [T, nb, c, a, ri, md]
+            FA, FB = ne._mode_factors(A, Bm, Jp[k], Jq[k], jones)
+            WFA = w2[..., None] * FA
+            WFB = w2.transpose(2, 3)[..., None] * FB
+            pp = torch.einsum("tbcorm,tbcorn->bcmn", WFA, FA)
+            qq = torch.einsum("tbcarm,tbcarn->bcmn", WFB, FB)
+            pq = torch.einsum("tbcorm,tbocrn->bcomn", WFA, FB)
+            jtep = torch.einsum("tbcor,tbcorm->bcm", rw2, FA)
+            jteq = torch.einsum("tbcar,tbcarm->bcm", rw2.transpose(2, 3),
+                                FB)
         cost = ((r * cw) ** 2).sum()
         outs.append((pp, qq, pq, jtep, jteq, cost))
     return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
 
 
-def record_views(out):
-    """(pp, qq, pq, jtep, jteq) as strided views of contiguous block
-    records ``out`` [..., nb, R] (R >= 145 words: :data:`REC` on the
-    card), e.g. [K, nb, R] or [V, K, nb, R]."""
+def record_views(out, md: int = 4):
+    """(pp, qq, pq, jtep, jteq) at block width md as strided views of
+    contiguous block records ``out`` [..., nb, R] (R >= :func:`n_out`
+    words: :data:`REC_WORDS` on the card), e.g. [K, nb, R] or [V, K, nb,
+    R]."""
     lead, st = out.shape[:-1], out.stride()[:-1]
     base = out.storage_offset()
     return tuple(out.as_strided(lead + shp, st + inner, base + o)
-                 for o, shp, inner in REC_PARTS)
+                 for o, shp, inner in rec_parts(md))
 
 
 class SweepGeometry(NamedTuple):
@@ -201,7 +261,8 @@ class SweepGeometry(NamedTuple):
     ``words[last][rank + 1]`` of the tile's K x nbt x rec words
     (chunk-major, then baseline, then word) and writes them: ``last`` is
     1 on the last tile (nbt = nb - SWEEP_TILE (tiles - 1)), 0 on the
-    others (nbt = SWEEP_TILE). The records are ``rec`` words apart."""
+    others (nbt = SWEEP_TILE). The records are ``rec`` words apart
+    (:data:`REC_WORDS` of the mode's md)."""
 
     tiles: int
     cluster: int
@@ -211,7 +272,8 @@ class SweepGeometry(NamedTuple):
 
 
 def sweep_geometry(T: int, nb: int, K: int, slots: int, V: int = 1,
-                   cluster: int | None = None) -> SweepGeometry:
+                   cluster: int | None = None,
+                   md: int = 4) -> SweepGeometry:
     """The sweep kernel's launch geometry for V visits of T timeslots of
     nb baselines and K chunks on a card that holds ``slots`` blocks at
     once. The cluster size C (<= :data:`MAX_CLUSTER`, <= T) is the one
@@ -222,10 +284,13 @@ def sweep_geometry(T: int, nb: int, K: int, slots: int, V: int = 1,
     one exists. ``cluster`` takes that C instead of choosing it
     (``tools_dev/torch_sweep_clusters.py`` times the choices). The time
     ranges are as even as the timeslots allow, and each tile's record
-    words are split evenly among its blocks."""
-    if T < 1 or nb < 1 or not 1 <= K <= MAX_CHUNKS or V < 1 or slots < 1:
+    words (:data:`REC_WORDS` of block width ``md``) are split evenly among
+    its blocks."""
+    if T < 1 or nb < 1 or not 1 <= K <= MAX_CHUNKS or V < 1 or slots < 1 \
+            or md not in REC_WORDS:
         raise ValueError(f"sweep_geometry: T={T}, nb={nb}, K={K}, V={V}, "
-                         f"slots={slots}")
+                         f"slots={slots}, md={md}")
+    rec = REC_WORDS[md]
     tiles = -(-nb // SWEEP_TILE)
     best = None
     choices = range(1, min(MAX_CLUSTER, T) + 1) if cluster is None \
@@ -239,7 +304,7 @@ def sweep_geometry(T: int, nb: int, K: int, slots: int, V: int = 1,
     _, c, tl = best
 
     def split(nbt):
-        total = K * nbt * REC
+        total = K * nbt * rec
         span = -(-total // c)
         return tuple(min(total, r * span) for r in range(c + 1))
 
@@ -248,14 +313,15 @@ def sweep_geometry(T: int, nb: int, K: int, slots: int, V: int = 1,
         times=tuple(min(T, r * tl) for r in range(c + 1)),
         words=(split(min(SWEEP_TILE, nb)),
                split(nb - SWEEP_TILE * (tiles - 1))),
-        rec=REC)
+        rec=rec)
 
 
 @functools.lru_cache(maxsize=64)
-def _geometry_args(T: int, nb: int, K: int, slots: int, V: int = 1):
+def _geometry_args(T: int, nb: int, K: int, slots: int, V: int = 1,
+                   md: int = 4):
     """(geometry, its time bounds, its word bounds) as the C arrays
-    ``sweep_launch`` takes, built once per shape."""
-    geo = sweep_geometry(T, nb, K, slots, V)
+    ``sweep_launch`` takes, built once per shape and md."""
+    geo = sweep_geometry(T, nb, K, slots, V, md=md)
     row = ctypes.c_int * (MAX_CLUSTER + 1)
     return (geo, row(*geo.times),
             (ctypes.c_int * (2 * MAX_CLUSTER + 2))(
@@ -278,16 +344,16 @@ _SLOTS: dict = {}
 _TICKETS: dict = {}
 
 
-def _sweep_slots(dev, K: int) -> int:
+def _sweep_slots(dev, K: int, md: int = 4) -> int:
     """Blocks of the sweep kernel the card ``dev`` holds at once at K
-    chunks (the CUDA occupancy query, cached)."""
-    key = (dev.index, K)
+    chunks and block width md (the CUDA occupancy query, cached)."""
+    key = (dev.index, K, md)
     n = _SLOTS.get(key)
     if n is None:
-        per_sm = cuda_lib.load("sweep").sweep_blocks_per_sm(K)
+        per_sm = cuda_lib.load("sweep").sweep_blocks_per_sm(K, md)
         if per_sm < 1:
             raise RuntimeError("sweep kernel: the occupancy query failed "
-                               f"at K={K}")
+                               f"at K={K}, md={md}")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         n = _SLOTS[key] = per_sm * sms
     return n
@@ -331,13 +397,14 @@ def visit_strides(x8, wt, cost_wt, chunk_id, coh, J) -> tuple:
 
 
 def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
-                V: int, visits: bool):
-    """One launch of the sweep kernel over V visits. Each operand
-    carries a leading [V] axis (one more dimension than a single visit's
-    x8/wt/cost_wt [B, 8], coh [B, 2, 2], chunk_id [B], J [K, N, 2, 2])
-    or is shared by all visits; the callers check the visit axes.
-    Returns the record views [V K, nb, ...] and cost [V K]; ``visits``
-    picks the launch counter."""
+                V: int, visits: bool, md: int = 4):
+    """One launch of the sweep kernel over V visits at block width md.
+    Each operand carries a leading [V] axis (one more dimension than a
+    single visit's x8/wt/cost_wt [B, 8], coh [B, 2, 2], chunk_id [B], J
+    [K, N, 2, 2]) or is shared by all visits; the callers check the visit
+    axes. J is read as it is: at md < 4 the kernel zeroes the
+    off-diagonals itself. Returns the records [V K, nb, REC_WORDS[md]]
+    and cost [V K]; ``visits`` picks the launch counter."""
     global LAUNCHES, VISITS_LAUNCHES
     dev = x8.device
     what = "visits" if visits else "sweep"
@@ -370,12 +437,14 @@ def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
     s1, s2, cid = (_int64(a) for a in (sta1, sta2, chunk_id))
     strides = _visit_strides(*visit_strides(
         x8, wt, cost_wt, cid, coh, J)) if V > 1 else _NO_STRIDES
-    geo, times, words = _geometry_args(T, nb, K, _sweep_slots(dev, K), V)
+    geo, times, words = _geometry_args(T, nb, K, _sweep_slots(dev, K, md),
+                                       V, md)
+    rec = geo.rec
     # the records, then cost [V K], then the tiles' costs [V K, tiles]
-    n_rec = V * K * nb * REC
+    n_rec = V * K * nb * rec
     buf = torch.empty(n_rec + V * K * (1 + geo.tiles), dtype=torch.float32,
                       device=dev)
-    out = buf.as_strided((V * K, nb, REC), (nb * REC, REC, 1))
+    out = buf.as_strided((V * K, nb, rec), (nb * rec, rec, 1))
     cost = buf.as_strided((V * K,), (1,), n_rec)
     ptr = buf.data_ptr()
     stream = cuda_lib.stream_ptr(dev)
@@ -383,12 +452,13 @@ def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
         x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
         coh.data_ptr(), J.data_ptr(), s1.data_ptr(), s2.data_ptr(), ptr,
         ptr + 4 * n_rec, ptr + 4 * (n_rec + V * K),
-        _ticket(dev, stream).data_ptr(), T, nb, K, N, V, strides,
+        _ticket(dev, stream).data_ptr(), T, nb, K, N, V, md, strides,
         geo.cluster, times, words, stream), "sweep_cluster_kernel")
     if visits:
         VISITS_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    _count_md("visits" if visits else "sweep", md)
     return out, cost
 
 
@@ -398,13 +468,11 @@ def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
 
     x8/wt/cost_wt [B, 8] real; J [K, N, 2, 2] complex; coh [B, 2, 2];
     sta1/sta2/chunk_id [B] (baseline-periodic: only the first
-    ``row_period`` stations are used). Returns (pp [K, nb, 2, 4, 4],
-    qq [K, nb, 2, 4, 4], pq [K, nb, 2, 2, 4, 4], jtep [K, nb, 2, 4],
-    jteq [K, nb, 2, 4], cost [K])."""
-    if jones != "full":
-        raise NotImplementedError(
-            f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
-            "item 4: constrained Jones modes)")
+    ``row_period`` stations are used); ``jones`` the Jones mode, of block
+    width md (``normal_eq.jones_mdim``), J constrained to it. Returns (pp
+    [K, nb, 2, md, md], qq [K, nb, 2, md, md], pq [K, nb, 2, 2, md, md],
+    jtep [K, nb, 2, md], jteq [K, nb, 2, md], cost [K])."""
+    md = ne.jones_mdim(jones)
     nb = int(row_period)
     K = int(kmax)
     if J.shape[0] != K or x8.shape[0] % nb:
@@ -413,13 +481,14 @@ def sweep_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
                          f"multiple of row_period={nb}")
     if x8.device.type == "cuda":
         out, cost = _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt,
-                                cost_wt, nb, 1, False)
-        return record_views(out) + (cost,)
+                                cost_wt, nb, 1, False, md)
+        return record_views(out, md) + (cost,)
     s1b = sta1[:nb].long()
     s2b = sta2[:nb].long()
     Jp = J[:, s1b]                                   # [K, nb, 2, 2]
     Jq = J[:, s2b]
-    return sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb)
+    return sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb,
+                              jones)
 
 
 class Lanes(NamedTuple):
@@ -464,19 +533,19 @@ class Lanes(NamedTuple):
 
 
 def sweep_blocks_visits_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt,
-                              nb: int, vsize: int):
+                              nb: int, vsize: int, jones: str = "full"):
     """Plain PyTorch version of the multi-visit sweep: each operand
     carries a leading [V] axis or is one array shared by all V visits
     (x8/wt/cost_wt [(V,) B, 8], Jp/Jq [(V,) K, nb, 2, 2], coh [(V,) B, 2,
     2], chunk_id [(V,) B]). Returns the :func:`sweep_blocks_plain` tuple
-    with a leading [V] on every output."""
+    (Jones mode ``jones``) with a leading [V] on every output."""
     def pick(a, ndim, v):
         return a[v] if a.dim() == ndim + 1 else a
 
     outs = [sweep_blocks_plain(pick(x8, 2, v), pick(Jp, 4, v),
                                pick(Jq, 4, v), pick(coh, 3, v),
                                pick(chunk_id, 1, v), pick(wt, 2, v),
-                               pick(cost_wt, 2, v), nb)
+                               pick(cost_wt, 2, v), nb, jones)
             for v in range(int(vsize))]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
 
@@ -493,12 +562,10 @@ def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
     baseline-periodic. Returns the :func:`sweep_blocks` tuple with a
     leading [V] axis on every output. On the card this is one launch of
     the sweep kernel at V visits (V the group's real member count), and
-    the outputs are views of one [V K, nb, REC] record buffer, so the
+    the outputs are views of one [V K, nb, REC_WORDS[md]] record buffer, so
+    the
     visits fold into the chunk axis without a copy."""
-    if jones != "full":
-        raise NotImplementedError(
-            f"--jones {jones} (md < 4) is not ported yet (ROADMAP queue A "
-            "item 4: constrained Jones modes)")
+    md = ne.jones_mdim(jones)
     nb, K, V = int(row_period), int(kmax), int(vsize)
     if J.shape[-4] != K or x8.shape[-2] % nb \
             or any(a.dim() == nd + 1 and a.shape[0] != V
@@ -510,14 +577,15 @@ def sweep_blocks_visits(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt,
                          f"axis is not {V}")
     if J.device.type == "cuda":
         out, cost = _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt,
-                                cost_wt, nb, V, True)
-        return record_views(out.view(V, K, nb, REC)) + (cost.view(V, K),)
+                                cost_wt, nb, V, True, md)
+        return record_views(out.view(V, K, nb, out.shape[-1]), md) \
+            + (cost.view(V, K),)
     s1b = sta1[:nb].long()
     s2b = sta2[:nb].long()
     Jp = J.index_select(-3, s1b)                     # [(V,) K, nb, 2, 2]
     Jq = J.index_select(-3, s2b)
     return sweep_blocks_visits_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt,
-                                     nb, V)
+                                     nb, V, jones)
 
 
 def _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, N: int):
@@ -685,13 +753,15 @@ def station_lists(sta1, sta2, nb: int, n_stations: int) -> StationLists:
 
 def _block_view(t, nb: int):
     """(tensor, words between consecutive baselines) with each baseline's
-    block contiguous and its rows on 16 bytes, as the matvec kernel reads
-    them: an aligned strided view of the sweep's records (:data:`REC`
-    words apart) is used as it is, anything else is copied."""
+    block contiguous and its rows of md words on 4 md bytes, as the matvec
+    kernel reads them (one load of the row's width): an aligned strided
+    view of the sweep's records (:data:`REC_WORDS` apart) is used as it is,
+    anything else is copied."""
+    md = t.shape[-1]
     words = math.prod(t.shape[2:])
     st = t.stride()
     if t[0, 0].is_contiguous() and st[0] == nb * st[1] and st[1] >= words \
-            and st[1] % 4 == 0 and t.data_ptr() % 16 == 0:
+            and st[1] % md == 0 and t.data_ptr() % (4 * md) == 0:
         return t, st[1]
     return _aligned(t), words
 
@@ -742,9 +812,10 @@ def matvec_plan(fac: GNBlocks, sta1, sta2, n_stations: int, shift=None,
     """Check and lay out the blocks ``fac`` once for every product
     (JTJ + shift I) v taken with them (:func:`matvec_apply`): the solvers
     build one plan per Gram-block set (a tCG operator, a PCG solve) and
-    call the kernel through it. Raises on blocks of mismatched shapes,
-    dtypes or devices, on ``lists`` that are not the layout's, and on the
-    card for anything but float32 full Jones; nothing falls back."""
+    call the kernel through it, at the blocks' width md (4 full Jones, 2
+    diag, 1 phase). Raises on blocks of mismatched shapes, dtypes or
+    devices, on ``lists`` that are not the layout's, and on the card for
+    anything but float32; nothing falls back."""
     pp, qq, pq = fac.pp, fac.qq, fac.pq
     K, nb = pp.shape[0], pp.shape[1]
     md = pp.shape[-1]
@@ -764,10 +835,9 @@ def matvec_plan(fac: GNBlocks, sta1, sta2, n_stations: int, shift=None,
             _check_lists(lists, nb, N, lists.s1.device)
         return MatvecPlan(fac, N, shift, sta1[:nb].long(), sta2[:nb].long(),
                           None, None, ())
-    if md != 4:
-        raise NotImplementedError(
-            "the matvec kernel is full Jones (md = 4); --jones diag|phase "
-            "is ROADMAP queue A item 4")
+    if md not in REC_WORDS:
+        raise ValueError(f"matvec: block width {md} is none of "
+                         f"{tuple(REC_WORDS)}")
     if pp.dtype != torch.float32:
         raise TypeError(f"matvec kernel: blocks must be float32 on {dev} "
                         f"(got {pp.dtype})")
@@ -783,24 +853,25 @@ def matvec_plan(fac: GNBlocks, sta1, sta2, n_stations: int, shift=None,
     params = cuda_lib.MatvecParams(
         pp.data_ptr(), qq.data_ptr(), pq.data_ptr(), sp, sq, spq,
         s1.data_ptr(), s2.data_ptr(), runs.data_ptr(), ent.data_ptr(),
-        None if sh is None else sh.data_ptr(), K, nb, N)
+        None if sh is None else sh.data_ptr(), K, nb, N, md)
     return MatvecPlan(fac, N, shift, s1, s2, params,
                       cuda_lib.load("matvec").matvec_launch,
                       (pp, qq, pq, sh, lists))
 
 
 def matvec_apply(plan: MatvecPlan, v):
-    """(JTJ + shift I) v for the blocks of ``plan``: v [K, 8N]. On the
-    card one launch of ``csrc/matvec.cu``; the call checks only ``v``."""
+    """(JTJ + shift I) v for the blocks of ``plan``: v [K, 2 md N]. On
+    the card one launch of ``csrc/matvec.cu``; the call checks only
+    ``v``."""
     global MATVEC_LAUNCHES
     if plan.params is None:
         return gn_matvec_blocks_plain(plan.fac, v, plan.s1b, plan.s2b,
                                       plan.n_stations, plan.shift)
     p = plan.params
     if v.dtype != torch.float32 or not v.is_cuda \
-            or v.shape != (p.K, 8 * p.N):
+            or v.shape != (p.K, 2 * p.md * p.N):
         raise TypeError(f"matvec kernel: v must be float32 [{p.K}, "
-                        f"{8 * p.N}] on the card (got {v.dtype} "
+                        f"{2 * p.md * p.N}] on the card (got {v.dtype} "
                         f"{tuple(v.shape)} on {v.device})")
     if v.device != plan.fac.pp.device:
         raise TypeError(f"matvec kernel: v on {v.device}, blocks on "
@@ -811,13 +882,14 @@ def matvec_apply(plan: MatvecPlan, v):
         ctypes.addressof(p), v.data_ptr(), y.data_ptr(),
         cuda_lib.stream_ptr(v.device)), "matvec_station_kernel")
     MATVEC_LAUNCHES += 1
+    _count_md("matvec", p.md)
     return y
 
 
 def gn_matvec_blocks(fac: GNBlocks, v, sta1, sta2, n_stations: int,
                      shift=None, lists: StationLists | None = None):
     """(JTJ + shift I) @ v from the per-baseline Gram blocks
-    (``sweep_pallas.gn_matvec_blocks``): v [K, 8N], shift [K] or None;
+    (``sweep_pallas.gn_matvec_blocks``): v [K, 2 md N], shift [K] or None;
     sta1/sta2 the rows' station indices (baseline-periodic). One
     :func:`matvec_plan` and one :func:`matvec_apply`: a loop that takes
     many products with the same blocks builds the plan once itself. On

@@ -86,8 +86,6 @@ def check_supported(cfg: RunConfig) -> None:
          "item 7)"),
         (cfg.ms_list is not None, "-f dataset lists (ROADMAP queue A "
          "item 7)"),
-        (cfg.jones_mode != "full", f"--jones {cfg.jones_mode} (ROADMAP "
-         "queue A item 4)"),
     ]
     for bad, what in checks:
         if bad:

@@ -1,7 +1,7 @@
 """Batched Levenberg-Marquardt on per-(cluster, time-chunk) Jones blocks
 (port of ``sagecal_tpu/solvers/lm.py``).
 
-Every hybrid time chunk of a cluster is an independent 8N-parameter
+Every hybrid time chunk of a cluster is an independent npar N-parameter
 problem; all chunks solve together as one batched damped Gauss-Newton
 iteration. Each damping iteration is ONE pass over the rows giving the
 normal equations, gradient and acceptance cost at the trial point, by one
@@ -42,6 +42,14 @@ The loops are Python loops that read one [K]-bool back per iteration
 (per PCG trip under ``inner="cg"``) to decide whether any chunk is still
 live (the JAX ``while_loop`` conditions); everything else stays on the
 device.
+
+Constrained Jones modes (``LMConfig.jones_mode`` diag or phase,
+``lm.py:369-391`` of the JAX package): the solve state p lives in the
+reduced space (``normal_eq.params_from_jones`` of the constrained entry
+Jones ``Jref``), J = ``normal_eq.jones_from_params(p, mode, Jref)``, and
+each assembly takes the mode: the sweep with ``jones=mode`` (the md = 2
+and 1 kernels on the card), the XLA route through
+``normal_eq.normal_equations_mode`` / ``gn_factors_mode``.
 
 Lanes (``lanes=``, an ``ops.sweep.Lanes``): one call solves an in-flight
 group's V cluster visits, folded into rows [V B] and chunks [V K], where
@@ -136,13 +144,6 @@ def os_subset_ids(tilesz: int, nbase: int, n_subsets: int = 10):
     return os_id, int(os_id.max()) + 1
 
 
-def check_jones(config) -> None:
-    if config.jones_mode != "full":
-        raise NotImplementedError(
-            f"--jones {config.jones_mode} is not ported yet (ROADMAP queue "
-            "A item 4)")
-
-
 def use_sweep(kernel: str, kmax: int, row_period: int, B: int) -> bool:
     """The assembly route, chosen on the host from shapes before any
     launch (``lm.py:396-403`` of the JAX package): True for the fused
@@ -165,15 +166,15 @@ def route_name(kernel: str, kmax: int, row_period: int, B: int) -> str:
 
 def solve_route(config, kmax: int, row_period: int, B: int) -> bool:
     """The route of one solve (:func:`use_sweep`) after raising for a
-    configuration the port does not run (``config`` an LMConfig or an
-    RTRConfig: inner, kernel, jones_mode); a solve on the XLA assembly
+    configuration that is none of the solvers' (``config`` an LMConfig or
+    an RTRConfig: inner, kernel, jones_mode); a solve on the XLA assembly
     counts in :data:`XLA_SOLVES`."""
     global XLA_SOLVES
     if config.inner not in ("chol", "cg"):
         raise ValueError(f"inner={config.inner!r}: expected chol or cg")
     if config.kernel not in ("pallas", "xla"):
         raise ValueError(f"kernel={config.kernel!r}: expected pallas or xla")
-    check_jones(config)
+    ne.jones_mdim(config.jones_mode)
     sweep = use_sweep(config.kernel, kmax, row_period, B)
     XLA_SOLVES += not sweep
     return sweep
@@ -235,7 +236,8 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     is one blocks matvec, ``swp.matvec_apply`` on one plan of the blocks
     and the shift) or the XLA route's ``ne.GNFactors`` (each trip one
     ``ne.gn_matvec`` [B] pass over the Wirtinger factors, with
-    ``chunk_id`` and ``row_period``); either way one station-block
+    ``chunk_id`` and ``row_period``) or ``ne.GNFactorsMode`` (one
+    ``ne.gn_matvec_mode`` pass); either way one station-block
     preconditioner solve follows. A chunk stops at ||r||^2 <=
     (eta ||JTe||)^2 and freezes (masked updates) while the batch runs to
     the slowest live chunk; ``active`` [K] masks chunks out entirely
@@ -263,6 +265,10 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
             return ne.gn_matvec(fac, v, sta1, sta2, chunk_id, kmax,
                                 n_stations, shift=shift,
                                 row_period=row_period, visits=V)
+    elif isinstance(fac, ne.GNFactorsMode):
+        def matvec(v):
+            return ne.gn_matvec_mode(fac, v, sta1, sta2, chunk_id, kmax,
+                                     n_stations, shift=shift)
     else:
         plan = swp.matvec_plan(fac, sta1, sta2, n_stations, shift=shift,
                                lists=lists)
@@ -303,7 +309,9 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     <= config.itmax; ``os`` the optional ordered-subsets setting;
     ``lists`` the tile's ``swp.station_lists`` for the PCG matvec. Returns
     (J [K, N, 2, 2], info) with init_cost / final_cost [K], iters
-    (executed iterations) and cg_iters (executed PCG trips).
+    (executed iterations) and cg_iters (executed PCG trips). Under
+    ``config.jones_mode`` diag or phase J is constrained to the mode
+    (zero off-diagonals), a masked chunk returning the constrained J0.
 
     With ``lanes`` the arrays are a group's folded layout (module
     docstring; ``wt`` [B, 8] when shared), ``itmax_dynamic`` and ``os``
@@ -317,12 +325,17 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     inner_cg = config.inner == "cg"
     # the XLA route's dense (JTJ, JTe, cost) under "chol"
     dense = not sweep and not inner_cg
-    p = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
+    # the solve state lives in the mode's reduced space; Jref holds the
+    # constrained entry Jones (the phase retraction's amplitudes)
+    mode = config.jones_mode
+    npar = ne.jones_npar(mode)
+    p, Jref = ne.mode_point(J0, mode)
+    p = p.reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
 
     def p_to_J(pv):
-        return ne.jones_r2c(pv.reshape(kmax, N, 8))
+        return ne.jones_from_params(pv.reshape(kmax, N, npar), mode, Jref)
 
     def rows(w):
         return w if lanes is None or w is None else lanes.rows(w)
@@ -332,11 +345,11 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         if sweep:
             return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
                                  w, N, kmax, row_period, cost_wt=cw,
-                                 lanes=lanes)
-        assemble = ne.normal_equations if dense else ne.gn_factors
+                                 jones=mode, lanes=lanes)
+        assemble = ne.normal_equations_mode if dense else ne.gn_factors_mode
         return assemble(x8, p_to_J(pv), coh, sta1, sta2, chunk_id, rows(w),
-                        N, kmax, cost_wt=rows(cw), row_period=row_period,
-                        visits=V)
+                        N, kmax, mode=mode, cost_wt=rows(cw),
+                        row_period=row_period, visits=V)
 
     if os is not None:
         os_id = (os if lanes is None else os[0]).os_id.to(dev)
@@ -427,7 +440,8 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             | (k + 1 >= cap)
         k += 1
     J = p_to_J(p)
-    J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
+    J = torch.where(chunk_mask[:, None, None, None], J,
+                    (J0 if Jref is None else Jref).to(J.dtype))
     if lanes is None:
         its, cg_trips = int(its[0]), int(cg_trips[0])
     return J, {"init_cost": cost0, "final_cost": cost, "iters": its,
@@ -438,18 +452,17 @@ def _adopt(adopt, new, old, chunk_id):
     """The operator a chunk carries into the next iteration: ``new`` where
     ``adopt`` [K], else ``old``. Gram blocks and the dense matrix carry a
     leading K axis; the XLA route's per-row factors (MA, MB, w2) map
-    chunks onto rows through ``chunk_id``, and its D is per chunk."""
+    chunks onto rows through ``chunk_id``, and its D is per chunk (so do
+    the mode factors' FA, FB, w2 and D)."""
     def sel(mask, a, b):
         return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)),
                            a, b)
     if torch.is_tensor(new):
         return sel(adopt, new, old)
-    if isinstance(new, ne.GNFactors):
+    if isinstance(new, (ne.GNFactors, ne.GNFactorsMode)):
         ra = adopt[chunk_id]
-        return ne.GNFactors(MA=sel(ra, new.MA, old.MA),
-                            MB=sel(ra, new.MB, old.MB),
-                            w2=sel(ra, new.w2, old.w2),
-                            D=sel(adopt, new.D, old.D))
+        return type(new)(*(sel(ra, a, b) for a, b in zip(new[:3], old[:3])),
+                         sel(adopt, new.D, old.D))
     return swp.GNBlocks(*(sel(adopt, a, b) for a, b in zip(new, old)))
 
 

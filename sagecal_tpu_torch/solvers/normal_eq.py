@@ -1,6 +1,6 @@
-"""Residuals, costs, the XLA-route normal equations and the PCG
-preconditioner of the per-direction solve (port of
-``sagecal_tpu/solvers/normal_eq.py``, full Jones).
+"""Residuals, costs, the XLA-route normal equations, the PCG
+preconditioner and the constrained Jones modes of the per-direction solve
+(port of ``sagecal_tpu/solvers/normal_eq.py``).
 
 Real parametrization per station: 8 reals, (Re, Im) of J in row-major
 order (00, 01, 10, 11); residual 8-vector per row likewise (Re, Im) of
@@ -28,6 +28,19 @@ Jones [V K, N]) go through the same functions with ``visits`` = V: the
 generic scatter serves the folded layout as it is, and the baseline-major
 contraction runs per visit on the rows reshaped to [V, T, nbase] (one
 chunk per visit: chunk v), as the JAX package's vmapped solve does.
+
+Constrained Jones modes (``--jones diag|phase``, ``normal_eq.py:700-1049``
+of the JAX package): the per-station parameter vector shrinks from 8 reals
+to 4 (diag: Re/Im of j00 and j11) or 2 (phase: the angles theta of
+J = diag(Jref) exp(i theta), amplitudes frozen at the entry Jones
+``Jref``). The Gram structure stays: per station the blocks are
+[2, md, md] with md = 4, 2, 1 (:func:`jones_mdim`), from the reduced
+factors of :func:`_mode_factors`. :func:`normal_equations_mode`,
+:func:`gn_factors_mode` and :func:`gn_matvec_mode` are the mode-aware XLA
+assembly; in full mode each delegates to the full-Jones function, so the
+full route is unchanged bit for bit. The reduced-dtype OS body
+``os_subset_equations_mode`` comes with ``--dtype-policy`` (ROADMAP queue
+A item 7).
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ from typing import NamedTuple
 import torch
 
 from sagecal_tpu_torch.rime import predict as rp
-from sagecal_tpu_torch.utils import jones_c2r, jones_r2c  # noqa: F401
+from sagecal_tpu_torch.utils import jones_c2r, jones_r2c
 
 
 def residual8(x8, J, coh, sta1, sta2, chunk_id):
@@ -303,6 +316,261 @@ def gn_matvec(fac: GNFactors, v, sta1, sta2, chunk_id, kmax: int,
         y.index_add_(0, _index(chunk_id, sta1, N), yp)
         y.index_add_(0, _index(chunk_id, sta2, N), yq)
     y = y.reshape(kmax, 8 * N)
+    if shift is not None:
+        y = y + torch.as_tensor(shift, dtype=y.dtype,
+                                device=y.device)[..., None] * v
+    return y
+
+
+# ---------------------------------------------------------------------------
+# constrained Jones modes (jones_mode in full, diag, phase)
+# ---------------------------------------------------------------------------
+
+#: valid ``--jones`` values
+JONES_MODES = ("full", "diag", "phase")
+
+#: positions of the diag-mode parameters in the full 8-real station vector
+#: (``jones_c2r`` layout): (Re j00, Im j00, Re j11, Im j11)
+_DIAG_IDX = (0, 1, 6, 7)
+
+
+def jones_mdim(mode: str) -> int:
+    """Per-(station, diagonal index) Gram block width of ``mode``; raises
+    on a mode that is none of :data:`JONES_MODES`."""
+    if mode not in JONES_MODES:
+        raise ValueError(f"jones_mode={mode!r}: expected one of "
+                         f"{JONES_MODES}")
+    return {"full": 4, "diag": 2, "phase": 1}[mode]
+
+
+def jones_npar(mode: str) -> int:
+    """Real parameters per station of ``mode`` (2 md)."""
+    return 2 * jones_mdim(mode)
+
+
+def jones_constrain(J, mode: str):
+    """J projected onto the mode's feasible set: the off-diagonal entries
+    zeroed for diag and phase, J itself for full."""
+    if mode == "full":
+        return J
+    return J * torch.eye(2, dtype=J.real.dtype, device=J.device)
+
+
+def params_from_jones(J, mode: str):
+    """[..., 2, 2] complex Jones -> [..., npar] reduced real parameters.
+    Phase mode encodes the zero rotation (theta = 0): the caller keeps the
+    constrained entry Jones as ``Jref`` for :func:`jones_from_params`."""
+    if mode == "full":
+        return jones_c2r(J)
+    if mode == "diag":
+        return jones_c2r(J)[..., list(_DIAG_IDX)]
+    return torch.zeros(J.shape[:-2] + (2,), dtype=J.real.dtype,
+                       device=J.device)
+
+
+def mode_point(J, mode: str):
+    """(parameters [..., npar], Jref) of a solve starting at J: in diag
+    and phase mode Jref is J constrained to the mode (the reference point
+    of :func:`jones_from_params`) and the parameters are its own; in full
+    mode Jref is None."""
+    Jref = None if mode == "full" else jones_constrain(J, mode)
+    return params_from_jones(J if Jref is None else Jref, mode), Jref
+
+
+def jones_from_params(p, mode: str, Jref=None):
+    """[..., npar] reduced real parameters -> [..., 2, 2] complex Jones:
+    diag the (Re, Im) of the diagonal entries, phase the retraction
+    J = diag(Jref) exp(i theta), whose additive update of theta is the
+    multiplicative phase update."""
+    if mode == "full":
+        return jones_r2c(p)
+    if mode == "diag":
+        d0 = torch.complex(p[..., 0], p[..., 1])
+        d1 = torch.complex(p[..., 2], p[..., 3])
+    else:
+        rot = torch.complex(torch.cos(p), torch.sin(p))
+        d0 = Jref[..., 0, 0] * rot[..., 0]
+        d1 = Jref[..., 1, 1] * rot[..., 1]
+    z = torch.zeros_like(d0)
+    return torch.stack([torch.stack([d0, z], -1),
+                        torch.stack([z, d1], -1)], -2)
+
+
+def _mode_factors(A, Bm, Jp, Jq, mode: str):
+    """Reduced Wirtinger factors (FA, FB), each [..., 2, 2, 2, md]:
+    FA[..., c, o, ri, m] = d(V[c, o])_ri / d(p-parameter (c, m)),
+    FB[..., c, a, ri, m] = d(V[a, c])_ri / d(q-parameter (c, m)), from
+    A = C Jq^H (A[d, o]) and Bm = Jp C (Bm[a, d]) of a constrained J.
+    Diag reads the d == c planes of the full factors; phase rotates them:
+    u = i Jp_cc A[c, o] gives FA = (-Im u, Re u), w = conj(Jq_cc)
+    Bm[a, c] gives FB = (Im w, -Re w)."""
+    if mode == "diag":
+        Ar, Ai = A.real, A.imag                           # [..., c, o]
+        FA = torch.stack([torch.stack([Ar, -Ai], -1),     # ri = Re
+                          torch.stack([Ai, Ar], -1)], -2)  # ri = Im
+        Br = Bm.real.transpose(-1, -2)                    # [..., c, a]
+        Bi = Bm.imag.transpose(-1, -2)
+        FB = torch.stack([torch.stack([Br, Bi], -1),
+                          torch.stack([Bi, -Br], -1)], -2)
+        return FA, FB
+    jpd = torch.stack([Jp[..., 0, 0], Jp[..., 1, 1]], -1)  # [..., c]
+    jqd = torch.stack([Jq[..., 0, 0], Jq[..., 1, 1]], -1)
+    u = jpd[..., None] * A                                 # [..., c, o]
+    w = jqd.conj()[..., None] * Bm.transpose(-1, -2)       # [..., c, a]
+    FA = torch.stack([-u.imag, u.real], -1)[..., None]
+    FB = torch.stack([w.imag, -w.real], -1)[..., None]
+    return FA, FB
+
+
+def _mode_blocks(FA, FB, w2, rw2):
+    """Per-row reduced Gram and gradient blocks from the mode factors:
+    (pp [B, 2, md, md], qq, pq [B, 2, 2, md, md], jtep [B, 2, md], jteq),
+    with ``w2`` / ``rw2`` [B, a, o, ri] the squared weights and w^2 r."""
+    WFA = w2[..., None] * FA                        # [B, c, o, ri, md]
+    w2q = w2.transpose(1, 2)                        # [B, o, a, ri]
+    WFB = w2q[..., None] * FB                       # [B, c, a, ri, md]
+    pp = torch.einsum("bcorm,bcorn->bcmn", WFA, FA)
+    qq = torch.einsum("bcarm,bcarn->bcmn", WFB, FB)
+    # pq[(c, m), (c', n)] = sum_ri w2[c, c', ri] FA[c, c', ri, m]
+    #                        FB[c', c, ri, n]
+    pq = torch.einsum("bcorm,bcorn->bcomn", WFA, FB.transpose(1, 2))
+    jtep = torch.einsum("bcor,bcorm->bcm", rw2, FA)
+    jteq = torch.einsum("bcar,bcarm->bcm", rw2.transpose(1, 2), FB)
+    return pp, qq, pq, jtep, jteq
+
+
+def _mode_dense(pp, qq, pq, jtep, jteq, sta1, sta2, chunk_id, kmax: int,
+                N: int):
+    """The per-row reduced blocks scattered into the dense station-major
+    normal equations: (JTJ [K, npar N, npar N], JTe [K, npar N])."""
+    md = pp.shape[-1]
+    npar = 2 * md
+    dt, dev = pp.dtype, pp.device
+    i1, i2 = _index(chunk_id, sta1, N), _index(chunk_id, sta2, N)
+    D = torch.zeros((kmax * N, 2, md, md), dtype=dt, device=dev)
+    D.index_add_(0, i1, pp).index_add_(0, i2, qq)
+    O = torch.zeros((kmax * N * N, 2, 2, md, md), dtype=dt, device=dev)
+    O.index_add_(0, i1 * N + sta2, pq)
+    JTe = torch.zeros((kmax * N, 2, md), dtype=dt, device=dev)
+    JTe.index_add_(0, i1, jtep).index_add_(0, i2, jteq)
+    Off = O.view(kmax, N, N, 2, 2, md, md).permute(0, 1, 2, 3, 5, 4, 6) \
+        .reshape(kmax, N, N, npar, npar)
+    JTJ = Off + Off.transpose(1, 2).transpose(-1, -2)
+    eye2 = torch.eye(2, dtype=dt, device=dev)
+    Dfull = torch.einsum("knaij,ab->knaibj", D.view(kmax, N, 2, md, md),
+                         eye2).reshape(kmax, N, npar, npar)
+    idx = torch.arange(N, device=dev)
+    JTJ[:, idx, idx] += Dfull
+    JTJ = JTJ.permute(0, 1, 3, 2, 4).reshape(kmax, npar * N, npar * N)
+    return JTJ, JTe.reshape(kmax, npar * N)
+
+
+def _mode_pass(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, mode: str):
+    """The one [B] pass of the mode assemblies at the constrained J: (FA,
+    FB, w2, w^2 r, the cost's weighted residual)."""
+    J = jones_constrain(J, mode)
+    Jp = J[chunk_id, sta1]
+    Jq = J[chunk_id, sta2]
+    A = coh @ Jq.conj().transpose(-1, -2)
+    Bm = Jp @ coh
+    V = Jp @ A
+    r = x8 - torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8)
+    rw = r * wt
+    FA, FB = _mode_factors(A, Bm, Jp, Jq, mode)
+    rc = rw if cost_wt is None else r * cost_wt
+    B = x8.shape[0]
+    return (FA, FB, (wt * wt).reshape(B, 2, 2, 2),
+            (rw * wt).reshape(B, 2, 2, 2), rc)
+
+
+def _mode_cost(rc, chunk_id, kmax: int):
+    return torch.zeros((kmax,), dtype=rc.dtype, device=rc.device) \
+        .index_add_(0, chunk_id, (rc * rc).sum(dim=1))
+
+
+def normal_equations_mode(x8, J, coh, sta1, sta2, chunk_id, wt,
+                          n_stations: int, kmax: int, mode: str = "full",
+                          cost_wt=None, row_period: int = 0,
+                          visits: int = 1):
+    """Mode-aware :func:`normal_equations` (``normal_eq.
+    normal_equations_mode``): (JTJ [K, npar N, npar N], JTe, cost [K]) of
+    the reduced parameters for diag and phase, J constrained at entry;
+    full delegates to :func:`normal_equations` as it is. The mode path
+    scatters generically (``row_period`` and ``visits`` serve full only),
+    as the JAX package's does."""
+    if mode == "full":
+        return normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt,
+                                n_stations, kmax, cost_wt=cost_wt,
+                                row_period=row_period, visits=visits)
+    FA, FB, w2, rw2, rc = _mode_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
+                                     cost_wt, mode)
+    pp, qq, pq, jtep, jteq = _mode_blocks(FA, FB, w2, rw2)
+    JTJ, JTe = _mode_dense(pp, qq, pq, jtep, jteq, sta1, sta2, chunk_id,
+                           kmax, n_stations)
+    return JTJ, JTe, _mode_cost(rc, chunk_id, kmax)
+
+
+class GNFactorsMode(NamedTuple):
+    """Reduced-mode :class:`GNFactors` (diag, phase): FA/FB [B, 2, 2, 2,
+    md] mode factors (:func:`_mode_factors`), w2 [B, 2, 2, 2] squared
+    sqrt-weights (a, o, ri), D [K, N, 2, md, md] station-diagonal Gram
+    blocks (the preconditioner and the mu0 seed)."""
+
+    FA: torch.Tensor
+    FB: torch.Tensor
+    w2: torch.Tensor
+    D: torch.Tensor
+
+
+def gn_factors_mode(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
+                    kmax: int, mode: str = "full", cost_wt=None,
+                    row_period: int = 0, visits: int = 1):
+    """Mode-aware :func:`gn_factors` (``normal_eq.gn_factors_mode``):
+    (:class:`GNFactorsMode`, JTe [K, npar N], cost [K]) for diag and
+    phase from one [B] pass; full delegates to :func:`gn_factors`."""
+    if mode == "full":
+        return gn_factors(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations,
+                          kmax, cost_wt=cost_wt, row_period=row_period,
+                          visits=visits)
+    N = n_stations
+    FA, FB, w2, rw2, rc = _mode_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
+                                     cost_wt, mode)
+    md = FA.shape[-1]
+    WFA = w2[..., None] * FA
+    WFB = w2.transpose(1, 2)[..., None] * FB
+    pp = torch.einsum("bcorm,bcorn->bcmn", WFA, FA)
+    qq = torch.einsum("bcarm,bcarn->bcmn", WFB, FB)
+    jtep = torch.einsum("bcor,bcorm->bcm", rw2, FA)
+    jteq = torch.einsum("bcar,bcarm->bcm", rw2.transpose(1, 2), FB)
+    i1, i2 = _index(chunk_id, sta1, N), _index(chunk_id, sta2, N)
+    D = pp.new_zeros((kmax * N, 2, md, md))
+    D.index_add_(0, i1, pp).index_add_(0, i2, qq)
+    JTe = pp.new_zeros((kmax * N, 2, md))
+    JTe.index_add_(0, i1, jtep).index_add_(0, i2, jteq)
+    return GNFactorsMode(FA=FA, FB=FB, w2=w2,
+                         D=D.view(kmax, N, 2, md, md)), \
+        JTe.reshape(kmax, 2 * md * N), _mode_cost(rc, chunk_id, kmax)
+
+
+def gn_matvec_mode(fac: GNFactorsMode, v, sta1, sta2, chunk_id, kmax: int,
+                   n_stations: int, shift=None):
+    """(JTJ + shift I) @ v through the reduced factors, one [B] pass of
+    md-wide products (``normal_eq.gn_matvec_mode``): the matrix-free
+    operator of the PCG and tCG loops under diag and phase."""
+    N = n_stations
+    md = fac.FA.shape[-1]
+    vr = v.reshape(kmax, N, 2, md)
+    vp = vr[chunk_id, sta1]                          # [B, c, m]
+    vq = vr[chunk_id, sta2]
+    u = (torch.einsum("baorm,bam->baor", fac.FA, vp)
+         + torch.einsum("boarm,bom->baor", fac.FB, vq))
+    uw = u * fac.w2
+    yp = torch.einsum("baor,baorm->bam", uw, fac.FA)
+    yq = torch.einsum("baor,boarm->bom", uw, fac.FB)
+    y = torch.zeros((kmax * N, 2, md), dtype=v.dtype, device=v.device)
+    y.index_add_(0, _index(chunk_id, sta1, N), yp)
+    y.index_add_(0, _index(chunk_id, sta2, N), yq)
+    y = y.reshape(kmax, 2 * md * N)
     if shift is not None:
         y = y + torch.as_tensor(shift, dtype=y.dtype,
                                 device=y.device)[..., None] * v

@@ -1,5 +1,5 @@
 """Riemannian trust-region and Nesterov solvers on the Jones quotient
-manifold (port of ``sagecal_tpu/solvers/rtr.py``, full Jones).
+manifold (port of ``sagecal_tpu/solvers/rtr.py``).
 
 Each (cluster, time-chunk) solution is a 2N x 2 complex matrix X; the
 search space is the quotient of full-rank X by right-multiplication with
@@ -28,8 +28,16 @@ Host reads: the outer loop reads one [K] bool per iteration (the JAX
 (``lax.cond`` on it); tCG reads its [K] ``done`` mask each trip and
 stops when every chunk is done, where the reference runs its fixed trip
 count with masked updates: the same result in fewer Hessian products.
-``--jones diag|phase`` (ROADMAP queue A item 4) and ADMM are not
-ported.
+Consensus ADMM is not ported (ROADMAP queue A item 9).
+
+Constrained Jones modes (``jones_mode`` diag or phase): the point lives
+in the reduced space of ``normal_eq.params_from_jones`` (J from
+``jones_from_params`` with the constrained entry Jones ``Jref``), the
+Hessian operators take the mode (the sweep's md = 2 and 1 kernels, or
+the XLA ``*_mode`` assembly), and the gauge projection removes the one
+exact symmetry left, the global phase (:func:`project_tangent_mode`). In
+phase mode the point starts at theta = 0, so the trust-region radius and
+NSD's first step are seeded from the unit-phase scale sqrt(npar N).
 
 With ``lanes`` (``ops.sweep.Lanes``, as in ``lm.lm_solve``) one call
 solves an in-flight group's V cluster visits, each with its own
@@ -115,6 +123,52 @@ def project_tangent(p, v, kmax, n_stations):
     return _projector(p, kmax, n_stations)(v)
 
 
+def _projector_mode(p, kmax, n_stations, mode: str):
+    """The gauge projection at point p for ``mode`` as a function of the
+    tangent v [K, npar N] (``rtr.project_tangent_mode``): full the U(2)
+    Sylvester projection of :func:`_projector`; for diag and phase the
+    only exact continuous symmetry is the global phase e^{i phi} I, one
+    real direction per chunk: phase subtracts the chunk's mean of v, diag
+    the component along u[n, c] = (-Im j_ncc, Re j_ncc)."""
+    if mode == "full":
+        return _projector(p, kmax, n_stations)
+    npar = ne.jones_npar(mode)
+    if mode == "phase":
+        def proj(v):
+            vr = v.reshape(kmax, n_stations * npar)
+            return (vr - vr.mean(dim=-1, keepdim=True)).reshape(kmax, -1)
+        return proj
+    J = ne.jones_from_params(p.reshape(kmax, n_stations, npar), "diag")
+    d = torch.stack([J[..., 0, 0], J[..., 1, 1]], -1)     # [K, N, 2]
+    u = torch.stack([-d.imag, d.real], -1).reshape(kmax, -1)
+    den = torch.clamp((u * u).sum(dim=-1, keepdim=True), min=1e-30)
+
+    def proj(v):
+        vr = v.reshape(kmax, n_stations * npar)
+        num = (u * vr).sum(dim=-1, keepdim=True)
+        return (vr - (num / den) * u).reshape(kmax, -1)
+
+    return proj
+
+
+def project_tangent_mode(p, v, kmax, n_stations, mode: str):
+    """Gauge projection of tangent v at point p per Jones mode
+    (:func:`_projector_mode`)."""
+    return _projector_mode(p, kmax, n_stations, mode)(v)
+
+
+def _mode_p2j(mode: str, Jref, kmax, n_stations):
+    """params [K, npar N] -> J [K, N, 2, 2] for a Jones mode
+    (``rtr._mode_p2j``)."""
+    npar = ne.jones_npar(mode)
+
+    def p_to_J(p):
+        return ne.jones_from_params(p.reshape(kmax, n_stations, npar), mode,
+                                    Jref)
+
+    return p_to_J
+
+
 def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
                     npar: int = 8, lanes=None):
     """iw diagonal preconditioner [K, npar N]: 1 / (# live baselines per
@@ -138,11 +192,14 @@ def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
 
 
 def make_cost(x8, coh, sta1, sta2, chunk_id, wt, kmax, n_stations,
-              robust_nu=None):
-    """Per-chunk cost [K] of real params [K, 8N]: Gaussian sum (w r)^2, or
-    Student's t sum log(1 + (w r)^2 / nu) (robust_lbfgs.c:94)."""
+              robust_nu=None, mode: str = "full", Jref=None):
+    """Per-chunk cost [K] of real params [K, npar N] of the Jones mode:
+    Gaussian sum (w r)^2, or Student's t sum log(1 + (w r)^2 / nu)
+    (robust_lbfgs.c:94)."""
+    p_to_J = _mode_p2j(mode, Jref, kmax, n_stations)
+
     def cost(p):
-        J = ne.jones_r2c(p.reshape(kmax, n_stations, 8))
+        J = p_to_J(p)
         e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt
         if robust_nu is None:
             per_row = (e * e).sum(dim=-1)
@@ -232,7 +289,9 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                                x8.shape[0] // V)
     dev, dtype = x8.device, x8.dtype
     N = n_stations
-    p0 = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
+    mode = config.jones_mode
+    p0, Jref = ne.mode_point(J0, mode)
+    p0 = p0.reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
     # per-row views of a group's shared weights and per-visit nu
@@ -243,18 +302,17 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     if lanes is not None:
         wt_r = lanes.rows(wt)
 
-    def p_to_J(p):
-        return ne.jones_r2c(p.reshape(kmax, N, 8))
+    p_to_J = _mode_p2j(mode, Jref, kmax, N)
 
     def rows(w):
         return w if lanes is None else lanes.rows(w)
 
     cost_fn = make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
-                        robust_nu=nu_r)
+                        robust_nu=nu_r, mode=mode, Jref=Jref)
     egrad = _egrad(cost_fn)
 
     def rgrad_at(p):
-        return project_tangent(p, egrad(p), kmax, N)
+        return project_tangent_mode(p, egrad(p), kmax, N, mode)
 
     def make_hess(p):
         """Gauss-Newton Hessian operator at the outer point ``p``; the
@@ -266,35 +324,40 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         else:
             e = ne.residual8(x8, Jm, coh, sta1, sta2, chunk_id) * wt_r
             wt_eff = wt_r * torch.sqrt(nu_r) / (nu_r + e * e)
-        proj = _projector(p, kmax, N)
+        proj = _projector_mode(p, kmax, N, mode)
         if config.inner == "cg":
             if sweep:
                 fac, _, _ = swp.gn_blocks(x8, Jm, coh, sta1, sta2, chunk_id,
                                           wt_eff, N, kmax, row_period,
-                                          lanes=lanes)
+                                          jones=mode, lanes=lanes)
                 plan = swp.matvec_plan(fac, sta1, sta2, N, lists=lists)
 
                 def hv(v):
                     return proj(2.0 * swp.matvec_apply(plan, v))
                 return hv
             # matrix-free: each product one [B] pass over the factors
-            fac, _, _ = ne.gn_factors(x8, Jm, coh, sta1, sta2, chunk_id,
-                                      rows(wt_eff), N, kmax,
-                                      row_period=row_period, visits=V)
-
-            def hv(v):
-                return proj(2.0 * ne.gn_matvec(
-                    fac, v, sta1, sta2, chunk_id, kmax, N,
-                    row_period=row_period, visits=V))
+            fac, _, _ = ne.gn_factors_mode(x8, Jm, coh, sta1, sta2,
+                                           chunk_id, rows(wt_eff), N, kmax,
+                                           mode=mode, row_period=row_period,
+                                           visits=V)
+            if mode == "full":
+                def hv(v):
+                    return proj(2.0 * ne.gn_matvec(
+                        fac, v, sta1, sta2, chunk_id, kmax, N,
+                        row_period=row_period, visits=V))
+            else:
+                def hv(v):
+                    return proj(2.0 * ne.gn_matvec_mode(
+                        fac, v, sta1, sta2, chunk_id, kmax, N))
             return hv
         if sweep:
             JTJ, _, _ = swp.normal_equations_fused(
                 x8, Jm, coh, sta1, sta2, chunk_id, wt_eff, N, kmax,
-                row_period, lanes=lanes)
+                row_period, jones=mode, lanes=lanes)
         else:
-            JTJ, _, _ = ne.normal_equations(
+            JTJ, _, _ = ne.normal_equations_mode(
                 x8, Jm, coh, sta1, sta2, chunk_id, rows(wt_eff), N, kmax,
-                row_period=row_period, visits=V)
+                mode=mode, row_period=row_period, visits=V)
 
         def hv(v):
             return proj(2.0 * torch.einsum("kij,kj->ki", JTJ, v))
@@ -302,6 +365,9 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
 
     cost0 = cost_fn(p0)
     xnorm0 = torch.sqrt(_dot(p0, p0))
+    if mode == "phase":
+        # theta starts at 0: seed the radius from the unit-phase scale
+        xnorm0 = torch.clamp(xnorm0, min=float(p0.shape[-1]) ** 0.5)
     delta_bar = config.delta_bar_frac * xnorm0
     delta = config.delta0_frac * xnorm0
     g = rgrad_at(p0)
@@ -343,7 +409,8 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             | (k + 1 >= cap)
         k += 1
     J = p_to_J(p)
-    J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
+    J = torch.where(chunk_mask[:, None, None, None], J,
+                    (J0 if Jref is None else Jref).to(J.dtype))
     return J, {"init_cost": cost0, "final_cost": cost,
                "iters": int(its[0]) if lanes is None else its,
                "tcg_iters": tcg}
@@ -399,12 +466,18 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     ``itmax_dynamic``; here only the live steps run, and the final cost
     is priced with the nu the frozen steps would carry. On a group
     (``lanes``; nu [V], one cap per visit) the steps run to the largest
-    cap and a visit past its own keeps its point, momentum and nu."""
-    lm_mod.check_jones(config)
+    cap and a visit past its own keeps its point, momentum and nu. Under
+    ``config.jones_mode`` diag or phase the steps run in the mode's
+    reduced space, and in phase mode the first step length is seeded
+    from the unit-phase scale sqrt(npar N)."""
     kmax = J0.shape[0]
     dev, dtype = x8.device, x8.dtype
     N = n_stations
-    p = ne.jones_c2r(J0).reshape(kmax, -1).to(dtype)
+    mode = config.jones_mode
+    npar = ne.jones_npar(mode)
+    p, Jref = ne.mode_point(J0, mode)
+    p = p.reshape(kmax, -1).to(dtype)
+    p_to_J = _mode_p2j(mode, Jref, kmax, N)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
     # one nu per visit (a single visit without lanes)
@@ -417,10 +490,10 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
 
     def cost_of(nu_):
         return make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
-                         robust_nu=per_row(nu_))
+                         robust_nu=per_row(nu_), mode=mode, Jref=Jref)
 
     iw = station_precond(wt_base, sta1, sta2, chunk_id, kmax, N,
-                         lanes=lanes)
+                         npar=npar, lanes=lanes)
     mask = wt_base > 0
     caps = np.minimum(np.full(V, config.itmax) if itmax_dynamic is None
                       else np.asarray(itmax_dynamic, dtype=np.int64),
@@ -436,11 +509,13 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         cfn = cost_of(nu)
         tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         y = p + ((t - 1.0) / tn) * (p - p_prev)
-        g = project_tangent(y, _egrad(cfn)(y) * iw, kmax, N)
+        g = project_tangent_mode(y, _egrad(cfn)(y) * iw, kmax, N, mode)
         gn = torch.sqrt(_dot(g, g))
         best_c = cfn(y)
-        alpha = config.alpha0 * torch.sqrt(_dot(y, y)) \
-            / torch.clamp(gn, min=1e-30)
+        ynorm = torch.sqrt(_dot(y, y))
+        if mode == "phase":
+            ynorm = torch.clamp(ynorm, min=float(npar * N) ** 0.5)
+        alpha = config.alpha0 * ynorm / torch.clamp(gn, min=1e-30)
         best_p = y
         found = torch.zeros((kmax,), dtype=torch.bool, device=dev)
         for _ in range(config.ls_tries):
@@ -454,8 +529,8 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         # momentum restarts where the line search failed
         p_new = torch.where((found & chunk_mask & live_c)[:, None], best_p,
                             p)
-        e = ne.residual8(x8, ne.jones_r2c(p_new.reshape(kmax, N, 8)), coh,
-                         sta1, sta2, chunk_id) * wt_r
+        e = ne.residual8(x8, p_to_J(p_new), coh, sta1, sta2,
+                         chunk_id) * wt_r
         w = rb.update_weights(e, per_row(nu))
         nu_last = torch.where(live_v, nu, nu_last)
         nu = torch.where(live_v, rb.lane_nu(nu, w, mask, lanes,
@@ -467,8 +542,9 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     # updated nu when frozen steps follow
     full = torch.as_tensor(caps >= config.itmax, device=dev)
     final_cost = cost_of(torch.where(full, nu_last, nu))(p)
-    J = ne.jones_r2c(p.reshape(kmax, N, 8))
-    J = torch.where(chunk_mask[:, None, None, None], J, J0.to(J.dtype))
+    J = p_to_J(p)
+    J = torch.where(chunk_mask[:, None, None, None], J,
+                    (J0 if Jref is None else Jref).to(J.dtype))
     return J, (nu[0] if lanes is None else nu), {
         "init_cost": cost0, "final_cost": final_cost,
         "iters": config.itmax if lanes is None else np.full(V, config.itmax)}

@@ -6,8 +6,12 @@ a shared residual: add the cluster's current model back, solve that
 cluster per hybrid time chunk (LM, ``solvers/lm.py``), re-subtract. The
 iteration budget is re-weighted by each cluster's cost reduction (80%
 evenly, 20% by share) on weighted sweeps, and a joint LBFGS refine over
-all 8 N Mt parameters follows, with its gradient from
-``torch.autograd.grad``.
+all npar N Mt parameters follows, with its gradient from
+``torch.autograd.grad``. Under ``--jones diag|phase`` J0 is constrained to
+the mode at entry, every cluster solve takes the mode, and the refine runs
+in the mode's reduced space (J = ``normal_eq.jones_from_params`` of the
+constrained J, autograd through that map), so a constrained J stays
+constrained: its off-diagonals are exactly 0.
 
 Solver modes follow ``sage._cluster_solve`` (lmfit.c:906-962): modes
 0/2/3 run ordered-subsets LM on every EM iteration but the last, which
@@ -331,14 +335,17 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
            config: SageConfig, mean_nu=None):
     """Joint LBFGS refine of all clusters' Jones (``sage._jit_refine``):
     cost sum((x - model) w)^2, or with ``mean_nu`` the Student's-t cost
-    sum log1p(((x - model) w)^2 / mean_nu). Returns (J, res, iters)."""
+    sum log1p(((x - model) w)^2 / mean_nu), over the parameters of
+    ``config.jones_mode`` (``sage._refine_cost_fn``: the constrained J is
+    the reference point Jref). Returns (J, res, iters)."""
     M, kmax = J.shape[0], J.shape[1]
-    shape = (M * kmax, n_stations, 8)
-    p0 = ne.jones_c2r(J.reshape(M * kmax, n_stations, 2, 2)).reshape(-1)
-    p0 = p0.to(x8.dtype).detach()
+    mode = config.jones_mode
+    shape = (M * kmax, n_stations, ne.jones_npar(mode))
+    p0, Jref = ne.mode_point(J.reshape(M * kmax, n_stations, 2, 2), mode)
+    p0 = p0.reshape(-1).to(x8.dtype).detach()
 
     def p_to_J(p):
-        return ne.jones_r2c(p.reshape(shape)).reshape(
+        return ne.jones_from_params(p.reshape(shape), mode, Jref).reshape(
             M, kmax, n_stations, 2, 2)
 
     def objective(p):
@@ -404,6 +411,10 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
         os_ids = (torch.as_tensor(np.asarray(os_id[0]), device=dev).long(),
                   int(os_id[1]))
 
+    if config.jones_mode != "full":
+        # constrained modes start (and stay) on the constraint surface;
+        # the initial residual prices the point the solvers see
+        J0 = ne.jones_constrain(J0, config.jones_mode)
     xres = x8 - full_model8(J0, coh, sta1, sta2, chunk_idx)
     res_0 = torch.linalg.vector_norm(xres * wt_base) / (x8.shape[0] * 8)
     J = J0.clone()

@@ -19,6 +19,7 @@ import torch
 
 from sagecal_tpu_torch.ops import coh as tcoh
 from sagecal_tpu_torch.ops import sweep as tswp
+from sagecal_tpu_torch.solvers import normal_eq as tne
 
 pytestmark = pytest.mark.cuda
 
@@ -197,8 +198,8 @@ def test_sweep_launch_refuses_a_geometry_that_misses_rows(card,
     and the launch refuses one that leaves a timeslot out."""
     real = tswp._geometry_args
 
-    def short(T, nb, K, slots, V=1):
-        geo, tb, wb = real(T, nb, K, slots, V)
+    def short(T, nb, K, slots, V=1, md=4):
+        geo, tb, wb = real(T, nb, K, slots, V, md)
         tb = type(tb)(*tb)
         tb[geo.cluster] -= 1
         return geo, tb, wb
@@ -214,6 +215,106 @@ def test_sweep_launch_refuses_a_geometry_that_misses_rows(card,
     with pytest.raises(RuntimeError, match="sweep_cluster_kernel"):
         tswp.sweep_blocks(x8, J, coh, lng(np.tile(p, T)), lng(np.tile(q, T)),
                           lng(np.zeros(T * nb)), x8, x8, nb, 1)
+
+
+def _mode_rows(card, K, seed, N=9, T=12, V=None):
+    """Rows of the constrained-mode card tests ([V, ...] per visit when V
+    is given): Jones whose off-diagonals are not zero, which the kernel
+    must zero itself."""
+    rng = np.random.default_rng(seed)
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    lead = () if V is None else (V,)
+    lng = lambda a: torch.as_tensor(a, device=card).long()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    c64 = lambda a: torch.as_tensor(a, dtype=torch.complex64, device=card)
+    s1, s2 = lng(np.tile(p, T)), lng(np.tile(q, T))
+    cid = lng(np.minimum((np.arange(B) // nb) // -(-T // K), K - 1))
+    coh = c64(rng.normal(size=lead + (B, 2, 2))
+              + 1j * rng.normal(size=lead + (B, 2, 2)))
+    J = c64((rng.normal(size=lead + (K, N, 2, 2))
+             + 1j * rng.normal(size=lead + (K, N, 2, 2))) * 0.3 + np.eye(2))
+    x8, wt, cw = (f32(rng.random(lead + (B, 8))) for _ in range(3))
+    return x8, J, coh, s1, s2, cid, wt, cw, nb
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_sweep_kernel_modes_match_plain(card, jones, K):
+    """The sweep kernel at md = 2 and 1: one launch a call, the plain
+    version's blocks (of the constrained J), two calls the same bits."""
+    x8, J, coh, s1, s2, cid, wt, cw, nb = _mode_rows(card, K, 20 + K)
+    n0 = tswp.LAUNCHES
+    got = tswp.sweep_blocks(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                            jones=jones)
+    again = tswp.sweep_blocks(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                              jones=jones)
+    torch.cuda.synchronize()
+    assert tswp.LAUNCHES == n0 + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = tswp.sweep_blocks_plain(x8, J[:, s1[:nb]], J[:, s2[:nb]], coh,
+                                  cid, wt, cw, nb, jones)
+    md = tne.jones_mdim(jones)
+    assert got[0].shape == (K, nb, 2, md, md)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _close(g, r)
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+def test_visits_kernel_modes_match_plain(card, jones):
+    """The multi-visit sweep at md = 2 and 1 (V = 3, K = 2, every operand
+    per visit) against its plain version, and its records read in place
+    by the matvec kernel at md."""
+    V, K, N = 3, 2, 9
+    x8, J, coh, s1, s2, cid, wt, cw, nb = _mode_rows(card, K, 30, V=V)
+    n0 = tswp.VISITS_LAUNCHES
+    got = tswp.sweep_blocks_visits(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                                   V, jones=jones)
+    assert tswp.VISITS_LAUNCHES == n0 + 1
+    ref = tswp.sweep_blocks_visits_plain(x8, J[:, :, s1[:nb]],
+                                         J[:, :, s2[:nb]], coh, cid, wt, cw,
+                                         nb, V, jones)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _close(g, r)
+    md = tne.jones_mdim(jones)
+    fac = tswp.GNBlocks(*(g.reshape((V * K,) + tuple(g.shape[2:]))
+                          for g in got[:3]),
+                        D=torch.zeros((V * K, N, 2, md, md), device=card))
+    assert tswp._block_view(fac.pq, nb)[0] is fac.pq
+    v = torch.randn((V * K, 2 * md * N), device=card,
+                    generator=torch.Generator(device=card).manual_seed(2))
+    y = tswp.gn_matvec_blocks(fac, v, s1, s2, N)
+    assert _close(y, tswp.gn_matvec_blocks_plain(fac, v, s1[:nb], s2[:nb],
+                                                 N))
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+@pytest.mark.parametrize("K,shifted", [(1, False), (4, True)])
+def test_matvec_kernel_modes_match_plain(card, jones, K, shifted):
+    """The matvec kernel at md = 2 and 1 on the sweep's records (read in
+    place): one launch a product, the plain version's product, two
+    products the same bits."""
+    N = 9
+    x8, J, coh, s1, s2, cid, wt, cw, nb = _mode_rows(card, K, 40 + K)
+    fac, _, _ = tswp.gn_blocks(x8, J, coh, s1, s2, cid, wt, N, K, nb,
+                               jones=jones)
+    md = tne.jones_mdim(jones)
+    assert tswp._block_view(fac.pp, nb)[0] is fac.pp
+    gen = torch.Generator(device=card).manual_seed(K)
+    v = torch.randn((K, 2 * md * N), device=card, generator=gen)
+    shift = torch.rand((K,), device=card, generator=gen) if shifted \
+        else None
+    plan = tswp.matvec_plan(fac, s1, s2, N, shift=shift)
+    n0 = tswp.MATVEC_LAUNCHES
+    got, again = tswp.matvec_apply(plan, v), tswp.matvec_apply(plan, v)
+    torch.cuda.synchronize()
+    assert tswp.MATVEC_LAUNCHES == n0 + 2 and torch.equal(got, again)
+    ref = tswp.gn_matvec_blocks_plain(fac, v, s1[:nb], s2[:nb], N,
+                                      shift=shift)
+    assert got.shape == ref.shape and _close(got, ref)
+    with pytest.raises(TypeError):
+        tswp.matvec_apply(plan, torch.zeros((K, 8 * N), device=card))
 
 
 def test_sweep_kernel_refuses_float64(card):
@@ -316,8 +417,8 @@ def test_visits_launch_refuses_a_geometry_that_misses_rows(card,
     visit, and the launch refuses one that leaves a timeslot out."""
     real = tswp._geometry_args
 
-    def short(T, nb, K, slots, V=1):
-        geo, tb, wb = real(T, nb, K, slots, V)
+    def short(T, nb, K, slots, V=1, md=4):
+        geo, tb, wb = real(T, nb, K, slots, V, md)
         tb = type(tb)(*tb)
         tb[geo.cluster] -= 1
         return geo, tb, wb

@@ -145,13 +145,25 @@ def test_lbfgs_quadratic_matches_reference(linesearch):
                                atol=1e-12)
 
 
-def _solve_pair(K, seed, itmax, inner, os_k=None, wt=None):
+def _mode_start(K, N, seed):
+    """A start near the identity whose off-diagonals are not zero (a
+    constrained solve drops them; phase keeps the diagonal amplitudes)."""
+    rng = np.random.default_rng(seed)
+    return np.eye(2) + 0.1 * (rng.normal(size=(K, N, 2, 2))
+                              + 1j * rng.normal(size=(K, N, 2, 2)))
+
+
+def _solve_pair(K, seed, itmax, inner, os_k=None, wt=None, jones="full",
+                kernel="pallas"):
     """(JAX, port) lm_solve results on one problem; ``os_k`` > 0 turns on
-    ordered subsets of the 4 timeslots, rotating (randomize off)."""
+    ordered subsets of the 4 timeslots, rotating (randomize off);
+    ``jones`` a constrained Jones mode (from :func:`_mode_start`) and
+    ``kernel`` the assembly route."""
     N = 6
     x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=seed, noise=0.1)
     wt = np.ones((x8.shape[0], 8)) if wt is None else wt
-    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1)) if jones == "full" \
+        else _mode_start(K, N, seed)
     jos = tos = None
     if os_k:
         ids, n = lm_mod.os_subset_ids(4, nbase)
@@ -161,11 +173,13 @@ def _solve_pair(K, seed, itmax, inner, os_k=None, wt=None):
     ref = lm_mod.lm_solve(
         *(jnp.asarray(a) for a in (x8, coh[0], s1, s2, cid, wt, J0)), N,
         row_period=nbase, os=jos,
-        config=lm_mod.LMConfig(itmax=itmax, kernel="pallas", inner=inner))
+        config=lm_mod.LMConfig(itmax=itmax, kernel=kernel, inner=inner,
+                               jones_mode=jones))
     got = tlm.lm_solve(
         _t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(), _t(cid).long(),
         _t(wt), _t(J0), N, row_period=nbase, os=tos,
-        config=tlm.LMConfig(itmax=itmax, inner=inner))
+        config=tlm.LMConfig(itmax=itmax, inner=inner, kernel=kernel,
+                            jones_mode=jones))
     return ref, got
 
 
@@ -184,6 +198,37 @@ def test_lm_cg_and_os_match_reference(K, inner, use_os):
     np.testing.assert_allclose(tinfo["final_cost"].numpy(),
                                np.asarray(info["final_cost"]), rtol=1e-8)
     np.testing.assert_allclose(Jp.numpy(), np.asarray(Jr), atol=1e-6)
+
+
+#: (mode, solver): LM (block Cholesky) and PCG at K = 2 on the fused
+#: sweep, OS-LM at K = 1 (the 2-chunk OS chaos of the test below), and LM
+#: on the XLA assembly
+MODE_SOLVES = [(jones, solver) for jones in ("diag", "phase")
+               for solver in ("lm", "os", "pcg", "xla")]
+
+
+@pytest.mark.parametrize("jones,solver", MODE_SOLVES)
+def test_lm_modes_match_reference(jones, solver):
+    """--jones diag|phase: LM, OS-LM and PCG on the fused sweep, and LM on
+    the XLA assembly, against the reference from a start whose
+    off-diagonals are not zero: the same iterations and PCG trips, the
+    costs and J at the plain gates, and J constrained (off-diagonals
+    exactly 0)."""
+    K = 1 if solver == "os" else 2
+    (Jr, info), (Jp, tinfo) = _solve_pair(
+        K, 110 + K + len(solver), 10, "cg" if solver == "pcg" else "chol",
+        os_k=solver == "os", jones=jones,
+        kernel="xla" if solver == "xla" else "pallas")
+    assert tinfo["iters"] == int(info["iters"]) > 1
+    assert tinfo["cg_iters"] == int(info["cg_iters"])
+    assert (tinfo["cg_iters"] > 0) == (solver == "pcg")
+    np.testing.assert_allclose(tinfo["init_cost"].numpy(),
+                               np.asarray(info["init_cost"]), rtol=1e-10)
+    np.testing.assert_allclose(tinfo["final_cost"].numpy(),
+                               np.asarray(info["final_cost"]), rtol=1e-8)
+    np.testing.assert_allclose(Jp.numpy(), np.asarray(Jr), atol=1e-6)
+    assert not Jp[..., 0, 1].any() and not Jp[..., 1, 0].any()
+    assert float(tinfo["final_cost"].sum()) < float(tinfo["init_cost"].sum())
 
 
 def test_lm_os_chol_two_chunks_within_reference_spread():
@@ -283,8 +328,10 @@ def test_os_subset_ids_and_draws():
                                                 ("chol", "xla", "full"),
                                                 ("chol", "pallas", "diag")])
 def test_unported_routes_raise(inner, kernel, jones):
-    """--jones diag raises on either assembly; the XLA assembly itself
-    (--kernel xla, both inner solvers) now runs, counted in XLA_SOLVES."""
+    """Every route runs: the XLA assembly (--kernel xla, both inner
+    solvers, counted in XLA_SOLVES) and --jones diag on either assembly
+    (J constrained, the cost falls); a Jones mode the JAX package does
+    not have raises."""
     x8, coh, s1, s2, cid, nbase = _problem()
 
     def solve(jones_mode):
@@ -295,13 +342,14 @@ def test_unported_routes_raise(inner, kernel, jones):
             row_period=nbase,
             config=tlm.LMConfig(inner=inner, kernel=kernel,
                                 jones_mode=jones_mode))
-    if jones == "full":
+    for mode in dict.fromkeys((jones, "diag")):
         n0 = tlm.XLA_SOLVES
-        J, info = solve("full")
-        assert tlm.XLA_SOLVES == n0 + 1
+        J, info = solve(mode)
+        assert tlm.XLA_SOLVES == n0 + (kernel == "xla")
         assert torch.isfinite(J).all()
         assert float(info["final_cost"].sum()) < float(
             info["init_cost"].sum())
-        jones = "diag"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(jones)
+        if mode == "diag":
+            assert not J[..., 0, 1].any() and not J[..., 1, 0].any()
+    with pytest.raises(ValueError, match="jones_mode"):
+        solve("polar")

@@ -35,20 +35,20 @@ def _close(got, want):
                                atol=RTOL * np.abs(want).max())
 
 
-def _blocks(K, nb, N, seed, s1=None, s2=None):
-    """Random symmetric-diagonal Gram blocks and their station sums, as
-    (JAX GNBlocks, port GNBlocks, s1, s2)."""
+def _blocks(K, nb, N, seed, s1=None, s2=None, md=4):
+    """Random symmetric-diagonal Gram blocks of width md and their
+    station sums, as (JAX GNBlocks, port GNBlocks, s1, s2)."""
     rng = np.random.default_rng(seed)
-    a = rng.normal(size=(K, nb, 2, 4, 4))
+    a = rng.normal(size=(K, nb, 2, md, md))
     pp = a @ np.swapaxes(a, -1, -2)
-    b = rng.normal(size=(K, nb, 2, 4, 4))
+    b = rng.normal(size=(K, nb, 2, md, md))
     qq = b @ np.swapaxes(b, -1, -2)
-    pq = rng.normal(size=(K, nb, 2, 2, 4, 4))
+    pq = rng.normal(size=(K, nb, 2, 2, md, md))
     if s1 is None:
         p, q = np.triu_indices(N, k=1)
         s1, s2 = p[:nb], q[:nb]
     s1, s2 = np.asarray(s1, np.int32), np.asarray(s2, np.int32)
-    D = np.zeros((K, N, 2, 4, 4))
+    D = np.zeros((K, N, 2, md, md))
     np.add.at(D, (slice(None), s1), pp)
     np.add.at(D, (slice(None), s2), qq)
     jf = swp.GNBlocks(pp=jnp.asarray(pp), qq=jnp.asarray(qq),
@@ -75,6 +75,49 @@ def test_matvec_plain_matches_pallas(K, shifted):
         shift=None if shift is None else torch.as_tensor(shift))
     assert got.shape == (K, 8 * N)
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("md", [2, 1])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_matvec_modes_match_pallas(md, shifted):
+    """The blocks matvec at md = 2 (diag) and 1 (phase), K = 2, against
+    the reference's gn_matvec_blocks (its kernel reads md off the block
+    shapes) in interpret mode, and the kernel's walk of the station lists
+    replayed at md."""
+    N, K = 7, 2
+    nb = N * (N - 1) // 2
+    jf, tf, s1, s2 = _blocks(K, nb, N, seed=60 + md, md=md)
+    v = np.random.default_rng(61 + md).normal(size=(K, 2 * md * N))
+    shift = np.array([0.3, 0.7]) if shifted else None
+    want = swp.gn_matvec_blocks(
+        jf, jnp.asarray(v), jnp.asarray(s1), jnp.asarray(s2), N,
+        shift=None if shift is None else jnp.asarray(shift), interpret=True)
+    t1, t2 = torch.as_tensor(s1), torch.as_tensor(s2)
+    sh = None if shift is None else torch.as_tensor(shift)
+    lists = tswp.station_lists(t1, t2, nb, N)
+    got = tswp.gn_matvec_blocks(tf, torch.as_tensor(v), t1, t2, N, shift=sh,
+                                lists=lists)
+    assert got.shape == (K, 2 * md * N)
+    _close(got.numpy(), want)
+    zero = torch.zeros(K, dtype=torch.float64)
+    _close(_kernel_replica(tf, torch.as_tensor(v), lists,
+                           zero if sh is None else sh, K, N).numpy(), want)
+
+
+@pytest.mark.parametrize("md", [2, 1])
+def test_precond_pair_modes_match_reference(md):
+    """The station-block preconditioner on [2, md, md] blocks."""
+    N, K = 6, 2
+    rng = np.random.default_rng(70 + md)
+    a = rng.normal(size=(K, N, 2, md, md))
+    D = a @ np.swapaxes(a, -1, -2)
+    shift = np.array([0.01, 0.1])
+    r = rng.normal(size=(K, 2 * md * N))
+    Lj = ne.gn_precond_factor(jnp.asarray(D), jnp.asarray(shift))
+    Lt = tne.gn_precond_factor(torch.as_tensor(D), torch.as_tensor(shift))
+    _close(Lt.numpy(), np.tril(np.asarray(Lj[0])))
+    _close(tne.gn_precond_apply(Lt, torch.as_tensor(r), K, N).numpy(),
+           ne.gn_precond_apply(Lj, jnp.asarray(r), K, N))
 
 
 def test_matvec_repeated_stations_match_pallas():
@@ -113,18 +156,19 @@ def test_matvec_is_the_dense_operator(K):
 
 
 def _kernel_replica(fac, v, lists, shift, K, N):
-    """The CUDA kernel's walk in PyTorch: per (chunk, station) each warp
-    of the block takes its run of the station's (baseline, side) entries
-    (``lists.runs``, which the kernel reads as given), applies the side's
-    diagonal block to the station's own v and the pq block (or its
-    transpose) to the other station's v, and the warps' sums are added in
-    order, then shift v."""
+    """The CUDA kernel's walk in PyTorch at the blocks' width md: per
+    (chunk, station) each warp of the block takes its run of the station's
+    (baseline, side) entries (``lists.runs``, which the kernel reads as
+    given), applies the side's diagonal block to the station's own v and
+    the pq block (or its transpose) to the other station's v, and the
+    warps' sums are added in order, then shift v."""
     s1, s2, _, ent, runs = lists
-    vr = v.reshape(K, N, 2, 4)
-    y = torch.zeros((K, N, 2, 4), dtype=v.dtype)
+    md = fac.pp.shape[-1]
+    vr = v.reshape(K, N, 2, md)
+    y = torch.zeros((K, N, 2, md), dtype=v.dtype)
     for n in range(N):
         for w0, w1 in runs[n].tolist():
-            part = torch.zeros((K, 2, 4), dtype=v.dtype)
+            part = torch.zeros((K, 2, md), dtype=v.dtype)
             for e in ent[w0:w1].tolist():
                 b, side = e // 2, e % 2
                 if side == 0:
@@ -140,7 +184,7 @@ def _kernel_replica(fac, v, lists, shift, K, N):
                              + torch.einsum("kaoij,kai->koj", fac.pq[:, b],
                                             vo))
             y[:, n] += part
-    return y.reshape(K, 8 * N) + shift[:, None] * v
+    return y.reshape(K, 2 * md * N) + shift[:, None] * v
 
 
 @pytest.mark.parametrize("repeat", [False, True])
@@ -189,6 +233,13 @@ def test_block_view_keeps_sweep_output_strides():
     t, stride = tswp._block_view(packed[..., 64:128].view(K, nb, 2, 2, 4, 4),
                                  nb)
     assert t.is_contiguous() and stride == 64
+    # md = 2: rows of 2 words need 8 bytes; the 41-word packed layout's
+    # odd stride is copied, the 44-word records are read in place
+    for R, kept in ((tswp.REC_WORDS[2], True), (tswp.n_out(2), False)):
+        out = torch.zeros((K, nb, R))
+        pq = tswp.record_views(out, 2)[2]
+        t, stride = tswp._block_view(pq, nb)
+        assert (t is pq) == kept and stride == (R if kept else 16)
 
 
 def _layouts(N):

@@ -303,7 +303,7 @@ def test_mode_runs_use_their_solvers(mode_runs):
 @pytest.mark.parametrize("extra", [["--resume"], ["-N", "2"],
                                    ["-B", "1"], ["--tile-batch", "2"],
                                    ["-W", "1"],
-                                   ["--jones", "diag"], ["-q", "x.sol"],
+                                   ["-a", "1"], ["-q", "x.sol"],
                                    ["--dtype-policy", "bf16"],
                                    ["--prefetch", "0"]])
 def test_unported_flags_raise(runs, extra):

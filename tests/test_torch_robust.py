@@ -119,6 +119,42 @@ def rlm_runs():
     return out
 
 
+#: robust LM under --jones diag|phase: (mode, K, inner, OS)
+RLM_MODE_CASES = [("diag", 2, "cg", False), ("phase", 1, "chol", True)]
+
+
+@pytest.mark.parametrize("jones,K,inner,use_os", RLM_MODE_CASES)
+def test_robust_lm_modes_match_reference(jones, K, inner, use_os):
+    """Robust LM in the diag and phase modes, from a start whose
+    off-diagonals are not zero: nu equal, the same iterations and PCG
+    trips, the costs and J at the plain gates, J constrained."""
+    from test_torch_lm import _mode_start
+    N = 6
+    x8, coh, s1, s2, cid, nbase = _problem(N=N, K=K, seed=80 + K, noise=0.2)
+    x8[::7] += 3.0                                       # outlier rows
+    wt = np.ones((x8.shape[0], 8))
+    J0 = _mode_start(K, N, 80 + K)
+    jos, tos = _os_pair(4, nbase) if use_os else (None, None)
+    Jr, nu, info = rb.robust_lm_solve(
+        *(jnp.asarray(a) for a in (x8, coh[0], s1, s2, cid, wt, J0)), N,
+        row_period=nbase, os=jos,
+        config=lm_mod.LMConfig(itmax=6, kernel="pallas", inner=inner,
+                               jones_mode=jones))
+    Jt, tnu, tinfo = trb.robust_lm_solve(
+        _t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(), _t(cid).long(),
+        _t(wt), _t(J0), N, row_period=nbase, os=tos,
+        config=tlm.LMConfig(itmax=6, inner=inner, jones_mode=jones))
+    assert float(tnu) == float(nu) and float(nu) != 2.0
+    assert tinfo["iters"] == int(info["iters"])
+    assert tinfo["cg_iters"] == int(info["cg_iters"])
+    np.testing.assert_allclose(tinfo["init_cost"].numpy(),
+                               np.asarray(info["init_cost"]), rtol=1e-10)
+    np.testing.assert_allclose(tinfo["final_cost"].numpy(),
+                               np.asarray(info["final_cost"]), rtol=1e-8)
+    np.testing.assert_allclose(Jt.numpy(), np.asarray(Jr), atol=1e-6)
+    assert not Jt[..., 0, 1].any() and not Jt[..., 1, 0].any()
+
+
 @pytest.mark.parametrize("K,inner,use_os", RLM_CASES)
 def test_robust_lm_solve_matches_reference(rlm_runs, K, inner, use_os):
     (Jr, nu, info), (Jt, tnu, tinfo) = rlm_runs[(K, inner, use_os)]

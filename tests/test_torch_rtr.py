@@ -19,7 +19,7 @@ from sagecal_tpu.solvers import rtr as rtr_mod
 from sagecal_tpu_torch.solvers import rtr as trtr
 
 from test_torch_card import robust_rtr_problem
-from test_torch_lm import _problem, _t
+from test_torch_lm import _mode_start, _problem, _t
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,7 +85,7 @@ CASES = [("rtr", 1, "chol"), ("rtr", 2, "cg"), ("robust", 2, "chol"),
          ("robust_xla", 2, "chol"), ("robust_xla", 1, "cg")]
 
 
-def _run(solver, K, inner):
+def _run(solver, K, inner, jones="full"):
     kernel = "xla" if solver.endswith("_xla") else "pallas"
     solver = solver.replace("_xla", "")
     N = 6
@@ -93,19 +93,23 @@ def _run(solver, K, inner):
     if solver != "rtr":
         x8[::5] += 2.0                                   # outlier rows
     wt = np.ones((x8.shape[0], 8))
-    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1))
+    J0 = np.tile(np.eye(2, dtype=complex), (K, N, 1, 1)) if jones == "full" \
+        else _mode_start(K, N, 70 + K)
     jargs = [jnp.asarray(a) for a in (x8, coh[0], s1, s2, cid, wt, J0)]
     targs = [_t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(),
              _t(cid).long(), _t(wt), _t(J0)]
     if solver == "nsd":
-        ref = rtr_mod.nsd_solve_robust(*jargs, N,
-                                       config=rtr_mod.NSDConfig(itmax=6),
-                                       itmax_dynamic=4 + K)
-        got = trtr.nsd_solve_robust(*targs, N, config=trtr.NSDConfig(itmax=6),
-                                    itmax_dynamic=4 + K)
+        ref = rtr_mod.nsd_solve_robust(
+            *jargs, N, config=rtr_mod.NSDConfig(itmax=6, jones_mode=jones),
+            itmax_dynamic=4 + K)
+        got = trtr.nsd_solve_robust(
+            *targs, N, config=trtr.NSDConfig(itmax=6, jones_mode=jones),
+            itmax_dynamic=4 + K)
         return ref, got
-    cfg = rtr_mod.RTRConfig(itmax=6, kernel=kernel, inner=inner)
-    tcfg = trtr.RTRConfig(itmax=6, inner=inner, kernel=kernel)
+    cfg = rtr_mod.RTRConfig(itmax=6, kernel=kernel, inner=inner,
+                            jones_mode=jones)
+    tcfg = trtr.RTRConfig(itmax=6, inner=inner, kernel=kernel,
+                          jones_mode=jones)
     if solver == "rtr":
         J, info = rtr_mod.rtr_solve(*jargs, N, row_period=nbase, config=cfg)
         tJ, tinfo = trtr.rtr_solve(*targs, N, row_period=nbase, config=tcfg)
@@ -135,22 +139,62 @@ def test_solver_matches_reference(rtr_runs, solver, K, inner):
         assert tinfo["tcg_iters"] > 0
 
 
+#: (solver, K, inner) of the constrained-mode runs, for each of diag and
+#: phase: RTR and robust RTR on both routes, and NSD
+MODE_CASES = [("rtr", 2, "cg"), ("rtr_xla", 1, "chol"), ("robust", 1, "chol"),
+              ("robust_xla", 2, "cg"), ("nsd", 2, None)]
+
+
+@pytest.fixture(scope="module")
+def rtr_mode_runs():
+    return {(jones,) + case: _run(*case, jones=jones)
+            for jones in ("diag", "phase") for case in MODE_CASES}
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+@pytest.mark.parametrize("solver,K,inner", MODE_CASES)
+def test_solver_modes_match_reference(rtr_mode_runs, jones, solver, K,
+                                      inner):
+    """RTR, robust RTR (fused sweep and XLA assembly) and NSD under
+    --jones diag|phase from a start whose off-diagonals are not zero:
+    equal iterations and nu, costs and J at the plain gates, J
+    constrained."""
+    (J, nu, info), (tJ, tnu, tinfo) = rtr_mode_runs[(jones, solver, K,
+                                                     inner)]
+    if nu is not None:
+        assert float(tnu) == float(nu) and float(nu) != 2.0
+    assert tinfo["iters"] == int(info["iters"])
+    np.testing.assert_allclose(tinfo["init_cost"].numpy(),
+                               np.asarray(info["init_cost"]), rtol=1e-10)
+    np.testing.assert_allclose(tinfo["final_cost"].numpy(),
+                               np.asarray(info["final_cost"]), rtol=1e-8)
+    np.testing.assert_allclose(tJ.numpy(), np.asarray(J), atol=1e-6)
+    assert not tJ[..., 0, 1].any() and not tJ[..., 1, 0].any()
+    if solver != "nsd":
+        assert tinfo["tcg_iters"] > 0
+
+
 def test_unported_routes_raise():
+    """--jones phase and diag run on both assemblies and in NSD (J
+    constrained; the parity runs above hold them against the reference);
+    a Jones mode the JAX package does not have raises."""
     x8, coh, s1, s2, cid, nbase = _problem()
     args = [_t(x8), _t(coh[0]), _t(s1).long(), _t(s2).long(),
             _t(cid).long(), _t(np.ones((x8.shape[0], 8))),
             _t(np.tile(np.eye(2, dtype=complex), (1, 6, 1, 1))), 6]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kernel in ("pallas", "xla"):
+        J, info = trtr.rtr_solve(*args, row_period=nbase,
+                                 config=trtr.RTRConfig(kernel=kernel,
+                                                       jones_mode="phase"))
+        assert not J[..., 0, 1].any() and not J[..., 1, 0].any()
+        assert float(info["final_cost"].sum()) < float(
+            info["init_cost"].sum())
+    J, _, _ = trtr.nsd_solve_robust(*args,
+                                    config=trtr.NSDConfig(jones_mode="diag"))
+    assert not J[..., 0, 1].any() and torch.isfinite(J).all()
+    with pytest.raises(ValueError, match="jones_mode"):
         trtr.rtr_solve(*args, row_period=nbase,
-                       config=trtr.RTRConfig(jones_mode="phase"))
-    # the XLA assembly runs (rtr_runs holds it against the reference);
-    # --jones phase raises on that route too
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trtr.rtr_solve(*args, row_period=nbase,
-                       config=trtr.RTRConfig(kernel="xla",
-                                             jones_mode="phase"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trtr.nsd_solve_robust(*args, config=trtr.NSDConfig(jones_mode="diag"))
+                       config=trtr.RTRConfig(jones_mode="polar"))
 
 
 #: seeds of the one-ulp relative perturbations of x8 in the witness

@@ -13,6 +13,7 @@ import torch
 from sagecal_tpu.ops import sweep_pallas as swp
 from sagecal_tpu.solvers import normal_eq as ne
 from sagecal_tpu_torch.ops import sweep as tswp
+from sagecal_tpu_torch.solvers import normal_eq as tne
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -193,12 +194,118 @@ def test_solve_damped_blocks_retry_branch():
 
 
 def test_unported_modes_raise():
+    """Every Jones mode of the JAX package runs (diag and phase give md =
+    2 and 1 blocks); a mode it does not have raises."""
     x8, coh, s1, s2, cid, nbase = _toy()
     t = _t
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tswp.sweep_blocks(t(x8), t(np.ones((1, 6, 2, 2), complex)), t(coh),
-                          t(s1), t(s2), t(cid), t(np.ones((60, 8))),
-                          t(np.ones((60, 8))), nbase, 1, jones="diag")
+    args = (t(x8), t(np.ones((1, 6, 2, 2), complex)), t(coh), t(s1), t(s2),
+            t(cid), t(np.ones((60, 8))), t(np.ones((60, 8))), nbase, 1)
+    for jones, md in (("full", 4), ("diag", 2), ("phase", 1)):
+        assert tswp.sweep_blocks(*args, jones=jones)[0].shape[-1] == md
+    with pytest.raises(ValueError, match="jones"):
+        tswp.sweep_blocks(*args, jones="polar")
+    with pytest.raises(ValueError, match="jones"):
+        tswp.sweep_blocks_visits(*args, 1, jones="polar")
+
+
+MODE_CASES = [(jones, K) for jones in ("diag", "phase") for K in (1, 3)]
+
+
+def _mode_inputs(K, seed):
+    """The _toy rows with IRLS-style weights, a separate cost weight and a
+    Jones whose off-diagonals are not zero."""
+    x8, coh, s1, s2, cid, nbase = _toy(N=6, T=4, K=K, seed=seed, noise=0.05)
+    rng = np.random.default_rng(seed + 100)
+    J = (rng.normal(size=(K, 6, 2, 2))
+         + 1j * rng.normal(size=(K, 6, 2, 2))) * 0.4 + np.eye(2)
+    wt = _weights(x8.shape[0], nbase, seed)["irls"]
+    cw = rng.random(wt.shape)
+    return x8, J, coh, s1, s2, cid, wt, cw, nbase
+
+
+@pytest.mark.parametrize("jones,K", MODE_CASES)
+def test_sweep_blocks_modes_match_pallas(jones, K):
+    """The diag (md = 2) and phase (md = 1) sweep against the reference's
+    sweep_blocks(jones=) in interpret mode, at one chunk and three, on a
+    J whose off-diagonals are not zero: both constrain it on entry, so
+    the port gives the same bits on the constrained J."""
+    x8, J, coh, s1, s2, cid, wt, cw, nbase = _mode_inputs(K, 30 + K)
+    md = tne.jones_mdim(jones)
+    ref = swp.sweep_blocks(*(jnp.asarray(a) for a in (x8, J, coh, s1, s2,
+                                                       cid, wt, cw)),
+                           nbase, K, interpret=True, jones=jones)
+    got = tswp.sweep_blocks(*(_t(a) for a in (x8, J, coh, s1, s2, cid, wt,
+                                              cw)), nbase, K, jones=jones)
+    scale = np.abs(np.asarray(ref[0])).max() + 1e-30
+    for name, r, g in zip(("pp", "qq", "pq", "jtep", "jteq"), ref, got):
+        r = np.asarray(r)
+        assert g.shape == r.shape and g.shape[-1] == md, name
+        np.testing.assert_allclose(g.numpy(), r, atol=5e-9 * scale,
+                                   err_msg=name)
+    np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]),
+                               rtol=1e-9)
+    Jc = J * np.eye(2)
+    again = tswp.sweep_blocks(*(_t(a) for a in (x8, Jc, coh, s1, s2, cid,
+                                                wt, cw)), nbase, K,
+                              jones=jones)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+def test_mode_blocks_solve_and_matvec_match_pallas(jones):
+    """At md = 2 and 1, from the sweep's blocks (K = 2): the station
+    aggregates (D, JTe) and cost of gn_blocks, the damped dense
+    assembly, the damped block solve and its factor-and-solve, the blocks
+    matvec and the station-block preconditioner against the reference."""
+    from sagecal_tpu.solvers import normal_eq as jne
+    K, N = 2, 6
+    x8, J, coh, s1, s2, cid, wt, cw, nbase = _mode_inputs(K, 40)
+    md = tne.jones_mdim(jones)
+    fac, JTe, cost = swp.gn_blocks(
+        *(jnp.asarray(a) for a in (x8, J, coh, s1, s2, cid, wt)), N, K,
+        nbase, cost_wt=jnp.asarray(cw), interpret=True, jones=jones)
+    tfac, tJTe, tcost = tswp.gn_blocks(
+        *(_t(a) for a in (x8, J, coh, s1, s2, cid, wt)), N, K, nbase,
+        cost_wt=_t(cw), jones=jones)
+    scale = float(jnp.abs(fac.D).max())
+    assert tfac.D.shape == (K, N, 2, md, md)
+    for a, b in ((tfac.D, fac.D), (tJTe, JTe)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   atol=5e-9 * scale)
+    np.testing.assert_allclose(tcost.numpy(), np.asarray(cost), rtol=1e-9)
+    shift = np.array([0.3, 0.05])
+    A = swp._assemble_damped(fac, jnp.asarray(shift), jnp.asarray(s1),
+                             jnp.asarray(s2), N)
+    tA = tswp._assemble_damped(tfac, _t(shift), _t(s1), _t(s2), N)
+    assert tA.shape == (K, 2 * md * N, 2 * md * N)
+    np.testing.assert_allclose(tA.numpy(), np.asarray(A), atol=5e-9 * scale)
+    dp, ok = swp.solve_damped_blocks(fac, JTe, jnp.asarray(shift), 1e-9,
+                                     jnp.asarray(s1), jnp.asarray(s2), N)
+    tdp, tok = tswp.solve_damped_blocks(tfac, tJTe, _t(shift), 1e-9, _t(s1),
+                                        _t(s2), N)
+    _, tok1 = tswp.chol_solve_blocks_shift(tfac, tJTe, _t(shift) + 1e-9,
+                                           _t(s1), _t(s2), N)
+    assert tok.tolist() == tok1.tolist() == np.asarray(ok).tolist() \
+        == [True] * K
+    np.testing.assert_allclose(tdp.numpy(), np.asarray(dp), rtol=1e-7,
+                               atol=1e-9 * np.abs(np.asarray(dp)).max())
+    v = np.random.default_rng(41).normal(size=(K, 2 * md * N))
+    y = swp.gn_matvec_blocks(fac, jnp.asarray(v), jnp.asarray(s1),
+                             jnp.asarray(s2), N, shift=jnp.asarray(shift),
+                             interpret=True)
+    ty = tswp.gn_matvec_blocks_plain(tfac, _t(v), _t(s1[:nbase]).long(),
+                                     _t(s2[:nbase]).long(), N,
+                                     shift=_t(shift))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(y),
+                               atol=1e-10 * np.abs(np.asarray(y)).max())
+    L = jne.gn_precond_factor(fac.D, jnp.asarray(shift))
+    tL = tne.gn_precond_factor(tfac.D, _t(shift))
+    np.testing.assert_allclose(tL.numpy(), np.tril(np.asarray(L[0])),
+                               atol=5e-9 * np.abs(np.asarray(L[0])).max())
+    z = jne.gn_precond_apply(L, jnp.asarray(v), K, N)
+    tz = tne.gn_precond_apply(tL, _t(v), K, N)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(z),
+                               atol=1e-9 * np.abs(np.asarray(z)).max())
 
 
 
@@ -285,6 +392,60 @@ def test_sweep_geometry_takes_a_given_cluster(cluster):
         assert geo.cluster == -(-T // -(-T // min(cluster, T)))
         assert geo.times[0] == 0 and geo.times[-1] == T
         assert all(a < b for a, b in zip(geo.times, geo.times[1:]))
+
+
+@pytest.mark.parametrize("md", [2, 1])
+def test_sweep_geometry_modes_cover_words_once(md):
+    """At md = 2 and 1 the records are REC_WORDS[md] words (the caller
+    layout's n_out(md) padded to a multiple of md) and the geometry's word
+    bounds cover every word of each tile's records once, as the kernel
+    checks at launch; the time ranges do not depend on md."""
+    rec = tswp.REC_WORDS[md]
+    assert rec >= tswp.n_out(md) and rec % md == 0 and rec % 4 == 0
+    for T, nb, K, V in ((5, 7, 2, 1), (120, 1891, 4, 4), (1, 1, 1, 2)):
+        geo = tswp.sweep_geometry(T, nb, K, 396, V, md=md)
+        assert geo.rec == rec
+        assert geo.times == tswp.sweep_geometry(T, nb, K, 396, V).times
+        g2, tb, wb = tswp._geometry_args(T, nb, K, 396, V, md)
+        row = tswp.MAX_CLUSTER + 1
+        assert g2 == geo and tuple(tb)[:geo.cluster + 1] == geo.times
+        assert tuple(wb)[row:row + geo.cluster + 1] == geo.words[1]
+        for last, words in enumerate(geo.words):
+            nbt = nb - tswp.SWEEP_TILE * (geo.tiles - 1) if last \
+                else min(tswp.SWEEP_TILE, nb)
+            assert words[0] == 0 and words[-1] == K * nbt * rec
+            assert all(a <= b for a, b in zip(words, words[1:]))
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+def test_mode_records_match_packed_layout(jones):
+    """At md = 2 and 1 the card's records (REC_WORDS[md] apart) and the
+    packed caller layout (n_out(md)) hold the same blocks: record_views,
+    the station aggregates and the matvec's block views agree, and the
+    records are read in place (each block row of md words on 4 md
+    bytes)."""
+    K, N, T = 2, 6, 4
+    x8, J, coh, s1, s2, cid, wt, cw, nbase = _mode_inputs(K, 50)
+    md = tne.jones_mdim(jones)
+    got = tswp.sweep_blocks(*(_t(a) for a in (x8, J, coh, s1, s2, cid, wt,
+                                              cw)), nbase, K, jones=jones)
+    views = {}
+    for R in (tswp.n_out(md), tswp.REC_WORDS[md]):
+        out = torch.zeros((K, nbase, R), dtype=torch.float64)
+        for (o, shp, _), g in zip(tswp.rec_parts(md), got[:5]):
+            out[..., o:o + int(np.prod(shp))] = g.reshape(K, nbase, -1)
+        views[R] = tswp.record_views(out, md)
+        for g, v in zip(got[:5], views[R]):
+            assert v.shape == g.shape and torch.equal(v, g)
+    b1, b2 = _t(s1[:nbase]).long(), _t(s2[:nbase]).long()
+    al = views[tswp.REC_WORDS[md]]
+    D, JTe = tswp._station_aggregates(al[0], al[1], al[3], al[4], b1, b2, N)
+    fac = tswp.gn_blocks(*(_t(a) for a in (x8, J, coh, s1, s2, cid, wt)), N,
+                         K, nbase, jones=jones)[0]
+    assert torch.equal(fac.D, D) and JTe.shape == (K, 2 * md * N)
+    for blk in range(3):
+        ta, sa = tswp._block_view(al[blk], nbase)
+        assert ta is al[blk] and sa == tswp.REC_WORDS[md]
 
 
 def test_aligned_records_match_packed_layout():

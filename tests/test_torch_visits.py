@@ -14,6 +14,7 @@ import torch
 
 from sagecal_tpu.ops import sweep_pallas as swp
 from sagecal_tpu_torch.ops import sweep as tswp
+from sagecal_tpu_torch.solvers import normal_eq as tne
 
 V, K, N, T = 3, 2, 6, 4
 
@@ -156,11 +157,46 @@ def test_visit_strides_address_each_visit():
 
 
 def test_visits_refuses_bad_shapes_and_modes():
+    """A visit axis of another length, or a Jones mode the JAX package
+    does not have, raises; diag and phase run (md = 2 and 1)."""
     d = _visits()
     t = lambda a: torch.as_tensor(np.asarray(a))
     args = (t(d["x8"]), t(d["J"]), t(d["coh"]), t(d["sta1"]), t(d["sta2"]),
             t(d["cid"]), t(d["wt"]), t(d["cw"]), d["nb"], K)
     with pytest.raises(ValueError):
         tswp.sweep_blocks_visits(*args, V + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tswp.sweep_blocks_visits(*args, V, jones="diag")
+    with pytest.raises(ValueError, match="jones"):
+        tswp.sweep_blocks_visits(*args, V, jones="polar")
+    for jones, md in (("diag", 2), ("phase", 1)):
+        pp = tswp.sweep_blocks_visits(*args, V, jones=jones)[0]
+        assert pp.shape == (V, K, d["nb"], 2, md, md)
+
+
+@pytest.mark.parametrize("jones", ["diag", "phase"])
+@pytest.mark.parametrize("combo", ["wt_batched", "all_shared"])
+def test_visits_modes_match_pallas(jones, combo):
+    """The multi-visit sweep at md = 2 and 1 against the reference's
+    sweep_blocks_visits(jones=) in interpret mode, V = 3 visits of K = 2
+    chunks, on Jones whose off-diagonals are not zero (both constrain
+    them on entry)."""
+    cidb, wb, cwb = COMBOS[combo]
+    d = _visits(seed=20 + len(jones) + len(combo))
+    cid, wt, cw = _operands(d, cidb, wb, cwb)
+    j = jnp.asarray
+    ref = swp.sweep_blocks_visits(
+        j(d["x8"]), j(d["J"]), j(d["coh"]), j(d["sta1"]), j(d["sta2"]),
+        j(cid), j(wt), j(cw), d["nb"], K, V,
+        (True, True, True, cidb, wb, cwb), interpret=True, jones=jones)
+    t = lambda a: torch.as_tensor(np.asarray(a))
+    got = tswp.sweep_blocks_visits(
+        t(d["x8"]), t(d["J"]), t(d["coh"]), t(d["sta1"]), t(d["sta2"]),
+        t(cid), t(wt), t(cw), d["nb"], K, V, jones=jones)
+    md = tne.jones_mdim(jones)
+    names = ("pp", "qq", "pq", "jtep", "jteq", "cost")
+    for name, r, g in zip(names, ref, got):
+        r = np.asarray(r)
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g.numpy(), r,
+                                   atol=1e-10 * np.abs(r).max(),
+                                   err_msg=name)
+    assert got[0].shape[-1] == md

@@ -53,8 +53,8 @@ def main() -> int:
                 V).cluster, "kernel_us": {}}
             for C in range(1, swp.MAX_CLUSTER + 1):
                 swp.sweep_geometry = (
-                    lambda T, nb, K, slots, V=1, cluster=None, C=C:
-                    real(T, nb, K, slots, V, cluster=C))
+                    lambda T, nb, K, slots, V=1, cluster=None, md=4, C=C:
+                    real(T, nb, K, slots, V, cluster=C, md=md))
                 swp._geometry_args.cache_clear()
                 rec["kernel_us"][C] = cs.kernel_us(lambda: fn(*cargs),
                                                    ("sweep_cluster",))
