@@ -15,8 +15,19 @@ synthetic observation at full width (62 LOFAR-like stations, 120
 timeslots, 8 channels, clusters of 64 sources): ``e2e`` at ``-j 1`` on
 one tile and ``e2e_rtr`` at ``-j 5 --inner cg`` (robust RTR with the
 matvec kernel in every tCG product) on two, with 8 clusters;
-``e2e_inflight`` at ``-j 5 --inner cg --inflight 4`` on two tiles with 16
-clusters (the multi-visit sweep kernel in every group solve).
+``e2e_inflight`` at ``-j 5 --inner cg --inflight 4 -e 1`` on two tiles
+with 16 clusters (the multi-visit sweep kernel in every group solve).
+Batches of solve intervals (``--tile-batch``): ``visits`` also holds the
+kernel at V = 8 lanes (4 tiles of 2 visits), every operand and the chunk
+ids per visit; ``matvec`` holds and times the matvec kernel on such
+records at V = 4 and 8 visits of 4 chunks (16 and 32 chunks, the tCG
+products of a batch); ``slice_parity`` adds ``tile_batch_rtr`` (``-j 5 --inner
+cg --tile-batch 2``, 5 tiles) and ``tile_batch_inflight`` (``-j 1
+--tile-batch 2 --inflight 2``, 8 clusters, 3 tiles); and
+``e2e_tile_batch`` runs ``-j 5 --inner cg --tile-batch 4`` at full width
+on 5 tiles (tile 0 alone, tiles 1-4 one batch, which must launch the
+visits and matvec kernels and no single-visit sweep), its batch's EM,
+refine and per-tile seconds printed beside e2e_rtr's warm tile 1.
 Skies of every morphology: ``predict_mixed`` holds the split predict
 (the coherency kernel on the point/gaussian half, the eager envelopes on
 the shapelet/disk/ring rest) at full width against the generic predict in
@@ -24,14 +35,14 @@ float64 on the card; ``slice_parity`` adds ``xla_default`` (``-j 5
 --kernel xla``, the JAX CLI's default command line, on a mixed sky),
 ``xla_cg`` (its ``--inner cg``) and ``kmax5`` (a 5-chunk cluster, no
 ``--kernel`` flag: the XLA fallback); and ``e2e_mixed`` runs ``-j 5
---kernel xla`` at full width on the mixed sky (one tile). The XLA-route
+--kernel xla -e 1`` at full width on the mixed sky (one tile). The XLA-route
 runs must launch no sweep, matvec or visits kernel and count XLA solves;
 every other run must count none.
 Constrained Jones modes (``--jones diag|phase``): the sweep, visits and
 matvec phases run each kernel at md = 2 and md = 1 too; ``slice_parity``
 adds ``diag_j1``, ``phase_cg`` and ``diag_inflight_rtr``; and ``e2e_diag``
 (``-j 1 --jones diag``) and ``e2e_phase`` (``-j 5 --inner cg --jones
-phase``) run one tile each on e2e_rtr's observation. A run in a mode must
+phase -e 1``) run one tile each on e2e_rtr's observation. A run in a mode must
 launch its solve kernels at that mode's md only, and its solutions'
 off-diagonals must be exactly 0.
 Every phase prints one JSON line; any failure ends the run with a
@@ -80,12 +91,23 @@ NCHUNK = (1, 1, 2, 1, 4, 1, 2, 1)
 NCHUNK16 = NCHUNK * 2
 #: visits: the in-flight group width of e2e_inflight
 N_VISITS = 4
+#: visits: the lanes of a batch of solve intervals with groups (T = 4
+#: tiles of G = 2 visits: --tile-batch 4 --inflight 2)
+N_LANES = 8
+#: e2e_tile_batch: tiles a batch (the first tile solves alone)
+TILE_BATCH = 4
 RA0 = 2.0 * math.pi / 12
 DEC0 = 52.0 * math.pi / 180
 
 
+#: the run's start, for each record's elapsed seconds
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **rec) -> None:
-    print(json.dumps({"phase": phase, **rec}), flush=True)
+    print(json.dumps({"phase": phase, **rec,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -830,27 +852,20 @@ def _matvec_check(tag, fac, sta1, sta2, N, shift, gen):
     return v, plan, abs_err, rel
 
 
-def _matvec_timed(K: int, jones: str, ptxas: dict) -> dict:
-    """The matvec kernel on Gram blocks from a full-width sweep in the
-    Jones mode ``jones`` (the layout the tCG and PCG loops hand it),
-    checked against its plain version and timed through a plan, as the
-    solver loops call it, beside its bound and a library yardstick."""
+def _matvec_measure(tag: str, fac, sta1, sta2, N: int, gen,
+                    ptxas: dict) -> dict:
+    """The matvec kernel on the Gram blocks ``fac`` ([K, nb, ...], any
+    md), checked against its plain version through :func:`_matvec_check`
+    (twice, bitwise equal), one kernel a call by the profiler, and timed
+    through a plan, as the solver loops call it, beside its bound and a
+    library yardstick. Returns the record's figures."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
-    from sagecal_tpu_torch.solvers import normal_eq as ne
-    md = ne.jones_mdim(jones)
-    args, (B, nb) = _sweep_inputs(K, seed=3)
-    x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
-    N = N_STATIONS
-    fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N, K, nb,
-                              jones=jones)
-    if swp._block_view(fac.pp, nb)[0] is not fac.pp:
-        raise AssertionError("matvec: the sweep's records were copied")
-    gen = torch.Generator(device="cuda").manual_seed(K)
+    K, nb, md = fac.pp.shape[0], fac.pp.shape[1], fac.pp.shape[-1]
     shift = torch.rand((K,), device="cuda", generator=gen,
                        dtype=torch.float32) + 0.1
-    v, plan, abs_err, rel = _matvec_check(f"K={K} {jones}", fac, sta1, sta2,
-                                          N, shift, gen)
+    v, plan, abs_err, rel = _matvec_check(tag, fac, sta1, sta2, N, shift,
+                                          gen)
     s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
     ref = swp.gn_matvec_blocks_plain(fac, v, s1b, s2b, N, shift=shift)
     Bk = _baseline_blocks(fac)
@@ -874,8 +889,7 @@ def _matvec_timed(K: int, jones: str, ptxas: dict) -> dict:
     n_kernels, traces = kernels_per_call(call, "matvec_station",
                                          lambda: swp.MATVEC_LAUNCHES)
     if n_kernels != 1:
-        raise AssertionError(f"matvec K={K} {jones}: {n_kernels} kernels a "
-                             "call")
+        raise AssertionError(f"matvec {tag}: {n_kernels} kernels a call")
     plain_ms = cuda_ms(lambda: swp.gn_matvec_blocks_plain(
         fac, v, s1b, s2b, N, shift=shift), 50)
     library_ms = cuda_ms(library, 50)
@@ -884,15 +898,56 @@ def _matvec_timed(K: int, jones: str, ptxas: dict) -> dict:
     n_bytes = 4 * (K * nb * 8 * md * md + 2 * K * N * nv + K + 2 * nb)
     bms, by = bound_ms(n_bytes, swp.matvec_flops_per_baseline(md) * K * nb
                        + 2 * K * N * nv)
-    rec = dict(K=K, jones=jones, md=md, nb=nb, N=N, max_abs_err=abs_err,
-               rel_err=rel, ms=ms, call_ms=ms, device_ms=dev_ms,
-               kernel_us=k_us, kernels_per_call=n_kernels,
-               kernel_traces=traces, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, bound_share=bms / dev_ms,
-               kernel_bound_share=k_us and bms / (k_us / 1e3),
-               library_ms=library_ms, library_rel_err=lib_err,
-               deterministic=True, ptxas=ptxas)
+    return dict(K=K, md=md, nb=nb, N=N, max_abs_err=abs_err, rel_err=rel,
+                ms=ms, call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
+                kernels_per_call=n_kernels, kernel_traces=traces,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bound_share=bms / dev_ms,
+                kernel_bound_share=k_us and bms / (k_us / 1e3),
+                library_ms=library_ms, library_rel_err=lib_err,
+                deterministic=True, ptxas=ptxas)
+
+
+def _matvec_timed(K: int, jones: str, ptxas: dict) -> dict:
+    """The matvec kernel on Gram blocks from a full-width sweep in the
+    Jones mode ``jones`` (the layout the tCG and PCG loops hand it),
+    measured by :func:`_matvec_measure`."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    args, (B, nb) = _sweep_inputs(K, seed=3)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
+    fac, _, _ = swp.gn_blocks(x8, J, coh, sta1, sta2, cid, wt, N_STATIONS,
+                              K, nb, jones=jones)
+    if swp._block_view(fac.pp, nb)[0] is not fac.pp:
+        raise AssertionError("matvec: the sweep's records were copied")
+    gen = torch.Generator(device="cuda").manual_seed(K)
+    rec = dict(jones=jones, **_matvec_measure(
+        f"K={K} {jones}", fac, sta1, sta2, N_STATIONS, gen, ptxas))
     emit("matvec", **rec)
+    return rec
+
+
+def _matvec_lanes(V: int, K: int, ptxas: dict) -> dict:
+    """The matvec kernel at the shape of a batch of solve intervals: the
+    multi-visit sweep's records of V visits of K chunks ([V K, nb, REC],
+    every operand and the chunk ids per visit, visit v a cluster of
+    max(1, K - v) chunks, as ``--tile-batch`` folds its tiles' visits) at
+    full width in full Jones, measured by :func:`_matvec_measure`."""
+    import torch
+    from sagecal_tpu_torch.ops import sweep as swp
+    args, (B, nb) = _visits_inputs(K, True, seed=12 + V, V=V, nchunk=K)
+    x8, J, coh, sta1, sta2, cid, wt, cw, _, _, _ = args
+    lanes = swp.Lanes(V=V, K=K, cid=cid, tiles=V)
+    fac, _, _ = swp.gn_blocks(
+        x8.reshape(V * B, 8), J.reshape((V * K,) + tuple(J.shape[2:])),
+        coh.reshape(V * B, 2, 2), sta1, sta2, cid, wt.reshape(V * B, 8),
+        N_STATIONS, V * K, nb, lanes=lanes)
+    if swp._block_view(fac.pq, nb)[0] is not fac.pq:
+        raise AssertionError("matvec: the multi-visit records were copied")
+    gen = torch.Generator(device="cuda").manual_seed(100 + V)
+    rec = dict(V=V, K_visit=K, jones="full", **_matvec_measure(
+        f"lanes V={V} K={K}", fac, sta1, sta2, N_STATIONS, gen, ptxas))
+    emit("matvec_lanes", **rec)
     return rec
 
 
@@ -901,8 +956,9 @@ def phase_matvec():
     from a full-width sweep in each Jones mode (K = 1 and 4), on a
     190-baseline layout and on the multi-visit sweep's [V K, nb, REC]
     records; twice each (bitwise equal), one kernel a call, timed by
-    :func:`_matvec_timed`. Records are keyed K (full Jones) and (jones,
-    K)."""
+    :func:`_matvec_timed`; and timed at a batch's shape, V = TILE_BATCH
+    and N_LANES visits of 4 chunks (:func:`_matvec_lanes`). Records are
+    keyed K (full Jones), (jones, K) and ("lanes", V)."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
     out = {}
@@ -941,6 +997,10 @@ def phase_matvec():
         emit("matvec_edge", tag="visits", jones=jones, V=V, K=K, nb=nb,
              max_abs_err=abs_err, rel_err=rel, deterministic=True)
         out[("visits", jones)] = dict(max_abs_err=abs_err)
+    # the batch's tCG products: e2e_tile_batch's TILE_BATCH lanes and a
+    # batch of N_LANES
+    for V in (TILE_BATCH, N_LANES):
+        out[("lanes", V)] = _matvec_lanes(V, 4, ptxas)
     return out
 
 
@@ -1112,7 +1172,25 @@ def phase_visits():
                  nb=nb, K=K, nchunk=nck, rel_err=errs, max_abs_err=abs_err,
                  deterministic=True)
             out[(tag, jones)] = dict(max_abs_err=abs_err)
+    out["tile_batch"] = _visits_lanes()
     return out
+
+
+def _visits_lanes() -> dict:
+    """The multi-visit sweep at the shape of a batch of solve intervals
+    with groups: V = N_LANES visits, every operand and the chunk ids per
+    visit (visit v a cluster of max(1, 4 - v) chunks at kmax = 4), md =
+    4, at full width; checked against its plain version (twice, bitwise
+    equal) and timed."""
+    from sagecal_tpu_torch.ops import sweep as swp
+    args, (B, nb) = _visits_inputs(4, True, seed=11, V=N_LANES, nchunk=4)
+    errs, abs_err = _visits_check(f"V={N_LANES} per-visit chunk ids", args)
+    call = lambda: swp.sweep_blocks_visits(*args)
+    rec = dict(V=N_LANES, K=4, nchunk=4, T=TILESZ, nb=nb, rel_err=errs,
+               max_abs_err=abs_err, call_ms=cuda_ms(call, 20),
+               device_ms=device_ms(call, 50), deterministic=True)
+    emit("visits_lanes", **rec)
+    return rec
 
 
 def _counts():
@@ -1192,6 +1270,11 @@ def _check_route(tag: str, launches: dict, must, xla: bool,
 #: kernel at md = 2), ``phase_cg`` (-j 5 --inner cg --jones phase: the
 #: sweep and matvec kernels at md = 1) and ``diag_inflight_rtr`` (groups
 #: through the visits kernel and the matvec at md = 2).
+#: Batches of solve intervals (--tile-batch 2, tile 0 alone): ``tile_
+#: batch_rtr`` (j5_cg's solver on 5 tiles: the visits kernel at one visit
+#: a tile and the matvec at 2 kmax chunks) and ``tile_batch_inflight``
+#: (inflight_j1's groups on 3 tiles: 2 x 2 lanes a group step; its CPU
+#: reference is the longest of the phase, ~370 s on 4 tiles).
 PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                ("default", 16, (1, 1, 1), [], ("coh", "sweep"), False),
                ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep"), False),
@@ -1216,7 +1299,16 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                 ("coh", "sweep", "matvec"), False),
                ("diag_inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "5", "--inner", "cg", "--inflight", "2", "--jones",
-                 "diag"], ("coh", "visits", "matvec"), False))
+                 "diag"], ("coh", "visits", "matvec"), False),
+               ("tile_batch_rtr", 41, (1, 2, 1),
+                ["-j", "5", "--inner", "cg", "--tile-batch", "2"],
+                ("coh", "sweep", "visits", "matvec"), False),
+               ("tile_batch_inflight", 41, (1, 2, 1, 1, 2, 1, 1, 1),
+                ["-j", "1", "--tile-batch", "2", "--inflight", "2", "-g",
+                 "30"], ("coh", "visits"), False))
+#: tiles of a parity run's observation (2 unless named): the batches of
+#: 2 after the solo tile 0
+PARITY_TILES = {"tile_batch_rtr": 5, "tile_batch_inflight": 3}
 
 
 def _xla_route(flags, nchunk) -> bool:
@@ -1238,13 +1330,15 @@ def _first_flip(cuda_hist, cpu_hist):
 
 
 #: the CPU float64 reference runs of slice_parity go to this many worker
-#: processes of this many threads each, beside the card runs
+#: processes of this many threads each, beside the card runs (their
+#: worker time bounds the phase; 5 workers made every job slower and the
+#: phase no shorter)
 PARITY_WORKERS = 4
 PARITY_THREADS = 2
 
 
 def _parity_run(path: str, sky: str, clus: str, flags, device):
-    """One slice_parity pipeline run over both tiles of ``path``: (the
+    """One slice_parity pipeline run over every tile of ``path``: (the
     per-tile history, seconds). ``device`` None is the card."""
     from sagecal_tpu_torch import pipeline
     from sagecal_tpu_torch.cli import build_parser, config_from_args
@@ -1276,7 +1370,8 @@ def phase_slice_parity():
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
         ms, sky, clus = make_observation(work, n_st, 10, FREQS[:2],
-                                         len(nchunk), 6, nchunk, 2, "cpu",
+                                         len(nchunk), 6, nchunk,
+                                         PARITY_TILES.get(tag, 2), "cpu",
                                          seed=9, noise=0.02, mixed=mixed)
         shutil.copytree(ms, ms + ".cpu")
         obs[tag] = (ms, sky, clus)
@@ -1446,10 +1541,10 @@ def phase_predict_mixed():
     return rec
 
 
-def _e2e_cli(obs, name: str, flags, n_tiles: int):
-    """One full-batch CLI run on a fresh copy of ``obs``'s SimMS: (rc,
-    stdout, wall s, launches, ms path, solutions path, peak device
-    bytes)."""
+def _e2e_cli(obs, name: str, flags, n_tiles: int, em: int = 3):
+    """One full-batch CLI run on a fresh copy of ``obs``'s SimMS at ``em``
+    EM iterations (``-e``): (rc, stdout, wall s, launches, ms path,
+    solutions path, peak device bytes)."""
     import contextlib
     import io
     import torch
@@ -1466,7 +1561,7 @@ def _e2e_cli(obs, name: str, flags, n_tiles: int):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-d", ms, "-s", sky, "-c", clus, "-p", solpath,
-                       "-e", "3", "-g", "10", "-l", "10", "-m", "7", "-t",
+                       "-e", str(em), "-g", "10", "-l", "10", "-m", "7", "-t",
                        str(TILESZ), "-T", str(n_tiles), "-V"] + flags)
     torch.cuda.synchronize()
     return (rc, buf.getvalue(), time.perf_counter() - t0, _counts(), ms,
@@ -1474,19 +1569,20 @@ def _e2e_cli(obs, name: str, flags, n_tiles: int):
 
 
 def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
-              xla: bool = False):
+              xla: bool = False, em: int = 3):
     """The full-batch CLI at full width on the card, over the first
-    ``n_tiles`` tiles of ``obs`` with solver ``flags``; ``must`` names
-    the kernels that have to launch (at the block width of the run's
-    ``--jones`` mode), ``xla`` a run whose solves must all take the XLA
-    assembly (no sweep, matvec or visits launch). Under ``--jones
-    diag|phase`` the solutions' off-diagonals must be exactly 0."""
+    ``n_tiles`` tiles of ``obs`` with solver ``flags`` at ``em`` EM
+    iterations; ``must`` names the kernels that have to launch (at the
+    block width of the run's ``--jones`` mode), ``xla`` a run whose
+    solves must all take the XLA assembly (no sweep, matvec or visits
+    launch). Under ``--jones diag|phase`` the solutions' off-diagonals
+    must be exactly 0."""
     from sagecal_tpu_torch import skymodel
     from sagecal_tpu_torch.io import dataset as ds
     from sagecal_tpu_torch.io import solutions as sol
     _, sky, clus, setup_s = obs
     rc, out, wall, launches, ms, solpath, peak = _e2e_cli(obs, phase, flags,
-                                                          n_tiles)
+                                                          n_tiles, em)
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
     _check_route(phase, launches, must, xla, _md_of(flags))
@@ -1519,7 +1615,7 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
         if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
             raise AssertionError(f"tile {i}: output column not written")
         ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
-    rec = dict(flags=flags, tiles=tiles, wall_s=wall, setup_s=setup_s,
+    rec = dict(flags=flags, em=em, tiles=tiles, wall_s=wall, setup_s=setup_s,
                launches=launches, route=route, intervals=len(blocks),
                written_over_data=ratio, kmax=int(max(sk.nchunk)),
                peak_gb=peak / 2 ** 30,
@@ -1537,6 +1633,51 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
     return rec
 
 
+def phase_e2e_tile_batch(rtr: dict) -> dict:
+    """``-j 5 --inner cg --tile-batch TILE_BATCH`` at full width on 1 +
+    TILE_BATCH tiles of e2e_rtr's observation: tile 0 alone (the boost;
+    the single-visit sweep and the matvec), tiles 1.. one batch (the
+    visits kernel at one visit a tile and the matvec at TILE_BATCH kmax
+    chunks, no single-visit sweep). Emits the batch's EM, refine and
+    solve seconds, seconds a tile and launches beside e2e_rtr's warm
+    tile 1 (``rtr``, the same run)."""
+    n = 1 + TILE_BATCH
+    obs = observation_e2e("e2e_tile_batch", n_tiles=n)
+    rec = phase_e2e(obs, "e2e_tile_batch",
+                    ["-j", "5", "--inner", "cg", "--tile-batch",
+                     str(TILE_BATCH)], n, ("coh", "sweep", "visits",
+                                           "matvec"))
+    shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
+    solo, first, rest = rec["tiles"][0], rec["tiles"][1], rec["tiles"][2:]
+    batch = first["batch"]
+    if solo["batch"] is not None or any(
+            t["batch"] != batch for t in rest) \
+            or batch["tiles"] != list(range(1, n)):
+        raise AssertionError(f"e2e_tile_batch: tiles 1..{n - 1} did not "
+                             f"solve as one batch: {rec['tiles']}")
+    solve = ("sweep", "visits", "matvec")
+    if solo["launches"]["visits"] or not solo["launches"]["sweep"] \
+            or first["launches"]["sweep"] or not first["launches"]["visits"] \
+            or not first["launches"]["matvec"] \
+            or any(t["launches"][k] for t in rest for k in solve):
+        raise AssertionError("e2e_tile_batch: the solo tile must launch the "
+                             "sweep and the batch the visits kernel and the "
+                             "matvec, never the sweep: "
+                             f"{[t['launches'] for t in rec['tiles']]}")
+    warm = rtr["tiles"][1]
+    emit("e2e_tile_batch_summary", tiles=batch["tiles"],
+         batch_em_s=batch["em_s"], batch_refine_s=batch["refine_s"],
+         batch_solve_s=batch["solve_s"],
+         s_per_tile=sum(t[k] for t in rec["tiles"][1:] for k in (
+             "read_s", "solve_s", "residual_s", "write_s")) / TILE_BATCH,
+         batch_launches=first["launches"], tile0_s=solo["wall_s"],
+         e2e_rtr_tile1=dict(wall_s=warm["wall_s"], em_s=warm["em_s"],
+                            refine_s=warm["refine_s"],
+                            launches=warm["launches"]),
+         e2e_rtr_tile0_s=rtr["tiles"][0]["wall_s"])
+    return rec
+
+
 def main() -> int:
     smi = phase_env()
     phase_build()
@@ -1551,21 +1692,27 @@ def main() -> int:
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
                     ("coh", "sweep", "matvec"))
     # the constrained Jones modes on the same observation: the sweep
-    # kernel at md = 2, and the sweep and matvec kernels at md = 1
+    # kernel at md = 2, and the sweep and matvec kernels at md = 1 (the
+    # latter at one EM iteration, to keep the run in time)
     e2e_md = {2: phase_e2e(obs, "e2e_diag", ["-j", "1", "--jones", "diag"],
                            1, ("coh", "sweep")),
               1: phase_e2e(obs, "e2e_phase", ["-j", "5", "--inner", "cg",
                                               "--jones", "phase"], 1,
-                           ("coh", "sweep", "matvec"))}
+                           ("coh", "sweep", "matvec"), em=1)}
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
+    tile_batch = phase_e2e_tile_batch(rtr)
+    # one EM iteration, to keep the run in time (tile 0 boosted to 6, its
+    # first sweep of groups of 2, then of 4; tile 1 one warm sweep of 4)
     inflight = phase_e2e(observation_e2e("e2e16", NCHUNK16), "e2e_inflight",
                          ["-j", "5", "--inner", "cg", "--inflight",
-                          str(N_VISITS)], 2, ("coh", "visits", "matvec"))
+                          str(N_VISITS)], 2, ("coh", "visits", "matvec"),
+                         em=1)
     # the JAX CLI's default command line (-j 5 --inner chol --kernel xla)
-    # on the mixed sky: the split predict and the XLA assembly
+    # on the mixed sky: the split predict and the XLA assembly, at one EM
+    # iteration (boosted to 6 on the first tile) to keep the run in time
     mixed = phase_e2e(observation_e2e("e2e_mixed", mixed=True, n_tiles=1),
                       "e2e_mixed", ["-j", "5", "--kernel", "xla"], 1,
-                      ("coh",), xla=True)
+                      ("coh",), xla=True, em=1)
     vis = visits[(4, True)]
 
     def by_md(recs, kernel):
@@ -1631,6 +1778,7 @@ def main() -> int:
              source="sagecal_tpu_torch/csrc/matvec.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:946",
              launches=rtr["launches"]["matvec"],
+             launches_e2e_tile_batch=tile_batch["launches"]["matvec"],
              max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],
@@ -1640,11 +1788,16 @@ def main() -> int:
              call_ms_k1=matvec[1]["call_ms"],
              kernel_us=matvec[4]["kernel_us"],
              kernel_us_k1=matvec[1]["kernel_us"],
+             lanes={f"V{V}": {k: matvec[("lanes", V)][k] for k in (
+                 "K", "kernel_us", "device_ms", "call_ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+                 for V in (TILE_BATCH, N_LANES)},
              registers=matvec[4]["ptxas"], **by_md(matvec, "matvec")),
         dict(name="sweep_blocks_visits", route="cuda",
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:439",
              launches=inflight["launches"]["visits"],
+             launches_e2e_tile_batch=tile_batch["launches"]["visits"],
              max_abs_err=max(r["max_abs_err"] for r in visits.values()),
              ms=vis["ms"], plain_ms=vis["plain_ms"],
              bound_ms=vis["bound_ms"], bound_by=vis["bound_by"],
@@ -1655,6 +1808,8 @@ def main() -> int:
              device_ms_k1=visits[(1, True)]["device_ms"],
              call_ms_k1=visits[(1, True)]["call_ms"],
              serial_ms_k1=visits[(1, True)]["serial_ms"],
+             call_ms_lanes=visits["tile_batch"]["call_ms"],
+             device_ms_lanes=visits["tile_batch"]["device_ms"],
              registers=vis["ptxas"], **by_md(visits, "visits")),
     ]
     shutil.rmtree(WORK, ignore_errors=True)

@@ -4,10 +4,10 @@
 The parser accepts every flag of the JAX CLI so command lines translate
 directly. The port runs full-batch calibration with
 ``-d -s -c -p -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k --kernel
---inner --inflight --jones --dtype-policy --platform`` (every solver mode
-``-j 0..6``, ``--inner chol|cg``, ``--kernel pallas|xla``, in-flight
-cluster groups, ``--jones full|diag|phase``, skies of every source
-morphology);
+--inner --inflight --jones --tile-batch --dtype-policy --platform`` (every
+solver mode ``-j 0..6``, ``--inner chol|cg``, ``--kernel pallas|xla``,
+in-flight cluster groups, ``--jones full|diag|phase``, T solve intervals
+as one lane-batched solve, skies of every source morphology);
 ``--solve-fuse`` and ``--solve-promote`` are accepted as no-ops (PyTorch
 runs eagerly).
 Any other flag given a non-default value raises ``NotImplementedError``
@@ -50,7 +50,6 @@ UNPORTED = {
     "rho": (5.0, "queue A item 9 (-r)"),
     "rho_file": (None, "queue A item 9 (-G)"),
     "linsolv": (1, "queue A item 7 (--linsolv)"),
-    "tile_batch": (1, "queue A item 5 (--tile-batch)"),
     "tile_bucket": (0, "queue A item 11 (--tile-bucket)"),
     "resume": (False, "queue A item 7 (--resume checkpoints)"),
     "faults": (None, "queue A item 10 (--faults)"),
@@ -105,7 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--profile", default=None)
     a("--diag", default=None)
     a("--metrics", default=None)
-    a("--tile-batch", type=int, default=1)
+    a("--tile-batch", type=int, default=1,
+      help=">1: solve this many intervals as one lane-batched solve "
+           "(warm start per batch; tile 0, a reset tile and a short tail "
+           "solve alone); <= 1 solves tile by tile")
     a("--solve-fuse", choices=("auto", "on", "off"), default="auto",
       help="accepted; a no-op (PyTorch runs eagerly)")
     a("--solve-promote", choices=("auto", "on", "off"), default="auto",
@@ -182,7 +184,7 @@ def config_from_args(args) -> RunConfig:
         n_epochs=args.epochs, max_timeslots=args.max_timeslots,
         verbose=args.verbose,
         solve_fuse=args.solve_fuse, solve_promote=args.solve_promote,
-        cluster_inflight=args.inflight,
+        cluster_inflight=args.inflight, tile_batch=args.tile_batch,
         solver_inner=args.inner, solver_kernel=args.kernel,
         jones_mode=args.jones, dtype_policy=args.dtype_policy)
 

@@ -81,6 +81,10 @@ class RunConfig:
     max_timeslots: int = 0                           # -T
     verbose: bool = False                            # -V : per-tile stats
 
+    # --tile-batch: solve intervals batched into one lane-batched solve
+    # (sage.sagefit_host_tiles); T > 1 makes the warm start per batch:
+    # every tile of a batch starts from the solution carried into it
+    tile_batch: int = 1                # --tile-batch
     # execution plan: in the JAX package these pick jit fusion and
     # whole-solve promotion; PyTorch runs eagerly, so both are no-ops
     solve_fuse: str = "auto"           # --solve-fuse

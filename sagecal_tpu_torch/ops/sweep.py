@@ -499,11 +499,17 @@ class Lanes(NamedTuple):
     operand that every visit shares stays [B, ...]. ``cid`` holds the
     visits' own chunk ids (0 .. K - 1, int64 as the solvers hold them,
     which the sweep kernel reads without a copy) for the sweep: [B] when
-    all visits have the same, else [V, B]."""
+    all visits have the same, else [V, B].
+
+    A batch of solve intervals (``sagefit_host_tiles``) folds its tiles'
+    visits the same way, tile-major: ``tiles`` tiles of V / tiles visits
+    each, every per-row operand (data, coherencies, weights) per visit;
+    the solvers then report the tCG products per tile."""
 
     V: int
     K: int
     cid: torch.Tensor
+    tiles: int = 1
 
     @property
     def B(self) -> int:

@@ -19,7 +19,10 @@ and the solutions, with the reference's heuristics:
 - in-flight cluster groups (``--inflight``): the first tile (and the
   first after a reset) solves cold, the others warm; a divergence reset
   with groups active falls back to sequential updates for the rest of
-  the run.
+  the run;
+- ``--tile-batch T``: after the boosted first tile, T tiles at a time
+  solve as one lane-batched SAGE solve (``sage.sagefit_host_tiles``),
+  warm-started per batch; a short tail solves tile by tile.
 
 The JAX package's serve cache, fleet, priors, overlapped scheduler,
 fault injection, tracing and checkpoint/resume are not ported yet;
@@ -143,6 +146,11 @@ class FullBatchPipeline:
         self.route = lm_mod.route_name(
             cfg.solver_kernel, self.kmax, int(meta["nbase"]),
             int(meta["tilesz"]) * int(meta["nbase"]))
+        # --tile-batch: T > 1 solves T staged tiles as one lane-batched
+        # solve; 0 or below solves tile by tile, as in the JAX CLI. The
+        # reference's other exclusions (-b 1, --shard-baselines) are not
+        # ported and raise before this point
+        self.tile_batch = max(1, int(cfg.tile_batch))
         self.sub_mask = sky.subtract_mask()
         self.correct_idx = skymodel.correct_cluster_index(
             sky, cfg.correct_cluster, warn=log)
@@ -182,6 +190,28 @@ class FullBatchPipeline:
             os_id=self.os_info)
         return J.cpu().numpy().astype(np.complex128), info
 
+    def solve_tiles(self, stgs, J0: np.ndarray, tile_ids):
+        """T staged tiles as one lane-batched solve (``_build_tiles_solver``
+        of the JAX package): each tile's solve coherencies, then
+        ``sage.sagefit_host_tiles`` with every tile warm-started from
+        ``J0`` (the batch's warm start), its sequential seed, no boost and
+        no cold first-sweep group width. Returns (J [T] numpy, info)."""
+        meta = self.meta
+        coh = torch.stack([
+            rp.coherencies(self.dsky, s["u"], s["v"], s["w"],
+                           [meta["freq0"]], meta["fdelta"])[:, :, 0]
+            for s in stgs])
+        cdt = devmod.complex_dtype(self.rdt)
+        J0t = torch.as_tensor(J0, device=self.device).to(cdt)
+        J, info = sage.sagefit_host_tiles(
+            torch.stack([s["x8"] for s in stgs]), coh, stgs[0]["sta1"],
+            stgs[0]["sta2"], self.cidx, self.cmask,
+            J0t.expand((len(stgs),) + J0t.shape).contiguous(), self.n,
+            torch.stack([s["wt"] for s in stgs]),
+            config=self.base_cfg._replace(inflight_warm=True),
+            seeds=[199 * 1000 + ti for ti in tile_ids], os_id=self.os_info)
+        return J.cpu().numpy().astype(np.complex128), info
+
     def residuals(self, J: np.ndarray, tile: ds.VisTile, stg: dict):
         """[B, F, 2, 2] complex128 residual of every channel."""
         meta = self.meta
@@ -215,7 +245,19 @@ class FullBatchPipeline:
 
     def run(self, write_residuals: bool = True, solution_path=None,
             max_tiles=None, log=None):
-        """Solve every tile in order; returns the per-tile history."""
+        """Solve every tile in order; returns the per-tile history.
+
+        With ``--tile-batch T`` > 1 (``pipeline._run_batched`` of the JAX
+        package): tile 0, and every tile re-armed by a divergence reset,
+        solves alone with the boost; the tiles after it are staged T at a
+        time and solve as one lane-batched solve (:meth:`solve_tiles`),
+        each warm-started from the solution carried into the batch; a
+        short tail solves tile by tile. Resets, the in-flight downgrade,
+        the solutions and the residuals then follow tile by tile in
+        order, as on the sequential path. A batch's solve launches and
+        XLA solves are counted on its first tile's record, and every
+        record of a batch carries the batch's ``batch`` entry (its tiles,
+        EM, refine and solve seconds)."""
         log = self.log if log is None else log
         ms, sky, meta = self.ms, self.sky, self.meta
         n_tiles = ms.n_tiles if not max_tiles else min(ms.n_tiles,
@@ -227,82 +269,133 @@ class FullBatchPipeline:
                 meta["tilesz"] * meta["tdelta"] / 60.0, self.n,
                 sky.n_clusters, sky.n_eff_clusters)
         pinit = self.initial_jones()
-        J = pinit.copy()
-        first = True
-        res_prev = None
+        state = {"J": pinit.copy(), "first": True, "res_prev": None}
         history = []
+
+        def post(item, Jnew, info, t, launches, secs, batch=None):
+            """A solved tile in order: the divergence reset, the solution,
+            the residual write-back and the record (``post`` of the JAX
+            package's ``_run_batched``); ``info`` the solve's, ``t`` the
+            tile's index in it (None for a solo solve's scalars)."""
+            ti, tile, stg = item["ti"], item["tile"], item["stg"]
+
+            def of(key):
+                return info[key] if t is None else info[key][t]
+
+            res_0, res_1 = float(of("res_0")), float(of("res_1"))
+            mean_nu = float(of("mean_nu"))
+            if res_1 == 0.0 or not np.isfinite(res_1) or (
+                    state["res_prev"] is not None
+                    and res_1 > RES_RATIO * state["res_prev"]):
+                log(f"tile {ti}: Resetting Solution")
+                if res_1 != 0.0:   # zero = flagged data
+                    self._inflight_downgrade(log)
+                state.update(J=pinit.copy(), first=True,
+                             res_prev=res_1 if np.isfinite(res_1) else None)
+            else:
+                state["J"] = Jnew
+                state["res_prev"] = (res_1 if state["res_prev"] is None
+                                     else min(state["res_prev"], res_1))
+            if writer:
+                writer.write_interval(state["J"], sky.nchunk)
+            c0 = _counters()
+            t_res = time.time()
+            if write_residuals:
+                tile.x = self.residuals(state["J"], tile, stg)
+                t_write = time.time()
+                ms.write_tile(ti, tile)
+            t1 = time.time()
+            secs = dict(secs, read_s=item["read_s"],
+                        residual_s=(t_write - t_res
+                                    if write_residuals else 0.0),
+                        write_s=t1 - t_write if write_residuals else 0.0)
+            launches = [a + b - c for a, b, c in
+                        zip(launches, _counters(), c0)]
+            dt = sum(secs[k] for k in ("read_s", "solve_s", "residual_s",
+                                       "write_s")) / 60.0
+            log(f"Timeslot: {ti} Residual: initial={res_0:.6g}, "
+                f"final={res_1:.6g}, Time spent={dt:.3g} minutes, "
+                f"nu={mean_nu:.2f}")
+            rec = {"tile": ti, "res_0": res_0, "res_1": res_1,
+                   "mean_nu": mean_nu, "minutes": dt,
+                   **{k: int(of(k)) for k in lm_mod.TRIP_KEYS},
+                   "tcg_iters": int(of("tcg_iters")),
+                   "groups": of("groups"),
+                   "launches": dict(zip(("coh", "sweep", "matvec",
+                                         "visits"), launches[:4])),
+                   "xla_solves": launches[4], "batch": batch, **secs}
+            history.append(rec)
+            if self.cfg.verbose:
+                log(f"Timeslot: {ti} stats: " + json.dumps(
+                    {k: rec[k] for k in ("solver_iters", "cg_iters",
+                                         "tcg_iters", "lbfgs_iters",
+                                         "rejected_groups", "mean_nu",
+                                         "launches", "xla_solves", "batch",
+                                         *secs)}))
+
+        def solo(item, boosted: bool):
+            c0 = _counters()
+            t0 = time.time()
+            Jnew, info = self.solve(item["stg"], state["J"], item["ti"],
+                                    self.boost if boosted else 1,
+                                    warm=not boosted)
+            state["first"] = False
+            post(item, Jnew, info, None,
+                 [b - a for a, b in zip(c0, _counters())],
+                 {"solve_s": time.time() - t0, "em_s": info["em_s"],
+                  "refine_s": info["refine_s"]})
+
+        def flush(group):
+            if len(group) < self.tile_batch:
+                # the stream's short tail: tile by tile, warm
+                for item in group:
+                    solo(item, boosted=False)
+                return
+            c0 = _counters()
+            t0 = time.time()
+            Jnew, info = self.solve_tiles([g["stg"] for g in group],
+                                          state["J"],
+                                          [g["ti"] for g in group])
+            solve_s = time.time() - t0
+            n = len(group)
+            batch = {"tiles": [g["ti"] for g in group],
+                     "em_s": info["em_s"], "refine_s": info["refine_s"],
+                     "solve_s": solve_s}
+            launches = [b - a for a, b in zip(c0, _counters())]
+            for t, item in enumerate(group):
+                post(item, Jnew[t], info, t,
+                     launches if t == 0 else [0] * len(launches),
+                     {"solve_s": solve_s / n, "em_s": info["em_s"] / n,
+                      "refine_s": info["refine_tiles_s"][t]}, batch)
+
+        pending = []
         try:
             for ti in range(n_tiles):
                 t0 = time.time()
-                launches0 = (coh_ops.LAUNCHES, swp.LAUNCHES,
-                             swp.MATVEC_LAUNCHES, swp.VISITS_LAUNCHES,
-                             lm_mod.XLA_SOLVES)
                 if self.cfg.verbose:
                     log(f"tile {ti}: solver route: {self.route}")
                 tile = ms.read_tile(ti)
-                stg = self.stage(tile)
-                t_solve = time.time()
-                Jnew, info = self.solve(stg, J, ti,
-                                        self.boost if first else 1,
-                                        warm=not first)
-                first = False
-                res_0 = float(info["res_0"])
-                res_1 = float(info["res_1"])
-                mean_nu = float(info["mean_nu"])
-                J = Jnew
-                if res_1 == 0.0 or not np.isfinite(res_1) or (
-                        res_prev is not None
-                        and res_1 > RES_RATIO * res_prev):
-                    log(f"tile {ti}: Resetting Solution")
-                    if res_1 != 0.0:   # zero = flagged data
-                        self._inflight_downgrade(log)
-                    J = pinit.copy()
-                    first = True
-                    res_prev = res_1 if np.isfinite(res_1) else None
-                else:
-                    res_prev = (res_1 if res_prev is None
-                                else min(res_prev, res_1))
-                if writer:
-                    writer.write_interval(J, sky.nchunk)
-                t_res = time.time()
-                if write_residuals:
-                    tile.x = self.residuals(J, tile, stg)
-                    t_write = time.time()
-                    ms.write_tile(ti, tile)
-                t1 = time.time()
-                secs = {"read_s": t_solve - t0, "solve_s": t_res - t_solve,
-                        "em_s": info["em_s"], "refine_s": info["refine_s"],
-                        "residual_s": (t_write - t_res
-                                       if write_residuals else 0.0),
-                        "write_s": t1 - t_write if write_residuals else 0.0}
-                dt = (t1 - t0) / 60.0
-                log(f"Timeslot: {ti} Residual: initial={res_0:.6g}, "
-                    f"final={res_1:.6g}, Time spent={dt:.3g} minutes, "
-                    f"nu={mean_nu:.2f}")
-                rec = {"tile": ti, "res_0": res_0, "res_1": res_1,
-                       "mean_nu": mean_nu, "minutes": dt,
-                       **lm_mod.executed_trips(info),
-                       "tcg_iters": info["tcg_iters"],
-                       "groups": info["groups"],
-                       "launches": {
-                           "coh": coh_ops.LAUNCHES - launches0[0],
-                           "sweep": swp.LAUNCHES - launches0[1],
-                           "matvec": swp.MATVEC_LAUNCHES - launches0[2],
-                           "visits": swp.VISITS_LAUNCHES - launches0[3]},
-                       "xla_solves": lm_mod.XLA_SOLVES - launches0[4],
-                       **secs}
-                history.append(rec)
-                if self.cfg.verbose:
-                    log(f"Timeslot: {ti} stats: " + json.dumps(
-                        {k: rec[k] for k in ("solver_iters", "cg_iters",
-                                             "tcg_iters", "lbfgs_iters",
-                                             "rejected_groups", "mean_nu",
-                                             "launches", "xla_solves",
-                                             *secs)}))
+                item = {"ti": ti, "tile": tile, "stg": self.stage(tile)}
+                item["read_s"] = time.time() - t0
+                if self.tile_batch == 1 or state["first"]:
+                    solo(item, boosted=state["first"])
+                    continue
+                pending.append(item)
+                if len(pending) == self.tile_batch:
+                    flush(pending)
+                    pending = []
+            flush(pending)
         finally:
             if writer:
                 writer.close()
         return history
+
+
+def _counters():
+    """The kernel launch counters (coh, sweep, matvec, visits) and the
+    XLA-route solves, read on the host."""
+    return (coh_ops.LAUNCHES, swp.LAUNCHES, swp.MATVEC_LAUNCHES,
+            swp.VISITS_LAUNCHES, lm_mod.XLA_SOLVES)
 
 
 def run(cfg: RunConfig, device=None, log=print):

@@ -42,7 +42,8 @@ NSD's first step are seeded from the unit-phase scale sqrt(npar N).
 With ``lanes`` (``ops.sweep.Lanes``, as in ``lm.lm_solve``) one call
 solves an in-flight group's V cluster visits, each with its own
 iteration cap and nu; the tCG products are then counted once per
-executed product of the group.
+executed product of the group, and per tile ([tiles]) when the visits
+are a batch of solve intervals' (``Lanes.tiles`` > 1).
 """
 
 from __future__ import annotations
@@ -210,11 +211,15 @@ def make_cost(x8, coh, sta1, sta2, chunk_id, wt, kmax, n_stations,
     return cost
 
 
-def _tcg(hess_fn, rgrad, delta, cfg: RTRConfig):
+def _tcg(hess_fn, rgrad, delta, cfg: RTRConfig, tiles: int = 1,
+         frozen=None):
     """Batched Steihaug-Toint truncated CG (rtr_solve.c:886-1155).
 
-    hess_fn: [K, D] -> [K, D]. Returns (eta [K, D], model decrease [K],
-    executed Hessian products)."""
+    hess_fn: [K, D] -> [K, D]; ``frozen`` [K] chunks that start done (a
+    batch's tiles whose solve has ended). Returns (eta [K, D], model
+    decrease [K], executed Hessian products [tiles]: per tile of a batch
+    whose chunks the K axis holds tile-major, the products in which one
+    of its chunks was live)."""
     r0n = torch.sqrt(_dot(rgrad, rgrad))
     target = r0n * torch.clamp(r0n ** cfg.theta, max=cfg.kappa)
     K = rgrad.shape[0]
@@ -225,13 +230,16 @@ def _tcg(hess_fn, rgrad, delta, cfg: RTRConfig):
     e_e = rgrad.new_zeros((K,))
     mdot = rgrad.new_zeros((K,))
     done = r0n <= 1e-30
+    if frozen is not None:
+        done = done | frozen
     one = torch.ones_like(r0n)
-    trips = 0
+    trips = np.zeros(tiles, dtype=np.int64)
     for _ in range(cfg.tcg_iters):
-        if bool(done.all()):
+        live = lm_mod.live_lanes(~done, tiles)
+        if not live.any():
             break
         Hd = hess_fn(d)
-        trips += 1
+        trips += live
         d_Hd = _dot(d, Hd)
         alpha = r_r / torch.where(d_Hd != 0, d_Hd, one)
         e_d = _dot(eta, d)
@@ -282,7 +290,8 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     folded layout with ``robust_nu`` [V]); ``robust_nu`` switches the
     objective to fixed-nu Student's t. Returns (J [K, N, 2, 2], info)
     with init_cost / final_cost [K], iters (outer iterations; [V] on a
-    group) and tcg_iters (executed Hessian products)."""
+    group) and tcg_iters (executed Hessian products; [tiles] on a batch
+    of solve intervals)."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
     sweep = lm_mod.solve_route(config, kmax // V, row_period,
@@ -378,13 +387,21 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     stop = torch.zeros((kmax,), dtype=torch.bool, device=dev)
     k = 0
     its = np.zeros(V, dtype=np.int64)
-    tcg = 0
+    tiles = 1 if lanes is None else lanes.tiles
+    tcg = np.zeros(tiles, dtype=np.int64)
     while k < itmax:
         lv = lm_mod.live_lanes(~stop & chunk_mask, V)
         if not lv.any():
             break
         its += lv
-        eta, md, trips = _tcg(make_hess(p), g, delta, config)
+        frozen = None
+        if tiles > 1:
+            # a tile whose solve has ended takes no more tCG trips (its
+            # steps are discarded), as its own solve takes none
+            ended = ~lv.reshape(tiles, -1).any(axis=1)
+            frozen = torch.as_tensor(np.repeat(ended, kmax // tiles),
+                                     device=dev)
+        eta, md, trips = _tcg(make_hess(p), g, delta, config, tiles, frozen)
         tcg += trips
         p_new = p + eta
         c_new = cost_fn(p_new)
@@ -413,7 +430,7 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                     (J0 if Jref is None else Jref).to(J.dtype))
     return J, {"init_cost": cost0, "final_cost": cost,
                "iters": int(its[0]) if lanes is None else its,
-               "tcg_iters": tcg}
+               "tcg_iters": int(tcg[0]) if tiles == 1 else tcg}
 
 
 def _aecm(nulow, nuhigh):

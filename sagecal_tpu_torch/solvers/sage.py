@@ -33,6 +33,13 @@ visit sweep kernel on the card) against the group-entry residual, and
 their joint update is tried at relaxations 1, 1/2, 1/4 (damped
 block-Jacobi); a group no relaxation makes safe is rejected. The width
 is clamped to M//4, and a cold start's first sweep to 2.
+
+Batches of solve intervals (:func:`sagefit_host_tiles`, ``--tile-batch``):
+T tiles solve together, each with its own visiting order, caps, OS draws
+and nu. Every sweep step is one lane-batched solve over the T tiles'
+visits (T G lanes under groups, each tile's relaxation its own), where
+the JAX package vmaps the whole solve over tiles; the refine then runs
+tile after tile. :func:`sagefit_host` is the same loop at T = 1.
 """
 
 from __future__ import annotations
@@ -251,84 +258,180 @@ def _omega_trial(w: float, Jo_g, Jn_g, coh_g, cidx_g, sta1, sta2, xres,
 def _group_solve(mode: int, xd_g, coh_g, cidx_g, cmask_g, J_g, nu_g, sta1,
                  sta2, wt_base, n_stations: int, config: SageConfig,
                  itermax, itcap: int, os_cfgs, last: bool, lists,
-                 cid_shared: bool):
-    """The G member solves of a group as one lane-batched solve, each
-    against its own add-back ``xd_g`` [V, B, 8] (``jax.vmap(solve_one)``
-    of ``sage._group_update``): coh_g [V, B, 2, 2], cidx_g [V, B],
-    cmask_g [V, K], J_g [V, K, N, 2, 2], nu_g [V]; ``itermax`` and
-    ``os_cfgs`` one per visit; ``cid_shared`` when every visit has the
-    same chunk ids. Returns (Jn [V, K, N, 2, 2], nu [V], init_cost
-    [V, K], final_cost [V, K], iters [V], cg_iters [V], tcg_iters)."""
+                 cid_shared: bool, tiles: int = 1):
+    """V cluster visits as one lane-batched solve, each against its own
+    add-back ``xd_g`` [V, B, 8] (``jax.vmap(solve_one)`` of
+    ``sage._group_update``; under ``--tile-batch`` the vmap over tiles):
+    coh_g [V, B, 2, 2], cidx_g [V, B], cmask_g [V, K], J_g [V, K, N, 2, 2],
+    nu_g [V]; ``wt_base`` [B, 8] shared by every visit or [V B, 8] folded
+    per visit; ``itermax`` and ``os_cfgs`` one per visit; ``cid_shared``
+    when every visit has the same chunk ids; ``tiles`` the solve intervals
+    whose visits the lanes hold, tile-major (``swp.Lanes.tiles``). A lone
+    visit (V = 1) is solved unfolded, on the single-visit sweep. Returns
+    (Jn [V, K, N, 2, 2], nu [V], init_cost [V, K], final_cost [V, K],
+    iters [V], cg_iters [V], tcg_iters [tiles])."""
     V, K = J_g.shape[0], J_g.shape[1]
     B = xd_g.shape[1]
-    lanes = swp.Lanes(V, K, cidx_g[0] if cid_shared else cidx_g)
-    off = torch.arange(V, device=cidx_g.device)[:, None] * K
-    Jn, nu_new, ic, fc, its, cgs, tcgs = _cluster_solve(
-        mode, xd_g.reshape(V * B, 8), coh_g.reshape(V * B, 2, 2),
-        sta1.repeat(V), sta2.repeat(V), (cidx_g + off).reshape(V * B),
-        cmask_g.reshape(V * K), wt_base, J_g.reshape((V * K,) + J_g.shape[2:]),
-        n_stations, nu_g, config, np.asarray(itermax), itcap, os_cfgs, last,
-        lists, lanes=lanes)
+    if V == 1:
+        Jn, nu_new, ic, fc, its, cgs, tcgs = _cluster_solve(
+            mode, xd_g[0], coh_g[0], sta1, sta2, cidx_g[0], cmask_g[0],
+            wt_base, J_g[0], n_stations, nu_g[0], config, int(itermax[0]),
+            itcap, None if os_cfgs is None else os_cfgs[0], last, lists)
+    else:
+        lanes = swp.Lanes(V, K, cidx_g[0] if cid_shared else cidx_g, tiles)
+        off = torch.arange(V, device=cidx_g.device)[:, None] * K
+        Jn, nu_new, ic, fc, its, cgs, tcgs = _cluster_solve(
+            mode, xd_g.reshape(V * B, 8), coh_g.reshape(V * B, 2, 2),
+            sta1.repeat(V), sta2.repeat(V), (cidx_g + off).reshape(V * B),
+            cmask_g.reshape(V * K), wt_base,
+            J_g.reshape((V * K,) + J_g.shape[2:]), n_stations, nu_g, config,
+            np.asarray(itermax), itcap, os_cfgs, last, lists, lanes=lanes)
     nu_new = torch.as_tensor(nu_new, dtype=nu_g.dtype,
                              device=nu_g.device).expand(V)
     return (Jn.view(J_g.shape), nu_new, ic.view(V, K), fc.view(V, K),
             np.broadcast_to(its, (V,)), np.broadcast_to(cgs, (V,)),
-            int(tcgs))
+            np.broadcast_to(tcgs, (tiles,)))
 
 
-def _group_update(cjs, J, xres, nuM, nerr_acc, x8, coh, sta1, sta2,
-                  chunk_idx, chunk_mask, wt_base, n_stations: int,
-                  config: SageConfig, itermax, itcap: int, os_cfgs,
-                  last: bool, lists, anchor, cid_shared: bool):
-    """Visit a GROUP of clusters ``cjs`` concurrently (``sage._group_update``,
-    sage.py:552). Every member solves against the residual as of group
-    entry; the entering models fall out of the add-backs (no second model
-    evaluation); the joint update is tried at the :data:`OMEGAS` and the
-    first safe one is applied to J, the residual, nu and the cost
-    reductions. A group no relaxation makes safe leaves the state as it
-    was. A ragged last group simply has fewer members: no padded slot is
-    solved (the reference pads with an out-of-range index instead, whose
-    NaN lane rejects the group: ROADMAP queue C).
+class _Visits(NamedTuple):
+    """One step's visits of a batch of T solve intervals, tile t visiting
+    the G clusters ``cjs[t]`` (lane t G + j), and their lane-batched
+    solve: ``tt``/``cc`` the lanes' tile and cluster indices, ``xd``
+    the add-backs [V, B, 8], ``coh``/``cidx``/``J_old`` the lanes'
+    operands, then :func:`_group_solve`'s outputs."""
 
-    Updates J, nuM and nerr_acc in place; returns (xres, record) with
-    record = dict(omega, margins, solver_iters, cg_iters, tcg_iters),
-    omega 0.0 for a rejected group and margins those of the trials
-    made."""
-    idx = torch.as_tensor(cjs, device=x8.device)
-    coh_g, cidx_g, J_o = coh[idx], chunk_idx[idx], J[idx]
-    xd_g = torch.stack([xres + rp.model8(coh[cj], J[cj], sta1, sta2,
-                                         chunk_idx[cj]) for cj in cjs])
-    Jn, nu_new, ic, fc, its, cgs, tcgs = _group_solve(
-        int(config.solver_mode), xd_g, coh_g, cidx_g, chunk_mask[idx], J_o,
-        nuM[idx].clone(), sta1, sta2, wt_base, n_stations, config, itermax,
-        itcap, os_cfgs, last, lists, cid_shared)
-    model_old = xd_g - xres[None]
-    res_old = ((xres * wt_base) ** 2).sum()
-    margins = []
-    omega = 0.0
-    for w in OMEGAS:
-        ok, margin, xnew, Jr = _omega_trial(w, J_o, Jn, coh_g, cidx_g, sta1,
-                                            sta2, xres, model_old, wt_base,
-                                            res_old, anchor)
-        margins.append(margin)
-        if ok:
-            omega = w
-            break
-    rec = {"omega": omega, "margins": margins,
-           "solver_iters": int(its.sum()),
-           "cg_iters": int(cgs.sum()), "tcg_iters": tcgs}
-    if not omega:
-        return xres, rec
-    init_res, final_res = ic.sum(dim=-1), fc.sum(dim=-1)
+    tt: torch.Tensor
+    cc: torch.Tensor
+    xd: torch.Tensor
+    coh: torch.Tensor
+    cidx: torch.Tensor
+    J_old: torch.Tensor
+    Jn: torch.Tensor
+    nu: torch.Tensor
+    init_cost: torch.Tensor
+    final_cost: torch.Tensor
+    iters: np.ndarray
+    cg_iters: np.ndarray
+    tcg_iters: np.ndarray
+
+
+def _visit_lanes(cjs, J, xres, nuM, coh, sta1, sta2, chunk_idx, chunk_mask,
+                 wt_base, n_stations: int, config: SageConfig, itermax,
+                 itcap: int, os_cfgs, last: bool, lists, same_cid) -> _Visits:
+    """Solve the visits ``cjs`` [T, G] (host ints) of T tiles as one
+    lane-batched solve at V = T G: J [T, M, K, N, 2, 2], xres [T, B, 8],
+    nuM [T, M], coh [T, M, B, 2, 2], wt_base [T, B, 8] (one tile's weights
+    stay shared by its lanes); ``itermax`` and ``os_cfgs`` one per lane;
+    ``same_cid`` the [M, M] host table of clusters with equal chunk ids,
+    which decides whether the lanes share theirs."""
+    T, G = cjs.shape
+    dev = xres.device
+    tt_h, cc_h = np.repeat(np.arange(T), G), cjs.reshape(-1)
+    tt, cc = (torch.as_tensor(a, device=dev) for a in (tt_h, cc_h))
+    coh_g, cidx_g, J_o = coh[tt, cc], chunk_idx[cc], J[tt, cc]
+    xd_g = torch.stack([xres[t] + rp.model8(coh[t, c], J[t, c], sta1, sta2,
+                                            chunk_idx[c])
+                        for t, c in zip(tt_h.tolist(), cc_h.tolist())])
+    if T == 1:
+        wt_g = wt_base[0]
+    else:
+        wt_g = wt_base.repeat_interleave(G, dim=0).reshape(-1, 8)
+    out = _group_solve(
+        int(config.solver_mode), xd_g, coh_g, cidx_g, chunk_mask[cc], J_o,
+        nuM[tt, cc], sta1, sta2, wt_g, n_stations, config, itermax,
+        itcap, os_cfgs, last, lists, bool(same_cid[cc_h[0], cc_h].all()),
+        tiles=T)
+    return _Visits(tt, cc, xd_g, coh_g, cidx_g, J_o, *out)
+
+
+def _group_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
+                  chunk_mask, wt_base, n_stations: int, config: SageConfig,
+                  itermax, itcap: int, os_cfgs, last: bool, lists, anchor,
+                  same_cid):
+    """Visit a GROUP of clusters concurrently in each of T tiles: tile t
+    the clusters ``cjs[t]`` ([T, G] host ints; ``sage._group_update``,
+    sage.py:552, and its tile vmap ``_jit_group_update_tiles``; the state
+    tile-major as :func:`_visit_lanes` takes it, one tile's for a single
+    solve interval), the T G member solves one lane-batched solve. Every
+    member solves against
+    its tile's residual as of group entry; the entering models fall out
+    of the add-backs (no second model evaluation); per tile the joint
+    update is tried at the :data:`OMEGAS` against the tile's own entry
+    residual and sweep anchor (``anchor`` [T]) and the first safe one is
+    applied to J, the residual, nu and the cost reductions. A group no
+    relaxation makes safe leaves its tile's state as it was. A ragged
+    last group simply has fewer members: no padded slot is solved (the
+    reference pads with an out-of-range index instead, whose NaN lane
+    rejects the group: ROADMAP queue C).
+
+    Updates J, xres, nuM and nerr_acc in place; returns one record a tile,
+    dict(omega, margins, solver_iters, cg_iters, tcg_iters), omega 0.0 for
+    a rejected group and margins those of the trials made."""
+    T, G = cjs.shape
+    vis = _visit_lanes(cjs, J, xres, nuM, coh, sta1, sta2, chunk_idx,
+                       chunk_mask, wt_base, n_stations, config, itermax,
+                       itcap, os_cfgs, last, lists, same_cid)
+    model_old = (vis.xd.view((T, G) + xres.shape[1:])
+                 - xres[:, None]).view(vis.xd.shape)
+    init_res, final_res = vis.init_cost.sum(dim=-1), vis.final_cost.sum(dim=-1)
     dcost = torch.where(
         init_res > 0,
         torch.clamp((init_res - final_res)
                     / torch.clamp(init_res, min=1e-30), min=0.0),
         torch.zeros_like(init_res))
-    nerr_acc[idx] = dcost
-    nuM[idx] = nu_new
-    J[idx] = Jr
-    return xnew, rec
+    recs = []
+    for t in range(T):
+        sl = slice(t * G, (t + 1) * G)
+        res_old = ((xres[t] * wt_base[t]) ** 2).sum()
+        margins = []
+        omega = 0.0
+        for w in OMEGAS:
+            ok, margin, xnew, Jr = _omega_trial(
+                w, vis.J_old[sl], vis.Jn[sl], vis.coh[sl], vis.cidx[sl],
+                sta1, sta2, xres[t], model_old[sl], wt_base[t], res_old,
+                anchor[t])
+            margins.append(margin)
+            if ok:
+                omega = w
+                break
+        recs.append({"omega": omega, "margins": margins,
+                     "solver_iters": int(vis.iters[sl].sum()),
+                     "cg_iters": int(vis.cg_iters[sl].sum()),
+                     "tcg_iters": int(vis.tcg_iters[t])})
+        if omega:
+            idx = vis.cc[sl]
+            nerr_acc[t, idx] = dcost[sl]
+            nuM[t, idx] = vis.nu[sl]
+            J[t, idx] = Jr
+            xres[t] = xnew
+    return recs
+
+
+def _cluster_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2,
+                    chunk_idx, chunk_mask, wt_base, n_stations: int,
+                    config: SageConfig, itermax, itcap: int, os_cfgs,
+                    last: bool, lists, same_cid):
+    """One step of a sequential sweep in each of T tiles (``sage._jit_
+    cluster_update`` and its tile vmap ``_jit_cluster_update_tiles``,
+    sage.py:1551): tile t visits cluster ``cjs[t]`` ([T] host ints), the T
+    visits one lane-batched solve (:func:`_visit_lanes` at G = 1; a single
+    solve interval's visit unfolded). Each tile's J, nu and cost reduction
+    are updated in place and its residual is its add-back less the solved
+    cluster's model. Returns (xres, iters [T], cg_iters [T], tcg_iters
+    [T])."""
+    vis = _visit_lanes(cjs[:, None], J, xres, nuM, coh, sta1, sta2,
+                       chunk_idx, chunk_mask, wt_base, n_stations, config,
+                       itermax, itcap, os_cfgs, last, lists, same_cid)
+    init_res, final_res = vis.init_cost.sum(dim=-1), vis.final_cost.sum(dim=-1)
+    nerr_acc[vis.tt, vis.cc] = torch.where(
+        init_res > 0, torch.clamp((init_res - final_res) / init_res,
+                                  min=0.0), torch.zeros_like(init_res))
+    nuM[vis.tt, vis.cc] = vis.nu
+    J[vis.tt, vis.cc] = vis.Jn
+    xres = torch.stack([vis.xd[t] - rp.model8(vis.coh[t], vis.Jn[t], sta1,
+                                              sta2, vis.cidx[t])
+                        for t in range(len(cjs))])
+    return xres, vis.iters, vis.cg_iters, vis.tcg_iters
 
 
 def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
@@ -371,155 +474,258 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
     return Jn, _wres(x8, Jn, coh, sta1, sta2, chunk_idx, wt_base), k
 
 
-def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
-                 n_stations: int, wt_base, nu0=None,
-                 config: SageConfig = SageConfig(), seed: int = 42,
-                 os_id=None):
-    """One solve interval of SAGE-EM calibration with the EM and
-    cluster loops on the host.
+def _budget(config: SageConfig, M: int):
+    """(total_iter, iter_bar, itcap): the EM iteration budget of M
+    clusters (lmfit.c:1085): weighted sweeps give each cluster iter_bar +
+    its share of 0.2 total_iter; itcap bounds every solve's loop."""
+    total_iter = M * config.max_iter
+    iter_bar = int(-(-0.8 * total_iter // M))
+    return total_iter, iter_bar, int(config.max_iter) + iter_bar
 
-    x8 [B, 8] channel-averaged data; coh [M, B, 2, 2] solve
-    coherencies; chunk_idx [M, B]; chunk_mask [M, Kmax] bool; J0
-    [M, Kmax, N, 2, 2]; wt_base [B, 8]; ``os_id`` the (ids [B], count)
-    pair of ``lm.os_subset_ids`` for the OS modes 0/2/3. Returns (J,
-    info) with res_0/res_1 = ||residual w||_2 / (8 B), mean_nu and the
-    executed trips (solver_iters, cg_iters, tcg_iters, lbfgs_iters).
 
-    With ``config.inflight`` > 1 the sweeps visit the clusters in groups
-    (:func:`_group_update`; widths from :func:`_inflight_widths`, cut from
-    the same visiting order) and info adds ``rejected_groups`` and
-    ``groups``, one (sweep, members, omega, margins) record a group."""
+def _itermax(config: SageConfig, weighted: bool, nerr_host, cj: int,
+             total_iter: int, iter_bar: int) -> int:
+    """A cluster visit's iteration cap: max_iter, or on a weighted sweep
+    iter_bar + int32(0.2 nerr[cj] total_iter) from the previous sweep's
+    cost reductions (``nerr_host``, host floats)."""
+    if weighted:
+        return int(np.asarray(0.2 * nerr_host[cj] * total_iter).astype(
+            np.int32)) + iter_bar
+    return config.max_iter
+
+
+def _os_config(config: SageConfig, os_ids, seed_ci: int, cj: int):
+    """A cluster visit's ordered-subsets setting (draws seeded by the
+    sweep's seed and the cluster), or None outside the OS modes."""
+    if os_ids is None:
+        return None
+    return lm_mod.OSConfig(os_id=os_ids[0], n_subsets=os_ids[1],
+                           seed=lm_mod.fold_in(seed_ci, cj),
+                           randomize=config.randomize)
+
+
+def _setup(config: SageConfig, M: int, sta1, sta2, chunk_idx,
+           n_stations: int, os_id, dev):
+    """What every solve of M clusters prepares once: (sta1, sta2,
+    chunk_idx as int64; the matvec kernel's station lists under ``inner
+    == "cg"`` on the card; the OS (ids, count) on the device in the OS
+    modes, else None; the [M, M] host table of clusters with equal chunk
+    ids, from which a group of visits learns that it shares them)."""
     mode = int(config.solver_mode)
     if mode not in tuple(int(m) for m in SolverMode):
         raise ValueError(f"unknown solver mode -j {mode}")
-    M = coh.shape[0]
-    dtype = x8.dtype
-    dev = x8.device
-    if nu0 is None:
-        nu0 = config.nulow
-    total_iter = M * config.max_iter
-    iter_bar = int(-(-0.8 * total_iter // M))
-    itcap = int(config.max_iter) + iter_bar
-    shim = ClusterOrder(seed)
     chunk_idx = chunk_idx.long()
     sta1, sta2 = sta1.long(), sta2.long()
-    # the matvec kernel's station lists, built once for the tile
     lists = (swp.station_lists(sta1, sta2, int(config.nbase), n_stations)
              if config.inner == "cg" and dev.type == "cuda" else None)
     os_ids = None
     if os_id is not None and mode in _OS_MODES:
         os_ids = (torch.as_tensor(np.asarray(os_id[0]), device=dev).long(),
                   int(os_id[1]))
+    # M row comparisons (a sort over rows of B ids costs ~1 s on the card)
+    same_cid = torch.stack([(chunk_idx == chunk_idx[i]).all(dim=-1)
+                            for i in range(M)]).cpu().numpy()
+    return sta1, sta2, chunk_idx, lists, os_ids, same_cid
 
-    if config.jones_mode != "full":
-        # constrained modes start (and stay) on the constraint surface;
-        # the initial residual prices the point the solvers see
-        J0 = ne.jones_constrain(J0, config.jones_mode)
-    xres = x8 - full_model8(J0, coh, sta1, sta2, chunk_idx)
-    res_0 = torch.linalg.vector_norm(xres * wt_base) / (x8.shape[0] * 8)
-    J = J0.clone()
-    nerr = torch.zeros((M,), dtype=dtype, device=dev)
-    nuM = torch.full((M,), float(nu0), dtype=dtype, device=dev)
-    trips = {"solver_iters": 0, "cg_iters": 0, "tcg_iters": 0}
-    G0, Gs = _inflight_widths(config, M)
-    groups = []
-    same_cid = None
-    if Gs > 1:
-        # [M, M] host bools, clusters i and j have equal chunk ids: a
-        # group of such clusters shares them in its sweep (M row
-        # comparisons; a sort over rows of B ids costs ~1 s on the card)
-        same_cid = torch.stack([(chunk_idx == chunk_idx[i]).all(dim=-1)
-                                for i in range(M)]).cpu().numpy()
-    t_em = time.perf_counter()
-    for ci in range(config.max_emiter):
-        weighted = config.randomize and (ci % 2 == 1)
-        last = ci == config.max_emiter - 1
-        order = shim.order(ci, M, nerr, weighted, config.randomize)
-        nerr_host = nerr.cpu().numpy() if weighted else None
-        nerr_acc = torch.zeros((M,), dtype=dtype, device=dev)
-        seed_ci = lm_mod.fold_in(seed, ci)
 
-        def itermax_of(cj):
-            if weighted:
-                return int(np.asarray(
-                    0.2 * nerr_host[cj] * total_iter).astype(np.int32)) \
-                    + iter_bar
-            return config.max_iter
+def _nerr(nerr_acc):
+    """The next sweep's cost-reduction shares from a sweep's reductions
+    (last axis the clusters)."""
+    total = nerr_acc.sum(dim=-1, keepdim=True)
+    return torch.where(total > 0, nerr_acc / torch.clamp(total, min=1e-30),
+                       nerr_acc)
 
-        def os_of(cj):
-            if os_ids is None:
-                return None
-            return lm_mod.OSConfig(
-                os_id=os_ids[0], n_subsets=os_ids[1],
-                seed=lm_mod.fold_in(seed_ci, cj),
-                randomize=config.randomize)
 
-        Gi = G0 if ci == 0 else Gs
-        if Gi > 1:
-            # sweep-entry anchor of the group-step safeguard
-            anchor = ((xres * wt_base) ** 2).sum()
-            for g in range(0, M, Gi):
-                cjs = [int(c) for c in order[g:g + Gi]]
-                xres, rec = _group_update(
-                    cjs, J, xres, nuM, nerr_acc, x8, coh, sta1, sta2,
-                    chunk_idx, chunk_mask, wt_base, n_stations, config,
-                    [itermax_of(cj) for cj in cjs], itcap,
-                    None if os_ids is None else [os_of(cj) for cj in cjs],
-                    last, lists, anchor,
-                    bool(same_cid[cjs[0], cjs].all()))
-                for key in trips:
-                    trips[key] += rec[key]
-                groups.append((ci, cjs, rec["omega"], rec["margins"]))
-        else:
-            for cj in (int(c) for c in order):
-                itermax = itermax_of(cj)
-                os_cfg = os_of(cj)
-                xdummy = xres + rp.model8(coh[cj], J[cj], sta1, sta2,
-                                          chunk_idx[cj])
-                Jn, nu_new, init_c, final_c, its, cgs, tcgs = _cluster_solve(
-                    mode, xdummy, coh[cj], sta1, sta2, chunk_idx[cj],
-                    chunk_mask[cj], wt_base, J[cj], n_stations,
-                    nuM[cj].clone(), config, itermax, itcap, os_cfg, last,
-                    lists)
-                trips["solver_iters"] += int(its)
-                trips["cg_iters"] += int(cgs)
-                trips["tcg_iters"] += int(tcgs)
-                nuM[cj] = nu_new
-                init_res = init_c.sum()
-                final_res = final_c.sum()
-                dcost = torch.where(
-                    init_res > 0,
-                    torch.clamp((init_res - final_res) / init_res, min=0.0),
-                    torch.zeros_like(init_res))
-                nerr_acc[cj] = dcost
-                J[cj] = Jn
-                xres = xdummy - rp.model8(coh[cj], Jn, sta1, sta2,
-                                          chunk_idx[cj])
-        total = nerr_acc.sum()
-        nerr = torch.where(total > 0,
-                           nerr_acc / torch.clamp(total, min=1e-30),
-                           nerr_acc)
-
+def _finish(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
+            config: SageConfig, nuM):
+    """The end of one tile's solve: mean nu, then the joint refine (or
+    the residual alone at -l 0). Returns (J, res_1, mean_nu, lbfgs
+    iterations, refine s)."""
+    M = nuM.shape[0]
     # the mean as the JAX package's compiled program takes it: XLA turns
     # the division by M into a multiply by 1/M (one ulp apart at M = 3)
     mean_nu = torch.clamp(nuM.sum() * (1.0 / M), config.nulow,
                           config.nuhigh)
-    # host wall split: the solvers read the device every iteration and
-    # the refine's line search every evaluation, so each span ends within
-    # one small kernel of its device work
-    t_refine = time.perf_counter()
-    em_s = t_refine - t_em
+    # host wall: the refine's line search reads the device every
+    # evaluation, so the span ends within one small kernel of its work
+    t0 = time.perf_counter()
     lbfgs_k = 0
     if config.max_lbfgs > 0:
-        J, res_1, lbfgs_k = refine(x8, coh, sta1, sta2, chunk_idx, J,
-                                   wt_base, n_stations, config,
-                                   mean_nu=mean_nu if _is_robust(mode)
-                                   else None)
+        J, res_1, lbfgs_k = refine(
+            x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations, config,
+            mean_nu=mean_nu if _is_robust(int(config.solver_mode)) else None)
     else:
         res_1 = _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base)
-    res_1 = float(res_1)
-    return J, {"res_0": res_0, "res_1": res_1, "mean_nu": mean_nu,
-               "em_s": em_s, "refine_s": time.perf_counter() - t_refine,
-               "nerr": nerr, **trips, "lbfgs_iters": lbfgs_k,
-               "rejected_groups": sum(1 for g in groups if not g[2]),
-               "groups": groups}
+    return J, float(res_1), mean_nu, lbfgs_k, time.perf_counter() - t0
+
+
+def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
+                 n_stations: int, wt_base, nu0=None,
+                 config: SageConfig = SageConfig(), seed: int = 42,
+                 os_id=None, order=None):
+    """One solve interval of SAGE-EM calibration with the EM and
+    cluster loops on the host: :func:`sagefit_host_tiles` at T = 1.
+
+    x8 [B, 8] channel-averaged data; coh [M, B, 2, 2] solve
+    coherencies; chunk_idx [M, B]; chunk_mask [M, Kmax] bool; J0
+    [M, Kmax, N, 2, 2]; wt_base [B, 8]; ``os_id`` the (ids [B], count)
+    pair of ``lm.os_subset_ids`` for the OS modes 0/2/3; ``order`` the
+    visiting order (a :class:`ClusterOrder`, by default of ``seed``).
+    Returns (J, info) with res_0/res_1 = ||residual w||_2 / (8 B),
+    mean_nu and the executed trips (solver_iters, cg_iters, tcg_iters,
+    lbfgs_iters).
+
+    With ``config.inflight`` > 1 the sweeps visit the clusters in groups
+    (:func:`_group_update`; widths from :func:`_inflight_widths`, cut from
+    the same visiting order) and info adds ``rejected_groups`` and
+    ``groups``, one (sweep, members, omega, margins) record a group."""
+    J, info = sagefit_host_tiles(
+        x8[None], coh[None], sta1, sta2, chunk_idx, chunk_mask, J0[None],
+        n_stations, wt_base[None], nu0=nu0, config=config, seeds=[seed],
+        os_id=os_id, orders=None if order is None else [order])
+    return J[0], {"res_0": info["res_0"][0], "res_1": float(info["res_1"][0]),
+                  "mean_nu": info["mean_nu"][0], "em_s": info["em_s"],
+                  "refine_s": info["refine_s"], "nerr": info["nerr"][0],
+                  **{k: int(info[k][0]) for k in _TILE_TRIPS},
+                  "groups": info["groups"][0]}
+
+
+def tile_seeds(n_tiles: int, base: int = 42) -> list:
+    """One seed per tile of a batch (``sage.tile_keys``, sage.py:1355):
+    tile 0 keeps the single-tile default, so its draws are the unbatched
+    solve's; tile t folds (base, 1000 + t). JAX keys cannot be
+    reproduced, so these are seeds of the port's ``torch.Generator``
+    shims (:class:`ClusterOrder`, ``lm.OSConfig``)."""
+    return [int(base)] + [lm_mod.fold_in(base, 1000 + t)
+                          for t in range(1, int(n_tiles))]
+
+
+#: the per-tile trip counters of :func:`sagefit_host_tiles`
+_TILE_TRIPS = ("solver_iters", "cg_iters", "tcg_iters", "lbfgs_iters",
+               "rejected_groups")
+
+
+def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
+                       n_stations: int, wt_base, nu0=None,
+                       config: SageConfig = SageConfig(), seeds=None,
+                       os_id=None, orders=None):
+    """SAGE-EM calibration of T independent solve intervals as one
+    lane-batched solve, the EM and cluster loops on the host
+    (``sage.sagefit_host_tiles``, sage.py:1367-1548).
+
+    x8 [T, B, 8], coh [T, M, B, 2, 2], J0 [T, M, K, N, 2, 2] and wt_base
+    [T, B, 8] per tile; sta1/sta2, chunk_idx and chunk_mask shared (the
+    tiles of one dataset have the same baseline order); ``seeds`` one per
+    tile (:func:`tile_seeds` by default) and ``orders`` optional visiting
+    orders, one :class:`ClusterOrder`-like a tile (by default of its
+    seed; tests feed the reference's permutations).
+
+    Each tile visits the clusters in its own order (on weighted sweeps
+    by its own cost reductions) with its own caps, OS draws and nu.
+    Sweep step cj is one lane-batched solve of T lanes, tile t's lane
+    the cluster ``order[t, cj]`` (``_jit_cluster_update_tiles``); under
+    ``config.inflight`` a group step is one solve of T G lanes, each
+    tile's joint update tried against its own entry residual and sweep
+    anchor (``_jit_group_update_tiles``). On the card every such solve
+    runs the multi-visit sweep kernel and its products the matvec kernel
+    at T kmax chunks. A lane that stops is frozen, as the reference's
+    while loops freeze it under vmap, so every tile's result is its own
+    solve's. The joint refine runs tile after tile. :func:`sagefit_host`
+    is the T = 1 case, whose lone sequential visits solve unfolded.
+
+    Returns (J [T, M, K, N, 2, 2], info): res_0, mean_nu [T] and nerr
+    [T, M] tensors; res_1 and the trips of ``_TILE_TRIPS`` [T] numpy
+    arrays; ``groups`` one list a tile; the batch's ``em_s`` and
+    ``refine_s`` and each tile's ``refine_tiles_s``."""
+    T, M = coh.shape[0], coh.shape[1]
+    seeds = tile_seeds(T) if seeds is None else [int(s) for s in seeds]
+    shims = [ClusterOrder(s) for s in seeds] if orders is None \
+        else list(orders)
+    dtype, dev = x8.dtype, x8.device
+    if nu0 is None:
+        nu0 = config.nulow
+    total_iter, iter_bar, itcap = _budget(config, M)
+    sta1, sta2, chunk_idx, lists, os_ids, same_cid = _setup(
+        config, M, sta1, sta2, chunk_idx, n_stations, os_id, dev)
+    if config.jones_mode != "full":
+        J0 = ne.jones_constrain(J0, config.jones_mode)
+    B = x8.shape[1]
+    # the prelude tile by tile
+    xres = torch.stack([x8[t] - full_model8(J0[t], coh[t], sta1, sta2,
+                                            chunk_idx) for t in range(T)])
+    res_0 = torch.stack([torch.linalg.vector_norm(xres[t] * wt_base[t])
+                         for t in range(T)]) / (B * 8)
+    J = J0.clone()
+    nerr = torch.zeros((T, M), dtype=dtype, device=dev)
+    nuM = torch.full((T, M), float(nu0), dtype=dtype, device=dev)
+    trips = {k: np.zeros(T, dtype=np.int64) for k in _TILE_TRIPS}
+    G0, Gs = _inflight_widths(config, M)
+    groups = [[] for _ in range(T)]
+    t_em = time.perf_counter()
+    for ci in range(config.max_emiter):
+        weighted = config.randomize and (ci % 2 == 1)
+        last = ci == config.max_emiter - 1
+        order = np.stack([shims[t].order(ci, M, nerr[t], weighted,
+                                         config.randomize)
+                          for t in range(T)])
+        nerr_host = nerr.cpu().numpy() if weighted else None
+        nerr_acc = torch.zeros((T, M), dtype=dtype, device=dev)
+        seed_ci = [lm_mod.fold_in(s, ci) for s in seeds]
+
+        def lanes_of(cjs):
+            """Per-lane caps and OS settings of the visits cjs [T, G]."""
+            caps = [_itermax(config, weighted,
+                             None if nerr_host is None else nerr_host[t], cj,
+                             total_iter, iter_bar)
+                    for t in range(T) for cj in cjs[t]]
+            oss = None if os_ids is None else [
+                _os_config(config, os_ids, seed_ci[t], int(cj))
+                for t in range(T) for cj in cjs[t]]
+            return caps, oss
+
+        Gi = G0 if ci == 0 else Gs
+        if Gi > 1:
+            # each tile's sweep-entry anchor of the group-step safeguard
+            anchor = torch.stack([((xres[t] * wt_base[t]) ** 2).sum()
+                                  for t in range(T)])
+            for g in range(0, M, Gi):
+                cjs = order[:, g:g + Gi]
+                caps, oss = lanes_of(cjs)
+                recs = _group_update(
+                    cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
+                    chunk_mask, wt_base, n_stations, config, caps, itcap,
+                    oss, last, lists, anchor, same_cid)
+                for t, rec in enumerate(recs):
+                    for key in ("solver_iters", "cg_iters", "tcg_iters"):
+                        trips[key][t] += rec[key]
+                    trips["rejected_groups"][t] += not rec["omega"]
+                    groups[t].append((ci, [int(c) for c in cjs[t]],
+                                      rec["omega"], rec["margins"]))
+        else:
+            for step in range(M):
+                cjs = order[:, step]
+                caps, oss = lanes_of(cjs[:, None])
+                xres, its, cgs, tcgs = _cluster_update(
+                    cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
+                    chunk_mask, wt_base, n_stations, config, caps, itcap,
+                    oss, last, lists, same_cid)
+                trips["solver_iters"] += its
+                trips["cg_iters"] += cgs
+                trips["tcg_iters"] += tcgs
+        nerr = _nerr(nerr_acc)
+    em_s = time.perf_counter() - t_em
+
+    # the refine tile after tile (a vmapped LBFGS is the per-tile LBFGS)
+    res_1 = np.zeros(T)
+    mean_nu = []
+    refine_s = []
+    for t in range(T):
+        J[t], res_1[t], mnu, trips["lbfgs_iters"][t], secs = _finish(
+            x8[t], coh[t], sta1, sta2, chunk_idx, J[t], wt_base[t],
+            n_stations, config, nuM[t])
+        mean_nu.append(mnu)
+        refine_s.append(secs)
+    return J, {"res_0": res_0, "res_1": res_1,
+               "mean_nu": torch.stack(mean_nu), "nerr": nerr, **trips,
+               "groups": groups, "em_s": em_s, "refine_s": sum(refine_s),
+               "refine_tiles_s": refine_s}

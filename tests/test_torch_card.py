@@ -6,12 +6,12 @@ JAX package, so it runs on a card machine without them:
 
 Each kernel is held against its plain PyTorch version in float32 at
 max|diff| <= 1e-4 max|ref| (the chip_smoke.py gate), and a CUDA tensor
-must launch the kernel or raise — never fall back. Two tests drive the
+must launch the kernel or raise — never fall back. Three tests drive the
 solvers with ``--inner cg`` on the card (robust RTR alone, LM as an
-in-flight group of two clusters) against the same solve on the CPU in
-float64; the last two hold the split predict of a mixed sky against the
-generic predict in float64 on the card, and one LM solve on the XLA
-assembly against the CPU."""
+in-flight group of two clusters, LM as a batch of two solve intervals)
+against the same solve on the CPU in float64; the last two hold the
+split predict of a mixed sky against the generic predict in float64 on
+the card, and one LM solve on the XLA assembly against the CPU."""
 
 import numpy as np
 import pytest
@@ -579,6 +579,56 @@ def test_group_solve_on_card_matches_cpu(card):
     assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
 
 
+def test_tile_lanes_on_card_match_cpu(card):
+    """One lane-batched solve of a batch of V = T = 2 solve intervals (a
+    sweep step of ``sagefit_host_tiles``: LM, PCG on the matvec kernel):
+    each tile its own data, coherencies, flagged weights and chunk ids (a
+    cluster of 2 chunks in tile 0, of 1 in tile 1), through the
+    multi-visit sweep kernel with every operand per visit, against the
+    CPU float64 solve: each lane's final cost within 1e-3."""
+    from sagecal_tpu_torch.solvers import sage as tsage
+    rng = np.random.default_rng(9)
+    V, N, T, K = 2, 9, 12, 2
+    p, q = np.triu_indices(N, k=1)
+    nb = len(p)
+    B = T * nb
+    cid = np.stack([np.minimum((np.arange(B) // nb) // -(-T // nck),
+                               nck - 1) for nck in (2, 1)])
+    coh = rng.normal(size=(V, B, 2, 2)) + 1j * rng.normal(size=(V, B, 2, 2))
+    Jt = (rng.normal(size=(V, K, N, 2, 2))
+          + 1j * rng.normal(size=(V, K, N, 2, 2))) * 0.2 + np.eye(2)
+    sa, sb = np.tile(p, T), np.tile(q, T)
+    Vis = np.stack([Jt[v][cid[v], sa] @ coh[v]
+                    @ np.conj(np.swapaxes(Jt[v][cid[v], sb], -1, -2))
+                    for v in range(V)])
+    Vis = Vis + 0.05 * (rng.normal(size=Vis.shape)
+                        + 1j * rng.normal(size=Vis.shape))
+    x8 = np.stack([Vis.reshape(V, B, 4).real, Vis.reshape(V, B, 4).imag],
+                  -1).reshape(V, B, 8)
+    wt = np.repeat((rng.random((V * B, 1)) > 0.1).astype(float), 8, axis=1)
+    cmask = np.array([[True, True], [True, False]])
+    J0 = np.tile(np.eye(2, dtype=complex), (V, K, N, 1, 1))
+    cfg = tsage.SageConfig(max_iter=6, solver_mode=1, inner="cg", nbase=nb)
+    out = {}
+    for dev, rdt, cdt in ((card, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        r = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
+        c = lambda a: torch.as_tensor(a, dtype=cdt, device=dev)
+        i = lambda a: torch.as_tensor(a, device=dev).long()
+        n0 = (tswp.VISITS_LAUNCHES, tswp.MATVEC_LAUNCHES, tswp.LAUNCHES)
+        res = tsage._group_solve(
+            1, r(x8), c(coh), i(cid), torch.as_tensor(cmask, device=dev),
+            c(J0), r([2.0, 2.0]), i(sa), i(sb), r(wt), N, cfg, [6, 4], 9,
+            None, False, None, cid_shared=False, tiles=V)
+        counts = (tswp.VISITS_LAUNCHES, tswp.MATVEC_LAUNCHES, tswp.LAUNCHES)
+        out[str(dev)] = (res[3].double().cpu(),
+                         [b - a for a, b in zip(n0, counts)], res[4])
+    (gc, gl, gi), (cc, cl, ci) = out[str(card)], out["cpu"]
+    assert gl[0] > 0 and gl[1] > 0 and gl[2] == 0 and cl == [0, 0, 0]
+    assert gi[1] <= 4 and ci[1] <= 4
+    assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
+
+
 def robust_rtr_problem(point: bool = True):
     """The robust RTR card test's input (seed 6, N = 9, T = 12, K = 2):
     visibilities of a truth 0.2 from identity with noise 0.05, solved from
@@ -684,3 +734,43 @@ def test_xla_lm_solve_on_card_matches_cpu(card):
         assert tlm.XLA_SOLVES - n0 == 1 and tswp.LAUNCHES == s0
     gc, cc = out[str(card)], out["cpu"]
     assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
+
+
+@pytest.mark.parametrize("flags,md,nchunk", [
+    (["-j", "1", "--jones", "diag", "--inflight", "2", "-g", "30"], 2,
+     (1, 2) * 4),
+    (["-j", "1", "--inner", "cg", "--jones", "phase"], 1, (1, 2) * 4),
+    (["-j", "5", "--inner", "cg", "--jones", "phase"], 1, (1,) * 8),
+    (["-j", "5", "--inner", "cg"], 4, (1,) * 8)])
+def test_tile_batch_jones_pipeline_on_card_matches_cpu(card, tmp_path,
+                                                       flags, md, nchunk):
+    """The pipeline at --tile-batch 2 on the card (16 stations, 8
+    clusters, 3 tiles of 10 timeslots: tile 0 alone, tiles 1-2 one batch)
+    against the CPU pipeline: per-tile residuals within 1e-3; the batch
+    launches the visits kernel, at the mode's md only, and no
+    single-visit sweep. Cases: LM with groups in diag mode and LM with
+    PCG on the matvec kernel in phase mode, on clusters of 1 and 2
+    chunks; and -j 5 --inner cg, which 16 stations run as OS robust LM
+    with PCG, in phase mode and in full Jones, on single-chunk clusters.
+    (With 2-chunk clusters the OS modes' float32 runs leave float64 by
+    up to ~2e-2, ROADMAP queue C item 4; slice_parity's 16-station
+    default run uses single-chunk clusters for the same reason.)"""
+    import shutil
+    import chip_smoke
+    ms, sky, clus = chip_smoke.make_observation(
+        str(tmp_path), 16, 10, chip_smoke.FREQS[:2], 8, 3, nchunk, 3,
+        "cpu", seed=9, noise=0.02)
+    shutil.copytree(ms, ms + ".cpu")
+    run = flags + ["--tile-batch", "2"]
+    tswp.reset_launches()
+    got, _ = chip_smoke._parity_run(ms, sky, clus, run, device=None)
+    ref, _ = chip_smoke._parity_run(ms + ".cpu", sky, clus, run,
+                                    device="cpu")
+    assert [h["batch"] and h["batch"]["tiles"] for h in got] == \
+        [None, [1, 2], [1, 2]]
+    assert got[1]["launches"]["visits"] > 0
+    assert got[1]["launches"]["sweep"] == 0
+    assert tswp.MD_LAUNCHES and all(m == md for _, m in tswp.MD_LAUNCHES)
+    for g, c in zip(got, ref):
+        for key in ("res_0", "res_1"):
+            assert abs(g[key] - c[key]) <= 1e-3 * abs(c[key]), key

@@ -301,7 +301,7 @@ def test_mode_runs_use_their_solvers(mode_runs):
 
 
 @pytest.mark.parametrize("extra", [["--resume"], ["-N", "2"],
-                                   ["-B", "1"], ["--tile-batch", "2"],
+                                   ["-B", "1"], ["--tile-bucket", "8"],
                                    ["-W", "1"],
                                    ["-a", "1"], ["-q", "x.sol"],
                                    ["--dtype-policy", "bf16"],
