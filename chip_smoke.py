@@ -13,8 +13,8 @@ RTR), at ``-j 5 --inner cg``, and with in-flight cluster groups
 ``slice_parity``), and drives the full-batch CLI end to end on a
 synthetic observation at full width (62 LOFAR-like stations, 120
 timeslots, 8 channels, clusters of 64 sources): ``e2e`` at ``-j 1`` on
-one tile and ``e2e_rtr`` at ``-j 5 --inner cg`` (robust RTR with the
-matvec kernel in every tCG product) on two, with 8 clusters;
+one tile and ``e2e_rtr`` at ``-j 5 --inner cg -e 2`` (robust RTR with
+the matvec kernel in every tCG product) on two, with 8 clusters;
 ``e2e_inflight`` at ``-j 5 --inner cg --inflight 4 -e 1`` on two tiles
 with 16 clusters (the multi-visit sweep kernel in every group solve).
 Batches of solve intervals (``--tile-batch``): ``visits`` also holds the
@@ -24,8 +24,8 @@ records at V = 4 and 8 visits of 4 chunks (16 and 32 chunks, the tCG
 products of a batch); ``slice_parity`` adds ``tile_batch_rtr`` (``-j 5 --inner
 cg --tile-batch 2``, 5 tiles) and ``tile_batch_inflight`` (``-j 1
 --tile-batch 2 --inflight 2``, 8 clusters, 3 tiles); and
-``e2e_tile_batch`` runs ``-j 5 --inner cg --tile-batch 4`` at full width
-on 5 tiles (tile 0 alone, tiles 1-4 one batch, which must launch the
+``e2e_tile_batch`` runs ``-j 5 --inner cg --tile-batch 4 -e 2`` at full
+width on 5 tiles (tile 0 alone, tiles 1-4 one batch, which must launch the
 visits and matvec kernels and no single-visit sweep), its batch's EM,
 refine and per-tile seconds printed beside e2e_rtr's warm tile 1.
 Skies of every morphology: ``predict_mixed`` holds the split predict
@@ -45,6 +45,15 @@ adds ``diag_j1``, ``phase_cg`` and ``diag_inflight_rtr``; and ``e2e_diag``
 phase -e 1``) run one tile each on e2e_rtr's observation. A run in a mode must
 launch its solve kernels at that mode's md only, and its solutions'
 off-diagonals must be exactly 0.
+Stochastic calibration (``-N``): ``coh`` also holds and times the kernel
+at the band shapes of ``e2e_stochastic`` (a minibatch of 30 timeslots,
+4 evenly spaced channels; a padded 3-channel band, uneven: the sincos
+path), ``slice_parity`` adds ``stochastic`` (``-N 2 -M 2 -w 2`` on 16
+stations, 8 channels, 2 tiles of 20 timeslots: per-tile residuals and
+solutions within 1e-3, every Armijo decision equal or the first flip within
+FLIP_MARGIN of its threshold), and ``e2e_stochastic`` runs ``-N 2 -M 4
+-w 2`` at full width on e2e_rtr's first 2 tiles. A stochastic run must
+launch the coherency kernel and no solve kernel.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -407,10 +416,13 @@ def phase_build():
          ptxas=ptxas)
 
 
-def _coh_inputs(F: int, per_channel: bool, seed: int = 1):
+def _coh_inputs(F: int, per_channel: bool, seed: int = 1, fl=None,
+                n_times: int = TILESZ):
     """The coherency kernel's inputs at the full-width path's shapes, the
     number of gaussians, and the host's channel list (from which the
-    pipeline decides the channel step)."""
+    pipeline decides the channel step). ``fl`` (a host channel list)
+    and ``n_times`` (timeslots of rows) give a stochastic band's shape:
+    a minibatch's rows and one band's channels, at the channel width."""
     import torch
     from sagecal_tpu_torch.io import dataset as ds
     from sagecal_tpu_torch.ops import coh as coh_ops
@@ -425,17 +437,20 @@ def _coh_inputs(F: int, per_channel: bool, seed: int = 1):
     sky.use_projection[sky.stype == skymodel.STYPE_GAUSSIAN] = True
     dsky = rp.sky_to_device(sky, torch.float32, dev)
     xyz = ds.random_array(N_STATIONS, seed=seed)
-    ha = np.linspace(0.0, ds.OMEGA_E * 10.0 * TILESZ, TILESZ, endpoint=False)
+    ha = np.linspace(0.0, ds.OMEGA_E * 10.0 * TILESZ, TILESZ,
+                     endpoint=False)[:n_times]
     u, v, w, _, _ = ds.uvw_tracks(xyz, DEC0, ha)
     t = lambda a: torch.as_tensor((a / ds.C_M_S).reshape(-1),
                                   dtype=torch.float32, device=dev)
-    fl = FREQS[:F] if F > 1 else np.array([150e6])
+    band = fl is not None
+    if not band:
+        fl = FREQS[:F] if F > 1 else np.array([150e6])
     freqs = torch.as_tensor(fl, dtype=torch.float32, device=dev)
     uvw3 = torch.stack([t(u), t(v), t(w)])
     geom = torch.stack([dsky.ll, dsky.mm, dsky.nn], dim=1)
     flux = coh_ops.stokes_weights(dsky, freqs, per_channel)
     gauss = coh_ops.gauss_coeffs(dsky)
-    fdelta = 0.18e6 * (8 if F == 1 else 1)
+    fdelta = 0.18e6 * (8 if F == 1 and not band else 1)
     n_gauss = int((sky.stype == skymodel.STYPE_GAUSSIAN).sum())
     return (uvw3, geom, flux, gauss, freqs, fdelta), n_gauss, fl
 
@@ -651,7 +666,64 @@ def phase_coh():
             rec.update(sincos_rel_err=t_rel, sincos_f64_err_kernel=t_err)
         emit("coh_edge", **rec)
         out[tag] = dict(max_abs_err=abs_err)
+    for tag, fl in COH_BANDS:
+        out[tag] = _coh_band(tag, fl, ptxas)
     return out
+
+
+#: the stochastic band shapes of e2e_stochastic (-M 4 -w 2 on 8 channels:
+#: one minibatch of 30 timeslots, 4 evenly spaced channels a band) and of
+#: a padded last band (-w 3 on 8 channels: channels 6, 7 and 6 again, an
+#: uneven list, so the per-channel sincos path), with per-channel flux
+COH_BANDS = (("band_F4", FREQS[:4]),
+             ("band_F3_padded", FREQS[[6, 7, 6]]))
+#: timeslots of e2e_stochastic's minibatch (-M 4 of 120)
+BAND_TIMES = TILESZ // 4
+
+
+def _coh_band(tag: str, fl, ptxas: dict) -> dict:
+    """The coherency kernel at a stochastic band's shape (M = 8 clusters
+    of 64 sources, a quarter gaussian; B = BAND_TIMES x 1891 rows; the
+    band's channels ``fl`` with per-channel flux): against its plain
+    version (1e-4) and float64, a bitwise repeat, one kernel a call, and
+    its times and operation bound."""
+    from sagecal_tpu_torch.ops import coh as coh_ops
+    args, n_gauss, fl = _coh_inputs(len(fl), True, fl=np.asarray(fl),
+                                    n_times=BAND_TIMES)
+    step = coh_ops.channel_step(fl)
+    if (step is None) != (len(set(fl)) != len(fl)):
+        raise AssertionError(f"coh {tag}: channel_step gave {step}")
+    uvw3, geom, flux, gauss, freqs, _ = args
+    M, _, S = geom.shape
+    F, B = len(fl), uvw3.shape[1]
+    abs_err, rel, err_kernel, err_plain = _coh_check(tag, args, step)
+    fn = lambda: coh_ops.coherencies_points(*args, step=step)
+    k_us = kernel_us(fn, ("coh_points",))
+    if k_us is None:
+        raise AssertionError(f"coh {tag}: the profiler found no coh_points "
+                             "kernel")
+    n_kernels, traces = kernels_per_call(fn, "coh_points",
+                                         lambda: coh_ops.LAUNCHES)
+    if n_kernels != 1:
+        raise AssertionError(f"coh {tag}: {n_kernels} kernels a call")
+    n_ops = coh_ops.op_count(M, F, B, S, n_gauss)
+    n_bytes = 4 * (uvw3.numel() + geom.numel() + flux.numel()
+                   + gauss.numel() + F + M * B * F * 8)
+    bms, by = bound_ms(n_bytes, n_ops)
+    rec = dict(tag=tag, M=M, F=F, B=B, S=S, n_gauss=n_gauss,
+               freqs=[float(f) for f in fl], step=step,
+               geometry=coh_ops.coh_geometry(F, B)._asdict(),
+               max_abs_err=abs_err, rel_err=rel, f64_err_kernel=err_kernel,
+               f64_err_plain_f32=err_plain, ms=cuda_ms(fn, 20),
+               device_ms=device_ms(fn, 50), kernel_us=k_us,
+               kernels_per_call=n_kernels, kernel_traces=traces,
+               plain_ms=cuda_ms(
+                   lambda: coh_ops.coherencies_points_plain(*args), 3),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               kernel_bound_share=bms / (k_us / 1e3), deterministic=True,
+               registers=ptxas)
+    emit("coh_band", **rec)
+    return rec
 
 
 def _sweep_inputs(K: int, seed: int = 2, N: int = N_STATIONS,
@@ -1359,11 +1431,110 @@ def _parity_cpu(job):
     return _parity_run(*job, device="cpu")
 
 
+#: slice_parity's stochastic run: (stations, chunks per cluster,
+#: timeslots a tile, channels, CLI flags); 2 tiles, card against CPU at
+#: 1e-3 on per-tile res_0/res_1 and on the solutions, with the Armijo flip
+#: rule. A minibatch holds 10 timeslots, as the full-batch runs' tiles,
+#: and a band 4 of the 8 channels, as e2e_stochastic's (the kernel's
+#: 8-channel instance with idle slots, the phasor recurrence). At 10
+#: timeslots and 4 channels (~5 data reals a parameter a band) float32
+#: alone moves J by ~3e-3 from float64, on the CPU too (ROADMAP C8,
+#: tests/test_torch_stochastic_float32.py)
+STOCHASTIC_PARITY = (16, (1, 2) * 4, 20, 8,
+                     ["-N", "2", "-M", "2", "-w", "2"])
+
+
+def _stochastic_run(path: str, sky: str, clus: str, flags, device):
+    """A stochastic run over every tile of ``path`` through the CLI's
+    parser, its solutions beside the SimMS: (history, seconds,
+    solutions path)."""
+    from sagecal_tpu_torch import stochastic
+    from sagecal_tpu_torch.cli import build_parser, config_from_args
+    solpath = path + ".sol"
+    args = build_parser().parse_args(
+        ["-d", path, "-s", sky, "-c", clus, "-l", "10", "-m", "7", "-p",
+         solpath] + flags)
+    t0 = time.perf_counter()
+    hist = stochastic.run_minibatch(config_from_args(args), device=device,
+                                    log=lambda *a: None)
+    return hist, time.perf_counter() - t0, solpath
+
+
+def _stochastic_cpu(job):
+    import torch
+    torch.set_num_threads(PARITY_THREADS)
+    return _stochastic_run(*job, device="cpu")
+
+
+def _first_armijo_flip(cuda_hist, cpu_hist):
+    """The first Armijo test (tile, solve, band, iteration, test) whose
+    decision differs between the card and the CPU run, with both
+    margins, or None when every decision agrees. A margin is (f(x + a p)
+    - threshold) / |threshold|: positive halves the step."""
+    for ti, (hg, hc) in enumerate(zip(cuda_hist, cpu_hist)):
+        for si, (sg, sc) in enumerate(zip(hg["armijo"], hc["armijo"])):
+            for b, (bg, bc) in enumerate(zip(sg, sc)):
+                for it, (ig, ic) in enumerate(zip(bg, bc)):
+                    for j, (mg, mc) in enumerate(zip(ig, ic)):
+                        if (mg > 0) != (mc > 0):
+                            return dict(tile=ti, solve=si, band=b,
+                                        iteration=it, test=j,
+                                        card_margin=mg, cpu_margin=mc)
+    return None
+
+
+def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
+    """The stochastic card run against its CPU reference: every Armijo
+    decision equal (or the first flip within FLIP_MARGIN of its threshold
+    on both sides, which then replaces the gates), per-tile res_0/res_1
+    and the solutions within PARITY_RTOL; only the coherency kernel
+    launched."""
+    from sagecal_tpu_torch.io import solutions as sol
+    (hg, sg, pg, launches), (hc, sc, pc) = card, cpu
+    rels = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(hg, hc)
+            for k in ("res_0", "res_1")]
+    Jg = np.asarray(sol.read_solutions(pg, nchunk)[1])
+    Jc = np.asarray(sol.read_solutions(pc, nchunk)[1])
+    j_rel = float(np.abs(Jg - Jc).max() / np.abs(Jc).max())
+    flip = _first_armijo_flip(hg, hc)
+    rec = dict(tag=tag, cuda=[[h["res_0"], h["res_1"]] for h in hg],
+               cpu=[[h["res_0"], h["res_1"]] for h in hc],
+               max_rel=max(rels), j_rel=j_rel, launches=launches,
+               lbfgs_iters={"cuda": [h["lbfgs_iters"] for h in hg],
+                            "cpu": [h["lbfgs_iters"] for h in hc]},
+               halvings={d: [[[sum(m > 0 for m in it) for it in band]
+                              for band in solve] for h in hist
+                             for solve in h["armijo"]]
+                         for d, hist in (("cuda", hg), ("cpu", hc))},
+               seconds={"cuda": sg, "cpu": sc}, flip=flip)
+    emit("slice_parity", **rec)
+    if launches["coh"] == 0 or any(launches[k] for k in SOLVE_KERNELS) \
+            or launches["xla_solves"]:
+        raise AssertionError(f"slice_parity {tag}: the stochastic solve must "
+                             "launch the coherency kernel and no solve "
+                             f"kernel: {launches}")
+    if flip is not None:
+        if max(abs(flip["card_margin"]), abs(flip["cpu_margin"])) \
+                > FLIP_MARGIN:
+            raise AssertionError(f"slice_parity {tag}: an Armijo decision "
+                                 f"flipped far from its threshold: {flip}")
+        emit("slice_parity_flip", tag=tag, **flip,
+             residual_gate="replaced by the flip report")
+    elif not (max(rels) <= PARITY_RTOL and j_rel <= PARITY_RTOL):
+        raise AssertionError(f"slice_parity {tag}: residuals {max(rels):.3e},"
+                             f" solutions {j_rel:.3e} > {PARITY_RTOL}")
+    if not all(h["res_1"] < h["res_0"] for h in hg + hc):
+        raise AssertionError(f"slice_parity {tag}: residuals did not fall on "
+                             "every tile")
+    return rec
+
+
 def phase_slice_parity():
     """The port's pipeline on the card (kernels, float32) against the
-    same pipeline on the CPU (plain versions, float64), per solver mode.
-    The CPU runs go to worker processes, longest first, while the card
-    runs here one after another."""
+    same pipeline on the CPU (plain versions, float64), per solver mode,
+    and the stochastic run (STOCHASTIC_PARITY). The CPU runs go to worker
+    processes, longest first, while the card runs here one after
+    another."""
     import multiprocessing
     obs = {}
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
@@ -1375,6 +1546,14 @@ def phase_slice_parity():
                                          seed=9, noise=0.02, mixed=mixed)
         shutil.copytree(ms, ms + ".cpu")
         obs[tag] = (ms, sky, clus)
+    n_st, st_chunks, st_times, st_chans, st_flags = STOCHASTIC_PARITY
+    st_flags = st_flags + ["-t", str(st_times)]
+    work = os.path.join(WORK, "parity_stochastic")
+    shutil.rmtree(work, ignore_errors=True)
+    st_obs = make_observation(work, n_st, st_times, FREQS[:st_chans],
+                              len(st_chunks), 6, st_chunks, 2, "cpu",
+                              seed=9, noise=0.02)
+    shutil.copytree(st_obs[0], st_obs[0] + ".cpu")
     # the 41-station runs and the groups take longest on the CPU
     longest = sorted(PARITY_RUNS, key=lambda r: (-r[1], -len(r[2])))
     out = {}
@@ -1384,6 +1563,8 @@ def phase_slice_parity():
             ms, sky, clus = obs[tag]
             cpu_runs[tag] = pool.apply_async(
                 _parity_cpu, ((ms + ".cpu", sky, clus, flags),))
+        st_cpu = pool.apply_async(_stochastic_cpu, (
+            (st_obs[0] + ".cpu",) + st_obs[1:] + (st_flags,),))
         card_runs = {}
         for tag, _, nchunk, flags, must, _ in PARITY_RUNS:
             _reset()
@@ -1392,7 +1573,11 @@ def phase_slice_parity():
             _check_route(f"slice_parity {tag}", launches, must,
                          _xla_route(flags, nchunk), _md_of(flags))
             card_runs[tag] += (launches,)
+        _reset()
+        st_card = _stochastic_run(*st_obs, st_flags, device=None) \
+            + (_counts(),)
         cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
+        st_cpu = st_cpu.get()
         pool.close()
         pool.join()
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
@@ -1441,6 +1626,11 @@ def phase_slice_parity():
             raise AssertionError(f"slice_parity {tag}: residuals did not "
                                  "fall on every tile")
         out[tag] = rec
+    from sagecal_tpu_torch import skymodel
+    sk = skymodel.read_sky_cluster(st_obs[1], st_obs[2], RA0, DEC0,
+                                   float(np.mean(FREQS[:st_chans])))
+    out["stochastic"] = _check_stochastic_parity("stochastic", st_card,
+                                                 st_cpu, sk.nchunk)
     return out
 
 
@@ -1633,20 +1823,92 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
     return rec
 
 
+#: e2e_stochastic: -N 2 epochs of -M 4 minibatches (30 timeslots) over -w 2
+#: bands of 4 channels, on 2 tiles of e2e_rtr's observation
+E2E_STOCHASTIC = ["-N", "2", "-M", "4", "-w", "2"]
+
+
+def phase_e2e_stochastic(obs) -> dict:
+    """Stochastic calibration through the CLI at full width on the first
+    2 tiles of ``obs`` (E2E_STOCHASTIC, robust LBFGS at -l 10 -m 7): per
+    tile its seconds, res_0, res_1, LBFGS iterations, line searches that
+    took their last step untested, and coh launches.
+    Every tile's residual must fall and be finite, the coherency kernel
+    launch, and no sweep, matvec or visits kernel nor XLA solve run; the
+    written column is finite and changed, the solutions file holds 2
+    intervals of 2 bands. The record carries the written column's mean
+    magnitude over the data's a tile (``written_over_data``)."""
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    _, sky, clus, setup_s = obs
+    rc, out, wall, launches, ms, solpath, peak = _e2e_cli(
+        obs, "e2e_stochastic", E2E_STOCHASTIC, 2)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    tiles = []
+    for ln in out.splitlines():
+        if ln.startswith("Timeslot:") and "initial=" in ln:
+            tiles.append({
+                "res_0": float(ln.split("initial=")[1].split(",")[0]),
+                "res_1": float(ln.split("final=")[1].split(",")[0]),
+                "wall_s": 60 * float(ln.split("spent=")[1].split()[0])})
+        elif ln.startswith("Timeslot:") and "stats:" in ln:
+            tiles[-1].update(json.loads(ln.split("stats:", 1)[1]))
+    ds_out = ds.SimMS(ms, data_column="CORRECTED_DATA")
+    ds_in = ds.SimMS(ms)
+    meta = ds_out.meta
+    sk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
+                                   meta["freq0"])
+    header, blocks = sol.read_solutions(solpath, sk.nchunk)
+    ratio = []
+    for i in range(2):
+        xo, xi = ds_out.read_tile(i).x, ds_in.read_tile(i).x
+        if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
+            raise AssertionError(f"e2e_stochastic tile {i}: output column "
+                                 "not written")
+        ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
+    rec = dict(flags=E2E_STOCHASTIC, tiles=[
+        dict(wall_s=t["wall_s"], res_0=t["res_0"], res_1=t["res_1"],
+             lbfgs_iters=t.get("lbfgs_iters"),
+             lbfgs_exhausted=t.get("lbfgs_exhausted"),
+             coh_launches=t.get("launches", {}).get("coh"))
+        for t in tiles], wall_s=wall, setup_s=setup_s, launches=launches,
+        intervals=len(blocks), nsolbw=header.get("nsolbw"),
+        written_over_data=ratio, peak_gb=peak / 2 ** 30,
+        B=(TILESZ // 4) * N_STATIONS * (N_STATIONS - 1) // 2, F=4,
+        M=sk.n_clusters, S=sk.max_sources)
+    emit("e2e_stochastic", **rec)
+    if launches["coh"] == 0 or any(launches[k] for k in SOLVE_KERNELS) \
+            or launches["xla_solves"]:
+        raise AssertionError("e2e_stochastic: the run must launch the "
+                             "coherency kernel and no solve kernel: "
+                             f"{launches}")
+    if len(blocks) != 2 or header.get("nsolbw") != 2:
+        raise AssertionError(f"e2e_stochastic: solutions {len(blocks)} "
+                             f"intervals, header {header}")
+    if len(tiles) != 2 or not all(
+            math.isfinite(h["res_1"]) and math.isfinite(h["res_0"])
+            and h["res_1"] < h["res_0"] for h in tiles):
+        raise AssertionError(f"e2e_stochastic: residuals did not fall: "
+                             f"{tiles}")
+    return rec
+
+
 def phase_e2e_tile_batch(rtr: dict) -> dict:
     """``-j 5 --inner cg --tile-batch TILE_BATCH`` at full width on 1 +
     TILE_BATCH tiles of e2e_rtr's observation: tile 0 alone (the boost;
     the single-visit sweep and the matvec), tiles 1.. one batch (the
     visits kernel at one visit a tile and the matvec at TILE_BATCH kmax
-    chunks, no single-visit sweep). Emits the batch's EM, refine and
-    solve seconds, seconds a tile and launches beside e2e_rtr's warm
-    tile 1 (``rtr``, the same run)."""
+    chunks, no single-visit sweep), at e2e_rtr's ``-e 2``. Emits the
+    batch's EM, refine and solve seconds, seconds a tile and launches
+    beside e2e_rtr's warm tile 1 (``rtr``, the same run)."""
     n = 1 + TILE_BATCH
     obs = observation_e2e("e2e_tile_batch", n_tiles=n)
     rec = phase_e2e(obs, "e2e_tile_batch",
                     ["-j", "5", "--inner", "cg", "--tile-batch",
                      str(TILE_BATCH)], n, ("coh", "sweep", "visits",
-                                           "matvec"))
+                                           "matvec"), em=2)
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
     solo, first, rest = rec["tiles"][0], rec["tiles"][1], rec["tiles"][2:]
     batch = first["batch"]
@@ -1689,8 +1951,10 @@ def main() -> int:
     phase_slice_parity()
     obs = observation_e2e()
     phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"))
+    # -e 2 since PR 11 (as e2e_tile_batch, whose batch it is compared
+    # with), to keep the run in time (tile 0 boosted to 12 EM iterations)
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
-                    ("coh", "sweep", "matvec"))
+                    ("coh", "sweep", "matvec"), em=2)
     # the constrained Jones modes on the same observation: the sweep
     # kernel at md = 2, and the sweep and matvec kernels at md = 1 (the
     # latter at one EM iteration, to keep the run in time)
@@ -1699,6 +1963,8 @@ def main() -> int:
               1: phase_e2e(obs, "e2e_phase", ["-j", "5", "--inner", "cg",
                                               "--jones", "phase"], 1,
                            ("coh", "sweep", "matvec"), em=1)}
+    # stochastic calibration on the same observation (its first 2 tiles)
+    stochastic = phase_e2e_stochastic(obs)
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
     tile_batch = phase_e2e_tile_batch(rtr)
     # one EM iteration, to keep the run in time (tile 0 boosted to 6, its
@@ -1756,6 +2022,11 @@ def main() -> int:
              sincos_kernel_us=coh["residual"]["sincos_kernel_us"],
              f64_err_kernel=coh["residual"]["f64_err_kernel"],
              f64_err_plain_f32=coh["residual"]["f64_err_plain_f32"],
+             launches_e2e_stochastic=stochastic["launches"]["coh"],
+             bands={tag: {k: coh[tag][k] for k in (
+                 "F", "B", "step", "kernel_us", "device_ms", "ms",
+                 "plain_ms", "bound_ms", "bound_by", "kernel_bound_share",
+                 "max_abs_err", "rel_err")} for tag, _ in COH_BANDS},
              device_ms_f1=coh["solve"]["device_ms"],
              kernel_us_f1=coh["solve"]["kernel_us"],
              call_ms_f1=coh["solve"]["ms"],

@@ -1,5 +1,5 @@
-"""``sagecal-tpu-torch`` command line (port of the full-batch path of
-``sagecal_tpu/cli.py``).
+"""``sagecal-tpu-torch`` command line (port of ``sagecal_tpu/cli.py``:
+full-batch and stochastic calibration).
 
 The parser accepts every flag of the JAX CLI so command lines translate
 directly. The port runs full-batch calibration with
@@ -9,7 +9,14 @@ solver mode ``-j 0..6``, ``--inner chol|cg``, ``--kernel pallas|xla``,
 in-flight cluster groups, ``--jones full|diag|phase``, T solve intervals
 as one lane-batched solve, skies of every source morphology);
 ``--solve-fuse`` and ``--solve-promote`` are accepted as no-ops (PyTorch
-runs eagerly).
+runs eagerly). ``-N E > 0`` routes to stochastic calibration
+(``stochastic.run_minibatch``, as the JAX CLI does): E epochs of ``-M``
+minibatches a solve interval over ``-w`` frequency mini-bands, robust
+LBFGS (``-l`` iterations, ``-m`` memory, ``-L`` nu) on the ``--loss``
+cost, with ``-d -s -c -p -F -t -T -x -y -I -O -o -k -V --platform``. With
+``-N``, ``-A > 1`` and ``-w > 1`` together (stochastic consensus) raise;
+``-A`` with ``-w 1`` runs plain minibatch calibration, as in the JAX
+CLI. ``-M`` and ``--loss`` act under ``-N`` only, as there.
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 
@@ -30,7 +37,8 @@ import sys
 from sagecal_tpu_torch.config import (BeamMode, RunConfig, SimulationMode,
                                       SolverMode)
 
-# flags parsed for parity but not ported: dest -> (default, ROADMAP item)
+# flags parsed for parity but not ported: dest -> (default, ROADMAP item);
+# under -N, -w and -A are stochastic flags (check_flags)
 UNPORTED = {
     "ms_list": (None, "queue A item 7 (-f dataset lists)"),
     "init_solutions": (None, "queue A item 7 (-q warm start)"),
@@ -40,11 +48,8 @@ UNPORTED = {
     "ignore_clusters": (None, "queue A item 7 (-z ignore list)"),
     "phase_only": (0, "queue A item 7 (-J phase-only correction)"),
     "beam": (0, "queue A item 7 (-B beam)"),
-    "epochs": (0, "queue A item 8 (-N stochastic calibration)"),
-    "minibatches": (1, "queue A item 8 (-M minibatches)"),
-    "loss": ("robust", "queue A item 8 (--loss)"),
     "admm": (1, "queue A item 9 (-A consensus)"),
-    "nsolbw": (1, "queue A item 9 (-w mini-bands)"),
+    "nsolbw": (1, "queue A item 9 (-w mini-bands without -N)"),
     "npoly": (2, "queue A item 9 (-P)"),
     "polytype": (2, "queue A item 9 (-Q)"),
     "rho": (5.0, "queue A item 9 (-r)"),
@@ -67,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sagecal-tpu-torch",
         description="direction-dependent calibration on PyTorch/CUDA "
-                    "(port of sagecal-tpu; full-batch calibration)")
+                    "(port of sagecal-tpu; full-batch and stochastic "
+                    "calibration)")
     a = p.add_argument
     a("-d", "--ms", help="dataset (SimMS directory)")
     a("-f", "--ms-list")
@@ -154,9 +160,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+#: flags that a stochastic run (-N > 0) takes
+STOCHASTIC = ("nsolbw", "admm")
+
+
 def check_flags(args) -> None:
-    """Raise NotImplementedError for a non-default unported flag."""
+    """Raise NotImplementedError for a non-default unported flag (what a
+    stochastic run refuses, ``stochastic.check_supported`` raises)."""
     for dest, (default, item) in UNPORTED.items():
+        if args.epochs > 0 and dest in STOCHASTIC:
+            continue
         if getattr(args, dest) != default:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')}={getattr(args, dest)!r} is not "
@@ -181,7 +194,9 @@ def config_from_args(args) -> RunConfig:
         ignore_clusters_file=args.ignore_clusters,
         correct_cluster=args.correct_cluster,
         phase_only=bool(args.phase_only), beam_mode=BeamMode(args.beam),
-        n_epochs=args.epochs, max_timeslots=args.max_timeslots,
+        n_epochs=args.epochs, n_minibatches=args.minibatches,
+        stochastic_loss=args.loss, channel_avg_per_band=args.nsolbw,
+        n_admm=args.admm, max_timeslots=args.max_timeslots,
         verbose=args.verbose,
         solve_fuse=args.solve_fuse, solve_promote=args.solve_promote,
         cluster_inflight=args.inflight, tile_batch=args.tile_batch,
@@ -205,8 +220,12 @@ def main(argv=None) -> int:
         return 2
     check_flags(args)
     cfg = config_from_args(args)
-    from sagecal_tpu_torch import pipeline
-    pipeline.run(cfg, device=_device(args.platform))
+    if cfg.n_epochs > 0:
+        from sagecal_tpu_torch import stochastic
+        stochastic.run_minibatch(cfg, device=_device(args.platform))
+    else:
+        from sagecal_tpu_torch import pipeline
+        pipeline.run(cfg, device=_device(args.platform))
     return 0
 
 

@@ -44,7 +44,8 @@ class SimulationMode(enum.IntEnum):
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Full-batch calibration run configuration (CLI flag in comments)."""
+    """Full-batch and stochastic calibration run configuration (CLI flag
+    in comments)."""
 
     ms: str | None = None              # -d
     ms_list: str | None = None         # -f
@@ -78,6 +79,11 @@ class RunConfig:
     phase_only: bool = False                         # -J
     beam_mode: BeamMode = BeamMode.NONE              # -B
     n_epochs: int = 0                                # -N
+    n_minibatches: int = 1                           # -M
+    # stochastic minibatch loss: "robust" (Student's t) or "huber"
+    stochastic_loss: str = "robust"                  # --loss
+    channel_avg_per_band: int = 1                    # -w : mini-bands
+    n_admm: int = 1                                  # -A
     max_timeslots: int = 0                           # -T
     verbose: bool = False                            # -V : per-tile stats
 

@@ -3,7 +3,9 @@
 The reference's text format, byte for byte as the JAX package writes
 it: ``#`` comments, a header line ``freq(MHz) bandwidth(MHz)
 time_interval(min) stations clusters effective_clusters``, then per
-solve interval 8N rows of one column per effective cluster. The 8 reals
+solve interval 8N rows of one column per effective cluster (the
+stochastic multi-band variant adds channels and mini-bands to the header
+and holds every mini-band's columns in turn in each row). The 8 reals
 per station map to the 2x2 Jones as ``[S0+jS1, S4+jS5; S2+jS3, S6+jS7]``.
 The binary checkpoint sidecar comes with ROADMAP queue A item 7.
 """
@@ -66,15 +68,27 @@ class SolutionWriter:
 
     def __init__(self, path: str, freq0_hz: float, bandwidth_hz: float,
                  interval_min: float, n_stations: int, n_clusters: int,
-                 n_eff_clusters: int):
+                 n_eff_clusters: int, nchan: int | None = None,
+                 nsolbw: int | None = None):
+        """With ``nchan``/``nsolbw`` set, writes the stochastic multi-band
+        header variant (minibatch_mode.cpp:276-278): each row then holds
+        the columns of every mini-band in turn (:500-514)."""
         self.f = open(path, "w")
         self.n_stations = n_stations
         self.f.write("# solution file (sagecal-tpu) commands:\n")
-        self.f.write("# freq(MHz) bandwidth(MHz) time_interval(min) "
-                     "stations clusters effective_clusters\n")
-        self.f.write(f"{freq0_hz * 1e-6:f} {bandwidth_hz * 1e-6:f} "
-                     f"{interval_min:f} {n_stations} {n_clusters} "
-                     f"{n_eff_clusters}\n")
+        if nsolbw is not None:
+            self.f.write("# freq(MHz) bandwidth(MHz) channels mini-bands "
+                         "time_interval(min) stations clusters "
+                         "effective_clusters\n")
+            self.f.write(f"{freq0_hz * 1e-6:f} {bandwidth_hz * 1e-6:f} "
+                         f"{nchan} {nsolbw} {interval_min:f} {n_stations} "
+                         f"{n_clusters} {n_eff_clusters}\n")
+        else:
+            self.f.write("# freq(MHz) bandwidth(MHz) time_interval(min) "
+                         "stations clusters effective_clusters\n")
+            self.f.write(f"{freq0_hz * 1e-6:f} {bandwidth_hz * 1e-6:f} "
+                         f"{interval_min:f} {n_stations} {n_clusters} "
+                         f"{n_eff_clusters}\n")
 
     def _write_cols(self, cols: np.ndarray) -> None:
         self.f.write("".join(
@@ -84,6 +98,12 @@ class SolutionWriter:
 
     def write_interval(self, J: np.ndarray, nchunk: np.ndarray) -> None:
         self._write_cols(jones_to_columns(np.asarray(J), nchunk))
+
+    def write_interval_multiband(self, J_bands, nchunk: np.ndarray) -> None:
+        """One row block with the columns of each mini-band in turn
+        (minibatch_mode.cpp:500-514)."""
+        self._write_cols(np.hstack([jones_to_columns(np.asarray(J), nchunk)
+                                    for J in J_bands]))
 
     def close(self):
         self.f.close()

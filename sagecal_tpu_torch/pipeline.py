@@ -71,10 +71,12 @@ def first_tile_boost(n_stations: int) -> int:
 
 def check_supported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError`` for every configuration the port
-    does not run yet, naming the ROADMAP item that will port it."""
+    does not run yet, naming the ROADMAP item that will port it
+    (``ValueError`` for ``-N > 0``, which ``stochastic.py`` runs)."""
+    if cfg.n_epochs > 0:
+        raise ValueError("-N > 0 is stochastic calibration: run it with "
+                         "stochastic.run_minibatch (the CLI routes it)")
     checks = [
-        (cfg.n_epochs > 0, "-N stochastic calibration (ROADMAP queue A "
-         "item 8)"),
         (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 7)"),
         (cfg.simulation != SimulationMode.OFF, "-a simulation modes "
          "(ROADMAP queue A item 7)"),

@@ -61,6 +61,19 @@ def gather_jones(J, chunk_idx, sta):
     return torch.view_as_complex(rows.view(-1, 2, 2, 2))
 
 
+def jones_c2r_np(J: np.ndarray) -> np.ndarray:
+    """Host [..., 2, 2] complex Jones -> [..., 8] reals."""
+    flat = J.reshape(J.shape[:-2] + (4,))
+    return np.stack([flat.real, flat.imag], axis=-1).reshape(
+        J.shape[:-2] + (8,))
+
+
+def jones_r2c_np(p: np.ndarray) -> np.ndarray:
+    """Host [..., 8] reals -> [..., 2, 2] complex Jones."""
+    pr = p.reshape(p.shape[:-1] + (4, 2))
+    return (pr[..., 0] + 1j * pr[..., 1]).reshape(p.shape[:-1] + (2, 2))
+
+
 def jones_c2r(J):
     """[..., 2, 2] complex Jones -> [..., 8] reals (Re, Im interleaved,
     row-major 00, 01, 10, 11)."""

@@ -774,3 +774,56 @@ def test_tile_batch_jones_pipeline_on_card_matches_cpu(card, tmp_path,
     for g, c in zip(got, ref):
         for key in ("res_0", "res_1"):
             assert abs(g[key] - c[key]) <= 1e-3 * abs(c[key]), key
+
+
+def test_band_solver_on_card_matches_cpu(card, tmp_path):
+    """The stochastic band solver at W = 2 bands of 4 channels over two
+    successive minibatches of 10 timeslots with persistent memories
+    (chip_smoke.py's STOCHASTIC_PARITY shapes, one tile), on the card
+    (float32: the coherency kernel predicts each band) against the CPU
+    (float64, plain versions): p and res_0/res_1 within 1e-3; each solve
+    launches the coherency kernel once a band and no solve kernel."""
+    import chip_smoke
+    from sagecal_tpu_torch import skymodel, stochastic
+    from sagecal_tpu_torch.cli import build_parser, config_from_args
+    from sagecal_tpu_torch.io import dataset as tds
+    from sagecal_tpu_torch.solvers import lbfgs as tl
+    ms, sky, clus = chip_smoke.make_observation(
+        str(tmp_path), 16, 20, chip_smoke.FREQS, 8, 6, (1, 2) * 4, 1,
+        "cpu", seed=9, noise=0.02)
+    cfg = config_from_args(build_parser().parse_args(
+        ["-d", ms, "-s", sky, "-c", clus, "-N", "1", "-M", "2", "-w", "2",
+         "-l", "10", "-m", "7", "-t", "20"]))
+    meta = tds.SimMS(ms).meta
+    csky = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
+                                     meta["freq0"])
+    out = {}
+    for dev in (card, "cpu"):
+        rn = stochastic.StochasticRunner(cfg, tds.SimMS(ms), csky,
+                                         device=dev, log=lambda *a: None)
+        solve = stochastic.make_band_solver_batched(
+            rn.dsky, rn.n, rn.cidx, rn.cmask, rn.fdelta_chan, 2.0, 10)
+        inputs = rn.build_tile_inputs(tds.SimMS(ms).read_tile(0))
+        pinit, pfreq = rn.initial_p()
+        like = torch.zeros((), dtype=rn.rdt, device=rn.device)
+        p, mem = rn.stack_state(pfreq, [
+            tl.lbfgs_memory_init(rn.nparam, 7, like) for _ in pfreq])
+        recs = []
+        for nmb in range(rn.minibatches):
+            c0, s0 = tcoh.LAUNCHES, (tswp.LAUNCHES, tswp.MATVEC_LAUNCHES,
+                                     tswp.VISITS_LAUNCHES)
+            o = solve(*inputs[nmb], p, mem)
+            p, mem = o.p, o.mem
+            if dev == card:
+                assert tcoh.LAUNCHES - c0 == 2
+                assert (tswp.LAUNCHES, tswp.MATVEC_LAUNCHES,
+                        tswp.VISITS_LAUNCHES) == s0
+            recs.append((o.p.double().cpu(), o.res_0.double().cpu(),
+                         o.res_1.double().cpu()))
+        out[str(dev)] = recs
+    for (pg, r0g, r1g), (pc, r0c, r1c) in zip(out[str(card)], out["cpu"]):
+        assert float((pg - pc).abs().max()) <= 1e-3 * float(pc.abs().max())
+        for g, c in ((r0g, r0c), (r1g, r1c)):
+            assert float(((g - c) / c).abs().max()) <= 1e-3
+        assert bool((r1c < r0c).all())
+

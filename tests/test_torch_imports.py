@@ -26,7 +26,7 @@ def test_every_module_imports_without_jax():
     every port module and chip_smoke.py import."""
     mods = _modules()
     for m in ("ops.sweep", "solvers.robust", "solvers.rtr",
-              "rime.envelopes", "solvers.normal_eq"):
+              "rime.envelopes", "solvers.normal_eq", "stochastic"):
         assert "sagecal_tpu_torch." + m in mods
     code = (
         "import sys\n"
@@ -65,6 +65,23 @@ def test_entry_points_refuse_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-d", "unused", "-s", "unused", "-c", "unused", "-j", "1"])
     assert device.resolve("cpu").type == "cpu"
+
+
+def test_stochastic_entry_points_refuse_cpu_fallback():
+    """The stochastic path (-N > 0) raises without a card too, before it
+    opens the dataset."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sagecal_tpu_torch import cli, stochastic
+    from sagecal_tpu_torch.config import RunConfig
+    cfg = RunConfig(ms="unused", sky_model="unused", cluster_file="unused",
+                    n_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stochastic.run_minibatch(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-d", "unused", "-s", "unused", "-c", "unused", "-N", "1",
+                  "-w", "2"])
 
 
 def test_kernel_build_is_lazy():

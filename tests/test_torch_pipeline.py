@@ -300,7 +300,8 @@ def test_mode_runs_use_their_solvers(mode_runs):
                and all(len(g[1]) == 2 for g in h["groups"]) for h in t)
 
 
-@pytest.mark.parametrize("extra", [["--resume"], ["-N", "2"],
+@pytest.mark.parametrize("extra", [["--resume"], ["-N", "2", "-A", "2", "-w",
+                                                  "2"],
                                    ["-B", "1"], ["--tile-bucket", "8"],
                                    ["-W", "1"],
                                    ["-a", "1"], ["-q", "x.sol"],
