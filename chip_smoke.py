@@ -12,8 +12,9 @@ RTR), at ``-j 5 --inner cg``, and with in-flight cluster groups
 (``--inflight 2`` on 8 clusters at ``-j 1`` and ``-j 5 --inner cg``;
 ``slice_parity``), and drives the full-batch CLI end to end on a
 synthetic observation at full width (62 LOFAR-like stations, 120
-timeslots, 8 channels, clusters of 64 sources): ``e2e`` at ``-j 1`` on
-one tile and ``e2e_rtr`` at ``-j 5 --inner cg -e 2`` (robust RTR with
+timeslots, 8 channels, clusters of 64 sources; every e2e phase at ``-e
+1``): ``e2e`` at ``-j 1`` on one tile and ``e2e_rtr`` at ``-j 5 --inner
+cg`` (robust RTR with
 the matvec kernel in every tCG product) on two, with 8 clusters;
 ``e2e_inflight`` at ``-j 5 --inner cg --inflight 4 -e 1`` on two tiles
 with 16 clusters (the multi-visit sweep kernel in every group solve).
@@ -22,9 +23,9 @@ kernel at V = 8 lanes (4 tiles of 2 visits), every operand and the chunk
 ids per visit; ``matvec`` holds and times the matvec kernel on such
 records at V = 4 and 8 visits of 4 chunks (16 and 32 chunks, the tCG
 products of a batch); ``slice_parity`` adds ``tile_batch_rtr`` (``-j 5 --inner
-cg --tile-batch 2``, 5 tiles) and ``tile_batch_inflight`` (``-j 1
+cg --tile-batch 2``, 3 tiles) and ``tile_batch_inflight`` (``-j 1
 --tile-batch 2 --inflight 2``, 8 clusters, 3 tiles); and
-``e2e_tile_batch`` runs ``-j 5 --inner cg --tile-batch 4 -e 2`` at full
+``e2e_tile_batch`` runs ``-j 5 --inner cg --tile-batch 4 -e 1`` at full
 width on 5 tiles (tile 0 alone, tiles 1-4 one batch, which must launch the
 visits and matvec kernels and no single-visit sweep), its batch's EM,
 refine and per-tile seconds printed beside e2e_rtr's warm tile 1.
@@ -54,6 +55,20 @@ solutions within 1e-3, every Armijo decision equal or the first flip within
 FLIP_MARGIN of its threshold), and ``e2e_stochastic`` runs ``-N 2 -M 4
 -w 2`` at full width on e2e_rtr's first 2 tiles. A stochastic run must
 launch the coherency kernel and no solve kernel.
+The solve, correction and simulation options: ``manifold`` holds the
+phase extraction of ``-J 1`` (``consensus/manifold.extract_phases``, its
+3x3 eigenproblems on the card) against the CPU on identity and random J;
+``slice_parity`` adds ``bandpass`` (``-b 1``), ``whiten_phase`` (``-W 1
+-J 1 -k``), ``warm`` (``-q``), ``sim`` (``-a 2 -p -z``, a pure predict:
+its written column within SIM_RTOL of the data's largest magnitude) and
+``stochastic_warm`` (``-N`` with ``-q``), the first three with their
+written columns within PARITY_RTOL of it too; and on e2e_rtr's observation ``e2e_bandpass`` (``-j 1 -b 1 -e 1``:
+every channel's LBFGS fit lowers its cost, and the coherency kernel
+launches once at F = 1 for the joint solve and once at F = 8 for all
+channels' solves and residuals), ``e2e_whiten_phase`` (``-j 5 --inner
+cg -W 1 -J 1 -k 0 -e 1``) and ``e2e_sim`` (``-a 1/2/3 -p`` e2e_rtr's
+solutions ``-z`` one cluster, on the first tile: the three modes compose
+and the ignored cluster is absent).
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -85,6 +100,9 @@ PEAK_F32_OPS_S = 67e12
 #: order), and the card (float32) pipeline vs the CPU (float64) one
 KERNEL_RTOL = 1e-4
 PARITY_RTOL = 1e-3
+#: the simulation run of slice_parity (a pure predict): its written
+#: column, card against CPU
+SIM_RTOL = 1e-4
 #: a group's relaxation decision may differ between the card and the CPU
 #: only where the trial that decided it was within this relative margin
 #: of its threshold on both sides (float32 against float64 roundoff)
@@ -1268,7 +1286,9 @@ def _visits_lanes() -> dict:
 def _counts():
     from sagecal_tpu_torch.ops import coh, sweep
     from sagecal_tpu_torch.solvers import lm
-    return {"coh": coh.LAUNCHES, "sweep": sweep.LAUNCHES,
+    return {"coh": coh.LAUNCHES,
+            "coh_by_f": {f"F{F}": n for F, n in sorted(coh.F_LAUNCHES.items())},
+            "sweep": sweep.LAUNCHES,
             "matvec": sweep.MATVEC_LAUNCHES, "visits": sweep.VISITS_LAUNCHES,
             "xla_solves": lm.XLA_SOLVES,
             "by_md": {f"{k}_md{md}": n
@@ -1343,7 +1363,7 @@ def _check_route(tag: str, launches: dict, must, xla: bool,
 #: sweep and matvec kernels at md = 1) and ``diag_inflight_rtr`` (groups
 #: through the visits kernel and the matvec at md = 2).
 #: Batches of solve intervals (--tile-batch 2, tile 0 alone): ``tile_
-#: batch_rtr`` (j5_cg's solver on 5 tiles: the visits kernel at one visit
+#: batch_rtr`` (j5_cg's solver on 3 tiles: the visits kernel at one visit
 #: a tile and the matvec at 2 kmax chunks) and ``tile_batch_inflight``
 #: (inflight_j1's groups on 3 tiles: 2 x 2 lanes a group step; its CPU
 #: reference is the longest of the phase, ~370 s on 4 tiles).
@@ -1377,10 +1397,84 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                 ("coh", "sweep", "visits", "matvec"), False),
                ("tile_batch_inflight", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "1", "--tile-batch", "2", "--inflight", "2", "-g",
-                 "30"], ("coh", "visits"), False))
+                 "30"], ("coh", "visits"), False),
+               ("bandpass", 16, (1, 2, 1), ["-j", "1", "-g", "30", "-b", "1"],
+                ("coh", "sweep"), False),
+               ("whiten_phase", 16, (1, 2, 1),
+                ["-j", "1", "-g", "30", "-W", "1", "-J", "1", "-k", "1"],
+                ("coh", "sweep"), False),
+               ("warm", 16, (1, 2, 1), ["-j", "1", "-g", "30", "-q", "@warm"],
+                ("coh", "sweep"), False),
+               ("sim", 16, (1, 2, 1),
+                ["-a", "2", "-p", "@warm", "-z", "@ignore"], ("coh",),
+                False))
+#: The solve and correction options (-g 30, as the in-flight runs, to
+#: keep -j 1 near convergence at 16 stations): ``bandpass`` (-b 1: the
+#: joint solve, then one LBFGS fit a channel; the channels' res_0/res_1
+#: are gated too), ``whiten_phase`` (-W 1 -J 1 -k 1: the 2-chunk
+#: cluster's phases correct the residual), ``warm`` (-q from
+#: :func:`write_option_files`' solutions) and ``sim`` (-a 2 -p of the same
+#: file -z cluster 1: no solve). COLUMN_RUNS also hold their written
+#: columns, card against CPU, within their gate.
 #: tiles of a parity run's observation (2 unless named): the batches of
 #: 2 after the solo tile 0
-PARITY_TILES = {"tile_batch_rtr": 5, "tile_batch_inflight": 3}
+PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3}
+#: the parity runs whose written column is gated, and their gate
+COLUMN_RUNS = {"bandpass": PARITY_RTOL, "whiten_phase": PARITY_RTOL,
+               "warm": PARITY_RTOL, "sim": SIM_RTOL}
+
+
+def write_option_files(ms: str, seed: int = 11) -> dict:
+    """Beside an observation ``ms`` (of :func:`make_observation`): the
+    ``-q``/``-p`` solutions (one interval of near-identity Jones, not the
+    observation's) and the ``-z`` list (cluster 1). Returns placeholder
+    -> path, for :func:`_resolve`."""
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    work = os.path.dirname(ms)
+    meta = ds.SimMS(ms).meta
+    sky = skymodel.read_sky_cluster(
+        os.path.join(work, "sky.txt"), os.path.join(work, "sky.txt.cluster"),
+        meta["ra0"], meta["dec0"], meta["freq0"])
+    J = ds.random_jones(sky.n_clusters, sky.nchunk, meta["n_stations"],
+                        seed=seed, scale=0.1)
+    files = {"@warm": os.path.join(work, "warm.sol"),
+             "@ignore": os.path.join(work, "ignore.txt")}
+    with sol.SolutionWriter(files["@warm"], meta["freq0"], meta["fdelta"],
+                            1.0, meta["n_stations"], sky.n_clusters,
+                            sky.n_eff_clusters) as w:
+        w.write_interval(J, sky.nchunk)
+    with open(files["@ignore"], "w") as f:
+        f.write("1\n")
+    return files
+
+
+def _resolve(flags, ms: str):
+    """``flags`` with the placeholders of :func:`write_option_files` made
+    the paths beside ``ms``."""
+    names = {"@warm": "warm.sol", "@ignore": "ignore.txt"}
+    return [os.path.join(os.path.dirname(ms), names[f]) if f in names
+            else f for f in flags]
+
+
+def _column_rel(ms: str) -> float:
+    """max|card - CPU| of the written column over the tiles of a parity
+    run's observation (the card's ``ms``, the CPU's ``ms + '.cpu'``), in
+    units of the data's largest magnitude (as the CPU tests gate the
+    written column)."""
+    from sagecal_tpu_torch.io import dataset as ds
+    card = ds.SimMS(ms, data_column="CORRECTED_DATA")
+    cpu = ds.SimMS(ms + ".cpu", data_column="CORRECTED_DATA")
+    data = ds.SimMS(ms)
+    rel = 0.0
+    for i in range(card.n_tiles):
+        a, b = card.read_tile(i).x, cpu.read_tile(i).x
+        if not np.all(np.isfinite(a)):
+            raise AssertionError(f"{ms}: a written column is not finite")
+        rel = max(rel, float(np.abs(a - b).max()
+                             / np.abs(data.read_tile(i).x).max()))
+    return rel
 
 
 def _xla_route(flags, nchunk) -> bool:
@@ -1402,11 +1496,13 @@ def _first_flip(cuda_hist, cpu_hist):
 
 
 #: the CPU float64 reference runs of slice_parity go to this many worker
-#: processes of this many threads each, beside the card runs (their
-#: worker time bounds the phase; 5 workers made every job slower and the
-#: phase no shorter)
-PARITY_WORKERS = 4
-PARITY_THREADS = 2
+#: processes of this many threads each, beside the card runs, which take
+#: the machine's eighth core for their host dispatch (the workers' time
+#: bounds the phase; 5 workers of 2 threads made every job slower and the
+#: phase no shorter: the small float64 problems gain little from a second
+#: thread)
+PARITY_WORKERS = 7
+PARITY_THREADS = 1
 
 
 def _parity_run(path: str, sky: str, clus: str, flags, device):
@@ -1416,7 +1512,7 @@ def _parity_run(path: str, sky: str, clus: str, flags, device):
     from sagecal_tpu_torch.cli import build_parser, config_from_args
     args = build_parser().parse_args(
         ["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10", "-l",
-         "5", "-R", "0", "-t", "10"] + flags)
+         "5", "-R", "0", "-t", "10"] + _resolve(flags, path))
     t0 = time.perf_counter()
     hist = pipeline.run(config_from_args(args), device=device,
                         log=lambda *a: None)
@@ -1453,7 +1549,7 @@ def _stochastic_run(path: str, sky: str, clus: str, flags, device):
     solpath = path + ".sol"
     args = build_parser().parse_args(
         ["-d", path, "-s", sky, "-c", clus, "-l", "10", "-m", "7", "-p",
-         solpath] + flags)
+         solpath] + _resolve(flags, path))
     t0 = time.perf_counter()
     hist = stochastic.run_minibatch(config_from_args(args), device=device,
                                     log=lambda *a: None)
@@ -1531,10 +1627,10 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
 
 def phase_slice_parity():
     """The port's pipeline on the card (kernels, float32) against the
-    same pipeline on the CPU (plain versions, float64), per solver mode,
-    and the stochastic run (STOCHASTIC_PARITY). The CPU runs go to worker
-    processes, longest first, while the card runs here one after
-    another."""
+    same pipeline on the CPU (plain versions, float64), per solver mode
+    and option, and the stochastic runs (STOCHASTIC_PARITY, and with
+    ``-q``). The CPU runs go to worker processes, longest first, while
+    the card runs here one after another."""
     import multiprocessing
     obs = {}
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
@@ -1544,16 +1640,23 @@ def phase_slice_parity():
                                          len(nchunk), 6, nchunk,
                                          PARITY_TILES.get(tag, 2), "cpu",
                                          seed=9, noise=0.02, mixed=mixed)
+        write_option_files(ms)
         shutil.copytree(ms, ms + ".cpu")
         obs[tag] = (ms, sky, clus)
     n_st, st_chunks, st_times, st_chans, st_flags = STOCHASTIC_PARITY
     st_flags = st_flags + ["-t", str(st_times)]
-    work = os.path.join(WORK, "parity_stochastic")
-    shutil.rmtree(work, ignore_errors=True)
-    st_obs = make_observation(work, n_st, st_times, FREQS[:st_chans],
-                              len(st_chunks), 6, st_chunks, 2, "cpu",
-                              seed=9, noise=0.02)
-    shutil.copytree(st_obs[0], st_obs[0] + ".cpu")
+    st_runs = {"stochastic": st_flags,
+               "stochastic_warm": st_flags + ["-q", "@warm"]}
+    st_obs = {}
+    for tag in st_runs:
+        work = os.path.join(WORK, "parity_" + tag)
+        shutil.rmtree(work, ignore_errors=True)
+        st_obs[tag] = make_observation(work, n_st, st_times,
+                                       FREQS[:st_chans], len(st_chunks), 6,
+                                       st_chunks, 2, "cpu", seed=9,
+                                       noise=0.02)
+        write_option_files(st_obs[tag][0])
+        shutil.copytree(st_obs[tag][0], st_obs[tag][0] + ".cpu")
     # the 41-station runs and the groups take longest on the CPU
     longest = sorted(PARITY_RUNS, key=lambda r: (-r[1], -len(r[2])))
     out = {}
@@ -1563,8 +1666,9 @@ def phase_slice_parity():
             ms, sky, clus = obs[tag]
             cpu_runs[tag] = pool.apply_async(
                 _parity_cpu, ((ms + ".cpu", sky, clus, flags),))
-        st_cpu = pool.apply_async(_stochastic_cpu, (
-            (st_obs[0] + ".cpu",) + st_obs[1:] + (st_flags,),))
+        st_cpu = {tag: pool.apply_async(_stochastic_cpu, (
+            (st_obs[tag][0] + ".cpu",) + st_obs[tag][1:] + (flags,),))
+            for tag, flags in st_runs.items()}
         card_runs = {}
         for tag, _, nchunk, flags, must, _ in PARITY_RUNS:
             _reset()
@@ -1573,19 +1677,38 @@ def phase_slice_parity():
             _check_route(f"slice_parity {tag}", launches, must,
                          _xla_route(flags, nchunk), _md_of(flags))
             card_runs[tag] += (launches,)
-        _reset()
-        st_card = _stochastic_run(*st_obs, st_flags, device=None) \
-            + (_counts(),)
+        st_card = {}
+        for tag, flags in st_runs.items():
+            _reset()
+            st_card[tag] = _stochastic_run(*st_obs[tag], flags,
+                                           device=None) + (_counts(),)
         cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
-        st_cpu = st_cpu.get()
+        st_cpu = {tag: r.get() for tag, r in st_cpu.items()}
         pool.close()
         pool.join()
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
         hist, secs = {}, {}
         hist["cuda"], secs["cuda"], launches = card_runs[tag]
         hist["cpu"], secs["cpu"] = cpu_done[tag]
+        col_rel = _column_rel(obs[tag][0]) if tag in COLUMN_RUNS else None
+        if "-a" in flags:
+            # a simulation: no solve, the written column is the result
+            rec = dict(tag=tag, stations=n_st, nchunk=nchunk, flags=flags,
+                       col_rel=col_rel, launches=launches, seconds=secs,
+                       tile_s={d: [h["seconds"] for h in hist[d]]
+                               for d in hist})
+            emit("slice_parity", **rec)
+            if not col_rel <= COLUMN_RUNS[tag]:
+                raise AssertionError(f"slice_parity {tag}: written column "
+                                     f"{col_rel:.3e} > {COLUMN_RUNS[tag]}")
+            out[tag] = rec
+            continue
+        # -b 1: every channel's fit is held too
+        chans = [(hg, hc) for a, b in zip(hist["cuda"], hist["cpu"])
+                 for hg, hc in zip(a["channels"] or [],
+                                   b["channels"] or [])]
         rels = [abs(hg[key] - hc[key]) / abs(hc[key])
-                for hg, hc in zip(hist["cuda"], hist["cpu"])
+                for hg, hc in list(zip(hist["cuda"], hist["cpu"])) + chans
                 for key in ("res_0", "res_1")]
         # in-flight groups: the relaxation decisions are compared first
         flip = _first_flip(hist["cuda"], hist["cpu"])
@@ -1605,7 +1728,9 @@ def phase_slice_parity():
                    tcg_iters=[h["tcg_iters"] for h in hist["cuda"]],
                    rejected_groups={d: [h["rejected_groups"]
                                         for h in hist[d]] for d in hist},
-                   omegas=omegas, flip=flip)
+                   omegas=omegas, flip=flip, col_rel=col_rel,
+                   channels={d: [h["channels"] for h in hist[d]]
+                             for d in hist} if chans else None)
         emit("slice_parity", **rec)
         if flip is not None:
             # the trial where the two runs first decided differently
@@ -1622,16 +1747,61 @@ def phase_slice_parity():
         elif not max(rels) <= PARITY_RTOL:
             raise AssertionError(f"slice_parity {tag}: {max(rels):.3e} > "
                                  f"{PARITY_RTOL}")
-        if not all(h["res_1"] < h["res_0"] for d in hist for h in hist[d]):
+        elif col_rel is not None and not col_rel <= COLUMN_RUNS[tag]:
+            raise AssertionError(f"slice_parity {tag}: written column "
+                                 f"{col_rel:.3e} > {COLUMN_RUNS[tag]}")
+        if not all(h["res_1"] < h["res_0"] for d in hist for h in hist[d]) \
+                or not all(hg["res_1"] < hg["res_0"]
+                           and hc["res_1"] < hc["res_0"]
+                           for hg, hc in chans):
             raise AssertionError(f"slice_parity {tag}: residuals did not "
-                                 "fall on every tile")
+                                 "fall on every tile (and channel)")
         out[tag] = rec
     from sagecal_tpu_torch import skymodel
-    sk = skymodel.read_sky_cluster(st_obs[1], st_obs[2], RA0, DEC0,
-                                   float(np.mean(FREQS[:st_chans])))
-    out["stochastic"] = _check_stochastic_parity("stochastic", st_card,
-                                                 st_cpu, sk.nchunk)
+    for tag in st_runs:
+        sk = skymodel.read_sky_cluster(st_obs[tag][1], st_obs[tag][2], RA0,
+                                       DEC0, float(np.mean(FREQS[:st_chans])))
+        out[tag] = _check_stochastic_parity(tag, st_card[tag], st_cpu[tag],
+                                            sk.nchunk)
     return out
+
+
+def phase_manifold() -> dict:
+    """The phase extraction of ``-J 1`` (``consensus/manifold.
+    extract_phases``: 10 x 2 Givens sweeps, each from the top eigenvector
+    of a 3x3 form, ``torch.linalg.eigh`` on the tensor's device) on the
+    card in float32 against the CPU in float64, for K = 4 chunks of
+    N_STATIONS stations: identity J, where the form is exactly 0 and then
+    diagonal, so that the result rests on the eigensolver's basis for a
+    degenerate form, and random J. Gate KERNEL_RTOL on max|card - CPU|
+    (the entries have modulus 1). Records the top eigenvectors the card
+    and the CPU give for those degenerate forms, and the call's time."""
+    import torch
+    from sagecal_tpu_torch.consensus import manifold as mf
+    rng = np.random.default_rng(3)
+    K, N = 4, N_STATIONS
+    cases = {"identity": np.tile(np.eye(2, dtype=complex), (K, N, 1, 1)),
+             "random": rng.normal(size=(K, N, 2, 2))
+             + 1j * rng.normal(size=(K, N, 2, 2))}
+    errs, call_ms = {}, {}
+    for tag, J in cases.items():
+        ref = mf.extract_phases(torch.as_tensor(J)).numpy()
+        Jd = torch.as_tensor(J, dtype=torch.complex64, device="cuda")
+        errs[tag] = float(np.abs(mf.extract_phases(Jd).cpu().numpy()
+                                 - ref).max())
+        call_ms[tag] = cuda_ms(lambda: mf.extract_phases(Jd), 10)
+    bases = {tag: {d: torch.linalg.eigh(torch.as_tensor(
+        H, dtype=torch.float32, device=d))[1][:, -1].cpu().tolist()
+        for d in ("cuda", "cpu")}
+        for tag, H in (("zero", np.zeros((3, 3))),
+                       ("diag_e2", np.diag([0.0, 2.0 * N, 0.0])))}
+    rec = dict(K=K, N=N, max_abs_err=errs, call_ms=call_ms,
+               eigh_top_vectors=bases)
+    emit("manifold", **rec)
+    if not max(errs.values()) <= KERNEL_RTOL:
+        raise AssertionError(f"manifold: card against CPU {errs} > "
+                             f"{KERNEL_RTOL}")
+    return rec
 
 
 def observation_e2e(tag: str = "e2e", nchunk=NCHUNK, mixed: bool = False,
@@ -1823,6 +1993,136 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
     return rec
 
 
+def phase_e2e_bandpass(obs) -> dict:
+    """``-j 1 -b 1 -e 1`` at full width on the first tile of ``obs``: the
+    joint SAGE solve without its refine, then one LBFGS fit a channel
+    from the joint solution (``-l 10``), the channels' residuals written.
+    Every channel's fit must lower its cost, and the coherency kernel
+    launch exactly twice: once at F = 1 (the joint solve) and once at F
+    = 8 (all channels' solves and residuals)."""
+    rec = phase_e2e(obs, "e2e_bandpass", ["-j", "1", "-b", "1"], 1,
+                    ("coh", "sweep"), em=1)
+    chans = rec["tiles"][0]["channels"]
+    if len(chans) != len(FREQS) or not all(
+            c["res_1"] < c["res_0"] for c in chans):
+        raise AssertionError(f"e2e_bandpass: a channel's fit did not lower "
+                             f"its cost: {chans}")
+    if rec["launches"]["coh_by_f"] != {"F1": 1, "F8": 1}:
+        raise AssertionError("e2e_bandpass: the coherency kernel must launch "
+                             "once at F = 1 and once at F = 8: "
+                             f"{rec['launches']}")
+    return rec
+
+
+def one_tile_copy(src: str, dst: str) -> str:
+    """A SimMS of ``src``'s first tile alone at ``dst``."""
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    with open(os.path.join(src, "meta.json")) as f:
+        meta = json.load(f)
+    meta["n_tiles"] = 1
+    with open(os.path.join(dst, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    shutil.copy(os.path.join(src, "tile00000.npz"), dst)
+    return dst
+
+
+#: e2e_sim: the cluster its -z list names
+SIM_IGNORE = 3
+
+
+def phase_e2e_sim(obs, solpath: str) -> dict:
+    """The simulation modes through the CLI at full width on the first
+    tile of ``obs``: ``-a 1``, ``-a 2`` and ``-a 3`` with ``-p`` (e2e_rtr's
+    solutions, ``solpath``) and ``-z`` naming SIM_IGNORE, and ``-a 1 -p``
+    without ``-z``. On the card's outputs, a2 - data, data - a3 and a1
+    must agree within 1e-5 of max|a1|, and (a1 without -z) - a1 must be
+    the ignored cluster's corrupted model, predicted here on the card,
+    within 1e-5 of max|a1 without -z|. Records each run's wall and coh
+    launches, and CUDA-event times of one tile's simulate call (-a 2 with
+    J and -z) and of its coherency call alone."""
+    import contextlib
+    import io
+    import torch
+    from sagecal_tpu_torch import cli, skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    from sagecal_tpu_torch.rime import predict as rp
+    from sagecal_tpu_torch.rime import residual as rr
+    src, sky, clus, _ = obs
+    work = os.path.dirname(src)
+    one = one_tile_copy(src, os.path.join(work, "sim_tile0.ms"))
+    ign = os.path.join(work, "sim_ignore.txt")
+    with open(ign, "w") as f:
+        f.write(f"{SIM_IGNORE}\n")
+    runs = {f"a{m}": ["-a", str(m), "-p", solpath, "-z", ign]
+            for m in (1, 2, 3)}
+    runs["a1_all"] = ["-a", "1", "-p", solpath]
+    col, walls, launches = {}, {}, {}
+    for tag, flags in runs.items():
+        ms = os.path.join(work, f"sim_{tag}.ms")
+        shutil.rmtree(ms, ignore_errors=True)
+        shutil.copytree(one, ms)
+        _reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["-d", ms, "-s", sky, "-c", clus] + flags)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = _counts()
+        if rc != 0:
+            raise AssertionError(f"e2e_sim {tag}: cli.main returned {rc}")
+        col[tag] = ds.SimMS(ms, data_column="CORRECTED_DATA").read_tile(0).x
+        shutil.rmtree(ms, ignore_errors=True)
+    tile = ds.SimMS(one).read_tile(0)
+    x = tile.x
+    a1 = col["a1"]
+    scale = float(np.abs(a1).max())
+    meta = ds.SimMS(one).meta
+    sk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
+                                   meta["freq0"])
+    dsky = rp.split_sky(sk, torch.float32, "cuda")
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, device="cuda",
+                                                    dtype=dt)
+    u, v, w = t(tile.u), t(tile.v), t(tile.w)
+    s1, s2 = t(tile.sta1, torch.long), t(tile.sta2, torch.long)
+    cidx = t(rp.chunk_indices(meta["tilesz"], meta["nbase"], sk.nchunk),
+             torch.long)
+    J = t(sol.read_solutions(solpath, sk.nchunk)[1][0], torch.complex64)
+    fdc = meta["fdelta"] / len(meta["freqs"])
+    only = sk.cluster_ids == SIM_IGNORE
+    alone = rr.simulate_visibilities(
+        dsky, None, u, v, w, meta["freqs"], fdc, s1, s2, mode=1, J=J,
+        chunk_idx=cidx, ignore_mask=only).cpu().numpy()
+    errs = dict(
+        add=float(np.abs(col["a2"] - x - a1).max()) / scale,
+        subtract=float(np.abs(x - col["a3"] - a1).max()) / scale,
+        ignored=float(np.abs(col["a1_all"] - a1 - alone).max()
+                      / np.abs(col["a1_all"]).max()))
+    xd = t(x, torch.complex64)
+    keep = ~only
+    sim_ms = cuda_ms(lambda: rr.simulate_visibilities(
+        dsky, xd, u, v, w, meta["freqs"], fdc, s1, s2, mode=2, J=J,
+        chunk_idx=cidx, ignore_mask=keep), 5)
+    coh_ms = cuda_ms(lambda: rp.coherencies(
+        dsky, u, v, w, meta["freqs"], fdc, per_channel_flux=True), 5)
+    rec = dict(runs=runs, wall_s=walls, launches=launches, errs=errs,
+               coh_launches=sum(n["coh"] for n in launches.values()),
+               sim_call_ms=sim_ms, coh_call_ms=coh_ms,
+               beyond_coh_ms=sim_ms - coh_ms, B=len(tile.u), F=len(FREQS),
+               M=sk.n_clusters, ignored=SIM_IGNORE)
+    emit("e2e_sim", **rec)
+    if not max(errs.values()) <= 1e-5 or not np.all(np.isfinite(a1)):
+        raise AssertionError(f"e2e_sim: the modes do not compose: {errs}")
+    if any(n["coh"] != 1 or any(n[k] for k in SOLVE_KERNELS)
+           for n in launches.values()):
+        raise AssertionError("e2e_sim: a run must launch the coherency "
+                             f"kernel once and no solve kernel: {launches}")
+    shutil.rmtree(one, ignore_errors=True)
+    return rec
+
+
 #: e2e_stochastic: -N 2 epochs of -M 4 minibatches (30 timeslots) over -w 2
 #: bands of 4 channels, on 2 tiles of e2e_rtr's observation
 E2E_STOCHASTIC = ["-N", "2", "-M", "4", "-w", "2"]
@@ -1900,7 +2200,7 @@ def phase_e2e_tile_batch(rtr: dict) -> dict:
     TILE_BATCH tiles of e2e_rtr's observation: tile 0 alone (the boost;
     the single-visit sweep and the matvec), tiles 1.. one batch (the
     visits kernel at one visit a tile and the matvec at TILE_BATCH kmax
-    chunks, no single-visit sweep), at e2e_rtr's ``-e 2``. Emits the
+    chunks, no single-visit sweep), at e2e_rtr's ``-e 1``. Emits the
     batch's EM, refine and solve seconds, seconds a tile and launches
     beside e2e_rtr's warm tile 1 (``rtr``, the same run)."""
     n = 1 + TILE_BATCH
@@ -1908,7 +2208,7 @@ def phase_e2e_tile_batch(rtr: dict) -> dict:
     rec = phase_e2e(obs, "e2e_tile_batch",
                     ["-j", "5", "--inner", "cg", "--tile-batch",
                      str(TILE_BATCH)], n, ("coh", "sweep", "visits",
-                                           "matvec"), em=2)
+                                           "matvec"), em=1)
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
     solo, first, rest = rec["tiles"][0], rec["tiles"][1], rec["tiles"][2:]
     batch = first["batch"]
@@ -1948,21 +2248,34 @@ def main() -> int:
     matvec = phase_matvec()
     visits = phase_visits()
     predict_mixed = phase_predict_mixed()
+    phase_manifold()
     phase_slice_parity()
     obs = observation_e2e()
-    phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"))
-    # -e 2 since PR 11 (as e2e_tile_batch, whose batch it is compared
-    # with), to keep the run in time (tile 0 boosted to 12 EM iterations)
+    # e2e and e2e_diag at one EM iteration, to keep the run in time
+    phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"), em=1)
+    # at one EM iteration (as e2e_tile_batch, whose batch it is compared
+    # with), to keep the run in time (tile 0 boosted to 6 EM iterations)
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
-                    ("coh", "sweep", "matvec"), em=2)
+                    ("coh", "sweep", "matvec"), em=1)
     # the constrained Jones modes on the same observation: the sweep
-    # kernel at md = 2, and the sweep and matvec kernels at md = 1 (the
-    # latter at one EM iteration, to keep the run in time)
+    # kernel at md = 2, and the sweep and matvec kernels at md = 1 (both
+    # at one EM iteration, to keep the run in time)
     e2e_md = {2: phase_e2e(obs, "e2e_diag", ["-j", "1", "--jones", "diag"],
-                           1, ("coh", "sweep")),
+                           1, ("coh", "sweep"), em=1),
               1: phase_e2e(obs, "e2e_phase", ["-j", "5", "--inner", "cg",
                                               "--jones", "phase"], 1,
                            ("coh", "sweep", "matvec"), em=1)}
+    # the solve, correction and simulation options on the same
+    # observation: -b 1 and -W 1 -J 1 at one EM iteration (boosted to 6
+    # on the first tile), and the simulation modes from e2e_rtr's
+    # solutions
+    bandpass = phase_e2e_bandpass(obs)
+    whiten_phase = phase_e2e(obs, "e2e_whiten_phase",
+                             ["-j", "5", "--inner", "cg", "-W", "1", "-J",
+                              "1", "-k", "0"], 1,
+                             ("coh", "sweep", "matvec"), em=1)
+    sim = phase_e2e_sim(obs, os.path.join(os.path.dirname(obs[0]),
+                                          "e2e_rtr_solutions.txt"))
     # stochastic calibration on the same observation (its first 2 tiles)
     stochastic = phase_e2e_stochastic(obs)
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
@@ -2023,6 +2336,9 @@ def main() -> int:
              f64_err_kernel=coh["residual"]["f64_err_kernel"],
              f64_err_plain_f32=coh["residual"]["f64_err_plain_f32"],
              launches_e2e_stochastic=stochastic["launches"]["coh"],
+             launches_e2e_bandpass=bandpass["launches"]["coh"],
+             launches_e2e_bandpass_by_f=bandpass["launches"]["coh_by_f"],
+             launches_e2e_sim=sim["coh_launches"],
              bands={tag: {k: coh[tag][k] for k in (
                  "F", "B", "step", "kernel_us", "device_ms", "ms",
                  "plain_ms", "bound_ms", "bound_by", "kernel_bound_share",
@@ -2036,6 +2352,8 @@ def main() -> int:
              source="sagecal_tpu_torch/csrc/sweep.cu",
              replaces="sagecal_tpu/ops/sweep_pallas.py:395",
              launches=rtr["launches"]["sweep"],
+             launches_e2e_whiten_phase=whiten_phase["launches"]["sweep"],
+             launches_e2e_bandpass=bandpass["launches"]["sweep"],
              max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
              ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
              bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
@@ -2050,6 +2368,7 @@ def main() -> int:
              replaces="sagecal_tpu/ops/sweep_pallas.py:946",
              launches=rtr["launches"]["matvec"],
              launches_e2e_tile_batch=tile_batch["launches"]["matvec"],
+             launches_e2e_whiten_phase=whiten_phase["launches"]["matvec"],
              max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],

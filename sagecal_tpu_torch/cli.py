@@ -3,20 +3,27 @@ full-batch and stochastic calibration).
 
 The parser accepts every flag of the JAX CLI so command lines translate
 directly. The port runs full-batch calibration with
-``-d -s -c -p -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k --kernel
---inner --inflight --jones --tile-batch --dtype-policy --platform`` (every
-solver mode ``-j 0..6``, ``--inner chol|cg``, ``--kernel pallas|xla``,
-in-flight cluster groups, ``--jones full|diag|phase``, T solve intervals
-as one lane-batched solve, skies of every source morphology);
-``--solve-fuse`` and ``--solve-promote`` are accepted as no-ops (PyTorch
-runs eagerly). ``-N E > 0`` routes to stochastic calibration
-(``stochastic.run_minibatch``, as the JAX CLI does): E epochs of ``-M``
-minibatches a solve interval over ``-w`` frequency mini-bands, robust
-LBFGS (``-l`` iterations, ``-m`` memory, ``-L`` nu) on the ``--loss``
-cost, with ``-d -s -c -p -F -t -T -x -y -I -O -o -k -V --platform``. With
-``-N``, ``-A > 1`` and ``-w > 1`` together (stochastic consensus) raise;
-``-A`` with ``-w 1`` runs plain minibatch calibration, as in the JAX
-CLI. ``-M`` and ``--loss`` act under ``-N`` only, as there.
+``-d -s -c -p -q -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k -J -W -b
+--linsolv --kernel --inner --inflight --jones --tile-batch --dtype-policy
+--platform`` (every solver mode ``-j 0..6``, ``--inner chol|cg``,
+``--kernel pallas|xla``, in-flight cluster groups, ``--jones
+full|diag|phase``, T solve intervals as one lane-batched solve, skies of
+every source morphology, the ``-q`` warm start, ``-W 1`` whitening of the
+solve input, ``-J 1`` phase-only correction with ``-k``, ``-b 1``
+per-channel solves; ``--linsolv`` is carried and selects nothing, as in
+the JAX package), and the simulation modes ``-a 1/2/3`` (``-p`` then
+names the solutions that corrupt the model and ``-z`` the clusters to
+leave out). ``--solve-fuse`` and ``--solve-promote`` are accepted as
+no-ops (PyTorch runs eagerly). ``-N E > 0`` routes to stochastic
+calibration (``stochastic.run_minibatch``, as the JAX CLI does, before
+it looks at ``-a``): E epochs of ``-M`` minibatches a solve interval
+over ``-w`` frequency mini-bands, robust LBFGS (``-l`` iterations, ``-m``
+memory, ``-L`` nu) on the ``--loss`` cost, with ``-d -s -c -p -q -F -t -T
+-x -y -I -O -o -k -V --platform``; ``-W``, ``-b``, ``-J``, ``-a`` and
+``-z`` are no-ops there, as in the JAX package. With ``-N``, ``-A > 1``
+and ``-w > 1`` together (stochastic consensus) raise; ``-A`` with ``-w
+1`` runs plain minibatch calibration, as in the JAX CLI. ``-M`` and
+``--loss`` act under ``-N`` only, as there.
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 
@@ -41,12 +48,6 @@ from sagecal_tpu_torch.config import (BeamMode, RunConfig, SimulationMode,
 # under -N, -w and -A are stochastic flags (check_flags)
 UNPORTED = {
     "ms_list": (None, "queue A item 7 (-f dataset lists)"),
-    "init_solutions": (None, "queue A item 7 (-q warm start)"),
-    "whiten": (0, "queue A item 7 (-W whitening, robust.py)"),
-    "per_channel": (0, "queue A item 7 (-b 1 per-channel solve)"),
-    "simulation": (0, "queue A item 7 (-a simulation modes)"),
-    "ignore_clusters": (None, "queue A item 7 (-z ignore list)"),
-    "phase_only": (0, "queue A item 7 (-J phase-only correction)"),
     "beam": (0, "queue A item 7 (-B beam)"),
     "admm": (1, "queue A item 9 (-A consensus)"),
     "nsolbw": (1, "queue A item 9 (-w mini-bands without -N)"),
@@ -54,7 +55,6 @@ UNPORTED = {
     "polytype": (2, "queue A item 9 (-Q)"),
     "rho": (5.0, "queue A item 9 (-r)"),
     "rho_file": (None, "queue A item 9 (-G)"),
-    "linsolv": (1, "queue A item 7 (--linsolv)"),
     "tile_bucket": (0, "queue A item 11 (--tile-bucket)"),
     "resume": (False, "queue A item 7 (--resume checkpoints)"),
     "faults": (None, "queue A item 10 (--faults)"),
@@ -187,7 +187,8 @@ def config_from_args(args) -> RunConfig:
         output_column=args.output_column, mmse_rho=args.mmse_rho,
         solver_mode=SolverMode(args.solver_mode),
         robust_nulow=args.nulow, robust_nuhigh=args.nuhigh,
-        randomize=bool(args.randomize), uvmin=args.uvmin,
+        linsolv=args.linsolv, randomize=bool(args.randomize),
+        uvmin=args.uvmin,
         uvmax=args.uvmax, whiten=bool(args.whiten),
         per_channel_bfgs=bool(args.per_channel),
         simulation=SimulationMode(args.simulation),

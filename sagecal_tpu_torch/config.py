@@ -51,8 +51,8 @@ class RunConfig:
     ms_list: str | None = None         # -f
     sky_model: str | None = None       # -s
     cluster_file: str | None = None    # -c
-    solutions_file: str | None = None  # -p
-    init_solutions: str | None = None  # -q
+    solutions_file: str | None = None  # -p : output (input under -a)
+    init_solutions: str | None = None  # -q : warm start
     format_3: bool = False             # -F 1
     input_column: str = "DATA"         # -I
     output_column: str = "CORRECTED_DATA"   # -O
@@ -66,12 +66,15 @@ class RunConfig:
     robust_nulow: float = 2.0          # -L
     robust_nuhigh: float = 30.0        # -H
     randomize: bool = True             # -R
+    # 0 Cholesky 1 QR 2 SVD in the reference; selects nothing here, as in
+    # the JAX package (solvers/lm.py: one jittered Cholesky retry)
+    linsolv: int = 1                   # --linsolv
 
     uvmin: float = 0.0                 # -x (lambda)
     uvmax: float = 1e9                 # -y
     mmse_rho: float = 1e-9             # -o
-    whiten: bool = False               # -W
-    per_channel_bfgs: bool = False     # -b 1
+    whiten: bool = False               # -W : uv-density whitening
+    per_channel_bfgs: bool = False     # -b 1 : per-channel LBFGS solves
 
     simulation: SimulationMode = SimulationMode.OFF  # -a
     ignore_clusters_file: str | None = None          # -z

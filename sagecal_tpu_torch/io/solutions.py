@@ -7,7 +7,8 @@ solve interval 8N rows of one column per effective cluster (the
 stochastic multi-band variant adds channels and mini-bands to the header
 and holds every mini-band's columns in turn in each row). The 8 reals
 per station map to the 2x2 Jones as ``[S0+jS1, S4+jS5; S2+jS3, S6+jS7]``.
-The binary checkpoint sidecar comes with ROADMAP queue A item 7.
+:func:`read_warm_start` reads the ``-q`` warm start. The binary
+checkpoint sidecar comes with ROADMAP queue A item 7.
 """
 
 from __future__ import annotations
@@ -169,3 +170,29 @@ def read_solutions(path: str, nchunk: np.ndarray):
             f"solution file {path!r} ends mid-interval "
             f"({len(rows)}/{n8} rows); truncated checkpoint?")
     return header, blocks
+
+
+def read_warm_start(path: str, sky, n_stations: int):
+    """``-q`` warm start (``solutions.read_warm_start``; main.cpp -q: "the
+    same format as a solution file, only solutions for 1 timeslot
+    needed"): the last interval of the file, [M, Kmax, N, 2, 2] complex,
+    or None for a file with no interval; band 0 of a stochastic
+    multi-band file. Raises ``ValueError`` when the file's station count
+    or effective-cluster count differs from the run's (a ``-p``
+    consensus Z file has n_eff_clusters x npoly columns and would
+    otherwise be misread as Jones columns)."""
+    header, blocks = read_solutions(path, sky.nchunk)
+    if not blocks:
+        return None
+    if header["n_stations"] != n_stations:
+        raise ValueError(
+            f"-q {path}: solution file is for {header['n_stations']} "
+            f"stations, run has {n_stations}")
+    if header["n_eff_clusters"] != sky.n_eff_clusters:
+        raise ValueError(
+            f"-q {path}: solution file has {header['n_eff_clusters']} "
+            f"effective clusters, run has {sky.n_eff_clusters} (a -p "
+            f"consensus Z file has n_eff_clusters x npoly columns and "
+            f"cannot seed -q; use a worker/J solution file)")
+    last = blocks[-1]
+    return last[0] if isinstance(last, list) else last

@@ -57,13 +57,16 @@ COH_FT = (1, 8)
 #: rows per block (csrc/coh.cu COH_THREADS): one thread per row
 COH_ROWS = 256
 
-#: kernel launches since the last reset (the plain version never counts)
+#: kernel launches since the last reset (the plain version never counts),
+#: and the same launches by their channel count F
 LAUNCHES = 0
+F_LAUNCHES: dict = {}
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+    F_LAUNCHES.clear()
 
 
 def op_count(M: int, F: int, B: int, S: int, n_gauss: int) -> int:
@@ -259,6 +262,7 @@ def coherencies_points(uvw3, geom, flux, gauss, freqs, fdelta,
         geo.row_blocks, int(recur), cuda_lib.stream_ptr(uvw3.device))
     cuda_lib.check(rc, "coh_points_kernel")
     LAUNCHES += 1
+    F_LAUNCHES[F] = F_LAUNCHES.get(F, 0) + 1
     return out
 
 

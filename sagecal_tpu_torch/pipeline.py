@@ -24,6 +24,16 @@ and the solutions, with the reference's heuristics:
   solve as one lane-batched SAGE solve (``sage.sagefit_host_tiles``),
   warm-started per batch; a short tail solves tile by tile.
 
+The solve and correction options: ``-q`` warm-starts from a solution
+file (and a divergence reset returns to it); ``-W 1`` whitens the solve
+input by uv density (never the residual's input); ``-J 1`` corrects the
+``-k`` cluster by its phases alone; ``-b 1`` solves the joint SAGE step
+without its LBFGS refine, then every channel by an LBFGS-only fit
+(``sage.bfgsfit``) warm-started from the joint solution, and writes
+each channel's residual and carries the last channel's solutions
+(:meth:`FullBatchPipeline.solve_channels`). ``-a 1/2/3`` simulates
+instead of calibrating (:meth:`FullBatchPipeline.run_simulation`).
+
 The JAX package's serve cache, fleet, priors, overlapped scheduler,
 fault injection, tracing and checkpoint/resume are not ported yet;
 their options raise ``NotImplementedError`` (see
@@ -49,6 +59,7 @@ from sagecal_tpu_torch.ops import sweep as swp
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.rime import residual as rr
 from sagecal_tpu_torch.solvers import lm as lm_mod
+from sagecal_tpu_torch.solvers import robust as rb
 from sagecal_tpu_torch.solvers import sage
 
 LMCUT = 40
@@ -78,17 +89,6 @@ def check_supported(cfg: RunConfig) -> None:
                          "stochastic.run_minibatch (the CLI routes it)")
     checks = [
         (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 7)"),
-        (cfg.simulation != SimulationMode.OFF, "-a simulation modes "
-         "(ROADMAP queue A item 7)"),
-        (cfg.per_channel_bfgs, "-b 1 per-channel solve (ROADMAP queue A "
-         "item 7)"),
-        (cfg.whiten, "-W 1 whitening (ROADMAP queue A item 7: robust.py)"),
-        (cfg.phase_only, "-J 1 phase-only correction (ROADMAP queue A "
-         "item 7: consensus/manifold.py)"),
-        (cfg.ignore_clusters_file is not None, "-z ignore list (ROADMAP "
-         "queue A item 7, with the simulation modes)"),
-        (cfg.init_solutions is not None, "-q warm start (ROADMAP queue A "
-         "item 7)"),
         (cfg.ms_list is not None, "-f dataset lists (ROADMAP queue A "
          "item 7)"),
     ]
@@ -131,11 +131,15 @@ class FullBatchPipeline:
             device=self.device, dtype=torch.long)
         self.n = meta["n_stations"]
         mode = effective_solver_mode(int(cfg.solver_mode), self.n)
+        # -b 1: the joint solve runs without its refine; the channel
+        # solves are the LBFGS fits (solve_channels)
         self.base_cfg = sage.SageConfig(
             max_emiter=cfg.max_em_iter, max_iter=cfg.max_iter,
-            max_lbfgs=cfg.max_lbfgs, lbfgs_m=cfg.lbfgs_m, solver_mode=mode,
+            max_lbfgs=0 if cfg.per_channel_bfgs else cfg.max_lbfgs,
+            lbfgs_m=cfg.lbfgs_m, solver_mode=mode,
             nulow=cfg.robust_nulow, nuhigh=cfg.robust_nuhigh,
-            randomize=cfg.randomize, inner=cfg.solver_inner,
+            randomize=cfg.randomize, linsolv=cfg.linsolv,
+            inner=cfg.solver_inner,
             kernel=cfg.solver_kernel,
             jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]),
             inflight=max(1, int(cfg.cluster_inflight)))
@@ -149,10 +153,14 @@ class FullBatchPipeline:
             cfg.solver_kernel, self.kmax, int(meta["nbase"]),
             int(meta["tilesz"]) * int(meta["nbase"]))
         # --tile-batch: T > 1 solves T staged tiles as one lane-batched
-        # solve; 0 or below solves tile by tile, as in the JAX CLI. The
-        # reference's other exclusions (-b 1, --shard-baselines) are not
-        # ported and raise before this point
+        # solve; 0 or below solves tile by tile, as in the JAX CLI. -b 1
+        # re-solves per channel and runs tile by tile, as there
+        # (--shard-baselines is not ported and raises before this point)
         self.tile_batch = max(1, int(cfg.tile_batch))
+        if self.tile_batch > 1 and cfg.per_channel_bfgs:
+            log("tile-batch disabled (per-channel/sharded path); "
+                "running sequentially")
+            self.tile_batch = 1
         self.sub_mask = sky.subtract_mask()
         self.correct_idx = skymodel.correct_cluster_index(
             sky, cfg.correct_cluster, warn=log)
@@ -168,7 +176,11 @@ class FullBatchPipeline:
         flags = rp.uvcut_flags(self._t(rowflags, torch.int32), u, v,
                                self._t(tile.freqs), self.cfg.uvmin,
                                self.cfg.uvmax)
-        return dict(u=u, v=v, w=w, x8=self._t(x8_np, self.sdt),
+        x8 = self._t(x8_np, self.sdt)
+        if self.cfg.whiten:
+            # -W 1: uv-density whitening of the solve input only
+            x8 = rb.whiten_data(x8, u, v, self.meta["freq0"])
+        return dict(u=u, v=v, w=w, x8=x8, flags=flags,
                     wt=lm_mod.make_weights(flags, self.sdt),
                     sta1=self._t(tile.sta1, torch.long),
                     sta2=self._t(tile.sta2, torch.long))
@@ -224,9 +236,113 @@ class FullBatchPipeline:
             stg["u"], stg["v"], stg["w"], meta["freqs"],
             meta["fdelta"] / len(meta["freqs"]), stg["sta1"], stg["sta2"],
             self.cidx, self.sub_mask, correct_idx=self.correct_idx,
-            rho=self.cfg.mmse_rho)
+            rho=self.cfg.mmse_rho, phase_only=self.cfg.phase_only)
         return utils.r2c(rr.residual_writeback(res).cpu().numpy()).astype(
             np.complex128)
+
+    def solve_channels(self, J0: np.ndarray, tile: ds.VisTile, stg: dict,
+                       write_residuals: bool):
+        """``-b 1`` (``_step_per_channel`` of the JAX package;
+        fullbatch_mode.cpp:442-488): every channel solved by an LBFGS-only
+        joint fit (``sage.bfgsfit``, ``-l`` iterations, the Student's-t
+        cost at nu = ``-L`` in the robust modes), each warm-started from
+        the same joint solution ``J0``. A channel's data has its flagged
+        rows zeroed (they weigh nothing in its solve, and their written
+        residual is minus the model); under ``-W 1`` it is whitened at
+        ``freq0``. (Per-channel flags, which
+        the JAX package also zeroes here, stop at ``VisTile.solve_input``
+        until the native tile packing is ported: ROADMAP queue A item 7.)
+
+        One coherency call of all F channels (per-channel flux, the
+        channel bandwidth) serves every channel's solve and residual:
+        channel f's coherencies are that call's slice f, which is what
+        the JAX package predicts for channel f alone. The channels solve
+        one after another (the JAX package vmaps them; a lane whose line
+        search has ended is frozen there, so each channel's result is
+        its solo solve's).
+
+        Returns (the last channel's J as numpy, which the run carries and
+        writes; per-channel records of res_0, res_1 and lbfgs_iters; the
+        [B, F, 2, 2] complex128 residual of every channel, or None when
+        ``write_residuals`` is off)."""
+        meta = self.meta
+        F = len(tile.freqs)
+        fdelta_chan = meta["fdelta"] / len(meta["freqs"])
+        coh = rp.coherencies(self.dsky, stg["u"], stg["v"], stg["w"],
+                             meta["freqs"], fdelta_chan,
+                             per_channel_flux=True)
+        cdt = devmod.complex_dtype(self.rdt)
+        J0t = torch.as_tensor(J0, device=self.device).to(cdt)
+        scfg = self.base_cfg._replace(max_lbfgs=self.cfg.max_lbfgs)
+        bad = (stg["flags"] == 1).cpu().numpy()
+        J, chans, res = None, [], []
+        for f in range(F):
+            xc = np.array(tile.x[:, f])
+            xc[bad] = 0.0
+            x8 = self._t(utils.vis_to_x8(xc))
+            if self.cfg.whiten:
+                x8 = rb.whiten_data(x8, stg["u"], stg["v"], meta["freq0"])
+            # the row weights already exclude the flagged rows
+            J, info = sage.bfgsfit(x8, coh[:, :, f].contiguous(),
+                                   stg["sta1"], stg["sta2"], self.cidx, J0t,
+                                   self.n, stg["wt"], config=scfg,
+                                   nu=self.cfg.robust_nulow)
+            chans.append(info)
+            if write_residuals:
+                r = rr.residual_from_coherencies(
+                    coh[:, :, f:f + 1], J,
+                    torch.as_tensor(xc[:, None], device=self.device).to(cdt),
+                    stg["sta1"], stg["sta2"], self.cidx, self.sub_mask,
+                    correct_idx=self.correct_idx, rho=self.cfg.mmse_rho,
+                    phase_only=self.cfg.phase_only)
+                res.append(r[:, 0].cpu().numpy().astype(np.complex128))
+        return (J.cpu().numpy().astype(np.complex128), chans,
+                np.stack(res, axis=1) if write_residuals else None)
+
+    def run_simulation(self, log=None):
+        """Simulation modes ``-a 1/2/3`` (``run_simulation`` of the JAX
+        package; fullbatch_mode.cpp:524-578): every tile's model replaces
+        (1), is added to (2) or subtracted from (3) its data, and lands in
+        the output column. With ``-p`` the model is corrupted by the
+        file's solutions (tile ti takes interval min(ti, count - 1)) and
+        ``-z`` leaves its clusters out; without ``-p``, ``-z`` does
+        nothing, as in the JAX package. Returns one record a tile (its
+        seconds and kernel launches)."""
+        log = self.log if log is None else log
+        cfg, ms, sky, meta = self.cfg, self.ms, self.sky, self.meta
+        blocks, ignore_mask = None, None
+        if cfg.solutions_file:
+            _, blocks = sol.read_solutions(cfg.solutions_file, sky.nchunk)
+            if cfg.ignore_clusters_file:
+                ignore = skymodel.read_ignore_list(cfg.ignore_clusters_file)
+                ignore_mask = np.array(
+                    [int(cid) not in ignore for cid in sky.cluster_ids])
+        cdt = devmod.complex_dtype(self.rdt)
+        history = []
+        for ti in range(ms.n_tiles):
+            c0 = _counters()
+            t0 = time.time()
+            tile = ms.read_tile(ti)
+            J = None
+            if blocks:
+                J = torch.as_tensor(blocks[min(ti, len(blocks) - 1)],
+                                    device=self.device).to(cdt)
+            out = rr.simulate_visibilities(
+                self.dsky, torch.as_tensor(tile.x, device=self.device).to(
+                    cdt), self._t(tile.u), self._t(tile.v), self._t(tile.w),
+                meta["freqs"], meta["fdelta"] / len(meta["freqs"]),
+                self._t(tile.sta1, torch.long),
+                self._t(tile.sta2, torch.long), mode=int(cfg.simulation),
+                J=J, chunk_idx=self.cidx, ignore_mask=ignore_mask)
+            tile.x = out.cpu().numpy().astype(np.complex128)
+            ms.write_tile(ti, tile)
+            log(f"Timeslot: {ti} simulated (mode={int(cfg.simulation)})")
+            history.append({"tile": ti, "seconds": time.time() - t0,
+                            "launches": dict(zip(
+                                ("coh", "sweep", "matvec", "visits"),
+                                [b - a for a, b in
+                                 zip(c0, _counters())][:4]))})
+        return history
 
     def _inflight_downgrade(self, log=print) -> None:
         """Divergence guard for ``--inflight`` (``pipeline.
@@ -242,6 +358,13 @@ class FullBatchPipeline:
         self.base_cfg = self.base_cfg._replace(inflight=1)
 
     def initial_jones(self) -> np.ndarray:
+        """The run's start and divergence-reset target: identity Jones, or
+        the ``-q`` file's last interval (``sol.read_warm_start``)."""
+        if self.cfg.init_solutions:
+            Jq = sol.read_warm_start(self.cfg.init_solutions, self.sky,
+                                     self.n)
+            if Jq is not None:
+                return Jq
         return np.tile(np.eye(2, dtype=np.complex128),
                        (self.sky.n_clusters, self.kmax, self.n, 1, 1))
 
@@ -298,15 +421,23 @@ class FullBatchPipeline:
                 state["J"] = Jnew
                 state["res_prev"] = (res_1 if state["res_prev"] is None
                                      else min(state["res_prev"], res_1))
-            if writer:
-                writer.write_interval(state["J"], sky.nchunk)
             c0 = _counters()
             t_res = time.time()
+            chans = None
+            if self.cfg.per_channel_bfgs:
+                # -b 1: the channel solves from the joint solution, their
+                # residuals; the last channel's solutions are carried
+                state["J"], chans, res = self.solve_channels(
+                    state["J"], tile, stg, write_residuals)
+            if writer:
+                writer.write_interval(state["J"], sky.nchunk)
             if write_residuals:
-                tile.x = self.residuals(state["J"], tile, stg)
+                tile.x = res if chans is not None else \
+                    self.residuals(state["J"], tile, stg)
                 t_write = time.time()
                 ms.write_tile(ti, tile)
             t1 = time.time()
+            # under -b 1 residual_s holds the channel solves too
             secs = dict(secs, read_s=item["read_s"],
                         residual_s=(t_write - t_res
                                     if write_residuals else 0.0),
@@ -325,7 +456,8 @@ class FullBatchPipeline:
                    "groups": of("groups"),
                    "launches": dict(zip(("coh", "sweep", "matvec",
                                          "visits"), launches[:4])),
-                   "xla_solves": launches[4], "batch": batch, **secs}
+                   "xla_solves": launches[4], "batch": batch,
+                   "channels": chans, **secs}
             history.append(rec)
             if self.cfg.verbose:
                 log(f"Timeslot: {ti} stats: " + json.dumps(
@@ -333,7 +465,7 @@ class FullBatchPipeline:
                                          "tcg_iters", "lbfgs_iters",
                                          "rejected_groups", "mean_nu",
                                          "launches", "xla_solves", "batch",
-                                         *secs)}))
+                                         "channels", *secs)}))
 
         def solo(item, boosted: bool):
             c0 = _counters()
@@ -402,7 +534,8 @@ def _counters():
 
 def run(cfg: RunConfig, device=None, log=print):
     """Open the dataset and the sky model and run full-batch
-    calibration on ``device`` (None: CUDA, raising without a card)."""
+    calibration, or with ``-a`` the simulation, on ``device`` (None:
+    CUDA, raising without a card)."""
     check_supported(cfg)
     dev = devmod.resolve(device)
     ms = ds.open_dataset(cfg.ms, cfg.ms_list, data_column=cfg.input_column,
@@ -412,5 +545,7 @@ def run(cfg: RunConfig, device=None, log=print):
                                     meta["ra0"], meta["dec0"], meta["freq0"],
                                     cfg.format_3)
     pipe = FullBatchPipeline(cfg, ms, sky, device=dev, log=log)
+    if cfg.simulation != SimulationMode.OFF:
+        return pipe.run_simulation(log=log)
     return pipe.run(solution_path=cfg.solutions_file,
                     max_tiles=cfg.max_timeslots or None, log=log)

@@ -3,8 +3,12 @@
 
 The full-batch write-back path: per-channel model with catalog spectra,
 subtraction of J_p C J_q^H for subtractable clusters, and the optional
-MMSE-regularized correction by one cluster's solutions (``-k``). The
-phase-only correction (``-J``) and the simulation modes come later.
+MMSE-regularized correction by one cluster's solutions (``-k``), with
+``-J 1`` by their phases alone (``consensus/manifold.extract_phases`` per
+chunk); and the simulation modes ``-a 1/2/3`` (replace, add, subtract the
+model, optionally corrupted by solutions, without the clusters of a
+``-z`` ignore list). The coherencies come from ``rime.predict.coherencies``
+(the coherency kernel on the point/gaussian half of the sky on the card).
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from sagecal_tpu_torch import dtypes, utils
+from sagecal_tpu_torch.consensus import manifold as mf
 from sagecal_tpu_torch.rime import predict as rp
 
 
@@ -36,33 +41,85 @@ def mmse_inverse(J, rho):
     return inv / det[..., None, None]
 
 
-def correct_by_cluster(res, J_m, sta1, sta2, chunk_idx_m, rho):
-    """inv(J_p) res inv(J_q)^H with cluster m's solutions; res
-    [B, F, 2, 2]."""
+def correct_by_cluster(res, J_m, sta1, sta2, chunk_idx_m, rho,
+                       phase_only: bool = False):
+    """inv(J_p) res inv(J_q)^H with cluster m's solutions J_m [K, N, 2,
+    2]; res [B, F, 2, 2]. With ``phase_only`` (``-J 1``) each chunk's
+    solutions are first reduced to unit-modulus diagonal phases
+    (:func:`consensus.manifold.extract_phases`)."""
+    if phase_only:
+        J_m = mf.extract_phases(J_m)
     Jinv = mmse_inverse(J_m, rho)
     Gp = utils.gather_jones(Jinv, chunk_idx_m, sta1)[:, None]
     Gq = utils.gather_jones(Jinv, chunk_idx_m, sta2)[:, None]
     return utils.mul22(utils.mul22(Gp, res), Gq, conj_b=True)
 
 
+def residual_from_coherencies(coh, J, x, sta1, sta2, chunk_idx,
+                              subtract_mask, correct_idx=None,
+                              rho: float = 1e-9, phase_only: bool = False):
+    """x - sum_m J_p C_m J_q^H over subtractable clusters, corrected by
+    cluster ``correct_idx``: the residual of :func:`calculate_residuals_
+    multifreq` from coherencies coh [M, B, F, 2, 2] already predicted (the
+    ``-b 1`` path slices one call's channels)."""
+    res = x - rp.predict_model(coh, J, sta1, sta2, chunk_idx,
+                               cluster_mask=subtract_mask)
+    if correct_idx is not None:
+        res = correct_by_cluster(res, J[correct_idx], sta1, sta2,
+                                 chunk_idx[correct_idx], rho,
+                                 phase_only=phase_only)
+    return res
+
+
 def calculate_residuals_multifreq(sky, J, x, u, v, w, freqs,
                                   fdelta_chan, sta1, sta2, chunk_idx,
                                   subtract_mask, correct_idx=None,
-                                  rho: float = 1e-9):
+                                  rho: float = 1e-9,
+                                  phase_only: bool = False):
     """Residual x - sum_m J_p C_m(f) J_q^H over subtractable clusters.
 
     x [B, F, 2, 2]; J [M, Kmax, N, 2, 2]; chunk_idx [M, B];
     subtract_mask [M] bool; ``correct_idx`` the padded index of the
-    cluster whose solutions correct the residual; ``sky`` a
-    ``rime.predict.SplitSky`` (or a SkyArrays, split per call) and
-    ``freqs`` the host's channel list (``rime.predict.coherencies``)."""
+    cluster whose solutions correct the residual (by their phases alone
+    with ``phase_only``); ``sky`` a ``rime.predict.SplitSky`` (or a
+    SkyArrays, split per call) and ``freqs`` the host's channel list
+    (``rime.predict.coherencies``)."""
     coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
                          per_channel_flux=True)
-    model = rp.predict_model(coh, J, sta1, sta2, chunk_idx,
-                             cluster_mask=subtract_mask)
+    return residual_from_coherencies(coh, J, x, sta1, sta2, chunk_idx,
+                                     subtract_mask, correct_idx, rho,
+                                     phase_only)
+
+
+def simulate_visibilities(sky, x, u, v, w, freqs, fdelta_chan, sta1, sta2,
+                          mode: int, J=None, chunk_idx=None,
+                          ignore_mask=None):
+    """Simulation modes ``-a 1/2/3`` (``residual.simulate_visibilities``;
+    residual.c:1242, :1601): the model replaces (1), is added to (2) or
+    subtracted from (3) x [B, F, 2, 2].
+
+    ``J`` [M, Kmax, N, 2, 2] (optional) corrupts the model with the
+    chunk map ``chunk_idx`` [M, B]; ``ignore_mask`` [M] True keeps a
+    cluster in the model (the ``-z`` list names clusters to leave out).
+    The JAX function's ``correct_idx`` is left out: its pipeline never
+    passes it."""
+    coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
+                         per_channel_flux=True)
+    M = coh.shape[0]
+    mask = [True] * M if ignore_mask is None else \
+        [bool(k) for k in ignore_mask]
+    if J is not None:
+        model = rp.predict_model(coh, J, sta1, sta2, chunk_idx,
+                                 cluster_mask=mask)
+    else:
+        model = torch.zeros(coh.shape[1:], dtype=coh.dtype,
+                            device=coh.device)
+        for m in range(M):
+            if mask[m]:
+                model += coh[m]
     del coh
-    res = x - model
-    if correct_idx is not None:
-        res = correct_by_cluster(res, J[correct_idx], sta1, sta2,
-                                 chunk_idx[correct_idx], rho)
-    return res
+    if mode == 2:       # SIMUL_ADD
+        return x + model
+    if mode == 3:       # SIMUL_SUB
+        return x - model
+    return model        # SIMUL_ONLY

@@ -5,7 +5,8 @@ A numpy-only copy of the JAX package's parser (the port never imports
 [M, Smax] struct-of-arrays :class:`ClusterSky` the predict layer ships
 to the device, and the split of a mixed sky into the coherency
 kernel's point/gaussian half and a compact rest
-(:func:`split_for_kernel`).
+(:func:`split_for_kernel`), and the ``-z`` ignore list
+(:func:`read_ignore_list`).
 """
 
 from __future__ import annotations
@@ -387,6 +388,20 @@ def split_for_kernel(sky: ClusterSky):
         else:
             fields[f.name] = pack(a)
     return sky_pg, ClusterSky(**fields)
+
+
+def read_ignore_list(path: str) -> set:
+    """Cluster ids to leave out of a simulation (``-z``; readsky.c:743):
+    the first integer of every line that is neither empty nor a
+    ``#`` comment."""
+    ignore = set()
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ignore.add(int(line.split()[0]))
+    return ignore
 
 
 def correct_cluster_index(sky, ccid, warn=None):

@@ -21,7 +21,11 @@ The damped system is then solved by one of two inner solvers
 - ``"chol"``: on the sweep route the ``blocks_chol`` route
   (``lm.py:439``): assemble, factor and solve from the blocks; on the XLA
   route the dense (JTJ + shift I) Cholesky (:func:`_solve_damped`); both
-  with one boosted-jitter retry;
+  with one boosted-jitter retry. That retry is where the reference's
+  QR and SVD fallbacks (``--linsolv 1/2``) went in the JAX package
+  (``lm.py:14``, ``:207``), so ``--linsolv`` selects nothing there or
+  here: it is carried in ``RunConfig`` and ``sage.SageConfig`` and
+  every value gives the same result;
 - ``"cg"``: matrix-free preconditioned CG (``_solve_damped_cg``): each
   trip is one blocks matvec (the matvec kernel on the card) or one
   ``normal_eq.gn_matvec`` [B] pass under the station-block

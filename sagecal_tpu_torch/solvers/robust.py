@@ -6,7 +6,8 @@ nu updates evaluate all grid candidates at once with
 ``torch.special.digamma`` and pick the root by an argmin on the device
 (no host read). ``robust_lm_solve`` runs the reference's wt_itmax = 3
 IRLS rounds of {weighted LM -> weight E-step -> ML nu update}, with the
-ordered-subsets inner LM when ``os`` is given.
+ordered-subsets inner LM when ``os`` is given. ``whiten_data`` is the
+uv-density whitening of ``-W 1``.
 """
 
 from __future__ import annotations
@@ -139,3 +140,22 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                    "final_cost": infos[-1]["final_cost"],
                    "iters": sum(i["iters"] for i in infos),
                    "cg_iters": sum(i["cg_iters"] for i in infos)}
+
+
+def ncp_weight(uvdist):
+    """Inverse uv-density taper 1/(1 + 1.8 exp(-0.05 d)), flat (1) for
+    d > 400 wavelengths (``robust.ncp_weight``, updatenu.c:343-350)."""
+    w = 1.0 / (1.0 + 1.8 * torch.exp(-0.05 * uvdist))
+    return torch.where(uvdist > 400.0, torch.ones_like(w), w)
+
+
+def whiten_data(x, u, v, freq0):
+    """uv-density whitening of visibility rows (``-W 1``;
+    ``robust.whiten_data``, updatenu.c:386): every entry of row b is
+    scaled by ``ncp_weight(|uv_b|)``, |uv| in wavelengths at ``freq0``
+    (u, v in seconds). x [B, ...] real or complex."""
+    uu = u * freq0
+    vv = v * freq0
+    a = ncp_weight(torch.sqrt(uu * uu + vv * vv))
+    rdt = x.real.dtype if x.is_complex() else x.dtype
+    return x * a.reshape((-1,) + (1,) * (x.ndim - 1)).to(rdt)

@@ -40,6 +40,9 @@ and nu. Every sweep step is one lane-batched solve over the T tiles'
 visits (T G lanes under groups, each tile's relaxation its own), where
 the JAX package vmaps the whole solve over tiles; the refine then runs
 tile after tile. :func:`sagefit_host` is the same loop at T = 1.
+
+:func:`bfgsfit` is the LBFGS-only joint fit of the per-channel bandpass
+solve (``-b 1``): the refine alone, warm-started.
 """
 
 from __future__ import annotations
@@ -70,6 +73,11 @@ class SageConfig(NamedTuple):
     nulow: float = 2.0
     nuhigh: float = 30.0
     randomize: bool = True
+    # --linsolv 0/1/2 (Cholesky, QR, SVD in the reference): carried for
+    # parity and selecting nothing, as in the JAX package, whose damped
+    # solves fold the QR/SVD fallbacks into one jittered Cholesky retry
+    # (lm._solve_damped)
+    linsolv: int = 1
     inner: str = "chol"
     kernel: str = "pallas"
     jones_mode: str = "full"
@@ -472,6 +480,26 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
                                 M=config.lbfgs_m, return_iters=True)
     Jn = p_to_J(p1)
     return Jn, _wres(x8, Jn, coh, sta1, sta2, chunk_idx, wt_base), k
+
+
+def bfgsfit(x8, coh, sta1, sta2, chunk_idx, J0, n_stations: int,
+            wt_base, config: SageConfig = SageConfig(), nu: float = 2.0):
+    """LBFGS-only joint solve over all clusters (``sage.bfgsfit``;
+    ``bfgsfit_visibilities``, lmfit.c:1127): the per-channel bandpass
+    solver of ``-b 1`` (fullbatch_mode.cpp:442-488). :func:`refine` from
+    ``J0`` (constrained to ``config.jones_mode``) with ``config.max_lbfgs``
+    iterations of memory ``config.lbfgs_m``, on the Student's-t cost
+    sum log1p(r^2 / nu) in the robust solver modes (the caller passes
+    ``-L``) and sum r^2 otherwise. Returns (J, info) with res_0/res_1 =
+    ||residual w||_2 / (8 B) at J0 and J, and lbfgs_iters."""
+    if config.jones_mode != "full":
+        J0 = ne.jones_constrain(J0, config.jones_mode)
+    res_0 = _wres(x8, J0, coh, sta1, sta2, chunk_idx, wt_base)
+    J, res_1, k = refine(
+        x8, coh, sta1, sta2, chunk_idx, J0, wt_base, n_stations, config,
+        mean_nu=nu if _is_robust(int(config.solver_mode)) else None)
+    return J, {"res_0": float(res_0), "res_1": float(res_1),
+               "lbfgs_iters": k}
 
 
 def _budget(config: SageConfig, M: int):

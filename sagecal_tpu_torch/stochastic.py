@@ -19,13 +19,14 @@ chunk map (minibatch_mode.cpp:71, :450-492), and the reference's
 divergence policy follows every tile: a band whose residual exceeds
 RES_RATIO x the band average is reset with its memory, and a residual of
 0, NaN or above RES_RATIO x the best so far resets every band
-(:516-542).
+(:516-542). ``-q`` warm-starts the bands (:meth:`StochasticRunner.
+initial_p`).
 
 Runs on the card in float32 and on the CPU in float64, like the
 full-batch pipeline. Not ported yet, each raising
 ``NotImplementedError`` naming its ROADMAP item: the beam (``-B``, queue
-A item 7c), the ``-q`` warm start (item 7b) and the consensus variant
-``run_minibatch_consensus`` (``-A > 1`` with ``-w > 1``, item 9). The JAX
+A item 7c) and the consensus variant ``run_minibatch_consensus`` (``-A >
+1`` with ``-w > 1``, item 9). The JAX
 package's background reader and writer threads (``--prefetch``) and its
 trace records (item 10) change no value and are left out: tiles are read
 and written inline.
@@ -284,8 +285,9 @@ def make_band_solver_batched(dsky, n_stations: int, chunk_idx, chunk_mask,
 def check_supported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError`` for a stochastic run the port does
     not do yet: the consensus variant, and every flag the full-batch
-    pipeline does not port (``pipeline.check_supported``: ``-B``, ``-q``,
-    ``-f``, ...)."""
+    pipeline does not port (``pipeline.check_supported``: ``-B``,
+    ``-f``). ``-W``, ``-b``, ``-J``, ``-a`` and ``-z`` pass: a stochastic
+    run reads none of them, as in the JAX package."""
     if cfg.n_admm > 1 and cfg.channel_avg_per_band > 1:
         raise NotImplementedError(
             "not ported yet: -N with -A > 1 and -w > 1, stochastic consensus "
@@ -345,11 +347,34 @@ class StochasticRunner:
             f"channels wide")
 
     def initial_p(self):
-        """(pinit, per-band copies): the identity Jones as [M, K, N, 8]
-        reals through float32, as the reference holds them."""
+        """(pinit, per-band starts) as [M, K, N, 8] reals: the identity
+        Jones, or the ``-q`` warm start (``_StochasticRunner.initial_p``;
+        minibatch_mode.cpp:229-232). The file's last interval is read: a
+        multi-band file maps band for band when its band count is the
+        run's, else every band starts from its first band; a single-band
+        file replaces the identity and starts every band. ``pinit`` (the
+        end-of-tile reset target) stays the identity under a multi-band
+        file, as in the JAX package. Every value goes through float32,
+        as the JAX package casts them (``astype(np.float32)``, under x64
+        too): the port carries that cast over, so a float64 run starts
+        from the JAX package's values."""
         J0 = np.tile(np.eye(2, dtype=np.complex128),
                      (self.M, self.kmax, self.n, 1, 1))
+        per_band = None
+        if self.cfg.init_solutions:
+            _, blocks = sol.read_solutions(self.cfg.init_solutions,
+                                           self.sky.nchunk)
+            if blocks:
+                last = blocks[-1]
+                if isinstance(last, list):
+                    per_band = last if len(last) == self.nsolbw \
+                        else [last[0]] * self.nsolbw
+                else:
+                    J0 = last
         pinit = utils.jones_c2r_np(J0).astype(np.float32)
+        if per_band is not None:
+            return pinit, [utils.jones_c2r_np(Jb).astype(np.float32)
+                           for Jb in per_band]
         return pinit, [pinit.copy() for _ in range(self.nsolbw)]
 
     def _t(self, a, dtype=None):

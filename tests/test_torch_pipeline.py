@@ -303,8 +303,8 @@ def test_mode_runs_use_their_solvers(mode_runs):
 @pytest.mark.parametrize("extra", [["--resume"], ["-N", "2", "-A", "2", "-w",
                                                   "2"],
                                    ["-B", "1"], ["--tile-bucket", "8"],
-                                   ["-W", "1"],
-                                   ["-a", "1"], ["-q", "x.sol"],
+                                   ["-f", "x.list"],
+                                   ["--faults", "x"], ["-P", "3"],
                                    ["--dtype-policy", "bf16"],
                                    ["--prefetch", "0"]])
 def test_unported_flags_raise(runs, extra):
