@@ -69,6 +69,22 @@ channels' solves and residuals), ``e2e_whiten_phase`` (``-j 5 --inner
 cg -W 1 -J 1 -k 0 -e 1``) and ``e2e_sim`` (``-a 1/2/3 -p`` e2e_rtr's
 solutions ``-z`` one cluster, on the first tile: the three modes compose
 and the ignored cluster is absent).
+Reduced storage (``--dtype-policy bf16|f16``): ``sweep`` and ``visits``
+hold and time the bf16 and f16 instances of the sweep kernel at full width
+in each Jones mode (K = 4; the rows 80 bytes a row where float32's are
+128), checked at K = 1 and on the empty chunk too; ``slice_parity`` adds
+``bf16_default`` (the default mode on single-chunk clusters: the reduced
+OS fast path), ``f16_j1_xla`` (the reduced XLA assembly and LU),
+``f16_j1`` (the f16 sweep instance) and ``bf16_inflight_rtr`` (the bf16
+visits instance), each on an observation of its own (REDUCED_OBS) against
+the port's CPU run at the same policy at max(PARITY_RTOL, SPREAD_FACTOR x
+the CPU run's own spread under a one-float32-ulp move of every source
+flux), a gate of at most SPREAD_CAP, with every relaxation decision
+equal, and within ENVELOPE of the CPU run without the policy;
+``e2e_bf16`` (``-j 5 --inner cg``, e2e_rtr's first tile) and
+``e2e_f16_inflight`` (``-j 5 --inner cg --inflight 4``, e2e_inflight's
+first tile) run at full width, launch only their policy's sweep
+instances, and land within ENVELOPE of the float32 run's final residual.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -107,6 +123,23 @@ SIM_RTOL = 1e-4
 #: only where the trial that decided it was within this relative margin
 #: of its threshold on both sides (float32 against float64 roundoff)
 FLIP_MARGIN = 1e-3
+#: --dtype-policy: the reduced storage policies, and the envelope of a
+#: reduced run's final residual against the float32 run's, |res_1 /
+#: res_1(f32) - 1| (tests/test_dtype_policy.py's ENVELOPE)
+REDUCED = ("bf16", "f16")
+ENVELOPE = {"bf16": 0.25, "f16": 0.10}
+#: a reduced run's card-against-CPU gate is max(PARITY_RTOL, SPREAD_FACTOR
+#: x the CPU run's own spread): how far the CPU run moves when every
+#: source flux moves by one float32 ulp (:func:`perturb_sky`). Float32
+#: roundoff flips roundings to the storage dtype, which the solves carry
+#: on, so the card's float32 sums in another order move a reduced run as
+#: far as that does
+SPREAD_FACTOR = 10
+#: ... and that gate may not exceed SPREAD_CAP (a tenth of the f16
+#: envelope): a run whose CPU result moves further under one ulp is
+#: roundoff-chaotic (ROADMAP queue C, C10), and its comparison would check
+#: nothing, so the phase fails
+SPREAD_CAP = 1e-2
 
 N_STATIONS = 62
 TILESZ = 120
@@ -243,6 +276,34 @@ def kernels_per_call(fn, name: str, launches, reps: int = 5):
                          f"counter: {seen}")
 
 
+def _template_args(mangled: str) -> list:
+    """The template arguments at the head of a mangled name's rest
+    (``ILb0ELi4E13__nv_bfloat16E...``): bools, ints, ``float`` and named
+    types; [] when it holds none."""
+    import re
+    if not mangled.startswith("I"):
+        return []
+    out, i = [], 1
+    while i < len(mangled) and mangled[i] != "E":
+        m = re.match(r"L([ib])(\d+)E", mangled[i:])
+        if m:
+            k, v = m.groups()
+            out.append(v if k == "i" else ("true" if v == "1" else "false"))
+            i += m.end()
+        elif mangled[i] == "f":
+            out.append("float")
+            i += 1
+        else:
+            m = re.match(r"(\d+)", mangled[i:])
+            if not m:
+                return []
+            n = int(m.group(1))
+            j = i + m.end()
+            out.append(mangled[j:j + n])
+            i = j + n
+    return out
+
+
 def ptxas_resources(source: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} of one source's
     kernels, read from the compiler's ``-Xptxas -v`` report."""
@@ -253,12 +314,11 @@ def ptxas_resources(source: str) -> dict:
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
         if m:
             name = m.group(2)[:int(m.group(1))]
-            # a kernel template's int and bool arguments (ILi8ELb1EE)
-            t = re.match(r"I((?:L[ib]\d+E)+)E", m.group(2)[int(m.group(1)):])
-            if t:
-                name += "<" + ", ".join(
-                    v if k == "i" else ("true" if v == "1" else "false")
-                    for k, v in re.findall(r"L([ib])(\d+)E", t.group(1))) + ">"
+            # a kernel template's int, bool and type arguments
+            # (ILi8ELb1EE, ILb0ELi4E13__nv_bfloat16E)
+            args = _template_args(m.group(2)[int(m.group(1)):])
+            if args:
+                name += "<" + ", ".join(args) + ">"
             res[name] = {"registers": None, "spill_stores": 0,
                          "spill_loads": 0}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -822,19 +882,32 @@ def _sweep_check(tag, args, nb, jones="full"):
     return errs, max(a for a, _ in pairs), got
 
 
-def _sweep_timed(K: int, jones: str, ptxas: dict) -> dict:
-    """The sweep kernel at full width (K chunks, Jones mode ``jones``):
-    checked against its plain version, one kernel a call, and timed as
-    ``call_ms`` (one call, median CUDA-event time after a synchronize),
-    ``device_ms`` (200 back-to-back calls over the count) and the
-    profiler's ``kernel_us``, beside its bound."""
+def _stored(args, policy: str):
+    """The sweep's inputs ``args`` with their rows x8, wt and cost_wt in
+    the storage dtype of ``policy`` (as they are at "f32")."""
+    from sagecal_tpu_torch import dtypes
+    st = dtypes.storage_dtype(policy)
+    return tuple(a.to(st) if i in (0, 6, 7) else a
+                 for i, a in enumerate(args))
+
+
+def _sweep_timed(K: int, jones: str, ptxas: dict,
+                 policy: str = "f32") -> dict:
+    """The sweep kernel at full width (K chunks, Jones mode ``jones``,
+    the rows in the storage dtype of ``policy``): checked against its
+    plain version, one kernel a call, and timed as ``call_ms`` (one call,
+    median CUDA-event time after a synchronize), ``device_ms`` (200
+    back-to-back calls over the count) and the profiler's ``kernel_us``,
+    beside its bound."""
     import torch
     from sagecal_tpu_torch.ops import sweep as swp
     from sagecal_tpu_torch.solvers import normal_eq as ne
     md = ne.jones_mdim(jones)
     args, (B, nb) = _sweep_inputs(K)
+    args = _stored(args, policy)
     x8, J, coh, sta1, sta2, cid, wt, cw, _, _ = args
-    errs, abs_err, _ = _sweep_check(f"K={K} {jones}", args, nb, jones)
+    errs, abs_err, _ = _sweep_check(f"K={K} {jones} {policy}", args, nb,
+                                    jones)
     call = lambda: swp.sweep_blocks(*args, jones=jones)
     ms = cuda_ms(call, 50)
     dev_ms = device_ms(call)
@@ -848,17 +921,22 @@ def _sweep_timed(K: int, jones: str, ptxas: dict) -> dict:
     plain_ms = cuda_ms(
         lambda: swp.sweep_blocks_plain(x8, J[:, s1b], J[:, s2b], coh, cid,
                                        wt, cw, nb, jones), 3)
-    # rows (x, w, cw, coherency), chunk ids (int32, as the TPU kernel reads
-    # them) when K > 1, the Jones and the baselines' stations (int32) read
-    # once; the caller layout of md and the costs written once
-    n_bytes = 4 * (32 * B + B * (K > 1) + K * N_STATIONS * 8 + 2 * nb
-                   + K * nb * swp.n_out(md) + K)
+    # rows (x, w, cw in the storage dtype, the complex64 coherency: 128
+    # bytes a row at float32, 80 at bf16/f16), chunk ids (int32, as the
+    # TPU kernel reads them) when K > 1, the Jones and the baselines'
+    # stations (int32) read once; the caller layout of md and the costs
+    # written once
+    row_bytes = 3 * 8 * x8.element_size() + 8 * 4
+    n_bytes = row_bytes * B + 4 * (B * (K > 1) + K * N_STATIONS * 8 + 2 * nb
+                                   + K * nb * swp.n_out(md) + K)
     # each row enters the sums of its own chunk only
     n_rows = int(((cid >= 0) & (cid < K)).sum())
     bms, by = bound_ms(n_bytes, swp.sweep_flops_per_row(md) * n_rows)
     geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
-        torch.device("cuda", torch.cuda.current_device()), K, md), md=md)
-    rec = dict(K=K, jones=jones, md=md, T=TILESZ, nb=nb, rel_err=errs,
+        torch.device("cuda", torch.cuda.current_device()), K, md,
+        swp.STORAGE[x8.dtype][0]), md=md)
+    rec = dict(K=K, jones=jones, md=md, policy=policy, row_bytes=row_bytes,
+               T=TILESZ, nb=nb, rel_err=errs,
                max_abs_err=abs_err, ms=ms, call_ms=ms, device_ms=dev_ms,
                kernel_us=k_us, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                library_ms=None, bound_share=bms / dev_ms,
@@ -875,8 +953,10 @@ def phase_sweep():
     """The fused sweep kernel against its plain version at full width (K =
     1 and 4) in each Jones mode (md = 4, 2, 1) and at the edge shapes
     (every edge in full Jones, the empty chunk in diag and phase too),
-    each twice (bitwise equal); timed by :func:`_sweep_timed`. Records
-    are keyed K (full Jones) and (jones, K)."""
+    each twice (bitwise equal); timed by :func:`_sweep_timed`. The bf16
+    and f16 instances (``--dtype-policy``) likewise at K = 4 in each mode,
+    checked at K = 1 and on the empty chunk. Records are keyed K (full
+    Jones), (jones, K) and (policy, jones, K)."""
     out = {}
     ptxas = ptxas_resources("sweep")
     for K in (1, 4):
@@ -884,6 +964,16 @@ def phase_sweep():
     for jones, _ in MODES:
         for K in (1, 4):
             out[(jones, K)] = _sweep_timed(K, jones, ptxas)
+    for policy in REDUCED:
+        for jones in ("full",) + tuple(m for m, _ in MODES):
+            out[(policy, jones, 4)] = _sweep_timed(4, jones, ptxas, policy)
+        for tag, K, nck in (("K=1", 1, None), ("empty_chunk", 2, 1)):
+            args, (B, nb) = _sweep_inputs(K, seed=6, nchunk=nck)
+            errs, abs_err, _ = _sweep_check(f"{tag} {policy}",
+                                            _stored(args, policy), nb)
+            emit("sweep_edge", tag=tag, policy=policy, K=K, nchunk=nck,
+                 rel_err=errs, max_abs_err=abs_err, deterministic=True)
+            out[(policy, tag)] = dict(max_abs_err=abs_err)
     for tag, N, T, K, nck in EDGES:
         for jones in ("full",) + (tuple(m for m, _ in MODES)
                                   if tag == "empty_chunk" else ()):
@@ -1175,18 +1265,20 @@ N_RAGGED = 3
 
 
 def _visits_timed(K: int, batched_wt: bool, jones: str, ptxas: dict,
-                  serial: bool) -> dict:
+                  serial: bool, policy: str = "f32") -> dict:
     """The multi-visit sweep at V = 4 visits of the full-width path in
-    the Jones mode ``jones``, checked against its plain version, one
-    kernel a call, timed as the sweep is (and, with ``serial``, against V
-    serial sweep-kernel calls)."""
+    the Jones mode ``jones``, the rows in the storage dtype of
+    ``policy``, checked against its plain version, one kernel a call,
+    timed as the sweep is (and, with ``serial``, against V serial
+    sweep-kernel calls)."""
     from sagecal_tpu_torch.ops import sweep as swp
     from sagecal_tpu_torch.solvers import normal_eq as ne
     md = ne.jones_mdim(jones)
     args, (B, nb) = _visits_inputs(K, batched_wt)
+    args = _stored(args, policy)
     x8, J, coh, sta1, sta2, cid, wt, cw, _, _, V = args
     errs, abs_err = _visits_check(
-        f"K={K} batched_wt={batched_wt} {jones}", args, jones)
+        f"K={K} batched_wt={batched_wt} {jones} {policy}", args, jones)
     s1b, s2b = sta1[:nb], sta2[:nb]
     plain = lambda: swp.sweep_blocks_visits_plain(
         x8, J[:, :, s1b], J[:, :, s2b], coh, cid, wt, cw, nb, V, jones)
@@ -1208,19 +1300,21 @@ def _visits_timed(K: int, batched_wt: bool, jones: str, ptxas: dict,
                              "call")
     serial_ms = cuda_ms(serial_calls, 50) if serial else None
     plain_ms = cuda_ms(plain, 3)
-    # per-visit operands read once per visit, shared ones once: x 8,
-    # coherency 8, weights 8 + 8 words a row, the chunk id (int32) when
-    # K > 1; the Jones and the baselines' stations (int32) read once; the
-    # caller layout of md and the costs written once
-    words = 16 * V + 16 * (V if batched_wt else 1) \
-        + (K > 1) * (V if cid.dim() == 2 else 1)
-    n_bytes = 4 * (words * B + V * K * N_STATIONS * 8 + 2 * nb
-                   + V * K * (nb * swp.n_out(md) + 1))
+    # per-visit operands read once per visit, shared ones once: x (8 in
+    # the storage dtype), the coherency (8 words), the weights (8 + 8 in
+    # the storage dtype) a row, the chunk id (int32) when K > 1; the
+    # Jones and the baselines' stations (int32) read once; the caller
+    # layout of md and the costs written once
+    isz = x8.element_size()
+    row_bytes = V * (8 * isz + 32) + (V if batched_wt else 1) * 16 * isz \
+        + 4 * (K > 1) * (V if cid.dim() == 2 else 1)
+    n_bytes = row_bytes * B + 4 * (V * K * N_STATIONS * 8 + 2 * nb
+                                   + V * K * (nb * swp.n_out(md) + 1))
     n_rows = V * int(((cid >= 0) & (cid < K)).sum())
     bms, by = bound_ms(n_bytes, swp.sweep_flops_per_row(md) * n_rows)
     geo = swp.sweep_geometry(TILESZ, nb, K, swp._sweep_slots(
-        x8.device, K, md), V, md=md)
-    rec = dict(V=V, K=K, jones=jones, md=md, T=TILESZ, nb=nb,
+        x8.device, K, md, swp.STORAGE[x8.dtype][0]), V, md=md)
+    rec = dict(V=V, K=K, jones=jones, md=md, policy=policy, T=TILESZ, nb=nb,
                batched_wt=batched_wt, rel_err=errs, max_abs_err=abs_err,
                ms=ms, call_ms=ms, device_ms=dev_ms, kernel_us=k_us,
                kernels_per_call=n_kernels, kernel_traces=traces,
@@ -1241,8 +1335,11 @@ def phase_visits():
     and per visit (robust weights), in diag and phase with the weights
     per visit; and at the edge shapes at V = 3 (the empty chunk in every
     mode), each twice (bitwise equal); timed by :func:`_visits_timed`,
-    full Jones also against V serial sweep-kernel calls. Records are
-    keyed (K, batched_wt) (full Jones) and (jones, K)."""
+    full Jones also against V serial sweep-kernel calls. The bf16 and f16
+    instances likewise at K = 4 in each mode (weights per visit, as the
+    robust solves of e2e_f16_inflight hold them), checked on the empty
+    chunk at V = 3. Records are keyed (K, batched_wt) (full Jones),
+    (jones, K) and (policy, jones, K)."""
     out = {}
     ptxas = ptxas_resources("sweep")
     for K in (1, 4):
@@ -1252,6 +1349,18 @@ def phase_visits():
     for jones, _ in MODES:
         for K in (1, 4):
             out[(jones, K)] = _visits_timed(K, True, jones, ptxas, False)
+    for policy in REDUCED:
+        for jones in ("full",) + tuple(m for m, _ in MODES):
+            out[(policy, jones, 4)] = _visits_timed(4, True, jones, ptxas,
+                                                    False, policy)
+        args, (B, nb) = _visits_inputs(2, False, seed=9, V=N_RAGGED,
+                                       nchunk=1)
+        errs, abs_err = _visits_check(f"empty_chunk {policy}",
+                                      _stored(args, policy))
+        emit("visits_edge", tag="empty_chunk", policy=policy, V=N_RAGGED,
+             K=2, nchunk=1, rel_err=errs, max_abs_err=abs_err,
+             deterministic=True)
+        out[(policy, "empty_chunk")] = dict(max_abs_err=abs_err)
     for tag, N, T, K, nck in EDGES:
         for jones in ("full",) + (tuple(m for m, _ in MODES)
                                   if tag == "empty_chunk" else ()):
@@ -1292,7 +1401,9 @@ def _counts():
             "matvec": sweep.MATVEC_LAUNCHES, "visits": sweep.VISITS_LAUNCHES,
             "xla_solves": lm.XLA_SOLVES,
             "by_md": {f"{k}_md{md}": n
-                      for (k, md), n in sorted(sweep.MD_LAUNCHES.items())}}
+                      for (k, md), n in sorted(sweep.MD_LAUNCHES.items())},
+            "by_st": {f"{k}_{st}": n
+                      for (k, st), n in sorted(sweep.ST_LAUNCHES.items())}}
 
 
 def _reset():
@@ -1314,17 +1425,29 @@ def _md_of(flags) -> int:
         if "--jones" in flags else 4
 
 
+def _policy_of(flags) -> str:
+    """The storage policy of a run's ``--dtype-policy`` flag ("f32"
+    without it)."""
+    return flags[flags.index("--dtype-policy") + 1] \
+        if "--dtype-policy" in flags else "f32"
+
+
 def _check_route(tag: str, launches: dict, must, xla: bool,
-                 md: int = 4) -> None:
+                 md: int = 4, policy: str = "f32") -> None:
     """Raise unless every kernel in ``must`` launched, every sweep,
     matvec and visits launch at the run's block width ``md`` (its Jones
-    mode), and, on the XLA route (``xla``), every solve took the XLA
-    assembly and no sweep, matvec or visits kernel launched."""
+    mode), every sweep and visits launch at the run's storage ``policy``
+    (its instance of the kernel), and, on the XLA route (``xla``), every
+    solve took the XLA assembly and no sweep, matvec or visits kernel
+    launched."""
     if not all(launches[k] for k in must):
         raise AssertionError(f"{tag}: a kernel never launched: {launches}")
     if any(not key.endswith(f"_md{md}") for key in launches["by_md"]):
         raise AssertionError(f"{tag}: a solve kernel launched at another "
                              f"block width than md = {md}: {launches}")
+    if any(not key.endswith(f"_{policy}") for key in launches["by_st"]):
+        raise AssertionError(f"{tag}: a sweep instance of another storage "
+                             f"dtype than {policy} launched: {launches}")
     if xla and (any(launches[k] for k in SOLVE_KERNELS)
                 or not launches["xla_solves"]):
         raise AssertionError(f"{tag}: the XLA route launched a solve "
@@ -1407,6 +1530,17 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                 ("coh", "sweep"), False),
                ("sim", 16, (1, 2, 1),
                 ["-a", "2", "-p", "@warm", "-z", "@ignore"], ("coh",),
+                False),
+               ("bf16_default", 16, (1, 1, 1), ["--dtype-policy", "bf16"],
+                ("coh",), False),
+               ("f16_j1_xla", 16, (1, 2, 1),
+                ["-j", "1", "--kernel", "xla", "--dtype-policy", "f16"],
+                ("coh",), True),
+               ("f16_j1", 16, (1, 2, 1), ["-j", "1", "--dtype-policy", "f16"],
+                ("coh", "sweep"), False),
+               ("bf16_inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
+                ["-j", "5", "--inner", "cg", "--inflight", "2",
+                 "--dtype-policy", "bf16"], ("coh", "visits", "matvec"),
                 False))
 #: The solve and correction options (-g 30, as the in-flight runs, to
 #: keep -j 1 near convergence at 16 stations): ``bandpass`` (-b 1: the
@@ -1419,6 +1553,32 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
 #: tiles of a parity run's observation (2 unless named): the batches of
 #: 2 after the solo tile 0
 PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3}
+#: The reduced storage policies (--dtype-policy, against the port's CPU
+#: run at the same policy, which computes in float32 there too):
+#: ``bf16_default`` (the default mode on single-chunk clusters: its OS
+#: iterations take the reduced OS fast path, dense equations of each
+#: subset's rows and LU, and no sweep kernel), ``f16_j1_xla`` (the
+#: reduced XLA assembly and LU), ``f16_j1`` (the f16 sweep instance) and
+#: ``bf16_inflight_rtr`` (inflight_rtr's groups: the bf16 visits instance
+#: and the matvec). Each also runs on the CPU with every source flux one
+#: float32 ulp up (:func:`perturb_sky`); its gate is max(PARITY_RTOL,
+#: SPREAD_FACTOR x that run's spread), at most SPREAD_CAP, and every
+#: relaxation decision must agree. And each runs on the CPU without the
+#: policy (float64 there): the card's and the CPU's reduced res_1 lie
+#: within ENVELOPE of that run's on every tile.
+#: Their observations (REDUCED_OBS: timeslots a tile, noise) are not the
+#: float32 runs': at the parity observation's 10 timeslots and noise
+#: 0.02 the bf16 rounding of data and model is not small against the
+#: noise, and a one-ulp flux move shifts bf16_default's res_1 by 2.9e-1
+#: on the CPU (the JAX package's bf16 run moves alike and lands 24-30%
+#: above float32, outside its own envelope: ROADMAP C10). At
+#: tests/test_dtype_policy.py's noise (0.05) and 120 timeslots the
+#: spread is 1.5e-4 (bf16_default), at 60 timeslots 6.1e-5 and 1.3e-4
+#: (f16_j1_xla, f16_j1), and at 10 timeslots on 41 stations 4.3e-4
+#: (bf16_inflight_rtr), the bf16 runs within 1.8% and 4.6% of float32
+#: (tools_dev/torch_reduced_spread.py, on a CPU).
+REDUCED_OBS = {"bf16_default": (120, 0.05), "f16_j1_xla": (60, 0.05),
+               "f16_j1": (60, 0.05), "bf16_inflight_rtr": (10, 0.05)}
 #: the parity runs whose written column is gated, and their gate
 COLUMN_RUNS = {"bandpass": PARITY_RTOL, "whiten_phase": PARITY_RTOL,
                "warm": PARITY_RTOL, "sim": SIM_RTOL}
@@ -1456,6 +1616,25 @@ def _resolve(flags, ms: str):
     names = {"@warm": "warm.sol", "@ignore": "ignore.txt"}
     return [os.path.join(os.path.dirname(ms), names[f]) if f in names
             else f for f in flags]
+
+
+def perturb_sky(sky: str) -> str:
+    """A copy of the sky file ``sky`` (``sky + '.ulp'``) with every
+    source's Stokes I moved up by one float32 ulp: a perturbation at the
+    float32 roundoff of the model, whose effect on a run is the run's own
+    spread."""
+    out = []
+    with open(sky) as f:
+        for ln in f.read().splitlines():
+            fields = ln.split()
+            if len(fields) > 8 and not ln.startswith("#"):
+                v = np.float32(float(fields[7]))
+                fields[7] = repr(float(np.nextafter(v, np.float32(np.inf))))
+                ln = " ".join(fields)
+            out.append(ln)
+    with open(sky + ".ulp", "w") as f:
+        f.write("\n".join(out) + "\n")
+    return sky + ".ulp"
 
 
 def _column_rel(ms: str) -> float:
@@ -1505,14 +1684,16 @@ PARITY_WORKERS = 7
 PARITY_THREADS = 1
 
 
-def _parity_run(path: str, sky: str, clus: str, flags, device):
-    """One slice_parity pipeline run over every tile of ``path``: (the
-    per-tile history, seconds). ``device`` None is the card."""
+def _parity_run(path: str, sky: str, clus: str, flags, device,
+                tilesz: int = 10):
+    """One slice_parity pipeline run over every tile of ``path`` (tiles
+    of ``tilesz`` timeslots): (the per-tile history, seconds). ``device``
+    None is the card."""
     from sagecal_tpu_torch import pipeline
     from sagecal_tpu_torch.cli import build_parser, config_from_args
     args = build_parser().parse_args(
         ["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10", "-l",
-         "5", "-R", "0", "-t", "10"] + _resolve(flags, path))
+         "5", "-R", "0", "-t", str(tilesz)] + _resolve(flags, path))
     t0 = time.perf_counter()
     hist = pipeline.run(config_from_args(args), device=device,
                         log=lambda *a: None)
@@ -1521,10 +1702,11 @@ def _parity_run(path: str, sky: str, clus: str, flags, device):
 
 def _parity_cpu(job):
     """A CPU reference run in a worker process: ``job`` the (path, sky,
-    cluster, flags) of :func:`_parity_run`."""
+    cluster, flags, tilesz) of :func:`_parity_run`."""
     import torch
     torch.set_num_threads(PARITY_THREADS)
-    return _parity_run(*job, device="cpu")
+    path, sky, clus, flags, tilesz = job
+    return _parity_run(path, sky, clus, flags, "cpu", tilesz)
 
 
 #: slice_parity's stochastic run: (stations, chunks per cluster,
@@ -1632,16 +1814,21 @@ def phase_slice_parity():
     ``-q``). The CPU runs go to worker processes, longest first, while
     the card runs here one after another."""
     import multiprocessing
-    obs = {}
+    obs, tsz = {}, {}
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        ms, sky, clus = make_observation(work, n_st, 10, FREQS[:2],
+        tsz[tag], noise = REDUCED_OBS.get(tag, (10, 0.02))
+        ms, sky, clus = make_observation(work, n_st, tsz[tag], FREQS[:2],
                                          len(nchunk), 6, nchunk,
                                          PARITY_TILES.get(tag, 2), "cpu",
-                                         seed=9, noise=0.02, mixed=mixed)
+                                         seed=9, noise=noise, mixed=mixed)
         write_option_files(ms)
         shutil.copytree(ms, ms + ".cpu")
+        if _policy_of(flags) != "f32":
+            shutil.copytree(ms, ms + ".ulp")
+            shutil.copytree(ms, ms + ".f32")
+            perturb_sky(sky)
         obs[tag] = (ms, sky, clus)
     n_st, st_chunks, st_times, st_chans, st_flags = STOCHASTIC_PARITY
     st_flags = st_flags + ["-t", str(st_times)]
@@ -1661,21 +1848,32 @@ def phase_slice_parity():
     longest = sorted(PARITY_RUNS, key=lambda r: (-r[1], -len(r[2])))
     out = {}
     with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
-        cpu_runs = {}
+        cpu_runs, ulp_runs, f32_runs = {}, {}, {}
         for tag, _, _, flags, _, _ in longest:
             ms, sky, clus = obs[tag]
             cpu_runs[tag] = pool.apply_async(
-                _parity_cpu, ((ms + ".cpu", sky, clus, flags),))
+                _parity_cpu, ((ms + ".cpu", sky, clus, flags, tsz[tag]),))
+            policy = _policy_of(flags)
+            if policy != "f32":
+                ulp_runs[tag] = pool.apply_async(
+                    _parity_cpu, ((ms + ".ulp", sky + ".ulp", clus, flags,
+                                   tsz[tag]),))
+                f32 = [f for f in flags if f not in ("--dtype-policy",
+                                                     policy)]
+                f32_runs[tag] = pool.apply_async(
+                    _parity_cpu, ((ms + ".f32", sky, clus, f32, tsz[tag]),))
         st_cpu = {tag: pool.apply_async(_stochastic_cpu, (
             (st_obs[tag][0] + ".cpu",) + st_obs[tag][1:] + (flags,),))
             for tag, flags in st_runs.items()}
         card_runs = {}
         for tag, _, nchunk, flags, must, _ in PARITY_RUNS:
             _reset()
-            card_runs[tag] = _parity_run(*obs[tag], flags, device=None)
+            card_runs[tag] = _parity_run(*obs[tag], flags, device=None,
+                                         tilesz=tsz[tag])
             launches = _counts()
             _check_route(f"slice_parity {tag}", launches, must,
-                         _xla_route(flags, nchunk), _md_of(flags))
+                         _xla_route(flags, nchunk), _md_of(flags),
+                         _policy_of(flags))
             card_runs[tag] += (launches,)
         st_card = {}
         for tag, flags in st_runs.items():
@@ -1683,6 +1881,8 @@ def phase_slice_parity():
             st_card[tag] = _stochastic_run(*st_obs[tag], flags,
                                            device=None) + (_counts(),)
         cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
+        ulp_done = {tag: r.get() for tag, r in ulp_runs.items()}
+        f32_done = {tag: r.get()[0] for tag, r in f32_runs.items()}
         st_cpu = {tag: r.get() for tag, r in st_cpu.items()}
         pool.close()
         pool.join()
@@ -1710,6 +1910,18 @@ def phase_slice_parity():
         rels = [abs(hg[key] - hc[key]) / abs(hc[key])
                 for hg, hc in list(zip(hist["cuda"], hist["cpu"])) + chans
                 for key in ("res_0", "res_1")]
+        # a reduced policy's gate: the CPU run's own spread (ulp_done),
+        # and the envelope against the run without the policy (f32_done)
+        gate, spread, drift = PARITY_RTOL, None, None
+        policy = _policy_of(flags)
+        if policy != "f32":
+            spread = max(abs(hu[key] - hc[key]) / abs(hc[key])
+                         for hu, hc in zip(ulp_done[tag][0], hist["cpu"])
+                         for key in ("res_0", "res_1"))
+            gate = max(PARITY_RTOL, SPREAD_FACTOR * spread)
+            drift = {d: [abs(h["res_1"] / hf["res_1"] - 1.0)
+                         for h, hf in zip(hist[d], f32_done[tag])]
+                     for d in hist}
         # in-flight groups: the relaxation decisions are compared first
         flip = _first_flip(hist["cuda"], hist["cpu"])
         omegas = {d: [[g[2] for g in h["groups"]] for h in hist[d]]
@@ -1729,10 +1941,27 @@ def phase_slice_parity():
                    rejected_groups={d: [h["rejected_groups"]
                                         for h in hist[d]] for d in hist},
                    omegas=omegas, flip=flip, col_rel=col_rel,
+                   policy=policy, spread=spread, gate=gate,
+                   drift_f32=drift,
                    channels={d: [h["channels"] for h in hist[d]]
                              for d in hist} if chans else None)
         emit("slice_parity", **rec)
-        if flip is not None:
+        if policy != "f32":
+            # a reduced run: a bounded gate, every decision equal, and
+            # both runs within the envelope of the float32 one
+            if gate > SPREAD_CAP:
+                raise AssertionError(
+                    f"slice_parity {tag}: the CPU run moves {spread:.3e} "
+                    f"under one ulp, gate {gate:.3e} > {SPREAD_CAP}: too "
+                    "chaotic to compare")
+            if flip is not None:
+                raise AssertionError(f"slice_parity {tag}: a relaxation "
+                                     f"decision differs: {flip}")
+            if not max(drift["cuda"] + drift["cpu"]) <= ENVELOPE[policy]:
+                raise AssertionError(
+                    f"slice_parity {tag}: res_1 off the float32 run's by "
+                    f"{drift} > {ENVELOPE[policy]}")
+        if flip is not None and policy == "f32":
             # the trial where the two runs first decided differently
             _, _, a, b = flip
             i = next(i for i, (ma, mb) in enumerate(zip(a[3], b[3]))
@@ -1744,9 +1973,9 @@ def phase_slice_parity():
             emit("slice_parity_flip", tag=tag, trial=i,
                  card_margin=a[3][i], cpu_margin=b[3][i],
                  residual_gate="replaced by the flip report")
-        elif not max(rels) <= PARITY_RTOL:
+        elif not max(rels) <= gate:
             raise AssertionError(f"slice_parity {tag}: {max(rels):.3e} > "
-                                 f"{PARITY_RTOL}")
+                                 f"{gate} (spread {spread})")
         elif col_rel is not None and not col_rel <= COLUMN_RUNS[tag]:
             raise AssertionError(f"slice_parity {tag}: written column "
                                  f"{col_rel:.3e} > {COLUMN_RUNS[tag]}")
@@ -1945,7 +2174,8 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
                                                           n_tiles, em)
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
-    _check_route(phase, launches, must, xla, _md_of(flags))
+    _check_route(phase, launches, must, xla, _md_of(flags),
+                 _policy_of(flags))
     tiles = []
     route = []
     for ln in out.splitlines():
@@ -1990,6 +2220,27 @@ def phase_e2e(obs, phase: str, flags, n_tiles: int, must,
             math.isfinite(h["res_1"]) and math.isfinite(h["res_0"])
             and h["res_1"] < h["res_0"] for h in tiles):
         raise AssertionError(f"{phase}: residuals did not fall: {tiles}")
+    return rec
+
+
+def phase_e2e_reduced(obs, phase: str, flags, policy: str, must,
+                      f32: dict) -> dict:
+    """The first tile of ``obs`` at ``--dtype-policy policy`` with solver
+    ``flags`` at ``-e 1`` (:func:`phase_e2e`: the run must launch the
+    kernels of ``must`` and its sweep and visits instances at ``policy``
+    only), its final residual within ENVELOPE[policy] of tile 0 of
+    ``f32``, the same flags' float32 run on the same observation."""
+    rec = phase_e2e(obs, phase, flags + ["--dtype-policy", policy], 1, must,
+                    em=1)
+    r32 = f32["tiles"][0]["res_1"]
+    drift = abs(rec["tiles"][0]["res_1"] / r32 - 1.0)
+    emit(phase + "_envelope", policy=policy, res_1=rec["tiles"][0]["res_1"],
+         res_1_f32=r32, drift=drift, envelope=ENVELOPE[policy],
+         by_st=rec["launches"]["by_st"])
+    if not rec["launches"]["by_st"] or not drift <= ENVELOPE[policy]:
+        raise AssertionError(f"{phase}: no sweep instance launched, or "
+                             f"res_1 {drift:.3e} from the float32 run's "
+                             f"(envelope {ENVELOPE[policy]})")
     return rec
 
 
@@ -2249,7 +2500,7 @@ def main() -> int:
     visits = phase_visits()
     predict_mixed = phase_predict_mixed()
     phase_manifold()
-    phase_slice_parity()
+    parity = phase_slice_parity()
     obs = observation_e2e()
     # e2e and e2e_diag at one EM iteration, to keep the run in time
     phase_e2e(obs, "e2e", ["-j", "1"], 1, ("coh", "sweep"), em=1)
@@ -2257,6 +2508,10 @@ def main() -> int:
     # with), to keep the run in time (tile 0 boosted to 6 EM iterations)
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
                     ("coh", "sweep", "matvec"), em=1)
+    # e2e_rtr's first tile at --dtype-policy bf16: the bf16 sweep
+    # instance and the matvec, within ENVELOPE of e2e_rtr's tile 0
+    bf16 = phase_e2e_reduced(obs, "e2e_bf16", ["-j", "5", "--inner", "cg"],
+                             "bf16", ("coh", "sweep", "matvec"), rtr)
     # the constrained Jones modes on the same observation: the sweep
     # kernel at md = 2, and the sweep and matvec kernels at md = 1 (both
     # at one EM iteration, to keep the run in time)
@@ -2282,10 +2537,15 @@ def main() -> int:
     tile_batch = phase_e2e_tile_batch(rtr)
     # one EM iteration, to keep the run in time (tile 0 boosted to 6, its
     # first sweep of groups of 2, then of 4; tile 1 one warm sweep of 4)
-    inflight = phase_e2e(observation_e2e("e2e16", NCHUNK16), "e2e_inflight",
-                         ["-j", "5", "--inner", "cg", "--inflight",
-                          str(N_VISITS)], 2, ("coh", "visits", "matvec"),
-                         em=1)
+    obs16 = observation_e2e("e2e16", NCHUNK16)
+    inflight_flags = ["-j", "5", "--inner", "cg", "--inflight",
+                      str(N_VISITS)]
+    inflight = phase_e2e(obs16, "e2e_inflight", inflight_flags, 2,
+                         ("coh", "visits", "matvec"), em=1)
+    # its first tile at --dtype-policy f16: the f16 visits instance
+    f16 = phase_e2e_reduced(obs16, "e2e_f16_inflight", inflight_flags,
+                            "f16", ("coh", "visits", "matvec"), inflight)
+    shutil.rmtree(os.path.dirname(obs16[0]), ignore_errors=True)
     # the JAX CLI's default command line (-j 5 --inner chol --kernel xla)
     # on the mixed sky: the split predict and the XLA assembly, at one EM
     # iteration (boosted to 6 on the first tile) to keep the run in time
@@ -2402,6 +2662,49 @@ def main() -> int:
              device_ms_lanes=visits["tile_batch"]["device_ms"],
              registers=vis["ptxas"], **by_md(visits, "visits")),
     ]
+    # the bf16 and f16 instances of the sweep and visits kernels, each
+    # with its launches on the path that runs it: e2e_bf16 (sweep bf16),
+    # slice_parity f16_j1 (sweep f16), bf16_inflight_rtr (visits bf16),
+    # e2e_f16_inflight (visits f16)
+    st_runs = {("sweep", "bf16"): ("e2e_bf16", bf16["launches"]),
+               ("sweep", "f16"): ("slice_parity f16_j1",
+                                  parity["f16_j1"]["launches"]),
+               ("visits", "bf16"): ("slice_parity bf16_inflight_rtr",
+                                    parity["bf16_inflight_rtr"]["launches"]),
+               ("visits", "f16"): ("e2e_f16_inflight", f16["launches"])}
+    for (kind, policy), (run, launches) in st_runs.items():
+        recs = sweep if kind == "sweep" else visits
+        full = recs[(policy, "full", 4)]
+        entry = dict(
+            name=("sweep_blocks" if kind == "sweep"
+                  else "sweep_blocks_visits") + "_" + policy,
+            route="cuda", source="sagecal_tpu_torch/csrc/sweep.cu",
+            replaces="sagecal_tpu/ops/sweep_pallas.py:"
+            + ("395" if kind == "sweep" else "439"),
+            launches=launches["by_st"].get(f"{kind}_{policy}", 0),
+            launches_run=run,
+            max_abs_err=max(r["max_abs_err"] for k, r in recs.items()
+                            if isinstance(k, tuple) and k[0] == policy),
+            ms=full["ms"], plain_ms=full["plain_ms"],
+            bound_ms=full["bound_ms"], bound_by=full["bound_by"],
+            library_ms=None, device_ms=full["device_ms"],
+            kernel_us=full["kernel_us"],
+            kernel_bound_share=full["kernel_bound_share"],
+            row_bytes=full.get("row_bytes"), K=4,
+            registers={k: v for k, v in full["ptxas"].items()
+                       if k.endswith(("__nv_bfloat16>" if policy == "bf16"
+                                      else "__half>"))})
+        for jones, md in MODES:
+            r = recs[(policy, jones, 4)]
+            entry[f"md{md}"] = dict(
+                kernel_us=r["kernel_us"], ms=r["ms"], plain_ms=r["plain_ms"],
+                device_ms=r["device_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"],
+                kernel_bound_share=r["kernel_bound_share"],
+                max_abs_err=r["max_abs_err"])
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']}: no launch on {run}")
+        kernels.append(entry)
     shutil.rmtree(WORK, ignore_errors=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,9 +28,11 @@ Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 
 ``--platform cpu`` runs on the CPU in float64; without it the run needs
-a CUDA device (float32). ``--kernel`` defaults to ``pallas``: the fused
-sweep wherever it fits, the XLA assembly where it does not (more than 4
-hybrid chunks, rows not baseline-major), as the JAX package falls back;
+a CUDA device (float32). Under ``--dtype-policy bf16|f16`` both compute
+in float32 and store the solve's rows in the reduced dtype. ``--kernel``
+defaults to ``pallas``: the fused sweep wherever it fits, the XLA
+assembly where it does not (more than 4 hybrid chunks, rows not
+baseline-major), as the JAX package falls back;
 ``xla`` takes the XLA assembly always, the JAX CLI's default. The port
 keeps ``pallas`` so that its main path runs its kernels; the tests hold
 both CLIs without ``--kernel`` against each other.

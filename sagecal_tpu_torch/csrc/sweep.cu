@@ -112,8 +112,40 @@
 //    to 44 and 16 words. Every block starts on a multiple of md words,
 //    so the matvec reads a block row of md words with one aligned load
 //    (float2 at md = 2, float at md = 1; csrc/matvec.cu).
+//
+// Reduced storage (--dtype-policy bf16|f16; the TPU kernels' `reduced`
+// and `st`, which _sweep_body applies through q()): the storage type ST
+// of the rows x, w and cw is a template parameter, float, __nv_bfloat16
+// or __half, for each md and both visit forms. What differs:
+//  - the rows are read as ST and widened to float at the load: a row's
+//    8 components are 16 bytes, one 16-byte load (8 bytes for a role
+//    warp's half row), so a row is 12 words of rows plus the coherency's
+//    8 and, at K > 1, the chunk id. The coherencies and J are complex64
+//    under every policy;
+//  - the model V = Jp A and the factor planes are rounded to nearest
+//    even through ST and back (Rows<ST>::round) where q() rounds them:
+//    the A and Bm planes at md = 4 and 2, the rotated planes at md = 1
+//    (built from the unrounded A and Bm), and V before the residual.
+//    A, Bm and V themselves are computed from unrounded planes, and
+//    every sum is float32;
+//  - the planes that are rounded (A, Bm, V, the rotated planes) are
+//    formed with every product and sum rounded on its own, in the order
+//    of _sweep_body (cmul_re, cmul_im), and the plain version forms them
+//    the same way (ops/sweep.py:_planes): a fused multiply-add would
+//    leave a plane an ulp from the plain version's, and a plane next to
+//    a tie of the storage type would then round the other way, moving a
+//    block by a storage ulp of that row's share (up to 3.2e-4 of the
+//    largest block at full width, bf16, K = 4, when the plain version
+//    formed its planes by complex matrix products);
+//  - the float instance's round is the identity and its planes keep the
+//    contracted arithmetic, so its code is the float32 kernel's as it
+//    was.
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cooperative_groups.h>
 
 namespace cg = cooperative_groups;
@@ -168,6 +200,86 @@ __device__ __forceinline__ void load4(const float* p, float* v)
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
 
+// the rows' storage type ST: loads that widen to float, and the rounding
+// through ST of the TPU kernel's q() (the identity for float)
+template <typename ST>
+struct Rows;
+
+template <>
+struct Rows<float> {
+    static __device__ __forceinline__ void row8(const float* p, float* v)
+    {
+        load8(p, v);
+    }
+    static __device__ __forceinline__ void row4(const float* p, float* v)
+    {
+        load4(p, v);
+    }
+    static __device__ __forceinline__ float round(float v) { return v; }
+};
+
+template <>
+struct Rows<__nv_bfloat16> {
+    static __device__ __forceinline__ void row8(const __nv_bfloat16* p,
+                                                float* v)
+    {
+        const uint4 a = *reinterpret_cast<const uint4*>(p);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float2 f = __bfloat1622float2(h[i]);
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
+    }
+    static __device__ __forceinline__ void row4(const __nv_bfloat16* p,
+                                                float* v)
+    {
+        const uint2 a = *reinterpret_cast<const uint2*>(p);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const float2 f = __bfloat1622float2(h[i]);
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
+    }
+    static __device__ __forceinline__ float round(float v)
+    {
+        return __bfloat162float(__float2bfloat16_rn(v));
+    }
+};
+
+template <>
+struct Rows<__half> {
+    static __device__ __forceinline__ void row8(const __half* p, float* v)
+    {
+        const uint4 a = *reinterpret_cast<const uint4*>(p);
+        const __half2* h = reinterpret_cast<const __half2*>(&a);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float2 f = __half22float2(h[i]);
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
+    }
+    static __device__ __forceinline__ void row4(const __half* p, float* v)
+    {
+        const uint2 a = *reinterpret_cast<const uint2*>(p);
+        const __half2* h = reinterpret_cast<const __half2*>(&a);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const float2 f = __half22float2(h[i]);
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
+    }
+    static __device__ __forceinline__ float round(float v)
+    {
+        return __half2float(__float2half_rn(v));
+    }
+};
+
 // output element e of the caller layout -> canonical sum index q
 template <int MD>
 __device__ __forceinline__ int out_to_acc(int e)
@@ -187,7 +299,26 @@ __device__ __forceinline__ int out_to_acc(int e)
     return L::Q_COST;
 }
 
+// x y of two complex values, (re, im), for the planes that the reduced
+// instances round to their storage type: every product and difference
+// rounded on its own (no fused multiply-add), as the plain version
+// (ops/sweep.py:_planes) and _sweep_body form them, so that both round
+// the same float32 planes. The float instance keeps the contracted
+// arithmetic of the float32 kernel.
+__device__ __forceinline__ float cmul_re(float xr, float xi, float yr,
+                                         float yi)
+{
+    return __fsub_rn(__fmul_rn(xr, yr), __fmul_rn(xi, yi));
+}
+
+__device__ __forceinline__ float cmul_im(float xr, float xi, float yr,
+                                         float yi)
+{
+    return __fadd_rn(__fmul_rn(xr, yi), __fmul_rn(xi, yr));
+}
+
 // A = C Jq^H [d][o] of a row: C, Q entries e = row * 2 + col, (re, im)
+template <typename ST>
 __device__ __forceinline__ void prod_a(const float* cv, const float* Q,
                                        float Ar[2][2], float Ai[2][2])
 {
@@ -202,8 +333,13 @@ __device__ __forceinline__ void prod_a(const float* cv, const float* Q,
                 const float xi = cv[(d * 2 + e) * 2 + 1];
                 const float yr = Q[(o * 2 + e) * 2];
                 const float yi = -Q[(o * 2 + e) * 2 + 1];
-                zr += xr * yr - xi * yi;
-                zi += xr * yi + xi * yr;
+                if constexpr (std::is_same<ST, float>::value) {
+                    zr += xr * yr - xi * yi;
+                    zi += xr * yi + xi * yr;
+                } else {
+                    zr = __fadd_rn(zr, cmul_re(xr, xi, yr, yi));
+                    zi = __fadd_rn(zi, cmul_im(xr, xi, yr, yi));
+                }
             }
             Ar[d][o] = zr;
             Ai[d][o] = zi;
@@ -212,6 +348,7 @@ __device__ __forceinline__ void prod_a(const float* cv, const float* Q,
 }
 
 // row a of Bm = Jp C and of V = Jp A
+template <typename ST>
 __device__ __forceinline__ void prod_row(const float* cv, const float* P,
                                          const float Ar[2][2],
                                          const float Ai[2][2], int a,
@@ -227,10 +364,17 @@ __device__ __forceinline__ void prod_row(const float* cv, const float* P,
             const float pi = P[(a * 2 + d) * 2 + 1];
             const float cr = cv[(d * 2 + o) * 2];
             const float ci = cv[(d * 2 + o) * 2 + 1];
-            br += pr * cr - pi * ci;
-            bi += pr * ci + pi * cr;
-            vr += pr * Ar[d][o] - pi * Ai[d][o];
-            vi += pr * Ai[d][o] + pi * Ar[d][o];
+            if constexpr (std::is_same<ST, float>::value) {
+                br += pr * cr - pi * ci;
+                bi += pr * ci + pi * cr;
+                vr += pr * Ar[d][o] - pi * Ai[d][o];
+                vi += pr * Ai[d][o] + pi * Ar[d][o];
+            } else {
+                br = __fadd_rn(br, cmul_re(pr, pi, cr, ci));
+                bi = __fadd_rn(bi, cmul_im(pr, pi, cr, ci));
+                vr = __fadd_rn(vr, cmul_re(pr, pi, Ar[d][o], Ai[d][o]));
+                vi = __fadd_rn(vi, cmul_im(pr, pi, Ar[d][o], Ai[d][o]));
+            }
         }
         Br[o] = br;
         Bi[o] = bi;
@@ -240,56 +384,73 @@ __device__ __forceinline__ void prod_row(const float* cv, const float* P,
 }
 
 // the station-p factor FA(a, o, ri, m), m < MD, of a row (_ma_entry of the
-// TPU kernel, and its diag and phase forms). Ar/Ai: A [d][o].
-template <int MD>
+// TPU kernel, and its diag and phase forms), each plane rounded through
+// the storage type ST (q()). Ar/Ai: A [d][o], unrounded.
+template <int MD, typename ST>
 __device__ __forceinline__ void factor_p(const float Ar[2][2],
                                          const float Ai[2][2],
                                          const float* P, int a, int o,
                                          int ri, float* fa)
 {
+    using R = Rows<ST>;
     if constexpr (MD == 4) {
         // fa[m], m = d * 2 + ci: every d
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
-            fa[d * 2] = ri == 0 ? Ar[d][o] : Ai[d][o];
-            fa[d * 2 + 1] = ri == 0 ? -Ai[d][o] : Ar[d][o];
+            fa[d * 2] = ri == 0 ? R::round(Ar[d][o]) : R::round(Ai[d][o]);
+            fa[d * 2 + 1] = ri == 0 ? -R::round(Ai[d][o])
+                                    : R::round(Ar[d][o]);
         }
     } else if constexpr (MD == 2) {
         // the d == a plane: (Re, Im) of the diagonal entry j_aa
-        fa[0] = ri == 0 ? Ar[a][o] : Ai[a][o];
-        fa[1] = ri == 0 ? -Ai[a][o] : Ar[a][o];
+        fa[0] = ri == 0 ? R::round(Ar[a][o]) : R::round(Ai[a][o]);
+        fa[1] = ri == 0 ? -R::round(Ai[a][o]) : R::round(Ar[a][o]);
     } else {
         // u = i Jp_aa A[a][o]: (-Im u, Re u)
         const float pr = P[a * 6], pi = P[a * 6 + 1];
-        const float ur = pr * Ar[a][o] - pi * Ai[a][o];
-        const float ui = pr * Ai[a][o] + pi * Ar[a][o];
-        fa[0] = ri == 0 ? -ui : ur;
+        float ur, ui;
+        if constexpr (std::is_same<ST, float>::value) {
+            ur = pr * Ar[a][o] - pi * Ai[a][o];
+            ui = pr * Ai[a][o] + pi * Ar[a][o];
+        } else {
+            ur = cmul_re(pr, pi, Ar[a][o], Ai[a][o]);
+            ui = cmul_im(pr, pi, Ar[a][o], Ai[a][o]);
+        }
+        fa[0] = R::round(ri == 0 ? -ui : ur);
     }
 }
 
 // the station-q factor FB(o, a, ri, m), m < MD, of a row (_mb_entry and
-// its diag and phase forms). Br/Bi: row a of Bm [d].
-template <int MD>
+// its diag and phase forms), rounded through ST. Br/Bi: row a of Bm [d],
+// unrounded.
+template <int MD, typename ST>
 __device__ __forceinline__ void factor_q(const float* Br, const float* Bi,
                                          const float* Q, int o, int ri,
                                          float* fb)
 {
+    using R = Rows<ST>;
     if constexpr (MD == 4) {
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
-            fb[d * 2] = ri == 0 ? Br[d] : Bi[d];
-            fb[d * 2 + 1] = ri == 0 ? Bi[d] : -Br[d];
+            fb[d * 2] = ri == 0 ? R::round(Br[d]) : R::round(Bi[d]);
+            fb[d * 2 + 1] = ri == 0 ? R::round(Bi[d]) : -R::round(Br[d]);
         }
     } else if constexpr (MD == 2) {
         // the d == o plane
-        fb[0] = ri == 0 ? Br[o] : Bi[o];
-        fb[1] = ri == 0 ? Bi[o] : -Br[o];
+        fb[0] = ri == 0 ? R::round(Br[o]) : R::round(Bi[o]);
+        fb[1] = ri == 0 ? R::round(Bi[o]) : -R::round(Br[o]);
     } else {
         // w = conj(Jq_oo) Bm[a][o]: (Im w, -Re w)
         const float qr = Q[o * 6], qi = Q[o * 6 + 1];
-        const float wr = qr * Br[o] + qi * Bi[o];
-        const float wi = qr * Bi[o] - qi * Br[o];
-        fb[0] = ri == 0 ? wi : -wr;
+        float wr, wi;
+        if constexpr (std::is_same<ST, float>::value) {
+            wr = qr * Br[o] + qi * Bi[o];
+            wi = qr * Bi[o] - qi * Br[o];
+        } else {
+            wr = __fadd_rn(__fmul_rn(qr, Br[o]), __fmul_rn(qi, Bi[o]));
+            wi = __fsub_rn(__fmul_rn(qr, Bi[o]), __fmul_rn(qi, Br[o]));
+        }
+        fb[0] = R::round(ri == 0 ? wi : -wr);
     }
 }
 
@@ -311,32 +472,35 @@ __device__ __forceinline__ int role_q(int r)
 
 // one row into a role's sums. Roles 0 and 1 (a = ROLE): pp[a] (S, packed
 // upper triangle), pq[a][o][i][j] (2 MD^2), jtep[a][i] (MD). Role 2:
-// qq[o] (2 x S), jteq[o][i] (2 MD), cost (1).
-template <int ROLE, int MD>
+// qq[o] (2 x S), jteq[o][i] (2 MD), cost (1). The model V is rounded
+// through ST before the residual (q() of the TPU kernel's vm).
+template <int ROLE, int MD, typename ST>
 __device__ __forceinline__ void role_row(const float* xv, const float* wv,
                                          const float* cwv, const float* cv,
                                          const float* P, const float* Q,
                                          float* acc)
 {
     constexpr int S = Lay<MD>::S;
+    using R = Rows<ST>;
     float Ar[2][2], Ai[2][2];
-    prod_a(cv, Q, Ar, Ai);
+    prod_a<ST>(cv, Q, Ar, Ai);
     if (ROLE < 2) {
         const int a = ROLE;
         float Br[2], Bi[2], Vr[2], Vi[2];
-        prod_row(cv, P, Ar, Ai, a, Br, Bi, Vr, Vi);
+        prod_row<ST>(cv, P, Ar, Ai, a, Br, Bi, Vr, Vi);
         // xv, wv hold components (o, ri) of row a
 #pragma unroll
         for (int o = 0; o < 2; ++o) {
 #pragma unroll
             for (int ri = 0; ri < 2; ++ri) {
                 const int c = o * 2 + ri;
-                const float r = xv[c] - (ri == 0 ? Vr[o] : Vi[o]);
+                const float r = xv[c]
+                    - R::round(ri == 0 ? Vr[o] : Vi[o]);
                 const float ww = wv[c] * wv[c];
                 const float rw = r * ww;
                 float fa[MD], fb[MD];
-                factor_p<MD>(Ar, Ai, P, a, o, ri, fa);
-                factor_q<MD>(Br, Bi, Q, o, ri, fb);
+                factor_p<MD, ST>(Ar, Ai, P, a, o, ri, fa);
+                factor_q<MD, ST>(Br, Bi, Q, o, ri, fb);
 #pragma unroll
                 for (int i = 0; i < MD; ++i) {
                     const float wa = ww * fa[i];
@@ -352,8 +516,8 @@ __device__ __forceinline__ void role_row(const float* xv, const float* wv,
         }
     } else {
         float Br[2][2], Bi[2][2], Vr[2][2], Vi[2][2];
-        prod_row(cv, P, Ar, Ai, 0, Br[0], Bi[0], Vr[0], Vi[0]);
-        prod_row(cv, P, Ar, Ai, 1, Br[1], Bi[1], Vr[1], Vi[1]);
+        prod_row<ST>(cv, P, Ar, Ai, 0, Br[0], Bi[0], Vr[0], Vi[0]);
+        prod_row<ST>(cv, P, Ar, Ai, 1, Br[1], Bi[1], Vr[1], Vi[1]);
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
 #pragma unroll
@@ -361,13 +525,14 @@ __device__ __forceinline__ void role_row(const float* xv, const float* wv,
 #pragma unroll
                 for (int ri = 0; ri < 2; ++ri) {
                     const int c = (a * 2 + o) * 2 + ri;
-                    const float r = xv[c] - (ri == 0 ? Vr[a][o] : Vi[a][o]);
+                    const float r = xv[c]
+                        - R::round(ri == 0 ? Vr[a][o] : Vi[a][o]);
                     const float ww = wv[c] * wv[c];
                     const float rw = r * ww;
                     const float rc = r * cwv[c];
                     acc[2 * S + 2 * MD] += rc * rc;
                     float fb[MD];
-                    factor_q<MD>(Br[a], Bi[a], Q, o, ri, fb);
+                    factor_q<MD, ST>(Br[a], Bi[a], Q, o, ri, fb);
 #pragma unroll
                     for (int i = 0; i < MD; ++i) {
                         const float wb = ww * fb[i];
@@ -382,10 +547,12 @@ __device__ __forceinline__ void role_row(const float* xv, const float* wv,
     }
 }
 
+// ST: the storage type of the rows x, w and cw
+template <typename ST>
 struct SweepArgs {
-    const float* x;          // [(V,) T nb, 8]
-    const float* w;          // [(V,) T nb, 8]
-    const float* cw;         // [(V,) T nb, 8]
+    const ST* x;             // [(V,) T nb, 8]
+    const ST* w;             // [(V,) T nb, 8]
+    const ST* cw;            // [(V,) T nb, 8]
     const long long* cid;    // [(V,) T nb], as the solvers hold them
     const float* coh;        // [(V,) T nb, 2, 2, re/im]
     const float* J;          // [(V,) K, N, 2, 2, re/im]
@@ -423,20 +590,22 @@ __device__ __forceinline__ void flush_sums(float* acc, float* sums, int k,
 // one row of visit v's operands for a role: the coherency, chunk id
 // (K > 1) and the role's components of x and w (and all of cw for
 // role 2)
-template <int ROLE>
-__device__ __forceinline__ void load_row(const SweepArgs& p, long long v,
-                                         size_t row, float* cv, float* xv,
-                                         float* wv, float* cwv, long long& c)
+template <int ROLE, typename ST>
+__device__ __forceinline__ void load_row(const SweepArgs<ST>& p,
+                                         long long v, size_t row, float* cv,
+                                         float* xv, float* wv, float* cwv,
+                                         long long& c)
 {
+    using R = Rows<ST>;
     c = p.K > 1 ? p.cid[v * p.vcid + row] : 0;
     load8(p.coh + v * p.vcoh + row * 8, cv);
     if (ROLE < 2) {
-        load4(p.x + v * p.vx + row * 8 + ROLE * 4, xv);
-        load4(p.w + v * p.vw + row * 8 + ROLE * 4, wv);
+        R::row4(p.x + v * p.vx + row * 8 + ROLE * 4, xv);
+        R::row4(p.w + v * p.vw + row * 8 + ROLE * 4, wv);
     } else {
-        load8(p.x + v * p.vx + row * 8, xv);
-        load8(p.w + v * p.vw + row * 8, wv);
-        load8(p.cw + v * p.vcw + row * 8, cwv);
+        R::row8(p.x + v * p.vx + row * 8, xv);
+        R::row8(p.w + v * p.vw + row * 8, wv);
+        R::row8(p.cw + v * p.vcw + row * 8, cwv);
     }
 }
 
@@ -457,8 +626,9 @@ __device__ __forceinline__ void load_jones(const float* j, float* P)
 // change of chunk and at the end. The next row's operands are loaded
 // before the current row is summed, so their latency hides behind the
 // sums.
-template <int ROLE, int MD>
-__device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
+template <int ROLE, int MD, typename ST>
+__device__ __forceinline__ void role_pass(const SweepArgs<ST>& p, int v,
+                                          int b,
                                           int lane, int t0, int t1,
                                           float* sums, unsigned* seen)
 {
@@ -474,13 +644,13 @@ __device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
     bool ok = false;
     float cv[8], xv[8], wv[8], cwv[8];
     long long c;
-    load_row<ROLE>(p, v, (size_t)t0 * p.nb + b, cv, xv, wv, cwv, c);
+    load_row<ROLE, ST>(p, v, (size_t)t0 * p.nb + b, cv, xv, wv, cwv, c);
     for (int t = t0; t < t1; ++t) {
         float cvn[8], xvn[8], wvn[8], cwvn[8];
         long long cn = 0;
         if (t + 1 < t1)
-            load_row<ROLE>(p, v, (size_t)(t + 1) * p.nb + b, cvn, xvn, wvn,
-                           cwvn, cn);
+            load_row<ROLE, ST>(p, v, (size_t)(t + 1) * p.nb + b, cvn, xvn,
+                               wvn, cwvn, cn);
         // at K = 1 every row is chunk 0 (the TPU kernel applies no mask)
         if (c != cur) {
             if (ok) flush_sums<ROLE, NS, MD>(acc, sums, (int)cur, lane, seen);
@@ -491,7 +661,7 @@ __device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
                 load_jones<MD>(Jv + ((size_t)c * p.N + st2) * 8, Q);
             }
         }
-        if (ok) role_row<ROLE, MD>(xv, wv, cwv, cv, P, Q, acc);
+        if (ok) role_row<ROLE, MD, ST>(xv, wv, cwv, cv, P, Q, acc);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
             cv[e] = cvn[e];
@@ -507,10 +677,11 @@ __device__ __forceinline__ void role_pass(const SweepArgs& p, int v, int b,
 // MULTI = false is the single-visit case: visit 0 of every operand, the
 // visit offsets compiled away (a second instantiation of the same code,
 // so that V = 1 keeps the registers and the speed of a kernel without
-// the visit axis). MD: the Jones mode's block width.
-template <bool MULTI, int MD>
+// the visit axis). MD: the Jones mode's block width. ST: the rows'
+// storage type.
+template <bool MULTI, int MD, typename ST>
 __global__ void __launch_bounds__(SC_THREADS, 4)
-sweep_cluster_kernel(const SweepArgs p)
+sweep_cluster_kernel(const SweepArgs<ST> p)
 {
     using L = Lay<MD>;
     extern __shared__ float sums[];             // [K][32][NACC]
@@ -541,11 +712,11 @@ sweep_cluster_kernel(const SweepArgs p)
         }
     }
     if (role == 0)
-        role_pass<0, MD>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<0, MD, ST>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     else if (role == 1)
-        role_pass<1, MD>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<1, MD, ST>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     else
-        role_pass<2, MD>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
+        role_pass<2, MD, ST>(p, v, b0 + lane, lane, t0, t1, sums, &seen);
     __syncthreads();
     cluster.sync();
 
@@ -655,18 +826,27 @@ static size_t cluster_smem(int K)
     return (size_t)K * SC_TILE * Lay<MD>::NACC * sizeof(float);
 }
 
-template <int MD>
-static cudaError_t smem_attr_md(void)
+template <int MD, typename ST>
+static cudaError_t smem_attr_st(void)
 {
     cudaError_t err = cudaFuncSetAttribute(
-        sweep_cluster_kernel<false, MD>,
+        sweep_cluster_kernel<false, MD, ST>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)cluster_smem<MD>(SC_MAX_K));
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(
-            sweep_cluster_kernel<true, MD>,
+            sweep_cluster_kernel<true, MD, ST>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)cluster_smem<MD>(SC_MAX_K));
+    return err;
+}
+
+template <int MD>
+static cudaError_t smem_attr_md(void)
+{
+    cudaError_t err = smem_attr_st<MD, float>();
+    if (err == cudaSuccess) err = smem_attr_st<MD, __nv_bfloat16>();
+    if (err == cudaSuccess) err = smem_attr_st<MD, __half>();
     return err;
 }
 
@@ -681,62 +861,97 @@ static cudaError_t cluster_smem_attr(void)
     return err;
 }
 
-template <int MD>
+template <int MD, typename ST>
 static int blocks_per_sm_md(int K)
 {
     int n1 = 0, n2 = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n1, sweep_cluster_kernel<false, MD>, SC_THREADS,
+            &n1, sweep_cluster_kernel<false, MD, ST>, SC_THREADS,
             cluster_smem<MD>(K)) != cudaSuccess
         || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n2, sweep_cluster_kernel<true, MD>, SC_THREADS,
+            &n2, sweep_cluster_kernel<true, MD, ST>, SC_THREADS,
             cluster_smem<MD>(K)) != cudaSuccess)
         return 0;
     return min(n1, n2);
 }
 
-// blocks of sweep_cluster_kernel an SM holds at K chunks and block width
-// md, the fewer of its two instantiations (0 on error)
-extern "C" int sweep_blocks_per_sm(int K, int md)
+template <typename ST>
+static int blocks_per_sm_st(int K, int md)
 {
-    if (cluster_smem_attr() != cudaSuccess) return 0;
-    return md == 4 ? blocks_per_sm_md<4>(K)
-        : (md == 2 ? blocks_per_sm_md<2>(K)
-           : (md == 1 ? blocks_per_sm_md<1>(K) : 0));
+    return md == 4 ? blocks_per_sm_md<4, ST>(K)
+        : (md == 2 ? blocks_per_sm_md<2, ST>(K)
+           : (md == 1 ? blocks_per_sm_md<1, ST>(K) : 0));
 }
 
-template <int MD>
-static cudaError_t launch_md(cudaLaunchConfig_t* cfg, const SweepArgs& p,
+// blocks of sweep_cluster_kernel an SM holds at K chunks, block width md
+// and row storage type st (0 float, 1 bf16, 2 f16), the fewer of its two
+// instantiations (0 on error)
+extern "C" int sweep_blocks_per_sm(int K, int md, int st)
+{
+    if (cluster_smem_attr() != cudaSuccess) return 0;
+    return st == 0 ? blocks_per_sm_st<float>(K, md)
+        : (st == 1 ? blocks_per_sm_st<__nv_bfloat16>(K, md)
+           : (st == 2 ? blocks_per_sm_st<__half>(K, md) : 0));
+}
+
+template <int MD, typename ST>
+static cudaError_t launch_md(cudaLaunchConfig_t* cfg, const SweepArgs<ST>& p,
                              int V)
 {
     cfg->dynamicSmemBytes = cluster_smem<MD>(p.K);
-    return V == 1 ? cudaLaunchKernelEx(cfg, sweep_cluster_kernel<false, MD>, p)
-                  : cudaLaunchKernelEx(cfg, sweep_cluster_kernel<true, MD>, p);
+    return V == 1
+        ? cudaLaunchKernelEx(cfg, sweep_cluster_kernel<false, MD, ST>, p)
+        : cudaLaunchKernelEx(cfg, sweep_cluster_kernel<true, MD, ST>, p);
+}
+
+// fill the arguments of storage type ST (the geometry tb, wb checked by
+// the caller) and launch at block width md
+template <typename ST>
+static cudaError_t launch_st(cudaLaunchConfig_t* cfg, const void* x,
+                             const void* w, const void* cw,
+                             const long long* cid, const float* coh,
+                             const float* J, const long long* s1,
+                             const long long* s2, float* out, float* cost,
+                             float* tile_cost, unsigned* ticket, int T,
+                             int nb, int K, int N, int V, int md,
+                             const long long* vs, int C, const int* tb,
+                             const int* wb)
+{
+    SweepArgs<ST> p = {static_cast<const ST*>(x), static_cast<const ST*>(w),
+                       static_cast<const ST*>(cw), cid, coh, J, s1, s2, out,
+                       cost, tile_cost, ticket, vs[0], vs[1], vs[2], vs[3],
+                       vs[4], vs[5], T, nb, K, N};
+    for (int r = 0; r <= C; ++r) {
+        p.tb[r] = tb[r];
+        p.wb[0][r] = wb[r];
+        p.wb[1][r] = wb[SC_MAX_CLUSTER + 1 + r];
+    }
+    return md == 4 ? launch_md<4, ST>(cfg, p, V)
+        : (md == 2 ? launch_md<2, ST>(cfg, p, V) : launch_md<1, ST>(cfg, p, V));
 }
 
 // One launch for V visits (V = 1: the single-visit sweep) at block width
-// md (4 full, 2 diag, 1 phase). The visit strides vs[6] are the elements
+// md (4 full, 2 diag, 1 phase) with the rows x, w, cw stored as st (0
+// float, 1 bf16, 2 f16). The visit strides vs[6] are the elements
 // between two visits of x, w, cw, the chunk ids, the coherencies and the
 // Jones (floats), 0 for an operand that all visits share.
-extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
+extern "C" int sweep_launch(const void* x, const void* w, const void* cw,
                             const long long* cid, const float* coh,
                             const float* J, const long long* s1,
                             const long long* s2, float* out, float* cost,
                             float* tile_cost, unsigned* ticket, int T,
-                            int nb, int K, int N, int V, int md,
+                            int nb, int K, int N, int V, int md, int st,
                             const long long* vs, int C,
                             const int* tb, const int* wb, void* stream)
 {
     if (K < 1 || K > SC_MAX_K || C < 1 || C > SC_MAX_CLUSTER || T < 1
-        || nb < 1 || V < 1 || V > 65535 || (md != 4 && md != 2 && md != 1))
+        || nb < 1 || V < 1 || V > 65535 || (md != 4 && md != 2 && md != 1)
+        || st < 0 || st > 2)
         return (int)cudaErrorInvalidValue;
     const int tiles = (nb + SC_TILE - 1) / SC_TILE;
     if (tiles > 65535) return (int)cudaErrorInvalidValue;
     const int rec = md == 4 ? Lay<4>::REC
         : (md == 2 ? Lay<2>::REC : Lay<1>::REC);
-    SweepArgs p = {x, w, cw, cid, coh, J, s1, s2, out, cost, tile_cost,
-                   ticket, vs[0], vs[1], vs[2], vs[3], vs[4], vs[5], T, nb,
-                   K, N};
     // the geometry must cover every timeslot and every record word of a
     // tile once, in rank order
     bool ok = tb[0] == 0 && tb[C] == T;
@@ -744,11 +959,8 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
         const int nbt = last ? nb - SC_TILE * (tiles - 1) : min(SC_TILE, nb);
         const int* wr = wb + last * (SC_MAX_CLUSTER + 1);
         ok = ok && wr[0] == 0 && wr[C] == K * nbt * rec;
-        for (int r = 0; r <= C; ++r) {
-            ok = ok && (r == 0 || (tb[r - 1] <= tb[r] && wr[r - 1] <= wr[r]));
-            p.tb[r] = tb[r];
-            p.wb[last][r] = wr[r];
-        }
+        for (int r = 1; r <= C; ++r)
+            ok = ok && tb[r - 1] <= tb[r] && wr[r - 1] <= wr[r];
     }
     if (!ok) return (int)cudaErrorInvalidValue;
     const cudaError_t err = cluster_smem_attr();
@@ -764,8 +976,19 @@ extern "C" int sweep_launch(const float* x, const float* w, const float* cw,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e2 = md == 4 ? launch_md<4>(&cfg, p, V)
-        : (md == 2 ? launch_md<2>(&cfg, p, V) : launch_md<1>(&cfg, p, V));
+    cudaError_t e2;
+    if (st == 0)
+        e2 = launch_st<float>(&cfg, x, w, cw, cid, coh, J, s1, s2, out, cost,
+                              tile_cost, ticket, T, nb, K, N, V, md, vs, C,
+                              tb, wb);
+    else if (st == 1)
+        e2 = launch_st<__nv_bfloat16>(&cfg, x, w, cw, cid, coh, J, s1, s2,
+                                      out, cost, tile_cost, ticket, T, nb, K,
+                                      N, V, md, vs, C, tb, wb);
+    else
+        e2 = launch_st<__half>(&cfg, x, w, cw, cid, coh, J, s1, s2, out,
+                               cost, tile_cost, ticket, T, nb, K, N, V, md,
+                               vs, C, tb, wb);
     if (e2 != cudaSuccess) return (int)e2;
     return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@ carries on silently on the CPU.
 
 On the card the pipeline computes in float32 (the JAX package's TPU
 dtype); on the CPU it computes in float64 (the JAX package's dtype under
-the tests' x64 mode).
+the tests' x64 mode). A reduced ``--dtype-policy`` (bf16, f16) pairs with
+float32 on both (``pipeline.py``, ``dtypes.py``).
 """
 
 from __future__ import annotations

@@ -46,14 +46,15 @@ SIGNATURES = {
     },
     "sweep": {
         # x, w, cw, cid, coh, J, s1, s2, out, cost, tile costs, ticket,
-        # T, nb, K, N, V, md (the Jones mode's block width), the visit
-        # strides [6] of x, w, cw, cid, coh, J (0 = shared), cluster, its
-        # time bounds [cluster + 1] and word bounds [2][9]
+        # T, nb, K, N, V, md (the Jones mode's block width), st (the rows'
+        # storage: 0 float32, 1 bf16, 2 f16), the visit strides [6] of x,
+        # w, cw, cid, coh, J (0 = shared), cluster, its time bounds
+        # [cluster + 1] and word bounds [2][9]
         # (ops/sweep.py:sweep_geometry), stream
         "sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
-        # (K, md) -> blocks of the sweep kernel an SM holds
-        "sweep_blocks_per_sm": [_I, _I],
+                         _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        # (K, md, st) -> blocks of the sweep kernel an SM holds
+        "sweep_blocks_per_sm": [_I, _I, _I],
     },
     "matvec": {
         # &MatvecParams, v, y, stream

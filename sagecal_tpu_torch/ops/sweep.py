@@ -6,17 +6,21 @@
 ``sweep_blocks`` ``:482``): one pass over a cluster visit's rows per
 hybrid chunk, giving per-baseline Gram blocks, gradients and the
 acceptance cost. On a CUDA tensor it launches the hand-written kernel
-in ``csrc/sweep.cu`` (float32) or raises; on a CPU tensor it runs the
-plain PyTorch version :func:`sweep_blocks_plain` (``_sweep_body`` over
-[T, nb] tensors plus the time sum) in the tensors' dtype. Both take the
+in ``csrc/sweep.cu`` or raises; on a CPU tensor it runs the plain
+PyTorch version :func:`sweep_blocks_plain` (``_sweep_body`` over [T, nb]
+tensors plus the time sum) in the tensors' dtype. The rows (x8, wt,
+cost_wt) arrive in the storage dtype of ``--dtype-policy``: float32 (the
+pipeline's dtype on the CPU) or bf16/f16, whose instances widen the rows
+at the load, round the model and factor planes through the storage
+dtype where the JAX kernel's ``q()`` does and sum in float32. Both take the
 Jones mode (``jones``: full, diag, phase), whose block width md = 4, 2, 1
 sets the blocks' trailing dimensions, the kernel's instantiation and its
 records (:data:`REC_WORDS`); J is constrained to the mode on entry (the
 kernel zeroes the off-diagonals it reads itself).
 
 What bounds the kernel on the card is bytes: 33 words a row (x, w, cw,
-coherency, chunk id), each row read once and added to its own chunk's
-sums, against :func:`sweep_flops_per_row` float32 operations. It is one
+coherency, chunk id; 21 when x, w and cw are bf16 or f16), each row read
+once and added to its own chunk's sums, against :func:`sweep_flops_per_row` float32 operations. It is one
 launch (thread block clusters over time, the Jones gathered inside, the
 per-chunk cost summed inside) for one visit or V, whose launch geometry
 is the plain function :func:`sweep_geometry`; it writes block records of
@@ -28,7 +32,9 @@ Around the kernel, as torch ops: :func:`_station_aggregates`
 accumulate), :func:`gn_blocks`, :func:`normal_equations_fused`,
 :func:`_assemble_damped`, :func:`chol_solve_blocks_shift` and
 :func:`solve_damped_blocks` with its single boosted-jitter retry
-(batched ``torch.linalg`` Cholesky; XLA in the JAX package, not Pallas).
+(:func:`shifted_solve`, :func:`retry_damped`: batched ``torch.linalg``
+Cholesky, or LU under a reduced policy; XLA in the JAX package, not
+Pallas).
 
 :func:`gn_matvec_blocks` replaces the second Pallas kernel of the file,
 ``_matvec_kernel`` (``sweep_pallas.py:946``, launched by
@@ -64,6 +70,7 @@ from typing import NamedTuple
 
 import torch
 
+from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.ops import cuda_lib
 from sagecal_tpu_torch.solvers import normal_eq as ne
 
@@ -135,11 +142,18 @@ def matvec_flops_per_baseline(md: int = 4) -> int:
 #: kernel launches since the last reset (the plain versions never count):
 #: the sweep kernel called by :func:`sweep_blocks`, the matvec kernel, and
 #: the sweep kernel called by :func:`sweep_blocks_visits`; the same
-#: launches by block width, {("sweep" | "matvec" | "visits", md): n}
+#: launches by block width, {("sweep" | "matvec" | "visits", md): n}, and
+#: the sweep kernel's by storage dtype of its rows, {("sweep" | "visits",
+#: "f32" | "bf16" | "f16"): n}
 LAUNCHES = 0
 MATVEC_LAUNCHES = 0
 VISITS_LAUNCHES = 0
 MD_LAUNCHES: dict = {}
+ST_LAUNCHES: dict = {}
+
+#: the sweep kernel's row storage dtypes: (code of ``sweep_launch``, name)
+STORAGE = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
+           torch.float16: (2, "f16")}
 
 
 def reset_launches() -> None:
@@ -148,6 +162,7 @@ def reset_launches() -> None:
     MATVEC_LAUNCHES = 0
     VISITS_LAUNCHES = 0
     MD_LAUNCHES.clear()
+    ST_LAUNCHES.clear()
 
 
 def _count_md(kernel: str, md: int) -> None:
@@ -188,6 +203,71 @@ def _factors(A, Bm):
     return fa.reshape(shp), fb.reshape(shp)
 
 
+def _round(p, st):
+    """Real planes ``p`` rounded through the storage dtype ``st`` and
+    back (the JAX kernel's ``q()``, ``sweep_pallas.py:223-230``)."""
+    return p.to(st).float()
+
+
+def _cmul(xr, xi, yr, yi):
+    """(re, im) of x y, every product and sum a float32 operation of its
+    own (no fused multiply-add)."""
+    return xr * yr - xi * yi, xr * yi + xi * yr
+
+
+def _planes(C, Jp, Jq):
+    """The (re, im) planes of A = C Jq^H, Bm = Jp C and V = Jp A, each
+    [..., 2, 2] float32, formed as ``_sweep_body`` forms them and as the
+    kernel's reduced instances do (``csrc/sweep.cu`` ``cmul_re``): a sum
+    over the inner index of complex products, every operation rounded on
+    its own. C [..., 2, 2] complex; Jp, Jq broadcast against it. The
+    reduced policies round these planes to the storage dtype, so the
+    kernel and the plain version must form the same float32 values: a
+    complex matrix product (fused multiply-adds, another order) leaves
+    some an ulp away, and one next to a storage tie rounds the other
+    way."""
+    Cr, Ci = C.real, C.imag
+    Pr, Pi, Qr, Qi = Jp.real, Jp.imag, Jq.real, Jq.imag
+    Ar = Ai = Br = Bi = None
+    for e in range(2):          # A[d, o] = sum_e C[d, e] conj(Q[o, e])
+        tr, ti = _cmul(Cr[..., :, e, None], Ci[..., :, e, None],
+                       Qr[..., None, :, e], -Qi[..., None, :, e])
+        Ar = tr if Ar is None else Ar + tr
+        Ai = ti if Ai is None else Ai + ti
+    Vr = Vi = None
+    for d in range(2):          # Bm[a, o] = sum_d P[a, d] C[d, o]; V too
+        pr, pi = Pr[..., :, d, None], Pi[..., :, d, None]
+        tr, ti = _cmul(pr, pi, Cr[..., None, d, :], Ci[..., None, d, :])
+        ur, ui = _cmul(pr, pi, Ar[..., None, d, :], Ai[..., None, d, :])
+        Br = tr if Br is None else Br + tr
+        Bi = ti if Bi is None else Bi + ti
+        Vr = ur if Vr is None else Vr + ur
+        Vi = ui if Vi is None else Vi + ui
+    return Ar, Ai, Br, Bi, Vr, Vi
+
+
+def _phase_factors(Ar, Ai, Br, Bi, Jp, Jq):
+    """Phase mode's rotated factor planes FA [..., c, o, 2, 1] and FB
+    [..., c, a, 2, 1] (``normal_eq._mode_factors``) from the A and Bm
+    planes, every operation rounded on its own as in ``_sweep_body``:
+    u = Jp_cc A[c, o] gives FA = (-Im u, Re u), w = conj(Jq_cc) Bm[a, c]
+    gives FB = (Im w, -Re w)."""
+    jr = torch.stack([Jp.real[..., 0, 0], Jp.real[..., 1, 1]], -1)[
+        ..., None]                                   # [..., c, 1]
+    ji = torch.stack([Jp.imag[..., 0, 0], Jp.imag[..., 1, 1]], -1)[
+        ..., None]
+    ur, ui = _cmul(jr, ji, Ar, Ai)                   # [..., c, o]
+    qr = torch.stack([Jq.real[..., 0, 0], Jq.real[..., 1, 1]], -1)[
+        ..., None]
+    qi = torch.stack([Jq.imag[..., 0, 0], Jq.imag[..., 1, 1]], -1)[
+        ..., None]
+    br, bi = Br.transpose(-1, -2), Bi.transpose(-1, -2)     # [..., c, a]
+    wr = qr * br + qi * bi
+    wi = qr * bi - qi * br
+    return (torch.stack([-ui, ur], -1)[..., None],
+            torch.stack([wi, -wr], -1)[..., None])
+
+
 def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
                        jones: str = "full"):
     """Plain PyTorch version of the fused sweep.
@@ -197,9 +277,24 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
     2, 2] complex; chunk_id [B]. Returns (pp, qq, pq, jtep, jteq, cost) in
     the caller layouts [K, nb, ...] (blocks md wide) and cost [K]. The
     diag and phase blocks come from the mode factors of the JAX kernel's
-    ``_sweep_body`` (``normal_eq._mode_factors``)."""
+    ``_sweep_body`` (``normal_eq._mode_factors``).
+
+    Under a reduced storage dtype (x8/wt/cost_wt in bf16 or f16) the
+    rows widen to float32 and the outputs are float32; the model planes
+    and the Wirtinger factors, formed by :func:`_planes`, are rounded
+    through the storage dtype at the JAX kernel's boundary: A and Bm
+    (full, diag), the phase mode's rotated planes built from the
+    unrounded A and Bm, and the model V."""
     K = Jp.shape[0]
     T = x8.shape[0] // nb
+    st = x8.dtype
+    reduced = dtypes.is_reduced(st)
+    if reduced:
+        x8, wt, cost_wt = dtypes.pet(x8, wt, cost_wt)
+
+    def q(p):
+        return _round(p, st) if reduced else p
+
     Jp = ne.jones_constrain(Jp, jones)
     Jq = ne.jones_constrain(Jq, jones)
     x = x8.reshape(T, nb, 8)
@@ -210,10 +305,16 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
         mk = (cid == k).to(x.dtype)[..., None] if K > 1 else 1.0
         w = wt.reshape(T, nb, 8) * mk
         cw = cost_wt.reshape(T, nb, 8) * mk
-        A = C @ Jq[k].conj().transpose(-1, -2)       # [T, nb, 2, 2]
-        Bm = Jp[k] @ C
-        V = Jp[k] @ A
-        r = x - torch.view_as_real(V.reshape(T, nb, 4)).reshape(T, nb, 8)
+        if reduced:
+            Ar, Ai, Br, Bi, Vr, Vi = _planes(C, Jp[k], Jq[k])
+            A = torch.complex(q(Ar), q(Ai))          # the rounded planes
+            Bm = torch.complex(q(Br), q(Bi))
+            vm = torch.stack([q(Vr), q(Vi)], -1)
+        else:
+            A = C @ Jq[k].conj().transpose(-1, -2)   # [T, nb, 2, 2]
+            Bm = Jp[k] @ C
+            vm = torch.view_as_real(Jp[k] @ A)
+        r = x - vm.reshape(T, nb, 8)
         w2 = (w * w).reshape(T, nb, 2, 2, 2)         # [T, nb, a, o, ri]
         rw2 = (r.reshape(T, nb, 2, 2, 2)) * w2
         if jones == "full":
@@ -225,7 +326,11 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
             jteq = torch.einsum("tbaor,tbari->boi", rw2, fb)
         else:
             # FA [T, nb, c, o, ri, md], FB [T, nb, c, a, ri, md]
-            FA, FB = ne._mode_factors(A, Bm, Jp[k], Jq[k], jones)
+            if jones == "phase" and reduced:
+                FA, FB = (q(f) for f in _phase_factors(Ar, Ai, Br, Bi,
+                                                        Jp[k], Jq[k]))
+            else:
+                FA, FB = ne._mode_factors(A, Bm, Jp[k], Jq[k], jones)
             WFA = w2[..., None] * FA
             WFB = w2.transpose(2, 3)[..., None] * FB
             pp = torch.einsum("tbcorm,tbcorn->bcmn", WFA, FA)
@@ -344,16 +449,17 @@ _SLOTS: dict = {}
 _TICKETS: dict = {}
 
 
-def _sweep_slots(dev, K: int, md: int = 4) -> int:
+def _sweep_slots(dev, K: int, md: int = 4, st: int = 0) -> int:
     """Blocks of the sweep kernel the card ``dev`` holds at once at K
-    chunks and block width md (the CUDA occupancy query, cached)."""
-    key = (dev.index, K, md)
+    chunks, block width md and row storage code st (:data:`STORAGE`; the
+    CUDA occupancy query, cached)."""
+    key = (dev.index, K, md, st)
     n = _SLOTS.get(key)
     if n is None:
-        per_sm = cuda_lib.load("sweep").sweep_blocks_per_sm(K, md)
+        per_sm = cuda_lib.load("sweep").sweep_blocks_per_sm(K, md, st)
         if per_sm < 1:
             raise RuntimeError("sweep kernel: the occupancy query failed "
-                               f"at K={K}, md={md}")
+                               f"at K={K}, md={md}, st={st}")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         n = _SLOTS[key] = per_sm * sms
     return n
@@ -408,12 +514,15 @@ def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
     global LAUNCHES, VISITS_LAUNCHES
     dev = x8.device
     what = "visits" if visits else "sweep"
+    if x8.dtype not in STORAGE:
+        raise TypeError(f"{what} kernel: x8 must be float32, bfloat16 or "
+                        f"float16 (got {x8.dtype})")
     for name, a in (("x8", x8), ("wt", wt), ("cost_wt", cost_wt)):
-        if a.dtype != torch.float32 or a.device != dev:
-            raise TypeError(f"{what} kernel: {name} must be float32 on {dev} "
-                            f"(got {a.dtype} on {a.device}); reduced "
-                            "storage dtypes are ROADMAP queue B item 4 "
-                            "(with queue A item 7)")
+        if a.dtype != x8.dtype or a.device != dev:
+            raise TypeError(f"{what} kernel: {name} must be {x8.dtype} on "
+                            f"{dev}, the storage dtype of x8 (got {a.dtype} "
+                            f"on {a.device})")
+    st_code, st_name = STORAGE[x8.dtype]
     if coh.dtype != torch.complex64 or J.dtype != torch.complex64 \
             or coh.device != dev or J.device != dev:
         raise TypeError(f"{what} kernel: coherencies and Jones must be "
@@ -437,7 +546,8 @@ def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
     s1, s2, cid = (_int64(a) for a in (sta1, sta2, chunk_id))
     strides = _visit_strides(*visit_strides(
         x8, wt, cost_wt, cid, coh, J)) if V > 1 else _NO_STRIDES
-    geo, times, words = _geometry_args(T, nb, K, _sweep_slots(dev, K, md),
+    geo, times, words = _geometry_args(T, nb, K,
+                                       _sweep_slots(dev, K, md, st_code),
                                        V, md)
     rec = geo.rec
     # the records, then cost [V K], then the tiles' costs [V K, tiles]
@@ -452,13 +562,14 @@ def _sweep_cuda(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, nb: int,
         x8.data_ptr(), wt.data_ptr(), cost_wt.data_ptr(), cid.data_ptr(),
         coh.data_ptr(), J.data_ptr(), s1.data_ptr(), s2.data_ptr(), ptr,
         ptr + 4 * n_rec, ptr + 4 * (n_rec + V * K),
-        _ticket(dev, stream).data_ptr(), T, nb, K, N, V, md, strides,
-        geo.cluster, times, words, stream), "sweep_cluster_kernel")
+        _ticket(dev, stream).data_ptr(), T, nb, K, N, V, md, st_code,
+        strides, geo.cluster, times, words, stream), "sweep_cluster_kernel")
     if visits:
         VISITS_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    _count_md("visits" if visits else "sweep", md)
+    _count_md(what, md)
+    ST_LAUNCHES[(what, st_name)] = ST_LAUNCHES.get((what, st_name), 0) + 1
     return out, cost
 
 
@@ -659,36 +770,51 @@ def _assemble_damped(fac: GNBlocks, shift, sta1, sta2, n_stations: int):
         K, npar * N, npar * N)
 
 
-def chol_solve_blocks_shift(fac: GNBlocks, JTe, shift, sta1, sta2,
-                            n_stations: int):
-    """One batched assemble + factor + solve of (JTJ + shift I) dp =
-    JTe; returns (dp, ok) with ok = factorization succeeded and dp
-    finite, per chunk."""
-    A = _assemble_damped(fac, shift, sta1, sta2, n_stations)
-    L, info = torch.linalg.cholesky_ex(A)
-    dp = torch.cholesky_solve(JTe[..., None], L)[..., 0]
+def shifted_solve(A, b, reduced: bool = False):
+    """Solve A dp = b batched over chunks by Cholesky, or by LU when
+    ``reduced`` (the bf16/f16 storage policies, as the JAX package does):
+    (dp, ok), ok = factorization succeeded and dp finite, per chunk."""
+    if reduced:
+        dp, info = torch.linalg.solve_ex(A, b[..., None])
+        dp = dp[..., 0]
+    else:
+        L, info = torch.linalg.cholesky_ex(A)
+        dp = torch.cholesky_solve(b[..., None], L)[..., 0]
     return dp, (info == 0) & torch.isfinite(dp).all(dim=-1)
 
 
-def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
-                        n_stations: int):
-    """Solve (JTJ + (mu + jitter) I) dp = JTe batched over chunks.
-
-    A chunk whose factorization fails gets ONE retry with the shift
-    boosted by 1e-3 * max|diag| (read from the D blocks); a chunk that
-    fails again returns dp = 0. The retry is computed for every chunk
-    and selected per chunk, so the call never waits on the device."""
-    shift = mu + jitter
-    dp, ok = chol_solve_blocks_shift(fac, JTe, shift, sta1, sta2,
-                                     n_stations)
-    dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
-    diag_max = dd.reshape(dd.shape[0], -1).abs().amax(dim=-1)
-    dp2, ok2 = chol_solve_blocks_shift(
-        fac, JTe, shift + 1e-3 * torch.clamp(diag_max, min=1e-30), sta1,
-        sta2, n_stations)
+def retry_damped(solve, shift, diag_max):
+    """A damped solve with its ONE retry: ``solve(shift)`` gives (dp, ok)
+    per chunk; a chunk that fails is solved again with the shift boosted
+    by 1e-3 ``diag_max``, and one that fails again returns dp = 0. The
+    retry is computed for every chunk and selected per chunk, so the call
+    never waits on the device."""
+    dp, ok = solve(shift)
+    dp2, ok2 = solve(shift + 1e-3 * torch.clamp(diag_max, min=1e-30))
     zero = torch.zeros_like(dp)
     dpw = torch.where(ok[:, None], dp, torch.where(ok2[:, None], dp2, zero))
     return dpw, ok | ok2
+
+
+def chol_solve_blocks_shift(fac: GNBlocks, JTe, shift, sta1, sta2,
+                            n_stations: int, reduced: bool = False):
+    """One batched assemble + factor + solve of (JTJ + shift I) dp =
+    JTe (:func:`shifted_solve`: LU when ``reduced``); returns (dp, ok)."""
+    return shifted_solve(_assemble_damped(fac, shift, sta1, sta2,
+                                          n_stations), JTe, reduced)
+
+
+def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
+                        n_stations: int, reduced: bool = False):
+    """Solve (JTJ + (mu + jitter) I) dp = JTe batched over chunks (by LU
+    when ``reduced``), with :func:`retry_damped`'s one retry, its boost
+    read from the D blocks' diagonals."""
+    dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
+    diag_max = dd.reshape(dd.shape[0], -1).abs().amax(dim=-1)
+    return retry_damped(
+        lambda shift: chol_solve_blocks_shift(fac, JTe, shift, sta1, sta2,
+                                              n_stations, reduced),
+        mu + jitter, diag_max)
 
 
 def normal_equations_fused(x8, J, coh, sta1, sta2, chunk_id, wt,

@@ -103,7 +103,9 @@ class FullBatchPipeline:
 
     ``device``: None runs on CUDA (raising without a card), "cpu" on the
     CPU. The pipeline computes in float32 on the card and float64 on the
-    CPU."""
+    CPU, and in float32 on both under a reduced ``--dtype-policy`` (its
+    accumulator dtype: ``pipeline.py:124-133`` of the JAX package), with
+    the solve's data and weights staged in the storage dtype ``sdt``."""
 
     def __init__(self, cfg: RunConfig, ms: ds.SimMS, sky: skymodel.ClusterSky,
                  device=None, log=print):
@@ -114,6 +116,9 @@ class FullBatchPipeline:
         self.log = log
         self.device = devmod.resolve(device)
         self.rdt = devmod.real_dtype(self.device)
+        if cfg.dtype_policy != "f32":
+            # a reduced storage policy pairs with the float32 pipeline
+            self.rdt = torch.float32
         self.sdt = dtypes.storage_dtype(cfg.dtype_policy, self.rdt)
         # both device skies once (the JAX package's _pallas_skies): the
         # point/gaussian half for the coherency kernel, the rest for the
@@ -142,7 +147,8 @@ class FullBatchPipeline:
             inner=cfg.solver_inner,
             kernel=cfg.solver_kernel,
             jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]),
-            inflight=max(1, int(cfg.cluster_inflight)))
+            inflight=max(1, int(cfg.cluster_inflight)),
+            dtype_policy=cfg.dtype_policy)
         # ordered-subsets partition of the [tilesz, nbase] rows for the
         # OS modes 0/2/3 (the other modes ignore it)
         self.os_info = lm_mod.os_subset_ids(meta["tilesz"], meta["nbase"])
@@ -176,7 +182,8 @@ class FullBatchPipeline:
         flags = rp.uvcut_flags(self._t(rowflags, torch.int32), u, v,
                                self._t(tile.freqs), self.cfg.uvmin,
                                self.cfg.uvmax)
-        x8 = self._t(x8_np, self.sdt)
+        x8 = dtypes.storage_tensor(x8_np, self.cfg.dtype_policy, self.rdt,
+                                   self.device)
         if self.cfg.whiten:
             # -W 1: uv-density whitening of the solve input only
             x8 = rb.whiten_data(x8, u, v, self.meta["freq0"])
@@ -227,18 +234,26 @@ class FullBatchPipeline:
         return J.cpu().numpy().astype(np.complex128), info
 
     def residuals(self, J: np.ndarray, tile: ds.VisTile, stg: dict):
-        """[B, F, 2, 2] complex128 residual of every channel."""
+        """[B, F, 2, 2] complex128 residual of every channel. Under a
+        reduced policy the data enter in the storage dtype and the
+        residual is emitted in it (``residual_writeback``), as the JAX
+        package stages and writes them."""
         meta = self.meta
         cdt = devmod.complex_dtype(self.rdt)
+        if dtypes.is_reduced(self.sdt):
+            x = utils.r2c(dtypes.storage_tensor(
+                utils.c2r(tile.x), self.cfg.dtype_policy, self.rdt,
+                self.device))
+        else:
+            x = torch.as_tensor(tile.x, device=self.device).to(cdt)
         res = rr.calculate_residuals_multifreq(
-            self.dsky, torch.as_tensor(J, device=self.device).to(cdt),
-            torch.as_tensor(tile.x, device=self.device).to(cdt),
+            self.dsky, torch.as_tensor(J, device=self.device).to(cdt), x,
             stg["u"], stg["v"], stg["w"], meta["freqs"],
             meta["fdelta"] / len(meta["freqs"]), stg["sta1"], stg["sta2"],
             self.cidx, self.sub_mask, correct_idx=self.correct_idx,
             rho=self.cfg.mmse_rho, phase_only=self.cfg.phase_only)
-        return utils.r2c(rr.residual_writeback(res).cpu().numpy()).astype(
-            np.complex128)
+        return utils.r2c(rr.residual_writeback(res, self.sdt).to(
+            "cpu", torch.float64).numpy()).astype(np.complex128)
 
     def solve_channels(self, J0: np.ndarray, tile: ds.VisTile, stg: dict,
                        write_residuals: bool):
@@ -275,6 +290,19 @@ class FullBatchPipeline:
         J0t = torch.as_tensor(J0, device=self.device).to(cdt)
         scfg = self.base_cfg._replace(max_lbfgs=self.cfg.max_lbfgs)
         bad = (stg["flags"] == 1).cpu().numpy()
+        if write_residuals and dtypes.is_reduced(self.sdt) \
+                and not getattr(self, "_warned_b1_dtype", False):
+            # as in the JAX package: the channels' residuals are made
+            # from the data at the pipeline dtype
+            self._warned_b1_dtype = True
+            unmelted = tile.x.shape[0] * F * 8 * (
+                self.rdt.itemsize - self.sdt.itemsize)
+            self.log(
+                f"dtype-policy {self.cfg.dtype_policy}: the -b 1 "
+                "per-channel residual assembly is host-side numpy "
+                "(no bf16/f16) and stays at the pipeline dtype — "
+                f"~{unmelted / 1e6:.1f} MB/tile of residual "
+                "traffic is NOT melted by the storage policy")
         J, chans, res = None, [], []
         for f in range(F):
             xc = np.array(tile.x[:, f])

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch import device as devmod
-from sagecal_tpu_torch import skymodel, utils
+from sagecal_tpu_torch import dtypes, skymodel, utils
 from sagecal_tpu_torch.ops import coh as coh_ops
 from sagecal_tpu_torch.rime import envelopes
 
@@ -266,13 +266,17 @@ def chunk_indices(tilesz: int, nbase: int, nchunk) -> np.ndarray:
     return out
 
 
-def model8(coh_m, J_m, sta1, sta2, chunk_idx_m):
+def model8(coh_m, J_m, sta1, sta2, chunk_idx_m, out_dtype=None):
     """One cluster's corrupted model J_p C J_q^H as [B, 8] reals
-    ((Re, Im) of XX, XY, YX, YY)."""
+    ((Re, Im) of XX, XY, YX, YY). The model is evaluated in the complex
+    dtype of its operands and emitted in ``out_dtype``, the storage dtype
+    of the residual stream it joins (``dtypes.to_storage``: the identity
+    unless bf16/f16)."""
     Jp = utils.gather_jones(J_m, chunk_idx_m, sta1)
     Jq = utils.gather_jones(J_m, chunk_idx_m, sta2)
     V = utils.mul22(utils.mul22(Jp, coh_m), Jq, conj_b=True)
-    return torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8)
+    out = torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8)
+    return out if out_dtype is None else dtypes.to_storage(out, out_dtype)
 
 
 def apply_jones(coh_m, J_m, sta1, sta2, chunk_idx_m):

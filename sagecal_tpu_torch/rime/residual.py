@@ -22,7 +22,8 @@ from sagecal_tpu_torch.rime import predict as rp
 
 def residual_writeback(res, out_dtype=None):
     """[..., 2, 2] complex residual -> stacked real pairs [..., 2] in the
-    storage dtype (the identity for the ported float32/float64)."""
+    storage dtype ``out_dtype`` of the policy: rounded to bf16/f16 under a
+    reduced one, unchanged at float32/float64."""
     out = utils.c2r(res)
     return out if out_dtype is None else dtypes.to_storage(out, out_dtype)
 

@@ -55,6 +55,15 @@ each assembly takes the mode: the sweep with ``jones=mode`` (the md = 2
 and 1 kernels on the card), the XLA route through
 ``normal_eq.normal_equations_mode`` / ``gn_factors_mode``.
 
+Reduced storage (``LMConfig.dtype_policy`` bf16 or f16, ``lm.py:364-439``
+of the JAX package): x8 and wt are rounded to the storage dtype at entry
+and the solve state (p, mu, nu, costs, the assembled equations) is
+float32. The damped solves take LU instead of Cholesky (:func:`_solve_damped`,
+``ops.sweep.solve_damped_blocks``), and the ordered-subsets body of a
+single-chunk cluster on baseline-major rows under ``inner="chol"`` takes
+its equations from the subset's rows alone (``normal_eq.
+os_subset_equations_mode``, dense on either route: the fast path).
+
 Lanes (``lanes=``, an ``ops.sweep.Lanes``): one call solves an in-flight
 group's V cluster visits, folded into rows [V B] and chunks [V K], where
 the JAX package vmaps the solve. Per visit: its iteration cap, its OS
@@ -70,6 +79,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.ops import sweep as swp
 from sagecal_tpu_torch.solvers import normal_eq as ne
 
@@ -99,6 +109,7 @@ class LMConfig(NamedTuple):
     cg_maxiter: int = 25       # PCG trip cap per damping iteration
     kernel: str = "pallas"     # "pallas" (fused sweep where it fits), "xla"
     jones_mode: str = "full"
+    dtype_policy: str = "f32"  # storage dtype of the rows (dtypes.py)
 
 
 #: solves (``lm_solve`` and ``rtr.rtr_solve`` calls) that took the XLA
@@ -203,30 +214,17 @@ def _lane_caps(itmax: int, itmax_dynamic, lanes):
         np.repeat(caps, lanes.K), device=lanes.cid.device)
 
 
-def _solve_damped_chol(JTJ, JTe, shift):
-    """One batched shifted Cholesky of the dense system (``lm.
-    _chol_solve_shift``): (dp, ok), ok = factorization succeeded and dp
-    finite, per chunk."""
+def _solve_damped(JTJ, JTe, mu, jitter, reduced: bool = False):
+    """Solve (JTJ + (mu + jitter) I) dp = JTe on a dense matrix
+    (``lm._solve_damped``): a batched Cholesky, or LU under a reduced
+    storage policy (``swp.shifted_solve``), with ``swp.retry_damped``'s
+    one retry, its boost read from diag(JTJ)."""
     eye = torch.eye(JTJ.shape[-1], dtype=JTJ.dtype, device=JTJ.device)
-    L, info = torch.linalg.cholesky_ex(JTJ + shift[:, None, None] * eye)
-    dp = torch.cholesky_solve(JTe[..., None], L)[..., 0]
-    return dp, (info == 0) & torch.isfinite(dp).all(dim=-1)
-
-
-def _solve_damped(JTJ, JTe, mu, jitter):
-    """Solve (JTJ + (mu + jitter) I) dp = JTe on the dense matrix of the
-    XLA route (``lm._solve_damped``). A chunk whose factorization fails
-    gets ONE retry with the shift boosted by 1e-3 max|diag(JTJ)|; one that
-    fails again returns dp = 0. The retry is computed for every chunk and
-    selected per chunk (no host read)."""
-    shift = mu + jitter
-    dp, ok = _solve_damped_chol(JTJ, JTe, shift)
     diag_max = torch.diagonal(JTJ, dim1=-2, dim2=-1).abs().amax(dim=-1)
-    dp2, ok2 = _solve_damped_chol(
-        JTJ, JTe, shift + 1e-3 * torch.clamp(diag_max, min=1e-30))
-    zero = torch.zeros_like(dp)
-    dpw = torch.where(ok[:, None], dp, torch.where(ok2[:, None], dp2, zero))
-    return dpw, ok | ok2
+    return swp.retry_damped(
+        lambda shift: swp.shifted_solve(JTJ + shift[:, None, None] * eye,
+                                        JTe, reduced),
+        mu + jitter, diag_max)
 
 
 def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
@@ -323,12 +321,27 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
     sweep = solve_route(config, kmax // V, row_period, x8.shape[0] // V)
+    # the rows in the policy's storage dtype; the solve state in its
+    # accumulator dtype
+    st = dtypes.storage_dtype(config.dtype_policy, x8.dtype)
+    x8 = dtypes.to_storage(x8, st)
+    wt = dtypes.to_storage(wt, st)
+    reduced = dtypes.is_reduced(x8.dtype)
     dev = x8.device
-    dtype = x8.dtype
+    dtype = dtypes.acc_dtype(x8.dtype)
     N = n_stations
     inner_cg = config.inner == "cg"
-    # the XLA route's dense (JTJ, JTe, cost) under "chol"
-    dense = not sweep and not inner_cg
+    Bv = x8.shape[0] // V
+    # the reduced policy's OS fast path: each subset's equations from its
+    # own contiguous rows, ntper timeslots a subset
+    os_ntper = 0
+    if (reduced and os is not None and kmax == V and row_period > 0
+            and Bv % row_period == 0 and not inner_cg):
+        os_ntper = -(-(Bv // row_period) // int(
+            (os if lanes is None else os[0]).n_subsets))
+    # the dense (JTJ, JTe, cost) of the XLA route under "chol", and of the
+    # OS fast path on either route
+    dense = (not sweep and not inner_cg) or bool(os_ntper)
     # the solve state lives in the mode's reduced space; Jref holds the
     # constrained entry Jones (the phase retraction's amplitudes)
     mode = config.jones_mode
@@ -344,7 +357,9 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     def rows(w):
         return w if lanes is None or w is None else lanes.rows(w)
 
-    def nrm_eq(pv, w=None, cw=None):
+    def nrm_eq(pv, w=None, cw=None, k=None):
+        if os_ntper:
+            return os_eq(pv, k, cw)
         w = wt if w is None else w
         if sweep:
             return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
@@ -354,6 +369,24 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         return assemble(x8, p_to_J(pv), coh, sta1, sta2, chunk_id, rows(w),
                         N, kmax, mode=mode, cost_wt=rows(cw),
                         row_period=row_period, visits=V)
+
+    def os_eq(pv, k: int, cw):
+        """The OS fast path's equations of iteration k's subset, visit by
+        visit (each its own subset)."""
+        Jv = p_to_J(pv)
+        if lanes is None:
+            return ne.os_subset_equations_mode(
+                x8, Jv, coh, sta1, sta2, wt, os_id, os.subset(k), os_ntper,
+                row_period, N, cw, mode=mode)
+        xv, cv, wv, cwv = (lanes.visits(a) for a in (x8, coh, wt, cw))
+        s1v, s2v = sta1.view(V, Bv), sta2.view(V, Bv)
+        shared = lanes.shared(wt)
+        outs = [ne.os_subset_equations_mode(
+            xv[v], Jv[v:v + 1], cv[v], s1v[v], s2v[v],
+            wv if shared else wv[v], os_id, os[v].subset(k), os_ntper,
+            row_period, N, cwv if shared else cwv[v], mode=mode)
+            for v in range(V)]
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
     if os is not None:
         os_id = (os if lanes is None else os[0]).os_id.to(dev)
@@ -372,7 +405,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                 0, chunk_id, row, "amax") > 0
 
         wt0 = os_wt(0)
-        fac, JTe, cost = nrm_eq(p, wt0, wt)
+        fac, JTe, cost = nrm_eq(p, wt0, wt, 0)
         live = os_live(wt0)
     else:
         fac, JTe, cost = nrm_eq(p)
@@ -403,14 +436,14 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                 lists=lists, V=V, chunk_id=chunk_id, row_period=row_period)
             cg_trips += trips
         elif dense:
-            dp, ok = _solve_damped(fac, JTe, mu, config.jitter)
+            dp, ok = _solve_damped(fac, JTe, mu, config.jitter, reduced)
         else:
             dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,
-                                             sta1, sta2, N)
+                                             sta1, sta2, N, reduced)
         pnew = p + dp
         if os is not None:
             wt_next = os_wt(k + 1)
-            facn, JTen, cost_new = nrm_eq(pnew, wt_next, wt)
+            facn, JTen, cost_new = nrm_eq(pnew, wt_next, wt, k + 1)
             sub_live = os_live(wt_next)
         else:
             facn, JTen, cost_new = nrm_eq(pnew)

@@ -15,13 +15,23 @@ Wirtinger factors (:func:`_ma_factor`, :func:`_mb_factor`); the per-row
 Jacobians are never formed. Each aggregates per station in one of two
 ways: the baseline-major contraction over the time axis when every visit
 solves one chunk and the rows are [T, nbase] (``row_period``), else the
-generic ``index_add_`` scatter. The JAX package's ``dtp.acc`` / ``dtp.pet``
-/ ``dtp.to_storage`` casts are identities at float32/float64, the only
-storage dtypes the port runs (``dtypes._check_ported``), so they are left
-out; the reduced-dtype assemblies (``_normal_equations_reduced``,
-``os_subset_equations``) come with ``--dtype-policy`` (ROADMAP queue A
-item 7). ``_normal_equations_dense`` stays the tests' oracle in the JAX
-package and is not ported.
+generic ``index_add_`` scatter. ``_normal_equations_dense`` stays the
+tests' oracle in the JAX package and is not ported.
+
+Reduced storage (``--dtype-policy bf16|f16``: x8 and wt arrive in bf16 or
+f16; ``dtypes``): the model emits the storage dtype where it joins the
+residual stream, the Wirtinger factors MA/MB (FA/FB in the modes) and the
+squared weights stay in it, and every contraction and sum runs in float32
+on operands upcast exactly (``dtypes.pet``, the JAX package's
+``preferred_element_type``), so D, JTe, the cost and the dense JTJ are
+float32. :func:`normal_equations` with one chunk a visit and baseline-major
+rows forms its weighted Gram operands in float32 from the storage arrays
+(``_reduced_gram_baseline_major`` of the JAX package); the generic scatter
+weights in the storage dtype first (``_normal_equations_reduced``). The
+ordered-subsets body of the reduced policy assembles from the subset's
+rows alone (:func:`os_subset_equations`, :func:`os_subset_equations_mode`).
+Every cast is the identity at float32/float64, so the default policy runs
+the code it ran before.
 
 In-flight groups (``ops.sweep.Lanes``: rows [V B], chunk ids v K + k,
 Jones [V K, N]) go through the same functions with ``visits`` = V: the
@@ -38,9 +48,7 @@ J = diag(Jref) exp(i theta), amplitudes frozen at the entry Jones
 factors of :func:`_mode_factors`. :func:`normal_equations_mode`,
 :func:`gn_factors_mode` and :func:`gn_matvec_mode` are the mode-aware XLA
 assembly; in full mode each delegates to the full-Jones function, so the
-full route is unchanged bit for bit. The reduced-dtype OS body
-``os_subset_equations_mode`` comes with ``--dtype-policy`` (ROADMAP queue
-A item 7).
+full route is unchanged bit for bit.
 """
 
 from __future__ import annotations
@@ -49,21 +57,24 @@ from typing import NamedTuple
 
 import torch
 
+from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.utils import jones_c2r, jones_r2c
 
 
 def residual8(x8, J, coh, sta1, sta2, chunk_id):
-    """Real residual r = x - vec(J_p C J_q^H): [B, 8].
+    """Real residual r = x - vec(J_p C J_q^H): [B, 8], in the storage
+    dtype of x8 (the model rounded to it first).
 
     x8 [B, 8]; J [K, N, 2, 2] complex; coh [B, 2, 2]; chunk_id [B]."""
-    return x8 - rp.model8(coh, J, sta1, sta2, chunk_id)
+    return x8 - rp.model8(coh, J, sta1, sta2, chunk_id, out_dtype=x8.dtype)
 
 
 def weighted_cost(x8, J, coh, sta1, sta2, chunk_id, wt, kmax: int):
     """Weighted residual cost per chunk [K] (no Jacobians);
-    ``index_add_`` sums the rows of each chunk."""
-    r = residual8(x8, J, coh, sta1, sta2, chunk_id) * wt
+    ``index_add_`` sums the rows of each chunk in the accumulator
+    dtype."""
+    r = dtypes.acc(residual8(x8, J, coh, sta1, sta2, chunk_id) * wt)
     return r.new_zeros((kmax,)).index_add_(0, chunk_id.long(),
                                            (r * r).sum(dim=1))
 
@@ -137,16 +148,20 @@ def _mb_factor(Bm):
 
 def _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt):
     """The one [B] pass shared by the assemblies: (MA, MB, r w, the cost's
-    weighted residual)."""
+    weighted residual); the factors and r w in the storage dtype of x8,
+    the cost's residual in its accumulator dtype."""
+    st = x8.dtype
     Jp = J[chunk_id, sta1]                         # [B, 2, 2]
     Jq = J[chunk_id, sta2]
     A = coh @ Jq.conj().transpose(-1, -2)          # dV/dJp factor
     Bm = Jp @ coh                                  # dV/dconj(Jq) factor
     V = Jp @ A                                     # = Jp C Jq^H
-    r = x8 - torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8)
+    r = x8 - dtypes.to_storage(
+        torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8), st)
     rw = r * wt
     rc = rw if cost_wt is None else r * cost_wt
-    return _ma_factor(A), _mb_factor(Bm), rw, rc
+    return (dtypes.to_storage(_ma_factor(A), st),
+            dtypes.to_storage(_mb_factor(Bm), st), rw, dtypes.acc(rc))
 
 
 def _baseline_major(kmax: int, row_period: int, B: int, visits: int):
@@ -167,9 +182,12 @@ def _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id, N: int, kmax: int,
     [K, N, 2, 4], cost [K]). Per visit by the time-axis contraction onto
     [nbase] blocks when :func:`_baseline_major`, else the generic
     ``index_add_`` scatter with the weights folded into one [B, 2, 2, 2,
-    4] product each (every contraction a plain batched product)."""
+    4] product each (every contraction a plain batched product). Storage
+    operands (bf16/f16) weight in their dtype and contract in float32
+    (``dtypes.pet``); ``rc`` arrives in the accumulator dtype."""
     B = rw.shape[0]
-    dt, dev = rw.dtype, rw.device
+    dt, dev = dtypes.acc_dtype(rw.dtype), rw.device
+    pet = dtypes.pet
     O = None
     if _baseline_major(kmax, row_period, B, visits):
         nb = row_period
@@ -177,7 +195,7 @@ def _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id, N: int, kmax: int,
         wv = wt.reshape(visits, T, nb, 2, 2, 2)    # [v, t, n, a, o, ri]
         WMAh = wv[..., None] * MA.reshape(visits, T, nb, 1, 2, 2, 4)
         WMBh = wv[..., None] * MB.reshape(visits, T, nb, 2, 1, 2, 4)
-        rwv = rw.reshape(visits, T, nb, 2, 2, 2)
+        WMAh, WMBh, rwv = pet(WMAh, WMBh, rw.reshape(visits, T, nb, 2, 2, 2))
         pp = torch.einsum("vtnaori,vtnaorj->vnaij", WMAh, WMAh)
         qq = torch.einsum("vtnaori,vtnaorj->vnoij", WMBh, WMBh)
         jtep = torch.einsum("vtnaori,vtnaor->vnai", WMAh, rwv)
@@ -197,6 +215,7 @@ def _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id, N: int, kmax: int,
     rw2 = (rw * wt).reshape(B, 2, 2, 2)            # w^2 r
     WMA = w2[..., None] * MA[:, None]              # [B, a, o, ri, 4]
     WMB = w2[..., None] * MB[:, :, None]
+    WMA, WMB, rw2, MA, MB = pet(WMA, WMB, rw2, MA, MB)
     pp = torch.einsum("baori,borj->baij", WMA, MA)
     qq = torch.einsum("baorj,bari->boij", WMB, MB)
     jtep = torch.einsum("baor,bori->bai", rw2, MA)
@@ -228,12 +247,27 @@ def normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
     ``row_period`` the rows' baseline period, which with one chunk per
     visit turns the station aggregation into a contraction over time
     (module docstring; ``visits`` the V of a folded group). The station-
-    pair cross blocks are aggregated once and symmetrized densely."""
+    pair cross blocks are aggregated once and symmetrized densely.
+
+    Under a reduced storage dtype the outputs are float32; with one chunk
+    a visit and baseline-major rows the weighted Gram operands are formed
+    in float32 from the storage arrays (``_reduced_gram_baseline_major``
+    of the JAX package), elsewhere weighted in the storage dtype
+    (``_normal_equations_reduced``)."""
     N = n_stations
     MA, MB, rw, rc = _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
                                cost_wt)
+    if dtypes.is_reduced(x8.dtype) \
+            and _baseline_major(kmax, row_period, x8.shape[0], visits):
+        MA, MB, wt, rw = dtypes.pet(MA, MB, wt, rw)
     D, O, JTe, cost = _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id,
                                  N, kmax, row_period, visits, cross=True)
+    return _dense(D, O, kmax, N), JTe.reshape(kmax, 8 * N), cost
+
+
+def _dense(D, O, kmax: int, N: int):
+    """The dense [K, 8N, 8N] JTJ of the station blocks D and the cross
+    blocks O of :func:`_aggregate`."""
     # dense expansion: off-diagonal station blocks [8, 8] from the pq
     # blocks at (row c, col c'), symmetrized; station-diagonal blocks the
     # block-diagonal embeddings of D
@@ -245,8 +279,59 @@ def normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
                          eye2).reshape(kmax, N, 8, 8)
     idx = torch.arange(N, device=D.device)
     JTJ[:, idx, idx] += Dfull
-    JTJ = JTJ.permute(0, 1, 3, 2, 4).reshape(kmax, 8 * N, 8 * N)
-    return JTJ, JTe.reshape(kmax, 8 * N), cost
+    return JTJ.permute(0, 1, 3, 2, 4).reshape(kmax, 8 * N, 8 * N)
+
+
+def _os_subset_pass(x8, J, coh, sta1, sta2, wt, os_id, subset: int,
+                    ntper: int, row_period: int, cost_wt):
+    """The prelude of the reduced OS subset equations: one whole-[B] model
+    pass (kmax == 1, J already constrained) for the acceptance cost over
+    every row (``cost_wt``), and the subset's contiguous rows. Subset
+    ``subset`` is the block of ``ntper`` timeslots at ``subset ntper
+    row_period`` (clamped for the short tail block, whose rows of another
+    subset the re-masked weights drop). Returns (sl, Jp, Jq, JqH, Bm, r,
+    cost [1], wts), r the storage-dtype residual of every row and wts the
+    subset's masked weights."""
+    B = x8.shape[0]
+    st = x8.dtype
+    bs = ntper * row_period
+    start = min(int(subset) * bs, B - bs)
+    sl = slice(start, start + bs)
+    Jp = J[0][sta1]                                # kmax == 1
+    Jq = J[0][sta2]
+    JqH = Jq.conj().transpose(-1, -2)
+    Bm = Jp @ coh
+    V = Bm @ JqH
+    r = x8 - dtypes.to_storage(
+        torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8), st)
+    rca = dtypes.acc(r * cost_wt)
+    cost = (rca * rca).sum().reshape(1)
+    wts = wt[sl] * (os_id[sl] == subset).to(st)[:, None]
+    return sl, Jp, Jq, JqH, Bm, r, cost, wts
+
+
+def os_subset_equations(x8, J, coh, sta1, sta2, wt, os_id, subset: int,
+                        ntper: int, row_period: int, n_stations: int,
+                        cost_wt):
+    """Ordered-subsets normal equations of the reduced storage policy
+    from the subset's rows alone (``normal_eq.os_subset_equations``): one
+    chunk, rows [tilesz, nbase]; the subset's rows and the acceptance
+    cost of every row come from :func:`_os_subset_pass`, so its equations
+    equal those of the masked full pass up to the order of the sums.
+    Returns (JTJ [1, 8N, 8N], JTe [1, 8N], cost [1]), float32."""
+    N = n_stations
+    st = x8.dtype
+    sl, Jp, Jq, JqH, Bm, r, cost, wts = _os_subset_pass(
+        x8, J, coh, sta1, sta2, wt, os_id, subset, ntper, row_period,
+        cost_wt)
+    MA = dtypes.to_storage(_ma_factor(coh[sl] @ JqH[sl]), st)
+    MB = dtypes.to_storage(_mb_factor(Bm[sl]), st)
+    rws = r[sl] * wts
+    zc = torch.zeros(wts.shape[0], dtype=torch.long, device=x8.device)
+    MA, MB, wts, rws = dtypes.pet(MA, MB, wts, rws)
+    D, O, JTe, _ = _aggregate(MA, MB, wts, rws, rws, sta1[sl], sta2[sl], zc,
+                              N, 1, row_period, 1, cross=True)
+    return _dense(D, O, 1, N), JTe.reshape(1, 8 * N), cost
 
 
 class GNFactors(NamedTuple):
@@ -284,9 +369,12 @@ def gn_matvec(fac: GNFactors, v, sta1, sta2, chunk_id, kmax: int,
     """(JTJ + shift I) @ v from the Wirtinger factors, one [B] pass
     (``normal_eq.gn_matvec``): u = J v through MA/MB, then y = J^T (w^2 u)
     back through the same factors. ``v`` [K, 8N]; ``shift`` [K], a scalar
-    or None."""
+    or None. Storage factors (bf16/f16) take v and w^2 u rounded to their
+    dtype per product and contract in float32."""
     N = n_stations
     B = fac.MA.shape[0]
+    st = fac.MA.dtype
+    pet = dtypes.pet
     vr = v.reshape(kmax, N, 2, 4)
     if _baseline_major(kmax, row_period, B, visits):
         Vn = visits
@@ -295,23 +383,26 @@ def gn_matvec(fac: GNFactors, v, sta1, sta2, chunk_id, kmax: int,
         s1b, s2b = sta1[:nb], sta2[:nb]
         MA_r = fac.MA.reshape(Vn, T, nb, 2, 2, 4)   # [v, t, n, o, ri, j]
         MB_r = fac.MB.reshape(Vn, T, nb, 2, 2, 4)   # [v, t, n, a, ri, j]
-        vpn = vr[:, s1b]                            # [v, n, a, j]
-        vqn = vr[:, s2b]                            # [v, n, o, j]
+        vpn = dtypes.to_storage(vr[:, s1b], st)     # [v, n, a, j]
+        vqn = dtypes.to_storage(vr[:, s2b], st)     # [v, n, o, j]
+        MA_r, MB_r, vpn, vqn = pet(MA_r, MB_r, vpn, vqn)
         u = (torch.einsum("vtnorj,vnaj->vtnaor", MA_r, vpn)
              + torch.einsum("vtnarj,vnoj->vtnaor", MB_r, vqn))
-        uw = u * fac.w2.reshape(Vn, T, nb, 2, 2, 2)
+        uw = dtypes.acc(dtypes.to_storage(
+            u * fac.w2.reshape(Vn, T, nb, 2, 2, 2), st))
         ypn = torch.einsum("vtnaor,vtnorj->vnaj", uw, MA_r)
         yqn = torch.einsum("vtnaor,vtnarj->vnoj", uw, MB_r)
         y = torch.zeros((Vn, N, 2, 4), dtype=v.dtype, device=v.device)
         y.index_add_(1, s1b, ypn).index_add_(1, s2b, yqn)
     else:
-        vp = vr[chunk_id, sta1]                     # [B, a, j]
-        vq = vr[chunk_id, sta2]                     # [B, o, j]
-        u = (torch.einsum("borj,baj->baor", fac.MA, vp)
-             + torch.einsum("barj,boj->baor", fac.MB, vq))
-        uw = u * fac.w2
-        yp = torch.einsum("baor,borj->baj", uw, fac.MA)
-        yq = torch.einsum("baor,barj->boj", uw, fac.MB)
+        vp = dtypes.to_storage(vr[chunk_id, sta1], st)  # [B, a, j]
+        vq = dtypes.to_storage(vr[chunk_id, sta2], st)  # [B, o, j]
+        MA, MB, vp, vq = pet(fac.MA, fac.MB, vp, vq)
+        u = (torch.einsum("borj,baj->baor", MA, vp)
+             + torch.einsum("barj,boj->baor", MB, vq))
+        uw = dtypes.acc(dtypes.to_storage(u * fac.w2, st))
+        yp = torch.einsum("baor,borj->baj", uw, MA)
+        yq = torch.einsum("baor,barj->boj", uw, MB)
         y = torch.zeros((kmax * N, 2, 4), dtype=v.dtype, device=v.device)
         y.index_add_(0, _index(chunk_id, sta1, N), yp)
         y.index_add_(0, _index(chunk_id, sta2, N), yq)
@@ -429,6 +520,7 @@ def _mode_blocks(FA, FB, w2, rw2):
     WFA = w2[..., None] * FA                        # [B, c, o, ri, md]
     w2q = w2.transpose(1, 2)                        # [B, o, a, ri]
     WFB = w2q[..., None] * FB                       # [B, c, a, ri, md]
+    WFA, WFB, FA, FB, rw2 = dtypes.pet(WFA, WFB, FA, FB, rw2)
     pp = torch.einsum("bcorm,bcorn->bcmn", WFA, FA)
     qq = torch.einsum("bcarm,bcarn->bcmn", WFB, FB)
     # pq[(c, m), (c', n)] = sum_ri w2[c, c', ri] FA[c, c', ri, m]
@@ -467,20 +559,24 @@ def _mode_dense(pp, qq, pq, jtep, jteq, sta1, sta2, chunk_id, kmax: int,
 
 def _mode_pass(x8, J, coh, sta1, sta2, chunk_id, wt, cost_wt, mode: str):
     """The one [B] pass of the mode assemblies at the constrained J: (FA,
-    FB, w2, w^2 r, the cost's weighted residual)."""
+    FB, w2, w^2 r) in the storage dtype of x8, and the cost's weighted
+    residual in its accumulator dtype."""
+    st = x8.dtype
     J = jones_constrain(J, mode)
     Jp = J[chunk_id, sta1]
     Jq = J[chunk_id, sta2]
     A = coh @ Jq.conj().transpose(-1, -2)
     Bm = Jp @ coh
     V = Jp @ A
-    r = x8 - torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8)
+    r = x8 - dtypes.to_storage(
+        torch.view_as_real(V.reshape(-1, 4)).reshape(-1, 8), st)
     rw = r * wt
-    FA, FB = _mode_factors(A, Bm, Jp, Jq, mode)
+    FA, FB = (dtypes.to_storage(f, st)
+              for f in _mode_factors(A, Bm, Jp, Jq, mode))
     rc = rw if cost_wt is None else r * cost_wt
     B = x8.shape[0]
     return (FA, FB, (wt * wt).reshape(B, 2, 2, 2),
-            (rw * wt).reshape(B, 2, 2, 2), rc)
+            (rw * wt).reshape(B, 2, 2, 2), dtypes.acc(rc))
 
 
 def _mode_cost(rc, chunk_id, kmax: int):
@@ -508,6 +604,35 @@ def normal_equations_mode(x8, J, coh, sta1, sta2, chunk_id, wt,
     JTJ, JTe = _mode_dense(pp, qq, pq, jtep, jteq, sta1, sta2, chunk_id,
                            kmax, n_stations)
     return JTJ, JTe, _mode_cost(rc, chunk_id, kmax)
+
+
+def os_subset_equations_mode(x8, J, coh, sta1, sta2, wt, os_id,
+                             subset: int, ntper: int, row_period: int,
+                             n_stations: int, cost_wt, mode: str = "full"):
+    """Mode-aware :func:`os_subset_equations` (``normal_eq.
+    os_subset_equations_mode``): full delegates; diag and phase assemble
+    the mode blocks from the subset's rows alone, beside the one
+    whole-[B] model pass of the acceptance cost (:func:`_os_subset_pass`,
+    J constrained first)."""
+    if mode == "full":
+        return os_subset_equations(x8, J, coh, sta1, sta2, wt, os_id,
+                                   subset, ntper, row_period, n_stations,
+                                   cost_wt)
+    st = x8.dtype
+    sl, Jp, Jq, JqH, Bm, r, cost, wts = _os_subset_pass(
+        x8, jones_constrain(J, mode), coh, sta1, sta2, wt, os_id, subset,
+        ntper, row_period, cost_wt)
+    bs = wts.shape[0]
+    FA, FB = (dtypes.to_storage(f, st) for f in _mode_factors(
+        coh[sl] @ JqH[sl], Bm[sl], Jp[sl], Jq[sl], mode))
+    rws = r[sl] * wts
+    pp, qq, pq, jtep, jteq = _mode_blocks(
+        FA, FB, (wts * wts).reshape(bs, 2, 2, 2),
+        (rws * wts).reshape(bs, 2, 2, 2))
+    zc = torch.zeros(bs, dtype=torch.long, device=x8.device)
+    JTJ, JTe = _mode_dense(pp, qq, pq, jtep, jteq, sta1[sl], sta2[sl], zc,
+                           1, n_stations)
+    return JTJ, JTe, cost
 
 
 class GNFactorsMode(NamedTuple):
@@ -538,10 +663,11 @@ def gn_factors_mode(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
     md = FA.shape[-1]
     WFA = w2[..., None] * FA
     WFB = w2.transpose(1, 2)[..., None] * FB
-    pp = torch.einsum("bcorm,bcorn->bcmn", WFA, FA)
-    qq = torch.einsum("bcarm,bcarn->bcmn", WFB, FB)
-    jtep = torch.einsum("bcor,bcorm->bcm", rw2, FA)
-    jteq = torch.einsum("bcar,bcarm->bcm", rw2.transpose(1, 2), FB)
+    WFA, WFB, FAa, FBa, rw2 = dtypes.pet(WFA, WFB, FA, FB, rw2)
+    pp = torch.einsum("bcorm,bcorn->bcmn", WFA, FAa)
+    qq = torch.einsum("bcarm,bcarn->bcmn", WFB, FBa)
+    jtep = torch.einsum("bcor,bcorm->bcm", rw2, FAa)
+    jteq = torch.einsum("bcar,bcarm->bcm", rw2.transpose(1, 2), FBa)
     i1, i2 = _index(chunk_id, sta1, N), _index(chunk_id, sta2, N)
     D = pp.new_zeros((kmax * N, 2, md, md))
     D.index_add_(0, i1, pp).index_add_(0, i2, qq)
@@ -559,14 +685,16 @@ def gn_matvec_mode(fac: GNFactorsMode, v, sta1, sta2, chunk_id, kmax: int,
     operator of the PCG and tCG loops under diag and phase."""
     N = n_stations
     md = fac.FA.shape[-1]
+    st = fac.FA.dtype
     vr = v.reshape(kmax, N, 2, md)
-    vp = vr[chunk_id, sta1]                          # [B, c, m]
-    vq = vr[chunk_id, sta2]
-    u = (torch.einsum("baorm,bam->baor", fac.FA, vp)
-         + torch.einsum("boarm,bom->baor", fac.FB, vq))
-    uw = u * fac.w2
-    yp = torch.einsum("baor,baorm->bam", uw, fac.FA)
-    yq = torch.einsum("baor,boarm->bom", uw, fac.FB)
+    vp = dtypes.to_storage(vr[chunk_id, sta1], st)   # [B, c, m]
+    vq = dtypes.to_storage(vr[chunk_id, sta2], st)
+    FA, FB, vp, vq = dtypes.pet(fac.FA, fac.FB, vp, vq)
+    u = (torch.einsum("baorm,bam->baor", FA, vp)
+         + torch.einsum("boarm,bom->baor", FB, vq))
+    uw = dtypes.acc(dtypes.to_storage(u * fac.w2, st))
+    yp = torch.einsum("baor,baorm->bam", uw, FA)
+    yq = torch.einsum("baor,boarm->bom", uw, FB)
     y = torch.zeros((kmax * N, 2, md), dtype=v.dtype, device=v.device)
     y.index_add_(0, _index(chunk_id, sta1, N), yp)
     y.index_add_(0, _index(chunk_id, sta2, N), yq)

@@ -8,19 +8,26 @@ nu updates evaluate all grid candidates at once with
 IRLS rounds of {weighted LM -> weight E-step -> ML nu update}, with the
 ordered-subsets inner LM when ``os`` is given. ``whiten_data`` is the
 uv-density whitening of ``-W 1``.
+
+Under a reduced storage policy (residuals in bf16/f16) the weights and nu
+are float32 and the reweighted sqrt-weights return to the storage dtype
+(``robust.py:101`` of the JAX package); the nu grid stays float64.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.solvers import lm as lm_mod
 from sagecal_tpu_torch.solvers import normal_eq as ne
 
 
 def update_weights(e, nu):
-    """E-step weights w = (nu + 1) / (nu + e^2) per residual component."""
-    return (nu + 1.0) / (nu + e * e)
+    """E-step weights w = (nu + 1) / (nu + e^2) per residual component,
+    in the accumulator dtype (e^2 of a storage residual rounded to the
+    storage dtype, as the JAX package's promotion leaves it)."""
+    return (nu + 1.0) / (nu + dtypes.acc(e * e))
 
 
 def nu_grid(nulow, nuhigh, nd: int = 30, device=None):
@@ -102,7 +109,8 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     With ``lanes`` (``lm.lm_solve``) nu0 and nu are [V], one per visit,
     and ``os`` holds one setting per visit."""
     mask = wt_base > 0
-    nu = torch.as_tensor(nu0, dtype=x8.dtype, device=x8.device)
+    nu = torch.as_tensor(nu0, dtype=dtypes.acc_dtype(x8.dtype),
+                         device=x8.device)
     J = J0
     # per-row views of a group's shared weights and per-visit nu
     wt_r = wt_base if lanes is None else lanes.rows(wt_base)
@@ -116,7 +124,9 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
             wt = wt_base
         else:
             e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id)
-            wt = wt_r * torch.sqrt(update_weights(e, nu_rows(nu)))
+            wt = dtypes.to_storage(
+                wt_r * torch.sqrt(update_weights(e, nu_rows(nu))),
+                wt_base.dtype)
         # distinct subset draws per IRLS round
         if os is None:
             os_r = None

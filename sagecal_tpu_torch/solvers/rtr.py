@@ -44,6 +44,12 @@ solves an in-flight group's V cluster visits, each with its own
 iteration cap and nu; the tCG products are then counted once per
 executed product of the group, and per tile ([tiles]) when the visits
 are a batch of solve intervals' (``Lanes.tiles`` > 1).
+
+Reduced storage (``RTRConfig.dtype_policy`` bf16 or f16): x8 and wt are
+rounded to the storage dtype at entry, the robust curvature weights
+return to it, and the point, tangents, costs and nu are float32 (every
+cost and weight sum in the accumulator dtype). NSD takes the rows in
+whatever dtype its caller stored them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.ops import sweep as swp
 from sagecal_tpu_torch.solvers import lm as lm_mod
 from sagecal_tpu_torch.solvers import normal_eq as ne
@@ -72,6 +79,7 @@ class RTRConfig(NamedTuple):
     inner: str = "chol"        # tCG operator: dense ("chol") or matrix-free
     kernel: str = "pallas"     # "pallas" (fused sweep where it fits), "xla"
     jones_mode: str = "full"
+    dtype_policy: str = "f32"  # storage dtype of the rows (dtypes.py)
 
 
 class NSDConfig(NamedTuple):
@@ -177,7 +185,9 @@ def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
     over the station's params (rtr_solve.c fns_fcount)."""
     if lanes is not None:
         wt = lanes.rows(wt)
-    live = (wt.sum(dim=-1) > 0).to(wt.dtype)
+    # baseline counts in the accumulator dtype (a bf16 sum goes inexact
+    # past 256 rows a station)
+    live = (dtypes.acc(wt).sum(dim=-1) > 0).to(dtypes.acc_dtype(wt.dtype))
     flat1 = chunk_id.long() * n_stations + sta1.long()
     flat2 = chunk_id.long() * n_stations + sta2.long()
     cnt = live.new_zeros((kmax * n_stations,))
@@ -201,7 +211,7 @@ def make_cost(x8, coh, sta1, sta2, chunk_id, wt, kmax, n_stations,
 
     def cost(p):
         J = p_to_J(p)
-        e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt
+        e = dtypes.acc(ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt)
         if robust_nu is None:
             per_row = (e * e).sum(dim=-1)
         else:
@@ -296,7 +306,10 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     V = 1 if lanes is None else lanes.V
     sweep = lm_mod.solve_route(config, kmax // V, row_period,
                                x8.shape[0] // V)
-    dev, dtype = x8.device, x8.dtype
+    st = dtypes.storage_dtype(config.dtype_policy, x8.dtype)
+    x8 = dtypes.to_storage(x8, st)
+    wt = dtypes.to_storage(wt, st)
+    dev, dtype = x8.device, dtypes.acc_dtype(x8.dtype)
     N = n_stations
     mode = config.jones_mode
     p0, Jref = ne.mode_point(J0, mode)
@@ -332,7 +345,11 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             wt_eff = wt
         else:
             e = ne.residual8(x8, Jm, coh, sta1, sta2, chunk_id) * wt_r
-            wt_eff = wt_r * torch.sqrt(nu_r) / (nu_r + e * e)
+            # the curvature weights in the storage dtype, so the
+            # assembly stays on the reduced path
+            wt_eff = dtypes.to_storage(
+                dtypes.acc(wt_r) * torch.sqrt(nu_r)
+                / (nu_r + dtypes.acc(e * e)), wt_r.dtype)
         proj = _projector_mode(p, kmax, N, mode)
         if config.inner == "cg":
             if sweep:
@@ -449,7 +466,8 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     {fixed-nu robust RTR -> weight E-step -> AECM nu update, p = 2}.
     Returns (J, nu, info); nu is [V] on a group (``lanes``)."""
     mask = wt_base > 0
-    nu = torch.as_tensor(nu0, dtype=x8.dtype, device=x8.device)
+    nu = torch.as_tensor(nu0, dtype=dtypes.acc_dtype(x8.dtype),
+                         device=x8.device)
     J = J0
     wt_r = wt_base if lanes is None else lanes.rows(wt_base)
     infos = []
@@ -488,7 +506,7 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     reduced space, and in phase mode the first step length is seeded
     from the unit-phase scale sqrt(npar N)."""
     kmax = J0.shape[0]
-    dev, dtype = x8.device, x8.dtype
+    dev, dtype = x8.device, dtypes.acc_dtype(x8.dtype)
     N = n_stations
     mode = config.jones_mode
     npar = ne.jones_npar(mode)

@@ -43,6 +43,13 @@ tile after tile. :func:`sagefit_host` is the same loop at T = 1.
 
 :func:`bfgsfit` is the LBFGS-only joint fit of the per-channel bandpass
 solve (``-b 1``): the refine alone, warm-started.
+
+Reduced storage (``SageConfig.dtype_policy`` bf16 or f16): the data and
+the row weights are rounded to the storage dtype at entry, the running
+residual stays in it (each model added or subtracted rounded to it first,
+``sage.py:544-547`` and ``:991-993`` of the JAX package), and every norm,
+cost reduction and the EM state (nu, cost reductions, the refine's
+parameters) is float32.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.config import SolverMode
 from sagecal_tpu_torch.ops import sweep as swp
 from sagecal_tpu_torch.rime import predict as rp
@@ -88,6 +96,7 @@ class SageConfig(NamedTuple):
     # (a warm tile: no cold first-sweep width restriction)
     inflight: int = 1
     inflight_warm: bool = False
+    dtype_policy: str = "f32"     # --dtype-policy (dtypes.py)
 
 
 _OS_MODES = (int(SolverMode.OSLM_LBFGS),
@@ -131,8 +140,14 @@ def full_model8(J, coh, sta1, sta2, chunk_idx):
     return out
 
 
+def _wres2(xres, wt_base):
+    """The weighted residual L2^2, summed in the accumulator dtype."""
+    return (dtypes.acc(xres * wt_base) ** 2).sum()
+
+
 def _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base):
-    """||(x - model) * w||_2 / (8 B)."""
+    """||(x - model) * w||_2 / (8 B) (the model sum in float32 or
+    float64, so the residual is too)."""
     r = (x8 - full_model8(J, coh, sta1, sta2, chunk_idx)) * wt_base
     return torch.linalg.vector_norm(r) / (x8.shape[0] * 8)
 
@@ -151,7 +166,8 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
     nbase = int(config.nbase)
     lm_cfg = lm_mod.LMConfig(itmax=itcap, inner=config.inner,
                              kernel=config.kernel,
-                             jones_mode=config.jones_mode)
+                             jones_mode=config.jones_mode,
+                             dtype_policy=config.dtype_policy)
 
     def plain_lm(os=None):
         Jn, info = lm_mod.lm_solve(
@@ -175,7 +191,8 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
                 int(SolverMode.RTR_OSRLM_RLBFGS)):
         rtr_cfg = rtr_mod.RTRConfig(itmax=itcap, inner=config.inner,
                                     kernel=config.kernel,
-                                    jones_mode=config.jones_mode)
+                                    jones_mode=config.jones_mode,
+                                    dtype_policy=config.dtype_policy)
         if mode == int(SolverMode.RTR_OSLM_LBFGS):
             Jn, info = rtr_mod.rtr_solve(
                 xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
@@ -252,10 +269,11 @@ def _omega_trial(w: float, Jo_g, Jn_g, coh_g, cidx_g, sta1, sta2, xres,
     device read."""
     Jr_g = Jo_g + w * (Jn_g - Jo_g)
     model_new = torch.stack([rp.model8(coh_g[v], Jr_g[v], sta1, sta2,
-                                       cidx_g[v])
+                                       cidx_g[v], out_dtype=xres.dtype)
                              for v in range(Jr_g.shape[0])])
-    xnew = xres + (model_old - model_new).sum(dim=0)
-    rn = ((xnew * wt_base) ** 2).sum()
+    xnew = xres + dtypes.to_storage(
+        dtypes.acc(model_old - model_new).sum(dim=0), xres.dtype)
+    rn = _wres2(xnew, wt_base)
     ok = (rn <= res_old * (1.0 + 1e-9)) | (rn <= 1.05 * anchor)
     thr = torch.maximum(res_old * (1.0 + 1e-9), 1.05 * anchor)
     ok_h, margin = torch.stack([ok.to(rn.dtype),
@@ -338,7 +356,7 @@ def _visit_lanes(cjs, J, xres, nuM, coh, sta1, sta2, chunk_idx, chunk_mask,
     tt, cc = (torch.as_tensor(a, device=dev) for a in (tt_h, cc_h))
     coh_g, cidx_g, J_o = coh[tt, cc], chunk_idx[cc], J[tt, cc]
     xd_g = torch.stack([xres[t] + rp.model8(coh[t, c], J[t, c], sta1, sta2,
-                                            chunk_idx[c])
+                                            chunk_idx[c], out_dtype=xres.dtype)
                         for t, c in zip(tt_h.tolist(), cc_h.tolist())])
     if T == 1:
         wt_g = wt_base[0]
@@ -390,7 +408,7 @@ def _group_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
     recs = []
     for t in range(T):
         sl = slice(t * G, (t + 1) * G)
-        res_old = ((xres[t] * wt_base[t]) ** 2).sum()
+        res_old = _wres2(xres[t], wt_base[t])
         margins = []
         omega = 0.0
         for w in OMEGAS:
@@ -437,7 +455,8 @@ def _cluster_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2,
     nuM[vis.tt, vis.cc] = vis.nu
     J[vis.tt, vis.cc] = vis.Jn
     xres = torch.stack([vis.xd[t] - rp.model8(vis.coh[t], vis.Jn[t], sta1,
-                                              sta2, vis.cidx[t])
+                                              sta2, vis.cidx[t],
+                                              out_dtype=xres.dtype)
                         for t in range(len(cjs))])
     return xres, vis.iters, vis.cg_iters, vis.tcg_iters
 
@@ -453,7 +472,7 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
     mode = config.jones_mode
     shape = (M * kmax, n_stations, ne.jones_npar(mode))
     p0, Jref = ne.mode_point(J.reshape(M * kmax, n_stations, 2, 2), mode)
-    p0 = p0.reshape(-1).to(x8.dtype).detach()
+    p0 = p0.reshape(-1).to(dtypes.acc_dtype(x8.dtype)).detach()
 
     def p_to_J(p):
         return ne.jones_from_params(p.reshape(shape), mode, Jref).reshape(
@@ -491,7 +510,12 @@ def bfgsfit(x8, coh, sta1, sta2, chunk_idx, J0, n_stations: int,
     iterations of memory ``config.lbfgs_m``, on the Student's-t cost
     sum log1p(r^2 / nu) in the robust solver modes (the caller passes
     ``-L``) and sum r^2 otherwise. Returns (J, info) with res_0/res_1 =
-    ||residual w||_2 / (8 B) at J0 and J, and lbfgs_iters."""
+    ||residual w||_2 / (8 B) at J0 and J, and lbfgs_iters. The data and
+    weights are rounded to ``config.dtype_policy``'s storage dtype at
+    entry."""
+    x8 = dtypes.to_storage(x8, dtypes.storage_dtype(config.dtype_policy,
+                                                    x8.dtype))
+    wt_base = dtypes.to_storage(wt_base, x8.dtype)
     if config.jones_mode != "full":
         J0 = ne.jones_constrain(J0, config.jones_mode)
     res_0 = _wres(x8, J0, coh, sta1, sta2, chunk_idx, wt_base)
@@ -669,7 +693,12 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     seeds = tile_seeds(T) if seeds is None else [int(s) for s in seeds]
     shims = [ClusterOrder(s) for s in seeds] if orders is None \
         else list(orders)
-    dtype, dev = x8.dtype, x8.device
+    # the rows in the policy's storage dtype; the EM state in its
+    # accumulator dtype
+    x8 = dtypes.to_storage(x8, dtypes.storage_dtype(config.dtype_policy,
+                                                    x8.dtype))
+    wt_base = dtypes.to_storage(wt_base, x8.dtype)
+    dtype, dev = dtypes.acc_dtype(x8.dtype), x8.device
     if nu0 is None:
         nu0 = config.nulow
     total_iter, iter_bar, itcap = _budget(config, M)
@@ -679,10 +708,12 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
         J0 = ne.jones_constrain(J0, config.jones_mode)
     B = x8.shape[1]
     # the prelude tile by tile
-    xres = torch.stack([x8[t] - full_model8(J0[t], coh[t], sta1, sta2,
-                                            chunk_idx) for t in range(T)])
-    res_0 = torch.stack([torch.linalg.vector_norm(xres[t] * wt_base[t])
-                         for t in range(T)]) / (B * 8)
+    xres = torch.stack([x8[t] - dtypes.to_storage(
+        full_model8(J0[t], coh[t], sta1, sta2, chunk_idx), x8.dtype)
+        for t in range(T)])
+    res_0 = torch.stack([
+        torch.linalg.vector_norm(dtypes.acc(xres[t] * wt_base[t]))
+        for t in range(T)]) / (B * 8)
     J = J0.clone()
     nerr = torch.zeros((T, M), dtype=dtype, device=dev)
     nuM = torch.full((T, M), float(nu0), dtype=dtype, device=dev)
@@ -714,7 +745,7 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
         Gi = G0 if ci == 0 else Gs
         if Gi > 1:
             # each tile's sweep-entry anchor of the group-step safeguard
-            anchor = torch.stack([((xres[t] * wt_base[t]) ** 2).sum()
+            anchor = torch.stack([_wres2(xres[t], wt_base[t])
                                   for t in range(T)])
             for g in range(0, M, Gi):
                 cjs = order[:, g:g + Gi]

@@ -208,7 +208,7 @@ def _autograd(fn):
 def _nreal(wtF, lanes: bool):
     """The weighted reals a band's cost runs over, at least 1."""
     n = (wtF > 0).flatten(1 if lanes else 0).sum(-1)
-    return torch.clamp(n, min=1).to(wtF.dtype)
+    return torch.clamp(n, min=1).to(dtypes.acc_dtype(wtF.dtype))
 
 
 def make_band_solver(dsky, n_stations: int, chunk_idx, chunk_mask,
@@ -310,6 +310,9 @@ class StochasticRunner:
         self.log = log
         self.device = devmod.resolve(device)
         self.rdt = devmod.real_dtype(self.device)
+        if cfg.dtype_policy != "f32":
+            # a reduced storage policy pairs with the float32 pipeline
+            self.rdt = torch.float32
         self.sdt = dtypes.storage_dtype(cfg.dtype_policy, self.rdt)
         self.dsky = rp.split_sky(sky, self.rdt, self.device)
         meta = ms.meta

@@ -18,9 +18,12 @@ def c2r(x):
 
 
 def r2c(x):
-    """Real [..., 2] -> complex [...] (a tensor or a numpy array)."""
+    """Real [..., 2] -> complex [...] (a tensor or a numpy array); bf16
+    and f16 pairs give complex64, as in the JAX package."""
     if isinstance(x, np.ndarray):
         return x[..., 0] + 1j * x[..., 1]
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
     return torch.complex(x[..., 0], x[..., 1])
 
 

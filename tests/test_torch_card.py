@@ -11,7 +11,10 @@ solvers with ``--inner cg`` on the card (robust RTR alone, LM as an
 in-flight group of two clusters, LM as a batch of two solve intervals)
 against the same solve on the CPU in float64; the last two hold the
 split predict of a mixed sky against the generic predict in float64 on
-the card, and one LM solve on the XLA assembly against the CPU."""
+the card, and one LM solve on the XLA assembly against the CPU. The
+bf16 and f16 instances of the sweep and visits kernels are held against
+their plain versions at the same gate, and one pipeline run at
+``--dtype-policy bf16`` against the CPU at bf16."""
 
 import numpy as np
 import pytest
@@ -315,6 +318,124 @@ def test_matvec_kernel_modes_match_plain(card, jones, K, shifted):
     assert got.shape == ref.shape and _close(got, ref)
     with pytest.raises(TypeError):
         tswp.matvec_apply(plan, torch.zeros((K, 8 * N), device=card))
+
+
+REDUCED = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+@pytest.mark.parametrize("jones", ["full", "diag", "phase"])
+@pytest.mark.parametrize("policy", ["bf16", "f16"])
+def test_sweep_kernel_reduced_matches_plain(card, policy, jones):
+    """The bf16 and f16 instances of the sweep kernel at md = 4, 2, 1 (K
+    = 2 chunks): rows in the storage dtype, blocks and cost in float32,
+    held against the plain version (which rounds the model and factor
+    planes at the JAX kernel's q() boundary) at the 1e-4 gate; one launch
+    a call, counted under its storage dtype; two calls the same bits."""
+    st = REDUCED[policy]
+    K = 2
+    x8, J, coh, s1, s2, cid, wt, cw, nb = _mode_rows(card, K, 50)
+    x8, wt, cw = (a.to(st) for a in (x8, wt, cw))
+    tswp.reset_launches()
+    got = tswp.sweep_blocks(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                            jones=jones)
+    again = tswp.sweep_blocks(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                              jones=jones)
+    torch.cuda.synchronize()
+    assert tswp.ST_LAUNCHES == {("sweep", policy): 2}
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = tswp.sweep_blocks_plain(x8, J[:, s1[:nb]], J[:, s2[:nb]], coh,
+                                  cid, wt, cw, nb, jones)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert _close(g, r)
+    # the instance differs from the float32 kernel on the same values
+    f32 = tswp.sweep_blocks(x8.float(), J, coh, s1, s2, cid, wt.float(),
+                            cw.float(), nb, K, jones=jones)
+    assert not torch.equal(got[0], f32[0])
+
+
+@pytest.mark.parametrize("jones", ["full", "diag", "phase"])
+@pytest.mark.parametrize("policy", ["bf16", "f16"])
+def test_visits_kernel_reduced_matches_plain(card, policy, jones):
+    """The bf16 and f16 instances of the multi-visit sweep (V = 4, K = 2,
+    the weights shared by the visits) against the plain version, two
+    calls the same bits, the launches counted under the storage dtype."""
+    st = REDUCED[policy]
+    V, K = 4, 2
+    x8, J, coh, s1, s2, cid, wt, cw, nb = _mode_rows(card, K, 60, V=V)
+    x8, wt, cw = x8.to(st), wt[0].to(st), cw[0].to(st)
+    tswp.reset_launches()
+    got = tswp.sweep_blocks_visits(x8, J, coh, s1, s2, cid, wt, cw, nb, K,
+                                   V, jones=jones)
+    again = tswp.sweep_blocks_visits(x8, J, coh, s1, s2, cid, wt, cw, nb,
+                                     K, V, jones=jones)
+    torch.cuda.synchronize()
+    assert tswp.ST_LAUNCHES == {("visits", policy): 2}
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = tswp.sweep_blocks_visits_plain(x8, J[:, :, s1[:nb]],
+                                         J[:, :, s2[:nb]], coh, cid, wt, cw,
+                                         nb, V, jones)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert _close(g, r)
+
+
+def test_sweep_kernel_refuses_mixed_storage(card):
+    """x8, wt and cost_wt must share one storage dtype."""
+    x8, J, coh, s1, s2, cid, wt, cw, nb = _mode_rows(card, 1, 70)
+    with pytest.raises(TypeError):
+        tswp.sweep_blocks(x8.to(torch.bfloat16), J, coh, s1, s2, cid,
+                          wt.to(torch.float16), cw.to(torch.bfloat16), nb, 1)
+    with pytest.raises(TypeError):
+        tswp.sweep_blocks(x8.to(torch.bfloat16), J, coh, s1, s2, cid, wt, cw,
+                          nb, 1)
+
+
+def test_reduced_pipeline_on_card_matches_cpu(card, tmp_path):
+    """One small pipeline run at --dtype-policy bf16 (16 stations, 3
+    single-chunk clusters, 2 tiles of 120 timeslots at noise 0.05, -j 5
+    --inner cg: OS robust LM with PCG on the sweep and matvec kernels) on
+    the card against the same run on the CPU at bf16 (float32 there too),
+    as chip_smoke's slice_parity holds a reduced run: per-tile residuals
+    within max(1e-3, SPREAD_FACTOR x the CPU run's own spread, its move
+    when every source flux moves by one float32 ulp), a gate of at most
+    SPREAD_CAP; both runs' res_1 within ENVELOPE of the CPU run without
+    the policy; only bf16 sweep instances launched. The observation is
+    bf16_default's (chip_smoke.REDUCED_OBS), where the CPU's own spread
+    is 3.2e-4; on 8 clusters of 3 sources at 10 timeslots and noise 0.02
+    it was 3.6e-2 (the card read 1.2e-2 there), too chaotic to compare
+    (ROADMAP C10)."""
+    import shutil
+    import chip_smoke
+    tilesz, noise = chip_smoke.REDUCED_OBS["bf16_default"]
+    ms, sky, clus = chip_smoke.make_observation(
+        str(tmp_path), 16, tilesz, chip_smoke.FREQS[:2], 3, 6, (1, 1, 1), 2,
+        "cpu", seed=9, noise=noise)
+    for ext in (".cpu", ".ulp", ".f32"):
+        shutil.copytree(ms, ms + ext)
+    f32 = ["-j", "5", "--inner", "cg"]
+    run = f32 + ["--dtype-policy", "bf16"]
+    tswp.reset_launches()
+    got, _ = chip_smoke._parity_run(ms, sky, clus, run, None, tilesz)
+    assert tswp.ST_LAUNCHES and all(st == "bf16"
+                                    for _, st in tswp.ST_LAUNCHES)
+    ref, _ = chip_smoke._parity_run(ms + ".cpu", sky, clus, run, "cpu",
+                                    tilesz)
+    ulp, _ = chip_smoke._parity_run(ms + ".ulp", chip_smoke.perturb_sky(sky),
+                                    clus, run, "cpu", tilesz)
+    hf, _ = chip_smoke._parity_run(ms + ".f32", sky, clus, f32, "cpu",
+                                   tilesz)
+    spread = max(abs(u[k] - c[k]) / abs(c[k]) for u, c in zip(ulp, ref)
+                 for k in ("res_0", "res_1"))
+    gate = max(1e-3, chip_smoke.SPREAD_FACTOR * spread)
+    assert gate <= chip_smoke.SPREAD_CAP, spread
+    for g, c, f in zip(got, ref, hf):
+        assert g["res_1"] < g["res_0"]
+        for key in ("res_0", "res_1"):
+            assert abs(g[key] - c[key]) <= gate * abs(c[key]), (key, spread)
+        for h in (g, c):
+            assert abs(h["res_1"] / f["res_1"] - 1.0) <= \
+                chip_smoke.ENVELOPE["bf16"]
 
 
 def test_sweep_kernel_refuses_float64(card):

@@ -67,10 +67,18 @@ def test_dtype_identities(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_reduced_dtypes_raise(dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdtp.acc_dtype(dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdtp.to_storage(torch.ones(2), dtype)
+    """The reduced storage dtypes raised here until ``--dtype-policy
+    bf16|f16`` was ported; now they map as the JAX package maps them: a
+    float32 accumulator, and ``to_storage`` rounds to the dtype with the
+    JAX package's bits."""
+    jst = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
+    assert tdtp.acc_dtype(dtype) == torch.float32
+    assert np.dtype(dtp.acc_dtype(jst)) == np.dtype(np.float32)
+    x = torch.tensor([1.0 + 2.0 ** -9, 1.0 + 3.0 * 2.0 ** -12, 3.0])
+    got = tdtp.to_storage(x, dtype)
+    assert got.dtype == dtype
+    want = dtp.to_storage(jnp.asarray(x.numpy()), jst).astype(jnp.float32)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want))
 
 
 def test_residual_writeback_matches_reference():

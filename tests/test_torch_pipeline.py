@@ -305,7 +305,7 @@ def test_mode_runs_use_their_solvers(mode_runs):
                                    ["-B", "1"], ["--tile-bucket", "8"],
                                    ["-f", "x.list"],
                                    ["--faults", "x"], ["-P", "3"],
-                                   ["--dtype-policy", "bf16"],
+                                   ["--diag", "x.jsonl"],
                                    ["--prefetch", "0"]])
 def test_unported_flags_raise(runs, extra):
     tmp = runs["tmp"]

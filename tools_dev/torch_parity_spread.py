@@ -63,15 +63,17 @@ def main() -> int:
             continue
         work = os.path.join(cs.WORK, "spread_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        ms, sky, clus = cs.make_observation(work, n_st, 10, cs.FREQS[:2],
-                                            len(nchunk), n_src, nchunk,
-                                            n_tiles, "cpu", seed=9,
-                                            noise=0.02, mixed=mixed)
+        tilesz, noise = cs.REDUCED_OBS.get(tag, (10, 0.02))
+        ms, sky, clus = cs.make_observation(work, n_st, tilesz,
+                                            cs.FREQS[:2], len(nchunk), n_src,
+                                            nchunk, n_tiles, "cpu", seed=9,
+                                            noise=noise, mixed=mixed)
 
         def run(device):
             path = os.path.join(work, f"run_{len(os.listdir(work))}.ms")
             shutil.copytree(ms, path)
-            return cs._parity_run(path, sky, clus, flags, device)[0]
+            return cs._parity_run(path, sky, clus, flags, device,
+                                  tilesz)[0]
 
         keys = ("res_0", "res_1", "mean_nu", "solver_iters", "cg_iters",
                 "tcg_iters")
