@@ -78,13 +78,36 @@ OS fast path), ``f16_j1_xla`` (the reduced XLA assembly and LU),
 ``f16_j1`` (the f16 sweep instance) and ``bf16_inflight_rtr`` (the bf16
 visits instance), each on an observation of its own (REDUCED_OBS) against
 the port's CPU run at the same policy at max(PARITY_RTOL, SPREAD_FACTOR x
-the CPU run's own spread under a one-float32-ulp move of every source
-flux), a gate of at most SPREAD_CAP, with every relaxation decision
-equal, and within ENVELOPE of the CPU run without the policy;
+the larger of the CPU run's own spread under a one-float32-ulp move of
+every source flux and the card's run-to-run spread over SPREAD_REPS card
+runs), a gate of at most SPREAD_CAP, every card run held to it with
+every relaxation decision equal, and within ENVELOPE of the CPU run
+without the policy;
 ``e2e_bf16`` (``-j 5 --inner cg``, e2e_rtr's first tile) and
 ``e2e_f16_inflight`` (``-j 5 --inner cg --inflight 4``, e2e_inflight's
 first tile) run at full width, launch only their policy's sweep
 instances, and land within ENVELOPE of the float32 run's final residual.
+Input, restart and the station beam: ``native`` builds the
+tile packer (``csrc/tile_pack.cc``, host code, g++) and holds it against
+its numpy version at full width (226,920 rows, 8 channels, 10% channel
+flags, a taper) within 1e-12, with both times; ``slice_parity`` adds, on
+16 stations, ``beam_array`` (``-j 1 -B 1``), ``beam_full`` (the default
+mode, ``-B 2``), ``beam_element_tile_batch`` (``-j 5 --inner cg -B 3
+--tile-batch 2``, 3 tiles) and ``beam_stochastic`` (``-N 2 -M 2 -w 2 -B
+2``, the stochastic gates), each on an observation simulated through the
+full beam of a stored ``beam.npz``, each launching no coherency kernel,
+and ``beam_full_t10`` (``beam_full`` at 10 timeslots a tile, where
+float32 itself lies ~3e-3 from float64) against the port's float32 CPU
+run, gated as the reduced runs;
+``multims`` (``-f`` of 2 subbands, one with channel flags: the native
+packer; each part's written column too) and ``resume`` (killed at tile 1
+and resumed: the resumed tiles' residuals and the whole solutions file
+against the CPU's uninterrupted run; the card run must go through the
+native packer); and ``e2e_beam`` runs ``-j 5 --inner cg -B 2 -e 1`` on
+a one-tile full-width observation of e2e_rtr's sky and gains simulated
+through the full beam of its stored ``beam.npz``: sweep and matvec
+launched, coh not, with the tile wall and the beam predict's seconds and
+peak device memory.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -140,6 +163,15 @@ SPREAD_FACTOR = 10
 #: roundoff-chaotic (ROADMAP queue C, C10), and its comparison would check
 #: nothing, so the phase fails
 SPREAD_CAP = 1e-2
+#: ... and the card moves a run by itself: the order of its atomic sums
+#: (index_add_) changes from run to run (ROADMAP C7, C10). A spread-gated
+#: run (a reduced policy, or SPREAD_F32_RUNS) runs SPREAD_REPS times on the
+#: card; its card spread is the largest range of a per-tile res_0/res_1
+#: over those runs (relative to the CPU's), and its gate max(PARITY_RTOL,
+#: SPREAD_FACTOR x the larger spread), clamped at SPREAD_CAP (the CPU
+#: spread alone past SPREAD_CAP still fails the run). Every card run is
+#: held to it
+SPREAD_REPS = 3
 
 N_STATIONS = 62
 TILESZ = 120
@@ -158,6 +190,9 @@ N_LANES = 8
 TILE_BATCH = 4
 RA0 = 2.0 * math.pi / 12
 DEC0 = 52.0 * math.pi / 180
+#: a beam observation's first time (MJD seconds), its tiles following
+#: each other at 10 s a timeslot
+BEAM_START_MJD_S = 4.93e9
 
 
 #: the run's start, for each record's elapsed seconds
@@ -435,10 +470,15 @@ def write_sky(path: str, n_clusters: int, n_sources: int, nchunk, seed: int,
 def make_observation(work: str, n_stations: int, tilesz: int, freqs,
                      n_clusters: int, n_sources: int, nchunk, n_tiles: int,
                      device, seed: int = 5, noise: float = 0.01,
-                     mixed: bool = False):
+                     mixed: bool = False, beam: int = 0,
+                     chan_flags: float = 0.0, name: str = "obs.ms"):
     """Sky files (``mixed``: :func:`write_sky`'s mixed morphologies) + a
-    SimMS of ``n_tiles`` tiles corrupted by random Jones, simulated on
-    ``device``. Returns (ms, sky, cluster) paths."""
+    SimMS ``name`` of ``n_tiles`` tiles corrupted by random Jones,
+    simulated on ``device``, a ``chan_flags`` share of its channels
+    flagged. With ``beam`` (a ``-B`` mode) the tiles follow each other in
+    time and are simulated through that station beam of a
+    ``synthetic_beam`` over their times, stored as the SimMS's
+    ``beam.npz``. Returns (ms, sky, cluster) paths."""
     import torch
     from sagecal_tpu_torch import skymodel
     from sagecal_tpu_torch.io import dataset as ds
@@ -454,12 +494,26 @@ def make_observation(work: str, n_stations: int, tilesz: int, freqs,
     dsky = rp.split_sky(sky, rdt, device)
     J = ds.random_jones(sky.n_clusters, sky.nchunk, n_stations, seed=seed,
                         scale=0.2)
+    info, kw = None, [{} for _ in range(n_tiles)]
+    if beam:
+        from sagecal_tpu_torch.rime import beam as bm
+        starts = [BEAM_START_MJD_S + i * tilesz * 10.0
+                  for i in range(n_tiles)]
+        jd = [(s + 10.0 * (np.arange(tilesz) + 0.5)) / 86400.0 + 2400000.5
+              for s in starts]
+        f0 = float(np.mean(freqs))
+        info = bm.synthetic_beam(n_stations, np.concatenate(jd), RA0, DEC0,
+                                 f0, band=bm.band_for_freq(f0), seed=seed)
+        kw = [dict(beam=bm.beam_to_device(info, f0, rdt, time_jd=jd[i],
+                                          device=device),
+                   dobeam=beam, start_mjd_s=starts[i]) for i in range(n_tiles)]
     tiles = [ds.simulate_dataset(dsky, n_stations, tilesz, freqs, RA0, DEC0,
                                  jones=J, nchunk=sky.nchunk,
-                                 noise_sigma=noise, seed=seed + 10 * i)
+                                 noise_sigma=noise, seed=seed + 10 * i,
+                                 chan_flag_fraction=chan_flags, **kw[i])
              for i in range(n_tiles)]
-    ms = os.path.join(work, "obs.ms")
-    ds.SimMS.create(ms, tiles)
+    ms = os.path.join(work, name)
+    ds.SimMS.create(ms, tiles, beam_info=info)
     return ms, sky_path, clus_path
 
 
@@ -492,6 +546,57 @@ def phase_build():
              for n in cuda_lib.SOURCES}
     emit("build", seconds=time.perf_counter() - t0, built=built,
          ptxas=ptxas)
+
+
+#: native: the full-width tile the packer is held at (rows, channels),
+#: its share of flagged channels and its taper (m)
+NATIVE_SHAPE = (TILESZ * N_STATIONS * (N_STATIONS - 1) // 2, len(FREQS))
+NATIVE_FLAGS = 0.1
+NATIVE_TAPER_M = 300.0
+
+
+def phase_native() -> dict:
+    """The tile packer (``io/native.py``: ``csrc/tile_pack.cc`` built
+    with g++, host code) against its numpy version at full width, with a
+    tenth of the channels flagged and a taper: x8 within 1e-12 of its
+    largest magnitude, the row flags and the flag ratio equal. Emits both
+    times (median of 3 calls), the build seconds and the library."""
+    from sagecal_tpu_torch.io import native
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(14)
+    nrow, nchan = NATIVE_SHAPE
+    vis = (rng.normal(size=(nrow, nchan, 2, 2))
+           + 1j * rng.normal(size=(nrow, nchan, 2, 2)))
+    cf = (rng.random((nrow, nchan)) < NATIVE_FLAGS).astype(np.uint8)
+    u, v = rng.normal(0, 2000.0, nrow), rng.normal(0, 2000.0, nrow)
+    args = (vis, cf, u, v, nrow)
+    kw = dict(uvtaper_m=NATIVE_TAPER_M, freq0=float(np.mean(FREQS)))
+
+    def timed(fn):
+        out, secs = None, []
+        for _ in range(3):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            secs.append(time.perf_counter() - t)
+        return out, float(np.median(secs))
+
+    got, native_s = timed(native.pack_tile)
+    ref, numpy_s = timed(native.pack_tile_py)
+    err = float(np.abs(got[0] - ref[0]).max() / np.abs(ref[0]).max())
+    rec = dict(rows=nrow, channels=nchan, flagged=NATIVE_FLAGS,
+               taper_m=NATIVE_TAPER_M, native_s=native_s, numpy_s=numpy_s,
+               build_s=build_s, lib=native.LIB_PATH, max_rel_err=err,
+               flags_equal=bool(np.array_equal(got[1], ref[1])),
+               fratio=[got[2], ref[2]],
+               row_flags={int(k): int(n) for k, n in zip(
+                   *np.unique(got[1], return_counts=True))})
+    emit("native", **rec)
+    if not (err <= 1e-12 and rec["flags_equal"] and got[2] == ref[2]):
+        raise AssertionError(f"native: the packer disagrees with its numpy "
+                             f"version: {rec}")
+    return rec
 
 
 def _coh_inputs(F: int, per_channel: bool, seed: int = 1, fl=None,
@@ -1425,11 +1530,22 @@ def _md_of(flags) -> int:
         if "--jones" in flags else 4
 
 
+def _beam_of(flags) -> int:
+    """The ``-B`` mode of a run's flags (0 without it)."""
+    return int(flags[flags.index("-B") + 1]) if "-B" in flags else 0
+
+
 def _policy_of(flags) -> str:
     """The storage policy of a run's ``--dtype-policy`` flag ("f32"
     without it)."""
     return flags[flags.index("--dtype-policy") + 1] \
         if "--dtype-policy" in flags else "f32"
+
+
+def _spread_gated(tag: str, flags) -> bool:
+    """Whether slice_parity's run ``tag`` is gated by the spreads
+    (SPREAD_REPS): its CPU reference computes in float32, as the card."""
+    return _policy_of(flags) != "f32" or tag in SPREAD_F32_RUNS
 
 
 def _check_route(tag: str, launches: dict, must, xla: bool,
@@ -1541,7 +1657,51 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                ("bf16_inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "5", "--inner", "cg", "--inflight", "2",
                  "--dtype-policy", "bf16"], ("coh", "visits", "matvec"),
-                False))
+                False),
+               ("beam_array", 16, (1, 2, 1),
+                ["-j", "1", "-g", "30", "-B", "1"], ("sweep",), False),
+               ("beam_full", 16, (1, 1, 1), ["-B", "2"], ("sweep",), False),
+               ("beam_full_t10", 16, (1, 1, 1), ["-B", "2"], ("sweep",),
+                False),
+               ("beam_element_tile_batch", 16, (1, 2, 1),
+                ["-j", "5", "--inner", "cg", "-B", "3", "--tile-batch", "2"],
+                ("sweep", "visits", "matvec"), False),
+               ("multims", 16, (1, 2, 1), ["-j", "1", "-f", "@list"],
+                ("coh", "sweep"), False),
+               ("resume", 16, (1, 2, 1), ["-j", "1", "-p", "@sol"],
+                ("coh", "sweep"), False))
+#: Input, restart and the beam, on 16 stations at the float32
+#: gate: the beam runs (BEAM_RUNS) on observations simulated through
+#: their own beam mode from their stored beam.npz (BEAM_OBS: 20
+#: timeslots a tile), the sky predicted through the generic route (no
+#: coherency kernel); ``beam_full`` at the default mode on single-chunk
+#: clusters, as ``default``, and ``beam_array`` at -g 30, as the other
+#: -j 1 runs that need LM near convergence. At the parity observation's
+#: 10 timeslots, float32 arithmetic alone moves these runs from float64
+#: by 1.2e-3 to 4.0e-3 on the CPU as on the card (ROADMAP C11,
+#: tests/test_torch_beam_float32.py); at 20 timeslots (beam_array at -g
+#: 30) by <= 4.6e-5 (tools_dev/torch_beam_float32.py, on a CPU).
+#: ``beam_full_t10`` holds the beam path at 10 timeslots all the same:
+#: against the port's CPU run in float32 (SPREAD_F32_RUNS), gated by the
+#: spreads as the reduced runs are.
+#: ``multims`` a ``-f`` list of
+#: two 2-channel subbands (MULTIMS_PARTS; the upper one with a tenth of
+#: its channels flagged, so the merged tile goes through the native
+#: packer); ``resume`` on 3 tiles, the card run killed at tile 1 and
+#: resumed, held against the CPU's uninterrupted run
+BEAM_RUNS = ("beam_array", "beam_full", "beam_element_tile_batch",
+             "beam_full_t10")
+BEAM_OBS = {"beam_array": (20, 0.02), "beam_full": (20, 0.02),
+            "beam_element_tile_batch": (20, 0.02),
+            "beam_full_t10": (10, 0.02)}
+#: float32 runs whose CPU reference computes in float32 too, gated by the
+#: spreads (SPREAD_REPS)
+SPREAD_F32_RUNS = ("beam_full_t10",)
+#: beam_stochastic's timeslots a tile: at STOCHASTIC_PARITY's 20 the
+#: float32 run lies 1.2e-3 (residuals) and 1.9e-3 (solutions) from
+#: float64 on the CPU as on the card (C11); at 40, 6.5e-6 and 1.5e-5
+BEAM_STOCHASTIC_TIMES = 40
+MULTIMS_PARTS = (("sb_a.ms", 0.0), ("sb_b.ms", 0.1))
 #: The solve and correction options (-g 30, as the in-flight runs, to
 #: keep -j 1 near convergence at 16 stations): ``bandpass`` (-b 1: the
 #: joint solve, then one LBFGS fit a channel; the channels' res_0/res_1
@@ -1552,7 +1712,8 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
 #: columns, card against CPU, within their gate.
 #: tiles of a parity run's observation (2 unless named): the batches of
 #: 2 after the solo tile 0
-PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3}
+PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3,
+                "beam_element_tile_batch": 3, "resume": 3}
 #: The reduced storage policies (--dtype-policy, against the port's CPU
 #: run at the same policy, which computes in float32 there too):
 #: ``bf16_default`` (the default mode on single-chunk clusters: its OS
@@ -1581,7 +1742,7 @@ REDUCED_OBS = {"bf16_default": (120, 0.05), "f16_j1_xla": (60, 0.05),
                "f16_j1": (60, 0.05), "bf16_inflight_rtr": (10, 0.05)}
 #: the parity runs whose written column is gated, and their gate
 COLUMN_RUNS = {"bandpass": PARITY_RTOL, "whiten_phase": PARITY_RTOL,
-               "warm": PARITY_RTOL, "sim": SIM_RTOL}
+               "warm": PARITY_RTOL, "sim": SIM_RTOL, "multims": PARITY_RTOL}
 
 
 def write_option_files(ms: str, seed: int = 11) -> dict:
@@ -1612,8 +1773,12 @@ def write_option_files(ms: str, seed: int = 11) -> dict:
 
 def _resolve(flags, ms: str):
     """``flags`` with the placeholders of :func:`write_option_files` made
-    the paths beside ``ms``."""
-    names = {"@warm": "warm.sol", "@ignore": "ignore.txt"}
+    the paths beside ``ms``; ``@list`` (the ``-f`` list of a multims run)
+    and ``@sol`` (a resume run's solutions) are the CPU copy's own for
+    ``ms`` ending in ``.cpu``."""
+    own = ".cpu" if ms.endswith(".cpu") else ""
+    names = {"@warm": "warm.sol", "@ignore": "ignore.txt",
+             "@list": "parts.list" + own, "@sol": "solutions.txt" + own}
     return [os.path.join(os.path.dirname(ms), names[f]) if f in names
             else f for f in flags]
 
@@ -1641,7 +1806,16 @@ def _column_rel(ms: str) -> float:
     """max|card - CPU| of the written column over the tiles of a parity
     run's observation (the card's ``ms``, the CPU's ``ms + '.cpu'``), in
     units of the data's largest magnitude (as the CPU tests gate the
-    written column)."""
+    written column); of a multims run's observation, the largest over its
+    parts."""
+    if os.path.basename(ms) == MULTIMS_PARTS[0][0]:
+        return max(_simms_column_rel(os.path.join(os.path.dirname(ms), name))
+                   for name, _ in MULTIMS_PARTS)
+    return _simms_column_rel(ms)
+
+
+def _simms_column_rel(ms: str) -> float:
+    """:func:`_column_rel` of one SimMS."""
     from sagecal_tpu_torch.io import dataset as ds
     card = ds.SimMS(ms, data_column="CORRECTED_DATA")
     cpu = ds.SimMS(ms + ".cpu", data_column="CORRECTED_DATA")
@@ -1654,6 +1828,24 @@ def _column_rel(ms: str) -> float:
         rel = max(rel, float(np.abs(a - b).max()
                              / np.abs(data.read_tile(i).x).max()))
     return rel
+
+
+def _solutions_rel(obs, flags) -> float:
+    """max|card - CPU| / max|CPU| of a parity run's solutions files (its
+    ``@sol``)."""
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    ms, sky, clus = obs
+    meta = ds.SimMS(ms).meta
+    nchunk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
+                                       meta["freq0"]).nchunk
+    card, cpu = (np.asarray(sol.read_solutions(
+        _resolve(["@sol"], path)[0], nchunk)[1]) for path in (ms, ms + ".cpu"))
+    if card.shape != cpu.shape:
+        raise AssertionError(f"solutions of {ms}: {card.shape} against "
+                             f"{cpu.shape}")
+    return float(np.abs(card - cpu).max() / np.abs(cpu).max())
 
 
 def _xla_route(flags, nchunk) -> bool:
@@ -1700,13 +1892,82 @@ def _parity_run(path: str, sky: str, clus: str, flags, device,
     return hist, time.perf_counter() - t0
 
 
+class _Killed(RuntimeError):
+    """The write failure that kills slice_parity's resume run."""
+
+
+def _resume_card(path: str, sky: str, clus: str, flags, device,
+                 tilesz: int = 10):
+    """slice_parity's resume run on the card: killed by its residual
+    write at tile 1, then ``--resume``d from the checkpoint beside its
+    solutions; (the resumed run's history of tiles 1.., seconds of
+    both). The sidecar must be gone at the end."""
+    from sagecal_tpu_torch.io import dataset as ds
+    real = ds.SimMS.write_tile
+
+    def write(self, i, tile, column=None):
+        if i == 1:
+            raise _Killed("killed at tile 1")
+        return real(self, i, tile, column)
+
+    t0 = time.perf_counter()
+    ds.SimMS.write_tile = write
+    try:
+        _parity_run(path, sky, clus, flags, device=device, tilesz=tilesz)
+        raise AssertionError("slice_parity resume: the run was not killed")
+    except _Killed:
+        pass
+    finally:
+        ds.SimMS.write_tile = real
+    hist, _ = _parity_run(path, sky, clus, flags + ["--resume"],
+                          device=device, tilesz=tilesz)
+    solpath = _resolve(["@sol"], path)[0]
+    if [h["tile"] for h in hist] != list(range(1, PARITY_TILES["resume"])) \
+            or os.path.exists(solpath + ".ckpt.npz"):
+        raise AssertionError("slice_parity resume: the run did not resume "
+                             "at tile 1 or kept its checkpoint: "
+                             f"{[h['tile'] for h in hist]}")
+    return hist, time.perf_counter() - t0
+
+
+def make_multims(work: str, n_stations: int, tilesz: int, nchunk,
+                 noise: float):
+    """The multims run's two subbands (MULTIMS_PARTS, 2 channels each,
+    the second with channel flags) of one 16-station observation, their
+    CPU copies, and the ``-f`` lists of each side. Returns (the first
+    part, sky, cluster) paths, as :func:`make_observation`."""
+    paths = {"": [], ".cpu": []}
+    for k, (name, chan_flags) in enumerate(MULTIMS_PARTS):
+        ms, sky, clus = make_observation(
+            work, n_stations, tilesz, FREQS[2 * k:2 * k + 2], len(nchunk), 6,
+            nchunk, PARITY_TILES.get("multims", 2), "cpu", seed=9,
+            noise=noise, chan_flags=chan_flags, name=name)
+        shutil.copytree(ms, ms + ".cpu")
+        for own in paths:
+            paths[own].append(ms + own)
+    for own, parts in paths.items():
+        with open(os.path.join(work, "parts.list" + own), "w") as f:
+            f.write("\n".join(parts) + "\n")
+    return os.path.join(work, MULTIMS_PARTS[0][0]), sky, clus
+
+
 def _parity_cpu(job):
     """A CPU reference run in a worker process: ``job`` the (path, sky,
-    cluster, flags, tilesz) of :func:`_parity_run`."""
+    cluster, flags, tilesz) of :func:`_parity_run`, and with a sixth
+    entry True the run computes in float32 (as the card does) where it
+    would compute in float64."""
     import torch
+    from sagecal_tpu_torch import device as devmod
     torch.set_num_threads(PARITY_THREADS)
-    path, sky, clus, flags, tilesz = job
-    return _parity_run(path, sky, clus, flags, "cpu", tilesz)
+    path, sky, clus, flags, tilesz = job[:5]
+    if not (job[5:] and job[5]):
+        return _parity_run(path, sky, clus, flags, "cpu", tilesz)
+    real = devmod.real_dtype
+    devmod.real_dtype = lambda dev: torch.float32
+    try:
+        return _parity_run(path, sky, clus, flags, "cpu", tilesz)
+    finally:
+        devmod.real_dtype = real
 
 
 #: slice_parity's stochastic run: (stations, chunks per cluster,
@@ -1766,7 +2027,8 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
     decision equal (or the first flip within FLIP_MARGIN of its threshold
     on both sides, which then replaces the gates), per-tile res_0/res_1
     and the solutions within PARITY_RTOL; only the coherency kernel
-    launched."""
+    launched (under the beam, ``beam_*``, no kernel at all: the generic
+    predict)."""
     from sagecal_tpu_torch.io import solutions as sol
     (hg, sg, pg, launches), (hc, sc, pc) = card, cpu
     rels = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(hg, hc)
@@ -1786,11 +2048,13 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
                          for d, hist in (("cuda", hg), ("cpu", hc))},
                seconds={"cuda": sg, "cpu": sc}, flip=flip)
     emit("slice_parity", **rec)
-    if launches["coh"] == 0 or any(launches[k] for k in SOLVE_KERNELS) \
+    beam = tag.startswith("beam")
+    if bool(launches["coh"]) == beam \
+            or any(launches[k] for k in SOLVE_KERNELS) \
             or launches["xla_solves"]:
         raise AssertionError(f"slice_parity {tag}: the stochastic solve must "
-                             "launch the coherency kernel and no solve "
-                             f"kernel: {launches}")
+                             "launch the coherency kernel (none under the "
+                             f"beam) and no solve kernel: {launches}")
     if flip is not None:
         if max(abs(flip["card_margin"]), abs(flip["cpu_margin"])) \
                 > FLIP_MARGIN:
@@ -1812,36 +2076,52 @@ def phase_slice_parity():
     same pipeline on the CPU (plain versions, float64), per solver mode
     and option, and the stochastic runs (STOCHASTIC_PARITY, and with
     ``-q``). The CPU runs go to worker processes, longest first, while
-    the card runs here one after another."""
+    the card runs here one after another. A spread-gated run (a reduced
+    policy, or SPREAD_F32_RUNS) runs SPREAD_REPS times on the card, as a
+    user's run does, and its gate follows both the CPU's one-ulp spread
+    and the card's run-to-run spread from the order of its atomic sums
+    (ROADMAP C10, C7)."""
     import multiprocessing
+    from sagecal_tpu_torch.io import native
     obs, tsz = {}, {}
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        tsz[tag], noise = REDUCED_OBS.get(tag, (10, 0.02))
+        tsz[tag], noise = {**REDUCED_OBS, **BEAM_OBS}.get(tag, (10, 0.02))
+        if tag == "multims":
+            obs[tag] = make_multims(work, n_st, tsz[tag], nchunk, noise)
+            continue
         ms, sky, clus = make_observation(work, n_st, tsz[tag], FREQS[:2],
                                          len(nchunk), 6, nchunk,
                                          PARITY_TILES.get(tag, 2), "cpu",
-                                         seed=9, noise=noise, mixed=mixed)
+                                         seed=9, noise=noise, mixed=mixed,
+                                         beam=_beam_of(flags))
         write_option_files(ms)
         shutil.copytree(ms, ms + ".cpu")
-        if _policy_of(flags) != "f32":
+        if _spread_gated(tag, flags):
             shutil.copytree(ms, ms + ".ulp")
-            shutil.copytree(ms, ms + ".f32")
             perturb_sky(sky)
+        if _policy_of(flags) != "f32":
+            shutil.copytree(ms, ms + ".f32")
         obs[tag] = (ms, sky, clus)
     n_st, st_chunks, st_times, st_chans, st_flags = STOCHASTIC_PARITY
-    st_flags = st_flags + ["-t", str(st_times)]
-    st_runs = {"stochastic": st_flags,
-               "stochastic_warm": st_flags + ["-q", "@warm"]}
+    st_tsz = {"stochastic": st_times, "stochastic_warm": st_times,
+              "beam_stochastic": BEAM_STOCHASTIC_TIMES}
+    st_runs = {"stochastic": st_flags + ["-t", str(st_times)],
+               "stochastic_warm": st_flags + ["-t", str(st_times), "-q",
+                                              "@warm"],
+               "beam_stochastic": st_flags + ["-t",
+                                              str(BEAM_STOCHASTIC_TIMES),
+                                              "-B", "2"]}
     st_obs = {}
     for tag in st_runs:
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        st_obs[tag] = make_observation(work, n_st, st_times,
+        st_obs[tag] = make_observation(work, n_st, st_tsz[tag],
                                        FREQS[:st_chans], len(st_chunks), 6,
                                        st_chunks, 2, "cpu", seed=9,
-                                       noise=0.02)
+                                       noise=0.02,
+                                       beam=_beam_of(st_runs[tag]))
         write_option_files(st_obs[tag][0])
         shutil.copytree(st_obs[tag][0], st_obs[tag][0] + ".cpu")
     # the 41-station runs and the groups take longest on the CPU
@@ -1851,13 +2131,16 @@ def phase_slice_parity():
         cpu_runs, ulp_runs, f32_runs = {}, {}, {}
         for tag, _, _, flags, _, _ in longest:
             ms, sky, clus = obs[tag]
+            f32cpu = tag in SPREAD_F32_RUNS
             cpu_runs[tag] = pool.apply_async(
-                _parity_cpu, ((ms + ".cpu", sky, clus, flags, tsz[tag]),))
-            policy = _policy_of(flags)
-            if policy != "f32":
+                _parity_cpu, ((ms + ".cpu", sky, clus, flags, tsz[tag],
+                               f32cpu),))
+            if _spread_gated(tag, flags):
                 ulp_runs[tag] = pool.apply_async(
                     _parity_cpu, ((ms + ".ulp", sky + ".ulp", clus, flags,
-                                   tsz[tag]),))
+                                   tsz[tag], f32cpu),))
+            policy = _policy_of(flags)
+            if policy != "f32":
                 f32 = [f for f in flags if f not in ("--dtype-policy",
                                                      policy)]
                 f32_runs[tag] = pool.apply_async(
@@ -1865,16 +2148,33 @@ def phase_slice_parity():
         st_cpu = {tag: pool.apply_async(_stochastic_cpu, (
             (st_obs[tag][0] + ".cpu",) + st_obs[tag][1:] + (flags,),))
             for tag, flags in st_runs.items()}
-        card_runs = {}
+        card_runs, reps, packs = {}, {}, {}
         for tag, _, nchunk, flags, must, _ in PARITY_RUNS:
             _reset()
-            card_runs[tag] = _parity_run(*obs[tag], flags, device=None,
-                                         tilesz=tsz[tag])
+            run = _resume_card if tag == "resume" else _parity_run
+            packs[tag] = native.PACKS
+            card_runs[tag] = run(*obs[tag], flags, device=None,
+                                 tilesz=tsz[tag])
+            packs[tag] = native.PACKS - packs[tag]
             launches = _counts()
             _check_route(f"slice_parity {tag}", launches, must,
                          _xla_route(flags, nchunk), _md_of(flags),
                          _policy_of(flags))
+            if tag in BEAM_RUNS and launches["coh"]:
+                raise AssertionError(f"slice_parity {tag}: a beam run "
+                                     "launched the coherency kernel: "
+                                     f"{launches}")
+            if tag == "multims" and not packs[tag]:
+                raise AssertionError("slice_parity multims: the card run "
+                                     "did not stage through the native "
+                                     "tile packer")
             card_runs[tag] += (launches,)
+            # the card's run-to-run spread: the same run again, after its
+            # launches were read
+            reps[tag] = [run(*obs[tag], flags, device=None,
+                             tilesz=tsz[tag])[0]
+                         for _ in range(SPREAD_REPS - 1)] \
+                if _spread_gated(tag, flags) else []
         st_card = {}
         for tag, flags in st_runs.items():
             _reset()
@@ -1886,11 +2186,20 @@ def phase_slice_parity():
         st_cpu = {tag: r.get() for tag, r in st_cpu.items()}
         pool.close()
         pool.join()
-    for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
+
+    def gate(tag, n_st, nchunk, flags, mixed):
+        """One run's records and gates (raises AssertionError)."""
         hist, secs = {}, {}
         hist["cuda"], secs["cuda"], launches = card_runs[tag]
         hist["cpu"], secs["cpu"] = cpu_done[tag]
+        runs = [hist["cuda"]] + reps[tag]
         col_rel = _column_rel(obs[tag][0]) if tag in COLUMN_RUNS else None
+        sol_rel = None
+        if tag == "resume":
+            # the resumed tiles against the uninterrupted run's, and the
+            # whole solutions file (tile 0's from the killed run)
+            hist["cpu"] = hist["cpu"][1:]
+            sol_rel = _solutions_rel(obs[tag], flags)
         if "-a" in flags:
             # a simulation: no solve, the written column is the result
             rec = dict(tag=tag, stations=n_st, nchunk=nchunk, flags=flags,
@@ -1902,28 +2211,39 @@ def phase_slice_parity():
                 raise AssertionError(f"slice_parity {tag}: written column "
                                      f"{col_rel:.3e} > {COLUMN_RUNS[tag]}")
             out[tag] = rec
-            continue
+            return
         # -b 1: every channel's fit is held too
         chans = [(hg, hc) for a, b in zip(hist["cuda"], hist["cpu"])
                  for hg, hc in zip(a["channels"] or [],
                                    b["channels"] or [])]
         rels = [abs(hg[key] - hc[key]) / abs(hc[key])
-                for hg, hc in list(zip(hist["cuda"], hist["cpu"])) + chans
-                for key in ("res_0", "res_1")]
-        # a reduced policy's gate: the CPU run's own spread (ulp_done),
-        # and the envelope against the run without the policy (f32_done)
-        gate, spread, drift = PARITY_RTOL, None, None
+                for hg, hc in [p for h in runs for p in zip(h, hist["cpu"])]
+                + chans for key in ("res_0", "res_1")]
+        # a spread-gated run's gate: the CPU run's own spread (ulp_done)
+        # and the card's over its runs; a reduced policy's envelope
+        # against the run without the policy (f32_done)
+        gate, spread, card_spread, drift = PARITY_RTOL, None, None, None
         policy = _policy_of(flags)
-        if policy != "f32":
+        if reps[tag]:
             spread = max(abs(hu[key] - hc[key]) / abs(hc[key])
                          for hu, hc in zip(ulp_done[tag][0], hist["cpu"])
                          for key in ("res_0", "res_1"))
-            gate = max(PARITY_RTOL, SPREAD_FACTOR * spread)
-            drift = {d: [abs(h["res_1"] / hf["res_1"] - 1.0)
-                         for h, hf in zip(hist[d], f32_done[tag])]
-                     for d in hist}
-        # in-flight groups: the relaxation decisions are compared first
-        flip = _first_flip(hist["cuda"], hist["cpu"])
+            card_spread = max(
+                (max(h[i][key] for h in runs) - min(h[i][key] for h in runs))
+                / abs(hc[key]) for i, hc in enumerate(hist["cpu"])
+                for key in ("res_0", "res_1"))
+            gate = min(SPREAD_CAP, max(PARITY_RTOL, SPREAD_FACTOR
+                                       * max(spread, card_spread)))
+        if policy != "f32":
+            drift = {"cuda": [abs(h["res_1"] / hf["res_1"] - 1.0)
+                              for hr in runs
+                              for h, hf in zip(hr, f32_done[tag])],
+                     "cpu": [abs(h["res_1"] / hf["res_1"] - 1.0)
+                             for h, hf in zip(hist["cpu"], f32_done[tag])]}
+        # in-flight groups: the relaxation decisions are compared first,
+        # on every card run
+        flip = next((f for f in (_first_flip(h, hist["cpu"]) for h in runs)
+                     if f is not None), None)
         omegas = {d: [[g[2] for g in h["groups"]] for h in hist[d]]
                   for d in hist}
         rec = dict(tag=tag, stations=n_st, nchunk=nchunk, flags=flags,
@@ -1941,19 +2261,23 @@ def phase_slice_parity():
                    rejected_groups={d: [h["rejected_groups"]
                                         for h in hist[d]] for d in hist},
                    omegas=omegas, flip=flip, col_rel=col_rel,
-                   policy=policy, spread=spread, gate=gate,
-                   drift_f32=drift,
+                   sol_rel=sol_rel,
+                   policy=policy, spread=spread, card_spread=card_spread,
+                   gate=gate, drift_f32=drift,
+                   cuda_reps=[[[h["res_0"], h["res_1"], h["mean_nu"]]
+                               for h in hr] for hr in reps[tag]],
+                   native_packs=packs[tag],
                    channels={d: [h["channels"] for h in hist[d]]
                              for d in hist} if chans else None)
         emit("slice_parity", **rec)
+        if reps[tag] and SPREAD_FACTOR * spread > SPREAD_CAP:
+            raise AssertionError(
+                f"slice_parity {tag}: the CPU run moves {spread:.3e} under "
+                f"one ulp, {SPREAD_FACTOR} x that > {SPREAD_CAP}: too "
+                "chaotic to compare")
         if policy != "f32":
-            # a reduced run: a bounded gate, every decision equal, and
-            # both runs within the envelope of the float32 one
-            if gate > SPREAD_CAP:
-                raise AssertionError(
-                    f"slice_parity {tag}: the CPU run moves {spread:.3e} "
-                    f"under one ulp, gate {gate:.3e} > {SPREAD_CAP}: too "
-                    "chaotic to compare")
+            # a reduced run: every decision equal, and the runs within
+            # the envelope of the float32 one
             if flip is not None:
                 raise AssertionError(f"slice_parity {tag}: a relaxation "
                                      f"decision differs: {flip}")
@@ -1975,23 +2299,41 @@ def phase_slice_parity():
                  residual_gate="replaced by the flip report")
         elif not max(rels) <= gate:
             raise AssertionError(f"slice_parity {tag}: {max(rels):.3e} > "
-                                 f"{gate} (spread {spread})")
+                                 f"{gate} (spread {spread}, card "
+                                 f"{card_spread})")
         elif col_rel is not None and not col_rel <= COLUMN_RUNS[tag]:
             raise AssertionError(f"slice_parity {tag}: written column "
                                  f"{col_rel:.3e} > {COLUMN_RUNS[tag]}")
-        if not all(h["res_1"] < h["res_0"] for d in hist for h in hist[d]) \
+        elif sol_rel is not None and not sol_rel <= PARITY_RTOL:
+            raise AssertionError(f"slice_parity {tag}: solutions "
+                                 f"{sol_rel:.3e} > {PARITY_RTOL}")
+        if not all(h["res_1"] < h["res_0"]
+                   for hr in runs + [hist["cpu"]] for h in hr) \
                 or not all(hg["res_1"] < hg["res_0"]
                            and hc["res_1"] < hc["res_0"]
                            for hg, hc in chans):
             raise AssertionError(f"slice_parity {tag}: residuals did not "
                                  "fall on every tile (and channel)")
         out[tag] = rec
+
+    # every run's record first, then every failed gate at once
+    failures = []
+    for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
+        try:
+            gate(tag, n_st, nchunk, flags, mixed)
+        except AssertionError as e:
+            failures.append(str(e))
     from sagecal_tpu_torch import skymodel
     for tag in st_runs:
         sk = skymodel.read_sky_cluster(st_obs[tag][1], st_obs[tag][2], RA0,
                                        DEC0, float(np.mean(FREQS[:st_chans])))
-        out[tag] = _check_stochastic_parity(tag, st_card[tag], st_cpu[tag],
-                                            sk.nchunk)
+        try:
+            out[tag] = _check_stochastic_parity(tag, st_card[tag],
+                                                st_cpu[tag], sk.nchunk)
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError("; ".join(failures))
     return out
 
 
@@ -2034,17 +2376,20 @@ def phase_manifold() -> dict:
 
 
 def observation_e2e(tag: str = "e2e", nchunk=NCHUNK, mixed: bool = False,
-                    n_tiles: int = 2):
+                    n_tiles: int = 2, beam: int = 0):
     """A full-width synthetic observation of the e2e phases (``n_tiles``
     tiles, simulated on the card), with one cluster of N_SOURCES per
-    entry of ``nchunk`` (``mixed``: every morphology, :func:`write_sky`).
-    Returns (ms, sky, cluster, setup seconds)."""
+    entry of ``nchunk`` (``mixed``: every morphology, :func:`write_sky`;
+    ``beam``: through that ``-B`` mode of a stored ``beam.npz``,
+    :func:`make_observation`). Returns (ms, sky, cluster, setup
+    seconds)."""
     work = os.path.join(WORK, tag)
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
     ms, sky, clus = make_observation(work, N_STATIONS, TILESZ, FREQS,
                                      len(nchunk), N_SOURCES, nchunk, n_tiles,
-                                     "cuda", seed=5, noise=0.01, mixed=mixed)
+                                     "cuda", seed=5, noise=0.01, mixed=mixed,
+                                     beam=beam)
     return ms, sky, clus, time.perf_counter() - t0
 
 
@@ -2446,6 +2791,91 @@ def phase_e2e_stochastic(obs) -> dict:
     return rec
 
 
+def phase_e2e_beam(rtr: dict) -> dict:
+    """``-j 5 --inner cg -B 2 -e 1`` at full width on a one-tile
+    observation of e2e_rtr's sky and gains, simulated on the card through
+    the full beam (``-B 2``) of its stored ``beam.npz`` (a
+    ``synthetic_beam`` of N_STATIONS stations over the tile's times;
+    :func:`make_observation`): the sky precessed, every predict through
+    the generic route with the beam tables. The run must launch the sweep
+    and matvec kernels and no coherency kernel, and lower the residual.
+    Then the beam predict alone on the tile, as the run makes it (the
+    solve's, F = 1, and the residual's, F = 8): its seconds
+    (synchronized, median of 3) and peak device memory above what was
+    allocated before it. Emits them beside e2e_rtr's tile 0 (``rtr``,
+    the same call)."""
+    obs = observation_e2e("e2e_beam", n_tiles=1, beam=2)
+    try:
+        return _e2e_beam_on(obs, rtr)
+    finally:
+        shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
+
+
+def _e2e_beam_on(obs, rtr: dict) -> dict:
+    """:func:`phase_e2e_beam` on its observation ``obs``."""
+    import torch
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.rime import beam as bm
+    from sagecal_tpu_torch.rime import predict as rp
+    src = ds.SimMS(obs[0])
+    tile = src.read_tile(0)
+    meta = src.meta
+    info = src.beam_info()
+    rec = phase_e2e(obs, "e2e_beam", ["-j", "5", "--inner", "cg", "-B",
+                                      "2"], 1, ("sweep", "matvec"), em=1)
+    if rec["launches"]["coh"]:
+        raise AssertionError("e2e_beam: a beam run launched the coherency "
+                             f"kernel: {rec['launches']}")
+    dev = torch.device("cuda")
+    sky = skymodel.read_sky_cluster(obs[1], obs[2], meta["ra0"],
+                                    meta["dec0"], meta["freq0"])
+    dsky = rp.sky_to_device(sky, torch.float32, dev)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev, dtype=dt)
+    kw = dict(beam=bm.beam_to_device(info, meta["freq0"], torch.float32,
+                                     time_jd=tile.time_jd, device=dev),
+              dobeam=2, tslot=t(tile.tslot, torch.long),
+              sta1=t(tile.sta1, torch.long), sta2=t(tile.sta2, torch.long))
+    uvw = [t(tile.u), t(tile.v), t(tile.w)]
+    out = {}
+    for tag, fl, fd, pcf in (
+            ("solve_F1", [meta["freq0"]], meta["fdelta"], False),
+            ("residual_F8", meta["freqs"], meta["fdelta"] / len(FREQS),
+             True)):
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            coh = rp.coherencies(dsky, *uvw, fl, fd, per_channel_flux=pcf,
+                                 **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - base
+            finite = bool(torch.isfinite(torch.view_as_real(coh)).all())
+            del coh
+        out[tag] = dict(s=float(np.median(secs)), peak_gb=peak / 2 ** 30,
+                        finite=finite)
+    tile0 = rec["tiles"][0]
+    emit("e2e_beam_summary", wall_s=tile0["wall_s"],
+         em_s=tile0.get("em_s"), refine_s=tile0.get("refine_s"),
+         residual_s=tile0.get("residual_s"), predict=out,
+         predict_share=(out["solve_F1"]["s"] + out["residual_F8"]["s"])
+         / tile0["wall_s"], peak_gb_run=rec["peak_gb"],
+         setup_s=obs[3], res_ratio=tile0["res_1"] / tile0["res_0"],
+         tcg_iters=tile0.get("tcg_iters"),
+         e2e_rtr_tile0_s=rtr["tiles"][0]["wall_s"],
+         e2e_rtr_tile0_res_ratio=rtr["tiles"][0]["res_1"]
+         / rtr["tiles"][0]["res_0"],
+         e2e_rtr_tile0_tcg_iters=rtr["tiles"][0].get("tcg_iters"),
+         launches=rec["launches"])
+    if not all(o["finite"] for o in out.values()):
+        raise AssertionError(f"e2e_beam: a beam predict is not finite: {out}")
+    rec["predict"] = out
+    return rec
+
+
 def phase_e2e_tile_batch(rtr: dict) -> dict:
     """``-j 5 --inner cg --tile-batch TILE_BATCH`` at full width on 1 +
     TILE_BATCH tiles of e2e_rtr's observation: tile 0 alone (the boost;
@@ -2494,6 +2924,7 @@ def phase_e2e_tile_batch(rtr: dict) -> dict:
 def main() -> int:
     smi = phase_env()
     phase_build()
+    phase_native()
     coh = phase_coh()
     sweep = phase_sweep()
     matvec = phase_matvec()
@@ -2508,6 +2939,9 @@ def main() -> int:
     # with), to keep the run in time (tile 0 boosted to 6 EM iterations)
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
                     ("coh", "sweep", "matvec"), em=1)
+    # the station beam at full width: one tile of e2e_rtr's sky and gains
+    # simulated through the beam
+    beam = phase_e2e_beam(rtr)
     # e2e_rtr's first tile at --dtype-policy bf16: the bf16 sweep
     # instance and the matvec, within ENVELOPE of e2e_rtr's tile 0
     bf16 = phase_e2e_reduced(obs, "e2e_bf16", ["-j", "5", "--inner", "cg"],
@@ -2614,6 +3048,7 @@ def main() -> int:
              launches=rtr["launches"]["sweep"],
              launches_e2e_whiten_phase=whiten_phase["launches"]["sweep"],
              launches_e2e_bandpass=bandpass["launches"]["sweep"],
+             launches_e2e_beam=beam["launches"]["sweep"],
              max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
              ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
              bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
@@ -2629,6 +3064,7 @@ def main() -> int:
              launches=rtr["launches"]["matvec"],
              launches_e2e_tile_batch=tile_batch["launches"]["matvec"],
              launches_e2e_whiten_phase=whiten_phase["launches"]["matvec"],
+             launches_e2e_beam=beam["launches"]["matvec"],
              max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],

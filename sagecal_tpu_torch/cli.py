@@ -3,9 +3,15 @@ full-batch and stochastic calibration).
 
 The parser accepts every flag of the JAX CLI so command lines translate
 directly. The port runs full-batch calibration with
-``-d -s -c -p -q -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k -J -W -b
---linsolv --kernel --inner --inflight --jones --tile-batch --dtype-policy
---platform`` (every solver mode ``-j 0..6``, ``--inner chol|cg``,
+``-d -f -s -c -p -q -F -t -e -g -l -m -j -L -H -R -x -y -I -O -o -k -J -W
+-b -B --linsolv --kernel --inner --inflight --jones --tile-batch
+--dtype-policy --resume --platform`` (``-f`` a list file or a glob of
+SimMS subbands, calibrated as one dataset of all their channels;
+per-channel flags through the native tile packer; ``-B 1|2|3`` the
+station beam, array factor, full or element, predicted through the
+generic route with the beam tables; ``--resume`` continuing a killed run
+from the checkpoint beside ``-p``'s solutions file; every solver mode
+``-j 0..6``, ``--inner chol|cg``,
 ``--kernel pallas|xla``, in-flight cluster groups, ``--jones
 full|diag|phase``, T solve intervals as one lane-batched solve, skies of
 every source morphology, the ``-q`` warm start, ``-W 1`` whitening of the
@@ -18,9 +24,10 @@ no-ops (PyTorch runs eagerly). ``-N E > 0`` routes to stochastic
 calibration (``stochastic.run_minibatch``, as the JAX CLI does, before
 it looks at ``-a``): E epochs of ``-M`` minibatches a solve interval
 over ``-w`` frequency mini-bands, robust LBFGS (``-l`` iterations, ``-m``
-memory, ``-L`` nu) on the ``--loss`` cost, with ``-d -s -c -p -q -F -t -T
--x -y -I -O -o -k -V --platform``; ``-W``, ``-b``, ``-J``, ``-a`` and
-``-z`` are no-ops there, as in the JAX package. With ``-N``, ``-A > 1``
+memory, ``-L`` nu) on the ``--loss`` cost, with ``-d -f -s -c -p -q -F -t
+-T -x -y -I -O -o -k -B -V --platform``; ``-W``, ``-b``, ``-J``, ``-a``
+and ``-z`` are no-ops there, and ``--resume`` starts fresh, as in the
+JAX package. With ``-N``, ``-A > 1``
 and ``-w > 1`` together (stochastic consensus) raise; ``-A`` with ``-w
 1`` runs plain minibatch calibration, as in the JAX CLI. ``-M`` and
 ``--loss`` act under ``-N`` only, as there.
@@ -49,8 +56,6 @@ from sagecal_tpu_torch.config import (BeamMode, RunConfig, SimulationMode,
 # flags parsed for parity but not ported: dest -> (default, ROADMAP item);
 # under -N, -w and -A are stochastic flags (check_flags)
 UNPORTED = {
-    "ms_list": (None, "queue A item 7 (-f dataset lists)"),
-    "beam": (0, "queue A item 7 (-B beam)"),
     "admm": (1, "queue A item 9 (-A consensus)"),
     "nsolbw": (1, "queue A item 9 (-w mini-bands without -N)"),
     "npoly": (2, "queue A item 9 (-P)"),
@@ -58,7 +63,6 @@ UNPORTED = {
     "rho": (5.0, "queue A item 9 (-r)"),
     "rho_file": (None, "queue A item 9 (-G)"),
     "tile_bucket": (0, "queue A item 11 (--tile-bucket)"),
-    "resume": (False, "queue A item 7 (--resume checkpoints)"),
     "faults": (None, "queue A item 10 (--faults)"),
     "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
     "prior_cache": ("off", "queue A item 11 (--prior-cache)"),
@@ -78,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "calibration)")
     a = p.add_argument
     a("-d", "--ms", help="dataset (SimMS directory)")
-    a("-f", "--ms-list")
+    a("-f", "--ms-list",
+      help="a file listing SimMS datasets (one a line), or a glob; "
+           "calibrated as one dataset of all their channels")
     a("-s", "--sky-model")
     a("-c", "--cluster-file")
     a("-p", "--solutions-file", help="solutions out")
@@ -124,7 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="clusters solved together per SAGE step (block-Jacobi groups, "
            "clamped to M//4; 1 = sequential)")
     a("--tile-bucket", type=int, default=0)
-    a("--resume", action="store_true")
+    a("--resume", action="store_true",
+      help="continue a killed run from the checkpoint beside -p's "
+           "solutions file")
     a("--faults", default=None)
     a("--prefetch", type=int, default=1)
     a("--prior-cache", choices=("off", "read", "readwrite"), default="off")
@@ -147,7 +155,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-z", "--ignore-clusters")
     a("-k", "--correct-cluster", type=int, default=None)
     a("-J", "--phase-only", type=int, default=0)
-    a("-B", "--beam", type=int, default=0)
+    a("-B", "--beam", type=int, default=0,
+      help="station beam: 0 none, 1 array factor, 2 full, 3 element")
     a("-N", "--epochs", type=int, default=0)
     a("--loss", choices=("robust", "huber"), default="robust")
     a("-M", "--minibatches", type=int, default=1)
@@ -204,7 +213,8 @@ def config_from_args(args) -> RunConfig:
         solve_fuse=args.solve_fuse, solve_promote=args.solve_promote,
         cluster_inflight=args.inflight, tile_batch=args.tile_batch,
         solver_inner=args.inner, solver_kernel=args.kernel,
-        jones_mode=args.jones, dtype_policy=args.dtype_policy)
+        jones_mode=args.jones, dtype_policy=args.dtype_policy,
+        resume=bool(args.resume))
 
 
 def _device(platform):
@@ -217,8 +227,9 @@ def _device(platform):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.ms or not args.sky_model or not args.cluster_file:
-        print("need -d dataset, -s sky model, -c cluster file",
+    if (not args.ms and not args.ms_list) or not args.sky_model \
+            or not args.cluster_file:
+        print("need -d dataset (or -f list), -s sky model, -c cluster file",
               file=sys.stderr)
         return 2
     check_flags(args)

@@ -72,6 +72,10 @@ class RunConfig:
 
     uvmin: float = 0.0                 # -x (lambda)
     uvmax: float = 1e9                 # -y
+    # short-baseline taper of the solve input in meters (0 = off;
+    # data.cpp:546-550); a RunConfig field only, no CLI flag, as in the
+    # JAX package
+    uvtaper: float = 0.0
     mmse_rho: float = 1e-9             # -o
     whiten: bool = False               # -W : uv-density whitening
     per_channel_bfgs: bool = False     # -b 1 : per-channel LBFGS solves
@@ -108,6 +112,9 @@ class RunConfig:
     solver_kernel: str = "pallas"
     jones_mode: str = "full"           # --jones
     dtype_policy: str = "f32"          # --dtype-policy
+    # --resume: continue from the tile-boundary checkpoint beside the
+    # solutions file (io/solutions.py: checkpoint_path)
+    resume: bool = False
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

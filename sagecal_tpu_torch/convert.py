@@ -51,3 +51,25 @@ def tile_from_numpy(**fields) -> VisTile:
     port's :class:`VisTile`."""
     return VisTile(**{k: fields[k] for k in VisTile.__dataclass_fields__
                       if k in fields})
+
+
+def beaminfo_from_numpy(**fields):
+    """A JAX ``rime.beam.BeamInfo``'s fields (numpy arrays and scalars;
+    ``ecoeff`` None, a dict of ``ElementCoeffs`` fields, or any object
+    with them as attributes) -> the port's ``rime.beam.BeamInfo``."""
+    from sagecal_tpu_torch.rime import beam as bm
+    ec = fields.get("ecoeff")
+    if ec is not None:
+        get = ec.get if isinstance(ec, dict) else \
+            (lambda k: getattr(ec, k))
+        ec = bm.ElementCoeffs(freqs=np.array(get("freqs")),
+                              theta=np.array(get("theta")),
+                              phi=np.array(get("phi")), M=int(get("M")),
+                              beta=float(get("beta")))
+    return bm.BeamInfo(
+        longitude=np.array(fields["longitude"]),
+        latitude=np.array(fields["latitude"]),
+        time_jd=np.array(fields["time_jd"]), ra0=float(fields["ra0"]),
+        dec0=float(fields["dec0"]), freq0=float(fields["freq0"]),
+        elem_xyz=np.array(fields["elem_xyz"]),
+        elem_mask=np.array(fields["elem_mask"]), ecoeff=ec)

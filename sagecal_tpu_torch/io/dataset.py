@@ -5,11 +5,18 @@
 - :class:`SimMS`: the columnar on-disk dataset (``meta.json`` + one npz
   per tile). It reads a SimMS that the JAX package wrote and writes one
   the JAX package reads;
-- :func:`simulate_dataset`: synthetic uvw tracks, a predicted sky,
-  known Jones corruption and noise.
+- :class:`MultiSimMS`: several SimMS subbands as one dataset with the
+  combined channel axis (``-f``), written back per part;
+- :func:`open_dataset`: ``-d`` or ``-f`` (a list file or a glob);
+- :func:`simulate_dataset`: synthetic uvw tracks, a predicted sky (with
+  the station beam under ``dobeam``), known Jones corruption, noise and
+  row and channel flags.
 
-Not ported in this slice: the native per-channel-flag packing
-(``VisTile.pack``), the multi-MS list and the casacore backend.
+Per-channel flags and the uv taper reach the solve through the native
+tile packer (:meth:`VisTile.pack`, ``io/native.py``). CASA
+MeasurementSets (``io/casams.py`` of the JAX package) need
+python-casacore, which is not installed: such a path raises as it does
+there without it.
 """
 
 from __future__ import annotations
@@ -56,6 +63,24 @@ class VisTile:
     def nrows(self) -> int:
         return self.u.shape[0]
 
+    @property
+    def flag_ratio(self) -> float:
+        """Fraction of flagged rows (data.cpp:659-663 ``fratio``)."""
+        return float(np.mean(self.flags == 1))
+
+    @property
+    def time_jd(self) -> np.ndarray:
+        """Per-timeslot Julian date in days (MS TIME is MJD seconds); the
+        J2000 epoch when the tile carries no times."""
+        if self.time_mjd is None:
+            return np.full(self.tilesz, 2451545.0)
+        return np.asarray(self.time_mjd) / 86400.0 + 2400000.5
+
+    @property
+    def tslot(self) -> np.ndarray:
+        """[nrows] row -> timeslot index."""
+        return row_tslot(self.nrows, self.nbase)
+
     def averaged(self):
         """Channel-averaged data [B, 2, 2]; flagged rows zeroed."""
         xa = self.x.mean(axis=1)
@@ -63,15 +88,34 @@ class VisTile:
         return xa
 
     def solve_input(self, uvtaper_m: float = 0.0):
-        """(x8 [B, 8], rowflags [B]) — the channel-averaged solve input.
-
-        Per-channel flags and the uv taper need the native packing
-        kernel, which this slice does not port."""
+        """(x8 [B, 8], rowflags [B]) — the channel-averaged solve input
+        with loadData's semantics: the native tile packer (more-than-half
+        rule, taper) when the tile has per-channel flags or a taper is
+        asked for, else the plain channel mean. Stored uv-cut rows (flag
+        2) survive either path."""
         if self.cflags is not None or uvtaper_m > 0.0:
-            raise NotImplementedError(
-                "per-channel flags / uv taper need the native tile "
-                "packing (ROADMAP queue A item 7: io/native.py)")
+            x8, rowflags, _ = self.pack(uvtaper_m=uvtaper_m)
+            rowflags = np.where((self.flags == 2) & (rowflags == 0),
+                                np.int8(2), rowflags.astype(np.int8))
+            return x8, rowflags
         return utils.vis_to_x8(self.averaged()), self.flags
+
+    def pack(self, uvmin_m: float = 0.0, uvmax_m: float = 1e30,
+             uvtaper_m: float = 0.0):
+        """loadData packing (data.cpp:552-664) by the native packer
+        (``io/native.py``): the per-channel-flag average under the
+        more-than-half rule, uv-cut and partial rows flag 2, the
+        short-baseline taper, the flag ratio. u/v in seconds become
+        meters; rows flagged in ``flags`` stay flagged. Returns (x8 [B,
+        8] float64, rowflags [B] uint8, fratio)."""
+        from sagecal_tpu_torch.io import native as nat
+        cf = self.cflags
+        if cf is None:
+            cf = np.zeros((self.nrows, len(self.freqs)), np.uint8)
+        cf = cf | (self.flags == 1)[:, None]
+        return nat.pack_tile(self.x, cf, self.u * C_M_S, self.v * C_M_S,
+                             self.nrows, uvmin=uvmin_m, uvmax=uvmax_m,
+                             uvtaper_m=uvtaper_m, freq0=self.freq0)
 
 
 def row_tslot(nrows: int, nbase: int) -> np.ndarray:
@@ -131,13 +175,17 @@ def simulate_dataset(sky_arrays, n_stations: int, tilesz: int,
                      noise_sigma: float = 0.0, seed: int = 11,
                      extent_m: float = 3000.0,
                      flag_fraction: float = 0.0,
+                     chan_flag_fraction: float = 0.0,
                      chan_width: float | None = None,
+                     beam=None, dobeam: int = 0,
                      start_mjd_s: float = 4.93e9) -> VisTile:
     """Synthesize a corrupted dataset from a port sky model
     (:class:`rime.predict.SkyArrays`, or a ``rime.predict.SplitSky``), on
     the sky's device: per-channel model visibilities of every source
-    morphology (``rime.predict.coherencies``), corrupted by ``jones`` per
-    cluster, plus noise drawn with numpy from ``seed``."""
+    morphology (``rime.predict.coherencies``; with ``beam``, a
+    ``rime.beam.BeamArrays`` of ``tilesz`` times, and ``dobeam``, through
+    the station beam), corrupted by ``jones`` per cluster, plus noise and
+    row and channel flags drawn with numpy from ``seed``."""
     from sagecal_tpu_torch.rime import predict as rp
 
     freqs = np.atleast_1d(np.asarray(freqs, np.float64))
@@ -163,8 +211,18 @@ def simulate_dataset(sky_arrays, n_stations: int, tilesz: int,
     dev = ref.ll.device
     rdt = ref.ll.dtype
     t = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
+    beam_kw = {}
+    if beam is not None and dobeam:
+        if beam.gmst.shape[0] != tilesz:
+            raise ValueError(
+                f"beam staged with {beam.gmst.shape[0]} timeslots but "
+                f"tilesz={tilesz}")
+        lng = lambda a: torch.as_tensor(a, device=dev, dtype=torch.long)
+        beam_kw = dict(beam=beam, dobeam=dobeam,
+                       tslot=lng(row_tslot(us.shape[0], nbase)),
+                       sta1=lng(sta1), sta2=lng(sta2))
     coh = rp.coherencies(sky_arrays, t(us), t(vs), t(ws), freqs,
-                         fdelta_chan, per_channel_flux=True)
+                         fdelta_chan, per_channel_flux=True, **beam_kw)
     M = coh.shape[0]
     if nchunk is None:
         nchunk = np.ones(M, np.int32)
@@ -190,13 +248,17 @@ def simulate_dataset(sky_arrays, n_stations: int, tilesz: int,
     if flag_fraction > 0:
         nf = int(flag_fraction * len(flags))
         flags[rng.choice(len(flags), nf, replace=False)] = 1
+    cflags = None
+    if chan_flag_fraction > 0:
+        cflags = (rng.random((us.shape[0], len(freqs)))
+                  < chan_flag_fraction).astype(np.uint8)
 
     return VisTile(
         u=us, v=vs, w=ws, x=vis, flags=flags,
         sta1=sta1, sta2=sta2, freqs=freqs, freq0=float(freqs.mean()),
         fdelta=fdelta_tot, tdelta=tdelta, dec0=dec0, ra0=ra0,
         n_stations=n_stations, nbase=nbase, tilesz=tilesz,
-        time_mjd=time_mjd)
+        time_mjd=time_mjd, cflags=cflags)
 
 
 class SimMS:
@@ -204,7 +266,8 @@ class SimMS:
 
     ``data_column`` (default DATA) is what :meth:`read_tile` returns in
     ``VisTile.x``; :meth:`write_tile` lands in ``out_column`` (default
-    CORRECTED_DATA) and keeps every other column."""
+    CORRECTED_DATA) and keeps every other column. A ``beam.npz`` beside
+    the tiles holds the station beam's metadata."""
 
     META = "meta.json"
 
@@ -224,7 +287,7 @@ class SimMS:
             self.meta = json.load(f)
 
     @classmethod
-    def create(cls, path: str, tiles: list) -> "SimMS":
+    def create(cls, path: str, tiles: list, beam_info=None) -> "SimMS":
         os.makedirs(path, exist_ok=True)
         t0 = tiles[0]
         meta = {
@@ -239,7 +302,18 @@ class SimMS:
         ms = cls(path)
         for i, t in enumerate(tiles):
             ms.write_tile(i, t, column="DATA")
+        if beam_info is not None:
+            from sagecal_tpu_torch.rime import beam as bm
+            bm.save_beaminfo(os.path.join(path, "beam.npz"), beam_info)
         return ms
+
+    def beam_info(self):
+        """The stored beam metadata (``rime.beam.BeamInfo``) or None."""
+        p = os.path.join(self.path, "beam.npz")
+        if not os.path.exists(p):
+            return None
+        from sagecal_tpu_torch.rime import beam as bm
+        return bm.load_beaminfo(p)
 
     @property
     def n_tiles(self) -> int:
@@ -287,18 +361,140 @@ class SimMS:
         os.replace(tmp, path)
 
 
+class MultiSimMS:
+    """Several SimMS datasets as ONE dataset with the combined channel
+    axis: ``-f``'s multi-MS joint calibration (``Data::loadDataList``,
+    data.cpp:835, averages over every MS's channels, the more-than-half
+    rule counting unflagged channels over all of them; ``writeDataList``,
+    data.cpp:1304, splits the residual's channels back per MS). The
+    parts must agree on stations, baselines and tiles; they are ordered
+    by mean frequency."""
+
+    def __init__(self, paths, tilesz: int = 10, data_column: str = "DATA",
+                 out_column: str = "CORRECTED_DATA"):
+        if isinstance(paths, str):
+            paths = [paths]
+        if not paths:
+            raise ValueError("MultiSimMS: empty dataset list")
+        parts = [open_part(p, tilesz, data_column, out_column)
+                 for p in paths]
+        parts.sort(key=lambda m: float(np.mean(m.meta["freqs"])))
+        m0 = parts[0].meta
+        for mx in parts[1:]:
+            for key in ("n_stations", "nbase", "tilesz", "n_tiles",
+                        "tdelta", "ra0", "dec0"):
+                if mx.meta[key] != m0[key]:
+                    raise ValueError(
+                        f"dataset {mx.path}: {key} mismatch "
+                        f"({mx.meta[key]} vs {m0[key]})")
+        self.parts = parts
+        self.path = ",".join(p.path for p in parts)
+        freqs = np.concatenate([np.asarray(p.meta["freqs"], float)
+                                for p in parts])
+        self._nchan = [len(p.meta["freqs"]) for p in parts]
+        self.meta = dict(m0)
+        self.meta["freqs"] = list(map(float, freqs))
+        # freq0: the mean over every channel of every MS
+        # (readAuxDataList, data.cpp:487-505)
+        self.meta["freq0"] = float(freqs.mean())
+        self.meta["fdelta"] = float(sum(p.meta["fdelta"] for p in parts))
+
+    @property
+    def n_tiles(self) -> int:
+        return self.meta["n_tiles"]
+
+    def beam_info(self):
+        return self.parts[0].beam_info()
+
+    def read_tile(self, i: int) -> VisTile:
+        tiles = [p.read_tile(i) for p in self.parts]
+        t0 = tiles[0]
+        x = np.concatenate([t.x for t in tiles], axis=1)
+        # a row is flagged only where every MS flags it; the uv cut (2)
+        # only where nothing is plain-flagged
+        allf = np.stack([t.flags for t in tiles])
+        flags = np.zeros(t0.nrows, np.int8)
+        flags[np.all(allf == 1, axis=0)] = 1
+        flags[np.any(allf == 2, axis=0) & (flags == 0)] = 2
+        # a row flagged in one MS must not enter the channel average
+        # (data.cpp:899-921): channel flags from each part's row flags
+        # whenever the parts disagree or any part has channel flags
+        flags_differ = not all(
+            np.array_equal(t.flags, tiles[0].flags) for t in tiles[1:])
+        cfl = None
+        if flags_differ or any(t.cflags is not None for t in tiles):
+            cfl = np.concatenate(
+                [((t.cflags if t.cflags is not None
+                   else np.zeros((t.nrows, len(t.freqs)), np.uint8))
+                  | (t.flags == 1)[:, None].astype(np.uint8))
+                 for t in tiles], axis=1)
+        return VisTile(
+            u=t0.u, v=t0.v, w=t0.w, x=x, flags=flags,
+            sta1=t0.sta1, sta2=t0.sta2,
+            freqs=np.asarray(self.meta["freqs"]),
+            freq0=self.meta["freq0"], fdelta=self.meta["fdelta"],
+            tdelta=t0.tdelta, dec0=t0.dec0, ra0=t0.ra0,
+            n_stations=t0.n_stations, nbase=t0.nbase, tilesz=t0.tilesz,
+            time_mjd=t0.time_mjd, cflags=cfl)
+
+    def write_tile(self, i: int, tile: VisTile) -> None:
+        """The combined channels back into each part (writeDataList);
+        each part keeps its own flags."""
+        lo = 0
+        for p, nc in zip(self.parts, self._nchan):
+            part_tile = p.read_tile(i)
+            part_tile.x = tile.x[:, lo:lo + nc]
+            p.write_tile(i, part_tile)
+            lo += nc
+
+
+def is_ms_path(path: str) -> bool:
+    """A CASA table is a directory holding ``table.dat``."""
+    return os.path.isdir(path) and os.path.exists(
+        os.path.join(path, "table.dat"))
+
+
+def open_part(path: str, tilesz: int = 10, data_column: str = "DATA",
+              out_column: str = "CORRECTED_DATA") -> SimMS:
+    """One dataset path -> SimMS. A CASA table raises: without
+    python-casacore as the JAX package does, and with it because its
+    backend (``io/casams.py``) is not ported."""
+    if is_ms_path(path):
+        try:
+            import casacore  # noqa: F401
+        except ImportError:
+            raise RuntimeError(
+                f"{path} is a CASA table but python-casacore is not "
+                f"installed; install it or convert to a SimMS directory")
+        raise NotImplementedError(
+            f"{path} is a CASA table: the casacore backend (io/casams.py) "
+            "is not ported")
+    return SimMS(path, data_column=data_column, out_column=out_column)
+
+
 def open_dataset(ms: str | None, ms_list: str | None = None,
-                 data_column: str = "DATA",
-                 out_column: str = "CORRECTED_DATA") -> SimMS:
-    """Resolve ``-d`` into a SimMS directory. Multi-MS lists (``-f``)
-    and CASA tables come with ROADMAP queue A item 7."""
+                 tilesz: int = 10, data_column: str = "DATA",
+                 out_column: str = "CORRECTED_DATA"):
+    """``-d`` or ``-f`` -> a dataset: one SimMS, or a :class:`MultiSimMS`
+    of the paths in a list file (one a line, ``#`` comments) or matched
+    by a glob. ``-f`` wins over ``-d`` (the reference's loadDataList
+    order); one listed path opens alone. ``tilesz`` is a CASA table's
+    (a SimMS stores its own)."""
+    if ms and not ms_list:
+        return open_part(ms, tilesz, data_column, out_column)
     if ms_list:
-        raise NotImplementedError(
-            "-f dataset lists are not ported yet (ROADMAP queue A item 7)")
-    if not ms:
-        raise ValueError("open_dataset: need -d dataset")
-    if not os.path.isfile(os.path.join(ms, SimMS.META)):
-        raise NotImplementedError(
-            f"{ms} is not a SimMS directory; CASA MeasurementSets are not "
-            "ported yet (ROADMAP queue A item 7: io/casams.py)")
-    return SimMS(ms, data_column=data_column, out_column=out_column)
+        import glob as globmod
+        if os.path.isfile(ms_list):
+            with open(ms_list) as f:
+                stripped = (ln.strip() for ln in f)
+                paths = [ln for ln in stripped
+                         if ln and not ln.startswith("#")]
+        else:
+            paths = sorted(globmod.glob(ms_list))
+        if not paths:
+            raise ValueError(f"-f {ms_list}: no datasets found")
+        if len(paths) == 1:
+            return open_part(paths[0], tilesz, data_column, out_column)
+        return MultiSimMS(paths, tilesz=tilesz, data_column=data_column,
+                          out_column=out_column)
+    raise ValueError("open_dataset: need -d dataset or -f list")

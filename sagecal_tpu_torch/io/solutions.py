@@ -7,11 +7,20 @@ solve interval 8N rows of one column per effective cluster (the
 stochastic multi-band variant adds channels and mini-bands to the header
 and holds every mini-band's columns in turn in each row). The 8 reals
 per station map to the 2x2 Jones as ``[S0+jS1, S4+jS5; S2+jS3, S6+jS7]``.
-:func:`read_warm_start` reads the ``-q`` warm start. The binary
-checkpoint sidecar comes with ROADMAP queue A item 7.
+:func:`read_warm_start` reads the ``-q`` warm start.
+
+The text format truncates mantissas, so ``--resume`` restarts from a
+binary sidecar instead (:func:`save_checkpoint` / :func:`load_checkpoint`,
+``<solutions>.ckpt.npz``): the tile watermark, the full-precision
+warm-start Jones, the divergence-reset state and the solutions file's
+valid byte length. Its ``np.savez`` keys are the JAX package's, so a
+sidecar written by either package resumes in the other.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -90,6 +99,16 @@ class SolutionWriter:
             self.f.write(f"{freq0_hz * 1e-6:f} {bandwidth_hz * 1e-6:f} "
                          f"{interval_min:f} {n_stations} {n_clusters} "
                          f"{n_eff_clusters}\n")
+
+    @classmethod
+    def open_resume(cls, path: str, n_stations: int) -> "SolutionWriter":
+        """Reopen a solutions file for appending (``--resume``): its
+        header and completed intervals are on disk, the file already
+        truncated to the checkpoint's byte watermark."""
+        w = cls.__new__(cls)
+        w.f = open(path, "a")
+        w.n_stations = n_stations
+        return w
 
     def _write_cols(self, cols: np.ndarray) -> None:
         self.f.write("".join(
@@ -196,3 +215,52 @@ def read_warm_start(path: str, sky, n_stations: int):
             f"cannot seed -q; use a worker/J solution file)")
     last = blocks[-1]
     return last[0] if isinstance(last, list) else last
+
+
+# ---------------------------------------------------------------------------
+# tile-boundary checkpoint sidecar (--resume)
+# ---------------------------------------------------------------------------
+
+def checkpoint_path(solution_path: str) -> str:
+    """The binary checkpoint sidecar beside a solutions file."""
+    return solution_path + ".ckpt.npz"
+
+
+def save_checkpoint(path: str, *, tile: int, J: np.ndarray, first: bool,
+                    res_prev: float | None, inflight: int,
+                    sol_bytes: int, meta: dict) -> None:
+    """One tile boundary's resumable state, written then renamed (a kill
+    between checkpoints loses whole tiles, never corrupts one). Written
+    after the tile's solution and residual writes. ``J`` is the
+    full-precision warm-start chain, ``sol_bytes`` the solutions file's
+    valid length at the watermark, ``meta`` the run's identity."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, J=np.asarray(J, np.complex128), tile=int(tile),
+             first=int(bool(first)),
+             res_prev=np.float64(np.nan if res_prev is None else res_prev),
+             inflight=int(inflight), sol_bytes=int(sol_bytes),
+             meta=json.dumps(meta, sort_keys=True))
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, expect_meta: dict | None = None):
+    """A checkpoint sidecar -> its state dict, or None when absent. Every
+    key of ``expect_meta`` must match the stored run identity, else
+    ``ValueError`` (a checkpoint of a different run)."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        if expect_meta is not None:
+            for k, v in expect_meta.items():
+                if meta.get(k) != v:
+                    raise ValueError(
+                        f"checkpoint {path!r} was written by a "
+                        f"different run: {k}={meta.get(k)!r} vs "
+                        f"expected {v!r}")
+        rp = float(z["res_prev"])
+        return dict(tile=int(z["tile"]), J=np.array(z["J"]),
+                    first=bool(int(z["first"])),
+                    res_prev=None if np.isnan(rp) else rp,
+                    inflight=int(z["inflight"]),
+                    sol_bytes=int(z["sol_bytes"]), meta=meta)

@@ -34,28 +34,49 @@ each channel's residual and carries the last channel's solutions
 (:meth:`FullBatchPipeline.solve_channels`). ``-a 1/2/3`` simulates
 instead of calibrating (:meth:`FullBatchPipeline.run_simulation`).
 
+Input and restart: ``-f`` lists open as one dataset of every part's
+channels (``io/dataset.py:MultiSimMS``); per-channel flags and the uv
+taper (``RunConfig.uvtaper``) stage through the native tile packer
+(``VisTile.solve_input``), and ``-b 1`` zeroes a channel's flagged rows
+in that channel's solve. ``--resume`` continues a killed run from the
+tile-boundary checkpoint beside the solutions file
+(``io/solutions.py``), which the sequential loop writes after every
+tile's writes and removes at a clean end; the ``--tile-batch`` loop
+writes none and starts fresh.
+
+The station beam (``-B 1|2|3``): the beam metadata of the dataset (or a
+synthetic layout), the sky and the beam pointing precessed once to the
+first tile's mid-timeslot epoch, then per-tile beam tables
+(:meth:`FullBatchPipeline._tile_beam`) in every predict: the solve, the
+residual, the tile batch, ``-b 1``'s channels and the simulation modes.
+Under the beam the whole sky predicts through the generic route with the
+beam tables: no coherency kernel runs, as in the JAX package.
+
 The JAX package's serve cache, fleet, priors, overlapped scheduler,
-fault injection, tracing and checkpoint/resume are not ported yet;
-their options raise ``NotImplementedError`` (see
-:func:`check_supported`).
+fault injection and tracing are not ported yet; their options raise
+``NotImplementedError`` (see ``cli.py:UNPORTED``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
+from sagecal_tpu_torch import coords
 from sagecal_tpu_torch import device as devmod
 from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch import skymodel, utils
 from sagecal_tpu_torch.config import RunConfig, SimulationMode, SolverMode
 from sagecal_tpu_torch.io import dataset as ds
+from sagecal_tpu_torch.io import native
 from sagecal_tpu_torch.io import solutions as sol
 from sagecal_tpu_torch.ops import coh as coh_ops
 from sagecal_tpu_torch.ops import sweep as swp
+from sagecal_tpu_torch.rime import beam as bm
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.rime import residual as rr
 from sagecal_tpu_torch.solvers import lm as lm_mod
@@ -81,20 +102,12 @@ def first_tile_boost(n_stations: int) -> int:
 
 
 def check_supported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for every configuration the port
-    does not run yet, naming the ROADMAP item that will port it
-    (``ValueError`` for ``-N > 0``, which ``stochastic.py`` runs)."""
+    """Raise for a configuration this pipeline does not run:
+    ``ValueError`` for ``-N > 0``, which ``stochastic.py`` runs, and for
+    an unknown storage policy (``dtypes.validate``)."""
     if cfg.n_epochs > 0:
         raise ValueError("-N > 0 is stochastic calibration: run it with "
                          "stochastic.run_minibatch (the CLI routes it)")
-    checks = [
-        (int(cfg.beam_mode) != 0, "-B beam (ROADMAP queue A item 7)"),
-        (cfg.ms_list is not None, "-f dataset lists (ROADMAP queue A "
-         "item 7)"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
     dtypes.validate(cfg.dtype_policy)
 
 
@@ -107,7 +120,7 @@ class FullBatchPipeline:
     accumulator dtype: ``pipeline.py:124-133`` of the JAX package), with
     the solve's data and weights staged in the storage dtype ``sdt``."""
 
-    def __init__(self, cfg: RunConfig, ms: ds.SimMS, sky: skymodel.ClusterSky,
+    def __init__(self, cfg: RunConfig, ms, sky: skymodel.ClusterSky,
                  device=None, log=print):
         check_supported(cfg)
         self.cfg = cfg
@@ -120,19 +133,36 @@ class FullBatchPipeline:
             # a reduced storage policy pairs with the float32 pipeline
             self.rdt = torch.float32
         self.sdt = dtypes.storage_dtype(cfg.dtype_policy, self.rdt)
-        # both device skies once (the JAX package's _pallas_skies): the
-        # point/gaussian half for the coherency kernel, the rest for the
-        # generic predict; on the CPU too, where the kernel half runs its
-        # plain version. A kernel that fails raises: there is no fallback.
-        self.dsky = rp.split_sky(sky, self.rdt, self.device)
         meta = ms.meta
         self.meta = meta
+        # -B: the dataset's beam metadata, else a synthetic layout
+        # (fullbatch_mode.cpp:56-70); under the beam the whole sky
+        # predicts through the generic route (the JAX package gates its
+        # coherency kernel off), precessed once to the first tile's
+        # epoch before any solve (data.cpp:1473, fullbatch_mode.cpp:325)
+        self.dobeam = int(cfg.beam_mode)
+        self.beam_info = bm.resolve_beaminfo(self.dobeam, ms, meta, log=log)
+        self._warned_no_times = False
+        self.precessed = False
+        if self.dobeam:
+            self.dsky = rp.sky_to_device(sky, self.rdt, self.device)
+            self._precess_sources(log)
+        else:
+            # both device skies once (the JAX package's _pallas_skies):
+            # the point/gaussian half for the coherency kernel, the rest
+            # for the generic predict; on the CPU too, where the kernel
+            # half runs its plain version. A kernel that fails raises:
+            # there is no fallback.
+            self.dsky = rp.split_sky(sky, self.rdt, self.device)
         self.kmax = int(sky.nchunk.max())
         self.cmask = torch.as_tensor(
             np.arange(self.kmax)[None, :] < sky.nchunk[:, None],
             device=self.device)
         self.cidx = torch.as_tensor(
             rp.chunk_indices(meta["tilesz"], meta["nbase"], sky.nchunk),
+            device=self.device, dtype=torch.long)
+        self.tslot = torch.as_tensor(
+            ds.row_tslot(meta["tilesz"] * meta["nbase"], meta["nbase"]),
             device=self.device, dtype=torch.long)
         self.n = meta["n_stations"]
         mode = effective_solver_mode(int(cfg.solver_mode), self.n)
@@ -175,9 +205,52 @@ class FullBatchPipeline:
         return torch.as_tensor(np.asarray(a), device=self.device,
                                dtype=self.rdt if dtype is None else dtype)
 
+    def _precess_sources(self, log=print) -> None:
+        """J2000 -> the epoch of the first tile's mid timeslot, for the
+        device sky's (ra, dec) and the beam pointing (``_precess_sources``
+        of the JAX package; data.cpp:1473), in the run's dtype."""
+        import dataclasses
+        try:
+            tj = self.ms.read_tile(0).time_jd
+        except Exception:
+            return      # the placeholder-epoch warning comes per tile
+        jd = float(np.asarray(tj)[len(np.asarray(tj)) // 2])
+        pmat = coords.precession_matrix(jd, self.rdt, self.device)
+        ra_p, dec_p = coords.precess_radec_std(self.dsky.ra, self.dsky.dec,
+                                               pmat)
+        self.dsky = self.dsky._replace(ra=ra_p, dec=dec_p)
+        b_ra, b_dec = coords.precess_radec_std(
+            self._t(self.beam_info.ra0), self._t(self.beam_info.dec0), pmat)
+        self.beam_info = dataclasses.replace(
+            self.beam_info, ra0=float(b_ra), dec0=float(b_dec))
+        self.precessed = True
+        log(f"Precessed source/beam coordinates to JD {jd:.5f}")
+
+    def _tile_beam(self, tile):
+        """A tile's beam tables (its own times), or None without -B."""
+        if not self.dobeam:
+            return None
+        if tile.time_mjd is None and not self._warned_no_times:
+            self.log("WARNING: dataset tiles carry no timestamps; beam "
+                     "az/el will be evaluated at the J2000 placeholder epoch")
+            self._warned_no_times = True
+        return bm.beam_to_device(self.beam_info, self.meta["freq0"],
+                                 self.rdt, time_jd=tile.time_jd,
+                                 device=self.device)
+
+    def _beam_kw(self, beam) -> dict:
+        """The predict's beam arguments for a tile's beam tables ({}
+        without -B); the rows' stations go with them."""
+        if beam is None:
+            return {}
+        return dict(beam=beam, dobeam=self.dobeam, tslot=self.tslot)
+
     def stage(self, tile: ds.VisTile) -> dict:
-        """Host tile -> device tensors for the solve and the residual."""
-        x8_np, rowflags = tile.solve_input()
+        """Host tile -> device tensors for the solve and the residual
+        (the beam tables too under -B). The solve input goes through the
+        tile packer when the tile has per-channel flags or a taper is
+        set (``VisTile.solve_input``)."""
+        x8_np, rowflags = tile.solve_input(uvtaper_m=self.cfg.uvtaper)
         u, v, w = self._t(tile.u), self._t(tile.v), self._t(tile.w)
         flags = rp.uvcut_flags(self._t(rowflags, torch.int32), u, v,
                                self._t(tile.freqs), self.cfg.uvmin,
@@ -190,7 +263,8 @@ class FullBatchPipeline:
         return dict(u=u, v=v, w=w, x8=x8, flags=flags,
                     wt=lm_mod.make_weights(flags, self.sdt),
                     sta1=self._t(tile.sta1, torch.long),
-                    sta2=self._t(tile.sta2, torch.long))
+                    sta2=self._t(tile.sta2, torch.long),
+                    beam=self._tile_beam(tile))
 
     def solve(self, stg: dict, J0: np.ndarray, tile_idx: int, boost: int,
               warm: bool = False):
@@ -200,7 +274,9 @@ class FullBatchPipeline:
         numpy, info)."""
         meta = self.meta
         coh = rp.coherencies(self.dsky, stg["u"], stg["v"], stg["w"],
-                             [meta["freq0"]], meta["fdelta"])[:, :, 0]
+                             [meta["freq0"]], meta["fdelta"],
+                             sta1=stg["sta1"], sta2=stg["sta2"],
+                             **self._beam_kw(stg["beam"]))[:, :, 0]
         cdt = devmod.complex_dtype(self.rdt)
         J0t = torch.as_tensor(J0, device=self.device).to(cdt)
         scfg = self.base_cfg._replace(
@@ -216,11 +292,15 @@ class FullBatchPipeline:
         of the JAX package): each tile's solve coherencies, then
         ``sage.sagefit_host_tiles`` with every tile warm-started from
         ``J0`` (the batch's warm start), its sequential seed, no boost and
-        no cold first-sweep group width. Returns (J [T] numpy, info)."""
+        no cold first-sweep group width; under -B each tile predicts with
+        its own beam tables (its gmst track: the JAX package's stacked
+        ``beamT``). Returns (J [T] numpy, info)."""
         meta = self.meta
         coh = torch.stack([
             rp.coherencies(self.dsky, s["u"], s["v"], s["w"],
-                           [meta["freq0"]], meta["fdelta"])[:, :, 0]
+                           [meta["freq0"]], meta["fdelta"],
+                           sta1=s["sta1"], sta2=s["sta2"],
+                           **self._beam_kw(s["beam"]))[:, :, 0]
             for s in stgs])
         cdt = devmod.complex_dtype(self.rdt)
         J0t = torch.as_tensor(J0, device=self.device).to(cdt)
@@ -251,7 +331,8 @@ class FullBatchPipeline:
             stg["u"], stg["v"], stg["w"], meta["freqs"],
             meta["fdelta"] / len(meta["freqs"]), stg["sta1"], stg["sta2"],
             self.cidx, self.sub_mask, correct_idx=self.correct_idx,
-            rho=self.cfg.mmse_rho, phase_only=self.cfg.phase_only)
+            rho=self.cfg.mmse_rho, phase_only=self.cfg.phase_only,
+            **self._beam_kw(stg["beam"]))
         return utils.r2c(rr.residual_writeback(res, self.sdt).to(
             "cpu", torch.float64).numpy()).astype(np.complex128)
 
@@ -262,11 +343,9 @@ class FullBatchPipeline:
         joint fit (``sage.bfgsfit``, ``-l`` iterations, the Student's-t
         cost at nu = ``-L`` in the robust modes), each warm-started from
         the same joint solution ``J0``. A channel's data has its flagged
-        rows zeroed (they weigh nothing in its solve, and their written
-        residual is minus the model); under ``-W 1`` it is whitened at
-        ``freq0``. (Per-channel flags, which
-        the JAX package also zeroes here, stop at ``VisTile.solve_input``
-        until the native tile packing is ported: ROADMAP queue A item 7.)
+        rows and the rows its per-channel flags mark zeroed, and those
+        rows weigh nothing in its solve (their written residual is minus
+        the model); under ``-W 1`` it is whitened at ``freq0``.
 
         One coherency call of all F channels (per-channel flux, the
         channel bandwidth) serves every channel's solve and residual:
@@ -285,7 +364,8 @@ class FullBatchPipeline:
         fdelta_chan = meta["fdelta"] / len(meta["freqs"])
         coh = rp.coherencies(self.dsky, stg["u"], stg["v"], stg["w"],
                              meta["freqs"], fdelta_chan,
-                             per_channel_flux=True)
+                             per_channel_flux=True, sta1=stg["sta1"],
+                             sta2=stg["sta2"], **self._beam_kw(stg["beam"]))
         cdt = devmod.complex_dtype(self.rdt)
         J0t = torch.as_tensor(J0, device=self.device).to(cdt)
         scfg = self.base_cfg._replace(max_lbfgs=self.cfg.max_lbfgs)
@@ -306,14 +386,19 @@ class FullBatchPipeline:
         J, chans, res = None, [], []
         for f in range(F):
             xc = np.array(tile.x[:, f])
-            xc[bad] = 0.0
+            bad_f = bad if tile.cflags is None else \
+                bad | (tile.cflags[:, f] != 0)
+            xc[bad_f] = 0.0
             x8 = self._t(utils.vis_to_x8(xc))
             if self.cfg.whiten:
                 x8 = rb.whiten_data(x8, stg["u"], stg["v"], meta["freq0"])
-            # the row weights already exclude the flagged rows
+            # the row weights exclude the flagged rows; a channel's
+            # flagged rows weigh nothing in its solve
+            wt = stg["wt"] if tile.cflags is None else \
+                stg["wt"] * self._t(~bad_f, stg["wt"].dtype)[:, None]
             J, info = sage.bfgsfit(x8, coh[:, :, f].contiguous(),
                                    stg["sta1"], stg["sta2"], self.cidx, J0t,
-                                   self.n, stg["wt"], config=scfg,
+                                   self.n, wt, config=scfg,
                                    nu=self.cfg.robust_nulow)
             chans.append(info)
             if write_residuals:
@@ -361,7 +446,8 @@ class FullBatchPipeline:
                 meta["freqs"], meta["fdelta"] / len(meta["freqs"]),
                 self._t(tile.sta1, torch.long),
                 self._t(tile.sta2, torch.long), mode=int(cfg.simulation),
-                J=J, chunk_idx=self.cidx, ignore_mask=ignore_mask)
+                J=J, chunk_idx=self.cidx, ignore_mask=ignore_mask,
+                **self._beam_kw(self._tile_beam(tile)))
             tile.x = out.cpu().numpy().astype(np.complex128)
             ms.write_tile(ti, tile)
             log(f"Timeslot: {ti} simulated (mode={int(cfg.simulation)})")
@@ -410,19 +496,69 @@ class FullBatchPipeline:
         order, as on the sequential path. A batch's solve launches and
         XLA solves are counted on its first tile's record, and every
         record of a batch carries the batch's ``batch`` entry (its tiles,
-        EM, refine and solve seconds)."""
+        EM, refine and solve seconds).
+
+        The tile-by-tile loop checkpoints every tile boundary beside the
+        solutions file (``TileStepper`` of the JAX package): after the
+        tile's solution and residual writes, the sidecar
+        (``sol.checkpoint_path``) holds the warm-start J in full
+        precision, ``first``, ``res_prev``, the in-flight width (a
+        sticky downgrade) and the solutions file's byte length; a clean
+        end removes it. With ``--resume`` the run truncates the solutions
+        file back to that length (refusing a shorter file), restores the
+        state and skips the completed tiles; the tile draws depend only
+        on the tile index (``solve``'s seed), so the resumed run is the
+        uninterrupted one. The ``--tile-batch`` loop's warm start is
+        batch-granular: it writes no checkpoint and starts fresh."""
         log = self.log if log is None else log
         ms, sky, meta = self.ms, self.sky, self.meta
         n_tiles = ms.n_tiles if not max_tiles else min(ms.n_tiles,
                                                        int(max_tiles))
+        pinit = self.initial_jones()
+        state = {"J": pinit.copy(), "first": True, "res_prev": None}
+        ckpt_meta = dict(n_tiles=int(n_tiles), n_stations=int(self.n),
+                         n_clusters=int(sky.n_clusters), kmax=int(self.kmax),
+                         tilesz=int(meta["tilesz"]))
+        ckpt_path = sol.checkpoint_path(solution_path) \
+            if solution_path and self.tile_batch == 1 else None
+        ck = None
+        if self.cfg.resume and self.tile_batch > 1:
+            log("resume: unsupported on the --tile-batch driver; "
+                "starting fresh")
+        elif self.cfg.resume and ckpt_path is None:
+            log("resume: no solutions file -> no checkpoint; starting "
+                "fresh")
+        elif self.cfg.resume:
+            ck = sol.load_checkpoint(ckpt_path, expect_meta=ckpt_meta)
+            if ck is None:
+                log("resume: no checkpoint found; starting fresh")
         writer = None
-        if solution_path:
+        if solution_path and ck is not None:
+            # a kill can fall between a solution write and its
+            # checkpoint: back to the checkpointed byte length, then append
+            size = os.path.getsize(solution_path)
+            if size < ck["sol_bytes"]:
+                raise ValueError(
+                    f"resume: {solution_path!r} is shorter ({size} B) "
+                    f"than its checkpoint watermark ({ck['sol_bytes']} B); "
+                    "refusing to resume from inconsistent state")
+            with open(solution_path, "r+") as f:
+                f.truncate(ck["sol_bytes"])
+            writer = sol.SolutionWriter.open_resume(solution_path, self.n)
+        elif solution_path:
             writer = sol.SolutionWriter(
                 solution_path, meta["freq0"], meta["fdelta"],
                 meta["tilesz"] * meta["tdelta"] / 60.0, self.n,
                 sky.n_clusters, sky.n_eff_clusters)
-        pinit = self.initial_jones()
-        state = {"J": pinit.copy(), "first": True, "res_prev": None}
+        start = 0
+        if ck is not None:
+            start = ck["tile"] + 1
+            state.update(J=ck["J"], first=ck["first"],
+                         res_prev=ck["res_prev"])
+            if ck["inflight"] < self.base_cfg.inflight:
+                self._inflight_downgrade(log)
+            log(f"resume: checkpoint at tile {ck['tile']}; skipping "
+                f"{start}/{n_tiles} completed tiles")
         history = []
 
         def post(item, Jnew, info, t, launches, secs, batch=None):
@@ -494,6 +630,13 @@ class FullBatchPipeline:
                                          "rejected_groups", "mean_nu",
                                          "launches", "xla_solves", "batch",
                                          "channels", *secs)}))
+            if writer and ckpt_path:
+                # this tile boundary, after its writes
+                sol.save_checkpoint(
+                    ckpt_path, tile=ti, J=state["J"].copy(),
+                    first=state["first"], res_prev=state["res_prev"],
+                    inflight=int(self.base_cfg.inflight),
+                    sol_bytes=writer.f.tell(), meta=ckpt_meta)
 
         def solo(item, boosted: bool):
             c0 = _counters()
@@ -532,7 +675,7 @@ class FullBatchPipeline:
 
         pending = []
         try:
-            for ti in range(n_tiles):
+            for ti in range(start, n_tiles):
                 t0 = time.time()
                 if self.cfg.verbose:
                     log(f"tile {ti}: solver route: {self.route}")
@@ -550,6 +693,8 @@ class FullBatchPipeline:
         finally:
             if writer:
                 writer.close()
+        if ckpt_path and os.path.exists(ckpt_path):
+            os.remove(ckpt_path)      # a clean end
         return history
 
 
@@ -566,7 +711,8 @@ def run(cfg: RunConfig, device=None, log=print):
     CUDA, raising without a card)."""
     check_supported(cfg)
     dev = devmod.resolve(device)
-    ms = ds.open_dataset(cfg.ms, cfg.ms_list, data_column=cfg.input_column,
+    ms = ds.open_dataset(cfg.ms, cfg.ms_list, tilesz=cfg.tile_size,
+                         data_column=cfg.input_column,
                          out_column=cfg.output_column)
     meta = ms.meta
     sky = skymodel.read_sky_cluster(cfg.sky_model, cfg.cluster_file,
@@ -575,5 +721,10 @@ def run(cfg: RunConfig, device=None, log=print):
     pipe = FullBatchPipeline(cfg, ms, sky, device=dev, log=log)
     if cfg.simulation != SimulationMode.OFF:
         return pipe.run_simulation(log=log)
-    return pipe.run(solution_path=cfg.solutions_file,
+    packs = native.PACKS
+    hist = pipe.run(solution_path=cfg.solutions_file,
                     max_tiles=cfg.max_timeslots or None, log=log)
+    if native.PACKS > packs:
+        log(f"tile packer: native ({native.LIB_PATH}), "
+            f"{native.PACKS - packs} tiles")
+    return hist

@@ -12,6 +12,11 @@ envelopes in ``rime/envelopes.py``) on a compact repack of the rest
 (:func:`coherencies_split`). The split is made on the host, once per sky
 (:func:`split_sky`), on the card and on the CPU alike: on the CPU the
 kernel half runs through the kernel's plain version.
+
+With the station beam (``beam``, a ``rime.beam.BeamArrays``, and
+``dobeam`` 1, 2 or 3) every source goes through the generic predict with
+the beam tables (``rime.beam.cluster_beam``), never the coherency
+kernel, as the JAX package turns its Pallas kernel off under ``-B``.
 """
 
 from __future__ import annotations
@@ -128,13 +133,22 @@ def split_arrays(sky: SkyArrays) -> SplitSky:
 
 def _cluster_coherency(csky: SkyArrays, u, v, w, freqs, fdelta,
                        per_channel_flux: bool, n0max: int,
-                       with_shapelets: bool):
+                       with_shapelets: bool, af=None, E=None, tslot=None,
+                       sta1=None, sta2=None):
     """Coherencies of one cluster, [B, F, 2, 2] complex: ``csky`` a
     SkyArrays row ([S] tensors), u, v, w [B] seconds, ``freqs`` the host
     channel list. One channel at a time (the JAX package's ``vmap``), so
     the peak is one channel's [B, S] grid (the shapelet's [B, S, n0max,
-    n0max] in row blocks, ``envelopes.shapelet``)."""
+    n0max] in row blocks, ``envelopes.shapelet``).
+
+    The beam (predict_withbeam.c:139-187): ``af`` [F, S, T, N] scales
+    each source by af_p af_q, ``E`` [S, T, N, 2, 2] sandwiches its
+    brightness as E_p B E_q^H; ``tslot``, ``sta1``, ``sta2`` [B] map the
+    rows to (time, antennas)."""
     cdtype = devmod.complex_dtype(u.dtype)
+    if E is not None:
+        Et = E.permute(1, 2, 0, 3, 4)                   # [T, N, S, 2, 2]
+        E1, E2 = Et[tslot, sta1], Et[tslot, sta2]       # [B, S, 2, 2]
     # G [B, S]: the frequency-independent phase term (seconds)
     G = 2.0 * np.pi * (u[:, None] * csky.ll[None, :]
                        + v[:, None] * csky.mm[None, :]
@@ -152,7 +166,7 @@ def _cluster_coherency(csky: SkyArrays, u, v, w, freqs, fdelta,
         "stype", "eX", "eY", "eP", "cxi", "sxi", "cphi", "sphi",
         "use_projection", "sh_beta", "sh_n0")}
     out = []
-    for freq in np.atleast_1d(np.asarray(freqs, np.float64)):
+    for fi, freq in enumerate(np.atleast_1d(np.asarray(freqs, np.float64))):
         freq = float(freq)
         phase = G * freq
         phasor = torch.complex(torch.cos(phase), torch.sin(phase)) * smear
@@ -162,6 +176,10 @@ def _cluster_coherency(csky: SkyArrays, u, v, w, freqs, fdelta,
             src["eP"], src["cxi"], src["sxi"], src["cphi"], src["sphi"],
             src["use_projection"], src["sh_beta"], csky.sh_modes[None],
             src["sh_n0"], n0max, with_shapelets)
+        if af is not None:
+            aft = af[fi].permute(1, 2, 0)               # [T, N, S]
+            phasor = phasor * (aft[tslot, sta1] * aft[tslot, sta2]).to(
+                cdtype)
         if per_channel_flux:
             f = torch.as_tensor(freq, dtype=u.dtype, device=u.device)
             args = (csky.spec_idx, csky.spec_idx1, csky.spec_idx2, csky.f0,
@@ -173,6 +191,14 @@ def _cluster_coherency(csky: SkyArrays, u, v, w, freqs, fdelta,
         else:
             c00, c01, c10, c11 = b00, b01, b10, b11
         phasor = torch.where(live, phasor, torch.zeros_like(phasor))
+        if E is not None:
+            # the element beam: a 2x2 sandwich a source, then the sum
+            Bm = torch.stack([torch.stack([c00, c01], -1),
+                              torch.stack([c10, c11], -1)], -2)
+            Bm = phasor[..., None, None] * Bm[None]     # [B, S, 2, 2]
+            out.append(utils.mul22(utils.mul22(E1, Bm), E2,
+                                   conj_b=True).sum(dim=1))
+            continue
         xx = torch.sum(phasor * c00[None, :], dim=1)
         xy = torch.sum(phasor * c01[None, :], dim=1)
         yx = torch.sum(phasor * c10[None, :], dim=1)
@@ -184,19 +210,31 @@ def _cluster_coherency(csky: SkyArrays, u, v, w, freqs, fdelta,
 
 def coherencies_generic(sky: SkyArrays, u, v, w, freqs, fdelta,
                         per_channel_flux: bool = False,
-                        with_shapelets: bool | None = None):
+                        with_shapelets: bool | None = None, beam=None,
+                        dobeam: int = 0, tslot=None, sta1=None, sta2=None):
     """All-cluster coherencies [M, B, F, 2, 2] of any sky, eagerly (the
-    JAX package's generic ``coherencies``, without the beam: ``-B`` is
-    ROADMAP queue A item 7). One cluster at a time (its ``lax.map``);
-    ``n0max`` comes from the mode grid's width and ``with_shapelets``,
-    when not given, from one host read of ``sh_n0``."""
+    JAX package's generic ``coherencies``). One cluster at a time (its
+    ``lax.map``); ``n0max`` comes from the mode grid's width and
+    ``with_shapelets``, when not given, from one host read of ``sh_n0``.
+    With ``beam`` and ``dobeam``, each cluster's beam tables
+    (``rime.beam.cluster_beam``) enter its source sum, gathered by
+    ``tslot``, ``sta1`` and ``sta2`` [B]."""
+    from sagecal_tpu_torch.rime import beam as beam_mod
     if with_shapelets is None:
         with_shapelets = bool((sky.sh_n0 > 0).any())
     n0max = int(round(np.sqrt(sky.sh_modes.shape[-1])))
-    return torch.stack([
-        _cluster_coherency(SkyArrays(*(f[m] for f in sky)), u, v, w, freqs,
-                           fdelta, per_channel_flux, n0max, with_shapelets)
-        for m in range(sky.ll.shape[0])])
+    out = []
+    for m in range(sky.ll.shape[0]):
+        csky = SkyArrays(*(f[m] for f in sky))
+        bkw = {}
+        if beam is not None and dobeam:
+            af, E = beam_mod.cluster_beam(beam, csky.ra, csky.dec, freqs,
+                                          dobeam)
+            bkw = dict(af=af, E=E, tslot=tslot, sta1=sta1, sta2=sta2)
+        out.append(_cluster_coherency(csky, u, v, w, freqs, fdelta,
+                                      per_channel_flux, n0max,
+                                      with_shapelets, **bkw))
+    return torch.stack(out)
 
 
 def coherencies_split(sky_pg, sky_rest, u, v, w, freqs, fdelta,
@@ -218,14 +256,32 @@ def coherencies_split(sky_pg, sky_rest, u, v, w, freqs, fdelta,
     return out
 
 
-def coherencies(sky, u, v, w, freqs, fdelta, per_channel_flux: bool = False):
+def coherencies(sky, u, v, w, freqs, fdelta, per_channel_flux: bool = False,
+                beam=None, dobeam: int = 0, tslot=None, sta1=None,
+                sta2=None):
     """All-cluster coherencies [M, B, F, 2, 2] complex (no Jones), through
     the split (:func:`coherencies_split`).
 
     ``sky`` is a :class:`SplitSky` (the pipeline splits once) or a
     SkyArrays, which is split here (:func:`split_arrays`). ``freqs`` is
     the host's channel list (``ops/coh.py:coherencies`` uploads it);
-    ``fdelta`` the smearing bandwidth per channel."""
+    ``fdelta`` the smearing bandwidth per channel.
+
+    With ``beam`` and ``dobeam`` (``coherencies(beam=...)`` of the JAX
+    package, predict_withbeam.c:522/:690) the whole sky takes the
+    generic route with the beam tables (:func:`coherencies_generic`;
+    both halves of a SplitSky, added), and no coherency kernel runs."""
+    if beam is not None and dobeam:
+        halves = [sky] if isinstance(sky, SkyArrays) else \
+            [h for h in (sky.pg, sky.rest) if h is not None]
+        out = None
+        for h in halves:
+            c = coherencies_generic(h, u, v, w, freqs, fdelta,
+                                    per_channel_flux=per_channel_flux,
+                                    beam=beam, dobeam=dobeam, tslot=tslot,
+                                    sta1=sta1, sta2=sta2)
+            out = c if out is None else out + c
+        return out
     if not isinstance(sky, SplitSky):
         sky = split_arrays(sky)
     return coherencies_split(sky.pg, sky.rest, u, v, w, freqs, fdelta,
@@ -297,3 +353,20 @@ def predict_model(coh, J, sta1, sta2, chunk_idx, cluster_mask=None):
             continue
         out += apply_jones(coh[m], J[m], sta1, sta2, chunk_idx[m])
     return out
+
+
+def predict_visibilities(sky, u, v, w, freqs, fdelta,
+                         per_channel_flux: bool = True, cluster_mask=None,
+                         beam=None, dobeam: int = 0, tslot=None, sta1=None,
+                         sta2=None):
+    """Uncorrupted model visibilities summed over clusters [B, F, 2, 2]
+    (predict.c:417; with the beam predict_withbeam.c:1155);
+    ``cluster_mask`` [M] True keeps a cluster."""
+    coh = coherencies(sky, u, v, w, freqs, fdelta,
+                      per_channel_flux=per_channel_flux, beam=beam,
+                      dobeam=dobeam, tslot=tslot, sta1=sta1, sta2=sta2)
+    if cluster_mask is not None:
+        keep = torch.as_tensor(np.asarray(cluster_mask), device=coh.device)
+        coh = torch.where(keep[:, None, None, None, None], coh,
+                          torch.zeros_like(coh))
+    return coh.sum(dim=0)

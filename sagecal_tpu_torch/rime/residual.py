@@ -8,7 +8,9 @@ MMSE-regularized correction by one cluster's solutions (``-k``), with
 chunk); and the simulation modes ``-a 1/2/3`` (replace, add, subtract the
 model, optionally corrupted by solutions, without the clusters of a
 ``-z`` ignore list). The coherencies come from ``rime.predict.coherencies``
-(the coherency kernel on the point/gaussian half of the sky on the card).
+(the coherency kernel on the point/gaussian half of the sky on the card;
+with the station beam, ``beam`` and ``dobeam``, the generic predict with
+the beam tables).
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ def calculate_residuals_multifreq(sky, J, x, u, v, w, freqs,
                                   fdelta_chan, sta1, sta2, chunk_idx,
                                   subtract_mask, correct_idx=None,
                                   rho: float = 1e-9,
-                                  phase_only: bool = False):
+                                  phase_only: bool = False, beam=None,
+                                  dobeam: int = 0, tslot=None):
     """Residual x - sum_m J_p C_m(f) J_q^H over subtractable clusters.
 
     x [B, F, 2, 2]; J [M, Kmax, N, 2, 2]; chunk_idx [M, B];
@@ -84,9 +87,12 @@ def calculate_residuals_multifreq(sky, J, x, u, v, w, freqs,
     cluster whose solutions correct the residual (by their phases alone
     with ``phase_only``); ``sky`` a ``rime.predict.SplitSky`` (or a
     SkyArrays, split per call) and ``freqs`` the host's channel list
-    (``rime.predict.coherencies``)."""
+    (``rime.predict.coherencies``). With ``beam``/``dobeam`` and the
+    rows' timeslots ``tslot`` this is
+    calculate_residuals_multifreq_withbeam (predict_withbeam.c:1895)."""
     coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
-                         per_channel_flux=True)
+                         per_channel_flux=True, beam=beam, dobeam=dobeam,
+                         tslot=tslot, sta1=sta1, sta2=sta2)
     return residual_from_coherencies(coh, J, x, sta1, sta2, chunk_idx,
                                      subtract_mask, correct_idx, rho,
                                      phase_only)
@@ -94,7 +100,8 @@ def calculate_residuals_multifreq(sky, J, x, u, v, w, freqs,
 
 def simulate_visibilities(sky, x, u, v, w, freqs, fdelta_chan, sta1, sta2,
                           mode: int, J=None, chunk_idx=None,
-                          ignore_mask=None):
+                          ignore_mask=None, beam=None, dobeam: int = 0,
+                          tslot=None):
     """Simulation modes ``-a 1/2/3`` (``residual.simulate_visibilities``;
     residual.c:1242, :1601): the model replaces (1), is added to (2) or
     subtracted from (3) x [B, F, 2, 2].
@@ -103,9 +110,11 @@ def simulate_visibilities(sky, x, u, v, w, freqs, fdelta_chan, sta1, sta2,
     chunk map ``chunk_idx`` [M, B]; ``ignore_mask`` [M] True keeps a
     cluster in the model (the ``-z`` list names clusters to leave out).
     The JAX function's ``correct_idx`` is left out: its pipeline never
-    passes it."""
+    passes it. ``beam``/``dobeam``/``tslot``: the model through the
+    station beam (Radio.h:400-446)."""
     coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
-                         per_channel_flux=True)
+                         per_channel_flux=True, beam=beam, dobeam=dobeam,
+                         tslot=tslot, sta1=sta1, sta2=sta2)
     M = coh.shape[0]
     mask = [True] * M if ignore_mask is None else \
         [bool(k) for k in ignore_mask]

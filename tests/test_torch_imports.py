@@ -26,7 +26,8 @@ def test_every_module_imports_without_jax():
     every port module and chip_smoke.py import."""
     mods = _modules()
     for m in ("ops.sweep", "solvers.robust", "solvers.rtr",
-              "rime.envelopes", "solvers.normal_eq", "stochastic"):
+              "rime.envelopes", "solvers.normal_eq", "stochastic",
+              "coords", "rime.beam", "io.native"):
         assert "sagecal_tpu_torch." + m in mods
     code = (
         "import sys\n"

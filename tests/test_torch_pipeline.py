@@ -300,10 +300,10 @@ def test_mode_runs_use_their_solvers(mode_runs):
                and all(len(g[1]) == 2 for g in h["groups"]) for h in t)
 
 
-@pytest.mark.parametrize("extra", [["--resume"], ["-N", "2", "-A", "2", "-w",
-                                                  "2"],
-                                   ["-B", "1"], ["--tile-bucket", "8"],
-                                   ["-f", "x.list"],
+@pytest.mark.parametrize("extra", [["-r", "3"], ["-N", "2", "-A", "2", "-w",
+                                                "2"],
+                                   ["-Q", "1"], ["--tile-bucket", "8"],
+                                   ["--cpu-devices", "2"],
                                    ["--faults", "x"], ["-P", "3"],
                                    ["--diag", "x.jsonl"],
                                    ["--prefetch", "0"]])

@@ -24,7 +24,12 @@ per batch (every tile replayed by a solo solve from the batch's J0, and
 a short tail solo from its predecessor); ``--tile-batch 0`` and ``-1``
 run tile by tile, as in the JAX CLI; a divergence reset inside a batch
 is applied in order and re-arms the boost for the next tile; the
-batch's launches count once."""
+batch's launches count once.
+
+The CLI runs are split by family so that their solves spread over
+workers: this file runs ``-j 1`` and ``-j 5 --inner cg`` (and the port
+alone); test_torch_pipeline_tiles_routes.py the groups, the XLA assembly
+and ``--jones diag``, with the helpers here."""
 
 import math
 import shutil
@@ -101,20 +106,22 @@ def _port_run(tmp, name, flags, sky="sky.txt", clus="sky.txt.cluster",
     return hist, pipe
 
 
-@pytest.fixture(scope="module")
-def tiles_runs(tmp_path_factory):
-    """Both CLIs per RUNS entry on fresh copies of its SimMS: tag ->
-    (JAX history, port history)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    tmp = tmp_path_factory.mktemp("torch_pipeline_tiles")
+#: this file's CLI runs
+TAGS = ("cg", "j1")
+
+
+def make_tiles_runs(tmp_path_factory, name, tags):
+    """Both CLIs per RUNS entry of ``tags`` on fresh copies of its SimMS:
+    (tmp, tag -> (JAX history, port history))."""
+    tmp = tmp_path_factory.mktemp(name)
     for name, text in (("sky.txt", SKY), ("sky.txt.cluster", CLUSTER),
                        ("sky8.txt", SKY8), ("sky8.txt.cluster", CLUSTER8)):
         (tmp / name).write_text(text)
     _simulate(tmp, "sky.txt", "sky.txt.cluster", "pristine.ms", 2)
     _simulate(tmp, "sky8.txt", "sky8.txt.cluster", "pristine8.ms", 4)
     out = {}
-    for tag, (flags, sky, clus, pristine) in RUNS.items():
+    for tag in tags:
+        flags, sky, clus, pristine = RUNS[tag]
         common = ["-s", str(tmp / sky), "-c", str(tmp / clus)] + COMMON
         shutil.copytree(tmp / pristine, tmp / f"{tag}_jax.ms")
         jargs = cli.build_parser().parse_args(
@@ -125,7 +132,14 @@ def tiles_runs(tmp_path_factory):
         thist, _ = _port_run(tmp, f"{tag}_torch", COMMON + flags, sky, clus,
                              pristine)
         out[tag] = (jhist, thist)
-    yield tmp, out
+    return tmp, out
+
+
+@pytest.fixture(scope="module")
+def tiles_runs(tmp_path_factory):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield make_tiles_runs(tmp_path_factory, "torch_pipeline_tiles", TAGS)
     torch.set_num_threads(n)
 
 
@@ -134,9 +148,8 @@ def _solutions(tmp, name, clus, reader):
     return reader(str(tmp / f"{name}.sol"), nchunk)[1]
 
 
-@pytest.mark.parametrize("tag", sorted(RUNS))
-@pytest.mark.parametrize("key", ["res_0", "res_1"])
-def test_tiles_residual_norms_match(tiles_runs, tag, key):
+def check_residual_norms(tiles_runs, tag, key):
+    """Per-tile res_0/res_1 rtol 1e-8 with nu equal."""
     j, t = tiles_runs[1][tag]
     assert len(j) == len(t) == N_TILES
     np.testing.assert_allclose([h[key] for h in t], [h[key] for h in j],
@@ -144,8 +157,9 @@ def test_tiles_residual_norms_match(tiles_runs, tag, key):
     assert [h["mean_nu"] for h in t] == [h["mean_nu"] for h in j]
 
 
-@pytest.mark.parametrize("tag", sorted(RUNS))
-def test_tiles_solutions_and_column_match(tiles_runs, tag):
+def check_solutions_and_column(tiles_runs, tag):
+    """Solutions atol 1e-6, the written column 1e-7 of the data's largest
+    magnitude."""
     tmp = tiles_runs[0]
     clus, pristine = RUNS[tag][2], RUNS[tag][3]
     jb = _solutions(tmp, f"{tag}_jax", clus, sol.read_solutions)
@@ -163,8 +177,7 @@ def test_tiles_solutions_and_column_match(tiles_runs, tag):
                                    atol=1e-7 * scale)
 
 
-@pytest.mark.parametrize("tag", sorted(RUNS))
-def test_tiles_runs_batch_after_the_solo_tile(tiles_runs, tag):
+def check_batches(tiles_runs, tag):
     """Tile 0 solo, then two batches of 2; residuals fall on every tile;
     the CPU run launches no kernel; the XLA run counts its XLA solves
     once a batch (on the batch's first tile), the others none; the diag
@@ -184,6 +197,22 @@ def test_tiles_runs_batch_after_the_solo_tile(tiles_runs, tag):
         for J in _solutions(tmp, "diag_torch", RUNS[tag][2],
                             tsol.read_solutions):
             assert not J[..., 0, 1].any() and not J[..., 1, 0].any()
+
+
+@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("key", ["res_0", "res_1"])
+def test_tiles_residual_norms_match(tiles_runs, tag, key):
+    check_residual_norms(tiles_runs, tag, key)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tiles_solutions_and_column_match(tiles_runs, tag):
+    check_solutions_and_column(tiles_runs, tag)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tiles_runs_batch_after_the_solo_tile(tiles_runs, tag):
+    check_batches(tiles_runs, tag)
 
 
 @pytest.fixture(scope="module")

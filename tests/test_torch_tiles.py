@@ -21,7 +21,16 @@ and trip counts equal.
 The port against itself: every tile of a batch is the solo
 ``sagefit_host`` of that tile with the same seed (OS draws and orders
 from the seed, per-tile caps) to 1e-10; ``sagefit_host`` is T = 1 bit
-for bit; ``tile_seeds`` keeps tile 0 on the single-tile default."""
+for bit; ``tile_seeds`` keeps tile 0 on the single-tile default.
+
+The reference cases are split by family, one file each, so that the
+files' solves spread over workers: this file holds the LM family (LM,
+robust LM, OS robust LM) and the port-only checks;
+test_torch_tiles_rtr.py the RTR family, test_torch_tiles_routes.py the
+XLA assembly and the constrained Jones modes,
+test_torch_tiles_inflight.py the in-flight groups and
+test_torch_tiles_random.py the ``randomize`` cases, each with the
+helpers here."""
 
 import numpy as np
 import jax
@@ -177,8 +186,13 @@ def runs():
     return _Runs()
 
 
-@pytest.mark.parametrize("tag", [c[0] for c in CASES])
-def test_sagefit_host_tiles_matches_reference(runs, tag):
+#: the LM family: this file's reference cases
+TAGS = ("lm", "lm_cg_t3", "rlm", "oslm_cg")
+
+
+def check_pair(runs, tag):
+    """The gates of one reference case (J atol 1e-6, res_0/res_1 rtol
+    1e-8, per-tile mean nu and trip counts equal)."""
     (J, info), (tJ, tinfo) = runs[tag]
     T = J.shape[0]
     assert tJ.shape == J.shape
@@ -197,25 +211,32 @@ def test_sagefit_host_tiles_matches_reference(runs, tag):
     assert all(tinfo["res_1"] < tinfo["res_0"].numpy())
 
 
+def check_tcg_and_nu(runs, tag):
+    """A robust RTR case under PCG: tCG products on every tile, robust
+    nu off its start."""
+    assert (runs[tag][1][1]["tcg_iters"] > 0).all()
+    assert (runs[tag][1][1]["mean_nu"] != 2.0).all()
+
+
+def check_groups_of_two(runs, tag):
+    """An in-flight case: groups of 2 in every sweep of every tile."""
+    groups = runs[tag][1][1]["groups"]
+    assert all(len(g) == 8 and all(len(r[1]) == 2 for r in g)
+               for g in groups)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_sagefit_host_tiles_matches_reference(runs, tag):
+    check_pair(runs, tag)
+
+
 def test_cases_reach_their_routes(runs):
-    """The cases exercise what they name: per-tile caps that differ on
-    the weighted sweeps, PCG trips, tCG products per tile, groups of 2
-    in every tile, robust nu off its start, constrained solutions."""
+    """The cases exercise what they name: PCG trips on every tile of the
+    3-tile LM batch (the other families check theirs in their files:
+    tCG products per tile, groups of 2 in every tile, robust nu off its
+    start, constrained solutions, per-tile caps on weighted sweeps)."""
     lm = runs["lm_cg_t3"][1][1]
     assert (lm["cg_iters"] > 0).all() and len(lm["res_1"]) == 3
-    for tag in ("rrtr_cg", "rrtr_cg_inflight", "rrtr_cg_xla"):
-        assert (runs[tag][1][1]["tcg_iters"] > 0).all()
-        assert (runs[tag][1][1]["mean_nu"] != 2.0).all()
-    for tag in ("lm_inflight", "rrtr_cg_inflight"):
-        groups = runs[tag][1][1]["groups"]
-        assert all(len(g) == 8 and all(len(r[1]) == 2 for r in g)
-                   for g in groups)
-    J = runs["lm_diag"][1][0].numpy()
-    assert not J[..., 0, 1].any() and not J[..., 1, 0].any()
-    # -R 1 on 8 clusters: each tile's weighted sweep caps its visits by
-    # its own cost reductions, so the tiles take different iterations
-    its = runs["lm_random"][1][1]["solver_iters"]
-    assert len(set(its.tolist())) > 1
 
 
 def _port_pair(mode, inner, T=3, randomize=True, inflight=1, M=2):

@@ -1,7 +1,7 @@
 """Spread of chip_smoke's card-against-CPU pipeline parity, on the card.
 
     python3 tools_dev/torch_parity_spread.py [--reps 6] [--tags j1,default]
-        [--deterministic]
+        [--deterministic] [--times N]
 
 Runs chip_smoke.py's ``slice_parity`` configurations (``--tags``, by
 default ``-j 1`` and the default ``-j``; ``j5_cg`` adds a minute of CPU
@@ -14,7 +14,11 @@ in no fixed order, so its runs differ from each other;
 JSON line per configuration with the max relative residual difference
 of every card run against the CPU run, to read against chip_smoke's
 1e-3 gate, and every run's per-tile (res_0, res_1, mean_nu, solver
-iterations, PCG trips, tCG products) and group relaxations.
+iterations, PCG trips, tCG products) and group relaxations. Each
+configuration runs on slice_parity's observation for it (REDUCED_OBS,
+BEAM_OBS, through the run's own ``-B`` beam), or at ``--times``
+timeslots a tile; ``multims`` and ``resume`` (their own inputs) are not
+run here.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=6)
     ap.add_argument("--tags", default="j1,default",
                     help="slice_parity or EXTRA configurations to run")
+    ap.add_argument("--times", type=int, default=0,
+                    help="timeslots a tile (0: slice_parity's)")
     ap.add_argument("--deterministic", action="store_true",
                     help="card runs under "
                          "torch.use_deterministic_algorithms(True)")
@@ -63,11 +69,14 @@ def main() -> int:
             continue
         work = os.path.join(cs.WORK, "spread_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        tilesz, noise = cs.REDUCED_OBS.get(tag, (10, 0.02))
+        tilesz, noise = {**cs.REDUCED_OBS, **cs.BEAM_OBS}.get(tag,
+                                                               (10, 0.02))
+        tilesz = args.times or tilesz
         ms, sky, clus = cs.make_observation(work, n_st, tilesz,
                                             cs.FREQS[:2], len(nchunk), n_src,
                                             nchunk, n_tiles, "cpu", seed=9,
-                                            noise=noise, mixed=mixed)
+                                            noise=noise, mixed=mixed,
+                                            beam=cs._beam_of(flags))
 
         def run(device):
             path = os.path.join(work, f"run_{len(os.listdir(work))}.ms")
