@@ -34,7 +34,7 @@ Skies of every morphology: ``predict_mixed`` holds the split predict
 the shapelet/disk/ring rest) at full width against the generic predict in
 float64 on the card; ``slice_parity`` adds ``xla_default`` (``-j 5
 --kernel xla``, the JAX CLI's default command line, on a mixed sky),
-``xla_cg`` (its ``--inner cg``) and ``kmax5`` (a 5-chunk cluster, no
+``xla_cg`` (its ``--inner cg``) and ``kmax5`` (``-j 1`` on 16 stations, a 5-chunk cluster, no
 ``--kernel`` flag: the XLA fallback); and ``e2e_mixed`` runs ``-j 5
 --kernel xla -e 1`` at full width on the mixed sky (one tile). The XLA-route
 runs must launch no sweep, matvec or visits kernel and count XLA solves;
@@ -108,6 +108,21 @@ a one-tile full-width observation of e2e_rtr's sky and gains simulated
 through the full beam of its stored ``beam.npz``: sweep and matvec
 launched, coh not, with the tile wall and the beam predict's seconds and
 peak device memory.
+Consensus calibration: ``e2e_consensus`` runs the MPI CLI
+(``cli_mpi``) on 4 full-width subbands (one tile each, the 8 channels at
+centres 130-170 MHz, gains smooth in frequency) at ``-A 3 -P 2 -j 1
+--inner cg -e 1`` (coh, sweep and matvec launched, no XLA solve, every
+subband's residual falling; the wall of each ADMM iteration and the
+interval, the dual residuals, peak memory) and
+``e2e_stochastic_consensus`` e2e_stochastic's run at ``-A 3`` on one tile;
+``slice_parity`` adds ``consensus`` (``-j 1 --inner cg -C 1 -G``, 3
+subbands of 16 stations), ``consensus_rtr_inflight`` (``-j 4 --inner cg
+--inflight 2``, 8 clusters: the visits kernel under ADMM) and
+``stochastic_consensus`` (``-N 1 -M 2 -w 2 -A 2 -r 0.5``:
+STOCHASTIC_CONSENSUS, ROADMAP C14): per subband its
+residuals and written column, and the Z file after each block's gauge
+unitary (LM only: CONSENSUS_PARITY), within PARITY_RTOL of the CPU's
+float64 run, every divergence reset and flagged band equal.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -1596,7 +1611,10 @@ def _check_route(tag: str, launches: dict, must, xla: bool,
 #: command line (robust RTR, --inner chol, --kernel xla), ``xla_cg`` its
 #: --inner cg (each tCG product one gn_matvec pass), and ``kmax5`` a
 #: cluster of 5 hybrid chunks with no --kernel flag, which the fused
-#: sweep cannot take: the XLA fallback. Each tuple ends with ``mixed``.
+#: sweep cannot take: the XLA fallback (since PR 15 at 16 stations, -j 1
+#: -g 30, where it ran robust RTR at 41: 26 s of the card's serial runs
+#: and 83 s of CPU went to the consensus runs). Each tuple ends with
+#: ``mixed``.
 #: The constrained Jones modes: ``diag_j1`` (-j 1 --jones diag, the sweep
 #: kernel at md = 2), ``phase_cg`` (-j 5 --inner cg --jones phase: the
 #: sweep and matvec kernels at md = 1) and ``diag_inflight_rtr`` (groups
@@ -1622,7 +1640,8 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                ("xla_cg", 41, (1, 2, 1),
                 ["-j", "5", "--inner", "cg", "--kernel", "xla"], ("coh",),
                 True),
-               ("kmax5", 41, (1, 5, 1), [], ("coh",), False),
+               ("kmax5", 16, (1, 5, 1), ["-j", "1", "-g", "30"], ("coh",),
+                False),
                ("diag_j1", 16, (1, 2, 1), ["-j", "1", "--jones", "diag"],
                 ("coh", "sweep"), False),
                ("phase_cg", 41, (1, 2, 1),
@@ -1713,7 +1732,8 @@ MULTIMS_PARTS = (("sb_a.ms", 0.0), ("sb_b.ms", 0.1))
 #: tiles of a parity run's observation (2 unless named): the batches of
 #: 2 after the solo tile 0
 PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3,
-                "beam_element_tile_batch": 3, "resume": 3}
+                "beam_element_tile_batch": 3, "resume": 3,
+                "consensus_rtr_inflight": 1}
 #: The reduced storage policies (--dtype-policy, against the port's CPU
 #: run at the same policy, which computes in float32 there too):
 #: ``bf16_default`` (the default mode on single-chunk clusters: its OS
@@ -1981,10 +2001,21 @@ def _parity_cpu(job):
 #: tests/test_torch_stochastic_float32.py)
 STOCHASTIC_PARITY = (16, (1, 2) * 4, 20, 8,
                      ["-N", "2", "-M", "2", "-w", "2"])
+#: slice_parity's stochastic consensus run, on STOCHASTIC_PARITY's
+#: observation: 2 ADMM iterations of one epoch, at rho 0.5. At the default
+#: rho (5; the JAX package weighs the consensus term by the clusters' rho
+#: summed, C12) float32 arithmetic alone moves the solutions 3.1e-3 from
+#: float64 in the port (the JAX package 5.1e-3), at -N 2 -A 3 the float32
+#: runs part by 4.3e-2 under a one-ulp flux move; at rho 0.5 float32 lies
+#: 2.3e-4 from float64 (ROADMAP C14, tests/test_torch_stochastic_consensus
+#: _float32.py).
+STOCHASTIC_CONSENSUS = ["-N", "1", "-M", "2", "-w", "2", "-A", "2", "-r",
+                        "0.5"]
 
 
 def _stochastic_run(path: str, sky: str, clus: str, flags, device):
-    """A stochastic run over every tile of ``path`` through the CLI's
+    """A stochastic run (stochastic consensus under -A > 1 with -w > 1,
+    as the CLI routes it) over every tile of ``path`` through the CLI's
     parser, its solutions beside the SimMS: (history, seconds,
     solutions path)."""
     from sagecal_tpu_torch import stochastic
@@ -1993,9 +2024,13 @@ def _stochastic_run(path: str, sky: str, clus: str, flags, device):
     args = build_parser().parse_args(
         ["-d", path, "-s", sky, "-c", clus, "-l", "10", "-m", "7", "-p",
          solpath] + _resolve(flags, path))
+    cfg = config_from_args(args)
+    # the CLI's dispatch: -A > 1 with -w > 1 is stochastic consensus
+    run = stochastic.run_minibatch_consensus \
+        if cfg.n_admm > 1 and cfg.channel_avg_per_band > 1 \
+        else stochastic.run_minibatch
     t0 = time.perf_counter()
-    hist = stochastic.run_minibatch(config_from_args(args), device=device,
-                                    log=lambda *a: None)
+    hist = run(cfg, device=device, log=lambda *a: None)
     return hist, time.perf_counter() - t0, solpath
 
 
@@ -2028,7 +2063,7 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
     on both sides, which then replaces the gates), per-tile res_0/res_1
     and the solutions within PARITY_RTOL; only the coherency kernel
     launched (under the beam, ``beam_*``, no kernel at all: the generic
-    predict)."""
+    predict); under stochastic consensus every flagged band equal."""
     from sagecal_tpu_torch.io import solutions as sol
     (hg, sg, pg, launches), (hc, sc, pc) = card, cpu
     rels = [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(hg, hc)
@@ -2037,6 +2072,8 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
     Jc = np.asarray(sol.read_solutions(pc, nchunk)[1])
     j_rel = float(np.abs(Jg - Jc).max() / np.abs(Jc).max())
     flip = _first_armijo_flip(hg, hc)
+    flagged = {d: [h.get("flagged_bands") for h in hist]
+               for d, hist in (("cuda", hg), ("cpu", hc))}
     rec = dict(tag=tag, cuda=[[h["res_0"], h["res_1"]] for h in hg],
                cpu=[[h["res_0"], h["res_1"]] for h in hc],
                max_rel=max(rels), j_rel=j_rel, launches=launches,
@@ -2046,8 +2083,14 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
                               for band in solve] for h in hist
                              for solve in h["armijo"]]
                          for d, hist in (("cuda", hg), ("cpu", hc))},
-               seconds={"cuda": sg, "cpu": sc}, flip=flip)
+               seconds={"cuda": sg, "cpu": sc}, flip=flip,
+               flagged_bands=flagged,
+               duals={d: [h.get("duals") for h in hist]
+                      for d, hist in (("cuda", hg), ("cpu", hc))})
     emit("slice_parity", **rec)
+    if flagged["cuda"] != flagged["cpu"]:
+        raise AssertionError(f"slice_parity {tag}: the bands flagged out of "
+                             f"the consensus differ: {flagged}")
     beam = tag.startswith("beam")
     if bool(launches["coh"]) == beam \
             or any(launches[k] for k in SOLVE_KERNELS) \
@@ -2069,6 +2112,201 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
         raise AssertionError(f"slice_parity {tag}: residuals did not fall on "
                              "every tile")
     return rec
+
+
+#: slice_parity's consensus runs (the MPI CLI, card against the CPU in
+#: float64 at PARITY_RTOL): (tag, chunks per cluster, solver flags, the
+#: kernels that must launch, whether the Z file is gated). 16 stations, 3
+#: subbands of 2 channels whose centres lie 10 MHz apart
+#: (CONSENSUS_PARITY_CENTRES), tiles of 10 timeslots (2, but 1 for
+#: ``consensus_rtr_inflight``: PARITY_TILES),
+#: CONSENSUS_PARITY_COMMON: ``consensus`` (LM) with the Barzilai-Borwein
+#: rho from a -G file (@rho: rho 2, 3, 4 by cluster);
+#: ``consensus_rtr_inflight`` RTR in groups of 2 of 8 clusters (the visits
+#: kernel under ADMM). That run is RTR (-j 4), not robust RTR (-j 5): on
+#: this observation float32 alone moves -j 5 in groups 2.4e-3 from
+#: float64 (its robust nu grid and the groups' relaxation tests), -j 4
+#: 3.7e-4 (tools_dev/torch_consensus_float32.py, on a CPU; ROADMAP C13).
+#: Its Z file is recorded, not gated: RTR projects the consensus term's
+#: gradient on the gauge's horizontal space, so nothing pins each
+#: subband's gauge and Z carries its drift (float32 alone moves Z 4.7e-3
+#: after the gauge alignment, the one-ulp run 3.6e-4; C13); its residuals
+#: and written columns, which the gauge leaves alone, are gated.
+CONSENSUS_PARITY = (
+    ("consensus", (1, 2, 1),
+     ["-j", "1", "--inner", "cg", "-C", "1", "-G", "@rho"],
+     ("coh", "sweep", "matvec"), True),
+    ("consensus_rtr_inflight", (1, 2, 1, 1, 2, 1, 1, 1),
+     ["-j", "4", "--inner", "cg", "--inflight", "2"],
+     ("coh", "visits", "matvec"), False))
+CONSENSUS_PARITY_CENTRES = 150e6 + np.linspace(-10e6, 10e6, 3)
+CONSENSUS_PARITY_COMMON = ["-A", "3", "-P", "2", "-e", "2", "-g", "10", "-l",
+                           "5", "-R", "0", "-t", "10"]
+
+
+def _consensus_obs(tag: str, nchunk, flags):
+    """A consensus parity run's subbands (:func:`make_subbands`, on the
+    CPU), their ``.cpu`` copies and list, the -G file: (list, sky,
+    cluster, paths, flags with @rho resolved)."""
+    work = os.path.join(WORK, "parity_" + tag)
+    shutil.rmtree(work, ignore_errors=True)
+    lst, sky, clus, paths = make_subbands(
+        work, 16, 10, CONSENSUS_PARITY_CENTRES, FREQS[:2], len(nchunk), 6,
+        nchunk, PARITY_TILES.get(tag, 2), "cpu", seed=9, noise=0.02)
+    rho = os.path.join(work, "rho.txt")
+    with open(rho, "w") as f:
+        f.write("".join(f"{m} 1 {2.0 + m % 3}\n" for m in range(len(nchunk))))
+    for p in paths:
+        shutil.copytree(p, p + ".cpu")
+    with open(lst + ".cpu", "w") as f:
+        f.write("\n".join(p + ".cpu" for p in paths) + "\n")
+    return lst, sky, clus, paths, [rho if f == "@rho" else f
+                                   for f in CONSENSUS_PARITY_COMMON + flags]
+
+
+def z_rel_aligned(Zg, Zc, P: int = 2) -> float:
+    """max|Zg - Zc| / max|Zc| of two Z files' intervals ([T, M, K P, N,
+    2, 2] complex, as ``io/solutions.read_solutions`` gives them) after
+    turning each (interval, cluster, chunk) block of Zg, its P terms'
+    2 P N x 2 stack, by the one unitary that brings it nearest Zc's
+    (Procrustes: U V^H of the SVD of Zg^H Zc). The consensus problem is
+    invariant under J_f -> J_f U for every subband f at once, so its Z
+    is defined up to that unitary per block; the residuals are not."""
+    Zg, Zc = np.asarray(Zg), np.asarray(Zc)
+    out = np.empty_like(Zg)
+    T, M, KP, N = Zg.shape[:4]
+    for t in range(T):
+        for m in range(M):
+            for k in range(0, KP, P):
+                a = Zg[t, m, k:k + P].reshape(-1, 2)
+                b = Zc[t, m, k:k + P].reshape(-1, 2)
+                w, _, vh = np.linalg.svd(a.conj().T @ b)
+                out[t, m, k:k + P] = (a @ (w @ vh)).reshape(
+                    Zg[t, m, k:k + P].shape)
+    return float(np.abs(out - Zc).max() / np.abs(Zc).max())
+
+
+def _consensus_cpu(job):
+    """A consensus CPU reference in a worker process: ``job`` (list,
+    sky, cluster, flags, solutions path) of :func:`_consensus_run`."""
+    import torch
+    torch.set_num_threads(PARITY_THREADS)
+    lst, sky, clus, flags, solpath = job
+    return _consensus_run(lst, sky, clus, flags, "cpu", solpath)[:2]
+
+
+def _first_consensus_flip(cuda_hist, cpu_hist):
+    """The first in-flight group whose relaxation differs between the
+    card and the CPU consensus run, as (interval, ADMM iteration,
+    subband, card record, CPU record), or None (:func:`_first_flip`'s
+    rule over every subband's solve)."""
+    for ti, (hg, hc) in enumerate(zip(cuda_hist, cpu_hist)):
+        for it, (ig, ic) in enumerate(zip(hg["groups"], hc["groups"])):
+            for f, (sg, sc) in enumerate(zip(ig, ic)):
+                for a, b in zip(sg, sc):
+                    if a[2] != b[2]:
+                        return ti, it, f, a, b
+    return None
+
+
+def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
+    """A consensus card run against its CPU reference: every subband's
+    res_0/res_1 on every tile, its written column (in units of the data's
+    largest magnitude) and, with ``gate_z``, the Z file (each block
+    turned by its gauge unitary first, :func:`z_rel_aligned`) within
+    PARITY_RTOL; every divergence reset equal; the kernels of ``must``
+    launched, no XLA solve; every subband's residual falling. In-flight
+    groups' relaxation decisions are compared first: a flip within
+    FLIP_MARGIN of its threshold replaces the gates (as slice_parity's
+    group runs), a flip beyond it fails. The record carries the Z file's
+    unaligned difference too."""
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import solutions as sol
+    lst, sky, clus, paths, _ = obs
+    (hg, sg, launches), (hc, sc) = card, cpu
+    rels = [abs(a - b) / abs(b) for x, y in zip(hg, hc)
+            for k in ("res_0_f", "res_1_f") for a, b in zip(x[k], y[k])]
+    col = max(_simms_column_rel(p) for p in paths)
+    nchunk = skymodel.read_sky_cluster(sky, clus, RA0, DEC0, 150e6).nchunk
+    Zg, Zc = (np.asarray(sol.read_solutions(p, nchunk * 2)[1])
+              for p in (lst + ".z", lst + ".cpu.z"))
+    z_raw = float(np.abs(Zg - Zc).max() / np.abs(Zc).max())
+    z_rel = z_rel_aligned(Zg, Zc)
+    resets = {"cuda": [h["reset"] for h in hg],
+              "cpu": [h["reset"] for h in hc]}
+    flip = _first_consensus_flip(hg, hc)
+    rec = dict(tag=tag, cuda=[[h["res_0_f"], h["res_1_f"]] for h in hg],
+               cpu=[[h["res_0_f"], h["res_1_f"]] for h in hc],
+               max_rel=max(rels), col_rel=col, z_rel=z_rel, z_raw=z_raw,
+               resets=resets,
+               duals={"cuda": [h["duals"] for h in hg],
+                      "cpu": [h["duals"] for h in hc]},
+               iter_s=[h["iter_s"] for h in hg], launches=launches,
+               seconds={"cuda": sg, "cpu": sc}, flip=flip, z_gated=gate_z,
+               omegas={d: [[[[g[2] for g in sb] for sb in it]
+                             for it in h["groups"]] for h in hist]
+                       for d, hist in (("cuda", hg), ("cpu", hc))})
+    emit("slice_parity", **rec)
+    _check_route(f"slice_parity {tag}", launches, must, False)
+    if flip is not None:
+        _, _, _, a, b = flip
+        i = next(i for i, (ma, mb) in enumerate(zip(a[3], b[3]))
+                 if (ma >= 0) != (mb >= 0))
+        if max(abs(a[3][i]), abs(b[3][i])) > FLIP_MARGIN:
+            raise AssertionError(f"slice_parity {tag}: relaxation decision "
+                                 f"flipped far from its threshold: card {a}"
+                                 f", CPU {b}")
+        emit("slice_parity_flip", tag=tag, trial=i, card_margin=a[3][i],
+             cpu_margin=b[3][i], residual_gate="replaced by the flip report")
+        return rec
+    if resets["cuda"] != resets["cpu"]:
+        raise AssertionError(f"slice_parity {tag}: divergence resets differ: "
+                             f"{resets}")
+    if not (max(rels) <= PARITY_RTOL and col <= PARITY_RTOL
+            and (z_rel <= PARITY_RTOL or not gate_z)):
+        raise AssertionError(f"slice_parity {tag}: residuals {max(rels):.3e}"
+                             f", column {col:.3e}, Z {z_rel:.3e} > "
+                             f"{PARITY_RTOL}")
+    if not all(b < a for h in hg + hc
+               for a, b in zip(h["res_0_f"], h["res_1_f"])):
+        raise AssertionError(f"slice_parity {tag}: a subband's residual did "
+                             "not fall")
+    return rec
+
+
+def consensus_parity_start(pool) -> tuple:
+    """The consensus parity runs' observations (CONSENSUS_PARITY), their
+    CPU references queued on ``pool``: (observations, async results)."""
+    cons_obs = {tag: _consensus_obs(tag, nchunk, flags)
+                for tag, nchunk, flags, _, _ in CONSENSUS_PARITY}
+    return cons_obs, {tag: pool.apply_async(_consensus_cpu, ((
+        o[0] + ".cpu", o[1], o[2], o[4], o[0] + ".cpu.z"),))
+        for tag, o in cons_obs.items()}
+
+
+def consensus_parity_card(cons_obs) -> dict:
+    """The consensus parity runs on the card, one after another: tag ->
+    (records, seconds, launches)."""
+    card = {}
+    for tag, o in cons_obs.items():
+        _reset()
+        hist, secs, _ = _consensus_run(o[0], o[1], o[2], o[4], None,
+                                       o[0] + ".z")
+        card[tag] = (hist, secs, _counts())
+    return card
+
+
+def consensus_parity_check(cons_obs, card, cpu, out: dict,
+                           failures: list) -> None:
+    """Every consensus parity run's record and gates
+    (:func:`_check_consensus_parity`): records into ``out``, failed gates
+    onto ``failures``."""
+    for tag, _, _, must, gate_z in CONSENSUS_PARITY:
+        try:
+            out[tag] = _check_consensus_parity(tag, cons_obs[tag], card[tag],
+                                               cpu[tag], must, gate_z)
+        except AssertionError as e:
+            failures.append(str(e))
 
 
 def phase_slice_parity():
@@ -2106,13 +2344,16 @@ def phase_slice_parity():
         obs[tag] = (ms, sky, clus)
     n_st, st_chunks, st_times, st_chans, st_flags = STOCHASTIC_PARITY
     st_tsz = {"stochastic": st_times, "stochastic_warm": st_times,
-              "beam_stochastic": BEAM_STOCHASTIC_TIMES}
+              "beam_stochastic": BEAM_STOCHASTIC_TIMES,
+              "stochastic_consensus": st_times}
     st_runs = {"stochastic": st_flags + ["-t", str(st_times)],
                "stochastic_warm": st_flags + ["-t", str(st_times), "-q",
                                               "@warm"],
                "beam_stochastic": st_flags + ["-t",
                                               str(BEAM_STOCHASTIC_TIMES),
-                                              "-B", "2"]}
+                                              "-B", "2"],
+               "stochastic_consensus": STOCHASTIC_CONSENSUS
+               + ["-t", str(st_times)]}
     st_obs = {}
     for tag in st_runs:
         work = os.path.join(WORK, "parity_" + tag)
@@ -2129,6 +2370,7 @@ def phase_slice_parity():
     out = {}
     with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
         cpu_runs, ulp_runs, f32_runs = {}, {}, {}
+        cons_obs, cons_cpu = consensus_parity_start(pool)
         for tag, _, _, flags, _, _ in longest:
             ms, sky, clus = obs[tag]
             f32cpu = tag in SPREAD_F32_RUNS
@@ -2180,10 +2422,13 @@ def phase_slice_parity():
             _reset()
             st_card[tag] = _stochastic_run(*st_obs[tag], flags,
                                            device=None) + (_counts(),)
+        cons_card = consensus_parity_card(cons_obs)
         cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
+        cons_cpu = {tag: r.get() for tag, r in cons_cpu.items()}
         ulp_done = {tag: r.get() for tag, r in ulp_runs.items()}
         f32_done = {tag: r.get()[0] for tag, r in f32_runs.items()}
         st_cpu = {tag: r.get() for tag, r in st_cpu.items()}
+
         pool.close()
         pool.join()
 
@@ -2332,6 +2577,7 @@ def phase_slice_parity():
                                                 st_cpu[tag], sk.nchunk)
         except AssertionError as e:
             failures.append(str(e))
+    consensus_parity_check(cons_obs, cons_card, cons_cpu, out, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     return out
@@ -2791,6 +3037,211 @@ def phase_e2e_stochastic(obs) -> dict:
     return rec
 
 
+#: consensus calibration (the MPI CLI): 4 subbands of the full-width
+#: observation, each chip_smoke's 8 channels moved to its centre, the
+#: centres spread over 40 MHz
+CONSENSUS_CENTRES = 150e6 + np.linspace(-20e6, 20e6, 4)
+E2E_CONSENSUS = ["-A", "3", "-P", "2", "-j", "1", "--inner", "cg", "-e", "1"]
+
+
+def make_subbands(work: str, n_stations: int, tilesz: int, centres, chans,
+                  n_clusters: int, n_sources: int, nchunk, n_tiles: int,
+                  device, seed: int = 5, noise: float = 0.01):
+    """Sky files and one SimMS a subband (``sbNN.ms``, ``n_tiles`` tiles)
+    of one array: the channels ``chans`` moved to each of ``centres``,
+    corrupted by gains smooth in frequency, J_f = J0 + slope (f - f0) /
+    f0 at the subband's centre f (f0 the centres' mean; the rule of
+    ``tests/test_cli_mpi.py``'s subbands), simulated on ``device``.
+    Returns (the ``-f`` list file, sky, cluster, the SimMS paths)."""
+    import torch
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.rime import predict as rp
+    os.makedirs(work, exist_ok=True)
+    sky_path, clus_path = write_sky(os.path.join(work, "sky.txt"),
+                                    n_clusters, n_sources, nchunk, seed)
+    f0 = float(np.mean(centres))
+    sky = skymodel.read_sky_cluster(sky_path, clus_path, RA0, DEC0, f0)
+    rdt = torch.float32 if torch.device(device).type == "cuda" \
+        else torch.float64
+    dsky = rp.split_sky(sky, rdt, device)
+    J0 = ds.random_jones(sky.n_clusters, sky.nchunk, n_stations, seed=seed,
+                         scale=0.2)
+    slope = ds.random_jones(sky.n_clusters, sky.nchunk, n_stations,
+                            seed=seed + 1, scale=0.05) - np.eye(2)
+    offs = np.asarray(chans, np.float64) - np.mean(chans)
+    paths = []
+    for f, fc in enumerate(centres):
+        J = J0 + slope * (fc - f0) / f0
+        tiles = [ds.simulate_dataset(dsky, n_stations, tilesz, fc + offs,
+                                     RA0, DEC0, jones=J, nchunk=sky.nchunk,
+                                     noise_sigma=noise, seed=seed + 10 * i)
+                 for i in range(n_tiles)]
+        paths.append(os.path.join(work, f"sb{f:02d}.ms"))
+        ds.SimMS.create(paths[-1], tiles)
+    lst = os.path.join(work, "subbands.list")
+    with open(lst, "w") as fh:
+        fh.write("\n".join(paths) + "\n")
+    return lst, sky_path, clus_path, paths
+
+
+def _consensus_run(lst: str, sky: str, clus: str, flags, device,
+                   solpath: str, extra=()):
+    """One MPI CLI run (``cli_mpi.run``) over every interval of the
+    subbands in ``lst``: (records, seconds, log lines). ``device`` None
+    is the card."""
+    from sagecal_tpu_torch import cli_mpi
+    lines = []
+    argv = ["-f", lst, "-s", sky, "-c", clus, "-p", solpath, "-V"] \
+        + list(flags) + list(extra) \
+        + (["--platform", "cpu"] if device == "cpu" else [])
+    t0 = time.perf_counter()
+    hist = cli_mpi.run(argv, log=lines.append)
+    return hist, time.perf_counter() - t0, lines
+
+
+def phase_e2e_consensus() -> dict:
+    """The MPI CLI (consensus ADMM over subbands) at full width on the
+    card: 4 subbands (CONSENSUS_CENTRES) of one full-width tile each
+    (N_STATIONS, TILESZ, 8 channels, N_CLUSTERS of N_SOURCES with NCHUNK)
+    at E2E_CONSENSUS. The run must launch coh, sweep and matvec, and take
+    no XLA solve; every subband's residual must fall; the written columns
+    are finite and changed, the Z file holds one interval of Mt x 2
+    columns and every worker file one interval. Records the wall of each
+    ADMM iteration and of the interval, the dual residual per iteration,
+    res_1 / res_0 per subband, the launches and the peak device
+    memory."""
+    import torch
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    work = os.path.join(WORK, "e2e_consensus")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    lst, sky, clus, paths = make_subbands(
+        work, N_STATIONS, TILESZ, CONSENSUS_CENTRES, FREQS, N_CLUSTERS,
+        N_SOURCES, NCHUNK, 1, "cuda")
+    setup_s = time.perf_counter() - t0
+    solpath = os.path.join(work, "zsol.txt")
+    _reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, wall, _ = _consensus_run(
+        lst, sky, clus, E2E_CONSENSUS + ["-g", "10", "-t", str(TILESZ)],
+        None, solpath)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = _counts()
+    _check_route("e2e_consensus", launches, ("coh", "sweep", "matvec"),
+                 False)
+    sk = skymodel.read_sky_cluster(sky, clus, RA0, DEC0,
+                                   float(np.mean(CONSENSUS_CENTRES)))
+    header, blocks = sol.read_solutions(solpath, sk.nchunk * 2)
+    workers = [len(sol.read_solutions(p + ".solutions", sk.nchunk)[1])
+               for p in paths]
+    ratio = []
+    for p in paths:
+        xo = ds.SimMS(p, data_column="CORRECTED_DATA").read_tile(0).x
+        xi = ds.SimMS(p).read_tile(0).x
+        if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
+            raise AssertionError(f"e2e_consensus {p}: output column not "
+                                 "written")
+        ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
+    h = hist[0]
+    rec = dict(flags=E2E_CONSENSUS, subbands=len(paths),
+               centres_mhz=[c / 1e6 for c in CONSENSUS_CENTRES],
+               wall_s=wall, setup_s=setup_s, iter_s=h["iter_s"],
+               interval_s=h["interval_s"], residual_s=h["residual_s"],
+               duals=h["duals"], res_0=h["res_0_f"], res_1=h["res_1_f"],
+               res_ratio=[b / a for a, b in zip(h["res_0_f"], h["res_1_f"])],
+               r1s=h["r1s"], reset=h["reset"], launches=launches,
+               peak_gb=peak / 2 ** 30, written_over_data=ratio,
+               z_intervals=len(blocks),
+               z_columns=header.get("n_eff_clusters"),
+               worker_intervals=workers,
+               B=TILESZ * N_STATIONS * (N_STATIONS - 1) // 2, F=len(FREQS),
+               M=sk.n_clusters, S=sk.max_sources)
+    emit("e2e_consensus", **rec)
+    if not all(math.isfinite(a) and math.isfinite(b) and b < a
+               for a, b in zip(h["res_0_f"], h["res_1_f"])):
+        raise AssertionError(f"e2e_consensus: a subband's residual did not "
+                             f"fall: {h['res_0_f']} -> {h['res_1_f']}")
+    if len(blocks) != 1 or header.get("n_eff_clusters") \
+            != 2 * sk.n_eff_clusters or workers != [1] * len(paths):
+        raise AssertionError(f"e2e_consensus: Z file {len(blocks)} "
+                             f"intervals, header {header}, workers {workers}")
+    if launches["visits"]:
+        raise AssertionError("e2e_consensus: a sequential run launched the "
+                             f"visits kernel: {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+#: e2e_stochastic_consensus: e2e_stochastic's run at -A 3 on one tile
+E2E_STOCHASTIC_CONSENSUS = E2E_STOCHASTIC + ["-A", "3"]
+
+
+def phase_e2e_stochastic_consensus(obs) -> dict:
+    """Stochastic consensus through the full-batch CLI (``-N 2 -M 4 -w 2
+    -A 3``: the bands tied by ADMM to the frequency polynomial) at full
+    width on the first tile of ``obs``: its seconds, res_0 and res_1, the
+    dual residual and the flagged bands per solve, LBFGS iterations and
+    launches. The residual must fall, the coherency kernel launch and no
+    solve kernel nor XLA solve run; the written column is finite and
+    changed, the solutions file one interval of 2 bands."""
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    _, sky, clus, setup_s = obs
+    rc, out, wall, launches, ms, solpath, peak = _e2e_cli(
+        obs, "e2e_stochastic_consensus", E2E_STOCHASTIC_CONSENSUS, 1)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    tiles = []
+    for ln in out.splitlines():
+        if ln.startswith("Timeslot:") and "initial=" in ln:
+            tiles.append({
+                "res_0": float(ln.split("initial=")[1].split(",")[0]),
+                "res_1": float(ln.split("final=")[1].split(",")[0]),
+                "wall_s": 60 * float(ln.split("spent=")[1].split()[0])})
+        elif ln.startswith("Timeslot:") and "stats:" in ln:
+            tiles[-1].update(json.loads(ln.split("stats:", 1)[1]))
+    meta = ds.SimMS(ms).meta
+    sk = skymodel.read_sky_cluster(sky, clus, meta["ra0"], meta["dec0"],
+                                   meta["freq0"])
+    header, blocks = sol.read_solutions(solpath, sk.nchunk)
+    xo = ds.SimMS(ms, data_column="CORRECTED_DATA").read_tile(0).x
+    xi = ds.SimMS(ms).read_tile(0).x
+    if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
+        raise AssertionError("e2e_stochastic_consensus: output column not "
+                             "written")
+    rec = dict(flags=E2E_STOCHASTIC_CONSENSUS, tiles=tiles, wall_s=wall,
+               setup_s=setup_s, launches=launches, intervals=len(blocks),
+               nsolbw=header.get("nsolbw"),
+               written_over_data=float(np.abs(xo).mean()
+                                       / np.abs(xi).mean()),
+               peak_gb=peak / 2 ** 30,
+               B=(TILESZ // 4) * N_STATIONS * (N_STATIONS - 1) // 2, F=4,
+               M=sk.n_clusters)
+    emit("e2e_stochastic_consensus", **rec)
+    if launches["coh"] == 0 or any(launches[k] for k in SOLVE_KERNELS) \
+            or launches["xla_solves"]:
+        raise AssertionError("e2e_stochastic_consensus: the run must launch "
+                             "the coherency kernel and no solve kernel: "
+                             f"{launches}")
+    if len(blocks) != 1 or header.get("nsolbw") != 2:
+        raise AssertionError(f"e2e_stochastic_consensus: solutions "
+                             f"{len(blocks)} intervals, header {header}")
+    if len(tiles) != 1 or not (math.isfinite(tiles[0]["res_1"])
+                               and tiles[0]["res_1"] < tiles[0]["res_0"]):
+        raise AssertionError("e2e_stochastic_consensus: the residual did "
+                             f"not fall: {tiles}")
+    if len(tiles[0].get("duals", [])) != 3 * 2 * 4:
+        raise AssertionError("e2e_stochastic_consensus: one dual a solve "
+                             f"expected: {tiles[0].get('duals')}")
+    return rec
+
+
 def phase_e2e_beam(rtr: dict) -> dict:
     """``-j 5 --inner cg -B 2 -e 1`` at full width on a one-tile
     observation of e2e_rtr's sky and gains, simulated on the card through
@@ -2965,8 +3416,10 @@ def main() -> int:
                              ("coh", "sweep", "matvec"), em=1)
     sim = phase_e2e_sim(obs, os.path.join(os.path.dirname(obs[0]),
                                           "e2e_rtr_solutions.txt"))
-    # stochastic calibration on the same observation (its first 2 tiles)
+    # stochastic calibration on the same observation (its first 2 tiles),
+    # and stochastic consensus on its first tile
     stochastic = phase_e2e_stochastic(obs)
+    st_consensus = phase_e2e_stochastic_consensus(obs)
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
     tile_batch = phase_e2e_tile_batch(rtr)
     # one EM iteration, to keep the run in time (tile 0 boosted to 6, its
@@ -2986,6 +3439,9 @@ def main() -> int:
     mixed = phase_e2e(observation_e2e("e2e_mixed", mixed=True, n_tiles=1),
                       "e2e_mixed", ["-j", "5", "--kernel", "xla"], 1,
                       ("coh",), xla=True, em=1)
+    # consensus calibration (the MPI CLI) on 4 full-width subbands
+    consensus = phase_e2e_consensus()
+    inflight_cons = parity["consensus_rtr_inflight"]["launches"]
     vis = visits[(4, True)]
 
     def by_md(recs, kernel):
@@ -3033,6 +3489,9 @@ def main() -> int:
              launches_e2e_bandpass=bandpass["launches"]["coh"],
              launches_e2e_bandpass_by_f=bandpass["launches"]["coh_by_f"],
              launches_e2e_sim=sim["coh_launches"],
+             launches_e2e_consensus=consensus["launches"]["coh"],
+             launches_e2e_stochastic_consensus=st_consensus["launches"][
+                 "coh"],
              bands={tag: {k: coh[tag][k] for k in (
                  "F", "B", "step", "kernel_us", "device_ms", "ms",
                  "plain_ms", "bound_ms", "bound_by", "kernel_bound_share",
@@ -3049,6 +3508,7 @@ def main() -> int:
              launches_e2e_whiten_phase=whiten_phase["launches"]["sweep"],
              launches_e2e_bandpass=bandpass["launches"]["sweep"],
              launches_e2e_beam=beam["launches"]["sweep"],
+             launches_e2e_consensus=consensus["launches"]["sweep"],
              max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
              ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
              bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
@@ -3065,6 +3525,8 @@ def main() -> int:
              launches_e2e_tile_batch=tile_batch["launches"]["matvec"],
              launches_e2e_whiten_phase=whiten_phase["launches"]["matvec"],
              launches_e2e_beam=beam["launches"]["matvec"],
+             launches_e2e_consensus=consensus["launches"]["matvec"],
+             launches_consensus_rtr_inflight=inflight_cons["matvec"],
              max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],
@@ -3084,6 +3546,7 @@ def main() -> int:
              replaces="sagecal_tpu/ops/sweep_pallas.py:439",
              launches=inflight["launches"]["visits"],
              launches_e2e_tile_batch=tile_batch["launches"]["visits"],
+             launches_consensus_rtr_inflight=inflight_cons["visits"],
              max_abs_err=max(r["max_abs_err"] for r in visits.values()),
              ms=vis["ms"], plain_ms=vis["plain_ms"],
              bound_ms=vis["bound_ms"], bound_by=vis["bound_by"],

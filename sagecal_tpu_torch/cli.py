@@ -28,9 +28,13 @@ memory, ``-L`` nu) on the ``--loss`` cost, with ``-d -f -s -c -p -q -F -t
 -T -x -y -I -O -o -k -B -V --platform``; ``-W``, ``-b``, ``-J``, ``-a``
 and ``-z`` are no-ops there, and ``--resume`` starts fresh, as in the
 JAX package. With ``-N``, ``-A > 1``
-and ``-w > 1`` together (stochastic consensus) raise; ``-A`` with ``-w
-1`` runs plain minibatch calibration, as in the JAX CLI. ``-M`` and
-``--loss`` act under ``-N`` only, as there.
+and ``-w > 1`` together run stochastic consensus
+(``stochastic.run_minibatch_consensus``, as the JAX CLI routes it): the
+bands tied by ADMM to a ``-P``-term polynomial of type ``-Q``, rho from
+``-r`` or the ``-G`` file; ``-A`` with ``-w 1`` runs plain minibatch
+calibration, as in the JAX CLI. ``-M``, ``--loss``, ``-w``, ``-A``,
+``-P``, ``-Q``, ``-r`` and ``-G`` act under ``-N`` only and are inert
+without it, as there.
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 
@@ -53,21 +57,14 @@ import sys
 from sagecal_tpu_torch.config import (BeamMode, RunConfig, SimulationMode,
                                       SolverMode)
 
-# flags parsed for parity but not ported: dest -> (default, ROADMAP item);
-# under -N, -w and -A are stochastic flags (check_flags)
+# flags parsed for parity but not ported: dest -> (default, ROADMAP item)
 UNPORTED = {
-    "admm": (1, "queue A item 9 (-A consensus)"),
-    "nsolbw": (1, "queue A item 9 (-w mini-bands without -N)"),
-    "npoly": (2, "queue A item 9 (-P)"),
-    "polytype": (2, "queue A item 9 (-Q)"),
-    "rho": (5.0, "queue A item 9 (-r)"),
-    "rho_file": (None, "queue A item 9 (-G)"),
     "tile_bucket": (0, "queue A item 11 (--tile-bucket)"),
     "faults": (None, "queue A item 10 (--faults)"),
     "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
     "prior_cache": ("off", "queue A item 11 (--prior-cache)"),
-    "shard_baselines": (False, "queue A item 9 (--shard-baselines)"),
-    "cpu_devices": (0, "queue A item 9 (--cpu-devices)"),
+    "shard_baselines": (False, "queue A item 9e (--shard-baselines)"),
+    "cpu_devices": (0, "queue A item 9e (--cpu-devices)"),
     "profile": (None, "queue A item 1 (--profile)"),
     "diag": (None, "queue A item 10 (--diag)"),
     "metrics": (None, "queue A item 10 (--metrics)"),
@@ -171,16 +168,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: flags that a stochastic run (-N > 0) takes
-STOCHASTIC = ("nsolbw", "admm")
-
-
 def check_flags(args) -> None:
     """Raise NotImplementedError for a non-default unported flag (what a
     stochastic run refuses, ``stochastic.check_supported`` raises)."""
     for dest, (default, item) in UNPORTED.items():
-        if args.epochs > 0 and dest in STOCHASTIC:
-            continue
         if getattr(args, dest) != default:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')}={getattr(args, dest)!r} is not "
@@ -208,7 +199,9 @@ def config_from_args(args) -> RunConfig:
         phase_only=bool(args.phase_only), beam_mode=BeamMode(args.beam),
         n_epochs=args.epochs, n_minibatches=args.minibatches,
         stochastic_loss=args.loss, channel_avg_per_band=args.nsolbw,
-        n_admm=args.admm, max_timeslots=args.max_timeslots,
+        n_admm=args.admm, n_poly=args.npoly, poly_type=args.polytype,
+        admm_rho=args.rho, rho_file=args.rho_file,
+        max_timeslots=args.max_timeslots,
         verbose=args.verbose,
         solve_fuse=args.solve_fuse, solve_promote=args.solve_promote,
         cluster_inflight=args.inflight, tile_batch=args.tile_batch,
@@ -236,7 +229,11 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     if cfg.n_epochs > 0:
         from sagecal_tpu_torch import stochastic
-        stochastic.run_minibatch(cfg, device=_device(args.platform))
+        if cfg.n_admm > 1 and cfg.channel_avg_per_band > 1:
+            stochastic.run_minibatch_consensus(cfg,
+                                               device=_device(args.platform))
+        else:
+            stochastic.run_minibatch(cfg, device=_device(args.platform))
     else:
         from sagecal_tpu_torch import pipeline
         pipeline.run(cfg, device=_device(args.platform))

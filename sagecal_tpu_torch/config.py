@@ -91,6 +91,13 @@ class RunConfig:
     stochastic_loss: str = "robust"                  # --loss
     channel_avg_per_band: int = 1                    # -w : mini-bands
     n_admm: int = 1                                  # -A
+    # stochastic consensus (-N with -A > 1 and -w > 1): the polynomial
+    # over the bands, its rho, and the consensus value as the solution
+    n_poly: int = 2                                  # -P
+    poly_type: int = 2                               # -Q
+    admm_rho: float = 5.0                            # -r
+    rho_file: str | None = None                      # -G
+    use_global_solution: bool = False                # RunConfig only
     max_timeslots: int = 0                           # -T
     verbose: bool = False                            # -V : per-tile stats
 

@@ -1,11 +1,18 @@
 """Manifold tools on Jones solutions (port of
-``sagecal_tpu/consensus/manifold.py``).
+``sagecal_tpu/consensus/manifold.py``; reference
+``manifold_average.c``).
 
-So far the phase extraction of the phase-only correction (``-J 1``):
-:func:`extract_phases` (``manifold.py:92``) with its Givens step
-:func:`_givens_from_eigvec` (``:83``). The manifold average and the
-Procrustes projections come with consensus calibration (ROADMAP queue A
-item 9), which extends this file.
+- the phase extraction of the phase-only correction (``-J 1``):
+  :func:`extract_phases` (``manifold.py:92``) with its Givens step
+  :func:`_givens_from_eigvec` (``:83``);
+- the manifold average of consensus calibration (``:25-168``): each
+  frequency's 2N x 2 solution block is defined up to a right 2x2
+  unitary; :func:`manifold_average` rotates every block onto a reference
+  (Procrustes, :func:`procrustes_project`, the polar factor of a 2x2 in
+  closed form: :func:`polar_unitary_2x2`), iterates {mean -> project},
+  then applies ONE unitary to each original block
+  (calculate_manifold_average, :204; the subband-axis average of the
+  ADMM runner's iteration 0).
 """
 
 from __future__ import annotations
@@ -72,3 +79,67 @@ def extract_phases(J, niter: int = 10):
     zero = torch.zeros_like(d0)
     return torch.stack([torch.stack([d0, zero], -1),
                         torch.stack([zero, d1], -1)], -2)
+
+
+def _herm_invsqrt_2x2(H, eps=1e-12):
+    """Inverse square root of 2x2 Hermitian PSD matrices [..., 2, 2], in
+    closed form: sqrt(H) = (H + sqrt(det) I) / sqrt(trace + 2 sqrt(det)),
+    inverted by its adjugate (a determinant below ``eps`` in modulus is
+    replaced by ``eps``)."""
+    t = H[..., 0, 0] + H[..., 1, 1]
+    d = H[..., 0, 0] * H[..., 1, 1] - H[..., 0, 1] * H[..., 1, 0]
+    sd = torch.sqrt(torch.clamp(d.real, min=0.0)).to(H.dtype)
+    denom = torch.sqrt(torch.clamp((t + 2 * sd).real, min=eps)).to(H.dtype)
+    eye = torch.eye(2, dtype=H.dtype, device=H.device)
+    sq = (H + sd[..., None, None] * eye) / denom[..., None, None]
+    det_sq = sq[..., 0, 0] * sq[..., 1, 1] - sq[..., 0, 1] * sq[..., 1, 0]
+    det_sq = torch.where(det_sq.abs() < eps,
+                         torch.full_like(det_sq, eps), det_sq)
+    adj = torch.stack([torch.stack([sq[..., 1, 1], -sq[..., 0, 1]], -1),
+                       torch.stack([-sq[..., 1, 0], sq[..., 0, 0]], -1)], -2)
+    return adj / det_sq[..., None, None]
+
+
+def polar_unitary_2x2(A):
+    """U V^H of the SVD of 2x2 complex A [..., 2, 2], its polar unitary
+    factor A (A^H A)^(-1/2)."""
+    AH_A = torch.einsum("...ji,...jk->...ik", A.conj(), A)
+    return A @ _herm_invsqrt_2x2(AH_A)
+
+
+def procrustes_project(X, Y):
+    """Rotate Y onto X: Y U with U = argmin ||X - Y U||_F over unitaries,
+    U = polar(Y^H X); X, Y [..., 2N, 2] complex (broadcast)
+    (project_procrustes_block, manifold_average.c:346)."""
+    A = torch.einsum("...ji,...jk->...ik", Y.conj(), X)
+    return Y @ polar_unitary_2x2(A)
+
+
+def jones_to_blocks(J):
+    """[..., N, 2, 2] Jones -> [..., 2N, 2] stacked blocks [J_1; J_2; ...]:
+    the gauge J_p -> J_p U of every station is a right multiplication."""
+    return J.reshape(J.shape[:-3] + (2 * J.shape[-3], 2))
+
+
+def blocks_to_jones(X):
+    """Inverse of :func:`jones_to_blocks`."""
+    return X.reshape(X.shape[:-2] + (X.shape[-2] // 2, 2, 2))
+
+
+def manifold_average(J, niter: int = 3, ref_index: int = 0, nf=None):
+    """Frequency-average solutions up to their unitary ambiguity.
+
+    J [Nf, M, N, 2, 2] complex (any leading direction axes after Nf).
+    Every block is first rotated onto frequency ``ref_index``'s, then
+    ``niter`` times onto the mean over frequency; finally ONE unitary is
+    applied to each original block, toward the last mean. ``nf`` divides
+    the sum over the leading axis (Nf by default: the JAX package's mean;
+    the ADMM runner passes its count of real subbands). Returns J with
+    the same shape."""
+    X0 = jones_to_blocks(J)
+    den = X0.shape[0] if nf is None else nf
+    X = procrustes_project(X0[ref_index][None], X0)
+    for _ in range(niter):
+        X = procrustes_project(X.sum(dim=0, keepdim=True) / den, X)
+    Xout = procrustes_project(X.sum(dim=0, keepdim=True) / den, X0)
+    return blocks_to_jones(Xout)

@@ -73,3 +73,25 @@ def beaminfo_from_numpy(**fields):
         dec0=float(fields["dec0"]), freq0=float(fields["freq0"]),
         elem_xyz=np.array(fields["elem_xyz"]),
         elem_mask=np.array(fields["elem_mask"]), ecoeff=ec)
+
+
+#: the ADMM runner's state, in the order of the JAX runner's carry
+#: (``admm.iter0_post``: JF, YF, Z, rhoF, Yhat, Jprev, Zbar, Xd,
+#: rho_upper)
+ADMM_CARRY = ("JF", "YF", "Z", "rhoF", "Yhat", "Jprev", "Zbar", "Xd",
+              "rho_upper")
+
+
+def admm_state_from_numpy(carry, device="cpu", dtype=torch.float64) -> dict:
+    """The JAX ADMM runner's carry (a sequence of numpy arrays in
+    :data:`ADMM_CARRY` order, or a dict of them: [F, M, K, N, 8] per
+    subband, [M, P, K, N, 8] for Z, Zbar and Xd, [F, M] for the rhos) ->
+    the port runner's state dict (``consensus.admm``'s
+    ``run.from_state``) on ``device``."""
+    if not isinstance(carry, dict):
+        carry = dict(zip(ADMM_CARRY, carry))
+    missing = set(ADMM_CARRY) - set(carry)
+    if missing:
+        raise KeyError(f"admm_state_from_numpy: missing {sorted(missing)}")
+    return {k: torch.as_tensor(np.array(carry[k]), device=device).to(dtype)
+            for k in ADMM_CARRY}

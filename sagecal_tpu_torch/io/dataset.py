@@ -88,17 +88,19 @@ class VisTile:
         return xa
 
     def solve_input(self, uvtaper_m: float = 0.0):
-        """(x8 [B, 8], rowflags [B]) — the channel-averaged solve input
-        with loadData's semantics: the native tile packer (more-than-half
-        rule, taper) when the tile has per-channel flags or a taper is
-        asked for, else the plain channel mean. Stored uv-cut rows (flag
-        2) survive either path."""
+        """(x8 [B, 8], rowflags [B], unflagged fraction) — the
+        channel-averaged solve input with loadData's semantics: the native
+        tile packer (more-than-half rule, taper; the fraction its fratio's
+        complement) when the tile has per-channel flags or a taper is
+        asked for, else the plain channel mean (1 - :attr:`flag_ratio`).
+        Stored uv-cut rows (flag 2) survive either path."""
         if self.cflags is not None or uvtaper_m > 0.0:
-            x8, rowflags, _ = self.pack(uvtaper_m=uvtaper_m)
+            x8, rowflags, fr = self.pack(uvtaper_m=uvtaper_m)
             rowflags = np.where((self.flags == 2) & (rowflags == 0),
                                 np.int8(2), rowflags.astype(np.int8))
-            return x8, rowflags
-        return utils.vis_to_x8(self.averaged()), self.flags
+            return x8, rowflags, 1.0 - fr
+        return (utils.vis_to_x8(self.averaged()), self.flags,
+                1.0 - self.flag_ratio)
 
     def pack(self, uvmin_m: float = 0.0, uvmax_m: float = 1e30,
              uvtaper_m: float = 0.0):

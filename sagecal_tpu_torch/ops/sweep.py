@@ -805,16 +805,18 @@ def chol_solve_blocks_shift(fac: GNBlocks, JTe, shift, sta1, sta2,
 
 
 def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
-                        n_stations: int, reduced: bool = False):
-    """Solve (JTJ + (mu + jitter) I) dp = JTe batched over chunks (by LU
-    when ``reduced``), with :func:`retry_damped`'s one retry, its boost
-    read from the D blocks' diagonals."""
+                        n_stations: int, reduced: bool = False, rho=0.0):
+    """Solve (JTJ + (mu + jitter + rho) I) dp = JTe batched over chunks (by
+    LU when ``reduced``), with :func:`retry_damped`'s one retry, its boost
+    read from the D blocks' diagonals plus the ADMM ``rho`` (a scalar or
+    [K]; ``sweep_pallas.solve_damped_blocks``: the blocks are never
+    rho-augmented, rho rides the shift)."""
     dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
-    diag_max = dd.reshape(dd.shape[0], -1).abs().amax(dim=-1)
+    diag_max = dd.reshape(dd.shape[0], -1).abs().amax(dim=-1) + rho
     return retry_damped(
         lambda shift: chol_solve_blocks_shift(fac, JTe, shift, sta1, sta2,
                                               n_stations, reduced),
-        mu + jitter, diag_max)
+        mu + jitter + rho, diag_max)
 
 
 def normal_equations_fused(x8, J, coh, sta1, sta2, chunk_id, wt,

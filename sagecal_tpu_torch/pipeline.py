@@ -250,7 +250,7 @@ class FullBatchPipeline:
         (the beam tables too under -B). The solve input goes through the
         tile packer when the tile has per-channel flags or a taper is
         set (``VisTile.solve_input``)."""
-        x8_np, rowflags = tile.solve_input(uvtaper_m=self.cfg.uvtaper)
+        x8_np, rowflags, _ = tile.solve_input(uvtaper_m=self.cfg.uvtaper)
         u, v, w = self._t(tile.u), self._t(tile.v), self._t(tile.w)
         flags = rp.uvcut_flags(self._t(rowflags, torch.int32), u, v,
                                self._t(tile.freqs), self.cfg.uvmin,

@@ -390,6 +390,26 @@ def split_for_kernel(sky: ClusterSky):
     return sky_pg, ClusterSky(**fields)
 
 
+def read_cluster_rho(path: str, cluster_ids, default_rho: float = 5.0):
+    """Per-cluster regularization file ``cluster_id hybrid rho`` (or
+    ``cluster_id rho``; ``#`` comments) -> rho [M] float64 in
+    ``cluster_ids`` order, a missing cluster at ``default_rho``
+    (readsky.c:780; ``-G``)."""
+    table = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            tok = line.split()
+            if len(tok) >= 3:
+                table[int(tok[0])] = float(tok[2])
+            elif len(tok) == 2:
+                table[int(tok[0])] = float(tok[1])
+    return np.array([table.get(int(cid), default_rho)
+                     for cid in cluster_ids])
+
+
 def read_ignore_list(path: str) -> set:
     """Cluster ids to leave out of a simulation (``-z``; readsky.c:743):
     the first integer of every line that is neither empty nor a

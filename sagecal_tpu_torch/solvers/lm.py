@@ -64,6 +64,15 @@ single-chunk cluster on baseline-major rows under ``inner="chol"`` takes
 its equations from the subset's rows alone (``normal_eq.
 os_subset_equations_mode``, dense on either route: the fast path).
 
+Consensus ADMM (``admm=(y, bz, rho)``, ``lm.py:321-656`` of the JAX
+package): the objective becomes 1/2 ||w r||^2 + y^T (p - bz) + rho/2
+||p - bz||^2 per chunk; every route takes JTe -= y + rho (p - bz) and
+the augmented cost, the dense route's matrix gains rho I, and the blocks
+and PCG routes carry rho in their solve shift (and in diag_max for mu0).
+Only the full Jones mode runs it; the small-cost stop is off (the
+augmented cost is signed), and an ordered-subsets chunk keeps its dead
+subset, as there.
+
 Lanes (``lanes=``, an ``ops.sweep.Lanes``): one call solves an in-flight
 group's V cluster visits, folded into rows [V B] and chunks [V K], where
 the JAX package vmaps the solve. Per visit: its iteration cap, its OS
@@ -299,10 +308,29 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     return torch.where(ok[:, None], x, torch.zeros_like(x)), ok, trips
 
 
+def admm_terms(admm, kmax: int, dtype, dev, mode: str = "full"):
+    """The ADMM augmentation of a solve of ``kmax`` chunks: (y [K, 8N],
+    bz [K, 8N], rho [K]) in the solve dtype, from ``admm = (y, bz, rho)``
+    with y and bz any shape of K x 8N reals and rho a scalar or one value
+    a chunk (a group's visits each bring their own); None without it.
+    Raises for a constrained Jones mode: y and bz are full-Jones
+    parameters."""
+    if admm is None:
+        return None
+    if mode != "full":
+        raise ValueError("consensus ADMM requires jones_mode='full': the "
+                         f"y/bz vectors are full-Jones parameters (got "
+                         f"{mode!r})")
+    y, bz, rho = admm
+    rho = torch.as_tensor(rho, dtype=dtype, device=dev)
+    return (y.reshape(kmax, -1).to(dtype), bz.reshape(kmax, -1).to(dtype),
+            rho.expand(kmax) if rho.dim() == 0 else rho.reshape(kmax))
+
+
 def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
              chunk_mask=None, config: LMConfig = LMConfig(),
              itmax_dynamic=None, os: OSConfig | None = None,
-             row_period: int = 0, lists=None, lanes=None):
+             row_period: int = 0, lists=None, lanes=None, admm=None):
     """Levenberg-Marquardt solve of all chunks of one cluster.
 
     x8 [B, 8] data (residual + this cluster's model); coh [B, 2, 2];
@@ -317,7 +345,9 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
 
     With ``lanes`` the arrays are a group's folded layout (module
     docstring; ``wt`` [B, 8] when shared), ``itmax_dynamic`` and ``os``
-    hold one entry per visit, and iters / cg_iters are [V] arrays."""
+    hold one entry per visit, and iters / cg_iters are [V] arrays.
+    ``admm`` the optional consensus augmentation (y, bz, rho) of
+    :func:`admm_terms` (module docstring)."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
     sweep = solve_route(config, kmax // V, row_period, x8.shape[0] // V)
@@ -346,10 +376,13 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     # constrained entry Jones (the phase retraction's amplitudes)
     mode = config.jones_mode
     npar = ne.jones_npar(mode)
+    aug = admm_terms(admm, kmax, dtype, dev, mode)
     p, Jref = ne.mode_point(J0, mode)
     p = p.reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
+    # the blocks and PCG routes carry the ADMM rho in their solve shift
+    rho_aug = 0.0 if aug is None else aug[2]
 
     def p_to_J(pv):
         return ne.jones_from_params(pv.reshape(kmax, N, npar), mode, Jref)
@@ -358,6 +391,9 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         return w if lanes is None or w is None else lanes.rows(w)
 
     def nrm_eq(pv, w=None, cw=None, k=None):
+        return augment(pv, *plain_eq(pv, w, cw, k))
+
+    def plain_eq(pv, w, cw, k):
         if os_ntper:
             return os_eq(pv, k, cw)
         w = wt if w is None else w
@@ -369,6 +405,22 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         return assemble(x8, p_to_J(pv), coh, sta1, sta2, chunk_id, rows(w),
                         N, kmax, mode=mode, cost_wt=rows(cw),
                         row_period=row_period, visits=V)
+
+    def augment(pv, fac, JTe, cost):
+        """The ADMM terms on one row pass's equations: JTe -= y + rho d,
+        the augmented cost 2 y^T d + rho ||d||^2 (the un-halved data cost
+        convention), and rho I on the dense matrix, d = p - bz."""
+        if aug is None:
+            return fac, JTe, cost
+        y, bz, rho = aug
+        d = pv - bz
+        JTe = JTe - y - rho[:, None] * d
+        if dense:
+            eye = torch.eye(fac.shape[-1], dtype=fac.dtype, device=dev)
+            fac = fac + rho[:, None, None] * eye
+        cost = cost + 2.0 * (y * d).sum(dim=-1) \
+            + rho * (d * d).sum(dim=-1)
+        return fac, JTe, cost
 
     def os_eq(pv, k: int, cw):
         """The OS fast path's equations of iteration k's subset, visit by
@@ -415,7 +467,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         diag_max = torch.diagonal(fac, dim1=-2, dim2=-1).abs().amax(dim=-1)
     else:
         dd = torch.diagonal(fac.D, dim1=-2, dim2=-1)
-        diag_max = dd.reshape(kmax, -1).abs().amax(dim=-1)
+        diag_max = dd.reshape(kmax, -1).abs().amax(dim=-1) + rho_aug
     mu = config.tau * torch.clamp(diag_max, min=1e-30)
     nu = torch.full((kmax,), 2.0, dtype=dtype, device=dev)
     stop = torch.zeros((kmax,), dtype=torch.bool, device=dev)
@@ -431,7 +483,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         its += lv
         if inner_cg:
             dp, ok, trips = _solve_damped_cg(
-                fac, JTe, mu, config.jitter, 0.0, sta1, sta2, N,
+                fac, JTe, mu, config.jitter, rho_aug, sta1, sta2, N,
                 config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask,
                 lists=lists, V=V, chunk_id=chunk_id, row_period=row_period)
             cg_trips += trips
@@ -439,7 +491,8 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             dp, ok = _solve_damped(fac, JTe, mu, config.jitter, reduced)
         else:
             dp, ok = swp.solve_damped_blocks(fac, JTe, mu, config.jitter,
-                                             sta1, sta2, N, reduced)
+                                             sta1, sta2, N, reduced,
+                                             rho=rho_aug)
         pnew = p + dp
         if os is not None:
             wt_next = os_wt(k + 1)
@@ -463,8 +516,10 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         # rejected chunks keep their entering blocks and gradient (under
         # OS: retry the same subset), except that a dead carried subset
         # is never retried: its dp is 0, so the new subset's equations
-        # at pnew are the old point's
-        adopt = accept | (~live & chunk_mask) if os is not None else accept
+        # at pnew are the old point's (under ADMM the prior terms make
+        # dp != 0, so there a chunk adopts on acceptance only)
+        adopt = accept | (~live & chunk_mask) \
+            if os is not None and aug is None else accept
         fac = _adopt(adopt, facn, fac, chunk_id)
         JTe = torch.where(adopt[:, None], JTen, JTe)
         if os is not None:
@@ -472,7 +527,9 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         small_grad = JTe.abs().amax(dim=-1) <= config.eps1
         if os is not None:
             small_grad = small_grad & live
-        small_cost = cost <= config.eps3
+        # the augmented cost is signed: no small-cost stop under ADMM
+        small_cost = cost <= config.eps3 if aug is None \
+            else torch.zeros_like(stop)
         stop = stop | small_grad | (accept & small_dp) | small_cost \
             | (k + 1 >= cap)
         k += 1

@@ -99,7 +99,7 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                     n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                     chunk_mask=None, config=lm_mod.LMConfig(),
                     wt_rounds: int = 3, itmax_dynamic=None, os=None,
-                    row_period: int = 0, lists=None, lanes=None):
+                    row_period: int = 0, lists=None, lanes=None, admm=None):
     """Student's-t IRLS-LM (rlevmar_der_single_nocuda, robustlm.c:2008);
     with ``os`` the ordered-subsets variant (robustlm.c:2607): the inner
     LM sees subsets while the weight and nu updates stay full-data.
@@ -107,7 +107,8 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     ``wt_base`` [B, 8] 0/1 row weights; the robust sqrt(w) multiplies it.
     Returns (J, nu, info); nu is one scalar tensor shared by all chunks.
     With ``lanes`` (``lm.lm_solve``) nu0 and nu are [V], one per visit,
-    and ``os`` holds one setting per visit."""
+    and ``os`` holds one setting per visit. ``admm`` (y, bz, rho) passes
+    to every inner LM (the consensus augmentation, ``lm.lm_solve``)."""
     mask = wt_base > 0
     nu = torch.as_tensor(nu0, dtype=dtypes.acc_dtype(x8.dtype),
                          device=x8.device)
@@ -139,7 +140,7 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                                   n_stations, chunk_mask, config,
                                   itmax_dynamic=itmax_dynamic, os=os_r,
                                   row_period=row_period, lists=lists,
-                                  lanes=lanes)
+                                  lanes=lanes, admm=admm)
         e2 = ne.residual8(x8, J, coh, sta1, sta2, chunk_id)
         w2 = update_weights(e2, nu_rows(nu))
         nu = lane_nu(nu, w2, mask, lanes,

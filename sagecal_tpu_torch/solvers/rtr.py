@@ -28,7 +28,11 @@ Host reads: the outer loop reads one [K] bool per iteration (the JAX
 (``lax.cond`` on it); tCG reads its [K] ``done`` mask each trip and
 stops when every chunk is done, where the reference runs its fixed trip
 count with masked updates: the same result in fewer Hessian products.
-Consensus ADMM is not ported (ROADMAP queue A item 9).
+Consensus ADMM (``admm=(y, bz, rho)``, ``rtr.py:206-456`` of the JAX
+package): the cost gains 2 y^T (p - bz) + rho ||p - bz||^2 per chunk
+(``lm.admm_terms``; the un-halved convention of ``lm.py``) and every tCG
+product its exact Hessian 2 rho v; the robust RTR and NSD pass it
+through. Only the full Jones mode runs it.
 
 Constrained Jones modes (``jones_mode`` diag or phase): the point lives
 in the reduced space of ``normal_eq.params_from_jones`` (J from
@@ -203,10 +207,12 @@ def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
 
 
 def make_cost(x8, coh, sta1, sta2, chunk_id, wt, kmax, n_stations,
-              robust_nu=None, mode: str = "full", Jref=None):
+              robust_nu=None, mode: str = "full", Jref=None, aug=None):
     """Per-chunk cost [K] of real params [K, npar N] of the Jones mode:
     Gaussian sum (w r)^2, or Student's t sum log(1 + (w r)^2 / nu)
-    (robust_lbfgs.c:94)."""
+    (robust_lbfgs.c:94); ``aug`` the ADMM terms (y, bz, rho) of
+    ``lm.admm_terms`` add 2 y^T d + rho ||d||^2, d = p - bz
+    (rtr_solve_robust_admm.c)."""
     p_to_J = _mode_p2j(mode, Jref, kmax, n_stations)
 
     def cost(p):
@@ -216,7 +222,12 @@ def make_cost(x8, coh, sta1, sta2, chunk_id, wt, kmax, n_stations,
             per_row = (e * e).sum(dim=-1)
         else:
             per_row = torch.log1p(e * e / robust_nu).sum(dim=-1)
-        return per_row.new_zeros((kmax,)).index_add_(0, chunk_id, per_row)
+        ck = per_row.new_zeros((kmax,)).index_add_(0, chunk_id, per_row)
+        if aug is not None:
+            y, bz, rho = aug
+            d = p - bz
+            ck = ck + 2.0 * (y * d).sum(dim=-1) + rho * (d * d).sum(dim=-1)
+        return ck
 
     return cost
 
@@ -292,7 +303,7 @@ def _egrad(cost_fn):
 def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
               chunk_mask=None, config: RTRConfig = RTRConfig(),
               itmax_dynamic=None, robust_nu=None, row_period: int = 0,
-              lists=None, lanes=None):
+              lists=None, lanes=None, admm=None):
     """Trust-region solve of all chunks of one cluster (rtr_solve.c:1208).
 
     Same call convention as ``lm.lm_solve`` (``lists`` the tile's
@@ -301,7 +312,8 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     objective to fixed-nu Student's t. Returns (J [K, N, 2, 2], info)
     with init_cost / final_cost [K], iters (outer iterations; [V] on a
     group) and tcg_iters (executed Hessian products; [tiles] on a batch
-    of solve intervals)."""
+    of solve intervals). ``admm`` the optional consensus augmentation
+    (y, bz, rho) (module docstring)."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
     sweep = lm_mod.solve_route(config, kmax // V, row_period,
@@ -312,10 +324,13 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     dev, dtype = x8.device, dtypes.acc_dtype(x8.dtype)
     N = n_stations
     mode = config.jones_mode
+    aug = lm_mod.admm_terms(admm, kmax, dtype, dev, mode)
     p0, Jref = ne.mode_point(J0, mode)
     p0 = p0.reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
+    # the ADMM term's exact Hessian 2 rho v, in every tCG product
+    rho2 = None if aug is None else (2.0 * aug[2])[:, None]
     # per-row views of a group's shared weights and per-visit nu
     wt_r, nu_r = wt, robust_nu
     if robust_nu is not None:
@@ -330,8 +345,12 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         return w if lanes is None else lanes.rows(w)
 
     cost_fn = make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
-                        robust_nu=nu_r, mode=mode, Jref=Jref)
+                        robust_nu=nu_r, mode=mode, Jref=Jref, aug=aug)
     egrad = _egrad(cost_fn)
+
+    def hess(Hv, v):
+        """2 H v (+ 2 rho v under ADMM), before the projection."""
+        return Hv if rho2 is None else Hv + rho2 * v
 
     def rgrad_at(p):
         return project_tangent_mode(p, egrad(p), kmax, N, mode)
@@ -359,7 +378,7 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                 plan = swp.matvec_plan(fac, sta1, sta2, N, lists=lists)
 
                 def hv(v):
-                    return proj(2.0 * swp.matvec_apply(plan, v))
+                    return proj(hess(2.0 * swp.matvec_apply(plan, v), v))
                 return hv
             # matrix-free: each product one [B] pass over the factors
             fac, _, _ = ne.gn_factors_mode(x8, Jm, coh, sta1, sta2,
@@ -368,9 +387,9 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                                            visits=V)
             if mode == "full":
                 def hv(v):
-                    return proj(2.0 * ne.gn_matvec(
+                    return proj(hess(2.0 * ne.gn_matvec(
                         fac, v, sta1, sta2, chunk_id, kmax, N,
-                        row_period=row_period, visits=V))
+                        row_period=row_period, visits=V), v))
             else:
                 def hv(v):
                     return proj(2.0 * ne.gn_matvec_mode(
@@ -386,7 +405,7 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                 mode=mode, row_period=row_period, visits=V)
 
         def hv(v):
-            return proj(2.0 * torch.einsum("kij,kj->ki", JTJ, v))
+            return proj(hess(2.0 * torch.einsum("kij,kj->ki", JTJ, v), v))
         return hv
 
     cost0 = cost_fn(p0)
@@ -461,8 +480,10 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                      n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                      chunk_mask=None, config: RTRConfig = RTRConfig(),
                      wt_rounds: int = 2, itmax_dynamic=None,
-                     row_period: int = 0, lists=None, lanes=None):
-    """Student's-t robust RTR (rtr_solve_robust.c:1441): IRLS rounds of
+                     row_period: int = 0, lists=None, lanes=None,
+                     admm=None):
+    """Student's-t robust RTR (rtr_solve_robust.c:1441; the ADMM variant
+    rtr_solve_robust_admm.c:1425 with ``admm``): IRLS rounds of
     {fixed-nu robust RTR -> weight E-step -> AECM nu update, p = 2}.
     Returns (J, nu, info); nu is [V] on a group (``lanes``)."""
     mask = wt_base > 0
@@ -475,7 +496,8 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         J, info = rtr_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J,
                             n_stations, chunk_mask, config,
                             itmax_dynamic=itmax_dynamic, robust_nu=nu,
-                            row_period=row_period, lists=lists, lanes=lanes)
+                            row_period=row_period, lists=lists, lanes=lanes,
+                            admm=admm)
         e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt_r
         w = rb.update_weights(e, nu if lanes is None else lanes.per_row(nu))
         nu = rb.lane_nu(nu, w, mask, lanes, _aecm(nulow, nuhigh))
@@ -490,9 +512,10 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
 def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                      n_stations: int, nu0=2.0, nulow=2.0, nuhigh=30.0,
                      chunk_mask=None, config: NSDConfig = NSDConfig(),
-                     itmax_dynamic=None, lanes=None):
+                     itmax_dynamic=None, lanes=None, admm=None):
     """Nesterov accelerated steepest descent with Student's-t cost
-    (nsd_solve_nocuda_robust, rtr_solve_robust.c:1878): momentum
+    (nsd_solve_nocuda_robust, rtr_solve_robust.c:1878; with ``admm`` the
+    augmented cost of Dirac.h:1260-1314): momentum
     t_{k+1} = (1 + sqrt(1 + 4 t_k^2)) / 2, per-chunk backtracking line
     search on the projected, station-preconditioned gradient, and an
     AECM nu update every step. Returns (J, nu, info).
@@ -510,6 +533,7 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     N = n_stations
     mode = config.jones_mode
     npar = ne.jones_npar(mode)
+    aug = lm_mod.admm_terms(admm, kmax, dtype, dev, mode)
     p, Jref = ne.mode_point(J0, mode)
     p = p.reshape(kmax, -1).to(dtype)
     p_to_J = _mode_p2j(mode, Jref, kmax, N)
@@ -525,7 +549,8 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
 
     def cost_of(nu_):
         return make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
-                         robust_nu=per_row(nu_), mode=mode, Jref=Jref)
+                         robust_nu=per_row(nu_), mode=mode, Jref=Jref,
+                         aug=aug)
 
     iw = station_precond(wt_base, sta1, sta2, chunk_id, kmax, N,
                          npar=npar, lanes=lanes)

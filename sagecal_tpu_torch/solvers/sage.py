@@ -41,6 +41,13 @@ visits (T G lanes under groups, each tile's relaxation its own), where
 the JAX package vmaps the whole solve over tiles; the refine then runs
 tile after tile. :func:`sagefit_host` is the same loop at T = 1.
 
+Consensus ADMM (``admm=(Y, BZ, rho)``, ``sage.sagefit``'s ``admm`` in
+the JAX package; sagefit_visibilities_admm, admm_solve.c:221): every
+cluster visit solves the augmented Lagrangian with its cluster's slice
+(Y[m], BZ[m], rho[m]) (``lm.admm_terms``; a group's visits each their
+own), and the joint refine is skipped (the reference calls it with
+max_lbfgs = 0, sagecal_slave.cpp:644-667).
+
 :func:`bfgsfit` is the LBFGS-only joint fit of the per-channel bandpass
 solve (``-b 1``): the refine alone, warm-started.
 
@@ -155,14 +162,15 @@ def _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base):
 def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
                    wt_base, J_m, n_stations: int, nu_cj, config: SageConfig,
                    itermax, itcap: int, os_cfg, last: bool, lists,
-                   lanes=None):
+                   lanes=None, admm=None):
     """One cluster's per-chunk solve by solver mode (``sage._cluster_solve``,
     lmfit.c:906-962); ``lists`` the tile's station lists for the matvec
     kernel (``inner="cg"``). Returns (Jn, nu_new, init_cost [K],
     final_cost [K], iters, cg_iters, tcg_iters). With ``lanes`` the
     arguments are an in-flight group's folded layout (``lm.lm_solve``):
     nu_cj [V], itermax an int array and os_cfg a list, one per visit;
-    nu_new, iters and cg_iters are then per visit."""
+    nu_new, iters and cg_iters are then per visit. ``admm`` the
+    cluster's (y, bz, rho) slice, folded like the rest on a group."""
     nbase = int(config.nbase)
     lm_cfg = lm_mod.LMConfig(itmax=itcap, inner=config.inner,
                              kernel=config.kernel,
@@ -173,7 +181,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
         Jn, info = lm_mod.lm_solve(
             xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
             chunk_mask=cmask_m, config=lm_cfg, itmax_dynamic=itermax,
-            os=os, row_period=nbase, lists=lists, lanes=lanes)
+            os=os, row_period=nbase, lists=lists, lanes=lanes, admm=admm)
         return (Jn, nu_cj, info["init_cost"], info["final_cost"],
                 info["iters"], info["cg_iters"], 0)
 
@@ -183,7 +191,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
             nu0=nu_cj, nulow=config.nulow, nuhigh=config.nuhigh,
             chunk_mask=cmask_m, config=lm_cfg, wt_rounds=3,
             itmax_dynamic=itermax, os=os, row_period=nbase, lists=lists,
-            lanes=lanes)
+            lanes=lanes, admm=admm)
         return (Jn, nu_new, info["init_cost"], info["final_cost"],
                 info["iters"], info["cg_iters"], 0)
 
@@ -198,7 +206,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
                 xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
                 n_stations, chunk_mask=cmask_m, config=rtr_cfg,
                 itmax_dynamic=itermax, row_period=nbase, lists=lists,
-                lanes=lanes)
+                lanes=lanes, admm=admm)
             nu_new = nu_cj
         else:
             # 2 rounds: the reference robust RTR updates the weights
@@ -208,7 +216,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
                 n_stations, nu0=nu_cj, nulow=config.nulow,
                 nuhigh=config.nuhigh, chunk_mask=cmask_m, config=rtr_cfg,
                 wt_rounds=2, itmax_dynamic=itermax, row_period=nbase,
-                lists=lists, lanes=lanes)
+                lists=lists, lanes=lanes, admm=admm)
         return (Jn, nu_new, info["init_cost"], info["final_cost"],
                 info["iters"], 0, info["tcg_iters"])
 
@@ -219,7 +227,7 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
             xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
             nu0=nu_cj, nulow=config.nulow, nuhigh=config.nuhigh,
             chunk_mask=cmask_m, config=nsd_cfg, itmax_dynamic=2 * itermax,
-            lanes=lanes)
+            lanes=lanes, admm=admm)
         return (Jn, nu_new, info["init_cost"], info["final_cost"],
                 info["iters"], 0, 0)
 
@@ -284,7 +292,7 @@ def _omega_trial(w: float, Jo_g, Jn_g, coh_g, cidx_g, sta1, sta2, xres,
 def _group_solve(mode: int, xd_g, coh_g, cidx_g, cmask_g, J_g, nu_g, sta1,
                  sta2, wt_base, n_stations: int, config: SageConfig,
                  itermax, itcap: int, os_cfgs, last: bool, lists,
-                 cid_shared: bool, tiles: int = 1):
+                 cid_shared: bool, tiles: int = 1, admm=None):
     """V cluster visits as one lane-batched solve, each against its own
     add-back ``xd_g`` [V, B, 8] (``jax.vmap(solve_one)`` of
     ``sage._group_update``; under ``--tile-batch`` the vmap over tiles):
@@ -293,7 +301,8 @@ def _group_solve(mode: int, xd_g, coh_g, cidx_g, cmask_g, J_g, nu_g, sta1,
     per visit; ``itermax`` and ``os_cfgs`` one per visit; ``cid_shared``
     when every visit has the same chunk ids; ``tiles`` the solve intervals
     whose visits the lanes hold, tile-major (``swp.Lanes.tiles``). A lone
-    visit (V = 1) is solved unfolded, on the single-visit sweep. Returns
+    visit (V = 1) is solved unfolded, on the single-visit sweep.
+    ``admm`` the visits' (Y [V, K, N, 8], BZ, rho [V]) or None. Returns
     (Jn [V, K, N, 2, 2], nu [V], init_cost [V, K], final_cost [V, K],
     iters [V], cg_iters [V], tcg_iters [tiles])."""
     V, K = J_g.shape[0], J_g.shape[1]
@@ -302,7 +311,8 @@ def _group_solve(mode: int, xd_g, coh_g, cidx_g, cmask_g, J_g, nu_g, sta1,
         Jn, nu_new, ic, fc, its, cgs, tcgs = _cluster_solve(
             mode, xd_g[0], coh_g[0], sta1, sta2, cidx_g[0], cmask_g[0],
             wt_base, J_g[0], n_stations, nu_g[0], config, int(itermax[0]),
-            itcap, None if os_cfgs is None else os_cfgs[0], last, lists)
+            itcap, None if os_cfgs is None else os_cfgs[0], last, lists,
+            admm=None if admm is None else tuple(a[0] for a in admm))
     else:
         lanes = swp.Lanes(V, K, cidx_g[0] if cid_shared else cidx_g, tiles)
         off = torch.arange(V, device=cidx_g.device)[:, None] * K
@@ -311,7 +321,10 @@ def _group_solve(mode: int, xd_g, coh_g, cidx_g, cmask_g, J_g, nu_g, sta1,
             sta1.repeat(V), sta2.repeat(V), (cidx_g + off).reshape(V * B),
             cmask_g.reshape(V * K), wt_base,
             J_g.reshape((V * K,) + J_g.shape[2:]), n_stations, nu_g, config,
-            np.asarray(itermax), itcap, os_cfgs, last, lists, lanes=lanes)
+            np.asarray(itermax), itcap, os_cfgs, last, lists, lanes=lanes,
+            admm=None if admm is None else (
+                admm[0].reshape(V * K, -1), admm[1].reshape(V * K, -1),
+                admm[2].repeat_interleave(K)))
     nu_new = torch.as_tensor(nu_new, dtype=nu_g.dtype,
                              device=nu_g.device).expand(V)
     return (Jn.view(J_g.shape), nu_new, ic.view(V, K), fc.view(V, K),
@@ -343,13 +356,15 @@ class _Visits(NamedTuple):
 
 def _visit_lanes(cjs, J, xres, nuM, coh, sta1, sta2, chunk_idx, chunk_mask,
                  wt_base, n_stations: int, config: SageConfig, itermax,
-                 itcap: int, os_cfgs, last: bool, lists, same_cid) -> _Visits:
+                 itcap: int, os_cfgs, last: bool, lists, same_cid,
+                 admm=None) -> _Visits:
     """Solve the visits ``cjs`` [T, G] (host ints) of T tiles as one
     lane-batched solve at V = T G: J [T, M, K, N, 2, 2], xres [T, B, 8],
     nuM [T, M], coh [T, M, B, 2, 2], wt_base [T, B, 8] (one tile's weights
     stay shared by its lanes); ``itermax`` and ``os_cfgs`` one per lane;
     ``same_cid`` the [M, M] host table of clusters with equal chunk ids,
-    which decides whether the lanes share theirs."""
+    which decides whether the lanes share theirs; ``admm`` the tiles'
+    (Y [T, M, K, N, 8], BZ, rho [T, M]) or None."""
     T, G = cjs.shape
     dev = xres.device
     tt_h, cc_h = np.repeat(np.arange(T), G), cjs.reshape(-1)
@@ -366,14 +381,15 @@ def _visit_lanes(cjs, J, xres, nuM, coh, sta1, sta2, chunk_idx, chunk_mask,
         int(config.solver_mode), xd_g, coh_g, cidx_g, chunk_mask[cc], J_o,
         nuM[tt, cc], sta1, sta2, wt_g, n_stations, config, itermax,
         itcap, os_cfgs, last, lists, bool(same_cid[cc_h[0], cc_h].all()),
-        tiles=T)
+        tiles=T, admm=None if admm is None else tuple(a[tt, cc]
+                                                      for a in admm))
     return _Visits(tt, cc, xd_g, coh_g, cidx_g, J_o, *out)
 
 
 def _group_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
                   chunk_mask, wt_base, n_stations: int, config: SageConfig,
                   itermax, itcap: int, os_cfgs, last: bool, lists, anchor,
-                  same_cid):
+                  same_cid, admm=None):
     """Visit a GROUP of clusters concurrently in each of T tiles: tile t
     the clusters ``cjs[t]`` ([T, G] host ints; ``sage._group_update``,
     sage.py:552, and its tile vmap ``_jit_group_update_tiles``; the state
@@ -396,7 +412,7 @@ def _group_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
     T, G = cjs.shape
     vis = _visit_lanes(cjs, J, xres, nuM, coh, sta1, sta2, chunk_idx,
                        chunk_mask, wt_base, n_stations, config, itermax,
-                       itcap, os_cfgs, last, lists, same_cid)
+                       itcap, os_cfgs, last, lists, same_cid, admm)
     model_old = (vis.xd.view((T, G) + xres.shape[1:])
                  - xres[:, None]).view(vis.xd.shape)
     init_res, final_res = vis.init_cost.sum(dim=-1), vis.final_cost.sum(dim=-1)
@@ -436,7 +452,7 @@ def _group_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
 def _cluster_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2,
                     chunk_idx, chunk_mask, wt_base, n_stations: int,
                     config: SageConfig, itermax, itcap: int, os_cfgs,
-                    last: bool, lists, same_cid):
+                    last: bool, lists, same_cid, admm=None):
     """One step of a sequential sweep in each of T tiles (``sage._jit_
     cluster_update`` and its tile vmap ``_jit_cluster_update_tiles``,
     sage.py:1551): tile t visits cluster ``cjs[t]`` ([T] host ints), the T
@@ -447,7 +463,7 @@ def _cluster_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2,
     [T])."""
     vis = _visit_lanes(cjs[:, None], J, xres, nuM, coh, sta1, sta2,
                        chunk_idx, chunk_mask, wt_base, n_stations, config,
-                       itermax, itcap, os_cfgs, last, lists, same_cid)
+                       itermax, itcap, os_cfgs, last, lists, same_cid, admm)
     init_res, final_res = vis.init_cost.sum(dim=-1), vis.final_cost.sum(dim=-1)
     nerr_acc[vis.tt, vis.cc] = torch.where(
         init_res > 0, torch.clamp((init_res - final_res) / init_res,
@@ -589,9 +605,10 @@ def _nerr(nerr_acc):
 
 
 def _finish(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
-            config: SageConfig, nuM):
+            config: SageConfig, nuM, refine_on: bool = True):
     """The end of one tile's solve: mean nu, then the joint refine (or
-    the residual alone at -l 0). Returns (J, res_1, mean_nu, lbfgs
+    the residual alone at -l 0 and under ADMM, ``refine_on`` False).
+    Returns (J, res_1, mean_nu, lbfgs
     iterations, refine s)."""
     M = nuM.shape[0]
     # the mean as the JAX package's compiled program takes it: XLA turns
@@ -602,7 +619,7 @@ def _finish(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
     # evaluation, so the span ends within one small kernel of its work
     t0 = time.perf_counter()
     lbfgs_k = 0
-    if config.max_lbfgs > 0:
+    if config.max_lbfgs > 0 and refine_on:
         J, res_1, lbfgs_k = refine(
             x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations, config,
             mean_nu=mean_nu if _is_robust(int(config.solver_mode)) else None)
@@ -614,7 +631,7 @@ def _finish(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
 def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                  n_stations: int, wt_base, nu0=None,
                  config: SageConfig = SageConfig(), seed: int = 42,
-                 os_id=None, order=None):
+                 os_id=None, order=None, admm=None):
     """One solve interval of SAGE-EM calibration with the EM and
     cluster loops on the host: :func:`sagefit_host_tiles` at T = 1.
 
@@ -630,11 +647,16 @@ def sagefit_host(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     With ``config.inflight`` > 1 the sweeps visit the clusters in groups
     (:func:`_group_update`; widths from :func:`_inflight_widths`, cut from
     the same visiting order) and info adds ``rejected_groups`` and
-    ``groups``, one (sweep, members, omega, margins) record a group."""
+    ``groups``, one (sweep, members, omega, margins) record a group.
+
+    ``admm`` = (Y [M, Kmax, N, 8], BZ [M, Kmax, N, 8], rho [M]) reals:
+    the consensus-ADMM solve (module docstring)."""
     J, info = sagefit_host_tiles(
         x8[None], coh[None], sta1, sta2, chunk_idx, chunk_mask, J0[None],
         n_stations, wt_base[None], nu0=nu0, config=config, seeds=[seed],
-        os_id=os_id, orders=None if order is None else [order])
+        os_id=os_id, orders=None if order is None else [order],
+        admm=None if admm is None else tuple(
+            torch.as_tensor(a, device=x8.device)[None] for a in admm))
     return J[0], {"res_0": info["res_0"][0], "res_1": float(info["res_1"][0]),
                   "mean_nu": info["mean_nu"][0], "em_s": info["em_s"],
                   "refine_s": info["refine_s"], "nerr": info["nerr"][0],
@@ -660,7 +682,7 @@ _TILE_TRIPS = ("solver_iters", "cg_iters", "tcg_iters", "lbfgs_iters",
 def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                        n_stations: int, wt_base, nu0=None,
                        config: SageConfig = SageConfig(), seeds=None,
-                       os_id=None, orders=None):
+                       os_id=None, orders=None, admm=None):
     """SAGE-EM calibration of T independent solve intervals as one
     lane-batched solve, the EM and cluster loops on the host
     (``sage.sagefit_host_tiles``, sage.py:1367-1548).
@@ -684,6 +706,9 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     while loops freeze it under vmap, so every tile's result is its own
     solve's. The joint refine runs tile after tile. :func:`sagefit_host`
     is the T = 1 case, whose lone sequential visits solve unfolded.
+
+    ``admm`` the tiles' (Y [T, M, K, N, 8], BZ, rho [T, M]): each
+    tile's consensus-ADMM solve, without the refine.
 
     Returns (J [T, M, K, N, 2, 2], info): res_0, mean_nu [T] and nerr
     [T, M] tensors; res_1 and the trips of ``_TILE_TRIPS`` [T] numpy
@@ -753,7 +778,7 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                 recs = _group_update(
                     cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
                     chunk_mask, wt_base, n_stations, config, caps, itcap,
-                    oss, last, lists, anchor, same_cid)
+                    oss, last, lists, anchor, same_cid, admm)
                 for t, rec in enumerate(recs):
                     for key in ("solver_iters", "cg_iters", "tcg_iters"):
                         trips[key][t] += rec[key]
@@ -767,7 +792,7 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
                 xres, its, cgs, tcgs = _cluster_update(
                     cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
                     chunk_mask, wt_base, n_stations, config, caps, itcap,
-                    oss, last, lists, same_cid)
+                    oss, last, lists, same_cid, admm)
                 trips["solver_iters"] += its
                 trips["cg_iters"] += cgs
                 trips["tcg_iters"] += tcgs
@@ -781,7 +806,7 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
     for t in range(T):
         J[t], res_1[t], mnu, trips["lbfgs_iters"][t], secs = _finish(
             x8[t], coh[t], sta1, sta2, chunk_idx, J[t], wt_base[t],
-            n_stations, config, nuM[t])
+            n_stations, config, nuM[t], refine_on=admm is None)
         mean_nu.append(mnu)
         refine_s.append(secs)
     return J, {"res_0": res_0, "res_1": res_1,

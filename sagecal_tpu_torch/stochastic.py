@@ -32,13 +32,21 @@ flag zeroes that channel's weight). ``--resume`` starts fresh: the
 checkpoint is the sequential full-batch loop's contract, as in the JAX
 package.
 
+Stochastic consensus (``-A > 1`` with ``-w > 1``,
+:func:`run_minibatch_consensus`; minibatch_consensus_mode.cpp:47): the
+bands' solutions are tied by consensus ADMM to a polynomial in frequency
+over the band centres (``consensus/poly.py``): each minibatch's band
+solve minimises the band cost plus the augmented-Lagrangian term
+(:func:`make_band_cost` with ``consensus``), then the duals and Z update
+on the host in float64, a band whose residual exceeds RES_RATIO x the
+mean left out of the update (:528-546); ``-U`` (``RunConfig.
+use_global_solution``) replaces every band's solution by the polynomial
+at its centre at the end of a tile.
+
 Runs on the card in float32 and on the CPU in float64, like the
-full-batch pipeline. Not ported yet, raising ``NotImplementedError``
-naming its ROADMAP item: the consensus variant
-``run_minibatch_consensus`` (``-A > 1`` with ``-w > 1``, item 9). The
-JAX package's background reader and writer threads (``--prefetch``) and
-its trace records (item 10) change no value and are left out: tiles are
-read and written inline.
+full-batch pipeline. The JAX package's background reader and writer
+threads (``--prefetch``) and its trace records (queue A item 10) change
+no value and are left out: tiles are read and written inline.
 """
 
 from __future__ import annotations
@@ -158,28 +166,39 @@ class BandSolverOutputs(NamedTuple):
 def make_band_cost(chunk_idx, chunk_mask, n_stations: int, nu: float,
                    consensus: bool = False, loss: str = "robust"):
     """The band objective of :func:`make_band_solver`: ``cost_of(x8F,
-    coh, wtF, sta1, sta2) -> cost_fn(pflat)``, with ``r = (x8F -
-    model8_multifreq(J, coh, ...)) * wtF`` summed as log1p(r^2 / nu)
-    (Student's t) or, with ``loss="huber"``, r^2 inside |r| <= nu and
-    2 nu |r| - nu^2 outside (func_huber_th, robust_batchmode_lbfgs.c:66).
-    ``cost_fn`` maps p [M K N 8] to a scalar, or p [W, M K N 8] on lanes
-    (x8F, coh and wtF with a leading [W]) to the lanes' costs [W].
-    ``chunk_idx`` is a [M, B] tensor on the data's device. The ADMM
-    augmentation (``consensus``) is ROADMAP queue A item 9."""
-    if consensus:
-        raise NotImplementedError(
-            "not ported yet: the consensus band cost of stochastic "
-            "consensus calibration (ROADMAP queue A item 9)")
+    coh, wtF, sta1, sta2, Y=None, BZ=None, rho=None) -> cost_fn(pflat)``,
+    with ``r = (x8F - model8_multifreq(J, coh, ...)) * wtF`` summed as
+    log1p(r^2 / nu) (Student's t) or, with ``loss="huber"``, r^2 inside
+    |r| <= nu and 2 nu |r| - nu^2 outside (func_huber_th,
+    robust_batchmode_lbfgs.c:66). ``cost_fn`` maps p [M K N 8] to a
+    scalar, or p [W, M K N 8] on lanes (x8F, coh and wtF with a leading
+    [W]) to the lanes' costs [W]. ``chunk_idx`` is a [M, B] tensor on the
+    data's device.
+
+    With ``consensus`` the augmented Lagrangian of
+    bfgsfit_minibatch_consensus (robust_batchmode_lbfgs.c:1504) is added
+    with the JAX package's convention (``stochastic.py:143-174``): y^T d
+    + rho/2 ||d||^2, d = p - BZ over the live chunks (``chunk_mask``),
+    Y and BZ [M, K, N, 8] and rho [M] (a leading [W] on lanes). The JAX
+    package weighs ||d||^2 there by the SUM of the clusters' rho (its
+    rho[:, None, None, None] broadcasts against the [M, K] chunk norms):
+    the port computes the same term, ROADMAP queue C item C12."""
     if loss not in ("robust", "huber"):
         raise ValueError(f"--loss {loss!r}: expected robust or huber")
     M, kmax = np.asarray(chunk_mask).shape
 
-    def cost_of(x8F, coh, wtF, sta1, sta2):
+    def cost_of(x8F, coh, wtF, sta1, sta2, Y=None, BZ=None, rho=None):
         idx_p = _row_ids(chunk_idx, sta1, n_stations)
         idx_q = _row_ids(chunk_idx, sta2, n_stations)
         lanes = x8F.dim() == 4
         xl, cl, wl = (x8F, coh, wtF) if lanes else \
             (x8F[None], coh[None], wtF[None])
+
+        if consensus:
+            live = torch.as_tensor(np.asarray(chunk_mask),
+                                   device=x8F.device)[..., None, None]
+            yl, bl, rl = (Y, BZ, rho) if lanes else \
+                (Y[None], BZ[None], rho[None])
 
         def cost_fn(pflat):
             p = pflat.reshape(xl.shape[:1] + (M, kmax, n_stations, 8))
@@ -191,6 +210,10 @@ def make_band_cost(chunk_idx, chunk_mask, n_stations: int, nu: float,
             else:
                 c = torch.log1p(r * r / nu)
             c = c.flatten(1).sum(-1)
+            if consensus:
+                d = torch.where(live, p - bl, torch.zeros_like(p))
+                c = c + (yl * d).flatten(1).sum(-1)
+                c = c + 0.5 * rl.sum(-1) * (d * d).flatten(1).sum(-1)
             return c if lanes else c[0]
         return cost_fn
 
@@ -244,13 +267,13 @@ def make_band_solver(dsky, n_stations: int, chunk_idx, chunk_mask,
                              consensus, loss=loss)
 
     def solve(x8F, u, v, w, sta1, sta2, wtF, freqsF, p0, mem, armijo=None,
-              tslot=None, beam=None):
+              tslot=None, beam=None, Y=None, BZ=None, rho=None):
         coh = rp.coherencies(dsky, u, v, w, freqsF, fdelta_chan,
                              per_channel_flux=True, beam=beam,
                              dobeam=dobeam, tslot=tslot, sta1=sta1,
                              sta2=sta2)
         nreal = _nreal(wtF, False)
-        fn = cost_of(x8F, coh, wtF, sta1, sta2)
+        fn = cost_of(x8F, coh, wtF, sta1, sta2, Y, BZ, rho)
         cost = _nograd(fn)
         p0f = p0.reshape(-1)
         res_0 = cost(p0f) / nreal
@@ -275,7 +298,8 @@ def make_band_solver_batched(dsky, n_stations: int, chunk_idx, chunk_mask,
     gradient of their sum is each lane's own. Each lane keeps its own
     step, stop, slot, fill and count (``lbfgs.lbfgs_minibatch_lanes``),
     so a batch gives what W single-band solves give. ``armijo``: a list
-    per lane, ``tslot`` and ``beam`` as :func:`make_band_solver`'s.
+    per lane, ``tslot`` and ``beam`` as :func:`make_band_solver`'s; with
+    ``consensus``, Y and BZ [W, M, K, N, 8] and rho [W, M] per lane.
     Returns stacked :class:`BandSolverOutputs` (iters a [W] int
     array)."""
     M, kmax = np.asarray(chunk_mask).shape
@@ -283,7 +307,7 @@ def make_band_solver_batched(dsky, n_stations: int, chunk_idx, chunk_mask,
                              consensus, loss=loss)
 
     def solve(x8F, u, v, w, sta1, sta2, wtF, freqsF, p0, mem, armijo=None,
-              tslot=None, beam=None):
+              tslot=None, beam=None, Y=None, BZ=None, rho=None):
         W = x8F.shape[0]
         coh = torch.stack([rp.coherencies(dsky, u, v, w, f, fdelta_chan,
                                           per_channel_flux=True, beam=beam,
@@ -291,7 +315,7 @@ def make_band_solver_batched(dsky, n_stations: int, chunk_idx, chunk_mask,
                                           sta1=sta1, sta2=sta2)
                            for f in freqsF])         # [W, M, B, F, 2, 2]
         nreal = _nreal(wtF, True)
-        fn = cost_of(x8F, coh, wtF, sta1, sta2)
+        fn = cost_of(x8F, coh, wtF, sta1, sta2, Y, BZ, rho)
         cost = _nograd(fn)
         p0f = p0.reshape(W, -1)
         res_0 = cost(p0f) / nreal
@@ -304,14 +328,9 @@ def make_band_solver_batched(dsky, n_stations: int, chunk_idx, chunk_mask,
 
 
 def check_supported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for a stochastic run the port does
-    not do yet: the consensus variant; and what ``pipeline.
-    check_supported`` refuses. ``-W``, ``-b``, ``-J``, ``-a`` and ``-z``
-    pass: a stochastic run reads none of them, as in the JAX package."""
-    if cfg.n_admm > 1 and cfg.channel_avg_per_band > 1:
-        raise NotImplementedError(
-            "not ported yet: -N with -A > 1 and -w > 1, stochastic consensus "
-            "calibration (run_minibatch_consensus; ROADMAP queue A item 9)")
+    """Raise for what ``pipeline.check_supported`` refuses. ``-W``,
+    ``-b``, ``-J``, ``-a`` and ``-z`` pass: a stochastic run reads none
+    of them, as in the JAX package."""
     pipeline.check_supported(cfg.replace(n_epochs=0))
 
 
@@ -690,3 +709,147 @@ def run_minibatch(cfg: RunConfig, device=None, log=print):
     finally:
         st.close()
     return st.history
+
+
+def run_minibatch_consensus(cfg: RunConfig, device=None, log=print):
+    """Stochastic minibatch calibration with single-node frequency
+    consensus (``run_minibatch_consensus``, ``stochastic.py:762-888`` of
+    the JAX package; minibatch_consensus_mode.cpp:47) on ``device``
+    (None: the card, raising without one).
+
+    The -w bands' solutions are tied by ADMM to a ``-P``-term polynomial
+    of type ``-Q`` over the band centres, with rho from ``-r`` or the
+    ``-G`` file per cluster. Per tile, the duals Y and Z start at 0; for
+    each of ``-A`` ADMM iterations, ``-N`` epochs of the minibatches
+    solve all bands as lanes of one band solve with the augmented term
+    (Y_b, B_b Z, rho), then on the host in float64 a band whose residual
+    is non-positive or above RES_RATIO x the bands' mean is flagged out,
+    the others add rho p_b to Y_b, Z = Bii sum_b B_b Y_b and the others
+    take Y_b -= rho B_b Z. ``-U`` ends the tile with every band at the
+    polynomial's value at its centre (through float32, as the JAX package
+    casts it). The residual write-back, the solutions and the resets are
+    the plain run's (:meth:`StochasticRunner.end_of_tile`).
+
+    Returns one record a tile: res_0, res_1, minutes, lbfgs_iters (per
+    solve, per band), armijo, the dual residual and the flagged bands
+    per solve, and the kernel launches."""
+    from sagecal_tpu_torch.consensus import poly as cpoly
+    check_supported(cfg)
+    device = devmod.resolve(device)
+    ms, sky = _open(cfg, log)
+    rn = StochasticRunner(cfg, ms, sky, device=device, log=log)
+    if rn.nchan_total == 1:
+        raise ValueError("consensus optimization needs more than 1 channel "
+                         "(minibatch_consensus_mode.cpp:90)")
+    log(f"ADMM iterations={cfg.n_admm} polynomial order={cfg.n_poly} "
+        f"regularization={cfg.admm_rho}")
+    # the basis at the band centres, rho per cluster replicated per band
+    fcen = np.array([rn.freqs[c0:c0 + nc].mean()
+                     for c0, nc in zip(rn.chanstart, rn.nchan)])
+    B = cpoly.setup_polynomials(fcen, ms.meta["freq0"], cfg.n_poly,
+                                cfg.poly_type)                 # [W, P]
+    arho = np.full(rn.M, cfg.admm_rho)
+    if cfg.rho_file:
+        arho = skymodel.read_cluster_rho(cfg.rho_file, sky.cluster_ids,
+                                         cfg.admm_rho)
+    rhok = np.tile(arho[None, :], (rn.nsolbw, 1))              # [W, M]
+    Bt = torch.as_tensor(B)
+    Bii = cpoly.find_prod_inverse(Bt, torch.as_tensor(rhok.T).contiguous())
+    solver = make_band_solver_batched(
+        rn.dsky, rn.n, rn.cidx, rn.cmask, rn.fdelta_chan,
+        nu=cfg.robust_nulow, max_lbfgs=cfg.max_lbfgs, consensus=True,
+        dobeam=rn.dobeam, loss=cfg.stochastic_loss)
+    pinit, pfreq = rn.initial_p()
+    like = torch.zeros((), dtype=rn.rdt, device=rn.device)
+    mems = [lbfgs_mod.lbfgs_memory_init(rn.nparam, cfg.lbfgs_m, like)
+            for _ in range(rn.nsolbw)]
+    writer = rn.solution_writer()
+    state = {"pfreq": pfreq, "mems": mems, "pinit": pinit, "res_prev": None}
+    pshape = (rn.M, rn.kmax, rn.n, 8)
+    n_tiles = ms.n_tiles if not cfg.max_timeslots \
+        else min(ms.n_tiles, cfg.max_timeslots)
+    history = []
+    try:
+        for ti in range(n_tiles):
+            t0 = time.time()
+            c0 = pipeline._counters()
+            tile = ms.read_tile(ti)
+            inputs = rn.build_tile_inputs(tile)
+            Y = np.zeros((rn.nsolbw,) + pshape)
+            Z = np.zeros((rn.M, cfg.n_poly, rn.kmax, rn.n, 8))
+            resband = np.zeros(rn.nsolbw)
+            res_0 = res_1 = 0.0
+            iters, armijo, duals, flagged = [], [], [], []
+            pstack, memstack = rn.stack_state(pfreq, mems)
+            rho_d = rn._t(rhok)
+            for nadmm in range(cfg.n_admm):
+                for nepch in range(cfg.n_epochs):
+                    for nmb in range(rn.minibatches):
+                        BZ_all = np.einsum("bp,mpkns->bmkns", B, Z)
+                        bkw = {} if not rn.dobeam else dict(
+                            beam=inputs["beam"], tslot=inputs["tslot"][nmb])
+                        margins = [[] for _ in range(rn.nsolbw)]
+                        out = solver(*inputs[nmb], pstack, memstack,
+                                     armijo=margins, Y=rn._t(Y),
+                                     BZ=rn._t(BZ_all), rho=rho_d, **bkw)
+                        pstack, memstack = out.p, out.mem
+                        p_np = pstack.to("cpu", torch.float64).numpy()
+                        r0s = out.res_0.to("cpu", torch.float64).numpy()
+                        r1s = out.res_1.to("cpu", torch.float64).numpy()
+                        # a non-positive residual marks a bad solve
+                        resband[:] = np.where((r0s > 0) & (r1s > 0), r1s,
+                                              np.inf)
+                        if cfg.verbose:
+                            for b in range(rn.nsolbw):
+                                primal = float(np.linalg.norm(
+                                    (p_np[b] - BZ_all[b])
+                                    * rn.cmask[..., None, None])
+                                    / np.sqrt(p_np[b].size))
+                                log(f"admm={nadmm} epoch={nepch} "
+                                    f"minibatch={nmb} band={b} primal "
+                                    f"{primal:.6f} {r0s[b]:.6f} "
+                                    f"{r1s[b]:.6f}")
+                        res_0, res_1 = float(np.mean(r0s)), float(np.mean(r1s))
+                        iters.append([int(k) for k in out.iters])
+                        armijo.append(margins)
+                        # diverged bands stay out of the Z update (:528-546)
+                        good = ~(resband > RES_RATIO * res_1)
+                        flagged.append(np.flatnonzero(~good).tolist())
+                        for b in np.flatnonzero(good):
+                            Y[b] += rhok[b][:, None, None, None] * p_np[b]
+                        zsum = np.einsum("b,bp,bmkns->mpkns",
+                                         good.astype(float), B, Y)
+                        Zold = Z
+                        Z = cpoly.z_from_contributions(
+                            torch.as_tensor(zsum), Bii).numpy()
+                        dual = float(np.linalg.norm(Z - Zold)
+                                     / np.sqrt(Z.size))
+                        duals.append(dual)
+                        if cfg.verbose:
+                            log(f"ADMM : {nadmm} dual residual={dual:.6f}")
+                        for b in np.flatnonzero(good):
+                            Y[b] -= rhok[b][:, None, None, None] * np.einsum(
+                                "p,mpkns->mkns", B[b], Z)
+            rn.unstack_state(pstack, memstack, pfreq, mems)
+            if cfg.use_global_solution:
+                log("Using Global")
+                for b in range(rn.nsolbw):
+                    pfreq[b] = np.einsum("p,mpkns->mkns", B[b], Z).astype(
+                        np.float32)
+            rn.end_of_tile(tile, ti, inputs, state, resband, res_0, res_1,
+                           t0, writer, history,
+                           extra={"lbfgs_iters": iters, "armijo": armijo,
+                                  "duals": duals, "flagged_bands": flagged})
+            launches = [b - a for a, b in zip(c0, pipeline._counters())]
+            history[-1].update(launches=dict(zip(
+                ("coh", "sweep", "matvec", "visits"), launches[:4])),
+                xla_solves=launches[4])
+            if cfg.verbose:
+                log(f"Timeslot: {ti} stats: " + json.dumps(
+                    {k: history[-1][k] for k in ("lbfgs_iters", "duals",
+                                                 "flagged_bands",
+                                                 "launches")}))
+    finally:
+        if writer:
+            writer.close()
+    return history

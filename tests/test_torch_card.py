@@ -948,3 +948,47 @@ def test_band_solver_on_card_matches_cpu(card, tmp_path):
             assert float(((g - c) / c).abs().max()) <= 1e-3
         assert bool((r1c < r0c).all())
 
+
+
+@pytest.mark.parametrize("solver,inner", [("lm", "chol"), ("lm", "cg"),
+                                          ("rtr", "cg")])
+def test_admm_solve_on_card_matches_cpu(card, solver, inner):
+    """One cluster solve with the consensus-ADMM term on the sweep route
+    (the blocks Cholesky with rho in its shift, or the matvec kernel with
+    rho in its shift; RTR's tCG with 2 rho v beside each matvec), on the
+    point-source input with y, bz and rho of the consensus run's size,
+    against the CPU float64 solve: final (augmented) cost within 1e-3.
+    RTR, not robust RTR: on this input robust RTR under ADMM moves 8e-4
+    to 1e-2 with float32 alone on the CPU (its nu grid; ROADMAP C13),
+    RTR 8e-8."""
+    from sagecal_tpu_torch.solvers import lm as tlm
+    from sagecal_tpu_torch.solvers import rtr as trtr
+    x8, coh, sa, sb, cid, J0, N, nb = robust_rtr_problem(point=True)
+    B = x8.shape[0]
+    rng = np.random.default_rng(12)
+    y = 0.2 * rng.normal(size=(2, N, 8))
+    bz = np.tile(np.array([1.0, 0, 0, 0, 0, 0, 1.0, 0]), (2, N, 1)) \
+        + 0.1 * rng.normal(size=(2, N, 8))
+    out = {}
+    for dev, rdt, cdt in ((card, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        r = lambda a: torch.as_tensor(a, dtype=rdt, device=dev)
+        c = lambda a: torch.as_tensor(a, dtype=cdt, device=dev)
+        i = lambda a: torch.as_tensor(a, device=dev).long()
+        n0, m0 = tswp.LAUNCHES, tswp.MATVEC_LAUNCHES
+        args = (r(x8), c(coh), i(sa), i(sb), i(cid), r(np.ones((B, 8))),
+                c(J0), N)
+        admm = (r(y), r(bz), 2.5)
+        if solver == "lm":
+            _, info = tlm.lm_solve(*args, row_period=nb, admm=admm,
+                                   config=tlm.LMConfig(itmax=8, inner=inner))
+        else:
+            _, info = trtr.rtr_solve(
+                *args, row_period=nb, admm=admm,
+                config=trtr.RTRConfig(itmax=6, inner=inner))
+        out[str(dev)] = (info["final_cost"].double().cpu(),
+                         tswp.LAUNCHES - n0, tswp.MATVEC_LAUNCHES - m0)
+    (gc, gs, gm), (cc, cs, cm) = out[str(card)], out["cpu"]
+    assert gs > 0 and cs == cm == 0
+    assert (gm > 0) == (inner == "cg")
+    assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())

@@ -27,7 +27,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.sweep", "solvers.robust", "solvers.rtr",
               "rime.envelopes", "solvers.normal_eq", "stochastic",
-              "coords", "rime.beam", "io.native"):
+              "coords", "rime.beam", "io.native", "cli_mpi",
+              "consensus.admm", "consensus.poly", "consensus.manifold",
+              "consensus.mdl", "consensus.spatial"):
         assert "sagecal_tpu_torch." + m in mods
     code = (
         "import sys\n"
@@ -83,6 +85,25 @@ def test_stochastic_entry_points_refuse_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-d", "unused", "-s", "unused", "-c", "unused", "-N", "1",
                   "-w", "2"])
+
+
+def test_consensus_entry_points_refuse_cpu_fallback():
+    """The MPI CLI and stochastic consensus raise without a card unless
+    asked for the CPU, before they open a dataset."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sagecal_tpu_torch import cli, cli_mpi, stochastic
+    from sagecal_tpu_torch.config import RunConfig
+    cfg = RunConfig(ms="unused", sky_model="unused", cluster_file="unused",
+                    n_epochs=1, n_admm=3, channel_avg_per_band=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stochastic.run_minibatch_consensus(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-d", "unused", "-s", "unused", "-c", "unused", "-N", "1",
+                  "-w", "2", "-A", "3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_mpi.main(["-f", "unused", "-s", "unused", "-c", "unused"])
 
 
 def test_kernel_build_is_lazy():

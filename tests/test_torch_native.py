@@ -108,10 +108,11 @@ def test_vistile_pack_and_solve_input(chan_flags, taper):
     jt, tt = _tiles(chan_flags)
     ref = jt.pack(uvtaper_m=taper)
     _check(tt.pack(uvtaper_m=taper), ref)
-    rx8, rfl, _good = jt.solve_input(uvtaper_m=taper)
-    x8, fl = tt.solve_input(uvtaper_m=taper)
+    rx8, rfl, rgood = jt.solve_input(uvtaper_m=taper)
+    x8, fl, good = tt.solve_input(uvtaper_m=taper)
     np.testing.assert_allclose(x8, rx8, rtol=0, atol=1e-12)
     assert np.array_equal(fl, rfl)
+    np.testing.assert_allclose(good, rgood, rtol=0, atol=1e-12)
     if chan_flags or taper:
         # the stored uv-cut rows survive the packed path
         assert np.all(fl[:3] == 2)

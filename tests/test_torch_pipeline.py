@@ -300,11 +300,12 @@ def test_mode_runs_use_their_solvers(mode_runs):
                and all(len(g[1]) == 2 for g in h["groups"]) for h in t)
 
 
-@pytest.mark.parametrize("extra", [["-r", "3"], ["-N", "2", "-A", "2", "-w",
-                                                "2"],
-                                   ["-Q", "1"], ["--tile-bucket", "8"],
+@pytest.mark.parametrize("extra", [["--shard-baselines"],
+                                   ["--metrics", "m.json"],
+                                   ["--prior-cache", "read"],
+                                   ["--tile-bucket", "8"],
                                    ["--cpu-devices", "2"],
-                                   ["--faults", "x"], ["-P", "3"],
+                                   ["--faults", "x"], ["--profile", "p"],
                                    ["--diag", "x.jsonl"],
                                    ["--prefetch", "0"]])
 def test_unported_flags_raise(runs, extra):

@@ -14,9 +14,10 @@ tiles (8 stations, 5 timeslots, 4 channels; 3 clusters, a point, a
 
 Gates: per-tile res_0/res_1 rtol 1e-8; solutions atol 1e-6, the
 multi-band files read by both packages' readers; the written residual
-column 1e-7 of the data's largest magnitude. The raises that stay: ``-N 1
--A 2 -w 2`` (stochastic consensus), ``--tile-bucket`` and ``--diag``
-under ``-N`` (``-q`` under ``-N`` is in
+column 1e-7 of the data's largest magnitude. The raises that stay:
+``--prefetch 0``, ``--tile-bucket`` and ``--diag`` under ``-N``
+(stochastic consensus, ``-N 1 -A 2 -w 2``, is in
+test_torch_stochastic_consensus.py; ``-q`` under ``-N`` is in
 test_torch_pipeline_stochastic_options.py; ``-B`` under ``-N`` in
 test_torch_pipeline_beam_options.py)."""
 
@@ -188,9 +189,9 @@ def test_cli_routes_stochastic(runs, tmp_path):
         (tmp / "n2_m3_w2_torch.sol").read_text()
 
 
-@pytest.mark.parametrize("extra", [["-A", "2", "-w", "2"],
+@pytest.mark.parametrize("extra", [["--prefetch", "0"],
                                    ["--tile-bucket", "8"], ["--diag", "d"]],
-                         ids=["consensus", "tile_bucket", "diag"])
+                         ids=["prefetch", "tile_bucket", "diag"])
 def test_stochastic_unported_flags_raise(runs, extra):
     tmp = runs[0]
     argv = ["-d", str(tmp / "pristine.ms"), "-s", str(tmp / "sky.txt"),
