@@ -123,6 +123,20 @@ STOCHASTIC_CONSENSUS, ROADMAP C14): per subband its
 residuals and written column, and the Z file after each block's gauge
 unitary (LM only: CONSENSUS_PARITY), within PARITY_RTOL of the CPU's
 float64 run, every divergence reset and flagged band equal.
+The MPI CLI's other plans: ``e2e_federated`` runs ``-N 1 -M 2 -w 2 -A 2
+-u 0.5`` (federated stochastic calibration) on 2 full-width subbands, one
+tile (the coherency kernel and no solve kernel; every slave's residual
+falling; the tile wall and its split, FEDA per outer iteration, peak
+memory); ``slice_parity`` adds ``federated`` (``-N`` on 2 slaves of 16
+stations at ``-r 0.5``: the stochastic gates, every slave's column),
+``consensus_blocked`` (``--block-f 2``), ``consensus_stale``
+(``--staleness 2`` with an ``admm_subband_slow`` fault plan: the
+schedules and dead sets equal) and ``consensus_time_shard``
+(``--time-shard 2`` over 3 tiles), each ``-j 1 --inner cg`` on the
+consensus parity subbands (coh, sweep and matvec launched, no XLA solve).
+slice_parity's card runs and its CPU float64 references share one
+queue of PARITY_WORKERS spawned processes; the e2e phases run after it,
+with the card and the host to themselves.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -1623,14 +1637,21 @@ def _check_route(tag: str, launches: dict, must, xla: bool,
 #: batch_rtr`` (j5_cg's solver on 3 tiles: the visits kernel at one visit
 #: a tile and the matvec at 2 kmax chunks) and ``tile_batch_inflight``
 #: (inflight_j1's groups on 3 tiles: 2 x 2 lanes a group step; its CPU
-#: reference is the longest of the phase, ~370 s on 4 tiles).
+#: reference is among the longest of the phase, ~370 s on 4 tiles).
+#: Since PR 16 inflight_j1, tile_batch_inflight and diag_inflight_rtr run
+#: at -e 1 (tile 0's 6 EM iterations, not 12), which halves their CPU
+#: references (~160 -> 84 s, 182 -> 98 s, 106 -> 58 s on one CPU core):
+#: float32 alone then moves them 7.5e-5, 8.9e-5 and 3.9e-7 from float64
+#: on the CPU, as at -e 2 (7.6e-5, 7.6e-5, 3.7e-7); inflight_rtr at -e 1
+#: 1.9e-3 (1.1e-4 at -e 2), so the RTR runs on full Jones keep -e 2
+#: (tools_dev/torch_parity_float32.py).
 PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                ("default", 16, (1, 1, 1), [], ("coh", "sweep"), False),
                ("default_rtr", 41, (1, 2, 1), [], ("coh", "sweep"), False),
                ("j5_cg", 41, (1, 2, 1), ["-j", "5", "--inner", "cg"],
                 ("coh", "sweep", "matvec"), False),
                ("inflight_j1", 41, (1, 2, 1, 1, 2, 1, 1, 1),
-                ["-j", "1", "--inflight", "2", "-g", "30"],
+                ["-j", "1", "--inflight", "2", "-g", "30", "-e", "1"],
                 ("coh", "visits"), False),
                ("inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "5", "--inner", "cg", "--inflight", "2"],
@@ -1649,13 +1670,13 @@ PARITY_RUNS = (("j1", 16, (1, 2, 1), ["-j", "1"], ("coh", "sweep"), False),
                 ("coh", "sweep", "matvec"), False),
                ("diag_inflight_rtr", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "5", "--inner", "cg", "--inflight", "2", "--jones",
-                 "diag"], ("coh", "visits", "matvec"), False),
+                 "diag", "-e", "1"], ("coh", "visits", "matvec"), False),
                ("tile_batch_rtr", 41, (1, 2, 1),
                 ["-j", "5", "--inner", "cg", "--tile-batch", "2"],
                 ("coh", "sweep", "visits", "matvec"), False),
                ("tile_batch_inflight", 41, (1, 2, 1, 1, 2, 1, 1, 1),
                 ["-j", "1", "--tile-batch", "2", "--inflight", "2", "-g",
-                 "30"], ("coh", "visits"), False),
+                 "30", "-e", "1"], ("coh", "visits"), False),
                ("bandpass", 16, (1, 2, 1), ["-j", "1", "-g", "30", "-b", "1"],
                 ("coh", "sweep"), False),
                ("whiten_phase", 16, (1, 2, 1),
@@ -1730,10 +1751,27 @@ MULTIMS_PARTS = (("sb_a.ms", 0.0), ("sb_b.ms", 0.1))
 #: file -z cluster 1: no solve). COLUMN_RUNS also hold their written
 #: columns, card against CPU, within their gate.
 #: tiles of a parity run's observation (2 unless named): the batches of
-#: 2 after the solo tile 0
+#: 2 after the solo tile 0. Six 41-station runs solve tile 0 only (the
+#: cold tile): their second tile took ~60 s of the card's serial runs on
+#: an NVIDIA H100 80GB HBM3 host (700.00 W), which bound slice_parity
+#: (the MPI CLI plan runs take ~45 s); the warm start of tile 1 stays held by
+#: inflight_j1, phase_cg, bf16_inflight_rtr, the tile-batch runs and every
+#: 16-station run
 PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3,
                 "beam_element_tile_batch": 3, "resume": 3,
-                "consensus_rtr_inflight": 1}
+                "default_rtr": 1, "j5_cg": 1, "inflight_rtr": 1,
+                "xla_default": 1, "xla_cg": 1, "diag_inflight_rtr": 1,
+                "consensus_rtr_inflight": 1, "consensus_blocked": 1,
+                "consensus_time_shard": 3}
+#: The 41-station robust-RTR runs (-j 5) solve tiles of 5 timeslots
+#: (timeslots a tile, noise), which shortens their CPU references,
+#: slice_parity's longest part, by a third (532 -> 359 s on one CPU core
+#: for the seven): float32 alone then moves them 1.1e-5 to 1.5e-4 from
+#: float64 on the CPU, against 7.7e-6 to 1.1e-4 at 10
+#: (tools_dev/torch_parity_float32.py --times 5 / 10)
+RTR_OBS = {tag: (5, 0.02) for tag in ("default_rtr", "j5_cg", "inflight_rtr",
+                                      "xla_default", "xla_cg", "phase_cg",
+                                      "tile_batch_rtr")}
 #: The reduced storage policies (--dtype-policy, against the port's CPU
 #: run at the same policy, which computes in float32 there too):
 #: ``bf16_default`` (the default mode on single-chunk clusters: its OS
@@ -1886,13 +1924,16 @@ def _first_flip(cuda_hist, cpu_hist):
     return None
 
 
-#: the CPU float64 reference runs of slice_parity go to this many worker
-#: processes of this many threads each, beside the card runs, which take
-#: the machine's eighth core for their host dispatch (the workers' time
-#: bounds the phase; 5 workers of 2 threads made every job slower and the
-#: phase no shorter: the small float64 problems gain little from a second
-#: thread)
-PARITY_WORKERS = 7
+#: slice_parity's CPU float64 references and its card runs go to one
+#: queue of this many worker processes (one a core of the card machine),
+#: a run whole in one of them; the references run on this many threads
+#: (5 workers of 2 threads made every job slower: the small float64
+#: problems gain little from a second thread). The phase is bound by the
+#: references: ~2,800 s of worker time against the card runs' ~550 s
+#: (their serial sum, bound by host dispatch), on an NVIDIA H100 80GB
+#: HBM3 host (700.00 W). Nothing else runs then: the e2e phases come
+#: after slice_parity, alone
+PARITY_WORKERS = 8
 PARITY_THREADS = 1
 
 
@@ -2132,13 +2173,42 @@ def _check_stochastic_parity(tag, card, cpu, nchunk) -> dict:
 #: subband's gauge and Z carries its drift (float32 alone moves Z 4.7e-3
 #: after the gauge alignment, the one-ulp run 3.6e-4; C13); its residuals
 #: and written columns, which the gauge leaves alone, are gated.
+#: The MPI CLI's other execution plans, each at -j 1 --inner cg (coh,
+#: sweep and matvec): ``consensus_blocked`` (--block-f 2 on the 3
+#: subbands: a ragged last block; one tile), ``consensus_stale``
+#: (--staleness 2 with STALE_FAULTS: subband 1 skips two rounds of tile 0;
+#: the schedule and the dead set equal too) and ``consensus_time_shard``
+#: (--time-shard 2 over 3 tiles: shard 0 the warm chain of tiles 0 and 1,
+#: shard 1 tile 2 cold-started).
 CONSENSUS_PARITY = (
     ("consensus", (1, 2, 1),
      ["-j", "1", "--inner", "cg", "-C", "1", "-G", "@rho"],
      ("coh", "sweep", "matvec"), True),
     ("consensus_rtr_inflight", (1, 2, 1, 1, 2, 1, 1, 1),
      ["-j", "4", "--inner", "cg", "--inflight", "2"],
-     ("coh", "visits", "matvec"), False))
+     ("coh", "visits", "matvec"), False),
+    ("consensus_blocked", (1, 2, 1),
+     ["-j", "1", "--inner", "cg", "--block-f", "2"],
+     ("coh", "sweep", "matvec"), True),
+    ("consensus_stale", (1, 2, 1),
+     ["-j", "1", "--inner", "cg", "--staleness", "2", "--faults",
+      json.dumps([{"point": "admm_subband_slow", "at": [1], "times": 2}])],
+     ("coh", "sweep", "matvec"), True),
+    ("consensus_time_shard", (1, 2, 1),
+     ["-j", "1", "--inner", "cg", "--time-shard", "2"],
+     ("coh", "sweep", "matvec"), True))
+#: slice_parity's federated run (the MPI CLI's -N) on 2 slave subbands of
+#: 16 stations, 40 timeslots and chip_smoke's 8 channels at the first two
+#: CONSENSUS_PARITY_CENTRES, 8 clusters of 1 and 2 chunks (the
+#: stochastic_consensus run's clusters), one tile, at -r 0.5 (ROADMAP C14):
+#: per-tile residuals, slave 0's solutions and every slave's written
+#: column within PARITY_RTOL, every Armijo decision and flagged band equal.
+#: 40 timeslots, so 20 a minibatch: at 20 (10 a minibatch) float32 alone
+#: moves the written column 8.1e-4 from float64 on the CPU and the card
+#: read 8.3e-4, at 40 1.9e-4 (C8; tools_dev/torch_federated_float32.py)
+FEDERATED_PARITY = (16, (1, 2) * 4, 40,
+                    ["-N", "1", "-M", "2", "-w", "2", "-A", "2", "-u", "0.5",
+                     "-r", "0.5", "-l", "10", "-m", "7", "-t", "40"])
 CONSENSUS_PARITY_CENTRES = 150e6 + np.linspace(-10e6, 10e6, 3)
 CONSENSUS_PARITY_COMMON = ["-A", "3", "-P", "2", "-e", "2", "-g", "10", "-l",
                            "5", "-R", "0", "-t", "10"]
@@ -2215,8 +2285,10 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
     largest magnitude) and, with ``gate_z``, the Z file (each block
     turned by its gauge unitary first, :func:`z_rel_aligned`) within
     PARITY_RTOL; every divergence reset equal; the kernels of ``must``
-    launched, no XLA solve; every subband's residual falling. In-flight
-    groups' relaxation decisions are compared first: a flip within
+    launched, no XLA solve; every subband's residual falling; under
+    ``--staleness`` the round schedules and dead sets equal, and some
+    subband skipping a round. In-flight groups' relaxation decisions are
+    compared first: a flip within
     FLIP_MARGIN of its threshold replaces the gates (as slice_parity's
     group runs), a flip beyond it fails. The record carries the Z file's
     unaligned difference too."""
@@ -2234,6 +2306,8 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
     z_rel = z_rel_aligned(Zg, Zc)
     resets = {"cuda": [h["reset"] for h in hg],
               "cpu": [h["reset"] for h in hc]}
+    stale = {d: [[h.get("schedule"), h.get("dead")] for h in hist]
+             for d, hist in (("cuda", hg), ("cpu", hc))}
     flip = _first_consensus_flip(hg, hc)
     rec = dict(tag=tag, cuda=[[h["res_0_f"], h["res_1_f"]] for h in hg],
                cpu=[[h["res_0_f"], h["res_1_f"]] for h in hc],
@@ -2242,12 +2316,20 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
                duals={"cuda": [h["duals"] for h in hg],
                       "cpu": [h["duals"] for h in hc]},
                iter_s=[h["iter_s"] for h in hg], launches=launches,
+               stale=stale["cuda"] if "schedule" in hg[0] else None,
                seconds={"cuda": sg, "cpu": sc}, flip=flip, z_gated=gate_z,
                omegas={d: [[[[g[2] for g in sb] for sb in it]
                              for it in h["groups"]] for h in hist]
                        for d, hist in (("cuda", hg), ("cpu", hc))})
     emit("slice_parity", **rec)
     _check_route(f"slice_parity {tag}", launches, must, False)
+    if stale["cuda"] != stale["cpu"]:
+        raise AssertionError(f"slice_parity {tag}: the stale schedules or "
+                             f"dead sets differ: {stale}")
+    if "schedule" in hg[0] and not any(0.0 in r for h in hg
+                                       for r in h["schedule"]):
+        raise AssertionError(f"slice_parity {tag}: no subband skipped a "
+                             "round")
     if flip is not None:
         _, _, _, a, b = flip
         i = next(i for i, (ma, mb) in enumerate(zip(a[3], b[3]))
@@ -2274,58 +2356,154 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
     return rec
 
 
+def _federated_obs():
+    """The federated parity run's slave subbands (FEDERATED_PARITY, on
+    the CPU), their ``.cpu`` copies and list: (list, sky, cluster, paths,
+    flags)."""
+    n_st, nchunk, tsz, flags = FEDERATED_PARITY
+    work = os.path.join(WORK, "parity_federated")
+    shutil.rmtree(work, ignore_errors=True)
+    lst, sky, clus, paths = make_subbands(
+        work, n_st, tsz, CONSENSUS_PARITY_CENTRES[:2], FREQS, len(nchunk), 6,
+        nchunk, 1, "cpu", seed=9, noise=0.02)
+    for p in paths:
+        shutil.copytree(p, p + ".cpu")
+    with open(lst + ".cpu", "w") as f:
+        f.write("\n".join(p + ".cpu" for p in paths) + "\n")
+    return lst, sky, clus, paths, list(flags)
+
+
 def consensus_parity_start(pool) -> tuple:
-    """The consensus parity runs' observations (CONSENSUS_PARITY), their
-    CPU references queued on ``pool``: (observations, async results)."""
+    """The consensus parity runs' observations (CONSENSUS_PARITY and the
+    federated run), their CPU references queued on ``pool``:
+    (observations, async results)."""
     cons_obs = {tag: _consensus_obs(tag, nchunk, flags)
                 for tag, nchunk, flags, _, _ in CONSENSUS_PARITY}
+    cons_obs["federated"] = _federated_obs()
     return cons_obs, {tag: pool.apply_async(_consensus_cpu, ((
         o[0] + ".cpu", o[1], o[2], o[4], o[0] + ".cpu.z"),))
         for tag, o in cons_obs.items()}
 
 
+def consensus_parity_card_one(o) -> tuple:
+    """One consensus parity run on the card, from ``o`` (of
+    :func:`consensus_parity_start`): (records, seconds, launches)."""
+    _reset()
+    hist, secs, _ = _consensus_run(o[0], o[1], o[2], o[4], None,
+                                   o[0] + ".z")
+    return hist, secs, _counts()
+
+
 def consensus_parity_card(cons_obs) -> dict:
     """The consensus parity runs on the card, one after another: tag ->
     (records, seconds, launches)."""
-    card = {}
-    for tag, o in cons_obs.items():
-        _reset()
-        hist, secs, _ = _consensus_run(o[0], o[1], o[2], o[4], None,
-                                       o[0] + ".z")
-        card[tag] = (hist, secs, _counts())
-    return card
+    return {tag: consensus_parity_card_one(o) for tag, o in cons_obs.items()}
+
+
+def _check_federated_parity(obs, card, cpu) -> dict:
+    """The federated card run against its CPU reference: the stochastic
+    gates (:func:`_check_stochastic_parity`: per-tile residuals and slave
+    0's solutions within PARITY_RTOL, every Armijo decision and flagged
+    band equal, only the coherency kernel launched), every slave's written
+    column within PARITY_RTOL, and every slave's residual falling on
+    both."""
+    from sagecal_tpu_torch import skymodel
+    lst, sky, clus, paths, _ = obs
+    (hg, sg, launches), (hc, sc) = card, cpu
+    nchunk = skymodel.read_sky_cluster(sky, clus, RA0, DEC0, 150e6).nchunk
+    rec = _check_stochastic_parity("federated", (hg, sg, lst + ".z",
+                                                 launches),
+                                   (hc, sc, lst + ".cpu.z"), nchunk)
+    col = max(_simms_column_rel(p) for p in paths)
+    rec.update(col_rel=col, feda={"cuda": [h["feda"] for h in hg],
+                                  "cpu": [h["feda"] for h in hc]},
+               slave_res={"cuda": [h["slave_res"] for h in hg],
+                          "cpu": [h["slave_res"] for h in hc]})
+    emit("slice_parity_federated", tag="federated", col_rel=col,
+         feda=rec["feda"], slave_res=rec["slave_res"])
+    if not col <= PARITY_RTOL:
+        raise AssertionError(f"slice_parity federated: written column "
+                             f"{col:.3e} > {PARITY_RTOL}")
+    if not all(r1 < r0 for h in hg + hc for r0, r1 in h["slave_res"]):
+        raise AssertionError("slice_parity federated: a slave's residual "
+                             f"did not fall: {rec['slave_res']}")
+    return rec
 
 
 def consensus_parity_check(cons_obs, card, cpu, out: dict,
                            failures: list) -> None:
     """Every consensus parity run's record and gates
-    (:func:`_check_consensus_parity`): records into ``out``, failed gates
-    onto ``failures``."""
+    (:func:`_check_consensus_parity`, :func:`_check_federated_parity`):
+    records into ``out``, failed gates onto ``failures``."""
     for tag, _, _, must, gate_z in CONSENSUS_PARITY:
         try:
             out[tag] = _check_consensus_parity(tag, cons_obs[tag], card[tag],
                                                cpu[tag], must, gate_z)
         except AssertionError as e:
             failures.append(str(e))
+    try:
+        out["federated"] = _check_federated_parity(
+            cons_obs["federated"], card["federated"], cpu["federated"])
+    except AssertionError as e:
+        failures.append(str(e))
 
 
-def phase_slice_parity():
-    """The port's pipeline on the card (kernels, float32) against the
-    same pipeline on the CPU (plain versions, float64), per solver mode
-    and option, and the stochastic runs (STOCHASTIC_PARITY, and with
-    ``-q``). The CPU runs go to worker processes, longest first, while
-    the card runs here one after another. A spread-gated run (a reduced
-    policy, or SPREAD_F32_RUNS) runs SPREAD_REPS times on the card, as a
-    user's run does, and its gate follows both the CPU's one-ulp spread
-    and the card's run-to-run spread from the order of its atomic sums
-    (ROADMAP C10, C7)."""
-    import multiprocessing
+def _parity_card_job(job) -> tuple:
+    """One of slice_parity's card runs, in a card worker process
+    (:func:`slice_parity_start`), its launches counted from 0: ``job``
+    (kind, tag, args). ``"run"``: a PARITY_RUNS run (a spread-gated one
+    SPREAD_REPS times) with its launches and route checked, args (obs,
+    tilesz, flags, nchunk, must); returns (run + (launches,), reps,
+    packs). ``"st"``: a stochastic run, args (obs, flags); ``"cons"``: a
+    consensus run (:func:`consensus_parity_card_one`), args its
+    observation; each returns its records, seconds and launches."""
+    import torch
     from sagecal_tpu_torch.io import native
+    # the host side of a card run on one thread, as the references: a
+    # worker's default of a thread a core starves the other workers
+    torch.set_num_threads(PARITY_THREADS)
+    kind, tag, args = job
+    _reset()
+    if kind == "st":
+        obs, flags = args
+        return _stochastic_run(*obs, flags, device=None) + (_counts(),)
+    if kind == "cons":
+        return consensus_parity_card_one(args)
+    obs, tilesz, flags, nchunk, must = args
+    run = _resume_card if tag == "resume" else _parity_run
+    packs = native.PACKS
+    out = run(*obs, flags, device=None, tilesz=tilesz)
+    packs = native.PACKS - packs
+    launches = _counts()
+    _check_route(f"slice_parity {tag}", launches, must,
+                 _xla_route(flags, nchunk), _md_of(flags), _policy_of(flags))
+    if tag in BEAM_RUNS and launches["coh"]:
+        raise AssertionError(f"slice_parity {tag}: a beam run launched the "
+                             f"coherency kernel: {launches}")
+    if tag == "multims" and not packs:
+        raise AssertionError("slice_parity multims: the card run did not "
+                             "stage through the native tile packer")
+    # the card's run-to-run spread: the same run again, after its
+    # launches were read
+    reps = [run(*obs, flags, device=None, tilesz=tilesz)[0]
+            for _ in range(SPREAD_REPS - 1)] \
+        if _spread_gated(tag, flags) else []
+    return out + (launches,), reps, packs
+
+
+def slice_parity_start() -> dict:
+    """Start slice_parity: make every run's observation (on the CPU), and
+    queue its CPU float64 references and its card runs
+    (:func:`_parity_card_job`) on one pool of PARITY_WORKERS spawned
+    processes, about the longest first. Returns the handle
+    :func:`slice_parity_finish` takes."""
+    import multiprocessing
     obs, tsz = {}, {}
     for tag, n_st, nchunk, flags, _, mixed in PARITY_RUNS:
         work = os.path.join(WORK, "parity_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        tsz[tag], noise = {**REDUCED_OBS, **BEAM_OBS}.get(tag, (10, 0.02))
+        tsz[tag], noise = {**REDUCED_OBS, **BEAM_OBS, **RTR_OBS}.get(
+            tag, (10, 0.02))
         if tag == "multims":
             obs[tag] = make_multims(work, n_st, tsz[tag], nchunk, noise)
             continue
@@ -2365,13 +2543,17 @@ def phase_slice_parity():
                                        beam=_beam_of(st_runs[tag]))
         write_option_files(st_obs[tag][0])
         shutil.copytree(st_obs[tag][0], st_obs[tag][0] + ".cpu")
-    # the 41-station runs and the groups take longest on the CPU
-    longest = sorted(PARITY_RUNS, key=lambda r: (-r[1], -len(r[2])))
-    out = {}
-    with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
-        cpu_runs, ulp_runs, f32_runs = {}, {}, {}
-        cons_obs, cons_cpu = consensus_parity_start(pool)
-        for tag, _, _, flags, _, _ in longest:
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(PARITY_WORKERS)
+    h = dict(pool=pool, obs=obs, tsz=tsz, st_obs=st_obs, st_runs=st_runs,
+             st_chans=st_chans, t0=time.perf_counter())
+    cpu_runs, ulp_runs, f32_runs, card = {}, {}, {}, {}
+
+    def cpu_refs(runs):
+        """Queue the CPU references of PARITY_RUNS ``runs``: each run's,
+        a spread-gated run's under a one-ulp flux move, a reduced run's
+        without its policy."""
+        for tag, _, _, flags, _, _ in runs:
             ms, sky, clus = obs[tag]
             f32cpu = tag in SPREAD_F32_RUNS
             cpu_runs[tag] = pool.apply_async(
@@ -2387,50 +2569,95 @@ def phase_slice_parity():
                                                      policy)]
                 f32_runs[tag] = pool.apply_async(
                     _parity_cpu, ((ms + ".f32", sky, clus, f32, tsz[tag]),))
+
+    def card_runs(jobs):
+        """Queue card runs (:func:`_parity_card_job`), the longest first
+        by stations^2 x runs."""
+        for kind, tag, args, _ in sorted(jobs, key=lambda j: -j[3]):
+            card[kind, tag] = pool.apply_async(_parity_card_job,
+                                               ((kind, tag, args),))
+
+    try:
+        # one queue, about the longest first: the 41-station references
+        # (the groups longest), the card runs, the consensus runs, the
+        # rest of the references
+        big = sorted((r for r in PARITY_RUNS if r[1] > 16),
+                     key=lambda r: -len(r[2]))
+        cpu_refs(big)
+        card_runs([("run", tag, (obs[tag], tsz[tag], flags, nchunk, must),
+                    n * n * (SPREAD_REPS if _spread_gated(tag, flags)
+                             else 1))
+                   for tag, n, nchunk, flags, must, _ in PARITY_RUNS]
+                  + [("st", tag, (st_obs[tag], flags), n_st * n_st)
+                     for tag, flags in st_runs.items()])
+        cons_obs, cons_cpu = consensus_parity_start(pool)
+        card_runs([("cons", tag, o, 0) for tag, o in cons_obs.items()])
+        cpu_refs(r for r in PARITY_RUNS if r[1] <= 16)
         st_cpu = {tag: pool.apply_async(_stochastic_cpu, (
             (st_obs[tag][0] + ".cpu",) + st_obs[tag][1:] + (flags,),))
             for tag, flags in st_runs.items()}
-        card_runs, reps, packs = {}, {}, {}
-        for tag, _, nchunk, flags, must, _ in PARITY_RUNS:
-            _reset()
-            run = _resume_card if tag == "resume" else _parity_run
-            packs[tag] = native.PACKS
-            card_runs[tag] = run(*obs[tag], flags, device=None,
-                                 tilesz=tsz[tag])
-            packs[tag] = native.PACKS - packs[tag]
-            launches = _counts()
-            _check_route(f"slice_parity {tag}", launches, must,
-                         _xla_route(flags, nchunk), _md_of(flags),
-                         _policy_of(flags))
-            if tag in BEAM_RUNS and launches["coh"]:
-                raise AssertionError(f"slice_parity {tag}: a beam run "
-                                     "launched the coherency kernel: "
-                                     f"{launches}")
-            if tag == "multims" and not packs[tag]:
-                raise AssertionError("slice_parity multims: the card run "
-                                     "did not stage through the native "
-                                     "tile packer")
-            card_runs[tag] += (launches,)
-            # the card's run-to-run spread: the same run again, after its
-            # launches were read
-            reps[tag] = [run(*obs[tag], flags, device=None,
-                             tilesz=tsz[tag])[0]
-                         for _ in range(SPREAD_REPS - 1)] \
-                if _spread_gated(tag, flags) else []
-        st_card = {}
-        for tag, flags in st_runs.items():
-            _reset()
-            st_card[tag] = _stochastic_run(*st_obs[tag], flags,
-                                           device=None) + (_counts(),)
-        cons_card = consensus_parity_card(cons_obs)
-        cpu_done = {tag: r.get() for tag, r in cpu_runs.items()}
-        cons_cpu = {tag: r.get() for tag, r in cons_cpu.items()}
-        ulp_done = {tag: r.get() for tag, r in ulp_runs.items()}
-        f32_done = {tag: r.get()[0] for tag, r in f32_runs.items()}
-        st_cpu = {tag: r.get() for tag, r in st_cpu.items()}
+        h.update(cons_obs=cons_obs, cons_cpu=cons_cpu, cpu_runs=cpu_runs,
+                 ulp_runs=ulp_runs, f32_runs=f32_runs, st_cpu=st_cpu,
+                 card=card)
+    except BaseException:
+        slice_parity_stop(h)
+        raise
+    return h
 
-        pool.close()
+
+def slice_parity_stop(h: dict) -> None:
+    """End slice_parity's worker processes (idempotent): terminated when
+    a result is still owed, else closed; joined either way."""
+    pool = h.pop("pool", None)
+    if pool is not None:
+        pool.terminate()
         pool.join()
+
+
+def phase_slice_parity() -> dict:
+    """slice_parity (:func:`slice_parity_start`,
+    :func:`slice_parity_finish`), its worker processes ended however it
+    ends."""
+    h = slice_parity_start()
+    try:
+        return slice_parity_finish(h)
+    finally:
+        slice_parity_stop(h)
+
+
+def slice_parity_finish(h: dict) -> dict:
+    """Collect slice_parity's card and CPU runs (:func:`slice_parity_start`)
+    and gate them: the port's pipeline on the card (kernels, float32)
+    against the same pipeline on the CPU (plain versions, float64), per
+    solver mode and option, and the stochastic runs (STOCHASTIC_PARITY,
+    and with ``-q``). A spread-gated run (a reduced policy, or
+    SPREAD_F32_RUNS) runs SPREAD_REPS times on the card, as a user's run
+    does, and its gate follows both the CPU's one-ulp spread and the
+    card's run-to-run spread from the order of its atomic sums (ROADMAP
+    C10, C7). Every run's record first, then every failed gate at
+    once."""
+    obs, tsz, st_obs = h["obs"], h["tsz"], h["st_obs"]
+    st_runs, st_chans, cons_obs = h["st_runs"], h["st_chans"], h["cons_obs"]
+    try:
+        card = {key: r.get() for key, r in h["card"].items()}
+        card_s = time.perf_counter() - h["t0"]
+        card_runs, reps, packs = ({tag: r[i] for (kind, tag), r
+                                   in card.items() if kind == "run"}
+                                  for i in range(3))
+        st_card, cons_card = ({tag: r for (k, tag), r in card.items()
+                               if k == kind} for kind in ("st", "cons"))
+        cpu_done = {tag: r.get() for tag, r in h["cpu_runs"].items()}
+        cons_cpu = {tag: r.get() for tag, r in h["cons_cpu"].items()}
+        ulp_done = {tag: r.get() for tag, r in h["ulp_runs"].items()}
+        f32_done = {tag: r.get()[0] for tag, r in h["f32_runs"].items()}
+        st_cpu = {tag: r.get() for tag, r in h["st_cpu"].items()}
+    finally:
+        slice_parity_stop(h)
+    # the phase's wall once its card runs and once its CPU runs were in
+    emit("slice_parity_wall", card_done_s=card_s,
+         all_done_s=time.perf_counter() - h["t0"],
+         workers=PARITY_WORKERS)
+    out = {}
 
     def gate(tag, n_st, nchunk, flags, mixed):
         """One run's records and gates (raises AssertionError)."""
@@ -3177,6 +3404,87 @@ def phase_e2e_consensus() -> dict:
     return rec
 
 
+#: federated stochastic calibration (the MPI CLI's -N): 2 slave subbands
+#: of the full-width observation at the middle two CONSENSUS_CENTRES
+E2E_FEDERATED = ["-N", "1", "-M", "2", "-w", "2", "-A", "2", "-u", "0.5"]
+
+
+def phase_e2e_federated() -> dict:
+    """Federated stochastic calibration through the MPI CLI at full
+    width on the card: 2 slave subbands (N_STATIONS, TILESZ, chip_smoke's
+    8 channels at CONSENSUS_CENTRES[1:3], N_CLUSTERS of N_SOURCES with
+    NCHUNK; one tile each) at E2E_FEDERATED. The run must launch the
+    coherency kernel and no sweep, matvec or visits kernel nor XLA solve;
+    every slave's residual must fall (its first solve's res_0 against its
+    last solve's res_1), the written columns be finite and changed, and
+    slave 0's solutions file hold one interval of 2 bands. Records the
+    tile wall and its split (each outer iteration's seconds, the end of
+    the tile: residuals and solutions), the FEDA dual residual per outer
+    iteration, res_1 / res_0 per slave, the LBFGS iterations, the
+    launches and the peak device memory."""
+    import torch
+    from sagecal_tpu_torch import skymodel
+    from sagecal_tpu_torch.io import dataset as ds
+    from sagecal_tpu_torch.io import solutions as sol
+    work = os.path.join(WORK, "e2e_federated")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    lst, sky, clus, paths = make_subbands(
+        work, N_STATIONS, TILESZ, CONSENSUS_CENTRES[1:3], FREQS, N_CLUSTERS,
+        N_SOURCES, NCHUNK, 1, "cuda")
+    setup_s = time.perf_counter() - t0
+    solpath = os.path.join(work, "sol.txt")
+    _reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, wall, _ = _consensus_run(
+        lst, sky, clus, E2E_FEDERATED + ["-t", str(TILESZ)], None, solpath)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = _counts()
+    sk = skymodel.read_sky_cluster(sky, clus, RA0, DEC0,
+                                   float(np.mean(CONSENSUS_CENTRES[1:3])))
+    header, blocks = sol.read_solutions(solpath, sk.nchunk)
+    ratio = []
+    for p in paths:
+        xo = ds.SimMS(p, data_column="CORRECTED_DATA").read_tile(0).x
+        xi = ds.SimMS(p).read_tile(0).x
+        if not np.all(np.isfinite(xo)) or np.array_equal(xo, xi):
+            raise AssertionError(f"e2e_federated {p}: output column not "
+                                 "written")
+        ratio.append(float(np.abs(xo).mean() / np.abs(xi).mean()))
+    h = hist[0]
+    rec = dict(flags=E2E_FEDERATED, slaves=len(paths),
+               centres_mhz=[c / 1e6 for c in CONSENSUS_CENTRES[1:3]],
+               wall_s=wall, setup_s=setup_s, tile_s=60.0 * h["minutes"],
+               outer_s=h["outer_s"], tail_s=h["tail_s"], feda=h["feda"],
+               res_0=h["res_0"], res_1=h["res_1"], slave_res=h["slave_res"],
+               res_ratio=[r1 / r0 for r0, r1 in h["slave_res"]],
+               lbfgs_iters=h["lbfgs_iters"], launches=launches,
+               peak_gb=peak / 2 ** 30, written_over_data=ratio,
+               intervals=len(blocks), nsolbw=header.get("nsolbw"),
+               B=(TILESZ // 2) * N_STATIONS * (N_STATIONS - 1) // 2, F=4,
+               M=sk.n_clusters, S=sk.max_sources)
+    emit("e2e_federated", **rec)
+    if launches["coh"] == 0 or any(launches[k] for k in SOLVE_KERNELS) \
+            or launches["xla_solves"]:
+        raise AssertionError("e2e_federated: the run must launch the "
+                             "coherency kernel and no solve kernel: "
+                             f"{launches}")
+    if not all(math.isfinite(r0) and math.isfinite(r1) and r1 < r0
+               for r0, r1 in h["slave_res"]):
+        raise AssertionError(f"e2e_federated: a slave's residual did not "
+                             f"fall: {h['slave_res']}")
+    if len(blocks) != 1 or header.get("nsolbw") != 2:
+        raise AssertionError(f"e2e_federated: solutions {len(blocks)} "
+                             f"intervals, header {header}")
+    if len(h["feda"]) != 2:
+        raise AssertionError(f"e2e_federated: one FEDA residual an outer "
+                             f"iteration expected: {h['feda']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 #: e2e_stochastic_consensus: e2e_stochastic's run at -A 3 on one tile
 E2E_STOCHASTIC_CONSENSUS = E2E_STOCHASTIC + ["-A", "3"]
 
@@ -3439,9 +3747,18 @@ def main() -> int:
     mixed = phase_e2e(observation_e2e("e2e_mixed", mixed=True, n_tiles=1),
                       "e2e_mixed", ["-j", "5", "--kernel", "xla"], 1,
                       ("coh",), xla=True, em=1)
-    # consensus calibration (the MPI CLI) on 4 full-width subbands
+    # consensus calibration (the MPI CLI) on 4 full-width subbands, and
+    # federated stochastic calibration (-N) on 2
     consensus = phase_e2e_consensus()
+    federated = phase_e2e_federated()
     inflight_cons = parity["consensus_rtr_inflight"]["launches"]
+    plans = {tag: parity[tag]["launches"] for tag in (
+        "consensus_blocked", "consensus_stale", "consensus_time_shard")}
+
+    def plan_launches(kernel):
+        """A kernel's launches on the MPI CLI's plan runs."""
+        return {f"launches_{tag}": launches[kernel]
+                for tag, launches in plans.items()}
     vis = visits[(4, True)]
 
     def by_md(recs, kernel):
@@ -3492,6 +3809,9 @@ def main() -> int:
              launches_e2e_consensus=consensus["launches"]["coh"],
              launches_e2e_stochastic_consensus=st_consensus["launches"][
                  "coh"],
+             launches_e2e_federated=federated["launches"]["coh"],
+             launches_federated=parity["federated"]["launches"]["coh"],
+             **plan_launches("coh"),
              bands={tag: {k: coh[tag][k] for k in (
                  "F", "B", "step", "kernel_us", "device_ms", "ms",
                  "plain_ms", "bound_ms", "bound_by", "kernel_bound_share",
@@ -3509,6 +3829,7 @@ def main() -> int:
              launches_e2e_bandpass=bandpass["launches"]["sweep"],
              launches_e2e_beam=beam["launches"]["sweep"],
              launches_e2e_consensus=consensus["launches"]["sweep"],
+             **plan_launches("sweep"),
              max_abs_err=max(r["max_abs_err"] for r in sweep.values()),
              ms=sweep[4]["ms"], plain_ms=sweep[4]["plain_ms"],
              bound_ms=sweep[4]["bound_ms"], bound_by=sweep[4]["bound_by"],
@@ -3527,6 +3848,7 @@ def main() -> int:
              launches_e2e_beam=beam["launches"]["matvec"],
              launches_e2e_consensus=consensus["launches"]["matvec"],
              launches_consensus_rtr_inflight=inflight_cons["matvec"],
+             **plan_launches("matvec"),
              max_abs_err=max(r["max_abs_err"] for r in matvec.values()),
              ms=matvec[4]["ms"], plain_ms=matvec[4]["plain_ms"],
              bound_ms=matvec[4]["bound_ms"], bound_by=matvec[4]["bound_by"],

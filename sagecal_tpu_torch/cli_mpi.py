@@ -11,16 +11,39 @@ over subbands are local.
 
 The parser takes exactly the JAX CLI's flags. Runs: ``-f -s -c -p -F -t
 -e -g -l -m -x -y -n -R -W -k -o -J -q -B -j -L -H -A -P -Q -r -G -C -T
--K -U --mdl -u -X -V -I -O --inflight --dtype-policy --inner --kernel``
-and ``--platform``. ``--jones diag|phase`` raises ``ValueError`` as in
-the JAX CLI (the consensus vectors are full-Jones parameters).
-``--host-loop`` (the port's only plan), ``--mesh-devices`` and
-``--prefetch 1`` are no-ops. ``-N`` (federated stochastic calibration),
-``--coordinator``, ``--num-processes`` above 1, ``--process-id``,
-``--cpu-devices``, ``--block-f``, ``--time-shard``, ``--staleness``,
-``--prior-cache``, ``--diag``, ``--metrics``, ``--faults`` and
-``--prefetch`` other than 1 raise ``NotImplementedError`` naming their
-ROADMAP item (:data:`UNPORTED`).
+-K -U --mdl -N -M -w -u -X -V -I -O --inflight --dtype-policy --inner
+--kernel --block-f --staleness --time-shard --faults`` and ``--platform``.
+The execution plans of the JAX CLI:
+
+- ``-N > 0``: federated stochastic calibration (``federated.py``, the
+  slaves in turn), with the ``RunConfig`` the JAX route builds; every flag
+  that route does not read is inert (``-j``, ``-B``, ``--dtype-policy``,
+  ``--inflight``, ``--block-f``, ...), and ``-x``/``-y`` print the JAX
+  CLI's warning. ``-N`` with ``--num-processes > 1`` is a parser error;
+- ``--block-f N``: the J-updates in blocks of N subbands
+  (``admm.make_admm_runner_blocked``; prints the ADMM wall-clock per
+  iteration);
+- ``--staleness S``: bounded-staleness consensus
+  (``admm.make_admm_runner_stale``), its stragglers drawn from a
+  ``--faults`` plan's ``admm_subband_slow`` rules;
+- ``--time-shard T``: the solution intervals in T time shards
+  (``admm.make_admm_runner_2d``; every selected interval read up front,
+  the shards in turn).
+
+They are exclusive, and each is with ``--host-loop`` (:func:`check_plans`,
+the JAX CLI's refusals: ``--time-shard 1``, ``--time-shard`` with ``-B``,
+``-X`` or ``--mdl``, ``--staleness`` with ``-B``, ``-X`` or ``-C 1``,
+``--block-f`` below 1 or with ``-X``). ``--faults`` takes plans whose
+rules name only ``admm_subband_slow`` (:func:`install_faults`).
+``--jones diag|phase`` raises ``ValueError`` as in the JAX CLI (the
+consensus vectors are full-Jones parameters). ``--host-loop`` (otherwise
+the port's only plan), ``--mesh-devices`` and ``--prefetch 1`` are
+no-ops. ``--coordinator``, ``--num-processes`` above 1,
+``--process-id``, ``--cpu-devices``, ``--prior-cache``, ``--diag``,
+``--metrics`` and ``--prefetch`` other than 1 raise
+``NotImplementedError`` naming their ROADMAP item (:data:`UNPORTED`);
+under ``-N``, whose route reads neither, ``--prefetch`` and
+``--prior-cache`` are inert.
 
 ``--platform cpu`` runs on the CPU in float64; without it the run needs
 a CUDA device (float32). ``--kernel`` defaults to ``pallas`` (the fused
@@ -51,15 +74,14 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch import device as devmod
-from sagecal_tpu_torch import dtypes, skymodel, utils
+from sagecal_tpu_torch import dtypes, pipeline, skymodel, utils
 from sagecal_tpu_torch.config import SolverMode
+from sagecal_tpu_torch.consensus import admm as cadmm
+from sagecal_tpu_torch.consensus import mdl as mdlmod
+from sagecal_tpu_torch.io import solutions as sol
 
 #: flags parsed for parity but not ported: dest -> (default, ROADMAP item)
 UNPORTED = {
-    "epochs": (0, "queue A item 9a (-N, federated stochastic calibration)"),
-    "block_f": (0, "queue A item 9b (--block-f)"),
-    "staleness": (0, "queue A item 9c (--staleness)"),
-    "time_shard": (0, "queue A item 9d (--time-shard)"),
     "coordinator": (None, "queue A item 9e (multi-card ADMM)"),
     "num_processes": (1, "queue A item 9e (multi-card ADMM)"),
     "process_id": (0, "queue A item 9e (multi-card ADMM)"),
@@ -67,9 +89,15 @@ UNPORTED = {
     "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
     "diag": (None, "queue A item 10 (--diag)"),
     "metrics": (None, "queue A item 10 (--metrics)"),
-    "faults": (None, "queue A item 10 (--faults)"),
     "prior_cache": ("off", "queue A item 11 (--prior-cache)"),
 }
+
+#: UNPORTED flags that the -N route does not read (inert under -N)
+INERT_UNDER_N = ("prefetch", "prior_cache")
+
+#: the fault points the MPI CLI's --faults may name: the straggler draw of
+#: the bounded-staleness runner
+FAULT_POINTS = ("admm_subband_slow",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -169,7 +197,8 @@ def discover_datasets(pattern: str) -> list:
 
 def check_flags(args) -> None:
     """``--jones`` other than full raises ``ValueError`` as in the JAX
-    CLI; a non-default :data:`UNPORTED` flag ``NotImplementedError``."""
+    CLI; a non-default :data:`UNPORTED` flag ``NotImplementedError``
+    (except :data:`INERT_UNDER_N` under ``-N``)."""
     if args.jones != "full":
         raise ValueError(
             f"--jones {args.jones} is not supported with consensus "
@@ -177,10 +206,118 @@ def check_flags(args) -> None:
             "parameters. Run the fullbatch CLI (sagecal_tpu_torch.cli) "
             "for constrained-Jones solves.")
     for dest, (default, item) in UNPORTED.items():
+        if args.epochs > 0 and dest in INERT_UNDER_N:
+            continue
         if getattr(args, dest) != default:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')}={getattr(args, dest)!r} is not "
                 f"ported yet (ROADMAP {item})")
+
+
+def check_plans(args) -> None:
+    """The JAX CLI's refusals around its execution plans
+    (``sagecal_tpu/cli_mpi.py:473-519``), each a ``ValueError``:
+    ``--block-f``, ``--host-loop``, ``--time-shard > 1`` and
+    ``--staleness > 0`` are different plans; ``--time-shard 1`` is
+    ambiguous; ``--time-shard`` refuses ``-B``, ``-X`` and ``--mdl``,
+    ``--staleness`` refuses ``-B``, and ``--block-f`` must be >= 1. The
+    runners refuse the rest (``-X`` with ``--block-f`` or ``--staleness``,
+    ``-C 1`` with ``--staleness``). As in the JAX CLI, a negative
+    ``--staleness`` or ``--time-shard`` runs the synchronous plan."""
+    plans = [nm for nm, on in (("--block-f", args.block_f),
+                               ("--host-loop", args.host_loop),
+                               ("--time-shard", args.time_shard > 1),
+                               ("--staleness", args.staleness > 0))
+             if on]
+    if len(plans) > 1:
+        raise ValueError(f"{' and '.join(plans)} are different execution "
+                         "plans; pick one")
+    if args.time_shard == 1:
+        raise ValueError("--time-shard 1 is ambiguous: use 0 (off, the "
+                         "per-interval loop) or >= 2 time shards")
+    if args.time_shard > 1:
+        if args.beam:
+            raise ValueError("--time-shard does not support -B beam tables "
+                             "yet; use the per-interval loop")
+        if args.spatialreg:
+            raise ValueError("--time-shard does not support -X spatial "
+                             "regularization; use the per-interval loop")
+        if args.mdl:
+            raise ValueError("--time-shard does not support --mdl")
+    elif args.staleness > 0:
+        if args.beam:
+            raise ValueError("--staleness does not support -B beam tables")
+    elif args.block_f and args.block_f < 1:
+        raise ValueError(f"--block-f {args.block_f}: must be >= 1")
+
+
+def install_faults(spec):
+    """Install the ``--faults`` plan (``faults.enable_spec``: a JSON list
+    of rules, ``{"seed": ..., "rules": [...]}`` or a file holding either).
+    A rule naming another point than :data:`FAULT_POINTS` raises
+    ``NotImplementedError``: the I/O retry seams the other points feed
+    come with the host runtime (ROADMAP queue A item 10). Returns the
+    plan, or None without a spec."""
+    if spec is None:
+        return None
+    from sagecal_tpu_torch import faults
+    plan = faults.enable_spec(spec)
+    other = sorted({r.point for r in plan.rules} - set(FAULT_POINTS))
+    if other:
+        faults.disable()
+        raise NotImplementedError(
+            f"--faults rules at {other} are not ported yet: the MPI CLI "
+            f"takes {list(FAULT_POINTS)} only (ROADMAP queue A item 10, "
+            "--faults)")
+    return plan
+
+
+def federated_config(args, paths):
+    """The ``RunConfig`` of the ``-N`` route, field for field as the JAX
+    CLI builds it (``sagecal_tpu/cli_mpi.py:275-302``)."""
+    from sagecal_tpu_torch.config import RunConfig
+    return RunConfig(
+        ms=paths[0], sky_model=args.sky_model,
+        cluster_file=args.cluster_file,
+        solutions_file=args.solutions_file, format_3=bool(args.format),
+        n_epochs=args.epochs, n_minibatches=args.minibatches,
+        channel_avg_per_band=args.bands, n_admm=args.admm,
+        n_poly=args.npoly, poly_type=args.polytype, admm_rho=args.rho,
+        rho_file=args.rho_file, federated_alpha=args.federated_alpha,
+        use_global_solution=bool(args.use_global_solution),
+        max_timeslots=args.max_timeslots,
+        skip_timeslots=args.skip_timeslots, max_lbfgs=args.max_lbfgs,
+        lbfgs_m=args.lbfgs_m, robust_nulow=args.nulow,
+        robust_nuhigh=args.nuhigh, tile_size=args.tile_size,
+        input_column=args.input_column, output_column=args.output_column,
+        verbose=args.verbose)
+
+
+def run_federated(args, device=None, log=print) -> list:
+    """The ``-N > 0`` route (reference main.cpp:330-342): federated
+    stochastic calibration of the subband datasets; returns its per-tile
+    records (``federated.run_federated``)."""
+    from sagecal_tpu_torch import federated
+    device = devmod.resolve(device)
+    if args.uvmin > 0.0 or args.uvmax < 1e9:
+        print("Warning: -x/-y uv cuts are not applied in federated "
+              "stochastic mode; calibrating all baselines", file=sys.stderr)
+    paths = discover_datasets(args.ms_pattern)
+    return federated.run_federated(federated_config(args, paths),
+                                   paths, device=device, log=log)
+
+
+def _iter_walls(timer) -> list:
+    """Per ADMM iteration the summed seconds of a runner's ``timer``:
+    each iteration ends at its consensus step ("iter0", "body[k]",
+    "cons0", "cons[k]")."""
+    out, acc = [], 0.0
+    for label, secs in timer:
+        acc += secs
+        if label == "iter0" or label.startswith(("body[", "cons")):
+            out.append(acc)
+            acc = 0.0
+    return out
 
 
 class ConsensusRun:
@@ -188,7 +325,6 @@ class ConsensusRun:
     (:meth:`__init__`), then :meth:`run` over the solve intervals."""
 
     def __init__(self, args, device=None, log=print):
-        from sagecal_tpu_torch.consensus import admm as cadmm
         from sagecal_tpu_torch.consensus import poly as cpoly
         from sagecal_tpu_torch.io import dataset as ds
         from sagecal_tpu_torch.rime import beam as bm
@@ -277,12 +413,23 @@ class ConsensusRun:
         self.tslot = it(ds.row_tslot(len(t0.sta1), meta0["nbase"]))
         self.timer: list = []
         self.groups: list = []
-        self.runner = cadmm.make_admm_runner(
-            self.dsky, self.sta1, self.sta2, self.cidx, self.cmask, n,
-            meta0["fdelta"], self.Bpoly, self.cfg, nf_total=nf,
-            spatial_coords=self.spatial_coords, dobeam=self.dobeam,
-            tslot=self.tslot, device=dev, timer=self.timer,
-            groups=self.groups)
+        common = (self.dsky, self.sta1, self.sta2, self.cidx, self.cmask, n,
+                  meta0["fdelta"], self.Bpoly, self.cfg)
+        run_kw = dict(device=dev, timer=self.timer, groups=self.groups)
+        if args.time_shard > 1:
+            # built in run(): it needs the selected interval count
+            self.runner = None
+        elif args.staleness > 0:
+            self.runner = cadmm.make_admm_runner_stale(
+                *common, nf_total=nf, staleness=args.staleness, **run_kw)
+        elif args.block_f:
+            self.runner = cadmm.make_admm_runner_blocked(
+                *common, block_f=args.block_f, nf_total=nf,
+                dobeam=self.dobeam, tslot=self.tslot, **run_kw)
+        else:
+            self.runner = cadmm.make_admm_runner(
+                *common, nf_total=nf, spatial_coords=self.spatial_coords,
+                dobeam=self.dobeam, tslot=self.tslot, **run_kw)
         self.correct_idx = skymodel.correct_cluster_index(
             sky, args.correct_cluster, warn=log)
         self.sub_mask = sky.subtract_mask()
@@ -393,16 +540,50 @@ class ConsensusRun:
             f.write(f"{p} " + " ".join(f"{z.real:e} {z.imag:e}"
                                        for z in Zspat[p]) + "\n")
 
+    def _write_interval(self, ti, tiles, uF, vF, wF, beamF, JF, Z, res0,
+                        res1, duals, writers):
+        """One interval's outputs (the per-interval loop's and the 2-D
+        plan's): every subband's worker row, the log line, the residuals
+        written back with each subband's J (``-U 1``: the consensus
+        polynomial at its frequency), the spatial model and the Z row.
+        Returns the residual pass's seconds."""
+        args, sky, log = self.args, self.sky, self.log
+        M, kmax, nf = sky.n_clusters, self.kmax, self.nf
+        writer, workers, spatial_file, spatial_phi = writers
+        J_all = utils.jones_r2c_np(JF)
+        for f, ww in enumerate(workers):
+            ww.write_interval(J_all[f], sky.nchunk)
+        log(f"Timeslot:{ti} ADMM:{self.cfg.n_admm} residual "
+            f"initial={res0.mean():.6g} final={res1.mean():.6g} "
+            f"dual={duals[-1] if len(duals) else 0:.3g}")
+        if args.verbose:
+            for f in range(nf):
+                log(f"  subband {f}: {res0[f]:.6g} -> {res1[f]:.6g}")
+        J_res = np.einsum("fp,mpknr->fmknr", self.Bpoly, Z) \
+            if args.use_global_solution else JF
+        J_res = utils.jones_r2c_np(J_res)
+        t_res = time.perf_counter()
+        for f, (msx, t) in enumerate(zip(self.mss, tiles)):
+            t.x = self.residual(f, J_res[f], t, uF[f], vF[f], wF[f],
+                                None if beamF is None else beamF[f])
+            msx.write_tile(ti, t)
+        res_s = time.perf_counter() - t_res
+        if spatial_file is not None:
+            self._write_spatial(spatial_file, spatial_phi, Z)
+        if writer:
+            Zj = utils.jones_r2c_np(Z.transpose(0, 2, 1, 3, 4).reshape(
+                M, kmax * args.npoly, self.n, 8))
+            writer.write_interval(Zj, sky.nchunk * args.npoly)
+        return res_s
+
     def run(self):
         """Every selected solve interval; returns one record an
         interval (res_0/res_1 per subband and their means, the dual
         residual per ADMM iteration, each iteration's and the interval's
         seconds, the in-flight group records per iteration and subband,
-        the reset subbands, kernel launches)."""
-        from sagecal_tpu_torch import pipeline
-        from sagecal_tpu_torch.consensus import mdl as mdlmod
-        from sagecal_tpu_torch.consensus import admm as cadmm
-        from sagecal_tpu_torch.io import solutions as sol
+        the reset subbands, kernel launches; under ``--staleness`` the
+        round schedule and the deaths, under ``--block-f`` the timer's
+        entries)."""
         args, sky, log, meta0 = self.args, self.sky, self.log, self.meta0
         nf, n, kmax, M = self.nf, self.n, self.kmax, sky.n_clusters
         writer = None
@@ -426,7 +607,6 @@ class ConsensusRun:
             if Jq is not None:
                 Jinit = np.tile(utils.jones_c2r_np(np.asarray(Jq))[None],
                                 (nf, 1, 1, 1, 1))
-        J0 = Jinit.copy()
         spatial_file, spatial_phi = self._spatial_file()
         # the per-subband worker files, opened only after -q is read (a
         # previous run's worker file is a valid warm start)
@@ -435,77 +615,11 @@ class ConsensusRun:
             m.path.rstrip("/") + ".solutions", float(m.meta["freq0"]),
             float(m.meta["fdelta"]), interval_min, n, M, sky.n_eff_clusters)
             for m in self.mss]
-        history = []
+        writers = (writer, workers, spatial_file, spatial_phi)
         try:
-            for ti in range(start, stop):
-                t_int = time.perf_counter()
-                c0 = pipeline._counters()
-                tiles = [m.read_tile(ti) for m in self.mss]
-                x8F, wtF, uF, vF, wF, fratioF = self.prep_tiles(tiles)
-                beamF = self.tile_beams(tiles)
-                self.timer.clear()
-                self.groups.clear()
-                out = self.runner(x8F, uF, vF, wF, self.freqs, wtF, fratioF,
-                                  self._t(J0), beamF)
-                JF, Z, rhoF = (o.to("cpu", torch.float64).numpy()
-                               for o in out[:3])
-                res0, res1_0, r1s = (o.to("cpu", torch.float64).numpy()
-                                     for o in out[3:6])
-                duals = out[6].to("cpu", torch.float64).numpy()
-                Y0F = out[7].to("cpu", torch.float64).numpy()
-                J_all = utils.jones_r2c_np(JF)
-                for f, ww in enumerate(workers):
-                    ww.write_interval(J_all[f], sky.nchunk)
-                if args.mdl and ti == start:
-                    # the model-order report from iteration 0's rho J
-                    # (master :815-822)
-                    mdlmod.report(mdlmod.minimum_description_length(
-                        Y0F, np.broadcast_to(np.asarray(self.rho0, float),
-                                             (M,)),
-                        self.freqs, float(self.freqs.mean()),
-                        weight=fratioF.cpu().numpy(),
-                        polytype=args.polytype, kstart=1,
-                        kfinish=args.npoly), log=log)
-                res1 = r1s[-1] if self.cfg.n_admm > 1 else res1_0
-                # the per-subband divergence reset (slave :680-683)
-                J0, bad = cadmm.divergence_reset(JF, Jinit, res0, res1)
-                for f in np.flatnonzero(bad):
-                    log(f"  subband {f}: diverged; Resetting Solution")
-                log(f"Timeslot:{ti} ADMM:{self.cfg.n_admm} residual "
-                    f"initial={res0.mean():.6g} final={res1.mean():.6g} "
-                    f"dual={duals[-1] if len(duals) else 0:.3g}")
-                if args.verbose:
-                    for f in range(nf):
-                        log(f"  subband {f}: {res0[f]:.6g} -> "
-                            f"{res1[f]:.6g}")
-                J_res = np.einsum("fp,mpknr->fmknr", self.Bpoly, Z) \
-                    if args.use_global_solution else JF
-                J_res = utils.jones_r2c_np(J_res)
-                t_res = time.perf_counter()
-                for f, (msx, t) in enumerate(zip(self.mss, tiles)):
-                    t.x = self.residual(f, J_res[f], t, uF[f], vF[f], wF[f],
-                                        None if beamF is None else beamF[f])
-                    msx.write_tile(ti, t)
-                res_s = time.perf_counter() - t_res
-                if spatial_file is not None:
-                    self._write_spatial(spatial_file, spatial_phi, Z)
-                if writer:
-                    Zj = utils.jones_r2c_np(Z.transpose(0, 2, 1, 3, 4).reshape(
-                        M, kmax * args.npoly, n, 8))
-                    writer.write_interval(Zj, sky.nchunk * args.npoly)
-                launches = [b - a for a, b in zip(c0, pipeline._counters())]
-                history.append(dict(
-                    tile=ti, res_0=float(res0.mean()),
-                    res_1=float(res1.mean()), res_0_f=res0.tolist(),
-                    res_1_f=res1.tolist(), r1s=r1s.tolist(),
-                    duals=duals.tolist(), rho_mean=float(rhoF.mean()),
-                    reset=np.flatnonzero(bad).tolist(),
-                    iter_s=[s for _, s in self.timer], residual_s=res_s,
-                    groups=[list(g) for g in self.groups],
-                    interval_s=time.perf_counter() - t_int,
-                    launches=dict(zip(("coh", "sweep", "matvec", "visits"),
-                                      launches[:4])),
-                    xla_solves=launches[4]))
+            if args.time_shard > 1:
+                return self._run_time_sharded(start, stop, Jinit, writers)
+            return self._run_intervals(start, stop, Jinit, writers)
         finally:
             if writer:
                 writer.close()
@@ -513,16 +627,176 @@ class ConsensusRun:
                 spatial_file.close()
             for ww in workers:
                 ww.close()
+
+    def _run_intervals(self, start, stop, Jinit, writers):
+        """The per-interval loop (the synchronous, blocked and stale
+        runners): each interval warm-starts from the last through the
+        divergence reset."""
+        args, sky, log = self.args, self.sky, self.log
+        M = sky.n_clusters
+        J0 = Jinit.copy()
+        history = []
+        for ti in range(start, stop):
+            t_int = time.perf_counter()
+            c0 = pipeline._counters()
+            tiles = [m.read_tile(ti) for m in self.mss]
+            x8F, wtF, uF, vF, wF, fratioF = self.prep_tiles(tiles)
+            beamF = self.tile_beams(tiles)
+            self.timer.clear()
+            self.groups.clear()
+            out = self.runner(x8F, uF, vF, wF, self.freqs, wtF, fratioF,
+                              self._t(J0), beamF)
+            JF, Z, rhoF = (o.to("cpu", torch.float64).numpy()
+                           for o in out[:3])
+            res0, res1_0, r1s = (o.to("cpu", torch.float64).numpy()
+                                 for o in out[3:6])
+            duals = out[6].to("cpu", torch.float64).numpy()
+            Y0F = out[7].to("cpu", torch.float64).numpy()
+            if args.mdl and ti == start:
+                # the model-order report from iteration 0's rho J
+                # (master :815-822)
+                mdlmod.report(mdlmod.minimum_description_length(
+                    Y0F, np.broadcast_to(np.asarray(self.rho0, float),
+                                         (M,)),
+                    self.freqs, float(self.freqs.mean()),
+                    weight=fratioF.cpu().numpy(),
+                    polytype=args.polytype, kstart=1,
+                    kfinish=args.npoly), log=log)
+            res1 = r1s[-1] if self.cfg.n_admm > 1 else res1_0
+            # the per-subband divergence reset (slave :680-683)
+            J0, bad = cadmm.divergence_reset(JF, Jinit, res0, res1)
+            for f in np.flatnonzero(bad):
+                log(f"  subband {f}: diverged; Resetting Solution")
+            iter_s = _iter_walls(self.timer)
+            if args.block_f:
+                nblk = -(-self.nf // args.block_f)
+                log("ADMM wall-clock/iter: "
+                    + " ".join(f"{t:.2f}s" for t in iter_s)
+                    + f" (blocks of {args.block_f} subbands, {nblk} solve "
+                    "executions + 1 consensus each)")
+            res_s = self._write_interval(ti, tiles, uF, vF, wF, beamF, JF, Z,
+                                         res0, res1, duals, writers)
+            launches = [b - a for a, b in zip(c0, pipeline._counters())]
+            rec = dict(
+                tile=ti, res_0=float(res0.mean()),
+                res_1=float(res1.mean()), res_0_f=res0.tolist(),
+                res_1_f=res1.tolist(), r1s=r1s.tolist(),
+                duals=duals.tolist(), rho_mean=float(rhoF.mean()),
+                reset=np.flatnonzero(bad).tolist(), iter_s=iter_s,
+                residual_s=res_s, groups=[list(g) for g in self.groups],
+                interval_s=time.perf_counter() - t_int,
+                launches=dict(zip(("coh", "sweep", "matvec", "visits"),
+                                  launches[:4])),
+                xla_solves=launches[4])
+            if args.block_f:
+                rec["timer"] = list(self.timer)
+            if args.staleness > 0:
+                rec["schedule"] = [r.tolist()
+                                   for r in self.runner.schedule[-1]]
+                rec["dead"] = [list(d) for d in self.runner.dead]
+            history.append(rec)
         return history
 
+    def _run_time_sharded(self, start, stop, Jinit, writers):
+        """``--time-shard T`` (``_consensus_time_sharded`` of the JAX
+        CLI): every selected interval is read and staged up front, the
+        intervals padded to a multiple of T (``admm.pad_time``), solved
+        by ``admm.make_admm_runner_2d`` (T shards of contiguous intervals
+        in turn, each a warm-started chain whose first interval starts
+        from the initial Jones), then written back interval by interval
+        through the same writers as the per-interval loop. The records
+        are the loop's, each with the kernel launches of its own
+        write-back (the residual pass: the intervals are solved together);
+        the first record also holds the whole run's (``run_launches``,
+        ``run_xla_solves``: every solve and residual pass) and
+        ``run_s``."""
+        args, log = self.args, self.log
+        T = int(args.time_shard)
+        nt = stop - start
+        if nt < 1:
+            raise ValueError("no intervals selected (-T/-K window is empty)")
+        c0 = pipeline._counters()
+        t_all = time.perf_counter()
+        all_tiles = [[m.read_tile(start + i) for m in self.mss]
+                     for i in range(nt)]
+        preps = [self.prep_tiles(tiles) for tiles in all_tiles]
+        staged = [torch.stack([p[k] for p in preps], dim=1)
+                  for k in range(6)]
+        (x8FT, wtFT, uFT, vFT, wFT, frFT), tpad = cadmm.pad_time(staged, nt,
+                                                                 T)
+        log(f"time shards: {self.nf} subbands x {nt} intervals (padded to "
+            f"{tpad}) in {T} shards of {tpad // T}, run in turn on one "
+            "device")
+        self.timer.clear()
+        self.groups.clear()
+        runner = cadmm.make_admm_runner_2d(
+            self.dsky, self.sta1, self.sta2, self.cidx, self.cmask, self.n,
+            self.meta0["fdelta"], self.Bpoly, self.cfg, T, nt,
+            nf_total=self.nf, device=self.device, timer=self.timer,
+            groups=self.groups)
+        out = runner(x8FT, uFT, vFT, wFT, self.freqs, wtFT, frFT,
+                     self._t(Jinit))
+        JT, ZT, rhoT = (o.to("cpu", torch.float64).numpy() for o in out[:3])
+        res0T, res1T, r1sT, dualsT = (o.to("cpu", torch.float64).numpy()
+                                      for o in out[3:7])
+        walls = [s for _, s in self.timer]
+        log("time-shard interval wall-clock: "
+            + " ".join(f"{s:.2f}s" for s in walls)
+            + f" ({T} shards, {max(self.cfg.n_admm, 1)} ADMM iterations "
+            "each)")
+        history = []
+        for i in range(nt):
+            ti = start + i
+            _, _, uF, vF, wF, _ = preps[i]
+            r1s = r1sT[i]
+            res1 = r1s[-1] if self.cfg.n_admm > 1 else res1T[i]
+            c_i = pipeline._counters()
+            res_s = self._write_interval(ti, all_tiles[i], uF, vF, wF, None,
+                                         JT[i], ZT[i], res0T[i], res1,
+                                         dualsT[i], writers)
+            launches = [b - a for a, b in zip(c_i, pipeline._counters())]
+            history.append(dict(
+                tile=ti, res_0=float(res0T[i].mean()),
+                res_1=float(res1.mean()), res_0_f=res0T[i].tolist(),
+                res_1_f=res1.tolist(), r1s=r1s.tolist(),
+                duals=dualsT[i].tolist(), rho_mean=float(rhoT[i].mean()),
+                reset=runner.resets[i], iter_s=[walls[i]],
+                residual_s=res_s, groups=self.groups[i],
+                interval_s=walls[i],
+                launches=dict(zip(("coh", "sweep", "matvec", "visits"),
+                                  launches[:4])), xla_solves=launches[4]))
+        launches = [b - a for a, b in zip(c0, pipeline._counters())]
+        history[0].update(
+            run_launches=dict(zip(("coh", "sweep", "matvec", "visits"),
+                                  launches[:4])), run_xla_solves=launches[4],
+            run_s=time.perf_counter() - t_all)
+        return history
 
 def run(argv=None, log=print) -> list:
-    """Parse ``argv`` and run it (:class:`ConsensusRun`); returns the
-    per-interval records."""
-    args = build_parser().parse_args(argv)
+    """Parse ``argv`` and run it: the ``-N`` route
+    (:func:`run_federated`) or consensus ADMM (:class:`ConsensusRun`);
+    returns the per-tile or per-interval records. A ``--faults`` plan is
+    installed for the run and removed after it."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.epochs > 0 and args.num_processes > 1:
+        parser.error(
+            "federated stochastic mode (-N) currently stages data "
+            "single-process; run it per host or use the ADMM mode "
+            "for multi-host")
     check_flags(args)
+    from sagecal_tpu_torch import faults
     from sagecal_tpu_torch.cli import _device
-    return ConsensusRun(args, device=_device(args.platform), log=log).run()
+    install_faults(args.faults)
+    try:
+        device = _device(args.platform)
+        if args.epochs > 0:
+            return run_federated(args, device=device, log=log)
+        check_plans(args)
+        return ConsensusRun(args, device=device, log=log).run()
+    finally:
+        if args.faults is not None:
+            faults.disable()
 
 
 def main(argv=None, log=print) -> int:

@@ -99,6 +99,10 @@ class RunConfig:
     rho_file: str | None = None                      # -G
     use_global_solution: bool = False                # RunConfig only
     max_timeslots: int = 0                           # -T
+    # the MPI CLI's -N route (federated.py): the first solve interval and
+    # the federated prior's strength
+    skip_timeslots: int = 0                          # -K
+    federated_alpha: float = 0.0                     # -u
     verbose: bool = False                            # -V : per-tile stats
 
     # --tile-batch: solve intervals batched into one lane-batched solve

@@ -14,7 +14,9 @@ split predict of a mixed sky against the generic predict in float64 on
 the card, and one LM solve on the XLA assembly against the CPU. The
 bf16 and f16 instances of the sweep and visits kernels are held against
 their plain versions at the same gate, and one pipeline run at
-``--dtype-policy bf16`` against the CPU at bf16."""
+``--dtype-policy bf16`` against the CPU at bf16. The MPI CLI's ``-N``
+(federated stochastic calibration) runs at 16 stations on the card
+against the CPU."""
 
 import numpy as np
 import pytest
@@ -992,3 +994,48 @@ def test_admm_solve_on_card_matches_cpu(card, solver, inner):
     assert gs > 0 and cs == cm == 0
     assert (gm > 0) == (inner == "cg")
     assert float((gc - cc).abs().max()) <= 1e-3 * float(cc.abs().max())
+
+
+def test_federated_on_card_matches_cpu(card, tmp_path):
+    """The MPI CLI's ``-N`` (federated stochastic calibration) on 2 slave
+    subbands of 16 stations (chip_smoke.py's FEDERATED_PARITY: 40
+    timeslots, 8 channels, 8 clusters, ``-N 1 -M 2 -w 2 -A 2 -u 0.5 -r
+    0.5``; 40 timeslots because at 20 float32 alone moves the written
+    column 8.1e-4 from float64 on the CPU: ROADMAP C8,
+    ``tools_dev/torch_federated_float32.py``) on the card (float32: the
+    coherency kernel predicts every band) against the CPU (float64, plain
+    versions): res_0/res_1 and each slave's residuals within 1e-3; the
+    card run launches the coherency kernel and no solve kernel, and every
+    slave's residual falls."""
+    import chip_smoke
+    from sagecal_tpu_torch import cli_mpi
+    n_st, nchunk, tsz, flags = chip_smoke.FEDERATED_PARITY
+    lst, sky, clus, paths = chip_smoke.make_subbands(
+        str(tmp_path), n_st, tsz, chip_smoke.CONSENSUS_PARITY_CENTRES[:2],
+        chip_smoke.FREQS, len(nchunk), 6, nchunk, 1, "cpu", seed=9,
+        noise=0.02)
+    import shutil
+    with open(lst + ".cpu", "w") as f:
+        for p in paths:
+            shutil.copytree(p, p + ".cpu")
+            f.write(p + ".cpu\n")
+    out = {}
+    for dev, lf, extra in ((card, lst, []), ("cpu", lst + ".cpu",
+                                             ["--platform", "cpu"])):
+        c0 = tcoh.LAUNCHES
+        s0 = (tswp.LAUNCHES, tswp.MATVEC_LAUNCHES, tswp.VISITS_LAUNCHES)
+        hist = cli_mpi.run(["-f", lf, "-s", sky, "-c", clus, "-p",
+                            lf + ".sol"] + list(flags) + extra,
+                           log=lambda *a: None)
+        if dev == card:
+            assert tcoh.LAUNCHES - c0 > 0
+            assert (tswp.LAUNCHES, tswp.MATVEC_LAUNCHES,
+                    tswp.VISITS_LAUNCHES) == s0
+        out[str(dev)] = hist
+    for g, c in zip(out[str(card)], out["cpu"]):
+        for key in ("res_0", "res_1"):
+            assert abs(g[key] - c[key]) <= 1e-3 * abs(c[key]), key
+        for (g0, g1), (c0, c1) in zip(g["slave_res"], c["slave_res"]):
+            assert abs(g0 - c0) <= 1e-3 * abs(c0)
+            assert abs(g1 - c1) <= 1e-3 * abs(c1)
+            assert g1 < g0 and c1 < c0

@@ -8,9 +8,12 @@ largest entry (the text format's 7 digits). Option sets here: the
 default solver mode (robust RTR) with no ``--kernel`` flag (each CLI on
 its default route), ``-C 1 -G --mdl`` (the MDL report's orders equal)
 and ``-X`` with ``-u`` (the spatial model's file too); the others in
-``test_torch_cli_mpi_options.py``. The flags the port does not run raise
-``NotImplementedError`` naming ROADMAP, and ``--jones diag`` raises as
-the JAX CLI does."""
+``test_torch_cli_mpi_options.py``, the execution plans (``-N``,
+``--block-f``, ``--staleness``, ``--time-shard``) in
+``test_torch_cli_mpi_plans.py``. The flags the port does not run raise
+``NotImplementedError`` naming ROADMAP (``--faults`` a plan naming
+another point than ``admm_subband_slow``), and ``--jones diag`` raises
+as the JAX CLI does."""
 
 import os
 import shutil
@@ -148,11 +151,11 @@ def test_mpi_cli_spatialreg(data):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("-N", "1"), ("--block-f", "2"), ("--staleness", "1"),
-    ("--time-shard", "2"), ("--coordinator", "localhost:1"),
+    ("--coordinator", "localhost:1"),
     ("--num-processes", "2"), ("--cpu-devices", "4"),
     ("--prior-cache", "read"), ("--diag", "d.jsonl"),
-    ("--metrics", "m.json"), ("--faults", "{}"), ("--prefetch", "0")])
+    ("--metrics", "m.json"),
+    ("--faults", '[{"point": "ms_read", "at": [0]}]'), ("--prefetch", "0")])
 def test_mpi_cli_unported_flags_raise(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         tcli_mpi.main(["-f", "x", "-s", "s", "-c", "c", flag, value,

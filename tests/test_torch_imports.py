@@ -25,11 +25,16 @@ def test_every_module_imports_without_jax():
     """In a fresh interpreter where importing jax or sagecal_tpu fails,
     every port module and chip_smoke.py import."""
     mods = _modules()
-    for m in ("ops.sweep", "solvers.robust", "solvers.rtr",
-              "rime.envelopes", "solvers.normal_eq", "stochastic",
-              "coords", "rime.beam", "io.native", "cli_mpi",
-              "consensus.admm", "consensus.poly", "consensus.manifold",
-              "consensus.mdl", "consensus.spatial"):
+    for m in ("cli", "cli_mpi", "config", "consensus", "consensus.admm",
+              "consensus.manifold", "consensus.mdl", "consensus.poly",
+              "consensus.spatial", "convert", "coords", "device", "dtypes",
+              "faults", "federated", "io", "io.dataset", "io.native",
+              "io.solutions", "obs", "obs.metrics", "ops", "ops.coh",
+              "ops.cuda_lib", "ops.sweep", "pipeline", "rime", "rime.beam",
+              "rime.envelopes", "rime.predict", "rime.residual",
+              "skymodel", "solvers", "solvers.lbfgs", "solvers.lm",
+              "solvers.normal_eq", "solvers.robust", "solvers.rtr",
+              "solvers.sage", "stochastic", "utils"):
         assert "sagecal_tpu_torch." + m in mods
     code = (
         "import sys\n"
@@ -88,8 +93,9 @@ def test_stochastic_entry_points_refuse_cpu_fallback():
 
 
 def test_consensus_entry_points_refuse_cpu_fallback():
-    """The MPI CLI and stochastic consensus raise without a card unless
-    asked for the CPU, before they open a dataset."""
+    """The MPI CLI (each execution plan) and stochastic consensus raise
+    without a card unless asked for the CPU, before they open a
+    dataset."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -104,6 +110,11 @@ def test_consensus_entry_points_refuse_cpu_fallback():
                   "-w", "2", "-A", "3"])
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_mpi.main(["-f", "unused", "-s", "unused", "-c", "unused"])
+    for plan in (["-N", "1", "-w", "2"], ["--block-f", "2"],
+                 ["--staleness", "1"], ["--time-shard", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_mpi.main(["-f", "unused", "-s", "unused", "-c", "unused"]
+                         + plan)
 
 
 def test_kernel_build_is_lazy():

@@ -4,10 +4,12 @@
 
 Builds the kernels, then runs ``e2e_stochastic_consensus`` (on a
 one-tile full-width observation), ``e2e_consensus`` (the MPI CLI on 4
-full-width subbands) and, unless ``--no-parity``, the consensus
-``slice_parity`` runs (``consensus``, ``consensus_rtr_inflight``: the card
-run, then its CPU float64 reference in a worker process beside the next
-card run) with their gates, each record one JSON line, as chip_smoke
+full-width subbands), ``e2e_federated`` (the MPI CLI's ``-N`` on 2) and,
+unless ``--no-parity``, the consensus ``slice_parity`` runs
+(``consensus``, ``consensus_rtr_inflight``, ``consensus_blocked``,
+``consensus_stale``, ``consensus_time_shard`` and ``federated``: the card
+runs one after another, their CPU float64 references in worker processes
+beside them) with their gates, each record one JSON line, as chip_smoke
 prints them. The quick way to run the consensus path on the card
 without the rest of chip_smoke (its full run takes ~15 minutes).
 """
@@ -33,8 +35,9 @@ def main(argv=None) -> int:
     obs = cs.observation_e2e("e2e_consensus_obs", n_tiles=1)
     cs.phase_e2e_stochastic_consensus(obs)
     cs.phase_e2e_consensus()
+    cs.phase_e2e_federated()
     if "--no-parity" not in argv:
-        with multiprocessing.get_context("spawn").Pool(2) as pool:
+        with multiprocessing.get_context("spawn").Pool(4) as pool:
             cons_obs, cpu = cs.consensus_parity_start(pool)
             card = cs.consensus_parity_card(cons_obs)
             cpu = {tag: r.get() for tag, r in cpu.items()}

@@ -16,7 +16,7 @@ of every card run against the CPU run, to read against chip_smoke's
 1e-3 gate, and every run's per-tile (res_0, res_1, mean_nu, solver
 iterations, PCG trips, tCG products) and group relaxations. Each
 configuration runs on slice_parity's observation for it (REDUCED_OBS,
-BEAM_OBS, through the run's own ``-B`` beam), or at ``--times``
+BEAM_OBS, RTR_OBS, through the run's own ``-B`` beam), or at ``--times``
 timeslots a tile; ``multims`` and ``resume`` (their own inputs) are not
 run here.
 """
@@ -69,8 +69,8 @@ def main() -> int:
             continue
         work = os.path.join(cs.WORK, "spread_" + tag)
         shutil.rmtree(work, ignore_errors=True)
-        tilesz, noise = {**cs.REDUCED_OBS, **cs.BEAM_OBS}.get(tag,
-                                                               (10, 0.02))
+        tilesz, noise = {**cs.REDUCED_OBS, **cs.BEAM_OBS,
+                         **cs.RTR_OBS}.get(tag, (10, 0.02))
         tilesz = args.times or tilesz
         ms, sky, clus = cs.make_observation(work, n_st, tilesz,
                                             cs.FREQS[:2], len(nchunk), n_src,
