@@ -134,9 +134,23 @@ stations at ``-r 0.5``: the stochastic gates, every slave's column),
 schedules and dead sets equal) and ``consensus_time_shard``
 (``--time-shard 2`` over 3 tiles), each ``-j 1 --inner cg`` on the
 consensus parity subbands (coh, sweep and matvec launched, no XLA solve).
+Consensus over processes (``--coordinator``, ``--num-processes``;
+``distributed.py``): ``slice_parity`` adds ``consensus_mp`` (the MPI CLI
+as 2 ranks on the one card, so gloo on host copies: 3 subbands of 16
+stations padded to 4 slots, ``-j 1 --inner cg``, one tile) and
+``consensus_nccl1`` (the same command as one rank with a coordinator: the
+NCCL route), each against the one-process CPU float64 run of the command
+(every subband's residuals, written column and worker file, and the Z
+file, after each block's gauge unitary, within PARITY_RTOL; every
+divergence reset equal; rank 0's record names the world, the slots and
+the backend; no rank but 0 wrote or logged); and ``e2e_consensus_mp``
+runs e2e_consensus's observation as 2 ranks on the card (the interval
+wall, each rank's launches, every subband's res_1 / res_0 within 1e-3 of
+e2e_consensus's).
 slice_parity's card runs and its CPU float64 references share one
-queue of PARITY_WORKERS spawned processes; the e2e phases run after it,
-with the card and the host to themselves.
+queue of PARITY_WORKERS spawned processes (the multi-process runs beside
+it, from a thread of this process); the e2e phases run after it, with the
+card and the host to themselves.
 Every phase prints one JSON line; any failure ends the run with a
 non-zero exit. The last lines are the card's name and power limit
 (``nvidia-smi``), a ``{"kernels": [...]}`` summary and ``{"ok": true,
@@ -154,6 +168,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1762,7 +1777,8 @@ PARITY_TILES = {"tile_batch_rtr": 3, "tile_batch_inflight": 3,
                 "default_rtr": 1, "j5_cg": 1, "inflight_rtr": 1,
                 "xla_default": 1, "xla_cg": 1, "diag_inflight_rtr": 1,
                 "consensus_rtr_inflight": 1, "consensus_blocked": 1,
-                "consensus_time_shard": 3}
+                "consensus_time_shard": 3, "consensus_mp": 1,
+                "consensus_nccl1": 1}
 #: The 41-station robust-RTR runs (-j 5) solve tiles of 5 timeslots
 #: (timeslots a tile, noise), which shortens their CPU references,
 #: slice_parity's longest part, by a third (532 -> 359 s on one CPU core
@@ -1872,11 +1888,13 @@ def _column_rel(ms: str) -> float:
     return _simms_column_rel(ms)
 
 
-def _simms_column_rel(ms: str) -> float:
-    """:func:`_column_rel` of one SimMS."""
+def _simms_column_rel(ms: str, ref: str | None = None) -> float:
+    """:func:`_column_rel` of one SimMS (against ``ref``, the CPU's,
+    ``ms + '.cpu'`` by default)."""
     from sagecal_tpu_torch.io import dataset as ds
     card = ds.SimMS(ms, data_column="CORRECTED_DATA")
-    cpu = ds.SimMS(ms + ".cpu", data_column="CORRECTED_DATA")
+    cpu = ds.SimMS(ms + ".cpu" if ref is None else ref,
+                   data_column="CORRECTED_DATA")
     data = ds.SimMS(ms)
     rel = 0.0
     for i in range(card.n_tiles):
@@ -2279,7 +2297,8 @@ def _first_consensus_flip(cuda_hist, cpu_hist):
     return None
 
 
-def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
+def _check_consensus_parity(tag, obs, card, cpu, must, gate_z,
+                            ref=None, extra=None) -> dict:
     """A consensus card run against its CPU reference: every subband's
     res_0/res_1 on every tile, its written column (in units of the data's
     largest magnitude) and, with ``gate_z``, the Z file (each block
@@ -2291,19 +2310,28 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
     compared first: a flip within
     FLIP_MARGIN of its threshold replaces the gates (as slice_parity's
     group runs), a flip beyond it fails. The record carries the Z file's
-    unaligned difference too."""
+    unaligned difference too, and the fields of ``extra``. With ``ref``,
+    the observation of a one-process CPU run of the same command on
+    another copy (a multi-process run's reference), the columns and the
+    Z file are held against ``ref``'s ``.cpu`` copies, and every worker
+    file too (aligned at P = 1)."""
     from sagecal_tpu_torch import skymodel
     from sagecal_tpu_torch.io import solutions as sol
     lst, sky, clus, paths, _ = obs
     (hg, sg, launches), (hc, sc) = card, cpu
+    ref_lst, ref_paths = (lst, paths) if ref is None else (ref[0], ref[3])
+    ref_paths = [p + ".cpu" for p in ref_paths]
     rels = [abs(a - b) / abs(b) for x, y in zip(hg, hc)
             for k in ("res_0_f", "res_1_f") for a, b in zip(x[k], y[k])]
-    col = max(_simms_column_rel(p) for p in paths)
+    col = max(_simms_column_rel(p, r) for p, r in zip(paths, ref_paths))
     nchunk = skymodel.read_sky_cluster(sky, clus, RA0, DEC0, 150e6).nchunk
     Zg, Zc = (np.asarray(sol.read_solutions(p, nchunk * 2)[1])
-              for p in (lst + ".z", lst + ".cpu.z"))
+              for p in (lst + ".z", ref_lst + ".cpu.z"))
     z_raw = float(np.abs(Zg - Zc).max() / np.abs(Zc).max())
     z_rel = z_rel_aligned(Zg, Zc)
+    workers = [] if ref is None else [z_rel_aligned(*(np.asarray(
+        sol.read_solutions(q + ".solutions", nchunk)[1]) for q in (p, r)),
+        P=1) for p, r in zip(paths, ref_paths)]
     resets = {"cuda": [h["reset"] for h in hg],
               "cpu": [h["reset"] for h in hc]}
     stale = {d: [[h.get("schedule"), h.get("dead")] for h in hist]
@@ -2312,7 +2340,7 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
     rec = dict(tag=tag, cuda=[[h["res_0_f"], h["res_1_f"]] for h in hg],
                cpu=[[h["res_0_f"], h["res_1_f"]] for h in hc],
                max_rel=max(rels), col_rel=col, z_rel=z_rel, z_raw=z_raw,
-               resets=resets,
+               worker_rel=workers, resets=resets,
                duals={"cuda": [h["duals"] for h in hg],
                       "cpu": [h["duals"] for h in hc]},
                iter_s=[h["iter_s"] for h in hg], launches=launches,
@@ -2320,7 +2348,8 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
                seconds={"cuda": sg, "cpu": sc}, flip=flip, z_gated=gate_z,
                omegas={d: [[[[g[2] for g in sb] for sb in it]
                              for it in h["groups"]] for h in hist]
-                       for d, hist in (("cuda", hg), ("cpu", hc))})
+                       for d, hist in (("cuda", hg), ("cpu", hc))},
+               **(extra or {}))
     emit("slice_parity", **rec)
     _check_route(f"slice_parity {tag}", launches, must, False)
     if stale["cuda"] != stale["cpu"]:
@@ -2345,15 +2374,121 @@ def _check_consensus_parity(tag, obs, card, cpu, must, gate_z) -> dict:
         raise AssertionError(f"slice_parity {tag}: divergence resets differ: "
                              f"{resets}")
     if not (max(rels) <= PARITY_RTOL and col <= PARITY_RTOL
-            and (z_rel <= PARITY_RTOL or not gate_z)):
+            and (z_rel <= PARITY_RTOL or not gate_z)
+            and max(workers, default=0.0) <= PARITY_RTOL):
         raise AssertionError(f"slice_parity {tag}: residuals {max(rels):.3e}"
-                             f", column {col:.3e}, Z {z_rel:.3e} > "
+                             f", column {col:.3e}, Z {z_rel:.3e}, workers "
+                             f"{max(workers, default=0.0):.3e} > "
                              f"{PARITY_RTOL}")
     if not all(b < a for h in hg + hc
                for a, b in zip(h["res_0_f"], h["res_1_f"])):
         raise AssertionError(f"slice_parity {tag}: a subband's residual did "
                              "not fall")
     return rec
+
+
+#: slice_parity's multi-process consensus runs (tag, ranks, the data
+#: collectives' backend they must take): the MPI CLI on CONSENSUS_MP's
+#: observation (16 stations, 3 subbands, so 4 slots over 2 ranks) at
+#: CONSENSUS_PARITY_COMMON + CONSENSUS_MP, one tile, ``consensus_mp`` as
+#: 2 ranks on the one card (gloo: NCCL refuses two ranks on one device)
+#: and ``consensus_nccl1`` as one rank with a coordinator (NCCL, the only
+#: run of its calls here: NCCL across cards needs more than one card).
+#: Both against the one-process CPU float64 run of the command
+#: (``consensus_mp``'s ``.cpu`` copies).
+CONSENSUS_MP_RUNS = (("consensus_mp", 2, "gloo"),
+                     ("consensus_nccl1", 1, "nccl"))
+CONSENSUS_MP = ["-j", "1", "--inner", "cg"]
+CONSENSUS_MP_CHUNKS = (1, 2, 1)
+
+
+def consensus_mp_start(pool) -> dict:
+    """The multi-process runs' observations (each tag its own copy of
+    the same subbands), the CPU reference queued on ``pool``, and the
+    card runs started on a thread of this process (the pool's workers
+    cannot start the ranks' processes): a handle for
+    :func:`consensus_mp_finish`."""
+    obs = {tag: _consensus_obs(tag, CONSENSUS_MP_CHUNKS, CONSENSUS_MP)
+           for tag, _, _ in CONSENSUS_MP_RUNS}
+    o = obs["consensus_mp"]
+    cpu = pool.apply_async(_consensus_cpu, ((o[0] + ".cpu", o[1], o[2],
+                                             o[4], o[0] + ".cpu.z"),))
+    card: dict = {}
+
+    def run_cards():
+        from sagecal_tpu_torch import distributed as dist
+        for tag, world, _ in CONSENSUS_MP_RUNS:
+            lst, sky, clus, _, flags = obs[tag]
+            t0 = time.perf_counter()
+            try:
+                card[tag] = (dist.run_ranks(
+                    ["-f", lst, "-s", sky, "-c", clus, "-p", lst + ".z",
+                     "-V"] + flags, world, timeout=600),
+                    time.perf_counter() - t0)
+            except Exception as e:
+                card[tag] = e
+    thread = threading.Thread(target=run_cards, daemon=True)
+    thread.start()
+    return dict(obs=obs, cpu=cpu, card=card, thread=thread)
+
+
+def _check_consensus_mp(tag, backend, obs, card, cpu, ref_obs) -> dict:
+    """A multi-process card run (rank by rank: records, log lines)
+    against the one-process CPU run of ``ref_obs``
+    (:func:`_check_consensus_parity` on rank 0's records, its worker
+    files too, coh, sweep and matvec launched over the ranks), then rank
+    0's records with the world, 4 slots (one rank: 3) and ``backend``,
+    and no rank but 0 wrote a file or logged a line."""
+    ranks, secs = card
+    hg, _ = ranks[0]
+    world = len(ranks)
+    launches = {k: sum(r["rank_launches"][i][k] for r in hg
+                       for i in range(world))
+                for k in ("coh", "sweep", "matvec", "visits", "xla_solves")}
+    rank_launches = [{k: sum(r["rank_launches"][i][k] for r in hg)
+                      for k in launches} for i in range(world)]
+    others = [(len(lns), sum(len(r["wrote"]) for r in h))
+              for h, lns in ranks[1:]]
+    fpad = 4 if world > 1 else 3
+    rec = _check_consensus_parity(
+        tag, obs, (hg, secs, {**launches, "by_md": {}, "by_st": {}}), cpu,
+        ("coh", "sweep", "matvec"), True, ref=ref_obs,
+        extra=dict(world=world, fpad=[h["fpad"] for h in hg],
+                   backend=[h["backend"] for h in hg],
+                   interval_s=[h["interval_s"] for h in hg],
+                   rank_launches=rank_launches, others_lines_files=others))
+    if any(h["world"] != world or h["fpad"] != fpad
+           or h["backend"] != backend for h in hg):
+        raise AssertionError(f"slice_parity {tag}: records say world "
+                             f"{[h['world'] for h in hg]}, slots "
+                             f"{rec['fpad']}, backend {rec['backend']}; "
+                             f"want {world}, {fpad}, {backend}")
+    if any(n for pair in others for n in pair):
+        raise AssertionError(f"slice_parity {tag}: a rank but 0 logged or "
+                             f"wrote (lines, files): {others}")
+    return rec
+
+
+def consensus_mp_finish(h: dict, out: dict, failures: list) -> None:
+    """Wait for the multi-process card runs (:func:`consensus_mp_start`;
+    the CPU reference's result in ``h["cpu_done"]``) and gate them
+    (:func:`_check_consensus_mp`): records into ``out``, failed gates
+    onto ``failures``."""
+    h["thread"].join(1200)
+    if h["thread"].is_alive():
+        raise AssertionError("slice_parity: the multi-process card runs did "
+                             "not end in 1200 s")
+    cpu = h["cpu_done"]
+    for tag, _, backend in CONSENSUS_MP_RUNS:
+        card = h["card"].get(tag)
+        if isinstance(card, Exception) or card is None:
+            failures.append(f"slice_parity {tag}: {card!r}")
+            continue
+        try:
+            out[tag] = _check_consensus_mp(tag, backend, h["obs"][tag], card,
+                                           cpu, h["obs"]["consensus_mp"])
+        except AssertionError as e:
+            failures.append(str(e))
 
 
 def _federated_obs():
@@ -2591,6 +2726,7 @@ def slice_parity_start() -> dict:
                   + [("st", tag, (st_obs[tag], flags), n_st * n_st)
                      for tag, flags in st_runs.items()])
         cons_obs, cons_cpu = consensus_parity_start(pool)
+        h["mp"] = consensus_mp_start(pool)
         card_runs([("cons", tag, o, 0) for tag, o in cons_obs.items()])
         cpu_refs(r for r in PARITY_RUNS if r[1] <= 16)
         st_cpu = {tag: pool.apply_async(_stochastic_cpu, (
@@ -2651,6 +2787,8 @@ def slice_parity_finish(h: dict) -> dict:
         ulp_done = {tag: r.get() for tag, r in h["ulp_runs"].items()}
         f32_done = {tag: r.get()[0] for tag, r in h["f32_runs"].items()}
         st_cpu = {tag: r.get() for tag, r in h["st_cpu"].items()}
+        mp = h["mp"]
+        mp["cpu_done"] = mp["cpu"].get()
     finally:
         slice_parity_stop(h)
     # the phase's wall once its card runs and once its CPU runs were in
@@ -2805,6 +2943,7 @@ def slice_parity_finish(h: dict) -> dict:
         except AssertionError as e:
             failures.append(str(e))
     consensus_parity_check(cons_obs, cons_card, cons_cpu, out, failures)
+    consensus_mp_finish(mp, out, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     return out
@@ -3385,7 +3524,7 @@ def phase_e2e_consensus() -> dict:
                peak_gb=peak / 2 ** 30, written_over_data=ratio,
                z_intervals=len(blocks),
                z_columns=header.get("n_eff_clusters"),
-               worker_intervals=workers,
+               worker_intervals=workers, threads=torch.get_num_threads(),
                B=TILESZ * N_STATIONS * (N_STATIONS - 1) // 2, F=len(FREQS),
                M=sk.n_clusters, S=sk.max_sources)
     emit("e2e_consensus", **rec)
@@ -3400,6 +3539,73 @@ def phase_e2e_consensus() -> dict:
     if launches["visits"]:
         raise AssertionError("e2e_consensus: a sequential run launched the "
                              f"visits kernel: {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def phase_e2e_consensus_mp(single: dict) -> dict:
+    """e2e_consensus's observation (:func:`make_subbands` with its
+    arguments) and command as 2 ranks of the MPI CLI on the one card
+    (``distributed.run_ranks``: gloo on host copies), 2 subbands a rank.
+    Records rank 0's interval (its wall, each ADMM iteration's, the
+    residual pass's), each rank's launches and every subband's res_1 /
+    res_0 beside ``single``'s (e2e_consensus in this call), and the torch
+    threads of a rank beside those of ``single``'s process. Gates: every
+    subband's residual falls, its ratio within 1e-3 (relative) of
+    ``single``'s; coh, sweep and matvec launched over the ranks, no XLA
+    solve; the records name 2 ranks, 4 slots and gloo; rank 1 wrote no
+    file and logged no line."""
+    from sagecal_tpu_torch import distributed as dist
+    work = os.path.join(WORK, "e2e_consensus_mp")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    lst, sky, clus, paths = make_subbands(
+        work, N_STATIONS, TILESZ, CONSENSUS_CENTRES, FREQS, N_CLUSTERS,
+        N_SOURCES, NCHUNK, 1, "cuda")
+    setup_s = time.perf_counter() - t0
+    solpath = os.path.join(work, "zsol.txt")
+    t0 = time.perf_counter()
+    ranks = dist.run_ranks(["-f", lst, "-s", sky, "-c", clus, "-p", solpath,
+                            "-V"] + E2E_CONSENSUS
+                           + ["-g", "10", "-t", str(TILESZ)], 2, timeout=900)
+    wall = time.perf_counter() - t0
+    (hist, _), (hist1, lines1) = ranks
+    h = hist[0]
+    ratio = [b / a for a, b in zip(h["res_0_f"], h["res_1_f"])]
+    ratio_rel = max(abs(r / s - 1.0) for r, s in zip(ratio,
+                                                      single["res_ratio"]))
+    launches = {k: sum(r[k] for r in h["rank_launches"])
+                for k in ("coh", "sweep", "matvec", "visits", "xla_solves")}
+    rec = dict(flags=E2E_CONSENSUS, world=h["world"], fpad=h["fpad"],
+               backend=h["backend"], subbands=len(paths), wall_s=wall,
+               setup_s=setup_s, interval_s=h["interval_s"],
+               iter_s=h["iter_s"], residual_s=h["residual_s"],
+               duals=h["duals"], res_0=h["res_0_f"], res_1=h["res_1_f"],
+               res_ratio=ratio, ratio_rel=ratio_rel,
+               single_interval_s=single["interval_s"],
+               single_res_ratio=single["res_ratio"],
+               threads_per_rank=dist.RANK_THREADS,
+               single_threads=single["threads"], reset=h["reset"],
+               launches=launches, rank_launches=h["rank_launches"],
+               rank1_lines=len(lines1),
+               rank1_wrote=sum(len(r["wrote"]) for r in hist1))
+    emit("e2e_consensus_mp", **rec)
+    _check_route("e2e_consensus_mp", {**launches, "by_md": {}, "by_st": {}},
+                 ("coh", "sweep", "matvec"), False)
+    if not all(math.isfinite(a) and math.isfinite(b) and b < a
+               for a, b in zip(h["res_0_f"], h["res_1_f"])):
+        raise AssertionError(f"e2e_consensus_mp: a subband's residual did "
+                             f"not fall: {h['res_0_f']} -> {h['res_1_f']}")
+    if not ratio_rel <= 1e-3:
+        raise AssertionError(f"e2e_consensus_mp: res_1 / res_0 {ratio} "
+                             f"against e2e_consensus's "
+                             f"{single['res_ratio']}: {ratio_rel:.3e} > 1e-3")
+    if (h["world"], h["fpad"], h["backend"]) != (2, 4, "gloo") \
+            or rec["rank1_lines"] or rec["rank1_wrote"]:
+        raise AssertionError(f"e2e_consensus_mp: world {h['world']}, slots "
+                             f"{h['fpad']}, backend {h['backend']}; rank 1 "
+                             f"logged {rec['rank1_lines']} lines, wrote "
+                             f"{rec['rank1_wrote']} paths")
     shutil.rmtree(work, ignore_errors=True)
     return rec
 
@@ -3750,15 +3956,24 @@ def main() -> int:
     # consensus calibration (the MPI CLI) on 4 full-width subbands, and
     # federated stochastic calibration (-N) on 2
     consensus = phase_e2e_consensus()
+    # the same observation as 2 ranks on the card
+    consensus_mp = phase_e2e_consensus_mp(consensus)
     federated = phase_e2e_federated()
     inflight_cons = parity["consensus_rtr_inflight"]["launches"]
     plans = {tag: parity[tag]["launches"] for tag in (
         "consensus_blocked", "consensus_stale", "consensus_time_shard")}
 
     def plan_launches(kernel):
-        """A kernel's launches on the MPI CLI's plan runs."""
-        return {f"launches_{tag}": launches[kernel]
-                for tag, launches in plans.items()}
+        """A kernel's launches on the MPI CLI's plan runs, and rank by
+        rank on its runs over processes."""
+        out = {f"launches_{tag}": launches[kernel]
+               for tag, launches in plans.items()}
+        for tag in ("consensus_mp", "consensus_nccl1"):
+            out[f"launches_{tag}_by_rank"] = [
+                r[kernel] for r in parity[tag]["rank_launches"]]
+        out["launches_e2e_consensus_mp_by_rank"] = [
+            r[kernel] for r in consensus_mp["rank_launches"]]
+        return out
     vis = visits[(4, True)]
 
     def by_md(recs, kernel):

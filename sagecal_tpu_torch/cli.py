@@ -17,7 +17,9 @@ full|diag|phase``, T solve intervals as one lane-batched solve, skies of
 every source morphology, the ``-q`` warm start, ``-W 1`` whitening of the
 solve input, ``-J 1`` phase-only correction with ``-k``, ``-b 1``
 per-channel solves; ``--linsolv`` is carried and selects nothing, as in
-the JAX package), and the simulation modes ``-a 1/2/3`` (``-p`` then
+the JAX package; ``--cpu-devices`` is accepted and inert: the JAX flag
+only sizes a virtual CPU mesh, and the port's CPU is one device), and the
+simulation modes ``-a 1/2/3`` (``-p`` then
 names the solutions that corrupt the model and ``-z`` the clusters to
 leave out). ``--solve-fuse`` and ``--solve-promote`` are accepted as
 no-ops (PyTorch runs eagerly). ``-N E > 0`` routes to stochastic
@@ -37,6 +39,9 @@ calibration, as in the JAX CLI. ``-M``, ``--loss``, ``-w``, ``-A``,
 without it, as there.
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
+Every run warns, as the JAX CLI does, on values of ``-y`` and ``-o``
+that suggest a command line written for another tool
+(:func:`warn_legacy_flags`).
 
 ``--platform cpu`` runs on the CPU in float64; without it the run needs
 a CUDA device (float32). Under ``--dtype-policy bf16|f16`` both compute
@@ -63,8 +68,7 @@ UNPORTED = {
     "faults": (None, "queue A item 10 (--faults)"),
     "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
     "prior_cache": ("off", "queue A item 11 (--prior-cache)"),
-    "shard_baselines": (False, "queue A item 9e (--shard-baselines)"),
-    "cpu_devices": (0, "queue A item 9e (--cpu-devices)"),
+    "shard_baselines": (False, "queue A item 9f (--shard-baselines)"),
     "profile": (None, "queue A item 1 (--profile)"),
     "diag": (None, "queue A item 10 (--diag)"),
     "metrics": (None, "queue A item 10 (--metrics)"),
@@ -145,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--shard-baselines", action="store_true")
     a("--platform", default=None,
       help="'cpu' runs on the CPU (float64); default: the CUDA device")
-    a("--cpu-devices", type=int, default=0)
+    a("--cpu-devices", type=int, default=0,
+      help="accepted and inert: the port's CPU is one device")
     a("-w", "--nsolbw", type=int, default=1)
     a("-b", "--per-channel", type=int, default=0)
     a("-a", "--simulation", type=int, default=0)
@@ -176,6 +181,33 @@ def check_flags(args) -> None:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')}={getattr(args, dest)!r} is not "
                 f"ported yet (ROADMAP {item})")
+
+
+def warn_legacy_flags(args, err=None) -> list:
+    """One-time startup warning for short-option values that suggest a
+    pre-remap command line (``warn_legacy_flags`` of the JAX CLI,
+    ``sagecal_tpu/cli.py:180``): a ``-y`` under 10 lambda excludes
+    essentially every baseline, and an ``-o`` (MMSE rho) above 1 is far
+    outside the regularization regime (reference default 1e-9); both
+    almost certainly meant something else. The run proceeds; the warning
+    names the flag, on ``err`` (standard error by default). Returns the
+    warnings."""
+    err = sys.stderr if err is None else err
+    warnings = []
+    if args.uvmax < 10.0:
+        warnings.append(
+            f"-y/--uvmax={args.uvmax:g} lambda excludes nearly all "
+            "baselines; the reference -y is an upper uv-distance cut in "
+            "lambda (default 1e9) — was this meant for another tool?")
+    if args.mmse_rho > 1.0:
+        warnings.append(
+            f"-o/--mmse-rho={args.mmse_rho:g} is far above the MMSE "
+            "regularization regime (reference default 1e-9); the "
+            "reference -o is the robust rho for residual correction — "
+            "not an output path or a solver knob")
+    for w in warnings:
+        print(f"WARNING: suspicious legacy option value: {w}", file=err)
+    return warnings
 
 
 def config_from_args(args) -> RunConfig:
@@ -226,6 +258,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     check_flags(args)
+    warn_legacy_flags(args)
     cfg = config_from_args(args)
     if cfg.n_epochs > 0:
         from sagecal_tpu_torch import stochastic

@@ -37,13 +37,30 @@ the JAX CLI's refusals: ``--time-shard 1``, ``--time-shard`` with ``-B``,
 rules name only ``admm_subband_slow`` (:func:`install_faults`).
 ``--jones diag|phase`` raises ``ValueError`` as in the JAX CLI (the
 consensus vectors are full-Jones parameters). ``--host-loop`` (otherwise
-the port's only plan), ``--mesh-devices`` and ``--prefetch 1`` are
-no-ops. ``--coordinator``, ``--num-processes`` above 1,
-``--process-id``, ``--cpu-devices``, ``--prior-cache``, ``--diag``,
-``--metrics`` and ``--prefetch`` other than 1 raise
-``NotImplementedError`` naming their ROADMAP item (:data:`UNPORTED`);
-under ``-N``, whose route reads neither, ``--prefetch`` and
-``--prior-cache`` are inert.
+the port's only plan), ``--mesh-devices`` (which the JAX CLI ignores
+multi-host too) and ``--prefetch 1`` are no-ops. ``--cpu-devices N`` is
+accepted and inert: the JAX flag only sizes a virtual CPU mesh, whose
+results are the same up to summation order, and the port's CPU is one
+device. ``--prior-cache``, ``--diag``, ``--metrics`` and ``--prefetch``
+other than 1 raise ``NotImplementedError`` naming their ROADMAP item
+(:data:`UNPORTED`); under ``-N``, whose route reads neither,
+``--prefetch`` and ``--prior-cache`` are inert.
+
+Several processes (``--coordinator host:port --num-processes P
+--process-id r``, one a rank; ``distributed.py``) run the consensus plan
+as the JAX CLI runs it multi-host (``sagecal_tpu/cli_mpi.py:225-232``,
+``:358-383``, ``:569-587``): every rank opens every dataset and checks
+their metadata, the subband axis is padded to ``fpad = ceil(max(nf,
+P) / P) P`` slots (``admm.pad_subbands``), each rank stages and solves
+its ``fpad / P`` slots on its own card (``rank % device_count``) and
+computes its real subbands' residuals, and after each interval J, the
+residuals and rho are gathered. Rank 0 prints every line and writes
+every file: the Z file, every worker file, every residual column and
+the spatial file (the shared-filesystem contract). ``-N``, ``--time-shard``,
+``--staleness`` and ``--block-f`` refuse more than one process, and
+``--num-processes > 1`` needs ``--coordinator`` (:func:`check_processes`):
+the JAX CLI raises the plan refusals after its handshake, the port before
+it, so that a refused rank never waits for its peers.
 
 ``--platform cpu`` runs on the CPU in float64; without it the run needs
 a CUDA device (float32). ``--kernel`` defaults to ``pallas`` (the fused
@@ -66,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import glob as globmod
+import math
 import os
 import sys
 import time
@@ -82,10 +100,6 @@ from sagecal_tpu_torch.io import solutions as sol
 
 #: flags parsed for parity but not ported: dest -> (default, ROADMAP item)
 UNPORTED = {
-    "coordinator": (None, "queue A item 9e (multi-card ADMM)"),
-    "num_processes": (1, "queue A item 9e (multi-card ADMM)"),
-    "process_id": (0, "queue A item 9e (multi-card ADMM)"),
-    "cpu_devices": (0, "queue A item 9e (--cpu-devices)"),
     "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
     "diag": (None, "queue A item 10 (--diag)"),
     "metrics": (None, "queue A item 10 (--metrics)"),
@@ -159,9 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--process-id", type=int, default=0)
     a("--platform", default=None,
       help="'cpu' runs on the CPU (float64); default: the CUDA device")
-    a("--cpu-devices", type=int, default=0)
+    a("--cpu-devices", type=int, default=0,
+      help="accepted and inert: the port's CPU is one device")
     a("--mesh-devices", type=int, default=0,
-      help="accepted; a no-op on one card")
+      help="accepted; a no-op")
     a("--block-f", type=int, default=0)
     a("--time-shard", type=int, default=0, metavar="T")
     a("--staleness", type=int, default=0, metavar="S")
@@ -251,6 +266,37 @@ def check_plans(args) -> None:
         raise ValueError(f"--block-f {args.block_f}: must be >= 1")
 
 
+def check_processes(args) -> None:
+    """The multi-process refusals, each a ``ValueError`` raised before
+    any handshake (the JAX CLI's messages, ``sagecal_tpu/cli_mpi.py:
+    490-522``, which it raises after its handshake): a process count
+    below 1 or a process id outside it, ``--num-processes > 1`` without
+    ``--coordinator``, and with more than one process ``--time-shard``,
+    ``--staleness`` and ``--block-f``. (``-N`` with ``--num-processes >
+    1`` is a parser error, in :func:`run`.)"""
+    if args.num_processes < 1 or not 0 <= args.process_id \
+            < args.num_processes:
+        raise ValueError(f"--process-id {args.process_id} of "
+                         f"--num-processes {args.num_processes}: need 0 <= "
+                         "process id < processes")
+    if args.num_processes == 1:
+        return
+    if not args.coordinator:
+        raise ValueError(f"--num-processes {args.num_processes} needs "
+                         "--coordinator host:port (rank 0's address)")
+    if args.time_shard > 1:
+        raise ValueError("--time-shard stages the whole observation from "
+                         "one host; it cannot run multi-host yet (the mesh "
+                         "would span non-addressable devices)")
+    if args.staleness > 0:
+        raise ValueError("--staleness is a single-device host-driven plan; "
+                         "it cannot run multi-host (every process would "
+                         "redundantly drive the same chain)")
+    if args.block_f:
+        raise ValueError("--block-f is the single-device execution plan; "
+                         "it needs a 1-device mesh")
+
+
 def install_faults(spec):
     """Install the ``--faults`` plan (``faults.enable_spec``: a JSON list
     of rules, ``{"seed": ..., "rules": [...]}`` or a file holding either).
@@ -320,17 +366,28 @@ def _iter_walls(timer) -> list:
     return out
 
 
+def _quiet(*_args, **_kw) -> None:
+    """The log of a rank other than 0: it prints nothing."""
+
+
 class ConsensusRun:
     """The MPI CLI's consensus run: the subbands, sky, basis and runner
-    (:meth:`__init__`), then :meth:`run` over the solve intervals."""
+    (:meth:`__init__`), then :meth:`run` over the solve intervals. With a
+    process ``group`` (``distributed.Group``) this rank holds slots
+    ``rank * Fl`` .. of the padded subband axis, its real subbands
+    :attr:`local`, and only rank 0 logs and writes."""
 
-    def __init__(self, args, device=None, log=print):
+    def __init__(self, args, device=None, log=print, group=None):
         from sagecal_tpu_torch.consensus import poly as cpoly
         from sagecal_tpu_torch.io import dataset as ds
         from sagecal_tpu_torch.rime import beam as bm
         from sagecal_tpu_torch.rime import predict as rp
         from sagecal_tpu_torch.solvers import sage
-        self.args, self.log = args, log
+        self.group = group
+        self.rank = 0 if group is None else group.rank
+        self.world = 1 if group is None else group.world
+        self.args = args
+        log = self.log = log if self.rank == 0 else _quiet
         dev = self.device = devmod.resolve(device)
         self.rdt = devmod.real_dtype(dev)
         if args.dtype_policy != "f32":
@@ -371,9 +428,24 @@ class ConsensusRun:
         kmax = self.kmax = int(sky.nchunk.max())
         self.cmask = np.arange(kmax)[None, :] < sky.nchunk[:, None]
         cidx = rp.chunk_indices(meta0["tilesz"], meta0["nbase"], sky.nchunk)
-        log(f"Platform: {dev.type} (1 device(s))")
-        log(f"Subbands: {nf} over 1 device(s); stations {n}, clusters "
-            f"{sky.n_clusters} (Mt={sky.n_eff_clusters})")
+        # one device a process: the mesh of the JAX CLI's multi-host run
+        # spans them all, padded to fpad slots (cli_mpi.py:358-378)
+        ndev = self.world
+        self.fpad = fpad = -(-max(nf, ndev) // ndev) * ndev
+        Fl = fpad // ndev
+        #: this rank's real subbands (global indices; the rest of its
+        #: slots, if any, are padded)
+        self.local = [f for f in range(self.rank * Fl,
+                                       (self.rank + 1) * Fl) if f < nf]
+        self.Fl = Fl
+        log(f"Platform: {dev.type} ({ndev} device(s))")
+        log(f"Subbands: {nf} over {ndev} device(s)"
+            + (f" (padded to {fpad})" if fpad != nf else "")
+            + f"; stations {n}, clusters {sky.n_clusters} "
+            f"(Mt={sky.n_eff_clusters})")
+        if group is not None:
+            log(f"Processes: {group.world}, data collectives over "
+                f"{group.backend} ({group.reason})")
         self.rho0 = args.rho
         if args.rho_file:
             self.rho0 = skymodel.read_cluster_rho(
@@ -407,6 +479,7 @@ class ConsensusRun:
                 inner=args.inner, kernel=args.kernel,
                 nbase=int(meta0["nbase"]), dtype_policy=args.dtype_policy))
         t0 = mss[0].read_tile(0)
+        self.x_shape = t0.x.shape
         it = lambda a: torch.as_tensor(np.asarray(a), device=dev,
                                        dtype=torch.long)
         self.sta1, self.sta2, self.cidx = it(t0.sta1), it(t0.sta2), it(cidx)
@@ -427,9 +500,11 @@ class ConsensusRun:
                 *common, block_f=args.block_f, nf_total=nf,
                 dobeam=self.dobeam, tslot=self.tslot, **run_kw)
         else:
+            _, Bpad, _ = cadmm.pad_subbands([], self.Bpoly, nf, ndev)
             self.runner = cadmm.make_admm_runner(
-                *common, nf_total=nf, spatial_coords=self.spatial_coords,
-                dobeam=self.dobeam, tslot=self.tslot, **run_kw)
+                *common[:7], Bpad, self.cfg, nf_total=nf,
+                spatial_coords=self.spatial_coords, dobeam=self.dobeam,
+                tslot=self.tslot, group=group, **run_kw)
         self.correct_idx = skymodel.correct_cluster_index(
             sky, args.correct_cluster, warn=log)
         self.sub_mask = sky.subtract_mask()
@@ -469,13 +544,50 @@ class ConsensusRun:
                 *(self._t(np.stack([getattr(t, k) for t in tiles]))
                   for k in ("u", "v", "w")), self._t(np.array(fr_l)))
 
-    def tile_beams(self, tiles):
+    def tile_beams(self, tiles, subbands=None):
+        """The beam tables of ``tiles``, the tiles of ``subbands`` (every
+        subband by default), or None without ``-B``."""
         if not self.dobeam:
             return None
         from sagecal_tpu_torch.rime import beam as bm
-        return [bm.beam_to_device(info, m.meta["freq0"], self.rdt,
+        subbands = range(self.nf) if subbands is None else subbands
+        return [bm.beam_to_device(self.beam_infos[f],
+                                  self.mss[f].meta["freq0"], self.rdt,
                                   time_jd=t.time_jd, device=self.device)
-                for info, m, t in zip(self.beam_infos, self.mss, tiles)]
+                for f, t in zip(subbands, tiles)]
+
+    def gather(self, t):
+        """Every rank's slots of ``t`` (a tensor whose leading axis holds
+        this rank's real subbands, padded here to its Fl slots) gathered
+        along that axis and cut to the nf real subbands, on ``t``'s
+        device; ``t`` itself without a group. A rank of padded slots alone
+        may hand 0 rows: they are padded like any other, so every rank
+        calls the collective. Only an empty row shape, the same on every
+        rank, skips it."""
+        if self.group is None:
+            return t
+        from sagecal_tpu_torch import distributed as dist
+        if math.prod(t.shape[1:]) == 0:
+            return t.new_zeros((self.nf,) + tuple(t.shape[1:]))
+        if t.shape[0] < self.Fl:
+            t = torch.cat([t, t.new_zeros((self.Fl - t.shape[0],)
+                                          + t.shape[1:])])
+        return dist.all_gather(t, self.group)[:self.nf]
+
+    def read_tiles(self, ti: int) -> dict:
+        """Interval ``ti``'s tiles by subband: this rank's, and on rank 0
+        every subband's (it writes them all)."""
+        need = range(self.nf) if self.rank == 0 else self.local
+        return {f: self.mss[f].read_tile(ti) for f in need}
+
+    def stage(self, tiles: dict):
+        """This rank's solve inputs of one interval (:meth:`prep_tiles`
+        of its real subbands' tiles): x8F, wtF, uF, vF, wF, fratioF; with
+        none, None for all but fratioF (0 rows)."""
+        if not self.local:
+            return (None,) * 5 + (torch.zeros(0, dtype=self.rdt,
+                                               device=self.device),)
+        return self.prep_tiles([tiles[f] for f in self.local])
 
     def residual(self, f, J, tile, u, v, w, beam):
         """Subband f's residual of every channel (complex128), with its
@@ -505,7 +617,8 @@ class ConsensusRun:
         name, sagecal_master.cpp:472-498) and its basis, or (None,
         None)."""
         args, sky = self.args, self.sky
-        if self.spatialreg is None or not args.solutions_file:
+        if self.spatialreg is None or not args.solutions_file \
+                or self.rank != 0:
             return None, None
         from sagecal_tpu_torch.consensus import spatial as csp
         d, b = os.path.split(args.solutions_file)
@@ -540,13 +653,32 @@ class ConsensusRun:
             f.write(f"{p} " + " ".join(f"{z.real:e} {z.imag:e}"
                                        for z in Zspat[p]) + "\n")
 
+    def gather_residuals(self, res: list):
+        """This rank's subbands' residuals (complex128, :attr:`local`
+        order) -> every subband's on rank 0 (None on the others), over the
+        control group; ``res`` itself without a group."""
+        if self.group is None:
+            return res
+        from sagecal_tpu_torch import distributed as dist
+        slots = np.zeros((self.Fl,) + tuple(self.x_shape), np.complex128)
+        for i, r in enumerate(res):
+            slots[i] = r
+        allr = dist.gather_to_root(torch.view_as_real(
+            torch.from_numpy(slots)), self.group)
+        return None if allr is None \
+            else torch.view_as_complex(allr).numpy()[:self.nf]
+
     def _write_interval(self, ti, tiles, uF, vF, wF, beamF, JF, Z, res0,
                         res1, duals, writers):
         """One interval's outputs (the per-interval loop's and the 2-D
         plan's): every subband's worker row, the log line, the residuals
         written back with each subband's J (``-U 1``: the consensus
         polynomial at its frequency), the spatial model and the Z row.
-        Returns the residual pass's seconds."""
+        ``tiles`` holds the interval's tiles by subband, ``uF``, ``vF``,
+        ``wF`` and ``beamF`` this rank's subbands' (:attr:`local`): each
+        rank computes its own subbands' residuals, and rank 0 writes them
+        all. Returns the residual pass's seconds and the paths this rank
+        wrote (the files, and the datasets whose column it wrote)."""
         args, sky, log = self.args, self.sky, self.log
         M, kmax, nf = sky.n_clusters, self.kmax, self.nf
         writer, workers, spatial_file, spatial_phi = writers
@@ -563,18 +695,26 @@ class ConsensusRun:
             if args.use_global_solution else JF
         J_res = utils.jones_r2c_np(J_res)
         t_res = time.perf_counter()
-        for f, (msx, t) in enumerate(zip(self.mss, tiles)):
-            t.x = self.residual(f, J_res[f], t, uF[f], vF[f], wF[f],
-                                None if beamF is None else beamF[f])
-            msx.write_tile(ti, t)
+        res = self.gather_residuals([
+            self.residual(f, J_res[f], tiles[f], uF[i], vF[i], wF[i],
+                          None if beamF is None else beamF[i])
+            for i, f in enumerate(self.local)])
+        wrote = [ww.f.name for ww in workers]
+        if self.rank == 0:
+            for f, msx in enumerate(self.mss):
+                tiles[f].x = res[f]
+                msx.write_tile(ti, tiles[f])
+                wrote.append(msx.path)
         res_s = time.perf_counter() - t_res
         if spatial_file is not None:
             self._write_spatial(spatial_file, spatial_phi, Z)
+            wrote.append(spatial_file.name)
         if writer:
             Zj = utils.jones_r2c_np(Z.transpose(0, 2, 1, 3, 4).reshape(
                 M, kmax * args.npoly, self.n, 8))
             writer.write_interval(Zj, sky.nchunk * args.npoly)
-        return res_s
+            wrote.append(writer.f.name)
+        return res_s, wrote
 
     def run(self):
         """Every selected solve interval; returns one record an
@@ -587,7 +727,7 @@ class ConsensusRun:
         args, sky, log, meta0 = self.args, self.sky, self.log, self.meta0
         nf, n, kmax, M = self.nf, self.n, self.kmax, sky.n_clusters
         writer = None
-        if args.solutions_file:
+        if args.solutions_file and self.rank == 0:
             writer = sol.SolutionWriter(
                 args.solutions_file, float(self.freqs.mean()),
                 float(self.freqs.max() - self.freqs.min()),
@@ -608,13 +748,16 @@ class ConsensusRun:
                 Jinit = np.tile(utils.jones_c2r_np(np.asarray(Jq))[None],
                                 (nf, 1, 1, 1, 1))
         spatial_file, spatial_phi = self._spatial_file()
-        # the per-subband worker files, opened only after -q is read (a
-        # previous run's worker file is a valid warm start)
+        # the per-subband worker files (rank 0's), opened only after every
+        # rank has read -q (a previous run's worker file is a valid warm
+        # start)
+        from sagecal_tpu_torch import distributed as dist
+        dist.barrier(self.group)
         interval_min = meta0["tilesz"] * meta0["tdelta"] / 60.0
         workers = [sol.SolutionWriter(
             m.path.rstrip("/") + ".solutions", float(m.meta["freq0"]),
             float(m.meta["fdelta"]), interval_min, n, M, sky.n_eff_clusters)
-            for m in self.mss]
+            for m in self.mss] if self.rank == 0 else []
         writers = (writer, workers, spatial_file, spatial_phi)
         try:
             if args.time_shard > 1:
@@ -636,31 +779,34 @@ class ConsensusRun:
         M = sky.n_clusters
         J0 = Jinit.copy()
         history = []
+        from sagecal_tpu_torch import distributed as dist
+        host = lambda o: o.to("cpu", torch.float64).numpy()
         for ti in range(start, stop):
             t_int = time.perf_counter()
             c0 = pipeline._counters()
-            tiles = [m.read_tile(ti) for m in self.mss]
-            x8F, wtF, uF, vF, wF, fratioF = self.prep_tiles(tiles)
-            beamF = self.tile_beams(tiles)
+            tiles = self.read_tiles(ti)
+            x8F, wtF, uF, vF, wF, fratioF = self.stage(tiles)
+            beamF = self.tile_beams([tiles[f] for f in self.local],
+                                    self.local)
             self.timer.clear()
             self.groups.clear()
-            out = self.runner(x8F, uF, vF, wF, self.freqs, wtF, fratioF,
-                              self._t(J0), beamF)
-            JF, Z, rhoF = (o.to("cpu", torch.float64).numpy()
-                           for o in out[:3])
-            res0, res1_0, r1s = (o.to("cpu", torch.float64).numpy()
-                                 for o in out[3:6])
-            duals = out[6].to("cpu", torch.float64).numpy()
-            Y0F = out[7].to("cpu", torch.float64).numpy()
+            out = self.runner(x8F, uF, vF, wF, self.freqs[self.local], wtF,
+                              fratioF, self._t(J0[self.local]), beamF)
+            # every rank's subbands on every rank (process_allgather)
+            JF, rhoF, res0, res1_0 = (host(self.gather(o)) for o in
+                                      (out[0], out[2], out[3], out[4]))
+            r1s = host(self.gather(out[5].T).T)
+            Z, duals = host(out[1]), host(out[6])
             if args.mdl and ti == start:
                 # the model-order report from iteration 0's rho J
                 # (master :815-822)
+                Y0F = host(self.gather(out[7]))
+                weight = host(self.gather(fratioF))
                 mdlmod.report(mdlmod.minimum_description_length(
                     Y0F, np.broadcast_to(np.asarray(self.rho0, float),
                                          (M,)),
                     self.freqs, float(self.freqs.mean()),
-                    weight=fratioF.cpu().numpy(),
-                    polytype=args.polytype, kstart=1,
+                    weight=weight, polytype=args.polytype, kstart=1,
                     kfinish=args.npoly), log=log)
             res1 = r1s[-1] if self.cfg.n_admm > 1 else res1_0
             # the per-subband divergence reset (slave :680-683)
@@ -674,20 +820,30 @@ class ConsensusRun:
                     + " ".join(f"{t:.2f}s" for t in iter_s)
                     + f" (blocks of {args.block_f} subbands, {nblk} solve "
                     "executions + 1 consensus each)")
-            res_s = self._write_interval(ti, tiles, uF, vF, wF, beamF, JF, Z,
-                                         res0, res1, duals, writers)
+            res_s, wrote = self._write_interval(ti, tiles, uF, vF, wF,
+                                                beamF, JF, Z, res0, res1,
+                                                duals, writers)
             launches = [b - a for a, b in zip(c0, pipeline._counters())]
+            ranks = dist.all_gather_object(
+                (launches, [list(g) for g in self.groups]), self.group)
+            total = np.sum([r[0] for r in ranks], axis=0).tolist()
             rec = dict(
                 tile=ti, res_0=float(res0.mean()),
                 res_1=float(res1.mean()), res_0_f=res0.tolist(),
                 res_1_f=res1.tolist(), r1s=r1s.tolist(),
                 duals=duals.tolist(), rho_mean=float(rhoF.mean()),
                 reset=np.flatnonzero(bad).tolist(), iter_s=iter_s,
-                residual_s=res_s, groups=[list(g) for g in self.groups],
+                residual_s=res_s,
+                # per iteration, every rank's subbands' group records
+                groups=[sum(its, []) for its in zip(*(r[1] for r in ranks))],
                 interval_s=time.perf_counter() - t_int,
                 launches=dict(zip(("coh", "sweep", "matvec", "visits"),
-                                  launches[:4])),
-                xla_solves=launches[4])
+                                  total[:4])),
+                xla_solves=total[4], world=self.world, fpad=self.fpad,
+                backend=None if self.group is None else self.group.backend,
+                rank_launches=[dict(zip(("coh", "sweep", "matvec", "visits",
+                                         "xla_solves"), r[0]))
+                               for r in ranks], wrote=wrote)
             if args.block_f:
                 rec["timer"] = list(self.timer)
             if args.staleness > 0:
@@ -751,9 +907,9 @@ class ConsensusRun:
             r1s = r1sT[i]
             res1 = r1s[-1] if self.cfg.n_admm > 1 else res1T[i]
             c_i = pipeline._counters()
-            res_s = self._write_interval(ti, all_tiles[i], uF, vF, wF, None,
-                                         JT[i], ZT[i], res0T[i], res1,
-                                         dualsT[i], writers)
+            res_s, _ = self._write_interval(ti, all_tiles[i], uF, vF, wF,
+                                            None, JT[i], ZT[i], res0T[i],
+                                            res1, dualsT[i], writers)
             launches = [b - a for a, b in zip(c_i, pipeline._counters())]
             history.append(dict(
                 tile=ti, res_0=float(res0T[i].mean()),
@@ -774,9 +930,10 @@ class ConsensusRun:
 
 def run(argv=None, log=print) -> list:
     """Parse ``argv`` and run it: the ``-N`` route
-    (:func:`run_federated`) or consensus ADMM (:class:`ConsensusRun`);
-    returns the per-tile or per-interval records. A ``--faults`` plan is
-    installed for the run and removed after it."""
+    (:func:`run_federated`) or consensus ADMM (:class:`ConsensusRun`),
+    with ``--coordinator`` over a process group (``distributed.init``,
+    left in a ``finally``); returns the per-tile or per-interval records.
+    A ``--faults`` plan is installed for the run and removed after it."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.epochs > 0 and args.num_processes > 1:
@@ -785,6 +942,8 @@ def run(argv=None, log=print) -> list:
             "single-process; run it per host or use the ADMM mode "
             "for multi-host")
     check_flags(args)
+    check_processes(args)
+    from sagecal_tpu_torch import distributed as dist
     from sagecal_tpu_torch import faults
     from sagecal_tpu_torch.cli import _device
     install_faults(args.faults)
@@ -793,7 +952,16 @@ def run(argv=None, log=print) -> list:
         if args.epochs > 0:
             return run_federated(args, device=device, log=log)
         check_plans(args)
-        return ConsensusRun(args, device=device, log=log).run()
+        if not args.coordinator:
+            return ConsensusRun(args, device=device, log=log).run()
+        dev = devmod.resolve(device, index=args.process_id)
+        group = dist.init(args.coordinator, args.num_processes,
+                          args.process_id, dev)
+        try:
+            return ConsensusRun(args, device=dev, log=log,
+                                group=group).run()
+        finally:
+            dist.shutdown(group)
     finally:
         if args.faults is not None:
             faults.disable()

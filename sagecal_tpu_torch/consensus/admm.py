@@ -9,7 +9,11 @@ local leading axis (``cli_mpi.py:371-377``: ndev = 1, fpad = nf), so every
 consensus tensor here carries the subbands first (Y, Z's contributions,
 rho: [F, M, ...]) and its ``psum`` over the subband axis is a local sum.
 :func:`make_admm_runner` keeps the JAX runner's contract and its
-``host_loop=True`` plan: one host step per ADMM iteration.
+``host_loop=True`` plan: one host step per ADMM iteration. With a process
+group (``distributed.py``; the MPI CLI's ``--num-processes``) the
+subband axis is padded over the processes (:func:`pad_subbands`), each
+rank solves its own slots on its own card and the sums over subbands are
+all-reduced: the JAX runner's mesh plan with one device a process.
 
 - Iteration 0: a plain SAGE solve per subband (``sage.sagefit_host``, the
   same algorithm as the JAX runner's traced ``sage.sagefit``), the dual
@@ -54,6 +58,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sagecal_tpu_torch import distributed as dist
 from sagecal_tpu_torch import faults, utils
 from sagecal_tpu_torch.consensus import manifold as mf
 from sagecal_tpu_torch.consensus import poly as cpoly
@@ -95,6 +100,32 @@ def divergence_reset(JF, J0F, res0, res_fin, ratio: float = 5.0):
     return np.where(bad.reshape(shape), J0F, JF), bad
 
 
+def pad_subbands(arrays, B_poly, nf: int, ndev: int):
+    """The padding contract for uneven F over the processes
+    (``pad_subbands`` of the JAX package, ``consensus/admm.py:69``).
+
+    arrays: sequence of host arrays with a leading real-subband axis
+    [nf, ...]. Returns (padded_arrays, padded_B, fpad): each array's
+    leading axis padded to ``fpad = ceil(nf/ndev)*ndev`` (ndev may exceed
+    nf: fpad then equals ndev) by replicating the first subband, and
+    B_poly gains zero rows so padded slots contribute nothing to any
+    collective. Pass the REAL count nf as ``nf_total`` to
+    :func:`make_admm_runner`; slice every per-subband output back to
+    [:nf] on the host."""
+    ndev = max(int(ndev), 1)
+    fpad = -(-max(nf, ndev) // ndev) * ndev
+    if fpad == nf:
+        return list(arrays), np.asarray(B_poly), fpad
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        out.append(np.concatenate(
+            [a, np.broadcast_to(a[:1], (fpad - nf,) + a.shape[1:])]))
+    B = np.asarray(B_poly)
+    B = np.vstack([B, np.zeros((fpad - nf, B.shape[1]), B.dtype)])
+    return out, B, fpad
+
+
 def pad_time(arrays, nt: int, ndev_t: int, axis: int = 1):
     """The time axis's padding contract (``pad_time`` of the JAX
     package): pad ``axis`` (the solution-interval axis) of every array,
@@ -120,11 +151,18 @@ def pad_time(arrays, nt: int, ndev_t: int, axis: int = 1):
 def _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations: int,
                   fdelta: float, B_poly, cfg: ADMMConfig, nf_total=None,
                   spatial_coords=None, dobeam: int = 0, tslot=None,
-                  device="cpu"):
+                  device="cpu", group=None):
     """The pieces every runner shares (``_return_parts`` of the JAX
     ``make_admm_runner``): the per-subband solves, the consensus steps
     after iteration 0 and after each later iteration, and their helpers,
-    as attributes of a namespace."""
+    as attributes of a namespace.
+
+    With a process ``group`` (``distributed.Group``) B_poly holds every
+    slot of the padded subband axis (:func:`pad_subbands`) and this rank
+    holds ``Fl = Fpad / world`` of them from global slot ``rank * Fl``
+    (the JAX mesh runner's shard, ``_brow`` and ``_fmask``,
+    ``consensus/admm.py:296-308``); ``n_real`` of them are real subbands
+    (global index < ``nf_total``), the rest padded."""
     cmask_np = np.asarray(cmask.cpu() if torch.is_tensor(cmask) else cmask)
     M, K = cmask_np.shape
     N = n_stations
@@ -133,6 +171,16 @@ def _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations: int,
     cmask_t = torch.as_tensor(cmask_np, device=dev)
     nf_total = int(np.asarray(B_poly).shape[0]) if nf_total is None \
         else int(nf_total)
+    Fpad = int(np.asarray(B_poly).shape[0])
+    world = 1 if group is None else group.world
+    if Fpad % world:
+        raise ValueError(f"{Fpad} subband slots do not divide over {world} "
+                         "processes (pad_subbands)")
+    Fl = Fpad // world
+    lo = 0 if group is None else group.rank * Fl
+    real_np = np.arange(lo, lo + Fl) < nf_total
+    n_real = int(real_np.sum())
+    fmask = torch.as_tensor(real_np, device=dev)
 
     spat = None
     if cfg.spatialreg is not None:
@@ -191,12 +239,27 @@ def _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations: int,
     def z_update(B, YF, rhoF, alpha, Zbar=None, Xd=None):
         """z = sum_f B_f Y_f, YF holding Y + rho J as sent to the master
         (slave :686-700); Z = Bii z (master :755-779); with the spatial
-        prior z += alpha Zbar - X and Bii gains alpha I."""
-        zsum = torch.einsum("fp,fmknr->mpknr", B, YF)
+        prior z += alpha Zbar - X and Bii gains alpha I. With a group the
+        local sum is all-reduced and Bii takes every slot's rho (the JAX
+        runner's ``psum`` and ``all_rho``, ``:310-317``)."""
+        zsum = dist.all_reduce_sum(torch.einsum("fp,fmknr->mpknr", B, YF),
+                                   group)
         if Zbar is not None:
             zsum = zsum + alpha[:, None, None, None, None] * Zbar - Xd
-        Bii = cpoly.find_prod_inverse(B, rhoF.T.contiguous(), alpha=alpha)
+        Bii = cpoly.find_prod_inverse(basis_full(B.dtype),
+                                      dist.all_gather(rhoF, group).T
+                                      .contiguous(), alpha=alpha)
         return cpoly.z_from_contributions(zsum, Bii)
+
+    def replicate(*ts):
+        """Rank 0's values of the replicated consensus state on every
+        rank (bitwise equal, whatever each card's arithmetic does)."""
+        if group is None or world == 1:
+            return ts
+        flat = dist.broadcast_from(torch.cat([t.reshape(-1) for t in ts]),
+                                   group)
+        return tuple(c.view(t.shape) for c, t in zip(
+            flat.split([t.numel() for t in ts]), ts))
 
     def spatial_step(Z, Xd):
         """The FISTA prox and the Zbar/X refresh (master :789-814)."""
@@ -213,25 +276,35 @@ def _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations: int,
     def bz_of(B, Z):
         return torch.einsum("fp,mpknr->fmknr", B, Z)
 
+    def masked(t):
+        """``t`` [Fl, ...] with the padded slots' rows exactly 0 (also
+        where a padded row is not finite)."""
+        if n_real == Fl:
+            return t
+        keep = fmask.view((Fl,) + (1,) * (t.dim() - 1))
+        return torch.where(keep, t, torch.zeros_like(t))
+
     def iter0_post(B, JF, fratioF):
-        """Dual seed, manifold average and the first Z/dual update."""
+        """Dual seed, manifold average and the first Z/dual update (the
+        padded slots' rho, Y and contributions are 0)."""
         dtype = JF.dtype
         F = JF.shape[0]
         rho_m = rho_vec(dtype)
-        rhoF = rho_m[None, :] * fratioF[:, None] \
-            * torch.ones((F, M), dtype=dtype, device=dev)
+        rhoF = masked(rho_m[None, :] * fratioF[:, None]
+                      * torch.ones((F, M), dtype=dtype, device=dev))
         alpha = alpha_vec(rho_m)
         r5 = rhoF[..., None, None, None]
-        YF = r5 * JF
+        YF = masked(r5 * JF)
         Yc = utils.jones_r2c(YF).reshape(F, M * K, N, 2, 2)
-        YF = utils.jones_c2r(mf.manifold_average(
-            Yc, cfg.manifold_iters, nf=nf_total)).reshape(YF.shape)
+        YF = masked(utils.jones_c2r(mf.manifold_average(
+            Yc, cfg.manifold_iters, nf=nf_total, group=group,
+            real=real_np)).reshape(YF.shape))
         Y0F = YF
         Zbar = torch.zeros((M, Ppoly, K, N, 8), dtype=dtype, device=dev)
         Xd = torch.zeros_like(Zbar)
-        Z = z_update(B, YF, rhoF, alpha)
+        Z, = replicate(z_update(B, YF, rhoF, alpha))
         if spat is not None:
-            Zbar, Xd = spatial_step(Z, Xd)
+            Zbar, Xd = replicate(*spatial_step(Z, Xd))
         YF = YF - r5 * bz_of(B, Z)
         return dict(JF=JF, YF=YF, Z=Z, rhoF=rhoF, Yhat=YF, Jprev=JF,
                     Zbar=Zbar, Xd=Xd, rho_upper=rhoF, alpha=alpha), Y0F
@@ -239,23 +312,24 @@ def _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations: int,
     def body_post(B, Jr, st, it):
         """Everything after iteration k's solves (slave :686-786)."""
         r5 = st["rhoF"][..., None, None, None]
-        YF = st["YF"] + r5 * Jr
+        YF = masked(st["YF"] + r5 * Jr)
         Zold = st["Z"]
         Zbar, Xd = st["Zbar"], st["Xd"]
         if spat is None:
-            Z = z_update(B, YF, st["rhoF"], st["alpha"])
+            Z, = replicate(z_update(B, YF, st["rhoF"], st["alpha"]))
         else:
-            Z = z_update(B, YF, st["rhoF"], st["alpha"], Zbar, Xd)
+            Z, = replicate(z_update(B, YF, st["rhoF"], st["alpha"], Zbar,
+                                    Xd))
             if it % spat["cadence"] == 0:
-                Zbar, Xd = spatial_step(Z, Xd)
+                Zbar, Xd = replicate(*spatial_step(Z, Xd))
         # Yhat for the BB rho takes the OLD BZ (slave :724-732)
-        Yhat = YF - r5 * bz_of(B, Zold)
-        YF = YF - r5 * bz_of(B, Z)
+        Yhat = masked(YF - r5 * bz_of(B, Zold))
+        YF = masked(YF - r5 * bz_of(B, Z))
         rhoF = st["rhoF"]
         if cfg.adaptive_rho:
-            rhoF = cpoly.update_rho_bb(rhoF, st["rho_upper"],
-                                       Yhat - st["Yhat"], Jr - st["Jprev"],
-                                       dims=(2, 3, 4))
+            rhoF = masked(cpoly.update_rho_bb(
+                rhoF, st["rho_upper"], Yhat - st["Yhat"], Jr - st["Jprev"],
+                dims=(2, 3, 4)))
         dual = torch.linalg.vector_norm(Z - Zold) / np.sqrt(Z.numel())
         st.update(JF=Jr, YF=YF, Z=Z, rhoF=rhoF, Yhat=Yhat, Jprev=Jr,
                   Zbar=Zbar, Xd=Xd)
@@ -265,18 +339,30 @@ def _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def basis(dtype):
+    def basis_full(dtype):
         return torch.as_tensor(np.asarray(B_poly), dtype=dtype, device=dev)
+
+    def basis(dtype):
+        """This rank's rows of the basis (all of them without a group)."""
+        return basis_full(dtype)[lo:lo + Fl]
+
+    def pad(t):
+        """``t`` of this rank's real slots [n_real, ...] -> [Fl, ...], the
+        padded slots' rows 0."""
+        if t.shape[0] == Fl:
+            return t
+        return torch.cat([t, t.new_zeros((Fl - t.shape[0],) + t.shape[1:])])
 
     # ADMM iterations k > 0 warm-start from the previous iterate: the
     # cluster groups skip the cold first-sweep width, and there is no
     # refine (iteration 0 keeps the configuration as given)
     cfg_admm = cfg.sage._replace(max_lbfgs=0, inflight_warm=True)
     return types.SimpleNamespace(
-        M=M, K=K, N=N, dev=dev, cfg=cfg, cfg_admm=cfg_admm,
-        per_subband=per_subband, iter0_post=iter0_post,
+        M=M, K=K, N=N, dev=dev, cfg=cfg, cfg_admm=cfg_admm, Fl=Fl,
+        n_real=n_real, per_subband=per_subband, iter0_post=iter0_post,
         body_post=body_post, z_update=z_update, bz_of=bz_of,
-        rho_vec=rho_vec, alpha_vec=alpha_vec, sync=sync, basis=basis)
+        rho_vec=rho_vec, alpha_vec=alpha_vec, sync=sync, basis=basis,
+        pad=pad)
 
 
 def _make_runner(parts, block_f, timer, groups):
@@ -293,7 +379,12 @@ def _make_runner(parts, block_f, timer, groups):
             timer.append((label, time.perf_counter() - t0))
 
     def solve_all(inputs, JF, cfg_s, admm=None, beamF=None):
-        F = inputs[0].shape[0]
+        F = JF.shape[0]
+        if F == 0:
+            # a rank that holds only padded slots solves nothing
+            if groups is not None:
+                groups.append([])
+            return JF, *(torch.zeros(0, dtype=torch.float64),) * 2
         step = F if block_f is None else block_f
         Js, r0s, r1s, grps = [], [], [], []
         for i, b0 in enumerate(range(0, F, step)):
@@ -319,22 +410,23 @@ def _make_runner(parts, block_f, timer, groups):
         """Iterations 1 .. A - 1 from the state ``st`` (in place);
         returns (r1s, duals)."""
         r1s, duals = [], []
+        n = parts.n_real
         for it in range(1, max(cfg.n_admm, 1)):
             t0 = time.perf_counter()
             Jr, _, r1 = solve_all(
-                inputs, st["JF"], parts.cfg_admm,
-                admm=(st["YF"], parts.bz_of(B, st["Z"]), st["rhoF"]),
-                beamF=beamF)
+                inputs, st["JF"][:n], parts.cfg_admm,
+                admm=(st["YF"][:n], parts.bz_of(B, st["Z"])[:n],
+                      st["rhoF"][:n]), beamF=beamF)
             tc = time.perf_counter()
-            duals.append(parts.body_post(B, Jr.to(B.dtype), st, it))
-            r1s.append(r1)
+            duals.append(parts.body_post(B, parts.pad(Jr.to(B.dtype)), st,
+                                         it))
+            r1s.append(parts.pad(r1))
             if block_f is None:
                 tick(f"body[{it}]", t0)
             else:
                 tick(f"cons[{it}]", tc)
-        F = inputs[0].shape[0]
         return (torch.stack(r1s) if r1s
-                else torch.zeros((0, F), dtype=torch.float64),
+                else torch.zeros((0, parts.Fl), dtype=torch.float64),
                 torch.stack(duals) if duals
                 else torch.zeros((0,), dtype=B.dtype, device=parts.dev))
 
@@ -344,6 +436,8 @@ def _make_runner(parts, block_f, timer, groups):
         inputs = (x8F, uF, vF, wF, np.asarray(freqF), wtF)
         t0 = time.perf_counter()
         JF, res0, res1 = solve_all(inputs, J0F, cfg.sage, beamF=beamF)
+        JF, res0, res1 = parts.pad(JF), parts.pad(res0), parts.pad(res1)
+        fratioF = parts.pad(fratioF)
         tc = time.perf_counter()
         st, Y0F = parts.iter0_post(B, JF.to(dtype), fratioF.to(dtype))
         if block_f is None:
@@ -372,9 +466,10 @@ def make_admm_runner(dsky, sta1, sta2, cidx, cmask, n_stations: int,
                      fdelta: float, B_poly, cfg: ADMMConfig, nf_total=None,
                      spatial_coords=None, dobeam: int = 0, tslot=None,
                      device="cpu", timer: list | None = None,
-                     groups: list | None = None):
+                     groups: list | None = None, group=None):
     """Build the per-interval consensus-ADMM runner (``make_admm_runner``
-    of the JAX package, its ``host_loop=True`` plan, on one card).
+    of the JAX package, its ``host_loop=True`` plan, on one card, or with
+    a process ``group`` its mesh plan over processes).
 
     ``dsky`` the device sky (a ``rime.predict.SplitSky``, or a SkyArrays
     under ``-B``); sta1/sta2 [B] and cidx [M, B] tensors on ``device``,
@@ -393,10 +488,21 @@ def make_admm_runner(dsky, sta1, sta2, cidx, cmask, n_stations: int,
     giving back (JF [F, M, K, N, 8], Z [M, P, K, N, 8], rhoF [F, M], res0
     [F], res1 [F], r1s [A - 1, F], duals [A - 1], Y0F [F, M, K, N, 8]):
     Y0F the manifold-projected rho J of iteration 0 (the MDL input,
-    master :815-822), res1 iteration 0's."""
+    master :815-822), res1 iteration 0's.
+
+    With a process ``group`` (``distributed.Group``), B_poly is the padded
+    basis [Fpad, P] of :func:`pad_subbands` (Fpad a multiple of the world
+    size) and each rank runs its ``Fl = Fpad / world`` slots from global
+    slot ``rank * Fl``: ``run`` takes the inputs of its real slots only
+    (global index < ``nf_total``; a rank of padded slots alone gives
+    J0F and fratioF with 0 rows and None for the rest) and returns its
+    [Fl, ...] slots (a padded slot's J, residuals and rho 0); Z and the
+    duals are the same on every rank, rank 0's broadcast after each Z
+    update. A padded slot is not solved: it adds nothing to any sum (the
+    JAX runner solves a copy of subband 0 there and masks it out)."""
     parts = _runner_parts(dsky, sta1, sta2, cidx, cmask, n_stations, fdelta,
                           B_poly, cfg, nf_total, spatial_coords, dobeam,
-                          tslot, device)
+                          tslot, device, group)
     return _make_runner(parts, None, timer, groups)
 
 

@@ -126,7 +126,8 @@ def blocks_to_jones(X):
     return X.reshape(X.shape[:-2] + (X.shape[-2] // 2, 2, 2))
 
 
-def manifold_average(J, niter: int = 3, ref_index: int = 0, nf=None):
+def manifold_average(J, niter: int = 3, ref_index: int = 0, nf=None,
+                     group=None, real=None):
     """Frequency-average solutions up to their unitary ambiguity.
 
     J [Nf, M, N, 2, 2] complex (any leading direction axes after Nf).
@@ -135,11 +136,31 @@ def manifold_average(J, niter: int = 3, ref_index: int = 0, nf=None):
     applied to each original block, toward the last mean. ``nf`` divides
     the sum over the leading axis (Nf by default: the JAX package's mean;
     the ADMM runner passes its count of real subbands). Returns J with
-    the same shape."""
+    the same shape.
+
+    With a process ``group`` (``distributed.Group``; the JAX package's
+    ``manifold_average_mesh``, ``consensus/admm.py:109-140``) J holds this
+    rank's slots of the subband axis, ``real`` [Nf] bool marks the real
+    ones (not padded), and the reference is the globally first subband,
+    rank 0's slot 0, broadcast: each mean is the sum over every rank's
+    real slots (all-reduced) over ``nf``."""
+    from sagecal_tpu_torch import distributed as dist
     X0 = jones_to_blocks(J)
     den = X0.shape[0] if nf is None else nf
-    X = procrustes_project(X0[ref_index][None], X0)
+    if group is None:
+        ref = X0[ref_index]
+
+        def total(X):
+            return X.sum(dim=0, keepdim=True)
+    else:
+        ref = dist.broadcast_from(X0[0], group)
+        keep = torch.as_tensor(real, device=X0.device)
+
+        def total(X):
+            return dist.all_reduce_sum(X[keep].sum(dim=0, keepdim=True),
+                                       group)
+    X = procrustes_project(ref[None], X0)
     for _ in range(niter):
-        X = procrustes_project(X.sum(dim=0, keepdim=True) / den, X)
-    Xout = procrustes_project(X.sum(dim=0, keepdim=True) / den, X0)
+        X = procrustes_project(total(X) / den, X)
+    Xout = procrustes_project(total(X) / den, X0)
     return blocks_to_jones(Xout)

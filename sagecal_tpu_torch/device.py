@@ -32,15 +32,19 @@ def _set_precision() -> None:
     _PRECISION_SET = True
 
 
-def resolve(device=None) -> torch.device:
+def resolve(device=None, index: int | None = None) -> torch.device:
     """``None``/"cuda" -> the CUDA device (raises without one);
-    "cpu" -> the CPU. Any other torch device string is passed through."""
+    "cpu" -> the CPU. Any other torch device string is passed through.
+    ``index`` (a process's rank) picks card ``index % device_count`` when
+    the device is a card without an index of its own."""
     _set_precision()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (or "
             "--platform cpu) to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and index is not None:
+        dev = torch.device("cuda", int(index) % torch.cuda.device_count())
     return dev
 
 

@@ -92,10 +92,23 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def build_paths(out: Path, pid: int | None = None) -> tuple:
+    """(library, report) that process ``pid`` (this one by default)
+    compiles into before renaming them to ``out`` and ``<out>.log``: a
+    name of its own, so that processes building at once (the ranks of a
+    multi-process run on a fresh checkout) never replace a file another
+    ``nvcc`` is still writing."""
+    pid = os.getpid() if pid is None else pid
+    return (out.with_name(f"{out.stem}.{pid}.tmp.so"),
+            out.with_name(f"{out.stem}.{pid}.tmp.log"))
+
+
 def build_all() -> dict:
     """Compile every source whose library is missing, all at once.
     Returns {name: seconds} for the sources built in this call; the
-    compiler's register/spill report lands in ``<lib>.log``."""
+    compiler's register/spill report lands in ``<lib>.log``. Each
+    process compiles into files of its own (:func:`build_paths`) and
+    renames them into place, the report first."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
     if not todo:
@@ -104,24 +117,25 @@ def build_all() -> dict:
     t0 = time.perf_counter()
     procs = {}
     for name, out in todo.items():
-        tmp = out.with_suffix(".tmp.so")
-        log = open(out.with_suffix(".log"), "w")
+        tmp, tmp_log = build_paths(out)
+        log = open(tmp_log, "w")
         procs[name] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT), log, tmp, out)
+            stdout=log, stderr=subprocess.STDOUT), log, out)
     failed, seconds = [], {}
-    for name, (proc, log, tmp, out) in procs.items():
+    for name, (proc, log, out) in procs.items():
         rc = proc.wait()
         log.close()
         seconds[name] = time.perf_counter() - t0
+        tmp, tmp_log = build_paths(out)
         if rc != 0:
-            failed.append(name)
+            failed.append((name, tmp_log.read_text()))
         else:
+            os.replace(tmp_log, out.with_suffix(".log"))
             os.replace(tmp, out)
     if failed:
-        logs = "\n".join(_lib_path(n).with_suffix(".log").read_text()
-                         for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        raise RuntimeError(f"nvcc failed for {[n for n, _ in failed]}:\n"
+                           + "\n".join(text for _, text in failed))
     return seconds
 
 

@@ -268,6 +268,63 @@ def _phase_factors(Ar, Ai, Br, Bi, Jp, Jq):
             torch.stack([wi, -wr], -1)[..., None])
 
 
+def _sweep_rows(x, C, Jp, Jq, jones: str, st, reduced: bool):
+    """The per-row pieces of the sweep, rows x, C [T, nb, ...] each with
+    its own chunk's Jones Jp, Jq (broadcast against [T, nb, 2, 2]): the
+    residual r [T, nb, 8] and the Wirtinger factors (fa, fb [T, nb, 2,
+    2, 4] full; FA, FB the mode factors otherwise)."""
+    T, nb = x.shape[:2]
+
+    def q(p):
+        return _round(p, st) if reduced else p
+
+    if reduced:
+        Ar, Ai, Br, Bi, Vr, Vi = _planes(C, Jp, Jq)
+        A = torch.complex(q(Ar), q(Ai))              # the rounded planes
+        Bm = torch.complex(q(Br), q(Bi))
+        vm = torch.stack([q(Vr), q(Vi)], -1)
+    else:
+        A = C @ Jq.conj().transpose(-1, -2)          # [T, nb, 2, 2]
+        Bm = Jp @ C
+        vm = torch.view_as_real(Jp @ A)
+    r = x - vm.reshape(T, nb, 8)
+    if jones == "full":
+        return (r,) + _factors(A, Bm)                # [T, nb, 2, 2, 4]
+    # FA [T, nb, c, o, ri, md], FB [T, nb, c, a, ri, md]
+    if jones == "phase" and reduced:
+        return (r,) + tuple(q(f) for f in _phase_factors(Ar, Ai, Br, Bi,
+                                                          Jp, Jq))
+    return (r,) + ne._mode_factors(A, Bm, Jp, Jq, jones)
+
+
+def _sweep_sums(r, fa, fb, w, cw, jones: str):
+    """One chunk's sums over the rows (their weights ``w``, ``cw`` [T, nb,
+    8] zero outside the chunk): (pp, qq, pq, jtep, jteq, cost) of
+    :func:`sweep_blocks_plain`, the weighted factors each output shares
+    formed once."""
+    T, nb = r.shape[:2]
+    w2 = (w * w).reshape(T, nb, 2, 2, 2)             # [T, nb, a, o, ri]
+    rw2 = (r.reshape(T, nb, 2, 2, 2)) * w2
+    if jones == "full":
+        wfa = w2[..., None] * fa[:, :, None]         # [T, nb, a, o, r, i]
+        wfb = w2[..., None] * fb[:, :, :, None]      # [T, nb, a, o, r, i]
+        pp = torch.einsum("tbaori,tborj->baij", wfa, fa)
+        qq = torch.einsum("tbaori,tbarj->boij", wfb, fb)
+        pq = torch.einsum("tbaori,tbarj->baoij", wfa, fb)
+        jtep = torch.einsum("tbaor,tbori->bai", rw2, fa)
+        jteq = torch.einsum("tbaor,tbari->boi", rw2, fb)
+    else:
+        WFA = w2[..., None] * fa
+        WFB = w2.transpose(2, 3)[..., None] * fb
+        pp = torch.einsum("tbcorm,tbcorn->bcmn", WFA, fa)
+        qq = torch.einsum("tbcarm,tbcarn->bcmn", WFB, fb)
+        pq = torch.einsum("tbcorm,tbocrn->bcomn", WFA, fb)
+        jtep = torch.einsum("tbcor,tbcorm->bcm", rw2, fa)
+        jteq = torch.einsum("tbcar,tbcarm->bcm", rw2.transpose(2, 3), fb)
+    cost = ((r * cw) ** 2).sum()
+    return pp, qq, pq, jtep, jteq, cost
+
+
 def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
                        jones: str = "full"):
     """Plain PyTorch version of the fused sweep.
@@ -278,6 +335,11 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
     the caller layouts [K, nb, ...] (blocks md wide) and cost [K]. The
     diag and phase blocks come from the mode factors of the JAX kernel's
     ``_sweep_body`` (``normal_eq._mode_factors``).
+
+    The per-row pieces (model, residual, factors) are formed once, each
+    row with its own chunk's Jones (:func:`_sweep_rows`); each chunk then
+    sums every row with the weights 0 outside it (:func:`_sweep_sums`),
+    the values of one row pass per chunk, bit for bit.
 
     Under a reduced storage dtype (x8/wt/cost_wt in bf16 or f16) the
     rows widen to float32 and the outputs are float32; the model planes
@@ -291,56 +353,23 @@ def sweep_blocks_plain(x8, Jp, Jq, coh, chunk_id, wt, cost_wt, nb: int,
     reduced = dtypes.is_reduced(st)
     if reduced:
         x8, wt, cost_wt = dtypes.pet(x8, wt, cost_wt)
-
-    def q(p):
-        return _round(p, st) if reduced else p
-
     Jp = ne.jones_constrain(Jp, jones)
     Jq = ne.jones_constrain(Jq, jones)
     x = x8.reshape(T, nb, 8)
     C = coh.reshape(T, nb, 2, 2)
+    w = wt.reshape(T, nb, 8)
+    cw = cost_wt.reshape(T, nb, 8)
     cid = chunk_id.reshape(T, nb)
+    if K == 1:
+        Jpr, Jqr = Jp[0], Jq[0]
+    else:
+        bl = torch.arange(nb, device=cid.device)
+        Jpr, Jqr = Jp[cid, bl], Jq[cid, bl]          # [T, nb, 2, 2]
+    rows = _sweep_rows(x, C, Jpr, Jqr, jones, st, reduced)
     outs = []
     for k in range(K):
         mk = (cid == k).to(x.dtype)[..., None] if K > 1 else 1.0
-        w = wt.reshape(T, nb, 8) * mk
-        cw = cost_wt.reshape(T, nb, 8) * mk
-        if reduced:
-            Ar, Ai, Br, Bi, Vr, Vi = _planes(C, Jp[k], Jq[k])
-            A = torch.complex(q(Ar), q(Ai))          # the rounded planes
-            Bm = torch.complex(q(Br), q(Bi))
-            vm = torch.stack([q(Vr), q(Vi)], -1)
-        else:
-            A = C @ Jq[k].conj().transpose(-1, -2)   # [T, nb, 2, 2]
-            Bm = Jp[k] @ C
-            vm = torch.view_as_real(Jp[k] @ A)
-        r = x - vm.reshape(T, nb, 8)
-        w2 = (w * w).reshape(T, nb, 2, 2, 2)         # [T, nb, a, o, ri]
-        rw2 = (r.reshape(T, nb, 2, 2, 2)) * w2
-        if jones == "full":
-            fa, fb = _factors(A, Bm)                 # [T, nb, 2, 2, 4]
-            pp = torch.einsum("tbaor,tbori,tborj->baij", w2, fa, fa)
-            qq = torch.einsum("tbaor,tbari,tbarj->boij", w2, fb, fb)
-            pq = torch.einsum("tbaor,tbori,tbarj->baoij", w2, fa, fb)
-            jtep = torch.einsum("tbaor,tbori->bai", rw2, fa)
-            jteq = torch.einsum("tbaor,tbari->boi", rw2, fb)
-        else:
-            # FA [T, nb, c, o, ri, md], FB [T, nb, c, a, ri, md]
-            if jones == "phase" and reduced:
-                FA, FB = (q(f) for f in _phase_factors(Ar, Ai, Br, Bi,
-                                                        Jp[k], Jq[k]))
-            else:
-                FA, FB = ne._mode_factors(A, Bm, Jp[k], Jq[k], jones)
-            WFA = w2[..., None] * FA
-            WFB = w2.transpose(2, 3)[..., None] * FB
-            pp = torch.einsum("tbcorm,tbcorn->bcmn", WFA, FA)
-            qq = torch.einsum("tbcarm,tbcarn->bcmn", WFB, FB)
-            pq = torch.einsum("tbcorm,tbocrn->bcomn", WFA, FB)
-            jtep = torch.einsum("tbcor,tbcorm->bcm", rw2, FA)
-            jteq = torch.einsum("tbcar,tbcarm->bcm", rw2.transpose(2, 3),
-                                FB)
-        cost = ((r * cw) ** 2).sum()
-        outs.append((pp, qq, pq, jtep, jteq, cost))
+        outs.append(_sweep_sums(*rows, w * mk, cw * mk, jones))
     return tuple(torch.stack([o[i] for o in outs]) for i in range(6))
 
 
@@ -832,21 +861,34 @@ def normal_equations_fused(x8, J, coh, sta1, sta2, chunk_id, wt,
     return _assemble_damped(fac, None, sta1, sta2, n_stations), JTe, cost
 
 
+def pq_layouts(fac: GNBlocks) -> tuple:
+    """The pq blocks [K, nb, a, o, i, j] laid out contiguous as the plain
+    matvec's two products read them, [K, nb, a, i, j, o] and [K, nb, o,
+    j, a, i]: copied once per Gram-block set (``matvec_plan``) instead of
+    on every product. Each product's sum runs in the order it ran before
+    the layouts were kept (j, then o; a, then i): the same values, bit for
+    bit."""
+    return (fac.pq.permute(0, 1, 2, 4, 5, 3).contiguous(),
+            fac.pq.permute(0, 1, 3, 5, 2, 4).contiguous())
+
+
 def gn_matvec_blocks_plain(fac: GNBlocks, v, s1b, s2b, n_stations: int,
-                           shift=None):
+                           shift=None, pqs=None):
     """Plain PyTorch version of the blocks matvec: v [K, 2 md N] gathered
     per baseline, the block products of ``_matvec_kernel`` as einsums,
     ``index_add_`` per station, then ``shift * v`` (shift [K] or a
-    scalar)."""
+    scalar). ``pqs``: the pq blocks' :func:`pq_layouts` (made here unless
+    given)."""
     K, nb = fac.pp.shape[0], fac.pp.shape[1]
     md = fac.pp.shape[-1]
+    pq_p, pq_q = pq_layouts(fac) if pqs is None else pqs
     vr = v.reshape(K, n_stations, 2, md)
     vp = vr[:, s1b]                                  # [K, nb, 2, md]
     vq = vr[:, s2b]
     yp = (torch.einsum("kbaij,kbaj->kbai", fac.pp, vp)
-          + torch.einsum("kbaoij,kboj->kbai", fac.pq, vq))
+          + torch.einsum("kbaijo,kbjo->kbai", pq_p, vq.transpose(2, 3)))
     yq = (torch.einsum("kboji,kboi->kboj", fac.qq, vq)
-          + torch.einsum("kbaoij,kbai->kboj", fac.pq, vp))
+          + torch.einsum("kbojai,kbai->kboj", pq_q, vp))
     y = v.new_zeros((K, n_stations, 2, md))
     y.index_add_(1, s1b, yp).index_add_(1, s2b, yq)
     y = y.reshape(K, 2 * md * n_stations)
@@ -968,7 +1010,7 @@ def matvec_plan(fac: GNBlocks, sta1, sta2, n_stations: int, shift=None,
         if lists is not None:
             _check_lists(lists, nb, N, lists.s1.device)
         return MatvecPlan(fac, N, shift, sta1[:nb].long(), sta2[:nb].long(),
-                          None, None, ())
+                          None, None, pq_layouts(fac))
     if md not in REC_WORDS:
         raise ValueError(f"matvec: block width {md} is none of "
                          f"{tuple(REC_WORDS)}")
@@ -1000,7 +1042,8 @@ def matvec_apply(plan: MatvecPlan, v):
     global MATVEC_LAUNCHES
     if plan.params is None:
         return gn_matvec_blocks_plain(plan.fac, v, plan.s1b, plan.s2b,
-                                      plan.n_stations, plan.shift)
+                                      plan.n_stations, plan.shift,
+                                      pqs=plan.keep)
     p = plan.params
     if v.dtype != torch.float32 or not v.is_cuda \
             or v.shape != (p.K, 2 * p.md * p.N):

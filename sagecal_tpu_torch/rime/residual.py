@@ -5,7 +5,8 @@ The full-batch write-back path: per-channel model with catalog spectra,
 subtraction of J_p C J_q^H for subtractable clusters, and the optional
 MMSE-regularized correction by one cluster's solutions (``-k``), with
 ``-J 1`` by their phases alone (``consensus/manifold.extract_phases`` per
-chunk); and the simulation modes ``-a 1/2/3`` (replace, add, subtract the
+chunk), or by an older set of solutions (:func:`calculate_residuals_
+interp`); and the simulation modes ``-a 1/2/3`` (replace, add, subtract the
 model, optionally corrupted by solutions, without the clusters of a
 ``-z`` ignore list). The coherencies come from ``rime.predict.coherencies``
 (the coherency kernel on the point/gaussian half of the sky on the card;
@@ -96,6 +97,28 @@ def calculate_residuals_multifreq(sky, J, x, u, v, w, freqs,
     return residual_from_coherencies(coh, J, x, sta1, sta2, chunk_idx,
                                      subtract_mask, correct_idx, rho,
                                      phase_only)
+
+
+def calculate_residuals_interp(sky, J_old, J_new, x, u, v, w, freqs,
+                               fdelta_chan, sta1, sta2, chunk_idx,
+                               subtract_mask, correct_idx=None,
+                               rho: float = 1e-9):
+    """Residuals with old-solution correction (``calculate_residuals_
+    interp`` of the JAX package, ``rime/residual.py:97``; reference
+    residual.c:201): the model corrupted by the NEW solutions J_new is
+    subtracted, and the residual is corrected by the inverse of the OLD
+    solutions J_old of cluster ``correct_idx``. The reference's time
+    interpolation between the two is disabled upstream (residual.c:288),
+    so, as in the JAX package, there is none. Arguments as
+    :func:`calculate_residuals_multifreq`'s (no beam)."""
+    coh = rp.coherencies(sky, u, v, w, freqs, fdelta_chan,
+                         per_channel_flux=True, sta1=sta1, sta2=sta2)
+    res = x - rp.predict_model(coh, J_new, sta1, sta2, chunk_idx,
+                               cluster_mask=subtract_mask)
+    if correct_idx is not None:
+        res = correct_by_cluster(res, J_old[correct_idx], sta1, sta2,
+                                 chunk_idx[correct_idx], rho)
+    return res
 
 
 def simulate_visibilities(sky, x, u, v, w, freqs, fdelta_chan, sta1, sta2,

@@ -10,7 +10,8 @@ its default route), ``-C 1 -G --mdl`` (the MDL report's orders equal)
 and ``-X`` with ``-u`` (the spatial model's file too); the others in
 ``test_torch_cli_mpi_options.py``, the execution plans (``-N``,
 ``--block-f``, ``--staleness``, ``--time-shard``) in
-``test_torch_cli_mpi_plans.py``. The flags the port does not run raise
+``test_torch_cli_mpi_plans.py``, the runs over processes in
+``test_torch_cli_mpi_processes.py``. The flags the port does not run raise
 ``NotImplementedError`` naming ROADMAP (``--faults`` a plan naming
 another point than ``admm_subband_slow``), and ``--jones diag`` raises
 as the JAX CLI does."""
@@ -151,8 +152,6 @@ def test_mpi_cli_spatialreg(data):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--coordinator", "localhost:1"),
-    ("--num-processes", "2"), ("--cpu-devices", "4"),
     ("--prior-cache", "read"), ("--diag", "d.jsonl"),
     ("--metrics", "m.json"),
     ("--faults", '[{"point": "ms_read", "at": [0]}]'), ("--prefetch", "0")])

@@ -27,7 +27,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("cli", "cli_mpi", "config", "consensus", "consensus.admm",
               "consensus.manifold", "consensus.mdl", "consensus.poly",
-              "consensus.spatial", "convert", "coords", "device", "dtypes",
+              "consensus.spatial", "convert", "coords", "device",
+              "distributed", "dtypes",
               "faults", "federated", "io", "io.dataset", "io.native",
               "io.solutions", "obs", "obs.metrics", "ops", "ops.coh",
               "ops.cuda_lib", "ops.sweep", "pipeline", "rime", "rime.beam",

@@ -304,7 +304,6 @@ def test_mode_runs_use_their_solvers(mode_runs):
                                    ["--metrics", "m.json"],
                                    ["--prior-cache", "read"],
                                    ["--tile-bucket", "8"],
-                                   ["--cpu-devices", "2"],
                                    ["--faults", "x"], ["--profile", "p"],
                                    ["--diag", "x.jsonl"],
                                    ["--prefetch", "0"]])

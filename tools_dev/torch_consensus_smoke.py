@@ -1,6 +1,6 @@
 """chip_smoke's consensus phases alone, on the card.
 
-    python3 tools_dev/torch_consensus_smoke.py [--no-parity]
+    python3 tools_dev/torch_consensus_smoke.py [--no-parity] [--processes]
 
 Builds the kernels, then runs ``e2e_stochastic_consensus`` (on a
 one-tile full-width observation), ``e2e_consensus`` (the MPI CLI on 4
@@ -12,6 +12,10 @@ runs one after another, their CPU float64 references in worker processes
 beside them) with their gates, each record one JSON line, as chip_smoke
 prints them. The quick way to run the consensus path on the card
 without the rest of chip_smoke (its full run takes ~15 minutes).
+``--processes`` runs only the consensus runs over processes: the
+``slice_parity`` runs ``consensus_mp`` (2 ranks on the card) and
+``consensus_nccl1`` (one rank on NCCL) against their CPU reference, then
+``e2e_consensus`` and ``e2e_consensus_mp`` (its observation as 2 ranks).
 """
 
 from __future__ import annotations
@@ -32,6 +36,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print(cs.phase_env(), flush=True)
     cs.phase_build()
+    if "--processes" in argv:
+        failures, out = [], {}
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            h = cs.consensus_mp_start(pool)
+            h["cpu_done"] = h["cpu"].get()
+        cs.consensus_mp_finish(h, out, failures)
+        if failures:
+            raise AssertionError("; ".join(failures))
+        cs.phase_e2e_consensus_mp(cs.phase_e2e_consensus())
+        print(f"consensus runs over processes done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return 0
     obs = cs.observation_e2e("e2e_consensus_obs", n_tiles=1)
     cs.phase_e2e_stochastic_consensus(obs)
     cs.phase_e2e_consensus()
