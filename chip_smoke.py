@@ -16,7 +16,7 @@ timeslots, 8 channels, clusters of 64 sources; every e2e phase at ``-e
 1``): ``e2e`` at ``-j 1`` on one tile and ``e2e_rtr`` at ``-j 5 --inner
 cg`` (robust RTR with
 the matvec kernel in every tCG product) on two, with 8 clusters;
-``e2e_inflight`` at ``-j 5 --inner cg --inflight 4 -e 1`` on two tiles
+``e2e_inflight`` at ``-j 5 --inner cg --inflight 4 -e 1`` on one tile
 with 16 clusters (the multi-visit sweep kernel in every group solve).
 Batches of solve intervals (``--tile-batch``): ``visits`` also holds the
 kernel at V = 8 lanes (4 tiles of 2 visits), every operand and the chunk
@@ -147,6 +147,23 @@ the backend; no rank but 0 wrote or logged); and ``e2e_consensus_mp``
 runs e2e_consensus's observation as 2 ranks on the card (the interval
 wall, each rank's launches, every subband's res_1 / res_0 within 1e-3 of
 e2e_consensus's).
+One subband's rows over ranks (``--shard-baselines``, ``parallel.py``):
+``slice_parity`` adds ``shard2`` (``-j 5 --inner cg``, which 16 stations
+run as OS robust LM: coh, sweep and matvec, as 2 ranks on the one card,
+gloo on host copies), ``shard_nccl1`` (the same as one rank on NCCL) and
+``shard_xla_inflight`` (``-j 1 --kernel xla --inflight 2``: a collective
+per ``gn_matvec`` product, the group decisions on summed residuals),
+each on a 16-station observation of SHARD_TIMES timeslots a tile (5 + 4
+and one padded over 2 ranks), against the one-process CPU float64 run of
+the command and the 2-rank CPU run (PARITY_RTOL, every relaxation
+decision equal; rank 1's solutions the same bits as rank 0's, rank 1
+silent and writing nothing, the records' world, timeslot blocks and
+backend); and ``e2e_shard`` runs e2e_rtr's first tile (``-j 5 --inner cg
+-e 1``) as 2 ranks on the card: the tile wall on rank 0, EM and refine
+seconds, each rank's launches, row-sum collectives, bytes and seconds
+and peak device memory beside e2e_rtr's, res_1 / res_0 within 5e-2 of
+e2e_rtr's tile 0, beside e2e_rtr's own one-ulp spread (``e2e_rtr_ulp``
+runs that tile on the sky moved one float32 ulp; ROADMAP C16).
 slice_parity's card runs and its CPU float64 references share one
 queue of PARITY_WORKERS spawned processes (the multi-process runs beside
 it, from a thread of this process); the e2e phases run after it, with the
@@ -2491,6 +2508,207 @@ def consensus_mp_finish(h: dict, out: dict, failures: list) -> None:
             failures.append(str(e))
 
 
+#: slice_parity's runs of one subband's rows over ranks
+#: (``--shard-baselines``; ``parallel.run_sharded``): (tag, ranks, data
+#: backend, chunks per cluster, CLI flags, kernels that must launch over
+#: the ranks). ``shard2`` the default solver with the matrix-free inner
+#: solver (-j 5, which 16 stations run as 3, OS robust LM: the sweep and
+#: the matvec kernels) as 2 ranks on the one card (gloo on host copies:
+#: NCCL refuses two ranks on one device); ``shard_nccl1`` the same as one
+#: rank on NCCL (NCCL across cards needs more than one card);
+#: ``shard_xla_inflight`` the XLA route with in-flight groups of 2 on 8
+#: clusters (a collective a gn_matvec product, the relaxation decisions on
+#: summed residuals). On SHARD_STATIONS stations and SHARD_TIMES
+#: timeslots a tile (2 tiles): 5 + 4 timeslots and one padded over 2
+#: ranks. Each against the one-process CPU float64 run of the command
+#: (world 1, no group) and the 2-rank CPU run. Float32 alone (the port's
+#: CPU run in float32) moves them 5.6e-5 (-g 30) and 9.7e-5 from float64,
+#: where -g 10 and -g 30 -e 1 read 3.1e-4 and 2.9e-4
+#: (tools_dev/torch_parity_float32.py's method, on the CPU).
+SHARD_RUNS = (("shard2", 2, "gloo", (1, 2, 1),
+               ["-j", "5", "--inner", "cg", "-g", "30"],
+               ("coh", "sweep", "matvec")),
+              ("shard_nccl1", 1, "nccl", (1, 2, 1),
+               ["-j", "5", "--inner", "cg", "-g", "30"],
+               ("coh", "sweep", "matvec")),
+              ("shard_xla_inflight", 2, "gloo", (1, 2, 1, 1, 2, 1, 1, 1),
+               ["-j", "1", "--kernel", "xla", "--inflight", "2"], ("coh",)))
+SHARD_STATIONS = 16
+SHARD_TIMES = 9
+
+
+def _shard_argv(path: str, sky: str, clus: str, flags, cpu: bool) -> list:
+    """A shard run's command line: :func:`_parity_run`'s, then
+    ``--shard-baselines`` (``--platform cpu`` for a CPU run)."""
+    return (["-d", path, "-s", sky, "-c", clus, "-e", "2", "-g", "10", "-l",
+             "5", "-R", "0", "-t", str(SHARD_TIMES)] + list(flags)
+            + ["--shard-baselines"] + (["--platform", "cpu"] if cpu else []))
+
+
+def shard_start(pool) -> dict:
+    """The shard runs' observations (each tag its own, with copies for
+    its CPU runs), their one-process CPU references queued on ``pool``,
+    and on a thread of this process (the pool's workers cannot start the
+    ranks' processes) the card runs, then the 2-rank CPU runs: a handle
+    for :func:`shard_finish`."""
+    obs, cpu = {}, {}
+    for tag, world, _, nchunk, flags, _ in SHARD_RUNS:
+        work = os.path.join(WORK, "parity_" + tag)
+        shutil.rmtree(work, ignore_errors=True)
+        ms, sky, clus = make_observation(work, SHARD_STATIONS, SHARD_TIMES,
+                                         FREQS[:2], len(nchunk), 6, nchunk,
+                                         2, "cpu", seed=9, noise=0.02)
+        for own in (".cpu", ".cpu2"):
+            shutil.copytree(ms, ms + own)
+        obs[tag] = (ms, sky, clus)
+        cpu[tag] = pool.apply_async(_parity_cpu, ((
+            ms + ".cpu", sky, clus, list(flags) + ["--shard-baselines"],
+            SHARD_TIMES),))
+    card: dict = {}
+
+    def run_ranks():
+        from sagecal_tpu_torch import parallel
+        for on_cpu in (False, True):
+            for tag, world, _, _, flags, _ in SHARD_RUNS:
+                if on_cpu and world == 1:
+                    continue
+                ms, sky, clus = obs[tag]
+                key = (tag, "cpu" if on_cpu else "card")
+                t0 = time.perf_counter()
+                try:
+                    card[key] = (parallel.run_sharded(
+                        _shard_argv(ms + (".cpu2" if on_cpu else ""), sky,
+                                    clus, flags, on_cpu),
+                        2 if on_cpu else world, timeout=900),
+                        time.perf_counter() - t0)
+                except Exception as e:
+                    card[key] = e
+    thread = threading.Thread(target=run_ranks, daemon=True)
+    thread.start()
+    return dict(obs=obs, cpu=cpu, card=card, thread=thread)
+
+
+def _shard_rel(hist, ref) -> float:
+    """The largest relative difference of the per-tile res_0/res_1."""
+    return max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(hist, ref)
+               for k in ("res_0", "res_1"))
+
+
+def _check_shard(tag, world, backend, nchunk, flags, must, card, cpu,
+                 cpu2) -> dict:
+    """A sharded card run (rank by rank: records, log lines) against the
+    one-process CPU run ``cpu`` and the 2-rank CPU run ``cpu2`` of its
+    command: every relaxation decision equal (a flip within FLIP_MARGIN
+    of its threshold replaces the residual gate, as in slice_parity),
+    res_0/res_1 within PARITY_RTOL of both; the kernels of ``must``
+    launched over the ranks (the XLA route: none of the solve kernels);
+    rank 1's solutions rank 0's bit for bit on every tile, rank 1 silent
+    and writing nothing; the records' world, blocks and backend. Also
+    the 2-rank CPU run against the one-process one (float64 roundoff
+    apart: 1e-6)."""
+    from sagecal_tpu_torch import parallel
+    ranks, secs = card
+    hist = ranks[0][0]
+    hist_cpu, cpu_s = cpu
+    ranks2, cpu2_s = cpu2 if cpu2 is not None else (None, None)
+    kinds = ("coh", "sweep", "matvec", "visits")
+    rank_launches = [dict({k: sum(h["launches"][k] for h in hr)
+                           for k in kinds},
+                          xla_solves=sum(h["xla_solves"] for h in hr))
+                     for hr, _ in ranks]
+    launches = {k: sum(r[k] for r in rank_launches)
+                for k in rank_launches[0]}
+    refs = {"cpu": hist_cpu}
+    if ranks2 is not None:
+        refs["cpu_ranks"] = ranks2[0][0]
+    rels = {name: _shard_rel(hist, ref) for name, ref in refs.items()}
+    flips = {name: _first_flip(hist, ref) for name, ref in refs.items()}
+    plan = parallel.RowPlan(SHARD_TIMES,
+                            SHARD_STATIONS * (SHARD_STATIONS - 1) // 2,
+                            world)
+    rec = dict(tag=tag, world=world, backend=[h["backend"] for h in hist],
+               blocks=hist[0]["blocks"], nchunk=nchunk, flags=flags,
+               cuda=[[h["res_0"], h["res_1"], h["mean_nu"]] for h in hist],
+               cpu=[[h["res_0"], h["res_1"], h["mean_nu"]]
+                    for h in hist_cpu],
+               max_rel=rels, launches=launches, rank_launches=rank_launches,
+               row_sums=[[h["row_sums"] for h in hr] for hr, _ in ranks],
+               omegas=[[g[2] for g in h["groups"]] for h in hist],
+               flips=flips, seconds={"card": secs, "cpu": cpu_s,
+                                     "cpu_ranks": cpu2_s},
+               tile_s=[h["solve_s"] for h in hist],
+               cpu_ranks_rel=None if ranks2 is None
+               else _shard_rel(ranks2[0][0], hist_cpu),
+               others_lines_files=[(len(lines), sum(len(h["wrote"])
+                                                    for h in hr))
+                                   for hr, lines in ranks[1:]])
+    emit("slice_parity", **rec)
+    _check_route(f"slice_parity {tag}", {**launches, "by_md": {},
+                                         "by_st": {}},
+                 must, "xla" in flags)
+    for name, flip in flips.items():
+        if flip is not None:
+            _, _, a, b = flip
+            i = next(i for i, (ma, mb) in enumerate(zip(a[3], b[3]))
+                     if (ma >= 0) != (mb >= 0))
+            if max(abs(a[3][i]), abs(b[3][i])) > FLIP_MARGIN:
+                raise AssertionError(
+                    f"slice_parity {tag}: relaxation decision flipped far "
+                    f"from its threshold against {name}: card {a}, {b}")
+            emit("slice_parity_flip", tag=tag, against=name, trial=i,
+                 card_margin=a[3][i], cpu_margin=b[3][i],
+                 residual_gate="replaced by the flip report")
+        elif not rels[name] <= PARITY_RTOL:
+            raise AssertionError(f"slice_parity {tag}: {rels[name]:.3e} > "
+                                 f"{PARITY_RTOL} against {name}")
+    if rec["cpu_ranks_rel"] is not None and not rec["cpu_ranks_rel"] <= 1e-6:
+        raise AssertionError(f"slice_parity {tag}: the 2-rank CPU run "
+                             f"{rec['cpu_ranks_rel']:.3e} from the "
+                             "one-process one")
+    if any(h["res_1"] >= h["res_0"] for h in hist + hist_cpu):
+        raise AssertionError(f"slice_parity {tag}: residuals did not fall "
+                             "on every tile")
+    for r, (hr, lines) in enumerate(ranks):
+        for h, h0 in zip(hr, hist):
+            if (h["world"], h["rank"], h["backend"]) != (world, r, backend) \
+                    or h["blocks"] != plan.blocks():
+                raise AssertionError(
+                    f"slice_parity {tag}: rank {r}'s record says world "
+                    f"{h['world']}, rank {h['rank']}, {h['backend']}, "
+                    f"blocks {h['blocks']}; want {world}, {r}, {backend}, "
+                    f"{plan.blocks()}")
+            if h["solution_sha"] != h0["solution_sha"]:
+                raise AssertionError(f"slice_parity {tag}: rank {r}'s "
+                                     "solutions differ from rank 0's")
+            if r and (lines or h["wrote"]):
+                raise AssertionError(f"slice_parity {tag}: rank {r} logged "
+                                     f"{len(lines)} lines, wrote "
+                                     f"{h['wrote']}")
+    return rec
+
+
+def shard_finish(h: dict, out: dict, failures: list) -> None:
+    """Wait for the shard runs (:func:`shard_start`; the CPU references'
+    results in ``h["cpu_done"]``) and gate them (:func:`_check_shard`):
+    records into ``out``, failed gates onto ``failures``."""
+    h["thread"].join(1200)
+    if h["thread"].is_alive():
+        raise AssertionError("slice_parity: the shard runs did not end in "
+                             "1200 s")
+    for tag, world, backend, nchunk, flags, must in SHARD_RUNS:
+        card = h["card"].get((tag, "card"))
+        cpu2 = h["card"].get((tag, "cpu"))
+        bad = [c for c in (card, cpu2) if isinstance(c, Exception)]
+        if card is None or bad:
+            failures.append(f"slice_parity {tag}: {bad or card!r}")
+            continue
+        try:
+            out[tag] = _check_shard(tag, world, backend, nchunk, flags, must,
+                                    card, h["cpu_done"][tag], cpu2)
+        except AssertionError as e:
+            failures.append(str(e))
+
+
 def _federated_obs():
     """The federated parity run's slave subbands (FEDERATED_PARITY, on
     the CPU), their ``.cpu`` copies and list: (list, sky, cluster, paths,
@@ -2727,6 +2945,7 @@ def slice_parity_start() -> dict:
                      for tag, flags in st_runs.items()])
         cons_obs, cons_cpu = consensus_parity_start(pool)
         h["mp"] = consensus_mp_start(pool)
+        h["shard"] = shard_start(pool)
         card_runs([("cons", tag, o, 0) for tag, o in cons_obs.items()])
         cpu_refs(r for r in PARITY_RUNS if r[1] <= 16)
         st_cpu = {tag: pool.apply_async(_stochastic_cpu, (
@@ -2789,6 +3008,8 @@ def slice_parity_finish(h: dict) -> dict:
         st_cpu = {tag: r.get() for tag, r in h["st_cpu"].items()}
         mp = h["mp"]
         mp["cpu_done"] = mp["cpu"].get()
+        shard = h["shard"]
+        shard["cpu_done"] = {tag: r.get() for tag, r in shard["cpu"].items()}
     finally:
         slice_parity_stop(h)
     # the phase's wall once its card runs and once its CPU runs were in
@@ -2944,6 +3165,7 @@ def slice_parity_finish(h: dict) -> dict:
             failures.append(str(e))
     consensus_parity_check(cons_obs, cons_card, cons_cpu, out, failures)
     consensus_mp_finish(mp, out, failures)
+    shard_finish(shard, out, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     return out
@@ -3610,6 +3832,102 @@ def phase_e2e_consensus_mp(single: dict) -> dict:
     return rec
 
 
+#: the gate of e2e_shard's res_1/res_0 against e2e_rtr's tile 0
+#: (:func:`phase_e2e_shard`, ROADMAP C16): the cap of the chaotic CPU
+#: parity cases (tests/test_torch_dtype_policy_cli.py's SPREAD_CAP)
+E2E_SHARD_GATE = 5e-2
+
+
+def phase_e2e_shard(obs, rtr: dict) -> dict:
+    """e2e_rtr's first tile (``-j 5 --inner cg -e 1``, tile 0 boosted to 6
+    EM iterations) with its rows over 2 ranks on the one card
+    (``--shard-baselines``, ``parallel.run_sharded``: 60 + 60 timeslots,
+    gloo on host copies, each rank at ``distributed.RANK_THREADS`` torch
+    threads). Records rank 0's tile wall, its solve, EM, refine and
+    residual seconds, each rank's launches by kernel, row-sum collectives
+    and bytes and peak device memory beside ``rtr``'s (e2e_rtr in this
+    call, one process), and res_1 / res_0 beside e2e_rtr's tile 0. Gates:
+    the residual falls, its ratio within E2E_SHARD_GATE of e2e_rtr's
+    tile 0. Robust RTR at -e 1 stops its first tile far from convergence,
+    and the one-process tile itself is roundoff-chaotic on the card at
+    1e-3 to 2e-2 (ROADMAP C16: its ratio moved 1.6e-3 between two runs of
+    the same input, 3.8e-4 to 2.2e-2 under one ulp), so 1e-3 cannot hold
+    it, and a gate scaled by one sample of that spread is as unsteady as
+    the sample; the record carries the spread of this call
+    (``e2e_rtr_ulp``: e2e_rtr's tile 0 once more on the sky moved one
+    float32 ulp, :func:`perturb_sky`). The sharded path is held tight by
+    slice_parity's shard runs. Coh, sweep and matvec launched on each rank, no XLA solve;
+    the same solutions on both ranks; rank 1 silent, writing nothing; the
+    records name 2 ranks and gloo."""
+    from sagecal_tpu_torch import distributed as dist
+    from sagecal_tpu_torch import parallel
+    src, sky, clus, _ = obs
+    ms = os.path.join(os.path.dirname(src), "e2e_shard.ms")
+    shutil.rmtree(ms, ignore_errors=True)
+    shutil.copytree(src, ms)
+    solpath = os.path.join(os.path.dirname(ms), "e2e_shard_solutions.txt")
+    flags = ["-j", "5", "--inner", "cg"]
+    ulp = phase_e2e((src, perturb_sky(sky), clus, 0.0), "e2e_rtr_ulp",
+                    flags, 1, ("coh", "sweep", "matvec"), em=1)
+    t0 = time.perf_counter()
+    ranks = parallel.run_sharded(
+        ["-d", ms, "-s", sky, "-c", clus, "-p", solpath, "-e", "1", "-g",
+         "10", "-l", "10", "-m", "7", "-t", str(TILESZ), "-T", "1", "-V"]
+        + flags + ["--shard-baselines"], 2, timeout=900)
+    wall = time.perf_counter() - t0
+    (hist, _), (hist1, lines1) = ranks
+    h, t_rtr = hist[0], rtr["tiles"][0]
+    ratio = h["res_1"] / h["res_0"]
+    ratio_rtr = t_rtr["res_1"] / t_rtr["res_0"]
+    spread = abs(ulp["tiles"][0]["res_1"] / ulp["tiles"][0]["res_0"]
+                 / ratio_rtr - 1.0)
+    kinds = ("coh", "sweep", "matvec", "visits")
+    rank_launches = [dict(hr[0]["launches"], xla_solves=hr[0]["xla_solves"])
+                     for hr, _ in ranks]
+    rec = dict(flags=flags, em=1, world=h["world"], backend=h["backend"],
+               blocks=h["blocks"], wall_s=wall, tile_s=60.0 * h["minutes"],
+               solve_s=h["solve_s"], em_s=h["em_s"], refine_s=h["refine_s"],
+               read_s=h["read_s"], residual_s=h["residual_s"],
+               write_s=h["write_s"], res_0=h["res_0"], res_1=h["res_1"],
+               res_ratio=ratio, rtr_res_ratio=ratio_rtr,
+               ratio_rel=abs(ratio / ratio_rtr - 1.0), ulp_spread=spread,
+               gate=E2E_SHARD_GATE,
+               rtr_tile_s=t_rtr["wall_s"], rtr_em_s=t_rtr.get("em_s"),
+               rtr_refine_s=t_rtr.get("refine_s"),
+               rank_launches=rank_launches, rtr_launches=rtr["launches"],
+               row_sums=[hr[0]["row_sums"] for hr, _ in ranks],
+               peak_gb=[None if hr[0]["peak_bytes"] is None
+                        else hr[0]["peak_bytes"] / 2 ** 30
+                        for hr, _ in ranks],
+               rtr_peak_gb=rtr["peak_gb"],
+               threads_per_rank=dist.RANK_THREADS,
+               solver_iters=h["solver_iters"], tcg_iters=h["tcg_iters"],
+               rank1_lines=len(lines1),
+               rank1_wrote=sum(len(r["wrote"]) for r in hist1))
+    emit("e2e_shard", **rec)
+    for i, rl in enumerate(rank_launches):
+        _check_route(f"e2e_shard rank {i}", {**rl, "by_md": {}, "by_st": {}},
+                     ("coh", "sweep", "matvec"), False)
+    if not (math.isfinite(h["res_1"]) and h["res_1"] < h["res_0"]):
+        raise AssertionError(f"e2e_shard: the residual did not fall: "
+                             f"{h['res_0']} -> {h['res_1']}")
+    if not rec["ratio_rel"] <= E2E_SHARD_GATE:
+        raise AssertionError(f"e2e_shard: res_1 / res_0 {ratio} against "
+                             f"e2e_rtr's tile 0 {ratio_rtr}: "
+                             f"{rec['ratio_rel']:.3e} > {E2E_SHARD_GATE} "
+                             f"(one-ulp spread {spread:.3e})")
+    if hist1[0]["solution_sha"] != h["solution_sha"] \
+            or (h["world"], h["backend"]) != (2, "gloo") \
+            or rec["rank1_lines"] or rec["rank1_wrote"]:
+        raise AssertionError(f"e2e_shard: world {h['world']}, backend "
+                             f"{h['backend']}, rank 1's solutions "
+                             f"{'equal' if hist1[0]['solution_sha'] == h['solution_sha'] else 'differ'}"
+                             f"; rank 1 logged {rec['rank1_lines']} lines, "
+                             f"wrote {rec['rank1_wrote']} paths")
+    shutil.rmtree(ms, ignore_errors=True)
+    return rec
+
+
 #: federated stochastic calibration (the MPI CLI's -N): 2 slave subbands
 #: of the full-width observation at the middle two CONSENSUS_CENTRES
 E2E_FEDERATED = ["-N", "1", "-M", "2", "-w", "2", "-A", "2", "-u", "0.5"]
@@ -3904,6 +4222,8 @@ def main() -> int:
     # with), to keep the run in time (tile 0 boosted to 6 EM iterations)
     rtr = phase_e2e(obs, "e2e_rtr", ["-j", "5", "--inner", "cg"], 2,
                     ("coh", "sweep", "matvec"), em=1)
+    # its first tile with the rows over 2 ranks on the card
+    shard = phase_e2e_shard(obs, rtr)
     # the station beam at full width: one tile of e2e_rtr's sky and gains
     # simulated through the beam
     beam = phase_e2e_beam(rtr)
@@ -3936,12 +4256,13 @@ def main() -> int:
     st_consensus = phase_e2e_stochastic_consensus(obs)
     shutil.rmtree(os.path.dirname(obs[0]), ignore_errors=True)
     tile_batch = phase_e2e_tile_batch(rtr)
-    # one EM iteration, to keep the run in time (tile 0 boosted to 6, its
-    # first sweep of groups of 2, then of 4; tile 1 one warm sweep of 4)
-    obs16 = observation_e2e("e2e16", NCHUNK16)
+    # one EM iteration and one tile, to keep the run in time (tile 0
+    # boosted to 6, its first sweep of groups of 2, then of 4; the warm
+    # second tile was cut when e2e_shard came in)
+    obs16 = observation_e2e("e2e16", NCHUNK16, n_tiles=1)
     inflight_flags = ["-j", "5", "--inner", "cg", "--inflight",
                       str(N_VISITS)]
-    inflight = phase_e2e(obs16, "e2e_inflight", inflight_flags, 2,
+    inflight = phase_e2e(obs16, "e2e_inflight", inflight_flags, 1,
                          ("coh", "visits", "matvec"), em=1)
     # its first tile at --dtype-policy f16: the f16 visits instance
     f16 = phase_e2e_reduced(obs16, "e2e_f16_inflight", inflight_flags,
@@ -3973,6 +4294,12 @@ def main() -> int:
                 r[kernel] for r in parity[tag]["rank_launches"]]
         out["launches_e2e_consensus_mp_by_rank"] = [
             r[kernel] for r in consensus_mp["rank_launches"]]
+        # one subband's rows over ranks (--shard-baselines)
+        for tag, _, _, _, _, _ in SHARD_RUNS:
+            out[f"launches_{tag}_by_rank"] = [
+                r[kernel] for r in parity[tag]["rank_launches"]]
+        out["launches_e2e_shard_by_rank"] = [
+            r[kernel] for r in shard["rank_launches"]]
         return out
     vis = visits[(4, True)]
 

@@ -17,8 +17,8 @@ full|diag|phase``, T solve intervals as one lane-batched solve, skies of
 every source morphology, the ``-q`` warm start, ``-W 1`` whitening of the
 solve input, ``-J 1`` phase-only correction with ``-k``, ``-b 1``
 per-channel solves; ``--linsolv`` is carried and selects nothing, as in
-the JAX package; ``--cpu-devices`` is accepted and inert: the JAX flag
-only sizes a virtual CPU mesh, and the port's CPU is one device), and the
+the JAX package; ``--shard-baselines`` one subband's rows over the
+process's devices, as below), and the
 simulation modes ``-a 1/2/3`` (``-p`` then
 names the solutions that corrupt the model and ``-z`` the clusters to
 leave out). ``--solve-fuse`` and ``--solve-promote`` are accepted as
@@ -37,6 +37,14 @@ bands tied by ADMM to a ``-P``-term polynomial of type ``-Q``, rho from
 calibration, as in the JAX CLI. ``-M``, ``--loss``, ``-w``, ``-A``,
 ``-P``, ``-Q``, ``-r`` and ``-G`` act under ``-N`` only and are inert
 without it, as there.
+``--shard-baselines`` (``parallel.py``) is the JAX flag's mesh over the
+process's devices: one rank a visible card (``torch.cuda.device_count()``),
+or under ``--platform cpu`` one gloo rank a ``--cpu-devices N`` (default
+1), each holding whole timeslots of every tile, started on this host by
+``parallel.run_sharded``; rank 0 logs and writes. One device runs in this
+process with no group. ``--tile-batch`` is then off (with its log line),
+and under ``-N`` and ``-a`` the flag is inert, as in the JAX CLI; ``-b 1``
+runs its joint solve and its channel fits over the ranks.
 Any other flag given a non-default value raises ``NotImplementedError``
 naming the ROADMAP item that will port it — nothing is silently ignored.
 Every run warns, as the JAX CLI does, on values of ``-y`` and ``-o``
@@ -68,7 +76,6 @@ UNPORTED = {
     "faults": (None, "queue A item 10 (--faults)"),
     "prefetch": (1, "queue A item 10 (--prefetch overlap)"),
     "prior_cache": ("off", "queue A item 11 (--prior-cache)"),
-    "shard_baselines": (False, "queue A item 9f (--shard-baselines)"),
     "profile": (None, "queue A item 1 (--profile)"),
     "diag": (None, "queue A item 10 (--diag)"),
     "metrics": (None, "queue A item 10 (--metrics)"),
@@ -150,7 +157,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--platform", default=None,
       help="'cpu' runs on the CPU (float64); default: the CUDA device")
     a("--cpu-devices", type=int, default=0,
-      help="accepted and inert: the port's CPU is one device")
+      help="with --platform cpu and --shard-baselines: the ranks (one "
+           "gloo process each) a subband's rows are sharded over; "
+           "inert otherwise")
     a("-w", "--nsolbw", type=int, default=1)
     a("-b", "--per-channel", type=int, default=0)
     a("-a", "--simulation", type=int, default=0)
@@ -239,7 +248,8 @@ def config_from_args(args) -> RunConfig:
         cluster_inflight=args.inflight, tile_batch=args.tile_batch,
         solver_inner=args.inner, solver_kernel=args.kernel,
         jones_mode=args.jones, dtype_policy=args.dtype_policy,
-        resume=bool(args.resume))
+        resume=bool(args.resume),
+        shard_baselines=bool(args.shard_baselines))
 
 
 def _device(platform):
@@ -250,7 +260,26 @@ def _device(platform):
     raise ValueError(f"--platform {platform!r}: expected cpu or cuda")
 
 
+def shard_world(args) -> int:
+    """The ranks of a ``--shard-baselines`` run: ``--cpu-devices`` (at
+    least 1) under ``--platform cpu``, else the visible cards (the JAX
+    flag's mesh over the process's devices)."""
+    if _device(args.platform) == "cpu":
+        return max(1, int(args.cpu_devices))
+    import torch
+    return max(1, torch.cuda.device_count())
+
+
+def prepare(argv):
+    """(RunConfig, device) of a full-batch command line, its unported
+    flags refused (a rank of ``parallel.run_sharded`` starts here)."""
+    args = build_parser().parse_args(argv)
+    check_flags(args)
+    return config_from_args(args), _device(args.platform)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if (not args.ms and not args.ms_list) or not args.sky_model \
             or not args.cluster_file:
@@ -260,7 +289,13 @@ def main(argv=None) -> int:
     check_flags(args)
     warn_legacy_flags(args)
     cfg = config_from_args(args)
-    if cfg.n_epochs > 0:
+    if cfg.shard_baselines and cfg.n_epochs == 0 \
+            and cfg.simulation == SimulationMode.OFF \
+            and shard_world(args) > 1:
+        from sagecal_tpu_torch import parallel
+        parallel.run_sharded(argv, shard_world(args), timeout=float("inf"),
+                             echo=True)
+    elif cfg.n_epochs > 0:
         from sagecal_tpu_torch import stochastic
         if cfg.n_admm > 1 and cfg.channel_avg_per_band > 1:
             stochastic.run_minibatch_consensus(cfg,

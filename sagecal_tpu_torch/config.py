@@ -126,6 +126,9 @@ class RunConfig:
     # --resume: continue from the tile-boundary checkpoint beside the
     # solutions file (io/solutions.py: checkpoint_path)
     resume: bool = False
+    # --shard-baselines: one subband's rows over the process's devices
+    # (parallel.py); tile batches off, as in the JAX package
+    shard_baselines: bool = False
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -72,6 +72,7 @@ import torch
 
 from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.ops import cuda_lib
+from sagecal_tpu_torch.parallel import row_sums
 from sagecal_tpu_torch.solvers import normal_eq as ne
 
 
@@ -748,12 +749,27 @@ def _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, N: int):
 
 def gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
               kmax: int, row_period: int, cost_wt=None,
-              jones: str = "full", lanes: Lanes | None = None):
+              jones: str = "full", lanes: Lanes | None = None, rows=None,
+              live=None):
     """Operator assembly from one fused sweep: (GNBlocks, JTe [K, 8N],
     cost [K]) — ``sweep_pallas.gn_blocks``. With ``lanes`` the rows and
     chunks are a group's folded layout (K = V lanes.K), and one
     multi-visit sweep replaces the JAX package's vmapped sweep
-    (``sweep_pallas._sweep_dispatch``)."""
+    (``sweep_pallas._sweep_dispatch``).
+
+    With ``rows`` (a ``parallel.RowGroup``: this rank's whole timeslots
+    of the tile) the sweep's per-baseline record is summed over the
+    ranks in one collective: pp, qq, pq, the cost, and the station
+    aggregates D and JTe, formed from the rank's own blocks first (on
+    the card ``index_add_`` sums repeated stations in atomic order, so
+    aggregating the summed blocks on every rank could leave two ranks'
+    D a few bits apart; the summed aggregates are the same bits on every
+    rank). The blocks are then the whole tile's, so the matvec and the
+    damped solves run replicated, with no collective a PCG or tCG
+    trip. ``live`` (the indices of the solve's chunk mask) sums those
+    chunks only: a cluster of fewer hybrid chunks than kmax carries
+    padded chunks that hold no row, whose records are 0 on every
+    rank."""
     cw = wt if cost_wt is None else cost_wt
     if lanes is None:
         pp, qq, pq, jtep, jteq, cost = sweep_blocks(
@@ -770,6 +786,8 @@ def gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
     nb = int(row_period)
     s1b, s2b = sta1[:nb].long(), sta2[:nb].long()
     D, JTe = _station_aggregates(pp, qq, jtep, jteq, s1b, s2b, n_stations)
+    pp, qq, pq, D, JTe, cost = row_sums((pp, qq, pq, D, JTe, cost), rows,
+                                        "sweep", live)
     return GNBlocks(pp=pp, qq=qq, pq=pq, D=D), JTe, cost
 
 
@@ -851,13 +869,16 @@ def solve_damped_blocks(fac: GNBlocks, JTe, mu, jitter, sta1, sta2,
 def normal_equations_fused(x8, J, coh, sta1, sta2, chunk_id, wt,
                            n_stations: int, kmax: int, row_period: int,
                            cost_wt=None, jones: str = "full",
-                           lanes: Lanes | None = None):
+                           lanes: Lanes | None = None, rows=None,
+                           live=None):
     """Dense (JTJ [K, 8N, 8N], JTe, cost) from one fused sweep
     (``sweep_pallas.normal_equations_fused``): the blocks expanded by
-    :func:`_assemble_damped` without a shift."""
+    :func:`_assemble_damped` without a shift (summed over ``rows`` as
+    :func:`gn_blocks` sums them)."""
     fac, JTe, cost = gn_blocks(x8, J, coh, sta1, sta2, chunk_id, wt,
                                n_stations, kmax, row_period,
-                               cost_wt=cost_wt, jones=jones, lanes=lanes)
+                               cost_wt=cost_wt, jones=jones, lanes=lanes,
+                               rows=rows, live=live)
     return _assemble_damped(fac, None, sta1, sta2, n_stations), JTe, cost
 
 

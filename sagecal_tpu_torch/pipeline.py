@@ -52,6 +52,19 @@ residual, the tile batch, ``-b 1``'s channels and the simulation modes.
 Under the beam the whole sky predicts through the generic route with the
 beam tables: no coherency kernel runs, as in the JAX package.
 
+One subband's rows over ranks (``--shard-baselines``; ``_build_sharded_
+solver`` of the JAX package, ``parallel.py``): with a process group each
+rank stages its own whole timeslots of every tile (``parallel.RowPlan``;
+the last block padded with zero-weight timeslots) on its own device,
+predicts their coherencies through ``rime/predict.coherencies`` (the
+coherency kernel on the card, shard-local: the same function as the JAX
+sharded path's plain XLA predict), and runs ``sage.sagefit_host`` with
+the row group, every row sum of every solver a collective. The
+residuals are per row: each rank computes its own, rank 0 gathers them
+(``distributed.gather_to_root``) and writes the residual column, the
+solutions and the checkpoint; the other ranks write and log nothing.
+``--tile-batch`` is off on this path, as in the JAX package.
+
 The JAX package's serve cache, fleet, priors, overlapped scheduler,
 fault injection and tracing are not ported yet; their options raise
 ``NotImplementedError`` (see ``cli.py:UNPORTED``).
@@ -59,6 +72,7 @@ fault injection and tracing are not ported yet; their options raise
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
@@ -68,7 +82,8 @@ import torch
 
 from sagecal_tpu_torch import coords
 from sagecal_tpu_torch import device as devmod
-from sagecal_tpu_torch import dtypes
+from sagecal_tpu_torch import distributed as dist
+from sagecal_tpu_torch import dtypes, parallel
 from sagecal_tpu_torch import skymodel, utils
 from sagecal_tpu_torch.config import RunConfig, SimulationMode, SolverMode
 from sagecal_tpu_torch.io import dataset as ds
@@ -118,12 +133,18 @@ class FullBatchPipeline:
     CPU. The pipeline computes in float32 on the card and float64 on the
     CPU, and in float32 on both under a reduced ``--dtype-policy`` (its
     accumulator dtype: ``pipeline.py:124-133`` of the JAX package), with
-    the solve's data and weights staged in the storage dtype ``sdt``."""
+    the solve's data and weights staged in the storage dtype ``sdt``.
+
+    ``rows`` (a ``parallel.RowGroup``): this rank's whole timeslots of
+    every tile (module docstring); the per-row tables are the rank's
+    slices of the whole tile's."""
 
     def __init__(self, cfg: RunConfig, ms, sky: skymodel.ClusterSky,
-                 device=None, log=print):
+                 device=None, log=print, rows=None):
         check_supported(cfg)
         self.cfg = cfg
+        self.rows = rows
+        self.rank = 0 if rows is None else rows.rank
         self.ms = ms
         self.sky = sky
         self.log = log
@@ -158,12 +179,19 @@ class FullBatchPipeline:
         self.cmask = torch.as_tensor(
             np.arange(self.kmax)[None, :] < sky.nchunk[:, None],
             device=self.device)
-        self.cidx = torch.as_tensor(
-            rp.chunk_indices(meta["tilesz"], meta["nbase"], sky.nchunk),
-            device=self.device, dtype=torch.long)
-        self.tslot = torch.as_tensor(
-            ds.row_tslot(meta["tilesz"] * meta["nbase"], meta["nbase"]),
-            device=self.device, dtype=torch.long)
+        # the per-row tables of the whole tile, or this rank's rows of
+        # them (padded rows: chunk 0, timeslot 0, subset 0, weight 0)
+        cidx = rp.chunk_indices(meta["tilesz"], meta["nbase"], sky.nchunk)
+        tslot = ds.row_tslot(meta["tilesz"] * meta["nbase"], meta["nbase"])
+        os_id, n_sub = lm_mod.os_subset_ids(meta["tilesz"], meta["nbase"])
+        if rows is not None:
+            cidx = rows.plan.take_cols(cidx, self.rank)
+            tslot = rows.plan.take(tslot, self.rank)
+            os_id = rows.plan.take(os_id, self.rank)
+        self.cidx = torch.as_tensor(cidx, device=self.device,
+                                    dtype=torch.long)
+        self.tslot = torch.as_tensor(tslot, device=self.device,
+                                     dtype=torch.long)
         self.n = meta["n_stations"]
         mode = effective_solver_mode(int(cfg.solver_mode), self.n)
         # -b 1: the joint solve runs without its refine; the channel
@@ -178,28 +206,50 @@ class FullBatchPipeline:
             kernel=cfg.solver_kernel,
             jones_mode=cfg.jones_mode, nbase=int(meta["nbase"]),
             inflight=max(1, int(cfg.cluster_inflight)),
-            dtype_policy=cfg.dtype_policy)
+            dtype_policy=cfg.dtype_policy, rows=rows)
         # ordered-subsets partition of the [tilesz, nbase] rows for the
         # OS modes 0/2/3 (the other modes ignore it)
-        self.os_info = lm_mod.os_subset_ids(meta["tilesz"], meta["nbase"])
+        self.os_info = (os_id, n_sub)
         self.boost = first_tile_boost(self.n)
         # the assembly route, from one visit's shapes (every cluster's
         # solve carries kmax chunks), as each solve picks it
         self.route = lm_mod.route_name(
             cfg.solver_kernel, self.kmax, int(meta["nbase"]),
-            int(meta["tilesz"]) * int(meta["nbase"]))
+            int(meta["tilesz"]) * int(meta["nbase"]) if rows is None
+            else rows.plan.rows_per_rank)
         # --tile-batch: T > 1 solves T staged tiles as one lane-batched
         # solve; 0 or below solves tile by tile, as in the JAX CLI. -b 1
-        # re-solves per channel and runs tile by tile, as there
-        # (--shard-baselines is not ported and raises before this point)
+        # re-solves per channel and --shard-baselines solves its rows
+        # over ranks: both run tile by tile, as there
         self.tile_batch = max(1, int(cfg.tile_batch))
-        if self.tile_batch > 1 and cfg.per_channel_bfgs:
+        if self.tile_batch > 1 and (cfg.per_channel_bfgs
+                                    or cfg.shard_baselines):
             log("tile-batch disabled (per-channel/sharded path); "
                 "running sequentially")
             self.tile_batch = 1
         self.sub_mask = sky.subtract_mask()
         self.correct_idx = skymodel.correct_cluster_index(
             sky, cfg.correct_cluster, warn=log)
+
+    def local(self, tile: ds.VisTile) -> ds.VisTile:
+        """This rank's rows of ``tile`` (``parallel.RowPlan.local_tile``),
+        the tile itself without a row group."""
+        if self.rows is None:
+            return tile
+        return self.rows.plan.local_tile(tile, self.rank)
+
+    def gather(self, res):
+        """A rank's residual rows [Bl, F, 2, 2] (complex128 numpy) -> the
+        tile's [B, F, 2, 2] on rank 0 (``distributed.gather_to_root``;
+        padding dropped), None on the others; ``res`` itself without a
+        row group."""
+        if self.rows is None:
+            return res
+        allr = dist.gather_to_root(torch.view_as_real(torch.from_numpy(
+            np.ascontiguousarray(res))), self.rows.group)
+        if allr is None:
+            return None
+        return torch.view_as_complex(allr).numpy()[:self.rows.n_rows]
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=self.device,
@@ -422,6 +472,9 @@ class FullBatchPipeline:
         nothing, as in the JAX package. Returns one record a tile (its
         seconds and kernel launches)."""
         log = self.log if log is None else log
+        if self.rows is not None:
+            raise ValueError("the simulation modes run unsharded (-a leaves "
+                             "--shard-baselines inert, as in the JAX CLI)")
         cfg, ms, sky, meta = self.cfg, self.ms, self.sky, self.meta
         blocks, ignore_mask = None, None
         if cfg.solutions_file:
@@ -509,7 +562,17 @@ class FullBatchPipeline:
         state and skips the completed tiles; the tile draws depend only
         on the tile index (``solve``'s seed), so the resumed run is the
         uninterrupted one. The ``--tile-batch`` loop's warm start is
-        batch-granular: it writes no checkpoint and starts fresh."""
+        batch-granular: it writes no checkpoint and starts fresh.
+
+        With a row group every rank solves every tile on its own rows and
+        reads the checkpoint; rank 0 alone writes the solutions, the
+        residual column (every rank's rows, :meth:`gather`) and the
+        checkpoint. Each record then also carries the world, this rank,
+        the timeslot blocks, the data backend, the tile's row-sum
+        collectives and bytes (``parallel.counters``), the SHA-256 of the
+        solutions it carries on (``solution_sha``: the same on every
+        rank), the rank's peak device bytes on a card and ``wrote``, what
+        the rank wrote."""
         log = self.log if log is None else log
         ms, sky, meta = self.ms, self.sky, self.meta
         n_tiles = ms.n_tiles if not max_tiles else min(ms.n_tiles,
@@ -533,7 +596,8 @@ class FullBatchPipeline:
             if ck is None:
                 log("resume: no checkpoint found; starting fresh")
         writer = None
-        if solution_path and ck is not None:
+        root = self.rank == 0
+        if solution_path and ck is not None and root:
             # a kill can fall between a solution write and its
             # checkpoint: back to the checkpointed byte length, then append
             size = os.path.getsize(solution_path)
@@ -545,7 +609,7 @@ class FullBatchPipeline:
             with open(solution_path, "r+") as f:
                 f.truncate(ck["sol_bytes"])
             writer = sol.SolutionWriter.open_resume(solution_path, self.n)
-        elif solution_path:
+        elif solution_path and root:
             writer = sol.SolutionWriter(
                 solution_path, meta["freq0"], meta["fdelta"],
                 meta["tilesz"] * meta["tdelta"] / 60.0, self.n,
@@ -588,18 +652,25 @@ class FullBatchPipeline:
             c0 = _counters()
             t_res = time.time()
             chans = None
+            wrote = []
             if self.cfg.per_channel_bfgs:
                 # -b 1: the channel solves from the joint solution, their
                 # residuals; the last channel's solutions are carried
                 state["J"], chans, res = self.solve_channels(
-                    state["J"], tile, stg, write_residuals)
+                    state["J"], item["ltile"], stg, write_residuals)
             if writer:
                 writer.write_interval(state["J"], sky.nchunk)
+                wrote.append(solution_path)
             if write_residuals:
-                tile.x = res if chans is not None else \
-                    self.residuals(state["J"], tile, stg)
+                res = self.gather(
+                    res if chans is not None else
+                    self.residuals(state["J"], item["ltile"], stg))
                 t_write = time.time()
-                ms.write_tile(ti, tile)
+                if root:
+                    tile.x = res
+                    ms.write_tile(ti, tile)
+                    wrote.append(f"{getattr(ms, 'path', 'dataset')}:"
+                                 f"tile{ti}")
             t1 = time.time()
             # under -b 1 residual_s holds the channel solves too
             secs = dict(secs, read_s=item["read_s"],
@@ -622,6 +693,16 @@ class FullBatchPipeline:
                                          "visits"), launches[:4])),
                    "xla_solves": launches[4], "batch": batch,
                    "channels": chans, **secs}
+            if self.rows is not None:
+                rec.update(world=self.rows.world, rank=self.rank,
+                           blocks=self.rows.plan.blocks(),
+                           backend=self.rows.group.backend,
+                           row_sums=item["row_sums"], wrote=wrote,
+                           solution_sha=hashlib.sha256(np.ascontiguousarray(
+                               state["J"]).tobytes()).hexdigest(),
+                           peak_bytes=torch.cuda.max_memory_allocated(
+                               self.device)
+                           if self.device.type == "cuda" else None)
             history.append(rec)
             if self.cfg.verbose:
                 log(f"Timeslot: {ti} stats: " + json.dumps(
@@ -632,6 +713,7 @@ class FullBatchPipeline:
                                          "channels", *secs)}))
             if writer and ckpt_path:
                 # this tile boundary, after its writes
+                wrote.append(ckpt_path)
                 sol.save_checkpoint(
                     ckpt_path, tile=ti, J=state["J"].copy(),
                     first=state["first"], res_prev=state["res_prev"],
@@ -641,9 +723,11 @@ class FullBatchPipeline:
         def solo(item, boosted: bool):
             c0 = _counters()
             t0 = time.time()
+            rs0 = parallel.counters()
             Jnew, info = self.solve(item["stg"], state["J"], item["ti"],
                                     self.boost if boosted else 1,
                                     warm=not boosted)
+            item["row_sums"] = parallel.counters_since(rs0)
             state["first"] = False
             post(item, Jnew, info, None,
                  [b - a for a, b in zip(c0, _counters())],
@@ -680,7 +764,9 @@ class FullBatchPipeline:
                 if self.cfg.verbose:
                     log(f"tile {ti}: solver route: {self.route}")
                 tile = ms.read_tile(ti)
-                item = {"ti": ti, "tile": tile, "stg": self.stage(tile)}
+                ltile = self.local(tile)
+                item = {"ti": ti, "tile": tile, "ltile": ltile,
+                        "stg": self.stage(ltile)}
                 item["read_s"] = time.time() - t0
                 if self.tile_batch == 1 or state["first"]:
                     solo(item, boosted=state["first"])
@@ -693,7 +779,7 @@ class FullBatchPipeline:
         finally:
             if writer:
                 writer.close()
-        if ckpt_path and os.path.exists(ckpt_path):
+        if ckpt_path and root and os.path.exists(ckpt_path):
             os.remove(ckpt_path)      # a clean end
         return history
 
@@ -705,12 +791,21 @@ def _counters():
             swp.VISITS_LAUNCHES, lm_mod.XLA_SOLVES)
 
 
-def run(cfg: RunConfig, device=None, log=print):
+def _quiet(*_):
+    """The log of a rank other than 0: it prints nothing."""
+
+
+def run(cfg: RunConfig, device=None, log=print, group=None):
     """Open the dataset and the sky model and run full-batch
     calibration, or with ``-a`` the simulation, on ``device`` (None:
-    CUDA, raising without a card)."""
+    CUDA, raising without a card).
+
+    ``group`` (a joined ``distributed.Group``, ``--shard-baselines`` over
+    ranks: ``parallel.run_sharded``) solves every tile's rows over its
+    ranks on ``group.device`` (:class:`FullBatchPipeline`, ``rows``):
+    rank 0 logs and writes, the others only compute."""
     check_supported(cfg)
-    dev = devmod.resolve(device)
+    dev = devmod.resolve(device if group is None else group.device)
     ms = ds.open_dataset(cfg.ms, cfg.ms_list, tilesz=cfg.tile_size,
                          data_column=cfg.input_column,
                          out_column=cfg.output_column)
@@ -718,7 +813,17 @@ def run(cfg: RunConfig, device=None, log=print):
     sky = skymodel.read_sky_cluster(cfg.sky_model, cfg.cluster_file,
                                     meta["ra0"], meta["dec0"], meta["freq0"],
                                     cfg.format_3)
-    pipe = FullBatchPipeline(cfg, ms, sky, device=dev, log=log)
+    rows = None
+    if group is not None:
+        rows = parallel.RowGroup(group, parallel.RowPlan(
+            int(meta["tilesz"]), int(meta["nbase"]), group.world))
+        if group.rank != 0:
+            log = _quiet
+        log(f"Shard baselines: {group.world} ranks of "
+            f"{rows.plan.tper} timeslots ({rows.plan.rows_per_rank} rows) "
+            f"each, timeslot blocks {rows.plan.blocks()}; data collectives "
+            f"over {group.backend} ({group.reason})")
+    pipe = FullBatchPipeline(cfg, ms, sky, device=dev, log=log, rows=rows)
     if cfg.simulation != SimulationMode.OFF:
         return pipe.run_simulation(log=log)
     packs = native.PACKS

@@ -79,6 +79,16 @@ the JAX package vmaps the solve. Per visit: its iteration cap, its OS
 subset draws, and its executed iterations and PCG trips (a visit counts
 the loop iterations in which one of its chunks was live). A chunk that
 stops is frozen, so every visit's result is its own solve's.
+
+One subband's rows over ranks (``LMConfig.rows``, a ``parallel.RowGroup``;
+``--shard-baselines``): each rank passes its own rows, every assembly and
+every XLA-route PCG product sums over the ranks (``ops/sweep.py:
+gn_blocks``, ``normal_eq``), and so does the ordered-subsets liveness of a
+chunk; every decision then reads summed values. The reduced policy's
+ordered-subsets fast path slices the whole tile's rows by position, so a
+sharded solve takes the masked full pass instead (the JAX sharded path
+never takes that path either: it runs at ``nbase=0``). Consensus ADMM is
+not run over row ranks.
 """
 
 from __future__ import annotations
@@ -90,6 +100,7 @@ import torch
 
 from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.ops import sweep as swp
+from sagecal_tpu_torch.parallel import row_sum
 from sagecal_tpu_torch.solvers import normal_eq as ne
 
 
@@ -119,6 +130,7 @@ class LMConfig(NamedTuple):
     kernel: str = "pallas"     # "pallas" (fused sweep where it fits), "xla"
     jones_mode: str = "full"
     dtype_policy: str = "f32"  # storage dtype of the rows (dtypes.py)
+    rows: object = None        # parallel.RowGroup of a sharded solve
 
 
 #: solves (``lm_solve`` and ``rtr.rtr_solve`` calls) that took the XLA
@@ -239,7 +251,7 @@ def _solve_damped(JTJ, JTe, mu, jitter, reduced: bool = False):
 def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
                      n_stations: int, eta: float, maxiter: int,
                      active=None, lists=None, V: int = 1, chunk_id=None,
-                     row_period: int = 0):
+                     row_period: int = 0, rows=None):
     """Matrix-free PCG for (JTJ + (mu + jitter + rho) I) dp = JTe,
     batched over chunks; returns (dp, ok, trips).
 
@@ -255,7 +267,9 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
     (their rhs is zeroed, so they start converged); ``lists`` the tile's
     ``swp.station_lists`` for the kernel. ``trips`` [V] counts the
     executed loop iterations of each of the V visits whose chunks the K
-    axis holds (one host read of the active mask each)."""
+    axis holds (one host read of the active mask each). ``rows`` sums
+    each XLA-route product over the ranks; the blocks of the sweep route
+    arrive summed, so their products run replicated."""
     shift = mu + jitter + rho
     L = ne.gn_precond_factor(fac.D, shift)
     kmax = JTe.shape[0]
@@ -275,11 +289,11 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
         def matvec(v):
             return ne.gn_matvec(fac, v, sta1, sta2, chunk_id, kmax,
                                 n_stations, shift=shift,
-                                row_period=row_period, visits=V)
+                                row_period=row_period, visits=V, rows=rows)
     elif isinstance(fac, ne.GNFactorsMode):
         def matvec(v):
             return ne.gn_matvec_mode(fac, v, sta1, sta2, chunk_id, kmax,
-                                     n_stations, shift=shift)
+                                     n_stations, shift=shift, rows=rows)
     else:
         plan = swp.matvec_plan(fac, sta1, sta2, n_stations, shift=shift,
                                lists=lists)
@@ -306,6 +320,12 @@ def _solve_damped_cg(fac, JTe, mu, jitter, rho, sta1, sta2,
         act = (r * r).sum(dim=-1) > tol2
     ok = torch.isfinite(x).all(dim=-1)
     return torch.where(ok[:, None], x, torch.zeros_like(x)), ok, trips
+
+
+def _no_admm(rows, admm) -> None:
+    """Raise for consensus ADMM over row ranks (``rows``): not run."""
+    if rows is not None and admm is not None:
+        raise ValueError("consensus ADMM is not run over row ranks")
 
 
 def admm_terms(admm, kmax: int, dtype, dev, mode: str = "full"):
@@ -347,9 +367,12 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     docstring; ``wt`` [B, 8] when shared), ``itmax_dynamic`` and ``os``
     hold one entry per visit, and iters / cg_iters are [V] arrays.
     ``admm`` the optional consensus augmentation (y, bz, rho) of
-    :func:`admm_terms` (module docstring)."""
+    :func:`admm_terms` (module docstring). ``config.rows`` the row group
+    of a sharded solve (module docstring)."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
+    rows = config.rows
+    _no_admm(rows, admm)
     sweep = solve_route(config, kmax // V, row_period, x8.shape[0] // V)
     # the rows in the policy's storage dtype; the solve state in its
     # accumulator dtype
@@ -366,7 +389,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     # own contiguous rows, ntper timeslots a subset
     os_ntper = 0
     if (reduced and os is not None and kmax == V and row_period > 0
-            and Bv % row_period == 0 and not inner_cg):
+            and Bv % row_period == 0 and not inner_cg and rows is None):
         os_ntper = -(-(Bv // row_period) // int(
             (os if lanes is None else os[0]).n_subsets))
     # the dense (JTJ, JTe, cost) of the XLA route under "chol", and of the
@@ -381,13 +404,17 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     p = p.reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
+    # a sharded sweep sums the records of chunk_mask's chunks only (the
+    # others hold no row)
+    live_chunks = None if rows is None or not sweep else \
+        torch.nonzero(chunk_mask).flatten()
     # the blocks and PCG routes carry the ADMM rho in their solve shift
     rho_aug = 0.0 if aug is None else aug[2]
 
     def p_to_J(pv):
         return ne.jones_from_params(pv.reshape(kmax, N, npar), mode, Jref)
 
-    def rows(w):
+    def folded(w):
         return w if lanes is None or w is None else lanes.rows(w)
 
     def nrm_eq(pv, w=None, cw=None, k=None):
@@ -400,11 +427,12 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         if sweep:
             return swp.gn_blocks(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
                                  w, N, kmax, row_period, cost_wt=cw,
-                                 jones=mode, lanes=lanes)
+                                 jones=mode, lanes=lanes, rows=rows,
+                                 live=live_chunks)
         assemble = ne.normal_equations_mode if dense else ne.gn_factors_mode
-        return assemble(x8, p_to_J(pv), coh, sta1, sta2, chunk_id, rows(w),
-                        N, kmax, mode=mode, cost_wt=rows(cw),
-                        row_period=row_period, visits=V)
+        return assemble(x8, p_to_J(pv), coh, sta1, sta2, chunk_id,
+                        folded(w), N, kmax, mode=mode, cost_wt=folded(cw),
+                        row_period=row_period, visits=V, rows=rows)
 
     def augment(pv, fac, JTe, cost):
         """The ADMM terms on one row pass's equations: JTe -= y + rho d,
@@ -450,15 +478,39 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             sel = torch.stack([os_id == o.subset(k) for o in os])
             return lanes.rows(wt) * sel.reshape(-1).to(wt.dtype)[:, None]
 
-        def os_live(w):
-            """[K]: the subset holds >= 1 usable row of chunk k."""
+        def live_of(w):
+            """[K] 1.0 where the weights ``w`` hold >= 1 usable row of
+            chunk k (this rank's rows)."""
             row = (w > 0).any(dim=1).to(dtype)
-            return torch.zeros((kmax,), dtype=dtype, device=dev).scatter_reduce(
-                0, chunk_id, row, "amax") > 0
+            return torch.zeros((kmax,), dtype=dtype,
+                               device=dev).scatter_reduce(
+                0, chunk_id, row, "amax")
+
+        if rows is not None:
+            # every subset's liveness over the ranks, in one collective
+            # a solve: [n_subsets, K]
+            n_sub = int((os if lanes is None else os[0]).n_subsets)
+            id_rows = os_id if lanes is None else os_id.repeat(V)
+            wf = folded(wt)
+            table = row_sum(torch.stack([
+                live_of(wf * (id_rows == s).to(wt.dtype)[:, None])
+                for s in range(n_sub)]), rows, "os_live") > 0
+            ks = torch.arange(kmax, device=dev)
+
+        def os_live(w, k: int):
+            """[K]: iteration k's subset (each visit's own) holds >= 1
+            usable row of chunk k (``w`` its weights; over every rank of
+            a sharded solve)."""
+            if rows is None:
+                return live_of(w) > 0
+            sub = [os.subset(k)] if lanes is None else \
+                [o.subset(k) for o in os]
+            return table[torch.as_tensor(np.repeat(sub, kmax // V),
+                                         device=dev), ks]
 
         wt0 = os_wt(0)
         fac, JTe, cost = nrm_eq(p, wt0, wt, 0)
-        live = os_live(wt0)
+        live = os_live(wt0, 0)
     else:
         fac, JTe, cost = nrm_eq(p)
         live = torch.ones((kmax,), dtype=torch.bool, device=dev)
@@ -485,7 +537,8 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             dp, ok, trips = _solve_damped_cg(
                 fac, JTe, mu, config.jitter, rho_aug, sta1, sta2, N,
                 config.cg_tol, config.cg_maxiter, active=~stop & chunk_mask,
-                lists=lists, V=V, chunk_id=chunk_id, row_period=row_period)
+                lists=lists, V=V, chunk_id=chunk_id, row_period=row_period,
+                rows=rows)
             cg_trips += trips
         elif dense:
             dp, ok = _solve_damped(fac, JTe, mu, config.jitter, reduced)
@@ -497,7 +550,7 @@ def lm_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
         if os is not None:
             wt_next = os_wt(k + 1)
             facn, JTen, cost_new = nrm_eq(pnew, wt_next, wt, k + 1)
-            sub_live = os_live(wt_next)
+            sub_live = os_live(wt_next, k + 1)
         else:
             facn, JTen, cost_new = nrm_eq(pnew)
         dL = (dp * (mu[:, None] * dp + JTe)).sum(dim=-1)

@@ -49,6 +49,13 @@ factors of :func:`_mode_factors`. :func:`normal_equations_mode`,
 :func:`gn_factors_mode` and :func:`gn_matvec_mode` are the mode-aware XLA
 assembly; in full mode each delegates to the full-Jones function, so the
 full route is unchanged bit for bit.
+
+One subband's rows over ranks (``rows``, a ``parallel.RowGroup``;
+``--shard-baselines``): every assembly sums its per-rank contractions
+over the ranks in one ``parallel.row_sums`` collective before anything
+is formed from them (the dense expansion, a shift), and
+:func:`gn_matvec` / :func:`gn_matvec_mode` sum each product, one
+collective a PCG or tCG trip. Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from typing import NamedTuple
 import torch
 
 from sagecal_tpu_torch import dtypes
+from sagecal_tpu_torch.parallel import row_sum, row_sums
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.utils import jones_c2r, jones_r2c
 
@@ -70,13 +78,15 @@ def residual8(x8, J, coh, sta1, sta2, chunk_id):
     return x8 - rp.model8(coh, J, sta1, sta2, chunk_id, out_dtype=x8.dtype)
 
 
-def weighted_cost(x8, J, coh, sta1, sta2, chunk_id, wt, kmax: int):
+def weighted_cost(x8, J, coh, sta1, sta2, chunk_id, wt, kmax: int,
+                  rows=None):
     """Weighted residual cost per chunk [K] (no Jacobians);
-    ``index_add_`` sums the rows of each chunk in the accumulator
-    dtype."""
+    ``index_add_`` sums the rows of each chunk in the accumulator dtype
+    (then over the ranks of ``rows``)."""
     r = dtypes.acc(residual8(x8, J, coh, sta1, sta2, chunk_id) * wt)
-    return r.new_zeros((kmax,)).index_add_(0, chunk_id.long(),
-                                           (r * r).sum(dim=1))
+    return row_sum(r.new_zeros((kmax,)).index_add_(0, chunk_id.long(),
+                                                   (r * r).sum(dim=1)),
+                   rows, "cost")
 
 
 def gn_precond_factor(D, shift):
@@ -236,7 +246,7 @@ def _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id, N: int, kmax: int,
 
 def normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
                      kmax: int, cost_wt=None, row_period: int = 0,
-                     visits: int = 1):
+                     visits: int = 1, rows=None):
     """Weighted Gauss-Newton normal equations, batched over chunks: (JTJ
     [K, 8N, 8N], JTe [K, 8N], cost [K]) with cost = sum_b ||wt_b r_b||^2
     (``normal_eq.normal_equations``).
@@ -253,15 +263,17 @@ def normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
     a visit and baseline-major rows the weighted Gram operands are formed
     in float32 from the storage arrays (``_reduced_gram_baseline_major``
     of the JAX package), elsewhere weighted in the storage dtype
-    (``_normal_equations_reduced``)."""
+    (``_normal_equations_reduced``). With ``rows`` the station blocks,
+    JTe and the cost are summed over the ranks before the expansion."""
     N = n_stations
     MA, MB, rw, rc = _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
                                cost_wt)
     if dtypes.is_reduced(x8.dtype) \
             and _baseline_major(kmax, row_period, x8.shape[0], visits):
         MA, MB, wt, rw = dtypes.pet(MA, MB, wt, rw)
-    D, O, JTe, cost = _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id,
-                                 N, kmax, row_period, visits, cross=True)
+    D, O, JTe, cost = row_sums(
+        _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id, N, kmax,
+                   row_period, visits, cross=True), rows, "normal_eq")
     return _dense(D, O, kmax, N), JTe.reshape(kmax, 8 * N), cost
 
 
@@ -349,15 +361,17 @@ class GNFactors(NamedTuple):
 
 def gn_factors(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
                kmax: int, cost_wt=None, row_period: int = 0,
-               visits: int = 1):
+               visits: int = 1, rows=None):
     """Matrix-free analogue of :func:`normal_equations`: (GNFactors, JTe
     [K, 8N], cost [K]) from one [B] pass, without the cross blocks and
-    the dense expansion (``normal_eq.gn_factors``)."""
+    the dense expansion (``normal_eq.gn_factors``); with ``rows`` D, JTe
+    and the cost summed over the ranks (the factors stay the rank's)."""
     N = n_stations
     MA, MB, rw, rc = _row_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
                                cost_wt)
     D, _, JTe, cost = _aggregate(MA, MB, wt, rw, rc, sta1, sta2, chunk_id,
                                  N, kmax, row_period, visits, cross=False)
+    D, JTe, cost = row_sums((D, JTe, cost), rows, "gn_factors")
     w2 = (wt * wt).reshape(-1, 2, 2, 2)
     return GNFactors(MA=MA, MB=MB, w2=w2, D=D.view(kmax, N, 2, 4, 4)), \
         JTe.reshape(kmax, 8 * N), cost
@@ -365,12 +379,14 @@ def gn_factors(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
 
 def gn_matvec(fac: GNFactors, v, sta1, sta2, chunk_id, kmax: int,
               n_stations: int, shift=None, row_period: int = 0,
-              visits: int = 1):
+              visits: int = 1, rows=None):
     """(JTJ + shift I) @ v from the Wirtinger factors, one [B] pass
     (``normal_eq.gn_matvec``): u = J v through MA/MB, then y = J^T (w^2 u)
     back through the same factors. ``v`` [K, 8N]; ``shift`` [K], a scalar
     or None. Storage factors (bf16/f16) take v and w^2 u rounded to their
-    dtype per product and contract in float32."""
+    dtype per product and contract in float32. With ``rows`` J^T w^2 J v
+    is summed over the ranks before the shift: one collective a
+    product."""
     N = n_stations
     B = fac.MA.shape[0]
     st = fac.MA.dtype
@@ -406,7 +422,7 @@ def gn_matvec(fac: GNFactors, v, sta1, sta2, chunk_id, kmax: int,
         y = torch.zeros((kmax * N, 2, 4), dtype=v.dtype, device=v.device)
         y.index_add_(0, _index(chunk_id, sta1, N), yp)
         y.index_add_(0, _index(chunk_id, sta2, N), yq)
-    y = y.reshape(kmax, 8 * N)
+    y = row_sum(y.reshape(kmax, 8 * N), rows, "matvec")
     if shift is not None:
         y = y + torch.as_tensor(shift, dtype=y.dtype,
                                 device=y.device)[..., None] * v
@@ -587,7 +603,7 @@ def _mode_cost(rc, chunk_id, kmax: int):
 def normal_equations_mode(x8, J, coh, sta1, sta2, chunk_id, wt,
                           n_stations: int, kmax: int, mode: str = "full",
                           cost_wt=None, row_period: int = 0,
-                          visits: int = 1):
+                          visits: int = 1, rows=None):
     """Mode-aware :func:`normal_equations` (``normal_eq.
     normal_equations_mode``): (JTJ [K, npar N, npar N], JTe, cost [K]) of
     the reduced parameters for diag and phase, J constrained at entry;
@@ -597,13 +613,15 @@ def normal_equations_mode(x8, J, coh, sta1, sta2, chunk_id, wt,
     if mode == "full":
         return normal_equations(x8, J, coh, sta1, sta2, chunk_id, wt,
                                 n_stations, kmax, cost_wt=cost_wt,
-                                row_period=row_period, visits=visits)
+                                row_period=row_period, visits=visits,
+                                rows=rows)
     FA, FB, w2, rw2, rc = _mode_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
                                      cost_wt, mode)
     pp, qq, pq, jtep, jteq = _mode_blocks(FA, FB, w2, rw2)
     JTJ, JTe = _mode_dense(pp, qq, pq, jtep, jteq, sta1, sta2, chunk_id,
                            kmax, n_stations)
-    return JTJ, JTe, _mode_cost(rc, chunk_id, kmax)
+    return row_sums((JTJ, JTe, _mode_cost(rc, chunk_id, kmax)), rows,
+                    "normal_eq")
 
 
 def os_subset_equations_mode(x8, J, coh, sta1, sta2, wt, os_id,
@@ -649,14 +667,14 @@ class GNFactorsMode(NamedTuple):
 
 def gn_factors_mode(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
                     kmax: int, mode: str = "full", cost_wt=None,
-                    row_period: int = 0, visits: int = 1):
+                    row_period: int = 0, visits: int = 1, rows=None):
     """Mode-aware :func:`gn_factors` (``normal_eq.gn_factors_mode``):
     (:class:`GNFactorsMode`, JTe [K, npar N], cost [K]) for diag and
     phase from one [B] pass; full delegates to :func:`gn_factors`."""
     if mode == "full":
         return gn_factors(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations,
                           kmax, cost_wt=cost_wt, row_period=row_period,
-                          visits=visits)
+                          visits=visits, rows=rows)
     N = n_stations
     FA, FB, w2, rw2, rc = _mode_pass(x8, J, coh, sta1, sta2, chunk_id, wt,
                                      cost_wt, mode)
@@ -673,16 +691,19 @@ def gn_factors_mode(x8, J, coh, sta1, sta2, chunk_id, wt, n_stations: int,
     D.index_add_(0, i1, pp).index_add_(0, i2, qq)
     JTe = pp.new_zeros((kmax * N, 2, md))
     JTe.index_add_(0, i1, jtep).index_add_(0, i2, jteq)
+    D, JTe, cost = row_sums((D, JTe, _mode_cost(rc, chunk_id, kmax)), rows,
+                            "gn_factors")
     return GNFactorsMode(FA=FA, FB=FB, w2=w2,
                          D=D.view(kmax, N, 2, md, md)), \
-        JTe.reshape(kmax, 2 * md * N), _mode_cost(rc, chunk_id, kmax)
+        JTe.reshape(kmax, 2 * md * N), cost
 
 
 def gn_matvec_mode(fac: GNFactorsMode, v, sta1, sta2, chunk_id, kmax: int,
-                   n_stations: int, shift=None):
+                   n_stations: int, shift=None, rows=None):
     """(JTJ + shift I) @ v through the reduced factors, one [B] pass of
     md-wide products (``normal_eq.gn_matvec_mode``): the matrix-free
-    operator of the PCG and tCG loops under diag and phase."""
+    operator of the PCG and tCG loops under diag and phase (summed over
+    the ranks of ``rows`` before the shift)."""
     N = n_stations
     md = fac.FA.shape[-1]
     st = fac.FA.dtype
@@ -698,7 +719,7 @@ def gn_matvec_mode(fac: GNFactorsMode, v, sta1, sta2, chunk_id, kmax: int,
     y = torch.zeros((kmax * N, 2, md), dtype=v.dtype, device=v.device)
     y.index_add_(0, _index(chunk_id, sta1, N), yp)
     y.index_add_(0, _index(chunk_id, sta2, N), yq)
-    y = y.reshape(kmax, 2 * md * N)
+    y = row_sum(y.reshape(kmax, 2 * md * N), rows, "matvec")
     if shift is not None:
         y = y + torch.as_tensor(shift, dtype=y.dtype,
                                 device=y.device)[..., None] * v

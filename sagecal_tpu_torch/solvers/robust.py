@@ -12,6 +12,10 @@ uv-density whitening of ``-W 1``.
 Under a reduced storage policy (residuals in bf16/f16) the weights and nu
 are float32 and the reweighted sqrt-weights return to the storage dtype
 (``robust.py:101`` of the JAX package); the nu grid stays float64.
+
+Over row ranks (``rows``, a ``parallel.RowGroup``) the nu updates' means
+divide a sum over every rank's live residuals by their count, both
+summed in one collective, so every rank picks the same grid nu.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from sagecal_tpu_torch import dtypes
+from sagecal_tpu_torch.parallel import row_sums
 from sagecal_tpu_torch.solvers import lm as lm_mod
 from sagecal_tpu_torch.solvers import normal_eq as ne
 
@@ -47,14 +52,22 @@ def _pick(nus, q, like):
     return nus[torch.argmin(torch.abs(q))].to(torch.as_tensor(like).dtype)
 
 
-def update_nu_ml(w, mask, nu_old, nulow=2.0, nuhigh=30.0, nd: int = 30):
+def _live_mean(live, mask, rows):
+    """sum(live) / max(1, count(mask)), both over the ranks of ``rows``
+    (one collective)."""
+    s, n = row_sums((live.sum(), mask.sum().to(live.dtype)), rows, "nu")
+    return s / torch.clamp(n, min=1.0)
+
+
+def update_nu_ml(w, mask, nu_old, nulow=2.0, nuhigh=30.0, nd: int = 30,
+                 rows=None):
     """ML nu update from current weights (updatenu.c:137): the grid root
     of psi((nu+1)/2) - ln((nu+1)/2) - psi(nu/2) + ln(nu/2) + 1
-    - mean(w - ln w) over the live residuals ``mask``."""
-    nlive = torch.clamp(mask.sum().to(w.dtype), min=1.0)
+    - mean(w - ln w) over the live residuals ``mask`` (of every rank of
+    ``rows``)."""
     live = torch.where(mask, w - torch.log(torch.clamp(w, min=1e-30)),
                        torch.zeros_like(w))
-    sumq = live.sum() / nlive
+    sumq = _live_mean(live, mask, rows)
     nus = nu_grid(nulow, nuhigh, nd, device=w.device)
     dg = torch.special.digamma
     q = (dg((nus + 1.0) * 0.5) - torch.log((nus + 1.0) * 0.5)
@@ -62,12 +75,12 @@ def update_nu_ml(w, mask, nu_old, nulow=2.0, nuhigh=30.0, nd: int = 30):
     return _pick(nus, q, nu_old)
 
 
-def mean_logsumw(w, mask):
-    """1/N sum(ln w_i - w_i) over live residuals (updatenu.c:253-259)."""
-    nlive = torch.clamp(mask.sum().to(w.dtype), min=1.0)
+def mean_logsumw(w, mask, rows=None):
+    """1/N sum(ln w_i - w_i) over live residuals (updatenu.c:253-259; of
+    every rank of ``rows``)."""
     live = torch.where(mask, torch.log(torch.clamp(w, min=1e-30)) - w,
                        torch.zeros_like(w))
-    return live.sum() / nlive
+    return _live_mean(live, mask, rows)
 
 
 def update_nu_aecm(logsumw, nu_old, p: int = 8, nulow=2.0, nuhigh=30.0,
@@ -145,7 +158,8 @@ def robust_lm_solve(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         w2 = update_weights(e2, nu_rows(nu))
         nu = lane_nu(nu, w2, mask, lanes,
                      lambda w_, m_, n_: update_nu_ml(w_, m_, n_, nulow,
-                                                     nuhigh))
+                                                     nuhigh,
+                                                     rows=config.rows))
         infos.append(info)
     return J, nu, {"init_cost": infos[0]["init_cost"],
                    "final_cost": infos[-1]["final_cost"],

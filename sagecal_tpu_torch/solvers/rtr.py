@@ -54,6 +54,16 @@ rounded to the storage dtype at entry, the robust curvature weights
 return to it, and the point, tangents, costs and nu are float32 (every
 cost and weight sum in the accumulator dtype). NSD takes the rows in
 whatever dtype its caller stored them, as in the JAX package.
+
+Over row ranks (``RTRConfig.rows``/``NSDConfig.rows``, a
+``parallel.RowGroup``; ``--shard-baselines``): each rank prices its own
+rows, and the cost is summed over the ranks after it is formed, the
+Euclidean gradient after ``torch.autograd`` has formed the rank's own
+(the data-parallel rule: a sum inside the graph would hand each rank P
+times the gradient, or its share alone). The Hessian operators sum as
+their assemblies do (``ops/sweep.py:gn_blocks``, ``normal_eq``), the
+preconditioner's baseline counts and the nu means too, so every rank
+steps alike.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ import torch
 
 from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.ops import sweep as swp
+from sagecal_tpu_torch.parallel import row_sum
 from sagecal_tpu_torch.solvers import lm as lm_mod
 from sagecal_tpu_torch.solvers import normal_eq as ne
 from sagecal_tpu_torch.solvers import robust as rb
@@ -84,6 +95,7 @@ class RTRConfig(NamedTuple):
     kernel: str = "pallas"     # "pallas" (fused sweep where it fits), "xla"
     jones_mode: str = "full"
     dtype_policy: str = "f32"  # storage dtype of the rows (dtypes.py)
+    rows: object = None        # parallel.RowGroup of a sharded solve
 
 
 class NSDConfig(NamedTuple):
@@ -91,6 +103,7 @@ class NSDConfig(NamedTuple):
     ls_tries: int = 10         # backtracking halvings per step
     alpha0: float = 0.1        # initial step relative to grad norm scale
     jones_mode: str = "full"
+    rows: object = None        # parallel.RowGroup of a sharded solve
 
 
 def _c(p, kmax, n_stations):
@@ -183,10 +196,11 @@ def _mode_p2j(mode: str, Jref, kmax, n_stations):
 
 
 def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
-                    npar: int = 8, lanes=None):
+                    npar: int = 8, lanes=None, rows=None):
     """iw diagonal preconditioner [K, npar N]: 1 / (# live baselines per
     station) per chunk, mean-normalized (per visit of a group), repeated
-    over the station's params (rtr_solve.c fns_fcount)."""
+    over the station's params (rtr_solve.c fns_fcount); the counts over
+    every rank of ``rows``."""
     if lanes is not None:
         wt = lanes.rows(wt)
     # baseline counts in the accumulator dtype (a bf16 sum goes inexact
@@ -196,7 +210,7 @@ def station_precond(wt, sta1, sta2, chunk_id, kmax, n_stations,
     flat2 = chunk_id.long() * n_stations + sta2.long()
     cnt = live.new_zeros((kmax * n_stations,))
     cnt.index_add_(0, flat1, live).index_add_(0, flat2, live)
-    iw = 1.0 / torch.clamp(cnt, min=1.0)
+    iw = 1.0 / torch.clamp(row_sum(cnt, rows, "precond"), min=1.0)
     if lanes is None:
         iw = iw / torch.clamp(iw.mean(), min=1e-30)
     else:
@@ -289,14 +303,25 @@ def _tcg(hess_fn, rgrad, delta, cfg: RTRConfig, tiles: int = 1,
     return eta, mdot, trips
 
 
-def _egrad(cost_fn):
-    """Euclidean gradient of sum(cost_fn(p)) by ``torch.autograd``."""
+def _egrad(cost_fn, rows=None):
+    """Euclidean gradient of sum(cost_fn(p)) by ``torch.autograd``: with
+    ``rows`` ``cost_fn`` is the rank's own cost, and its gradient is
+    summed over the ranks after autograd has formed it."""
     def egrad(p):
         with torch.enable_grad():
             pv = p.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(cost_fn(pv).sum(), pv)
-        return g
+        return row_sum(g, rows, "grad")
     return egrad
+
+
+def _summed(cost_fn, rows):
+    """``cost_fn`` (the rank's own per-chunk cost) summed over the ranks
+    of ``rows`` (``cost_fn`` itself without a group)."""
+    if rows is None:
+        return cost_fn
+    return lambda p: row_sum(cost_fn(p), rows, "cost")
+
 
 
 @torch.no_grad()
@@ -316,6 +341,8 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     (y, bz, rho) (module docstring)."""
     kmax = J0.shape[0]
     V = 1 if lanes is None else lanes.V
+    rows = config.rows
+    lm_mod._no_admm(rows, admm)
     sweep = lm_mod.solve_route(config, kmax // V, row_period,
                                x8.shape[0] // V)
     st = dtypes.storage_dtype(config.dtype_policy, x8.dtype)
@@ -329,6 +356,10 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
     p0 = p0.reshape(kmax, -1).to(dtype)
     if chunk_mask is None:
         chunk_mask = torch.ones((kmax,), dtype=torch.bool, device=dev)
+    # a sharded sweep sums the records of chunk_mask's chunks only (the
+    # others hold no row)
+    live_chunks = None if rows is None or not sweep else \
+        torch.nonzero(chunk_mask).flatten()
     # the ADMM term's exact Hessian 2 rho v, in every tCG product
     rho2 = None if aug is None else (2.0 * aug[2])[:, None]
     # per-row views of a group's shared weights and per-visit nu
@@ -341,12 +372,13 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
 
     p_to_J = _mode_p2j(mode, Jref, kmax, N)
 
-    def rows(w):
+    def folded(w):
         return w if lanes is None else lanes.rows(w)
 
-    cost_fn = make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
-                        robust_nu=nu_r, mode=mode, Jref=Jref, aug=aug)
-    egrad = _egrad(cost_fn)
+    local_cost = make_cost(x8, coh, sta1, sta2, chunk_id, wt_r, kmax, N,
+                           robust_nu=nu_r, mode=mode, Jref=Jref, aug=aug)
+    cost_fn = _summed(local_cost, rows)
+    egrad = _egrad(local_cost, rows)
 
     def hess(Hv, v):
         """2 H v (+ 2 rho v under ADMM), before the projection."""
@@ -374,7 +406,8 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
             if sweep:
                 fac, _, _ = swp.gn_blocks(x8, Jm, coh, sta1, sta2, chunk_id,
                                           wt_eff, N, kmax, row_period,
-                                          jones=mode, lanes=lanes)
+                                          jones=mode, lanes=lanes, rows=rows,
+                                          live=live_chunks)
                 plan = swp.matvec_plan(fac, sta1, sta2, N, lists=lists)
 
                 def hv(v):
@@ -382,27 +415,28 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                 return hv
             # matrix-free: each product one [B] pass over the factors
             fac, _, _ = ne.gn_factors_mode(x8, Jm, coh, sta1, sta2,
-                                           chunk_id, rows(wt_eff), N, kmax,
+                                           chunk_id, folded(wt_eff), N, kmax,
                                            mode=mode, row_period=row_period,
-                                           visits=V)
+                                           visits=V, rows=rows)
             if mode == "full":
                 def hv(v):
                     return proj(hess(2.0 * ne.gn_matvec(
                         fac, v, sta1, sta2, chunk_id, kmax, N,
-                        row_period=row_period, visits=V), v))
+                        row_period=row_period, visits=V, rows=rows), v))
             else:
                 def hv(v):
                     return proj(2.0 * ne.gn_matvec_mode(
-                        fac, v, sta1, sta2, chunk_id, kmax, N))
+                        fac, v, sta1, sta2, chunk_id, kmax, N, rows=rows))
             return hv
         if sweep:
             JTJ, _, _ = swp.normal_equations_fused(
                 x8, Jm, coh, sta1, sta2, chunk_id, wt_eff, N, kmax,
-                row_period, jones=mode, lanes=lanes)
+                row_period, jones=mode, lanes=lanes, rows=rows,
+                live=live_chunks)
         else:
             JTJ, _, _ = ne.normal_equations_mode(
-                x8, Jm, coh, sta1, sta2, chunk_id, rows(wt_eff), N, kmax,
-                mode=mode, row_period=row_period, visits=V)
+                x8, Jm, coh, sta1, sta2, chunk_id, folded(wt_eff), N, kmax,
+                mode=mode, row_period=row_period, visits=V, rows=rows)
 
         def hv(v):
             return proj(hess(2.0 * torch.einsum("kij,kj->ki", JTJ, v), v))
@@ -469,11 +503,11 @@ def rtr_solve(x8, coh, sta1, sta2, chunk_id, wt, J0, n_stations: int,
                "tcg_iters": int(tcg[0]) if tiles == 1 else tcg}
 
 
-def _aecm(nulow, nuhigh):
+def _aecm(nulow, nuhigh, rows=None):
     """The robust RTR/NSD nu update (AECM, p = 2) as a ``robust.lane_nu``
-    update."""
-    return lambda w, m, n: rb.update_nu_aecm(rb.mean_logsumw(w, m), n, p=2,
-                                             nulow=nulow, nuhigh=nuhigh)
+    update (its mean over the ranks of ``rows``)."""
+    return lambda w, m, n: rb.update_nu_aecm(rb.mean_logsumw(w, m, rows), n,
+                                             p=2, nulow=nulow, nuhigh=nuhigh)
 
 
 def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
@@ -500,7 +534,8 @@ def rtr_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                             admm=admm)
         e = ne.residual8(x8, J, coh, sta1, sta2, chunk_id) * wt_r
         w = rb.update_weights(e, nu if lanes is None else lanes.per_row(nu))
-        nu = rb.lane_nu(nu, w, mask, lanes, _aecm(nulow, nuhigh))
+        nu = rb.lane_nu(nu, w, mask, lanes,
+                        _aecm(nulow, nuhigh, config.rows))
         infos.append(info)
     return J, nu, {"init_cost": infos[0]["init_cost"],
                    "final_cost": infos[-1]["final_cost"],
@@ -533,6 +568,8 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
     N = n_stations
     mode = config.jones_mode
     npar = ne.jones_npar(mode)
+    rows = config.rows
+    lm_mod._no_admm(rows, admm)
     aug = lm_mod.admm_terms(admm, kmax, dtype, dev, mode)
     p, Jref = ne.mode_point(J0, mode)
     p = p.reshape(kmax, -1).to(dtype)
@@ -553,23 +590,25 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
                          aug=aug)
 
     iw = station_precond(wt_base, sta1, sta2, chunk_id, kmax, N,
-                         npar=npar, lanes=lanes)
+                         npar=npar, lanes=lanes, rows=rows)
     mask = wt_base > 0
     caps = np.minimum(np.full(V, config.itmax) if itmax_dynamic is None
                       else np.asarray(itmax_dynamic, dtype=np.int64),
                       config.itmax)
 
-    cost0 = cost_of(nu)(p)
+    cost0 = _summed(cost_of(nu), rows)(p)
     p_prev = p
     t = torch.ones((), dtype=dtype, device=dev)
     nu_last = nu                  # the nu the last executed step priced
     for step in range(max(int(caps.max()), 0)):
         live_v = torch.as_tensor(step < caps, device=dev)
         live_c = live_v.repeat_interleave(kmax // V)
-        cfn = cost_of(nu)
+        local = cost_of(nu)
+        cfn = _summed(local, rows)
         tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         y = p + ((t - 1.0) / tn) * (p - p_prev)
-        g = project_tangent_mode(y, _egrad(cfn)(y) * iw, kmax, N, mode)
+        g = project_tangent_mode(y, _egrad(local, rows)(y) * iw, kmax, N,
+                                 mode)
         gn = torch.sqrt(_dot(g, g))
         best_c = cfn(y)
         ynorm = torch.sqrt(_dot(y, y))
@@ -594,14 +633,14 @@ def nsd_solve_robust(x8, coh, sta1, sta2, chunk_id, wt_base, J0,
         w = rb.update_weights(e, per_row(nu))
         nu_last = torch.where(live_v, nu, nu_last)
         nu = torch.where(live_v, rb.lane_nu(nu, w, mask, lanes,
-                                            _aecm(nulow, nuhigh)), nu)
+                                            _aecm(nulow, nuhigh, rows)), nu)
         p_prev = torch.where(live_c[:, None], p, p_prev)
         p, t = p_new, tn
     # the reference's last scan step prices its output with the nu it
     # entered with: the last live step's when every step is live, the
     # updated nu when frozen steps follow
     full = torch.as_tensor(caps >= config.itmax, device=dev)
-    final_cost = cost_of(torch.where(full, nu_last, nu))(p)
+    final_cost = _summed(cost_of(torch.where(full, nu_last, nu)), rows)(p)
     J = p_to_J(p)
     J = torch.where(chunk_mask[:, None, None, None], J,
                     (J0 if Jref is None else Jref).to(J.dtype))

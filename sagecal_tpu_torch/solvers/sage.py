@@ -57,6 +57,16 @@ residual stays in it (each model added or subtracted rounded to it first,
 ``sage.py:544-547`` and ``:991-993`` of the JAX package), and every norm,
 cost reduction and the EM state (nu, cost reductions, the refine's
 parameters) is float32.
+
+One subband's rows over ranks (``SageConfig.rows``, a
+``parallel.RowGroup``; ``--shard-baselines``, ``parallel.py``): each rank
+holds whole timeslots of the tile and every solver sums its row
+contractions over the ranks (``lm.py``, ``rtr.py``, ``robust.py``); here
+the residual norms (res_0, res_1, divided by the tile's real row count),
+the in-flight groups' relaxation trials and sweep anchors, the refine's
+cost and gradient (the gradient summed after autograd forms each rank's
+own) and the clusters' shared-chunk-id table. Every host decision then
+reads summed values, and J comes back the same on every rank.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ import torch
 from sagecal_tpu_torch import dtypes
 from sagecal_tpu_torch.config import SolverMode
 from sagecal_tpu_torch.ops import sweep as swp
+from sagecal_tpu_torch.parallel import row_sum
 from sagecal_tpu_torch.rime import predict as rp
 from sagecal_tpu_torch.solvers import lbfgs as lbfgs_mod
 from sagecal_tpu_torch.solvers import lm as lm_mod
@@ -104,6 +115,8 @@ class SageConfig(NamedTuple):
     inflight: int = 1
     inflight_warm: bool = False
     dtype_policy: str = "f32"     # --dtype-policy (dtypes.py)
+    # the row group of a sharded solve (parallel.RowGroup)
+    rows: object = None
 
 
 _OS_MODES = (int(SolverMode.OSLM_LBFGS),
@@ -147,16 +160,27 @@ def full_model8(J, coh, sta1, sta2, chunk_idx):
     return out
 
 
-def _wres2(xres, wt_base):
-    """The weighted residual L2^2, summed in the accumulator dtype."""
-    return (dtypes.acc(xres * wt_base) ** 2).sum()
+def _wres2(xres, wt_base, rows=None):
+    """The weighted residual L2^2, summed in the accumulator dtype (and
+    over the ranks of ``rows``)."""
+    return row_sum((dtypes.acc(xres * wt_base) ** 2).sum(), rows, "res")
 
 
-def _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base):
+def _norm8(r, rows):
+    """||r||_2 / (8 B) of weighted residual rows ``r``: B the rows of
+    ``r``, or with ``rows`` the tile's real rows, the squares summed over
+    the ranks."""
+    if rows is None:
+        return torch.linalg.vector_norm(r) / (r.shape[0] * 8)
+    return torch.sqrt(row_sum((r * r).sum(), rows, "res")) \
+        / (rows.n_rows * 8)
+
+
+def _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base, rows=None):
     """||(x - model) * w||_2 / (8 B) (the model sum in float32 or
     float64, so the residual is too)."""
     r = (x8 - full_model8(J, coh, sta1, sta2, chunk_idx)) * wt_base
-    return torch.linalg.vector_norm(r) / (x8.shape[0] * 8)
+    return _norm8(r, rows)
 
 
 def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
@@ -175,7 +199,8 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
     lm_cfg = lm_mod.LMConfig(itmax=itcap, inner=config.inner,
                              kernel=config.kernel,
                              jones_mode=config.jones_mode,
-                             dtype_policy=config.dtype_policy)
+                             dtype_policy=config.dtype_policy,
+                             rows=config.rows)
 
     def plain_lm(os=None):
         Jn, info = lm_mod.lm_solve(
@@ -200,7 +225,8 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
         rtr_cfg = rtr_mod.RTRConfig(itmax=itcap, inner=config.inner,
                                     kernel=config.kernel,
                                     jones_mode=config.jones_mode,
-                                    dtype_policy=config.dtype_policy)
+                                    dtype_policy=config.dtype_policy,
+                                    rows=config.rows)
         if mode == int(SolverMode.RTR_OSLM_LBFGS):
             Jn, info = rtr_mod.rtr_solve(
                 xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m,
@@ -222,7 +248,8 @@ def _cluster_solve(mode: int, xdummy, coh_m, sta1, sta2, cidx_m, cmask_m,
 
     if mode == int(SolverMode.NSD_RLBFGS):
         nsd_cfg = rtr_mod.NSDConfig(itmax=2 * itcap,
-                                    jones_mode=config.jones_mode)
+                                    jones_mode=config.jones_mode,
+                                    rows=config.rows)
         Jn, nu_new, info = rtr_mod.nsd_solve_robust(
             xdummy, coh_m, sta1, sta2, cidx_m, wt_base, J_m, n_stations,
             nu0=nu_cj, nulow=config.nulow, nuhigh=config.nuhigh,
@@ -268,7 +295,7 @@ def _inflight_widths(config: SageConfig, M: int) -> tuple[int, int]:
 
 
 def _omega_trial(w: float, Jo_g, Jn_g, coh_g, cidx_g, sta1, sta2, xres,
-                 model_old, wt_base, res_old, anchor):
+                 model_old, wt_base, res_old, anchor, rows=None):
     """One damped block-Jacobi step at relaxation ``w``
     (``sage._omega_trial``): J(w) = J_old + w (J_solved - J_old) applied
     jointly. Returns (ok, margin, xnew, J(w)): ok when the weighted
@@ -281,7 +308,7 @@ def _omega_trial(w: float, Jo_g, Jn_g, coh_g, cidx_g, sta1, sta2, xres,
                              for v in range(Jr_g.shape[0])])
     xnew = xres + dtypes.to_storage(
         dtypes.acc(model_old - model_new).sum(dim=0), xres.dtype)
-    rn = _wres2(xnew, wt_base)
+    rn = _wres2(xnew, wt_base, rows)
     ok = (rn <= res_old * (1.0 + 1e-9)) | (rn <= 1.05 * anchor)
     thr = torch.maximum(res_old * (1.0 + 1e-9), 1.05 * anchor)
     ok_h, margin = torch.stack([ok.to(rn.dtype),
@@ -424,14 +451,14 @@ def _group_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2, chunk_idx,
     recs = []
     for t in range(T):
         sl = slice(t * G, (t + 1) * G)
-        res_old = _wres2(xres[t], wt_base[t])
+        res_old = _wres2(xres[t], wt_base[t], config.rows)
         margins = []
         omega = 0.0
         for w in OMEGAS:
             ok, margin, xnew, Jr = _omega_trial(
                 w, vis.J_old[sl], vis.Jn[sl], vis.coh[sl], vis.cidx[sl],
                 sta1, sta2, xres[t], model_old[sl], wt_base[t], res_old,
-                anchor[t])
+                anchor[t], config.rows)
             margins.append(margin)
             if ok:
                 omega = w
@@ -477,13 +504,17 @@ def _cluster_update(cjs, J, xres, nuM, nerr_acc, coh, sta1, sta2,
     return xres, vis.iters, vis.cg_iters, vis.tcg_iters
 
 
-def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
-           config: SageConfig, mean_nu=None):
-    """Joint LBFGS refine of all clusters' Jones (``sage._jit_refine``):
-    cost sum((x - model) w)^2, or with ``mean_nu`` the Student's-t cost
-    sum log1p(((x - model) w)^2 / mean_nu), over the parameters of
-    ``config.jones_mode`` (``sage._refine_cost_fn``: the constrained J is
-    the reference point Jref). Returns (J, res, iters)."""
+def refine_problem(x8, coh, sta1, sta2, chunk_idx, J, wt_base,
+                   n_stations: int, config: SageConfig, mean_nu=None):
+    """The joint refine's problem at J (``sage._refine_cost_fn``): (p0,
+    p_to_J, cost_fn, grad_fn) over the parameters of
+    ``config.jones_mode`` (the constrained J is the reference point
+    Jref), the cost sum((x - model) w)^2, or with ``mean_nu`` the
+    Student's-t sum log1p(((x - model) w)^2 / mean_nu), its gradient by
+    ``torch.autograd``. With ``config.rows`` the cost is summed over the
+    ranks, and so is the gradient, after autograd has formed the rank's
+    own."""
+    rows = config.rows
     M, kmax = J.shape[0], J.shape[1]
     mode = config.jones_mode
     shape = (M * kmax, n_stations, ne.jones_npar(mode))
@@ -503,18 +534,29 @@ def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
 
     def cost_fn(p):
         with torch.no_grad():
-            return objective(p)
+            return row_sum(objective(p), rows, "refine")
 
     def grad_fn(p):
         with torch.enable_grad():
             pv = p.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(objective(pv), pv)
-        return g
+        return row_sum(g, rows, "refine")
 
+    return p0, p_to_J, cost_fn, grad_fn
+
+
+def refine(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
+           config: SageConfig, mean_nu=None):
+    """Joint LBFGS refine of all clusters' Jones (``sage._jit_refine``)
+    on :func:`refine_problem`. Returns (J, res, iters)."""
+    p0, p_to_J, cost_fn, grad_fn = refine_problem(
+        x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations, config,
+        mean_nu)
     p1, k = lbfgs_mod.lbfgs_fit(cost_fn, grad_fn, p0, itmax=config.max_lbfgs,
                                 M=config.lbfgs_m, return_iters=True)
     Jn = p_to_J(p1)
-    return Jn, _wres(x8, Jn, coh, sta1, sta2, chunk_idx, wt_base), k
+    return Jn, _wres(x8, Jn, coh, sta1, sta2, chunk_idx, wt_base,
+                     config.rows), k
 
 
 def bfgsfit(x8, coh, sta1, sta2, chunk_idx, J0, n_stations: int,
@@ -534,7 +576,7 @@ def bfgsfit(x8, coh, sta1, sta2, chunk_idx, J0, n_stations: int,
     wt_base = dtypes.to_storage(wt_base, x8.dtype)
     if config.jones_mode != "full":
         J0 = ne.jones_constrain(J0, config.jones_mode)
-    res_0 = _wres(x8, J0, coh, sta1, sta2, chunk_idx, wt_base)
+    res_0 = _wres(x8, J0, coh, sta1, sta2, chunk_idx, wt_base, config.rows)
     J, res_1, k = refine(
         x8, coh, sta1, sta2, chunk_idx, J0, wt_base, n_stations, config,
         mean_nu=nu if _is_robust(int(config.solver_mode)) else None)
@@ -578,7 +620,8 @@ def _setup(config: SageConfig, M: int, sta1, sta2, chunk_idx,
     chunk_idx as int64; the matvec kernel's station lists under ``inner
     == "cg"`` on the card; the OS (ids, count) on the device in the OS
     modes, else None; the [M, M] host table of clusters with equal chunk
-    ids, from which a group of visits learns that it shares them)."""
+    ids, from which a group of visits learns that it shares them; over
+    row ranks the rows that differ are counted on every rank)."""
     mode = int(config.solver_mode)
     if mode not in tuple(int(m) for m in SolverMode):
         raise ValueError(f"unknown solver mode -j {mode}")
@@ -591,8 +634,9 @@ def _setup(config: SageConfig, M: int, sta1, sta2, chunk_idx,
         os_ids = (torch.as_tensor(np.asarray(os_id[0]), device=dev).long(),
                   int(os_id[1]))
     # M row comparisons (a sort over rows of B ids costs ~1 s on the card)
-    same_cid = torch.stack([(chunk_idx == chunk_idx[i]).all(dim=-1)
-                            for i in range(M)]).cpu().numpy()
+    differ = torch.stack([(chunk_idx != chunk_idx[i]).sum(dim=-1)
+                          for i in range(M)])
+    same_cid = (row_sum(differ, config.rows, "setup") == 0).cpu().numpy()
     return sta1, sta2, chunk_idx, lists, os_ids, same_cid
 
 
@@ -624,7 +668,8 @@ def _finish(x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations: int,
             x8, coh, sta1, sta2, chunk_idx, J, wt_base, n_stations, config,
             mean_nu=mean_nu if _is_robust(int(config.solver_mode)) else None)
     else:
-        res_1 = _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base)
+        res_1 = _wres(x8, J, coh, sta1, sta2, chunk_idx, wt_base,
+                      config.rows)
     return J, float(res_1), mean_nu, lbfgs_k, time.perf_counter() - t0
 
 
@@ -731,14 +776,12 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
         config, M, sta1, sta2, chunk_idx, n_stations, os_id, dev)
     if config.jones_mode != "full":
         J0 = ne.jones_constrain(J0, config.jones_mode)
-    B = x8.shape[1]
     # the prelude tile by tile
     xres = torch.stack([x8[t] - dtypes.to_storage(
         full_model8(J0[t], coh[t], sta1, sta2, chunk_idx), x8.dtype)
         for t in range(T)])
-    res_0 = torch.stack([
-        torch.linalg.vector_norm(dtypes.acc(xres[t] * wt_base[t]))
-        for t in range(T)]) / (B * 8)
+    res_0 = torch.stack([_norm8(dtypes.acc(xres[t] * wt_base[t]),
+                                config.rows) for t in range(T)])
     J = J0.clone()
     nerr = torch.zeros((T, M), dtype=dtype, device=dev)
     nuM = torch.full((T, M), float(nu0), dtype=dtype, device=dev)
@@ -770,7 +813,7 @@ def sagefit_host_tiles(x8, coh, sta1, sta2, chunk_idx, chunk_mask, J0,
         Gi = G0 if ci == 0 else Gs
         if Gi > 1:
             # each tile's sweep-entry anchor of the group-step safeguard
-            anchor = torch.stack([_wres2(xres[t], wt_base[t])
+            anchor = torch.stack([_wres2(xres[t], wt_base[t], config.rows)
                                   for t in range(T)])
             for g in range(0, M, Gi):
                 cjs = order[:, g:g + Gi]

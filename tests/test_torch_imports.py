@@ -31,7 +31,8 @@ def test_every_module_imports_without_jax():
               "distributed", "dtypes",
               "faults", "federated", "io", "io.dataset", "io.native",
               "io.solutions", "obs", "obs.metrics", "ops", "ops.coh",
-              "ops.cuda_lib", "ops.sweep", "pipeline", "rime", "rime.beam",
+              "ops.cuda_lib", "ops.sweep", "parallel", "pipeline", "rime",
+              "rime.beam",
               "rime.envelopes", "rime.predict", "rime.residual",
               "skymodel", "solvers", "solvers.lbfgs", "solvers.lm",
               "solvers.normal_eq", "solvers.robust", "solvers.rtr",

@@ -300,8 +300,7 @@ def test_mode_runs_use_their_solvers(mode_runs):
                and all(len(g[1]) == 2 for g in h["groups"]) for h in t)
 
 
-@pytest.mark.parametrize("extra", [["--shard-baselines"],
-                                   ["--metrics", "m.json"],
+@pytest.mark.parametrize("extra", [["--metrics", "m.json"],
                                    ["--prior-cache", "read"],
                                    ["--tile-bucket", "8"],
                                    ["--faults", "x"], ["--profile", "p"],
